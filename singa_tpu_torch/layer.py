@@ -126,7 +126,9 @@ class ScanTransformerStack(nn.Module):
     `lax.scan`). Dense single-device branch only (reference
     layer.py:1373-1389): fused QKV projection, attention through the
     `attention_qkv` dispatcher (the fused-layout flash kernel once T
-    clears its threshold), output projection, LN, GELU FFN, LN."""
+    clears its threshold), output projection, LN, GELU FFN, LN.
+    `remat` applies one of `autograd.REMAT_POLICIES` to each block, as
+    the reference wraps its scan body."""
 
     #: the stacked parameter names, in the reference's order
     STACKED = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o",
@@ -149,11 +151,10 @@ class ScanTransformerStack(nn.Module):
             raise NotImplementedError(
                 "ScanTransformerStack(overlap=) belongs to the distributed "
                 "slice (ROADMAP queue 1 item 15)")
-        if remat != "none":
-            raise NotImplementedError(
-                f"remat policy {remat!r} only changes the backward pass, "
-                f"which lands with the training slice (ROADMAP queue 1 "
-                f"item 6)")
+        if remat not in autograd.REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat policy {remat!r}; pick one of "
+                f"{autograd.REMAT_POLICIES}")
         if n_blocks < 1:
             raise ValueError("n_blocks must be >= 1")
         if d_model % num_heads:
@@ -161,7 +162,7 @@ class ScanTransformerStack(nn.Module):
                 f"d_model {d_model} not divisible by {num_heads} heads")
         dev, gen = _setup(device, generator)
         self.n_blocks, self.num_heads = n_blocks, num_heads
-        self.ffn_mult, self.causal = ffn_mult, causal
+        self.ffn_mult, self.causal, self.remat = ffn_mult, causal, remat
         L, d, ff = n_blocks, d_model, ffn_mult * d_model
         k = 1.0 / math.sqrt(d)
         self.w_qkv = _new((L, d, 3 * d), dev, gen, "uniform", k)
@@ -178,9 +179,8 @@ class ScanTransformerStack(nn.Module):
         self.w2 = _new((L, ff, d), dev, gen, "uniform", xavier)
         self.b2 = _new((L, d), dev, gen, "zeros")
 
-    def _block(self, h: torch.Tensor, i: int) -> torch.Tensor:
-        (wqkv, bqkv, wo, bo, l1s, l1o, l2s, l2o, w1, b1, w2, b2) = (
-            getattr(self, n)[i] for n in self.STACKED)
+    def _block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
+               l2o, w1, b1, w2, b2) -> torch.Tensor:
         qkv = _mm(h, wqkv)
         qkv = qkv + bqkv.to(qkv.dtype)
         o = fa.attention_qkv(qkv, self.num_heads, causal=self.causal)
@@ -194,6 +194,11 @@ class ScanTransformerStack(nn.Module):
         return _layernorm(h + f, l2s, l2o)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.n_blocks):
-            x = self._block(x, i)
+        block = autograd.remat_wrap(self._block, self.remat)
+        # one unbind per stacked weight: its backward stacks the blocks'
+        # gradients in one write, where indexing w[i] per block would
+        # zero-fill and sum a full (L, ...) gradient for every block
+        for params in zip(*(getattr(self, n).unbind(0)
+                            for n in self.STACKED)):
+            x = block(x, *params)
         return x

@@ -1,11 +1,14 @@
 """GPT-style causal decoder (counterpart of singa_tpu/models/gpt.py).
 
-Inference only in this slice, for the reference's scanned decoder
-(`scan_blocks=True`, `dropout=0.0`, as `gpt_medium` builds it):
+The reference's scanned decoder (`scan_blocks=True`, `dropout=0.0`, as
+`gpt_medium` builds it):
 
 - `forward(ids)` scores full sequences; every block's attention goes
   through `attention_qkv`, so from T = 256 on it runs the fused-layout
   flash kernel once per block.
+- `train_one_batch(x, y)` is the reference's next-token step: mean
+  cross-entropy over every position, then the optimizer's backward and
+  update. The backward runs the flash backward kernels once per block.
 - `generate(prompt, n_new, window, temperature, seed)` decodes as the
   reference does: a prefill fills a per-layer K/V cache, each new token
   is one cached step while the sequence fits the window (left-aligned
@@ -19,7 +22,7 @@ Inference only in this slice, for the reference's scanned decoder
   `jax.random`'s bits.
 
 Other constructor options raise `NotImplementedError` naming the ROADMAP
-item that ports them.
+item that ports them (the MoE auxiliary loss among them).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from singa_tpu_torch import layer, model
+from singa_tpu_torch import autograd, layer, model
 from singa_tpu_torch.parallel.ring import full_attention
 
 __all__ = ["GPT", "gpt_medium"]
@@ -116,6 +119,17 @@ class GPT(model.Model):
         h = self.drop(h)
         h = self.decoder(h)
         return self.head(self.ln_f(h))
+
+    def train_one_batch(self, x, y, dist_option: str = "plain",
+                        spars=None):
+        """Next-token LM step: mean cross-entropy over every position,
+        then the optimizer. x, y (B, T) int; returns (logits, loss)."""
+        logits = self.forward(x)
+        flat = logits.reshape(-1, self.vocab_size)
+        y = torch.as_tensor(y, device=flat.device).reshape(-1)
+        loss = autograd.softmax_cross_entropy(flat, y)
+        self._apply_opt(loss, dist_option, spars)
+        return logits, loss
 
     # -- incremental decoding ---------------------------------------------
 

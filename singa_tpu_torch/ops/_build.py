@@ -5,6 +5,9 @@ shared library with a plain C interface, loaded with `ctypes`; pointers
 and the stream cross as `c_void_p`. Libraries land in
 `build/torch_kernels/` at the repository root, named by a hash of the
 sources and flags, so an edited source is rebuilt on its next use.
+Beside each library, `<library>.log` keeps what nvcc printed for it,
+including `-Xptxas -v`'s registers, shared memory and spills per kernel
+(`build_log`).
 
 There is no fallback: if `nvcc` is missing or a build fails, the caller
 gets a `KernelBuildError` carrying the compiler's output.
@@ -20,12 +23,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-__all__ = ["KernelBuildError", "build", "load", "sources"]
+__all__ = ["KernelBuildError", "build", "build_log", "load", "sources"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: where the CUDA toolkit puts nvcc when neither CUDA_HOME nor PATH names it
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
@@ -91,10 +94,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             errors.append(f"$ {' '.join(cmd)}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            todo[n].with_suffix(".log").write_text(log)
             os.replace(tmp, todo[n])
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     return out
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built `csrc/<name>.cu` (built first if
+    needed)."""
+    return build([name])[name].with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

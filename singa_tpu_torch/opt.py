@@ -1,0 +1,350 @@
+"""Optimizers and lr schedules, single device (counterpart of
+singa_tpu/opt.py:42-504).
+
+The update formulas, slot names and state names are the reference's:
+each parameter's slots (`"momentum"`, `"m"`/`"v"`, `"accum"`, `"ms"`)
+dump as `"{param}//{slot}"` beside `"__step__"`. They are torch tensors
+on the parameters' device, and each update writes its parameter in place
+(under `torch.no_grad()`), where the reference rebinds a new array.
+
+`opt(loss)` runs the backward (`autograd.grad_pairs`) and the update, as
+the reference's `backward_and_update` does. The step counter is a host
+integer, and the schedules are evaluated on the host at each step; the
+reference keeps both on the device so that its compiled step can thread
+them.
+
+Not ported in this slice: `set_sentinel` (resilience) and `DistOpt`
+(distributed training) raise `NotImplementedError` naming their ROADMAP
+items.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from singa_tpu_torch import autograd
+
+__all__ = ["DecayScheduler", "Constant", "ExponentialDecay", "CosineDecay",
+           "Warmup", "Optimizer", "SGD", "Adam", "AdamW", "AdaGrad",
+           "RMSProp", "DistOpt"]
+
+
+# -- lr schedules ------------------------------------------------------------
+
+
+class DecayScheduler:
+    def __init__(self, init_value: float):
+        self.init_value = float(init_value)
+
+    def __call__(self, step) -> float:
+        raise NotImplementedError
+
+
+class Constant(DecayScheduler):
+    def __call__(self, step) -> float:
+        return self.init_value
+
+
+class ExponentialDecay(DecayScheduler):
+    def __init__(self, init_value, decay_steps, decay_rate, staircase=False):
+        super().__init__(init_value)
+        self.decay_steps = decay_steps
+        self.decay_rate = decay_rate
+        self.staircase = staircase
+
+    def __call__(self, step) -> float:
+        p = step / self.decay_steps
+        if self.staircase:
+            p = math.floor(p)
+        return self.init_value * self.decay_rate ** p
+
+
+class CosineDecay(DecayScheduler):
+    def __init__(self, init_value, total_steps, alpha: float = 0.0):
+        super().__init__(init_value)
+        self.total_steps = total_steps
+        self.alpha = alpha
+
+    def __call__(self, step) -> float:
+        frac = min(max(step / self.total_steps, 0.0), 1.0)
+        cos = 0.5 * (1.0 + math.cos(math.pi * frac))
+        return self.init_value * ((1 - self.alpha) * cos + self.alpha)
+
+
+class Warmup(DecayScheduler):
+    """Linear lr warmup over the first `warmup_steps`, then the wrapped
+    schedule: `Warmup(0.1, 50)` or `Warmup(CosineDecay(0.1, 10_000), 50)`.
+    """
+
+    def __init__(self, base, warmup_steps: int):
+        base = base if isinstance(base, DecayScheduler) else Constant(base)
+        super().__init__(base.init_value)
+        self.base = base
+        self.warmup_steps = int(warmup_steps)
+
+    def __call__(self, step) -> float:
+        if self.warmup_steps <= 0:
+            return self.base(step)
+        ramp = min(max((step + 1.0) / self.warmup_steps, 0.0), 1.0)
+        return ramp * self.base(step)
+
+
+# -- base optimizer ----------------------------------------------------------
+
+
+class Optimizer:
+    """Slots, clipping and the backward-and-update step.
+
+    `clip_norm` / `clip_value`: gradient clipping across the whole
+    gradient set right before the update: clip_value clamps each element,
+    then clip_norm rescales every gradient by min(1, clip_norm / global
+    norm), the norm accumulated in fp32.
+    """
+
+    #: state slot names this optimizer keeps per parameter (subclass sets)
+    slot_names: Tuple[str, ...] = ()
+
+    def __init__(self, lr: Union[float, DecayScheduler],
+                 clip_norm: Optional[float] = None,
+                 clip_value: Optional[float] = None):
+        self.lr = lr if isinstance(lr, DecayScheduler) else Constant(lr)
+        self.clip_norm = clip_norm
+        self.clip_value = clip_value
+        self.step_counter = 0
+        self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._names: Dict[int, str] = {}  # id(param) -> name (dump/load)
+        self._anon = 0
+
+    def set_sentinel(self, sentinel) -> None:
+        raise NotImplementedError(
+            "Optimizer.set_sentinel (the resilience GradSentinel) is not "
+            "ported yet (ROADMAP queue 1 item 17)")
+
+    # -- reference call style: opt(loss) ------------------------------------
+    def __call__(self, loss: torch.Tensor):
+        return self.backward_and_update(loss)
+
+    def backward_and_update(self, loss: torch.Tensor) -> None:
+        """Gradients of every parameter `loss` reaches, then the update."""
+        self.apply_updates(autograd.grad_pairs(loss))
+
+    # -- clipping ------------------------------------------------------------
+    @staticmethod
+    def _grad_square_sum(grads) -> torch.Tensor:
+        """fp32 square-sum of the whole gradient set."""
+        return sum(g.float().square().sum() for g in grads)
+
+    def clip_gradients(self, grads):
+        """clip_value (elementwise), then clip_norm (global-norm
+        rescale), on a list of gradient tensors."""
+        if self.clip_value is not None:
+            cv = float(self.clip_value)
+            grads = [g.clamp(-cv, cv) for g in grads]
+        if self.clip_norm is not None and grads:
+            norm = self._grad_square_sum(grads).sqrt()
+            scale = torch.clamp(
+                self.clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
+            grads = [g * scale.to(g.dtype) for g in grads]
+        return grads
+
+    def apply_updates(self, pairs) -> None:
+        """Clip the whole gradient set, run the per-param updates, step."""
+        pairs = list(pairs)
+        grads = self.clip_gradients([g for _, g in pairs])
+        with torch.no_grad():
+            for (p, _), g in zip(pairs, grads):
+                self.update(p, g)
+        self.step()
+
+    # -- slots ---------------------------------------------------------------
+    def _slot(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        s = self._slots.get(id(p))
+        if s is None:
+            s = {name: torch.zeros_like(p, memory_format=torch.preserve_format)
+                 for name in self.slot_names}
+            self._slots[id(p)] = s
+            if id(p) not in self._names:
+                self._names[id(p)] = f"param{self._anon}"
+                self._anon += 1
+        return s
+
+    def prepare(self, named_params: Dict[str, torch.Tensor]) -> None:
+        """Name every parameter's slots (for dump/load) and make them."""
+        for name, p in named_params.items():
+            self._names[id(p)] = name
+            self._slot(p)
+
+    def dump_states(self) -> Dict[str, torch.Tensor]:
+        out = {"__step__": torch.tensor(self.step_counter, dtype=torch.int32)}
+        for pid, slots in self._slots.items():
+            pname = self._names[pid]
+            for sname, arr in slots.items():
+                out[f"{pname}//{sname}"] = arr
+        return out
+
+    def load_states(self, states: Dict[str, torch.Tensor],
+                    strict: bool = False) -> None:
+        """Load a `dump_states`-shaped dict back into the slots.
+        ``strict=True`` refuses entries that match no registered
+        parameter by name (call `prepare` with the named parameters
+        first)."""
+        if "__step__" in states:
+            self.step_counter = int(states["__step__"])
+        by_name = {n: pid for pid, n in self._names.items()}
+        dropped = []
+        for k, arr in states.items():
+            if k == "__step__":
+                continue
+            pname, _, sname = k.rpartition("//")
+            pid = by_name.get(pname)
+            if pid is not None and pid in self._slots:
+                slot = self._slots[pid].get(sname)
+                self._slots[pid][sname] = torch.as_tensor(arr).to(
+                    device=slot.device if slot is not None else None,
+                    dtype=slot.dtype if slot is not None else None)
+            elif pname:
+                dropped.append(k)
+        if strict and dropped:
+            raise ValueError(
+                f"load_states(strict=True): {len(dropped)} state "
+                f"entr{'y' if len(dropped) == 1 else 'ies'} match no "
+                f"registered parameter (e.g. {sorted(dropped)[:3]}); call "
+                f"prepare() with this run's named params first, or the "
+                f"states belong to a different model")
+
+    # -- update --------------------------------------------------------------
+    def lr_value(self) -> float:
+        return self.lr(self.step_counter)
+
+    def step(self) -> None:
+        self.step_counter += 1
+
+    def update(self, p: torch.Tensor, g: torch.Tensor) -> None:
+        raise NotImplementedError
+
+    def apply(self, p: torch.Tensor, g: torch.Tensor) -> None:
+        """Reference-style alias of `update`."""
+        with torch.no_grad():
+            self.update(p, g)
+
+
+class SGD(Optimizer):
+    """SGD with momentum / nesterov / weight decay / dampening."""
+
+    def __init__(self, lr: Union[float, DecayScheduler] = 0.1,
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 dampening: float = 0.0, nesterov: bool = False,
+                 clip_norm: Optional[float] = None,
+                 clip_value: Optional[float] = None):
+        super().__init__(lr, clip_norm=clip_norm, clip_value=clip_value)
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.dampening = dampening
+        self.nesterov = nesterov
+        self.slot_names = ("momentum",) if momentum != 0.0 else ()
+
+    def update(self, p, g) -> None:
+        grad = g.to(p.dtype)
+        if self.weight_decay:
+            grad = grad + self.weight_decay * p
+        if self.momentum:
+            s = self._slot(p)
+            buf = self.momentum * s["momentum"] + (1 - self.dampening) * grad
+            s["momentum"] = buf
+            grad = grad + self.momentum * buf if self.nesterov else buf
+        p.sub_(self.lr_value() * grad)
+
+
+class Adam(Optimizer):
+    slot_names = ("m", "v")
+
+    def __init__(self, lr: Union[float, DecayScheduler] = 1e-3,
+                 beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0,
+                 clip_norm: Optional[float] = None,
+                 clip_value: Optional[float] = None):
+        super().__init__(lr, clip_norm=clip_norm, clip_value=clip_value)
+        self.beta1, self.beta2, self.eps = beta1, beta2, eps
+        self.weight_decay = weight_decay
+
+    def update(self, p, g) -> None:
+        grad = g.to(p.dtype)
+        if self.weight_decay:
+            grad = grad + self.weight_decay * p
+        s = self._slot(p)
+        t = self.step_counter + 1
+        s["m"] = self.beta1 * s["m"] + (1 - self.beta1) * grad
+        s["v"] = self.beta2 * s["v"] + (1 - self.beta2) * grad * grad
+        mhat = s["m"] / (1 - self.beta1 ** t)
+        vhat = s["v"] / (1 - self.beta2 ** t)
+        p.sub_(self.lr_value() * mhat / (vhat.sqrt() + self.eps))
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay (Loshchilov & Hutter): the decay
+    multiplies the parameter directly at the update, outside the adaptive
+    moments."""
+
+    def __init__(self, lr: Union[float, DecayScheduler] = 1e-3,
+                 beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-2,
+                 clip_norm: Optional[float] = None,
+                 clip_value: Optional[float] = None):
+        super().__init__(lr, beta1, beta2, eps, weight_decay=0.0,
+                         clip_norm=clip_norm, clip_value=clip_value)
+        self.decoupled_decay = weight_decay
+
+    def update(self, p, g) -> None:
+        if self.decoupled_decay:
+            p.mul_(1.0 - self.lr_value() * self.decoupled_decay)
+        super().update(p, g)
+
+
+class AdaGrad(Optimizer):
+    slot_names = ("accum",)
+
+    def __init__(self, lr=0.01, eps: float = 1e-10, weight_decay: float = 0.0,
+                 clip_norm: Optional[float] = None,
+                 clip_value: Optional[float] = None):
+        super().__init__(lr, clip_norm=clip_norm, clip_value=clip_value)
+        self.eps = eps
+        self.weight_decay = weight_decay
+
+    def update(self, p, g) -> None:
+        grad = g.to(p.dtype)
+        if self.weight_decay:
+            grad = grad + self.weight_decay * p
+        s = self._slot(p)
+        s["accum"] = s["accum"] + grad * grad
+        p.sub_(self.lr_value() * grad / (s["accum"].sqrt() + self.eps))
+
+
+class RMSProp(Optimizer):
+    slot_names = ("ms",)
+
+    def __init__(self, lr=0.01, rho=0.9, eps=1e-8, weight_decay: float = 0.0,
+                 clip_norm: Optional[float] = None,
+                 clip_value: Optional[float] = None):
+        super().__init__(lr, clip_norm=clip_norm, clip_value=clip_value)
+        self.rho, self.eps = rho, eps
+        self.weight_decay = weight_decay
+
+    def update(self, p, g) -> None:
+        grad = g.to(p.dtype)
+        if self.weight_decay:
+            grad = grad + self.weight_decay * p
+        s = self._slot(p)
+        s["ms"] = self.rho * s["ms"] + (1 - self.rho) * grad * grad
+        p.sub_(self.lr_value() * grad / (s["ms"].sqrt() + self.eps))
+
+
+class DistOpt:
+    """Data-parallel optimizer wrapper of the distributed slice."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "DistOpt (NCCL gradient sync, ZeRO-1) belongs to the "
+            "distributed slice (ROADMAP queue 1 item 12)")

@@ -60,7 +60,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import singa_tpu_torch.models.gpt, singa_tpu_torch.ops._build\n"
-        "import singa_tpu_torch.ops.flash_attention\n"
+        "import singa_tpu_torch.ops.flash_attention, singa_tpu_torch.opt\n"
+        "import singa_tpu_torch.autograd, singa_tpu_torch.model\n"
+        "import singa_tpu_torch.examples.gpt_lm\n"
         "m = singa_tpu_torch.models.gpt.GPT(vocab_size=16, d_model=32,\n"
         "    num_layers=1, num_heads=1, max_len=8, dropout=0.0,\n"
         "    scan_blocks=True, device='cpu')\n"
@@ -100,7 +102,7 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
-    assert _build.sources() == ["flash_fwd"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd"]
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build()
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):

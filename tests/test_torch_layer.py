@@ -100,7 +100,9 @@ def test_scan_stack_under_autocast_keeps_bf16_activations():
 @pytest.mark.parametrize("kw", [{"tp_axis": "model"},
                                 {"zero3_axis": "data"},
                                 {"seq_axis": "sp"}, {"overlap": True},
-                                {"remat": "per_block"}])
+                                {"remat": "per_block", "seq_axis": "sp"}])
 def test_scan_stack_refuses_what_belongs_to_later_slices(kw):
+    """The remat policies are ported; the sharded options stay refused
+    under any of them."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layer.ScanTransformerStack(1, 4, 128, device="cpu", **kw)
