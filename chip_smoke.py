@@ -5,29 +5,50 @@ Run from the repository root on a host with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero):
+Phases, in the order they run (any failure raises and exits non-zero):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel from the sources in the checkout, timed;
+2. build every CUDA kernel from the sources in the checkout (one nvcc per
+   source, all started together) and print each kernel's registers and
+   spills;
 3. hold the flash-attention forward kernel against its plain PyTorch
-   version on the card: the fused layout at gpt_medium's shape (fp32,
-   fp32 with mxu_bf16, bf16), the head-split layout with Tq != Tk
-   (causal and not), head dims 32 and 64, causal rows with an empty
-   set (Tq > Tk, exact 0); a tensor needing grad must be refused (the
-   backward kernels come later); print max|d|, the kernel's,
-   the plain version's and F.scaled_dot_product_attention's times (the
-   last as a yardstick only, where its masking is the same) and the
-   data-sheet bound;
-4. the main path: gpt_medium at full width (seeded random weights carried
-   in through load_singa_tpu_params) scores 4 x 1024 tokens with
-   `model(ids)`, which must launch the kernel exactly 12 times, then
-   `generate` answers 4 prompts of 224 tokens (48 new, window 256);
-   the launch counts are read around exactly these two calls;
-5. check the results: logits finite and equal to the same model with the
-   kernel switched off; greedy tokens equal across two runs; the
-   prefill's logits (plain attention) equal `model(ctx)` (the kernel) on
-   the same padded window; print tokens/s;
-6. print the `kernels` line, then the result line.
+   version: the fused layout at gpt_medium's shape (fp32, fp32 with
+   mxu_bf16, bf16), the head-split layout with Tq != Tk (causal and
+   not), head dims 32 and 64, causal rows with no key (Tq > Tk, exact 0);
+   print max|d|, the kernel's, the plain version's and
+   F.scaled_dot_product_attention's times (the last as a yardstick only,
+   where its masking is the same) and the data-sheet bound;
+4. the same for the dQ and dK/dV backward kernels (9 cases, with bitwise
+   repeats, exact-zero empty rows and an lse cotangent);
+5. hold the max-pool backward kernel (K2a) against its plain version on
+   ReLU-clamped inputs (exact-zero ties): the reference's eight cases,
+   the ResNet-50 stem shape in fp32 and bf16, and the pools of
+   vgg16_cifar, alexnet_cifar and the ImageNet AlexNet at batch 128;
+   the same selected positions, max|d| within 1e-6 (fp32) or 1e-2
+   (bf16) of max(1, max|plain|), a bitwise repeat; and the default
+   route (PyTorch's max-pool backward) must pick the same positions;
+   print the kernel's, the plain version's and that library backward's
+   times and the bytes bound;
+6. gpt_medium at full width (seeded random weights carried in through
+   load_singa_tpu_params) scores 4 x 1024 tokens with `model(ids)`,
+   which must launch the forward kernel exactly 12 times, then
+   `generate` answers 4 prompts of 224 tokens (48 new, window 256); the
+   logits equal the same model with the kernel off, greedy tokens
+   repeat, the prefill's logits equal `model(ctx)`; print tokens/s;
+7. gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
+   kernel-off gradients, one step counted alone (exactly 12 launches of
+   each flash kernel), 6 steps whose loss must fall, one bf16 step;
+8. ResNet-50 at full width trains on a seeded (128, 3, 224, 224) batch
+   through the reference's entry points (`resnet50`, seeded states
+   through load_singa_tpu_states, `set_image_layout("NHWC")`, SGD(lr
+   0.05, momentum 0.9), `compile(..., precision="fp32")`, `model(x, y)`)
+   with the max-pool kernel switched on: kernel-on against kernel-off
+   gradients, one step counted alone (exactly 1 K2a launch; 0 with the
+   switch off), 6 steps whose loss must fall, moved and finite
+   BatchNorm statistics, a finite eval-mode forward, images/s with the
+   switch on and off in turns, one bf16 step that runs the kernel on
+   bf16;
+9. print the `kernels` line, then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -324,6 +345,271 @@ def run_bwd_case(torch, fa, case):
     return row
 
 
+POOL_CASES = [
+    # name, x (N, H, W, C), window, strides, pads, dtype; the first eight
+    # are the reference's (tests/test_max_pool_kernel.py)
+    ("ref_stem_like", (2, 16, 16, 8), (3, 3), (2, 2), (1, 1), "float32"),
+    ("ref_odd_hw", (2, 15, 17, 8), (3, 3), (2, 2), (1, 1), "float32"),
+    ("ref_k2s2_bf16", (2, 16, 16, 8), (2, 2), (2, 2), (0, 0), "bfloat16"),
+    ("ref_asymmetric", (1, 9, 11, 4), (3, 2), (1, 2), (1, 0), "float32"),
+    ("ref_stride1", (2, 12, 12, 8), (3, 3), (1, 1), (1, 1), "float32"),
+    ("ref_c16", (2, 16, 16, 16), (3, 3), (2, 2), (1, 1), "float32"),
+    ("ref_odd_h_bf16", (1, 14, 16, 8), (3, 3), (2, 2), (1, 1), "bfloat16"),
+    ("ref_c64_bf16", (2, 16, 16, 64), (3, 3), (2, 2), (1, 1), "bfloat16"),
+    # the main path's shape first: ResNet-50's stem max-pool at batch 128
+    ("resnet50_stem_fp32", (128, 112, 112, 64), (3, 3), (2, 2), (1, 1),
+     "float32"),
+    ("resnet50_stem_bf16", (128, 112, 112, 64), (3, 3), (2, 2), (1, 1),
+     "bfloat16"),
+    ("vgg16_cifar_first_pool", (128, 32, 32, 64), (2, 2), (2, 2), (0, 0),
+     "float32"),
+    ("alexnet_cifar_first_pool", (128, 16, 16, 64), (2, 2), (2, 2), (0, 0),
+     "float32"),
+    ("alexnet_first_pool", (128, 55, 55, 64), (3, 3), (2, 2), (0, 0),
+     "float32"),
+]
+POOL_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
+# Tolerances are on max|d| / max(1, max|plain|): both sum at most
+# ceil(k/s)^2 values of dy in fp32, in another order (fp32: 1e-6); in bf16
+# dx is rounded once to bf16 from sums that may differ in the last fp32
+# bit (1e-2, as the reference's own test holds its kernel).
+
+
+def run_pool_case(torch, mp, case):
+    """Hold the max-pool backward kernel against `_max_pool_bwd_plain`
+    and PyTorch's default route (its max-pool backward) on one case; time
+    the kernel, the plain version and that library backward."""
+    name, shape, win, strd, pad, dt = case
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0)
+    x = x.to(dtype)
+    y = mp._fwd(x, win, strd, pad)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+
+    before = mp.MAX_POOL_BWD_LAUNCHES
+    got = mp._max_pool_bwd(x, y, dy, win, strd, pad)
+    torch.cuda.synchronize()
+    check(mp.MAX_POOL_BWD_LAUNCHES == before + 1,
+          f"{name}: _max_pool_bwd did not launch the kernel once")
+    bitwise = torch.equal(got, mp._max_pool_bwd(x, y, dy, win, strd, pad))
+    want = mp._max_pool_bwd_plain(x, y, dy, win, strd, pad)
+    same = torch.equal(got != 0, want != 0)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(1.0, want.float().abs().max().item())
+
+    # the default route: PyTorch's max-pool and its autograd backward
+    xg = x.detach().requires_grad_()
+    mp.set_pool_kernel_enabled(False)
+    (default,) = torch.autograd.grad(mp.maxpool2d_nhwc(xg, win, strd, pad),
+                                     xg, dy)
+    default_same = torch.equal(default != 0, want != 0)
+    default_rel = ((default.float() - want.float()).abs().max().item()
+                   / max(1.0, want.float().abs().max().item()))
+
+    xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    _, idx = torch.ops.aten.max_pool2d_with_indices(xn, win, strd, pad)
+
+    def library():
+        return torch.ops.aten.max_pool2d_with_indices_backward(
+            dyn, xn, win, strd, pad, (1, 1), False, idx)
+
+    ms = cuda_ms(torch, lambda: mp._max_pool_bwd(x, y, dy, win, strd, pad))
+    plain_ms = cuda_ms(torch, lambda: mp._max_pool_bwd_plain(
+        x, y, dy, win, strd, pad), iters=5)
+    library_ms = cuda_ms(torch, library)
+    nbytes = x.element_size() * 2 * (x.numel() + y.numel())
+    row = dict(case=name, shape=list(shape), window=list(win),
+               strides=list(strd), pads=list(pad), dtype=dt,
+               max_abs_err=err, rel_err=rel, tolerance=POOL_TOL[dt],
+               same_positions=same, bitwise_repeat=bitwise,
+               default_route_same_positions=default_same,
+               default_route_rel_err=default_rel, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
+               bound_by="bytes",
+               ok=(same and bitwise and rel <= POOL_TOL[dt] and default_same
+                   and default_rel <= POOL_TOL[dt]))
+    print("pool_case " + json.dumps(row), flush=True)
+    return row
+
+
+def cnn_states(shapes, seed):
+    """Seeded values, from numpy, for a CNN's parameters and buffers given
+    as {name: shape}: He-scaled OIHW conv weights, (in, out) Linear
+    weights at 1/sqrt(in), BatchNorm scales near 1, small offsets and
+    biases, running statistics near (0, 1)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in sorted(shapes.items()):
+        shape = tuple(shape)
+        a = rng.standard_normal(shape, dtype=np.float32)
+        if name.endswith("running_var"):
+            a = 1.0 + 0.2 * rng.random(shape, dtype=np.float32)
+        elif name.endswith("scale"):
+            a = 1.0 + 0.1 * a
+        elif len(shape) == 4:
+            a *= np.float32(np.sqrt(2.0 / np.prod(shape[1:])))
+        elif len(shape) == 2:
+            a *= np.float32(shape[0] ** -0.5)
+        else:  # biases, offsets, running means
+            a *= np.float32(0.1)
+        out[name] = a
+    return out
+
+
+def cnn_grads(model, x, y):
+    """{name: grad} of the mean cross-entropy at the current weights, in
+    training mode; the BatchNorm running statistics are put back."""
+    import torch
+
+    from singa_tpu_torch import autograd
+
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    loss = autograd.softmax_cross_entropy(model.forward(x), y)
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {names[id(p)]: g for p, g in autograd.grad_pairs(loss)}
+    with torch.no_grad():
+        for k, b in model.named_buffers():
+            b.copy_(buffers[k])
+    return grads
+
+
+def resnet_path(torch, fa, mp):
+    """ResNet-50 at full width trains on one seeded ImageNet-shape batch
+    with the max-pool kernel on (the sequence of bench.py's
+    bench_framework). Returns the counted step's launches and the
+    numbers."""
+    from singa_tpu_torch import autograd, opt
+    from singa_tpu_torch.model import load_singa_tpu_states
+    from singa_tpu_torch.models.resnet import resnet50
+
+    m = resnet50(num_classes=1000, device="cuda")
+    states = cnn_states({n: t.shape for n, t in [*m.named_parameters(),
+                                                 *m.named_buffers()]}, SEED)
+    load_singa_tpu_states(m, states)
+    m.set_image_layout("NHWC")
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    batch = 128
+    x = torch.randn((batch, 3, 224, 224), generator=gen, device="cuda")
+    y = torch.arange(batch, device="cuda") % 1000
+    mp.set_pool_kernel_enabled(True)
+    t = time.perf_counter()
+    m.compile([x], is_train=True, use_graph=True, precision="fp32")
+    torch.cuda.synchronize()
+    print(f"resnet50: {sum(p.numel() for p in m.parameters())} parameters, "
+          f"compile {time.perf_counter() - t:.3f} s", flush=True)
+
+    # gradients with the kernel on and off, at the seeded weights
+    on = cnn_grads(m, x, y)
+    mp.set_pool_kernel_enabled(False)
+    off = cnn_grads(m, x, y)
+    mp.set_pool_kernel_enabled(True)
+    check(sorted(on) == sorted(off) == sorted(
+        n for n, _ in m.named_parameters()), "resnet gradients not complete")
+    grad_tol = 1e-3  # of each parameter's max|grad|: cuDNN's order only
+    worst = max((on[n] - off[n]).abs().max().item()
+                / max(off[n].abs().max().item(), 1e-30) for n in on)
+    print(f"resnet50 grads, max-pool kernel on vs off: worst max|d| / "
+          f"max|grad| {worst:.3e} over {len(on)} parameters (tol "
+          f"{grad_tol})", flush=True)
+    check(worst <= grad_tol, "kernel-path ResNet gradients disagree")
+    del on, off
+
+    # one step, counted alone
+    torch.cuda.synchronize()
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    _, loss = m(x, y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = counts(fa, mp)
+    print(f"resnet50 step 1: {first_s:.3f} s, launches {launches}",
+          flush=True)
+    check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0, "max_pool_bwd": 1},
+          f"one ResNet-50 step launched {launches}, not 1 max-pool kernel")
+    losses = [loss.item()]
+    for _ in range(5):
+        _, loss = m(x, y)
+        losses.append(loss.item())
+    print(f"resnet50 losses {losses}", flush=True)
+    check(all(np.isfinite(losses)), "non-finite ResNet-50 loss")
+    check(losses[-1] < losses[0], "the ResNet-50 loss did not fall")
+
+    # BatchNorm: the running statistics moved and are finite
+    moved = finite = 0
+    for k, b in m.named_buffers():
+        finite += int(bool(torch.isfinite(b).all()))
+        moved += int(not np.array_equal(b.cpu().numpy(), states[k]))
+    n_buf = len(list(m.named_buffers()))
+    print(f"resnet50 BatchNorm buffers: {moved}/{n_buf} moved, "
+          f"{finite}/{n_buf} finite", flush=True)
+    check(moved == finite == n_buf, "BatchNorm statistics did not move or "
+                                    "are not finite")
+    m.eval()
+    with torch.inference_mode():
+        scores = m(x)
+    m.train()
+    check(tuple(scores.shape) == (batch, 1000)
+          and bool(torch.isfinite(scores).all()),
+          "eval-mode ResNet-50 scores are not finite (128, 1000)")
+    del scores
+
+    # throughput with the switch on and off, in turns (on, off, off, on)
+    rates = {True: [], False: []}
+    for enabled in (True, False, False, True):
+        mp.set_pool_kernel_enabled(enabled)
+        m(x, y)  # the first step after a switch is not timed
+        torch.cuda.synchronize()
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        for _ in range(5):
+            _, loss = m(x, y)
+        loss.item()
+        dt = time.perf_counter() - t
+        check(mp.MAX_POOL_BWD_LAUNCHES == (5 if enabled else 0),
+              f"switch {enabled}: {mp.MAX_POOL_BWD_LAUNCHES} launches in "
+              f"5 steps")
+        rates[enabled].append(5 * batch / dt)
+    mp.set_pool_kernel_enabled(True)
+    on_rate, off_rate = (float(np.mean(rates[k])) for k in (True, False))
+    print(f"resnet50 fp32 training: {on_rate:.1f} images/s with the "
+          f"max-pool kernel, {off_rate:.1f} without (windows of 5 steps, "
+          f"on/off/off/on: {rates[True]} / {rates[False]})", flush=True)
+
+    # one bf16 step from the seeded states: autocast on, so the kernel
+    # gets bf16 operands
+    load_singa_tpu_states(m, states)
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+    seen = []
+    real = mp._max_pool_bwd
+    mp._max_pool_bwd = lambda x_, *a: seen.append(x_.dtype) or real(x_, *a)
+    try:
+        m.compile([x], is_train=True, use_graph=True, precision="bf16")
+        reset_counts(fa, mp)
+        _, loss_bf16 = m(x, y)
+        loss_bf16 = loss_bf16.item()
+        bf16_launches = counts(fa, mp)
+    finally:
+        mp._max_pool_bwd = real
+        autograd.set_autocast(False)
+    print(f"resnet50 bf16 step: loss {loss_bf16:.4f}, launches "
+          f"{bf16_launches}, kernel operand dtypes {seen}", flush=True)
+    check(np.isfinite(loss_bf16), "non-finite bf16 ResNet-50 loss")
+    check(bf16_launches == launches, "the bf16 step launched otherwise")
+    check(seen == [torch.bfloat16], "the bf16 step did not run the "
+                                    "max-pool kernel on bf16 operands")
+    mp.set_pool_kernel_enabled(False)
+    return launches, dict(images_per_s_kernel_on=on_rate,
+                          images_per_s_kernel_off=off_rate,
+                          rates=[rates[True], rates[False]], losses=losses,
+                          grad_rel_err=worst, loss_bf16=loss_bf16,
+                          first_step_s=first_s)
+
+
 def seeded_params(model, seed):
     """Random weights for every parameter, from numpy with `seed`, with
     the scales of the reference's initialisers."""
@@ -352,12 +638,14 @@ def ptxas_summary(log):
     import re
 
     out, name = [], None
+    names = {"f": "float", "13__nv_bfloat16": "bf16"}
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function .\S*?(flash_[a-z_]+_kernel)"
-                      r"ILi(\d+)E(f|13__nv_bfloat16)", line)
+        m = re.search(r"Compiling entry function .\S*?([a-z_]+_kernel)I"
+                      r"((?:Li-?\d+E|f|13__nv_bfloat16)+)E", line)
         if m:
-            name = (f"{m.group(1)}<{m.group(2)}, "
-                    f"{'float' if m.group(3) == 'f' else 'bf16'}>")
+            args = re.findall(r"Li(-?\d+)E|(f|13__nv_bfloat16)", m.group(2))
+            name = f"{m.group(1)}<" + ", ".join(
+                num or names[typ] for num, typ in args) + ">"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -369,16 +657,19 @@ def ptxas_summary(log):
     return out
 
 
-def counts(fa):
+def counts(fa, mp):
+    """Every kernel's launch count."""
     return {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
             "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
-            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES}
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+            "max_pool_bwd": mp.MAX_POOL_BWD_LAUNCHES}
 
 
-def reset_counts(fa):
+def reset_counts(fa, mp):
     fa.FLASH_FWD_LAUNCHES = 0
     fa.FLASH_BWD_DQ_LAUNCHES = 0
     fa.FLASH_BWD_DKV_LAUNCHES = 0
+    mp.MAX_POOL_BWD_LAUNCHES = 0
 
 
 def main_grads(torch, model, x, y):
@@ -391,7 +682,7 @@ def main_grads(torch, model, x, y):
     return {names[id(p)]: g for p, g in autograd.grad_pairs(loss)}
 
 
-def train_path(torch, fa, model, rng):
+def train_path(torch, fa, mp, model, rng):
     """The training path: gpt_medium, AdamW(lr=3e-4), compile, kernel-on
     against kernel-off gradients, one counted step, five more, one bf16
     step. Returns the launches of the counted step and the numbers."""
@@ -423,17 +714,17 @@ def train_path(torch, fa, model, rng):
 
     # one step, counted alone
     torch.cuda.synchronize()
-    reset_counts(fa)
+    reset_counts(fa, mp)
     t = time.perf_counter()
     _, loss = model(x, y)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
-    launches = counts(fa)
+    launches = counts(fa, mp)
     print(f"train step 1: {first_s:.3f} s, launches {launches}",
           flush=True)
     check(launches == {"flash_fwd": 12, "flash_bwd_dq": 12,
-                       "flash_bwd_dkv": 12},
-          f"one step launched {launches}, not 12 of each kernel")
+                       "flash_bwd_dkv": 12, "max_pool_bwd": 0},
+          f"one step launched {launches}, not 12 of each flash kernel")
     losses = [loss.item()]
     step_s = []
     for _ in range(5):
@@ -457,12 +748,12 @@ def train_path(torch, fa, model, rng):
         q, *a)
     try:
         model.compile([x], is_train=True, use_graph=True, precision="bf16")
-        reset_counts(fa)
+        reset_counts(fa, mp)
         t = time.perf_counter()
         _, loss_bf16 = model(x, y)
         loss_bf16 = loss_bf16.item()
         bf16_s = time.perf_counter() - t
-        bf16_launches = counts(fa)
+        bf16_launches = counts(fa, mp)
     finally:
         fa._flash_fwd, fa._flash_bwd = real_fwd, real_bwd
         autograd.set_autocast(False)
@@ -490,6 +781,7 @@ def main() -> int:
     from singa_tpu_torch.models.gpt import gpt_medium
     from singa_tpu_torch.ops import _build
     from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.ops import max_pool as mp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -513,7 +805,7 @@ def main() -> int:
         for line in ptxas_summary(_build.build_log(name)):
             print(f"ptxas {line}", flush=True)
 
-    # 3. the kernels against their plain versions
+    # 3-5. the kernels against their plain versions
     rows = [run_case(torch, fa, c) for c in CASES]
     bad = [r["case"] for r in rows if not r["ok"]]
     check(not bad, f"forward kernel disagrees with its plain version: {bad}")
@@ -521,8 +813,12 @@ def main() -> int:
     bad = [r["case"] for r in bwd_rows if not r["ok"]]
     check(not bad, f"backward kernels disagree with their plain version, "
                    f"repeat or leave an empty row non-zero: {bad}")
+    pool_rows = [run_pool_case(torch, mp, c) for c in POOL_CASES]
+    bad = [r["case"] for r in pool_rows if not r["ok"]]
+    check(not bad, f"max-pool kernel or default route disagrees with the "
+                   f"plain version, or does not repeat: {bad}")
 
-    # 4. the scoring and generate paths, counted
+    # 6. the scoring and generate paths, counted
     model = gpt_medium(device="cuda")
     load_singa_tpu_params(model, seeded_params(model, SEED))
     model.eval()
@@ -532,7 +828,7 @@ def main() -> int:
     prompts = rng.integers(0, vocab, (4, 224))
     torch.cuda.synchronize()
 
-    reset_counts(fa)
+    reset_counts(fa, mp)
     with torch.inference_mode():
         t = time.perf_counter()
         logits = model(ids)
@@ -542,7 +838,7 @@ def main() -> int:
     t = time.perf_counter()
     toks = model.generate(prompts, n_new=48, window=256)
     gen_first_s = time.perf_counter() - t
-    serve_launches = counts(fa)
+    serve_launches = counts(fa, mp)
     print(f"serve path: forward {fwd_first_s:.3f} s ({fwd_launches} kernel "
           f"launches), generate {gen_first_s:.3f} s; launches "
           f"{serve_launches}", flush=True)
@@ -550,7 +846,7 @@ def main() -> int:
           f"model(ids) launched the kernel {fwd_launches} times, not 12")
     check(serve_launches["flash_bwd_dq"] == 0, "scoring ran a backward")
 
-    # 5. results of the serving path
+    # results of the serving path
     check(tuple(logits.shape) == (4, 1024, vocab), f"logits {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     with torch.inference_mode():
@@ -595,11 +891,16 @@ def main() -> int:
     check(err_p <= tol, "prefill logits disagree with the kernel path")
     del logits, logits_kernel, logits_prefill
 
-    # 6. the training path, counted around one step
-    train_launches, train = train_path(torch, fa, model, rng)
+    # 7. the GPT training path, counted around one step
+    train_launches, train = train_path(torch, fa, mp, model, rng)
+    del model
+    torch.cuda.empty_cache()
 
-    # 7. report
-    fwd, bwd = rows[0], bwd_rows[0]
+    # 8. the CNN training path: ResNet-50, counted around one step
+    resnet_launches, resnet = resnet_path(torch, fa, mp)
+
+    # 9. report
+    fwd, bwd, pool = rows[0], bwd_rows[0], pool_rows[8]
     common = dict(route="cuda", shape=fwd["shape"], card=card)
     kernels = [
         dict(name="flash_fwd", source="singa_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -627,7 +928,18 @@ def main() -> int:
             library_ms=bwd["library_ms"],
             plain_and_library_compute="dq, dk and dv together",
             **common))
+    kernels.append(dict(
+        name="max_pool_bwd", route="cuda",
+        source="singa_tpu_torch/ops/csrc/max_pool_bwd.cu",
+        replaces="singa_tpu/ops/max_pool.py:287",
+        launches=resnet_launches["max_pool_bwd"],
+        max_abs_err=pool["max_abs_err"], ms=pool["ms"],
+        plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
+        bound_by=pool["bound_by"], library_ms=pool["library_ms"],
+        library="aten max_pool2d_with_indices_backward", shape=pool["shape"],
+        dtype=pool["dtype"], card=card))
     print("train " + json.dumps(train), flush=True)
+    print("resnet50_train " + json.dumps(resnet), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

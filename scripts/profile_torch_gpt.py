@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's gpt_medium on one card.
+"""Where the time goes in the port's gpt_medium and ResNet-50 on one
+card.
 
 Builds gpt_medium at full width with the seeded weights of chip_smoke.py,
 warms up, then traces with torch.profiler, once each:
@@ -9,13 +10,19 @@ warms up, then traces with torch.profiler, once each:
 - one training step, `model(x, y)` on a 4 x 1024 batch with AdamW
   (fp32, remat none: 12 flash_fwd, 12 dQ and 12 dK/dV launches).
 
+Then ResNet-50 at full width with chip_smoke.py's seeded states, NHWC,
+SGD(lr 0.05, momentum 0.9), the max-pool kernel switched on: one fp32
+training step on a seeded (128, 3, 224, 224) batch (1 K2a launch).
+
 For each it prints the host wall time, the device time summed over all
 kernels, the device's idle share of the wall time, and the device time
-grouped by kernel family (the flash forward, the flash backward, matrix
-products, the optimizer's update, the rest) with the ten largest kernels
-by name. The optimizer's kernels are those launched inside its
-`apply_updates`, which the script wraps in a profiler range. Run from the
-repository root:
+grouped by kernel family with the ten largest kernels by name: for GPT
+the flash forward, the flash backward, matrix products, the optimizer's
+update and the rest; for ResNet-50 the convolutions (with the one fc
+product), the max-pool backward kernel, the optimizer's update, and
+batch norm with the other elementwise kernels. The optimizer's kernels
+are those launched inside its `apply_updates`, which the script wraps in
+a profiler range. Run from the repository root:
 
     python3 scripts/profile_torch_gpt.py [--seed 0]
 """
@@ -36,18 +43,34 @@ ROOT = Path(__file__).resolve().parents[1]
 OPT_RANGE = "optimizer.apply_updates"
 
 
+_PRODUCTS = ("gemm", "gemv", "cutlass", "xmma", "cublas")
+_CONVS = _PRODUCTS + ("conv", "cudnn", "implicit", "winograd", "fft",
+                      "dgrad", "wgrad", "fprop")
+
+
 def family(name: str) -> str:
+    """A GPT kernel's family."""
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_fwd"
     if "flash_bwd" in n:
         return "flash_bwd"
-    if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
+    if any(s in n for s in _PRODUCTS):
         return "matmul"
     return "other"
 
 
-def optimizer_ms(torch, events):
+def cnn_family(name: str) -> str:
+    """A ResNet kernel's family."""
+    n = name.lower()
+    if "max_pool_bwd" in n:
+        return "max_pool_bwd"
+    if any(s in n for s in _CONVS):
+        return "conv_and_fc"
+    return "other"
+
+
+def optimizer_ms(torch, events, fam=family):
     """Device ms of the kernels launched by CPU ops inside OPT_RANGE."""
     ranges = [e.time_range for e in events if e.name == OPT_RANGE]
     total = 0.0
@@ -57,13 +80,13 @@ def optimizer_ms(torch, events):
         if any(r.start <= e.time_range.start and e.time_range.end <= r.end
                for r in ranges):
             for k in e.kernels:
-                if family(k.name) != "other":
+                if fam(k.name) != "other":
                     raise RuntimeError(f"optimizer launched {k.name}")
                 total += k.duration / 1e3
     return total
 
 
-def profile(torch, fn, label):
+def profile(torch, fn, label, fam=family):
     from torch.profiler import ProfilerActivity, profile as prof_ctx
 
     torch.cuda.synchronize()
@@ -85,11 +108,11 @@ def profile(torch, fn, label):
             else e.cuda_time_total
         by_name[e.name][0] += us / 1e3
         by_name[e.name][1] += 1
-        by_family[family(e.name)] += us / 1e3
+        by_family[fam(e.name)] += us / 1e3
     busy_ms = sum(by_family.values())
     if busy_ms <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time")
-    opt_ms = optimizer_ms(torch, prof.events())
+    opt_ms = optimizer_ms(torch, prof.events(), fam)
     if opt_ms:
         by_family["optimizer"] = opt_ms
         by_family["other"] -= opt_ms
@@ -171,7 +194,53 @@ def main() -> int:
     train_step()
     train_step()  # warm-up: optimizer slots, allocator
     profile(torch, train_step, "train_step_4x1024")
+    del model, update
+    torch.cuda.empty_cache()
+    resnet_trace(torch, args.seed)
     return 0
+
+
+def resnet_trace(torch, seed):
+    """One traced fp32 ResNet-50 training step at batch 128."""
+    from torch.profiler import record_function
+
+    from chip_smoke import cnn_states
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_singa_tpu_states
+    from singa_tpu_torch.models.resnet import resnet50
+    from singa_tpu_torch.ops import max_pool
+
+    m = resnet50(num_classes=1000, device="cuda")
+    load_singa_tpu_states(m, cnn_states(
+        {n: t.shape for n, t in [*m.named_parameters(),
+                                 *m.named_buffers()]}, seed))
+    m.set_image_layout("NHWC")
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((128, 3, 224, 224), generator=gen, device="cuda")
+    y = torch.arange(128, device="cuda") % 1000
+    max_pool.set_pool_kernel_enabled(True)
+    m.compile([x], is_train=True, use_graph=True, precision="fp32")
+    update = m.optimizer.apply_updates
+
+    def traced_update(pairs):
+        pairs = list(pairs)  # the backward runs here, outside the range
+        with record_function(OPT_RANGE):
+            update(pairs)
+
+    m.optimizer.apply_updates = traced_update
+
+    def train_step():
+        m(x, y)
+
+    train_step()
+    train_step()  # warm-up: cuDNN's choices, optimizer slots, allocator
+    before = max_pool.MAX_POOL_BWD_LAUNCHES
+    profile(torch, train_step, "resnet50_train_step_128", cnn_family)
+    if max_pool.MAX_POOL_BWD_LAUNCHES != before + 1:
+        raise RuntimeError("the traced ResNet-50 step did not launch the "
+                           "max-pool kernel once")
 
 
 if __name__ == "__main__":

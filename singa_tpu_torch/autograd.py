@@ -14,20 +14,32 @@ on top of it:
   with `torch.autograd.grad` (nothing accumulates in `.grad`);
 - the remat policies `REMAT_POLICIES` and `remat_wrap` (reference
   :427-450) on `torch.utils.checkpoint`;
-- `softmax_cross_entropy` / `cross_entropy` (reference :1507-1533).
+- `softmax_cross_entropy` / `cross_entropy` (reference :1507-1533);
+- the CNN ops, as plain functions on tensors: `conv2d`, `batchnorm`,
+  `max_pool2d`, `avg_pool2d`, `global_avg_pool2d`, `relu`, `add` and
+  `flatten` (reference :640-682, :895, :982-1323). Under the "NHWC"
+  image layout (`layout.py`) the activations are channels-last tensors
+  of logical NCHW shape, so every op indexes channels on axis 1.
 """
 
 from __future__ import annotations
 
 import functools
+import math
+import warnings
 from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from singa_tpu_torch import layout as layout_module
+from singa_tpu_torch.ops import max_pool
+
 __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "backward", "grad_pairs", "REMAT_POLICIES", "remat_wrap",
-           "softmax_cross_entropy", "cross_entropy"]
+           "softmax_cross_entropy", "cross_entropy", "add", "flatten",
+           "relu", "conv2d", "DEGENERATE_STAT_COUNT", "batchnorm",
+           "max_pool2d", "avg_pool2d", "global_avg_pool2d"]
 
 #: reference parity: `Model.train(mode)` sets it; a model's forward
 #: records no tape while it is False
@@ -191,3 +203,137 @@ def softmax_cross_entropy(logits: torch.Tensor, target) -> torch.Tensor:
 
 
 cross_entropy = softmax_cross_entropy
+
+
+# -- CNN ops -------------------------------------------------------------------
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def flatten(x: torch.Tensor, start_axis: int = 1) -> torch.Tensor:
+    """Flatten the dims from `start_axis` on (the batch axis stays)."""
+    return x.reshape(*x.shape[:start_axis], -1)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+def _pair(v) -> Tuple[int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None, stride=1, padding=0,
+           dilation=1, groups: int = 1) -> torch.Tensor:
+    """2-D convolution, weight OIHW in both image layouts; operands under
+    the autocast policy, the bias joined at the output dtype. cuDNN keeps
+    a channels-last input channels-last. The reference lowers 1x1 convs
+    over small outputs to matrix products, a tiling choice of the TPU;
+    here every conv is one `F.conv2d` (only the summation order
+    differs)."""
+    if isinstance(padding, str):
+        raise NotImplementedError(
+            "conv2d(padding='same'/'valid') comes with SeparableConv2d "
+            "and the mobile nets (ROADMAP queue 1 item 6)")
+    a, ww = _mxu_cast(x, w)
+    out = _mxu_result(F.conv2d(a, ww, None, _pair(stride), _pair(padding),
+                               _pair(dilation), groups))
+    if b is not None:
+        out = out + b.view(1, -1, 1, 1).to(out.dtype)
+    return out
+
+
+#: per-channel statistic count (N*H*W) below which training-mode batch
+#: norm normalizes with the running statistics (reference :1083)
+DEGENERATE_STAT_COUNT = 16
+
+
+def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              running_mean: torch.Tensor, running_var: torch.Tensor,
+              momentum: float = 0.9, eps: float = 1e-5, train: bool = True,
+              sync: Optional[bool] = None):
+    """Batch normalization over the channel axis; returns (y,
+    new_running_mean, new_running_var). The reference's formula, not
+    `F.batch_norm`:
+
+    - statistics in fp32 in one pass, var = E[x^2] - E[x]^2 clamped at 0,
+      and y cast back to x's dtype;
+    - running update `r * momentum + batch * (1 - momentum)` with the
+      biased batch variance (PyTorch's own uses the unbiased variance and
+      the opposite momentum);
+    - when N*H*W < DEGENERATE_STAT_COUNT, training normalizes with the
+      running statistics and still updates them from the batch moments
+      held without gradient, and warns.
+
+    `sync` (cross-replica statistics) belongs to the distributed slice:
+    None and False mean local statistics."""
+    if sync:
+        raise NotImplementedError(
+            "batchnorm(sync=True) needs DistOpt's process group (ROADMAP "
+            "queue 1 item 12)")
+    c_axis = layout_module.channel_axis(x.dim())
+    red = tuple(i for i in range(x.dim()) if i != c_axis)
+    bshape = [1] * x.dim()
+    bshape[c_axis] = x.shape[c_axis]
+    xf = x.float()
+    if not train:
+        xhat = (xf - running_mean.view(bshape)) * torch.rsqrt(
+            running_var.view(bshape) + eps)
+        y = xhat * gamma.view(bshape) + beta.view(bshape)
+        return y.to(x.dtype), running_mean, running_var
+    n_stat = math.prod(x.shape[i] for i in red)
+    degenerate = n_stat < DEGENERATE_STAT_COUNT
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not degenerate):
+        m = xf.mean(red)
+        v = (xf.square().mean(red) - m.square()).clamp_min(0.0)
+    if degenerate:
+        warnings.warn(
+            f"BatchNorm: only {n_stat} elements per channel "
+            f"(< {DEGENERATE_STAT_COUNT}); batch statistics are "
+            "degenerate, so normalizing with the running statistics "
+            "instead (the running moments still update from the batch)",
+            stacklevel=2)
+        xhat = (xf - running_mean.view(bshape)) * torch.rsqrt(
+            running_var.view(bshape) + eps)
+    else:
+        xhat = (xf - m.view(bshape)) * torch.rsqrt(v.view(bshape) + eps)
+    y = xhat * gamma.view(bshape) + beta.view(bshape)
+    new_rm = running_mean * momentum + m.detach() * (1 - momentum)
+    new_rv = running_var * momentum + v.detach() * (1 - momentum)
+    return y.to(x.dtype), new_rm, new_rv
+
+
+def _pool2d(x: torch.Tensor, kernel, stride, padding, kind: str):
+    k = _pair(kernel)
+    s = _pair(stride if stride is not None else kernel)
+    p = _pair(padding)
+    if kind == "avg":
+        # padding excluded from the average, as cuDNN's default
+        return F.avg_pool2d(x, k, s, p, count_include_pad=False)
+    if x.dim() == 4 and layout_module.image_layout() == "NHWC":
+        # the channels-last activation seen as the (N, H, W, C) tensor it
+        # is in memory; the op's backward is the K2a kernel when on
+        y = max_pool.maxpool2d_nhwc(x.permute(0, 2, 3, 1), k, s, p)
+        return y.permute(0, 3, 1, 2)
+    return F.max_pool2d(x, k, s, p)
+
+
+def max_pool2d(x: torch.Tensor, kernel, stride=None,
+               padding=0) -> torch.Tensor:
+    """Max-pool; padding is never selected. Under "NHWC" 4-D inputs go
+    through `ops.max_pool.maxpool2d_nhwc` (reference :1264-1277), under
+    "NCHW" through PyTorch's max-pool and its autograd."""
+    return _pool2d(x, kernel, stride, padding, "max")
+
+
+def avg_pool2d(x: torch.Tensor, kernel, stride=None,
+               padding=0) -> torch.Tensor:
+    return _pool2d(x, kernel, stride, padding, "avg")
+
+
+def global_avg_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C), the mean taken in fp32."""
+    return x.float().mean(dim=layout_module.spatial_axes()).to(x.dtype)

@@ -13,6 +13,13 @@ the population variance (`jnp.var`), cast back to the input dtype; the
 tanh approximation of GELU (`jax.nn.gelu(approximate=True)`); the bias
 joined at the product's output dtype; matrix products under the autocast
 policy of `autograd`.
+
+The CNN layers (`Conv2d` with OIHW `W` and "he" init, `BatchNorm2d` with
+`scale`, `offset` and the buffers `running_mean`, `running_var`, the
+pools, `ReLU`, `Flatten`, `Sequential`) run in the current image layout
+(`layout.py`). `Sequential` keeps its layers in an `nn.ModuleList` named
+`layers`, so dotted names are the reference's
+(`layer1.layers.0.conv1.layers.0.W`).
 """
 
 from __future__ import annotations
@@ -29,15 +36,20 @@ from singa_tpu_torch import device as device_module
 from singa_tpu_torch.ops import flash_attention as fa
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout",
-           "ScanTransformerStack"]
+           "ScanTransformerStack", "Conv2d", "BatchNorm2d", "MaxPool2d",
+           "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten", "Sequential"]
 
 
 def _new(shape, dev, gen, init: str, a: float = 0.0) -> nn.Parameter:
+    """A parameter: uniform(-a, a), normal(0, a), he (normal with
+    std sqrt(2 / a), `a` the fan-in), ones or zeros."""
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     if init == "uniform":
         t.uniform_(-a, a, generator=gen)
     elif init == "normal":
         t.normal_(0.0, a, generator=gen)
+    elif init == "he":
+        t.normal_(0.0, math.sqrt(2.0 / max(1, a)), generator=gen)
     elif init == "ones":
         t.fill_(1.0)
     else:
@@ -201,4 +213,117 @@ class ScanTransformerStack(nn.Module):
         for params in zip(*(getattr(self, n).unbind(0)
                             for n in self.STACKED)):
             x = block(x, *params)
+        return x
+
+
+# -- CNN layers ----------------------------------------------------------------
+
+
+class Conv2d(nn.Module):
+    """Convolution in the current image layout; `W` is OIHW
+    (nb_kernels, in_channels // group, kh, kw) in both layouts, with the
+    reference's "he" init, and `b` (nb_kernels,) zeros."""
+
+    def __init__(self, in_channels: int, nb_kernels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, group: int = 1,
+                 bias: bool = True, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev, gen = _setup(device, generator)
+        kh, kw = autograd._pair(kernel_size)
+        self.stride, self.padding = stride, padding
+        self.dilation, self.group = dilation, group
+        fan_in = in_channels * kh * kw // group
+        self.W = _new((nb_kernels, in_channels // group, kh, kw), dev, gen,
+                      "he", fan_in)
+        self.b = _new((nb_kernels,), dev, gen, "zeros") if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.conv2d(x, self.W, self.b, self.stride, self.padding,
+                               self.dilation, self.group)
+
+
+class BatchNorm2d(nn.Module):
+    """`autograd.batchnorm` with `scale` (ones), `offset` (zeros) and the
+    buffers `running_mean` (zeros) and `running_var` (ones). In training
+    mode each call updates the running statistics in place, including
+    calls without grad recording (such as `Model.compile`'s forward, as
+    in the reference)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, sync: Optional[bool] = None, *,
+                 device=None):
+        super().__init__()
+        dev = device_module.resolve(device)
+        self.momentum, self.eps, self.sync = momentum, eps, sync
+        self.scale = _new((num_features,), dev, None, "ones")
+        self.offset = _new((num_features,), dev, None, "zeros")
+        self.register_buffer("running_mean", torch.zeros(
+            num_features, dtype=torch.float32, device=dev))
+        self.register_buffer("running_var", torch.ones(
+            num_features, dtype=torch.float32, device=dev))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, new_rm, new_rv = autograd.batchnorm(
+            x, self.scale, self.offset, self.running_mean, self.running_var,
+            momentum=self.momentum, eps=self.eps, train=self.training,
+            sync=self.sync)
+        if self.training:
+            with torch.no_grad():
+                self.running_mean.copy_(new_rm)
+                self.running_var.copy_(new_rv)
+        return y
+
+
+class MaxPool2d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.max_pool2d(x, self.k, self.s, self.p)
+
+
+class AvgPool2d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.avg_pool2d(x, self.k, self.s, self.p)
+
+
+class GlobalAvgPool2d(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.global_avg_pool2d(x)
+
+
+class ReLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.relu(x)
+
+
+class Flatten(nn.Module):
+    """Flatten the dims from `start_axis` on. The reference rotates an
+    NHWC activation back to NCHW first, so that the following Linear
+    sees the NCHW feature order in both layouts; here a channels-last
+    activation already has the logical NCHW shape, and flattening it
+    gives that order, so there is nothing to rotate."""
+
+    def __init__(self, start_axis: int = 1):
+        super().__init__()
+        self.start_axis = start_axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.flatten(x, self.start_axis)
+
+
+class Sequential(nn.Module):
+    def __init__(self, *layers: nn.Module):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lyr in self.layers:
+            x = lyr(x)
         return x

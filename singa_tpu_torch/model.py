@@ -19,7 +19,14 @@ graph is ROADMAP queue 1 item 7, and `memory_estimate` is None until then.
 `load_singa_tpu_params` carries a `singa_tpu` model's weights into the
 port: it takes `{name: np.asarray(t.data) for name, t in
 jax_model.get_params().items()}` and copies each array into the port's
-parameter of the same name, in the same layout.
+parameter of the same name, in the same layout. `load_singa_tpu_states`
+does the same for parameters and buffers (BatchNorm's running
+statistics) together, from the reference's `get_states()`.
+
+`set_image_layout("NHWC")` runs a CNN channels-last inside while its
+inputs and outputs stay NCHW (`layout.py`). As in the reference,
+`compile`'s forward runs with the layers in training mode (only the tape
+is off), so a BatchNorm's running statistics take one update from it.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import torch
 from torch import nn
 
 from singa_tpu_torch import autograd
+from singa_tpu_torch import layout as layout_module
 
-__all__ = ["Model", "load_singa_tpu_params"]
+__all__ = ["Model", "load_singa_tpu_params", "load_singa_tpu_states"]
 
 
 class Model(nn.Module):
@@ -55,6 +63,36 @@ class Model(nn.Module):
         if self._optimizer is None:
             raise RuntimeError("no optimizer: call set_optimizer() first")
         self._optimizer(loss)
+
+    def set_image_layout(self, img_layout: str) -> None:
+        """Run this model's forward in `img_layout` ("NCHW" or "NHWC")
+        while its 4-D inputs and outputs stay NCHW: under "NHWC" a 4-D
+        input is copied into channels-last memory once at the boundary
+        and a 4-D output back. Weights keep their OIHW shapes. Call
+        before `compile()`; "NCHW" restores the default."""
+        if img_layout not in ("NCHW", "NHWC"):
+            raise ValueError(f"unknown image layout {img_layout!r}")
+        if getattr(self, "_img_layout", None) is None:
+            inner = type(self).forward.__get__(self)
+
+            def adapt(a, convert):
+                return convert(a) if getattr(a, "ndim", 0) == 4 else a
+
+            def adapt_out(o):
+                if isinstance(o, (tuple, list)):
+                    return type(o)(adapt_out(v) for v in o)
+                return adapt(o, layout_module.to_nchw)
+
+            def wrapped_forward(*args, **kwargs):
+                with layout_module.use_image_layout(self._img_layout):
+                    out = inner(
+                        *[adapt(a, layout_module.from_nchw) for a in args],
+                        **{k: adapt(v, layout_module.from_nchw)
+                           for k, v in kwargs.items()})
+                    return adapt_out(out)
+
+            self.forward = wrapped_forward
+        self._img_layout = img_layout
 
     @property
     def memory_estimate(self):
@@ -119,20 +157,34 @@ class Model(nn.Module):
             return super().__call__(*args, **kwargs)
 
 
+def _copy_named(own: Mapping[str, torch.Tensor],
+                given: Mapping[str, np.ndarray]) -> None:
+    unknown = sorted(set(given) - set(own))
+    missing = sorted(set(own) - set(given))
+    if unknown or missing:
+        raise KeyError(f"names differ: unknown {unknown}, "
+                       f"missing {missing}")
+    bad = {k: (tuple(np.shape(v)), tuple(own[k].shape))
+           for k, v in given.items() if tuple(np.shape(v)) != own[k].shape}
+    if bad:
+        raise ValueError(f"shape mismatch (given, expected): {bad}")
+    with torch.no_grad():
+        for k, v in given.items():
+            own[k].copy_(torch.from_numpy(np.array(v)))
+
+
 def load_singa_tpu_params(model: nn.Module,
                           params: Mapping[str, np.ndarray]) -> None:
     """Copy reference parameters into `model`, name for name. Raises on
     an unknown name, a missing name or a shape mismatch."""
+    _copy_named(dict(model.named_parameters()), params)
+
+
+def load_singa_tpu_states(model: nn.Module,
+                          states: Mapping[str, np.ndarray]) -> None:
+    """Copy a reference model's `get_states()` (parameters and buffers)
+    into `model`, name for name. Raises on an unknown name, a missing
+    name or a shape mismatch."""
     own = dict(model.named_parameters())
-    unknown = sorted(set(params) - set(own))
-    missing = sorted(set(own) - set(params))
-    if unknown or missing:
-        raise KeyError(f"parameter names differ: unknown {unknown}, "
-                       f"missing {missing}")
-    bad = {k: (tuple(np.shape(v)), tuple(own[k].shape))
-           for k, v in params.items() if tuple(np.shape(v)) != own[k].shape}
-    if bad:
-        raise ValueError(f"shape mismatch (given, expected): {bad}")
-    with torch.no_grad():
-        for k, v in params.items():
-            own[k].copy_(torch.from_numpy(np.array(v)))
+    own.update(model.named_buffers())
+    _copy_named(own, states)
