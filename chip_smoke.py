@@ -10,14 +10,20 @@ Phases, in the order they run (any failure raises and exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from the sources in the checkout (one nvcc per
    source, all started together) and print each kernel's registers and
-   spills;
+   spills; then a census of the flash kernels' SASS (`cuobjdump -sass`):
+   tensor-core products (HMMA, HGMMA), asynchronous or 16-byte global
+   loads (LDGSTS, UTMALDG, LDG.E.128) and ldmatrix (LDSM) per kernel
+   instantiation; every instantiation of the forward and the dK/dV kernel
+   must have products and such loads;
 3. hold the flash-attention forward kernel against its plain PyTorch
    version: the fused layout at gpt_medium's shape (fp32, fp32 with
    mxu_bf16, bf16), the head-split layout with Tq != Tk (causal and
    not), head dims 32 and 64, causal rows with no key (Tq > Tk, exact 0);
    print max|d|, the kernel's, the plain version's and
    F.scaled_dot_product_attention's times (the last as a yardstick only,
-   where its masking is the same) and the data-sheet bound;
+   where its masking is the same) and the data-sheet bound at the rate of
+   the kernel's arithmetic (fp32: three TF32 passes, 165 TFLOP/s; bf16:
+   989), with the fp32 FMA figure (67 TFLOP/s) beside it;
 4. the same for the dQ and dK/dV backward kernels (9 cases, with bitwise
    repeats, exact-zero empty rows and an lse cotangent);
 5. hold the max-pool backward kernel (K2a) against its plain version on
@@ -48,7 +54,8 @@ Phases, in the order they run (any failure raises and exits non-zero):
    BatchNorm statistics, a finite eval-mode forward, images/s with the
    switch on and off in turns, one bf16 step that runs the kernel on
    bf16;
-9. print the `kernels` line, then the result line.
+9. print the `kernels` line (gpt_medium's fused fp32 shape, with the
+   bf16 figures and the SASS census beside), then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -61,7 +68,12 @@ import time
 import numpy as np
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM data sheet, HBM3
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}  # non-tensor fp32; dense bf16
+# H100 SXM data sheet, dense: fp32 outside the tensor cores; fp32 as three
+# TF32 passes on the tensor cores (495 / 3); bf16
+PEAK_FLOPS = {"fp32": 67e12, "tf32x3": 495e12 / 3, "bf16": 989e12}
+#: SASS opcodes counted per kernel: tensor-core products, asynchronous or
+#: 16-byte global loads, and ldmatrix
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDG.E.128", "LDSM")
 SEED = 0
 
 
@@ -89,7 +101,7 @@ def attention_bound(b, h, tq, tk, d, causal, elem_bytes, kind):
     """Least time (ms) for one attention forward: the larger of bytes
     (q, k, v read once, O and lse written once) over the memory rate and
     the two products' operations on the (q, k) pairs this mask keeps
-    over the peak rate for the operand type."""
+    over the peak rate of `kind` (a key of PEAK_FLOPS)."""
     flops = 4.0 * b * h * kept_pairs(tq, tk, causal) * d
     nbytes = elem_bytes * b * h * d * (2 * tq + 2 * tk) + 4 * b * h * tq
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[kind]
@@ -166,14 +178,20 @@ def run_case(torch, fa, case):
 
         library_err = (sdpa().float() - o_ref.float()).abs().max().item()
         library_ms = cuda_ms(torch, sdpa)
-    kind = "bf16" if (mxu or dtype == torch.bfloat16) else "fp32"
+    bf16 = mxu or dtype == torch.bfloat16
+    # fp32 products run as three TF32 passes; the FMA figure stays beside
     bound_ms, bound_by = attention_bound(b, h, tq, tk, d, causal,
-                                         q.element_size(), kind)
+                                         q.element_size(),
+                                         "bf16" if bf16 else "tf32x3")
+    bound_fma_ms = attention_bound(b, h, tq, tk, d, causal,
+                                   q.element_size(),
+                                   "bf16" if bf16 else "fp32")[0]
     row = dict(case=name, layout=layout, shape=[b, h, tq, tk, d],
                causal=causal, dtype=dt, mxu_bf16=mxu, max_abs_err=err_o,
                lse_max_abs_err=err_lse, tolerance=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
                library_max_abs_err=library_err, bound_ms=bound_ms,
+               bound_fma_ms=bound_fma_ms,
                bound_by=bound_by, empty_rows=empty, empty_rows_zero=zero_rows,
                ok=err_o <= tol and err_lse <= tol and zero_rows)
     print("case " + json.dumps(row), flush=True)
@@ -186,7 +204,7 @@ def backward_bounds(b, h, tq, tk, d, causal, elem_bytes, kind):
     S, dP, dQ; dK/dV: S, dP, dV, dK; each reads q, k, v, dO, lse and
     delta once and writes its gradients once) and the whole backward
     (the five products; q, k, v, O, dO, lse, delta read, dq, dk, dv
-    written)."""
+    written). `kind` is a key of PEAK_FLOPS."""
     pairs = kept_pairs(tq, tk, causal)
     rows = 4 * b * h * tq * 2  # lse and delta, fp32
     q_b, kv_b = elem_bytes * b * h * tq * d, elem_bytes * b * h * tk * d
@@ -328,9 +346,15 @@ def run_bwd_case(torch, fa, case):
         library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
             ref_o, (qs, ks, vs), do, retain_graph=True))
         del ref_o
-    kind = "bf16" if (mxu or dtype == torch.bfloat16) else "fp32"
-    bounds = backward_bounds(b, h, tq, tk, d, causal, q.element_size(),
-                             kind)
+    bf16 = mxu or dtype == torch.bfloat16
+    fma = backward_bounds(b, h, tq, tk, d, causal, q.element_size(),
+                          "bf16" if bf16 else "fp32")
+    tc = backward_bounds(b, h, tq, tk, d, causal, q.element_size(),
+                         "bf16" if bf16 else "tf32x3")
+    # each kernel at the rate of its own arithmetic: dK/dV on the tensor
+    # cores (three TF32 passes in fp32), dQ on FMA in fp32; the whole
+    # backward at the tensor-core rate
+    bounds = {"dq": fma["dq"], "dkv": tc["dkv"], "total": tc["total"]}
     row = dict(case=name, layout=layout, shape=[b, h, tq, tk, d],
                causal=causal, dtype=dt, mxu_bf16=mxu, lse_cotangent=with_glse,
                max_abs_err=errs, rel_err=rel, tolerance=tol, ms=ms,
@@ -338,6 +362,7 @@ def run_bwd_case(torch, fa, case):
                library_ms=library_ms,
                bound_ms={k: v[0] for k, v in bounds.items()},
                bound_by={k: v[1] for k, v in bounds.items()},
+               bound_fma_ms={k: v[0] for k, v in fma.items()},
                empty_rows=empty, empty_rows_zero=zero_rows,
                bitwise_repeat=bitwise,
                ok=max(rel.values()) <= tol and zero_rows and bitwise)
@@ -632,20 +657,30 @@ def seeded_params(model, seed):
 
 
 
+def kernel_name(mangled):
+    """`flash_fwd_kernel<128, float, 0>` for a mangled kernel
+    instantiation in `mangled`, or None."""
+    import re
+
+    m = re.search(r"([a-z_]+_kernel)I((?:Li-?\d+E|f|13__nv_bfloat16)+)E",
+                  mangled)
+    if not m:
+        return None
+    names = {"f": "float", "13__nv_bfloat16": "bf16"}
+    args = re.findall(r"Li(-?\d+)E|(f|13__nv_bfloat16)", m.group(2))
+    return f"{m.group(1)}<" + ", ".join(num or names[typ]
+                                        for num, typ in args) + ">"
+
+
 def ptxas_summary(log):
     """One line per kernel from nvcc's -Xptxas -v report: registers and
     spill bytes."""
     import re
 
     out, name = [], None
-    names = {"f": "float", "13__nv_bfloat16": "bf16"}
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function .\S*?([a-z_]+_kernel)I"
-                      r"((?:Li-?\d+E|f|13__nv_bfloat16)+)E", line)
-        if m:
-            args = re.findall(r"Li(-?\d+)E|(f|13__nv_bfloat16)", m.group(2))
-            name = f"{m.group(1)}<" + ", ".join(
-                num or names[typ] for num, typ in args) + ">"
+        if "Compiling entry function" in line:
+            name = kernel_name(line)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -655,6 +690,33 @@ def ptxas_summary(log):
             out.append(f"{name}: {m.group(1)} registers, {spills}")
             name = None
     return out
+
+
+def sass_census(lib_path, cuobjdump):
+    """{kernel instantiation: {opcode: count}} of SASS_OPS in a built
+    library, from `cuobjdump -sass`."""
+    import re
+
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    census, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = kernel_name(line)
+            if name:
+                census[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if m and name:
+            op = m.group(1)
+            base = op.split(".")[0]
+            if base in census[name]:
+                census[name][base] += 1
+            elif base == "LDG" and ".128" in op:
+                census[name]["LDG.E.128"] += 1
+    return census
 
 
 def counts(fa, mp):
@@ -804,6 +866,25 @@ def main() -> int:
     for name in sorted(libs):
         for line in ptxas_summary(_build.build_log(name)):
             print(f"ptxas {line}", flush=True)
+    # the SASS of the tensor-core kernels: their products and copies
+    from pathlib import Path
+
+    cuobjdump = str(Path(_build._find_nvcc()).parent / "cuobjdump")
+    sass = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        for fn, ops in sass_census(libs[name], cuobjdump).items():
+            sass[fn] = ops
+            print(f"sass {fn}: " + ", ".join(f"{k} {v}" for k, v in
+                                             ops.items()), flush=True)
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        insts = {fn: ops for fn, ops in sass.items()
+                 if fn.startswith(kernel + "<")}
+        check(insts and all(
+            ops["HMMA"] + ops["HGMMA"] > 0
+            and ops["LDGSTS"] + ops["UTMALDG"] + ops["LDG.E.128"] > 0
+            for ops in insts.values()),
+            f"{kernel}: an instantiation without tensor-core products or "
+            f"asynchronous / 16-byte loads in its SASS: {insts}")
 
     # 3-5. the kernels against their plain versions
     rows = [run_case(torch, fa, c) for c in CASES]
@@ -899,9 +980,15 @@ def main() -> int:
     # 8. the CNN training path: ResNet-50, counted around one step
     resnet_launches, resnet = resnet_path(torch, fa, mp)
 
-    # 9. report
+    # 9. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool = rows[0], bwd_rows[0], pool_rows[8]
+    fwd16, bwd16 = rows[2], bwd_rows[2]
     common = dict(route="cuda", shape=fwd["shape"], card=card)
+
+    def sass_of(kernel):
+        return {fn: ops for fn, ops in sass.items()
+                if fn.startswith(kernel + "<")}
+
     kernels = [
         dict(name="flash_fwd", source="singa_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="singa_tpu/ops/flash_attention.py:829",
@@ -911,23 +998,36 @@ def main() -> int:
                                "train_step": train_launches["flash_fwd"]},
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+             bound_fma_ms=fwd["bound_fma_ms"],
              bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
-             **common)]
+             bf16=dict(max_abs_err=fwd16["max_abs_err"], ms=fwd16["ms"],
+                       plain_ms=fwd16["plain_ms"],
+                       bound_ms=fwd16["bound_ms"],
+                       bound_by=fwd16["bound_by"],
+                       library_ms=fwd16["library_ms"]),
+             sass=sass_of("flash_fwd_kernel"), **common)]
     for name, key, sites in (
             ("flash_bwd_dq", "dq", (":872", ":426")),
             ("flash_bwd_dkv", "dkv", (":911", ":449"))):
+        grads = ("dq",) if key == "dq" else ("dk", "dv")
         kernels.append(dict(
             name=name, source="singa_tpu_torch/ops/csrc/flash_bwd.cu",
             replaces=f"singa_tpu/ops/flash_attention.py{sites[0]}",
             also_replaces=f"singa_tpu/ops/flash_attention.py{sites[1]}",
             launches=train_launches[name],
-            max_abs_err=max(bwd["max_abs_err"][g] for g in (
-                ("dq",) if key == "dq" else ("dk", "dv"))),
+            max_abs_err=max(bwd["max_abs_err"][g] for g in grads),
             ms=bwd[f"ms_{key}"], plain_ms=bwd["plain_ms"],
             bound_ms=bwd["bound_ms"][key], bound_by=bwd["bound_by"][key],
+            bound_fma_ms=bwd["bound_fma_ms"][key],
             library_ms=bwd["library_ms"],
             plain_and_library_compute="dq, dk and dv together",
-            **common))
+            bf16=dict(max_abs_err=max(bwd16["max_abs_err"][g]
+                                      for g in grads),
+                      ms=bwd16[f"ms_{key}"], plain_ms=bwd16["plain_ms"],
+                      bound_ms=bwd16["bound_ms"][key],
+                      bound_by=bwd16["bound_by"][key],
+                      library_ms=bwd16["library_ms"]),
+            sass=sass_of(f"{name}_kernel"), **common))
     kernels.append(dict(
         name="max_pool_bwd", route="cuda",
         source="singa_tpu_torch/ops/csrc/max_pool_bwd.cu",

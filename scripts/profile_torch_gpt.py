@@ -10,6 +10,11 @@ warms up, then traces with torch.profiler, once each:
 - one training step, `model(x, y)` on a 4 x 1024 batch with AdamW
   (fp32, remat none: 12 flash_fwd, 12 dQ and 12 dK/dV launches).
 
+Then, as the yardstick beside the flash kernels, PyTorch's
+`scaled_dot_product_attention` forward and backward on gpt_medium's
+per-head q, k, v (4, 8, 1024, 128), causal, fp32 and bf16: its kernel
+names show which of PyTorch's attention kernels it picks.
+
 Then ResNet-50 at full width with chip_smoke.py's seeded states, NHWC,
 SGD(lr 0.05, momentum 0.9), the max-pool kernel switched on: one fp32
 training step on a seeded (128, 3, 224, 224) batch (1 K2a launch).
@@ -17,8 +22,8 @@ training step on a seeded (128, 3, 224, 224) batch (1 K2a launch).
 For each it prints the host wall time, the device time summed over all
 kernels, the device's idle share of the wall time, and the device time
 grouped by kernel family with the ten largest kernels by name: for GPT
-the flash forward, the flash backward, matrix products, the optimizer's
-update and the rest; for ResNet-50 the convolutions (with the one fc
+the flash forward, the flash backward's dQ and dK/dV kernels, matrix
+products, the optimizer's update and the rest; for ResNet-50 the convolutions (with the one fc
 product), the max-pool backward kernel, the optimizer's update, and
 batch norm with the other elementwise kernels. The optimizer's kernels
 are those launched inside its `apply_updates`, which the script wraps in
@@ -53,8 +58,10 @@ def family(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_fwd"
-    if "flash_bwd" in n:
-        return "flash_bwd"
+    if "flash_bwd_dq" in n:
+        return "flash_bwd_dq"
+    if "flash_bwd_dkv" in n:
+        return "flash_bwd_dkv"
     if any(s in n for s in _PRODUCTS):
         return "matmul"
     return "other"
@@ -196,8 +203,31 @@ def main() -> int:
     profile(torch, train_step, "train_step_4x1024")
     del model, update
     torch.cuda.empty_cache()
+    sdpa_trace(torch, args.seed)
     resnet_trace(torch, args.seed)
     return 0
+
+
+def sdpa_trace(torch, seed):
+    """SDPA forward and backward at gpt_medium's attention shape, fp32 and
+    bf16, causal: the library call chip_smoke.py times beside the flash
+    kernels."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn((4, 8, 1024, 128), generator=gen,
+                                  device="cuda").to(dtype)
+                      for _ in range(4))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+
+        def step():
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            torch.autograd.grad(o, (q, k, v), g)
+
+        step()  # warm-up
+        profile(torch, step, f"sdpa_fwd_bwd_{str(dtype)[6:]}")
 
 
 def resnet_trace(torch, seed):

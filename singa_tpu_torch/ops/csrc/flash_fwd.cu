@@ -19,31 +19,45 @@
 // lse = m + log(l) as fp32. With mxu_bf16 the q, k, v and p operands are
 // rounded to bf16 before each product, with fp32 accumulation (_op, :97).
 //
-// Design (first, simple version): one CTA of 256 threads per (batch*head,
-// 64-row Q tile); a loop over 64-row K/V tiles that stops at the causal
-// bound, so tiles wholly above the diagonal are never loaded (_block_live,
-// :106); Q, K^T, V and the score tile staged in dynamic shared memory as
-// fp32; products by FMA. Q.K^T runs as 4x4 register micro-tiles per thread;
-// each row's softmax and its O accumulator belong to 4 adjacent lanes.
+// What bounds it on this card, at gpt_medium's shape (B 4, T 1024, H 8,
+// hd 128, causal): the two products on the kept pairs are 8.6 GFLOP. In
+// fp32 they run as three TF32 passes on the tensor cores, 495/3 = 165
+// TFLOP/s, so 52 us, against 20 us for the 67 MB of q, k, v in and O out
+// at 3.35 TB/s: operations. In bf16 (989 TFLOP/s, 8.7 us) the 34 MB take
+// 10 us: bytes, nearly level. (Data-sheet figures, reckoned, not measured.)
 //
-// Bound at gpt_medium's shape (B=4, T=1024, H=8, hd=128, causal): the
-// causal half of the two products is 2*B*H*T^2*hd = 8.6 GFLOP, ~8.7 us at
-// the data-sheet 989 TFLOP/s (bf16 tensor cores) and ~128 us at 67 TFLOP/s
-// (fp32 outside the tensor cores, the units this kernel uses); about 67 MB
-// move in fp32 (qkv in, O out), ~20 us at 3.35 TB/s. So the bound is
-// operations. These figures are reckoned from the data sheet, not measured;
-// wgmma and TMA, which reach the tensor-core rate, are later work.
+// Design (attn_tiles.cuh holds the building blocks):
+// - One CTA of 4 warps per (batch*head, 64-row Q tile); each warp owns 16
+//   query rows (the FA2 arrangement). The grid runs the last, heaviest
+//   causal Q tiles first.
+// - Q and a two-stage ring of K/V tiles sit in dynamic shared memory,
+//   filled by 16-byte cp.async; the copy of tile t+1 is issued before the
+//   products of tile t. bf16 tiles stay bf16; fp32 tiles stay fp32 and
+//   are split into TF32 hi/lo as fragments are read.
+// - S = Q K^T accumulates in mma.sync registers; the online softmax runs
+//   on the accumulator fragments with quad shuffles, and P goes from the
+//   S accumulator straight into the A operand of P V (for TF32 by taking
+//   the keys of each k-step in a permuted order, see attn_tiles.cuh), so
+//   the score tile never touches shared memory. O accumulates in
+//   registers.
+// - Products: fp32 with mxu_bf16 off runs 3xTF32 (m16n8k8), the cross
+//   terms of S summing in registers of their own so that three MMA
+//   chains per tile are in flight; mxu_bf16 and bf16 inputs run bf16
+//   m16n8k16. For bf16 inputs without mxu_bf16 the reference keeps p in
+//   fp32, so P V runs as two bf16 products of p = p_hi + p_lo.
+// - The softmax runs in base 2 on ex2.approx (scores scaled by
+//   scale * log2(e)); lse goes back to natural units.
+// - Tile sizes: 64 keys per stage, 32 at hd 128 in fp32, so that two CTAs
+//   fit on an SM (about 100 KB of shared memory each in that case).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per CTA
-constexpr int BK = 64;    // key rows per K/V tile
-constexpr int NT = 256;   // threads per CTA
-constexpr float NEG = -1e30f;
+using namespace attn;
+
+constexpr int BQ = 64;   // query rows per CTA, 16 per warp
+constexpr int NT = 128;  // threads per CTA
 
 struct Params {
   const void* q;
@@ -58,184 +72,157 @@ struct Params {
   int causal, mxu_bf16;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as astype does
-}
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int D>
-constexpr size_t smem_floats() {
-  return BQ * (D + 1)      // Qs[r][d], padded rows
-         + D * (BK + 1)    // Kt[d][c], K transposed, padded rows
-         + BK * D          // Vs[c][d]
-         + BQ * (BK + 1);  // Ps[r][c], scores then probabilities
-}
-
 template <int D, typename T>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Kt = Qs + BQ * (D + 1);
-  float* Vs = Kt + D * (BK + 1);
-  float* Ps = Vs + BK * D;
+struct Cfg {
+  static constexpr int BK = (D == 128 && sizeof(T) == 4) ? 32 : 64;
+  static constexpr int LD = Tile<D, T>::LD;
+  static constexpr size_t SMEM = sizeof(T) * LD * (BQ + 4 * BK);
+};
 
-  const int bh = blockIdx.y;
+template <int D, typename T, int MODE>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
+  constexpr int BK = Cfg<D, T>::BK, LD = Cfg<D, T>::LD, NJ = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + BQ * LD;       // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
+
+  const int bh = blockIdx.x;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const bool rnd = p.mxu_bf16 != 0;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int shift = p.tk - p.tq;  // bottom-right causal alignment
+  const bool causal = p.causal != 0;
+  const bool split = p.mxu_bf16 == 0;
+  // the softmax runs in base 2: scores in units of log2(e)
+  const float scale2 = p.scale * 1.4426950408889634f;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
   const T* kg = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[1];
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float x = 0.f;
-    if (q0 + r < p.tq) x = to_f(qg[(int64_t)(q0 + r) * p.sq[2] + d]);
-    Qs[r * (D + 1) + d] = rnd ? round_bf16(x) : x;
-  }
+  const int n_tiles = live_key_tiles(q0, BQ, BK, p.tk, shift, causal);
 
-  // softmax / PV ownership: row `row` of the tile, columns sub + 4*j
-  const int row = tid >> 2, sub = tid & 3;
-  const int qi = q0 + row;
-  float m_i = NEG, l_i = 0.f;
-  float acc[D / 4];
+  load_rows_async<BQ, D, NT>(Qs, qg, p.sq[2], q0, p.tq);
+  if (n_tiles > 0) {
+    load_rows_async<BK, D, NT>(Ks, kg, p.sk[2], 0, p.tk);
+    load_rows_async<BK, D, NT>(Vs, vg, p.sv[2], 0, p.tk);
+  }
+  cp_async_commit();
+
+  // this thread's two rows of the warp's 16: g and g + 8
+  const int r0 = q0 + warp * 16 + g;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
-
-  // S = Q K^T ownership: rows ty*4 + i, columns tx + 16*j
-  const int ty = tid >> 4, tx = tid & 15;
-
-  int n_tiles = (p.tk + BK - 1) / BK;
-  if (p.causal) {
-    const int kmax = q0 + BQ - 1 + shift;  // last key any row here may see
-    n_tiles = min(n_tiles, kmax < 0 ? 0 : kmax / BK + 1);
-  }
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy overlaps this one's math
+      const int nx = (t + 1) & 1, k1 = (t + 1) * BK;
+      load_rows_async<BK, D, NT>(Ks + nx * BK * LD, kg, p.sk[2], k1, p.tk);
+      load_rows_async<BK, D, NT>(Vs + nx * BK * LD, vg, p.sv[2], k1, p.tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the newest group has landed
+    __syncthreads();
+
     const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int c = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + c < p.tk) {
-        kx = to_f(kg[(int64_t)(k0 + c) * p.sk[2] + d]);
-        vx = to_f(vg[(int64_t)(k0 + c) * p.sv[2] + d]);
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_abt<MODE, D, NJ>(s, Qs + warp * 16 * LD, Ks + st * BK * LD);
+
+    // scale, mask (only where a tile crosses the edge or the diagonal)
+    const bool edge = k0 + BK > p.tk ||
+                      (causal && k0 + BK - 1 > q0 + warp * 16 + shift);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int qi = r0 + (e >> 1) * 8;
+        const bool ok =
+            !edge || (kk < p.tk && (!causal || kk <= qi + shift));
+        s[j][e] = ok ? s[j][e] * scale2 : NEG;
       }
-      Kt[d * (BK + 1) + c] = rnd ? round_bf16(kx) : kx;
-      Vs[c * D + d] = rnd ? round_bf16(vx) : vx;
-    }
-    __syncthreads();
 
-    float s[4][4];
+    // online softmax on the fragments: each row lives in one lane quad
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
+      for (int j = 0; j < NJ; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = exp2_fast(m[r] - m_new);
+      float ls = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * (D + 1) + d];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = Kt[d * (BK + 1) + tx + 16 * j];
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          // masked: an exact 0 (a row with no key has m_new = NEG too)
+          const float x = s[j][e];
+          const float pe = x == NEG ? 0.f : exp2_fast(x - m_new);
+          ls += pe;
+          s[j][e] = pe;
+        }
+      ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+      ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+      l[r] = l[r] * corr + ls;
+      m[r] = m_new;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kk = k0 + c;
-        const bool ok = kk < p.tk && (!p.causal || kk <= q0 + r + shift);
-        Ps[r * (BK + 1) + c] = ok ? s[i][j] * p.scale : NEG;
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
       }
     }
-    __syncthreads();
 
-    // online softmax over this tile: 4 lanes per row, 16 columns each
-    float* prow = Ps + row * (BK + 1);
-    float mx = NEG;
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) mx = fmaxf(mx, prow[sub + 4 * j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = expf(m_i - m_new);
-    float ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j) {
-      const int c = sub + 4 * j;
-      const int kk = k0 + c;
-      const bool ok = kk < p.tk && (!p.causal || kk <= qi + shift);
-      const float e = ok ? expf(prow[c] - m_new) : 0.f;  // masked: exact 0
-      ls += e;
-      prow[c] = rnd ? round_bf16(e) : e;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l_i = l_i * corr + ls;
-    m_i = m_new;
-    __syncwarp();  // the row's 4 lanes see each other's p
-
-    // O = O * corr + P V
-#pragma unroll
-    for (int j = 0; j < D / 4; ++j) acc[j] *= corr;
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float pc = prow[c];
-      const float* vrow = Vs + c * D + sub;
-#pragma unroll
-      for (int j = 0; j < D / 4; ++j) acc[j] = fmaf(pc, vrow[4 * j], acc[j]);
-    }
+    mma_pv<MODE, D, NJ>(acc, s, Vs + st * BK * LD, split);
+    __syncthreads();  // every warp is done with stage st
   }
+  cp_async_wait<0>();
 
-  if (qi < p.tq) {
-    const float l = fmaxf(l_i, 1e-30f);
-    T* og = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1] +
-            (int64_t)qi * p.so[2];
+  T* og = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
+  float* lg = p.lse + b * p.sl[0] + h * p.sl[1];
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) store(og + sub + 4 * j, acc[j] / l);
-    if (sub == 0) {
-      p.lse[b * p.sl[0] + h * p.sl[1] + (int64_t)qi * p.sl[2]] =
-          m_i + logf(l);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= p.tq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    T* orow = og + (int64_t)qi * p.so[2] + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(orow + 8 * n, acc[n][2 * r] / lc, acc[n][2 * r + 1] / lc);
+    // m back in natural units; a row with no key keeps m = -1e30
+    const float mn = m[r] == NEG ? NEG : m[r] * 0.6931471805599453f;
+    if (t4 == 0) lg[(int64_t)qi * p.sl[2]] = mn + logf(lc);
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, int MODE>
 cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+  const size_t smem = Cfg<D, T>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<D, T, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.tq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<D, T><<<grid, NT, smem, stream>>>(p);
+  const dim3 grid(bh, (p.tq + BQ - 1) / BQ);
+  flash_fwd_kernel<D, T, MODE><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const Params& p, int d, int bh, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<32, T>(p, bh, stream);
-    case 64: return launch<64, T>(p, bh, stream);
-    case 128: return launch<128, T>(p, bh, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_t(const Params& p, int dtype, int bh,
+                     cudaStream_t stream) {
+  if (dtype == 1) return launch<D, __nv_bfloat16, BF16>(p, bh, stream);
+  if (p.mxu_bf16) return launch<D, float, BF16>(p, bh, stream);
+  return launch<D, float, TF32X3>(p, bh, stream);
 }
 
 }  // namespace
@@ -270,14 +257,14 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   p.mxu_bf16 = mxu_bf16;
   const int bh = batch * heads;
   if (tq == 0 || bh == 0) return 0;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
-    err = launch_d<float>(p, d, bh, s);
-  } else if (dtype == 1) {
-    err = launch_d<__nv_bfloat16>(p, d, bh, s);
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (d) {
+    case 32: err = launch_t<32>(p, dtype, bh, s); break;
+    case 64: err = launch_t<64>(p, dtype, bh, s); break;
+    case 128: err = launch_t<128>(p, dtype, bh, s); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -13,7 +13,10 @@ kernels:
 Each takes (batch, head, time) strides, so `flash_attention_qkv` hands
 them per-head views into the fused (B, T, 3d) projection, its (B, T, d)
 output and the (B, T, 3d) gradient of qkv, with no copy, transpose or
-concatenation.
+concatenation. The forward and the dK/dV kernel run on the tensor cores
+and copy rows into shared memory 16 bytes at a time, so every
+(B, H, T, D) operand needs 16-byte-aligned rows (pointer and strides);
+`_check` refuses others with a ValueError on every device.
 
 `flash_attention` and `flash_attention_qkv` are `torch.autograd.Function`s
 (`_FlashAttention`, `_FlashAttentionQKV`), the counterparts of the
@@ -182,6 +185,14 @@ def _check(q, k, v, like_q=(), like_k=(), rows=()):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim, got "
                              f"strides {x.stride()}")
+        # the kernels copy rows in 16-byte pieces (cp.async)
+        nbytes = x.element_size()
+        if x.data_ptr() % 16 or any(s * nbytes % 16 for s in x.stride()[:3]):
+            raise ValueError(
+                f"{name} needs 16-byte-aligned rows: its data pointer and "
+                f"its (batch, head, time) strides in bytes must be "
+                f"multiples of 16, got pointer {x.data_ptr()} and strides "
+                f"{x.stride()} of {nbytes}-byte elements")
     for name, x in mats + list(rows):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")

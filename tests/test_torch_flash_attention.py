@@ -164,7 +164,8 @@ def test_bf16_inputs_keep_their_dtype():
     np.testing.assert_allclose(o.float().numpy(), ref.numpy(), atol=2e-2)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride", "shape"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride", "shape",
+                                 "align"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     q, k, v = (to_torch(a) for a in _qkv(1, 2, 16, 16, 32))
     if bad == "head_dim":
@@ -173,7 +174,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         q, k, v = (x.half() for x in (q, k, v))
     elif bad == "stride":
         q = to_torch(rand((1, 2, 16, 64), 1))[..., ::2]
-    else:
+    elif bad == "shape":
         k = k[:, :1]
-    with pytest.raises((ValueError, TypeError)):
+    else:  # rows that do not start on a 16-byte boundary
+        q = torch.empty(q.numel() + 1)[1:].view(q.shape).copy_(q)
+    with pytest.raises((ValueError, TypeError)) as info:
         fa.flash_attention(q, k, v)
+    if bad == "align":
+        assert "16-byte-aligned" in str(info.value)

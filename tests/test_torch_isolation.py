@@ -110,3 +110,19 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
         _build.build()
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.load("flash_fwd")
+
+
+def test_a_header_edit_renames_every_library(monkeypatch, tmp_path):
+    """Every `*.cuh` is hashed into every library's name, so editing a
+    shared header (attn_tiles.cuh) rebuilds all kernels that may use it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    assert (csrc / "attn_tiles.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n) for n in _build.sources()}
+    with open(csrc / "attn_tiles.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build._target(n) for n in _build.sources()}
+    assert all(before[n] != after[n] for n in before)
