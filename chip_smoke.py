@@ -10,11 +10,12 @@ Phases, in the order they run (any failure raises and exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from the sources in the checkout (one nvcc per
    source, all started together) and print each kernel's registers and
-   spills; then a census of the flash kernels' SASS (`cuobjdump -sass`):
+   spills; then a census of the kernels' SASS (`cuobjdump -sass`):
    tensor-core products (HMMA, HGMMA), asynchronous or 16-byte global
    loads (LDGSTS, UTMALDG, LDG.E.128) and ldmatrix (LDSM) per kernel
-   instantiation; every instantiation of the forward and the dK/dV kernel
-   must have products and such loads;
+   instantiation; every instantiation of the forward, the dQ and the
+   dK/dV kernel must have products and such loads, and the max-pool
+   backward's 16-byte vector instantiations such loads;
 3. hold the flash-attention forward kernel against its plain PyTorch
    version: the fused layout at gpt_medium's shape (fp32, fp32 with
    mxu_bf16, bf16), the head-split layout with Tq != Tk (causal and
@@ -28,13 +29,18 @@ Phases, in the order they run (any failure raises and exits non-zero):
    repeats, exact-zero empty rows and an lse cotangent);
 5. hold the max-pool backward kernel (K2a) against its plain version on
    ReLU-clamped inputs (exact-zero ties): the reference's eight cases,
-   the ResNet-50 stem shape in fp32 and bf16, and the pools of
-   vgg16_cifar, alexnet_cifar and the ImageNet AlexNet at batch 128;
-   the same selected positions, max|d| within 1e-6 (fp32) or 1e-2
-   (bf16) of max(1, max|plain|), a bitwise repeat; and the default
-   route (PyTorch's max-pool backward) must pick the same positions;
-   print the kernel's, the plain version's and that library backward's
-   times and the bytes bound;
+   the ResNet-50 stem shape in fp32 and bf16 (which must take the
+   kernel's 16-byte vector route), the pools of vgg16_cifar,
+   alexnet_cifar and the ImageNet AlexNet at batch 128, a plateau of
+   tied values (x rounded to a few levels) under overlapping k3 s1 p1
+   windows at batch 128, x in channels-first memory (which must take
+   the kernel's one-channel route, in fp32 and bf16) and k7 s1 windows
+   (taken in chunks);
+   the same selected positions, max|d| within 1e-6 (fp32) or 1e-2 (bf16)
+   of max(1, max|plain|), a bitwise repeat; and the default route
+   (PyTorch's max-pool backward) must pick the same positions; print the
+   kernel's, the plain version's and that library backward's times and
+   the bytes bound;
 6. gpt_medium at full width (seeded random weights carried in through
    load_singa_tpu_params) scores 4 x 1024 tokens with `model(ids)`,
    which must launch the forward kernel exactly 12 times, then
@@ -351,10 +357,9 @@ def run_bwd_case(torch, fa, case):
                           "bf16" if bf16 else "fp32")
     tc = backward_bounds(b, h, tq, tk, d, causal, q.element_size(),
                          "bf16" if bf16 else "tf32x3")
-    # each kernel at the rate of its own arithmetic: dK/dV on the tensor
-    # cores (three TF32 passes in fp32), dQ on FMA in fp32; the whole
-    # backward at the tensor-core rate
-    bounds = {"dq": fma["dq"], "dkv": tc["dkv"], "total": tc["total"]}
+    # both kernels run on the tensor cores (three TF32 passes in fp32):
+    # their bounds at that rate, the FMA figures beside
+    bounds = tc
     row = dict(case=name, layout=layout, shape=[b, h, tq, tk, d],
                causal=causal, dtype=dt, mxu_bf16=mxu, lse_cotangent=with_glse,
                max_abs_err=errs, rel_err=rel, tolerance=tol, ms=ms,
@@ -371,27 +376,45 @@ def run_bwd_case(torch, fa, case):
 
 
 POOL_CASES = [
-    # name, x (N, H, W, C), window, strides, pads, dtype; the first eight
-    # are the reference's (tests/test_max_pool_kernel.py)
-    ("ref_stem_like", (2, 16, 16, 8), (3, 3), (2, 2), (1, 1), "float32"),
-    ("ref_odd_hw", (2, 15, 17, 8), (3, 3), (2, 2), (1, 1), "float32"),
-    ("ref_k2s2_bf16", (2, 16, 16, 8), (2, 2), (2, 2), (0, 0), "bfloat16"),
-    ("ref_asymmetric", (1, 9, 11, 4), (3, 2), (1, 2), (1, 0), "float32"),
-    ("ref_stride1", (2, 12, 12, 8), (3, 3), (1, 1), (1, 1), "float32"),
-    ("ref_c16", (2, 16, 16, 16), (3, 3), (2, 2), (1, 1), "float32"),
-    ("ref_odd_h_bf16", (1, 14, 16, 8), (3, 3), (2, 2), (1, 1), "bfloat16"),
-    ("ref_c64_bf16", (2, 16, 16, 64), (3, 3), (2, 2), (1, 1), "bfloat16"),
+    # name, x (N, H, W, C), window, strides, pads, dtype, options
+    # ("levels": x rounded to multiples of 1/levels, plateaus of ties;
+    # "channels_first": x in NCHW memory, the kernel's scalar route); the
+    # first eight are the reference's (tests/test_max_pool_kernel.py)
+    ("ref_stem_like", (2, 16, 16, 8), (3, 3), (2, 2), (1, 1), "float32",
+     {}),
+    ("ref_odd_hw", (2, 15, 17, 8), (3, 3), (2, 2), (1, 1), "float32", {}),
+    ("ref_k2s2_bf16", (2, 16, 16, 8), (2, 2), (2, 2), (0, 0), "bfloat16",
+     {}),
+    ("ref_asymmetric", (1, 9, 11, 4), (3, 2), (1, 2), (1, 0), "float32",
+     {}),
+    ("ref_stride1", (2, 12, 12, 8), (3, 3), (1, 1), (1, 1), "float32",
+     {}),
+    ("ref_c16", (2, 16, 16, 16), (3, 3), (2, 2), (1, 1), "float32", {}),
+    ("ref_odd_h_bf16", (1, 14, 16, 8), (3, 3), (2, 2), (1, 1), "bfloat16",
+     {}),
+    ("ref_c64_bf16", (2, 16, 16, 64), (3, 3), (2, 2), (1, 1), "bfloat16",
+     {}),
     # the main path's shape first: ResNet-50's stem max-pool at batch 128
     ("resnet50_stem_fp32", (128, 112, 112, 64), (3, 3), (2, 2), (1, 1),
-     "float32"),
+     "float32", {}),
     ("resnet50_stem_bf16", (128, 112, 112, 64), (3, 3), (2, 2), (1, 1),
-     "bfloat16"),
+     "bfloat16", {}),
     ("vgg16_cifar_first_pool", (128, 32, 32, 64), (2, 2), (2, 2), (0, 0),
-     "float32"),
+     "float32", {}),
     ("alexnet_cifar_first_pool", (128, 16, 16, 64), (2, 2), (2, 2), (0, 0),
-     "float32"),
+     "float32", {}),
     ("alexnet_first_pool", (128, 55, 55, 64), (3, 3), (2, 2), (0, 0),
-     "float32"),
+     "float32", {}),
+    # first-match ties at size: x in {0, 0.5, 1, ...}, overlapping windows
+    ("plateau_k3s1p1", (128, 56, 56, 64), (3, 3), (1, 1), (1, 1),
+     "float32", {"levels": 2}),
+    # the kernel's other routes: one channel per item, windows in chunks
+    ("channels_first_scalar_route", (16, 28, 28, 64), (3, 3), (2, 2),
+     (1, 1), "float32", {"channels_first": True}),
+    ("k7_s1_chunked", (16, 28, 28, 64), (7, 7), (1, 1), (3, 3),
+     "float32", {}),
+    ("channels_first_scalar_route_bf16", (16, 28, 28, 64), (3, 3), (2, 2),
+     (1, 1), "bfloat16", {"channels_first": True}),
 ]
 POOL_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 # Tolerances are on max|d| / max(1, max|plain|): both sum at most
@@ -404,14 +427,21 @@ def run_pool_case(torch, mp, case):
     """Hold the max-pool backward kernel against `_max_pool_bwd_plain`
     and PyTorch's default route (its max-pool backward) on one case; time
     the kernel, the plain version and that library backward."""
-    name, shape, win, strd, pad, dt = case
+    name, shape, win, strd, pad, dt, opts = case
     dtype = getattr(torch, dt)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     x = torch.randn(shape, generator=gen, device="cuda").clamp_min(0)
+    if "levels" in opts:
+        x = (x * opts["levels"]).round() / opts["levels"]
     x = x.to(dtype)
+    if opts.get("channels_first"):
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     y = mp._fwd(x, win, strd, pad)
     dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    # the kernel's route for these operands (dx as the wrapper makes it)
+    vector_width = mp._vector_width(x, y, dy, torch.empty(
+        shape, dtype=dtype, device="cuda"))
 
     before = mp.MAX_POOL_BWD_LAUNCHES
     got = mp._max_pool_bwd(x, y, dy, win, strd, pad)
@@ -446,8 +476,9 @@ def run_pool_case(torch, mp, case):
     library_ms = cuda_ms(torch, library)
     nbytes = x.element_size() * 2 * (x.numel() + y.numel())
     row = dict(case=name, shape=list(shape), window=list(win),
-               strides=list(strd), pads=list(pad), dtype=dt,
-               max_abs_err=err, rel_err=rel, tolerance=POOL_TOL[dt],
+               strides=list(strd), pads=list(pad), dtype=dt, options=opts,
+               vector_width=vector_width, max_abs_err=err, rel_err=rel,
+               tolerance=POOL_TOL[dt],
                same_positions=same, bitwise_repeat=bitwise,
                default_route_same_positions=default_same,
                default_route_rel_err=default_rel, ms=ms, plain_ms=plain_ms,
@@ -662,14 +693,17 @@ def kernel_name(mangled):
     instantiation in `mangled`, or None."""
     import re
 
-    m = re.search(r"([a-z_]+_kernel)I((?:Li-?\d+E|f|13__nv_bfloat16)+)E",
-                  mangled)
+    m = re.search(
+        r"([a-z_]+_kernel)I((?:Li-?\d+E|Lb[01]E|f|13__nv_bfloat16)+)E",
+        mangled)
     if not m:
         return None
-    names = {"f": "float", "13__nv_bfloat16": "bf16"}
-    args = re.findall(r"Li(-?\d+)E|(f|13__nv_bfloat16)", m.group(2))
-    return f"{m.group(1)}<" + ", ".join(num or names[typ]
-                                        for num, typ in args) + ">"
+    names = {"f": "float", "13__nv_bfloat16": "bf16", "0": "false",
+             "1": "true"}
+    args = re.findall(r"Li(-?\d+)E|Lb([01])E|(f|13__nv_bfloat16)",
+                      m.group(2))
+    return f"{m.group(1)}<" + ", ".join(num or names[flag or typ]
+                                        for num, flag, typ in args) + ">"
 
 
 def ptxas_summary(log):
@@ -871,20 +905,29 @@ def main() -> int:
 
     cuobjdump = str(Path(_build._find_nvcc()).parent / "cuobjdump")
     sass = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "max_pool_bwd"):
         for fn, ops in sass_census(libs[name], cuobjdump).items():
             sass[fn] = ops
             print(f"sass {fn}: " + ", ".join(f"{k} {v}" for k, v in
                                              ops.items()), flush=True)
-    for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+
+    def wide_loads(ops):
+        return ops["LDGSTS"] + ops["UTMALDG"] + ops["LDG.E.128"] > 0
+
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkv_kernel"):
         insts = {fn: ops for fn, ops in sass.items()
                  if fn.startswith(kernel + "<")}
-        check(insts and all(
-            ops["HMMA"] + ops["HGMMA"] > 0
-            and ops["LDGSTS"] + ops["UTMALDG"] + ops["LDG.E.128"] > 0
-            for ops in insts.values()),
-            f"{kernel}: an instantiation without tensor-core products or "
-            f"asynchronous / 16-byte loads in its SASS: {insts}")
+        check(insts and all(ops["HMMA"] + ops["HGMMA"] > 0
+                            and wide_loads(ops) for ops in insts.values()),
+              f"{kernel}: an instantiation without tensor-core products or "
+              f"asynchronous / 16-byte loads in its SASS: {insts}")
+    # the max-pool backward's 16-byte channel-vector instantiations
+    insts = {fn: ops for fn, ops in sass.items() if fn.startswith((
+        "max_pool_bwd_kernel<float, 4,", "max_pool_bwd_kernel<bf16, 8,"))}
+    check(len(insts) == 4 and all(wide_loads(o) for o in insts.values()),
+          f"max_pool_bwd_kernel: a vector instantiation without 16-byte or "
+          f"asynchronous loads in its SASS: {insts}")
 
     # 3-5. the kernels against their plain versions
     rows = [run_case(torch, fa, c) for c in CASES]
@@ -898,6 +941,13 @@ def main() -> int:
     bad = [r["case"] for r in pool_rows if not r["ok"]]
     check(not bad, f"max-pool kernel or default route disagrees with the "
                    f"plain version, or does not repeat: {bad}")
+    routes = {r["case"]: r["vector_width"] for r in pool_rows}
+    check(routes["resnet50_stem_fp32"] == 4
+          and routes["resnet50_stem_bf16"] == 8
+          and routes["channels_first_scalar_route"] == 1
+          and routes["channels_first_scalar_route_bf16"] == 1,
+          f"the stem cases did not take the 16-byte vector route, or the "
+          f"channels-first case not the scalar one: {routes}")
 
     # 6. the scoring and generate paths, counted
     model = gpt_medium(device="cuda")
@@ -981,7 +1031,7 @@ def main() -> int:
     resnet_launches, resnet = resnet_path(torch, fa, mp)
 
     # 9. report: the fused fp32 shape, with the bf16 figures beside
-    fwd, bwd, pool = rows[0], bwd_rows[0], pool_rows[8]
+    fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
     common = dict(route="cuda", shape=fwd["shape"], card=card)
 
@@ -1037,7 +1087,13 @@ def main() -> int:
         plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
         bound_by=pool["bound_by"], library_ms=pool["library_ms"],
         library="aten max_pool2d_with_indices_backward", shape=pool["shape"],
-        dtype=pool["dtype"], card=card))
+        dtype=pool["dtype"], vector_width=pool["vector_width"],
+        bf16=dict(max_abs_err=pool16["max_abs_err"], ms=pool16["ms"],
+                  plain_ms=pool16["plain_ms"], bound_ms=pool16["bound_ms"],
+                  bound_by=pool16["bound_by"],
+                  library_ms=pool16["library_ms"],
+                  vector_width=pool16["vector_width"]),
+        sass=sass_of("max_pool_bwd_kernel"), card=card))
     print("train " + json.dumps(train), flush=True)
     print("resnet50_train " + json.dumps(resnet), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

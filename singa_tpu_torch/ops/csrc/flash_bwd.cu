@@ -28,26 +28,36 @@
 // What bounds them on this card, at gpt_medium's shape (B 4, T 1024, H 8,
 // hd 128, causal): the five products on the kept pairs are 10*B*H*pairs*D
 // = 21.5 GFLOP; q, k, v, O, dO, lse, delta in and dq, dk, dv out are
-// ~100 MB in fp32, ~0.03 ms at 3.35 TB/s. dK/dV alone runs four of the
-// products (17.2 GFLOP): 0.10 ms at 165 TFLOP/s (three TF32 passes on the
-// tensor cores, the units it uses in fp32; 0.26 ms at the 67 TFLOP/s of
-// FMA), 0.017 ms at 989 TFLOP/s in bf16 against ~0.02 ms of bytes. dQ runs
-// three (S, dP, dQ) on FMA: 0.19 ms at 67 TFLOP/s. Operations bound both
-// in fp32. (Data-sheet figures, reckoned, not measured.)
+// ~100 MB in fp32, ~0.03 ms at 3.35 TB/s. Both kernels run on the tensor
+// cores, in fp32 as three TF32 passes (495/3 = 165 TFLOP/s; 67 TFLOP/s is
+// the FMA figure). dK/dV runs four of the products (17.2 GFLOP): 0.10 ms
+// at 165 TFLOP/s (0.26 ms on FMA), 0.017 ms at 989 TFLOP/s in bf16
+// against ~0.02 ms of bytes. dQ runs three (S, dP, dQ; 12.9 GFLOP): 0.078
+// ms at 165 TFLOP/s (0.19 ms on FMA), 0.013 ms in bf16 against ~84 MB,
+// 0.025 ms, in fp32 (half in bf16). Operations bound both in fp32; in
+// bf16 operations and bytes are about level. (Data-sheet figures,
+// reckoned, not measured.)
 //
-// Design:
-// - dQ (first, simple version, FMA in fp32): one CTA of 256 threads per
-//   (batch*head, 64-row Q tile). Q, dO, the tile's lse and delta stay in
-//   shared memory; a loop over the live 64-key K/V tiles (it stops at the
-//   causal bound, as the forward does) stages K^T and V^T, computes S and
-//   dP as 4x4 register micro-tiles per thread, writes dS to shared memory
-//   and accumulates dQ = dS K in registers (each row's D columns spread
-//   over 4 adjacent lanes). 150 KB of shared memory at hd 128.
-// - dK/dV (tensor cores; building blocks in attn_tiles.cuh): one CTA of 4
-//   warps per (batch*head, 64-key tile), the first (heaviest causal) key
-//   tiles first. K and V stay in shared memory; the live Q tiles, from the
-//   first whose rows can see this K tile (the reference's clamp,
-//   _q_index_map :130, qi_map :896), stream with their dO, lse and delta
+// Design (building blocks in attn_tiles.cuh):
+// - dQ: the forward's arrangement with one more product. One CTA per
+//   (batch*head, Q tile), the last (heaviest causal) Q tiles first; each
+//   warp owns 16 query rows. Q and dO stay in shared memory; K and V
+//   stream through a two-stage ring filled by 16-byte cp.async up to the
+//   causal bound, the next tile's copy issued before this tile's
+//   products. Each warp computes S = Q K^T and dP = dO V^T in mma.sync
+//   registers, forms P (base 2, masked p an exact 0) and dS there, and
+//   accumulates dQ += dS K in registers, dS going from the accumulator
+//   straight into the A operand and K read as a B operand by rows, as V
+//   is in the forward's P V: no score tile touches shared memory. A
+//   warp skips a key tile that all its rows mask. The lse and delta of a
+//   thread's two rows sit in registers. Tiles: fp32 at hd 128 takes 8
+//   warps (128 rows) and 32-key stages, one CTA per SM (Q and dO 135 KB,
+//   the ring 68 KB), as dK/dV does; elsewhere 4 warps and 64-key stages,
+//   two CTAs per SM.
+// - dK/dV: one CTA per (batch*head, key tile), the first (heaviest
+//   causal) key tiles first. K and V stay in shared memory; the live Q
+//   tiles, from the first whose rows can see this K tile (the reference's
+//   clamp, _q_index_map :130, qi_map :896), stream with their dO, lse and delta
 //   through a two-stage ring filled by 16-byte cp.async, the next tile's
 //   copy issued before this tile's products. Each warp owns 16 keys and
 //   computes S^T = K Q^T and dP^T = V dO^T in mma.sync registers, forms
@@ -55,25 +65,24 @@
 //   registers, P^T and dS^T going from the accumulators straight into the
 //   A operands. The transposed operands thus cost nothing: Q and dO are
 //   read as B fragments, by rows for S^T and dP^T and by columns for dK
-//   and dV (ldmatrix.trans for bf16 tiles). fp32 runs 3xTF32 (m16n8k8),
-//   mxu_bf16 and bf16 inputs bf16 m16n8k16; for bf16 inputs without
-//   mxu_bf16, P^T and dS^T run as two bf16 products each (hi + lo), since
-//   the reference keeps them in fp32. Tiles: 32 query rows a stage; for
-//   fp32, 8 warps and 128 keys a CTA (K and V 135 KB plus two stages of Q
-//   and dO 68 KB at hd 128: one CTA of 8 warps per SM, the Q tiles shared
-//   by all 8), for bf16 4 warps and 64 keys (68 KB at hd 128). A warp
-//   holds dK and dV (2 x 16 x hd fp32) and S^T, dP^T (2 x 16 x 32) in
-//   registers: 252 of them at hd 128 in fp32, no spills.
+//   and dV (ldmatrix.trans for bf16 tiles). Tiles: 32 query rows a
+//   stage; for fp32, 8 warps and 128 keys a CTA (K and V 135 KB plus two
+//   stages of Q and dO 68 KB at hd 128: one CTA of 8 warps per SM, the Q
+//   tiles shared by all 8), for bf16 4 warps and 64 keys (68 KB at hd
+//   128). A warp holds dK and dV (2 x 16 x hd fp32) and S^T, dP^T
+//   (2 x 16 x 32) in registers: 252 of them at hd 128 in fp32, no
+//   spills.
+// - Products, both kernels: fp32 runs 3xTF32 (m16n8k8), mxu_bf16 and
+//   bf16 inputs bf16 m16n8k16 (dS, and P for dV, rounded to bf16 once);
+//   for bf16 inputs without mxu_bf16, P and dS run as two bf16 products
+//   each (hi + lo), since the reference keeps them in fp32 and casts k
+//   and dO to fp32 (:320-323).
 // - Nothing is reduced across CTAs: no atomics, a fixed summation order,
 //   so the gradients are bitwise equal run to run.
 
 #include "attn_tiles.cuh"
 
 namespace {
-
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // key rows per tile
-constexpr int NT = 256;  // threads per CTA
 
 struct Params {
   const void* q;
@@ -92,63 +101,50 @@ struct Params {
   int causal, mxu_bf16;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as astype does
-}
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Rows [r0, r0 + R) of a (time, D) matrix with time stride `st` into
-// shared memory: dst[r * ld + d], or transposed dst[d * ld + r]. Rows at
-// or past n load as 0.
-template <int R, int D, bool TRANSPOSE, typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int64_t st, int r0, int n,
-                                          bool rnd) {
-  for (int i = threadIdx.x; i < R * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float x = 0.f;
-    if (r0 + r < n) x = to_f(src[(int64_t)(r0 + r) * st + d]);
-    if (rnd) x = round_bf16(x);
-    dst[TRANSPOSE ? d * ld + r : r * ld + d] = x;
-  }
-}
-
-__device__ __forceinline__ bool kept(const Params& p, int qi, int kk) {
-  return qi < p.tq && kk < p.tk &&
-         (!p.causal || kk <= qi + (p.tk - p.tq));
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 2 * BQ * (D + 1)     // Qs, dOs: [r][d]
-         + 2 * D * (BK + 1)   // Kt, Vt: [d][c], transposed
-         + BQ * (BK + 1)      // dSs: [r][c]
-         + 2 * BQ;            // lse, delta of the tile's rows
-}
+// ---- dQ: tensor cores, a ring of K/V tiles (attn_tiles.cuh) -------------
 
 template <int D, typename T>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * (D + 1);
-  float* Kt = dOs + BQ * (D + 1);
-  float* Vt = Kt + D * (BK + 1);
-  float* dSs = Vt + D * (BK + 1);
-  float* Ls = dSs + BQ * (BK + 1);
-  float* Dl = Ls + BQ;
+struct DqCfg {
+  // fp32 at hd 128: 8 warps share each K/V stage (one CTA per SM, as
+  // dK/dV); elsewhere 4 warps, two or more CTAs per SM
+  static constexpr bool WIDE = D == 128 && sizeof(T) == 4;
+  static constexpr int WARPS = WIDE ? 8 : 4;
+  static constexpr int BQ = 16 * WARPS;  // query rows per CTA, 16 per warp
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int BK = WIDE ? 32 : 64;  // keys per stage
+  static constexpr int LD = attn::Tile<D, T>::LD;
+  static constexpr size_t SMEM = sizeof(T) * LD * (2 * BQ + 4 * BK);
+};
 
-  const int bh = blockIdx.y;
+// One CTA per (batch*head, Q tile), the last (heaviest causal) Q tiles
+// first. Q and dO stay in shared memory; the live K/V tiles stream
+// through a two-stage ring filled by cp.async. Each warp owns 16 query
+// rows: it recomputes S = Q K^T and dP = dO V^T in MMA registers, forms P
+// and dS there, and accumulates dQ += dS K in MMA registers, the
+// register-resident dS being the A operand (attn_tiles.cuh, mma_pv).
+template <int D, typename T, int MODE>
+__global__ void __launch_bounds__((DqCfg<D, T>::NT))
+    flash_bwd_dq_kernel(const Params p) {
+  using namespace attn;
+  constexpr int BQ = DqCfg<D, T>::BQ, BK = DqCfg<D, T>::BK;
+  constexpr int LD = DqCfg<D, T>::LD, DQ_NT = DqCfg<D, T>::NT;
+  constexpr int NJ = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* dOs = Qs + BQ * LD;                   // [BQ][LD]
+  T* Ks = dOs + BQ * LD;                   // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;                // [2][BK][LD]
+
+  const int bh = blockIdx.x;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const bool rnd = p.mxu_bf16 != 0;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int shift = p.tk - p.tq;
+  const bool causal = p.causal != 0;
+  const bool split = p.mxu_bf16 == 0;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = p.scale * kLog2e;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
   const T* kg = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[1];
@@ -156,99 +152,94 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   const T* dog =
       static_cast<const T*>(p.dout) + b * p.sdo[0] + h * p.sdo[1];
 
-  load_tile<BQ, D, false>(Qs, D + 1, qg, p.sq[2], q0, p.tq, rnd);
-  load_tile<BQ, D, false>(dOs, D + 1, dog, p.sdo[2], q0, p.tq, rnd);
-  for (int r = tid; r < BQ; r += NT) {
-    const int qi = q0 + r;
+  const int n_tiles = live_key_tiles(q0, BQ, BK, p.tk, shift, causal);
+  load_rows_async<BQ, D, DQ_NT>(Qs, qg, p.sq[2], q0, p.tq);
+  load_rows_async<BQ, D, DQ_NT>(dOs, dog, p.sdo[2], q0, p.tq);
+  if (n_tiles > 0) {
+    load_rows_async<BK, D, DQ_NT>(Ks, kg, p.sk[2], 0, p.tk);
+    load_rows_async<BK, D, DQ_NT>(Vs, vg, p.sv[2], 0, p.tk);
+  }
+  cp_async_commit();
+
+  const int qw = q0 + warp * 16;  // the warp's first row
+  const int r0 = qw + g;          // this thread's rows: r0 and r0 + 8
+  // lse (in base 2) and delta of the thread's two rows
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
     const bool in = qi < p.tq;
-    Ls[r] = in ? p.lse[b * p.sl[0] + h * p.sl[1] + (int64_t)qi * p.sl[2]]
-               : 0.f;
-    Dl[r] = in ? p.delta[b * p.sdl[0] + h * p.sdl[1] +
+    lse2[r] = in ? kLog2e * p.lse[b * p.sl[0] + h * p.sl[1] +
+                                  (int64_t)qi * p.sl[2]]
+                 : 0.f;
+    dl[r] = in ? p.delta[b * p.sdl[0] + h * p.sdl[1] +
                          (int64_t)qi * p.sdl[2]]
                : 0.f;
   }
-
-  // S / dP ownership: rows ty*4 + i, columns tx + 16*j
-  const int ty = tid >> 4, tx = tid & 15;
-  // dQ ownership: row `row`, columns sub + 4*j
-  const int row = tid >> 2, sub = tid & 3;
-  float acc[D / 4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
-
-  int n_tiles = (p.tk + BK - 1) / BK;
-  if (p.causal) {
-    const int kmax = q0 + BQ - 1 + (p.tk - p.tq);  // last key seen here
-    n_tiles = min(n_tiles, kmax < 0 ? 0 : kmax / BK + 1);
-  }
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy overlaps this one's math
+      const int nx = (t + 1) & 1, k1 = (t + 1) * BK;
+      load_rows_async<BK, D, DQ_NT>(Ks + nx * BK * LD, kg, p.sk[2], k1,
+                                    p.tk);
+      load_rows_async<BK, D, DQ_NT>(Vs + nx * BK * LD, vg, p.sv[2], k1,
+                                    p.tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the newest group has landed
+    __syncthreads();
+
     const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<BK, D, true>(Kt, BK + 1, kg, p.sk[2], k0, p.tk, rnd);
-    load_tile<BK, D, true>(Vt, BK + 1, vg, p.sv[2], k0, p.tk, rnd);
-    __syncthreads();
+    // a warp whose rows are all past Tq or all before this tile's first
+    // key (causal) has nothing to add
+    if (qw < p.tq && (!causal || k0 <= qw + 15 + shift)) {
+      const T* Kt = Ks + st * BK * LD;
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<MODE, D, NJ>(s, Qs + warp * 16 * LD, Kt);
+      mma_abt<MODE, D, NJ>(dp, dOs + warp * 16 * LD, Vs + st * BK * LD);
 
-    float s[4][4], dp[4][4];
+      // P and dS in place; masked pairs are an exact 0 (on a row with no
+      // key exp(s - lse) is not small, so the mask is explicit)
+      const bool edge =
+          k0 + BK > p.tk || (causal && k0 + BK - 1 > qw + shift);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty * 4 + i) * (D + 1) + d];
-        g[i] = dOs[(ty * 4 + i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = Kt[d * (BK + 1) + tx + 16 * j];
-        bv[j] = Vt[d * (BK + 1) + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int kk = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int r = e >> 1, qi = r0 + 8 * r;
+          const bool ok =
+              !edge || (kk < p.tk && (!causal || kk <= qi + shift));
+          // exp(s * scale - lse) in base 2
+          const float pr =
+              ok ? exp2_fast(fmaf(s[j][e], scale2, -lse2[r])) : 0.f;
+          dp[j][e] = pr * (dp[j][e] - dl[r]) * p.scale;
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float ds = 0.f;
-        if (kept(p, q0 + r, k0 + c)) {
-          const float pr = expf(s[i][j] * p.scale - Ls[r]);
-          ds = pr * (dp[i][j] - Dl[r]) * p.scale;
-          if (rnd) ds = round_bf16(ds);
-        }
-        dSs[r * (BK + 1) + c] = ds;
-      }
-    }
-    __syncthreads();
 
-    // dQ += dS K
-    const float* dsrow = dSs + row * (BK + 1);
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float w = dsrow[c];
-#pragma unroll
-      for (int j = 0; j < D / 4; ++j)
-        acc[j] = fmaf(w, Kt[(sub + 4 * j) * (BK + 1) + c], acc[j]);
+      mma_pv<MODE, D, NJ>(acc, dp, Kt, split);  // dQ += dS K
     }
+    __syncthreads();  // every warp is done with stage st
   }
+  cp_async_wait<0>();
 
-  const int qi = q0 + row;
-  if (qi < p.tq) {
-    T* dqg = static_cast<T*>(p.dq) + b * p.sdq[0] + h * p.sdq[1] +
-             (int64_t)qi * p.sdq[2];
+  T* dqg = static_cast<T*>(p.dq) + b * p.sdq[0] + h * p.sdq[1];
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) store(dqg + sub + 4 * j, acc[j]);
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= p.tq) continue;
+    T* dqrow = dqg + (int64_t)qi * p.sdq[2] + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(dqrow + 8 * n, acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
@@ -397,15 +388,17 @@ __global__ void __launch_bounds__((DkvCfg<D, T>::NT))
 
 enum Which { DQ = 0, DKV = 1 };
 
-template <int D, typename T>
+template <int D, typename T, int MODE>
 cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
+  const size_t smem = DqCfg<D, T>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_kernel<D, T, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.tq + BQ - 1) / BQ, bh);
-  flash_bwd_dq_kernel<D, T><<<grid, NT, smem, stream>>>(p);
+  // Q tiles on y, run last to first: the heaviest causal tiles start first
+  constexpr int BQ = DqCfg<D, T>::BQ, THREADS = DqCfg<D, T>::NT;
+  const dim3 grid(bh, (p.tq + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<D, T, MODE><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -424,18 +417,23 @@ cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, typename T, int MODE>
+cudaError_t launch_mode(const Params& p, Which which, int bh,
+                        cudaStream_t stream) {
+  return which == DQ ? launch_dq<D, T, MODE>(p, bh, stream)
+                     : launch_dkv<D, T, MODE>(p, bh, stream);
+}
+
 template <int D>
 cudaError_t launch(const Params& p, Which which, int dtype, int bh,
                    cudaStream_t stream) {
-  if (which == DQ) {
-    return dtype == 1 ? launch_dq<D, __nv_bfloat16>(p, bh, stream)
-                      : launch_dq<D, float>(p, bh, stream);
-  }
   if (dtype == 1) {
-    return launch_dkv<D, __nv_bfloat16, attn::BF16>(p, bh, stream);
+    return launch_mode<D, __nv_bfloat16, attn::BF16>(p, which, bh, stream);
   }
-  if (p.mxu_bf16) return launch_dkv<D, float, attn::BF16>(p, bh, stream);
-  return launch_dkv<D, float, attn::TF32X3>(p, bh, stream);
+  if (p.mxu_bf16) {
+    return launch_mode<D, float, attn::BF16>(p, which, bh, stream);
+  }
+  return launch_mode<D, float, attn::TF32X3>(p, which, bh, stream);
 }
 
 int run(Which which, const void* const* ptrs, int batch, int heads, int tq,

@@ -20,7 +20,11 @@ The switch is read when the op runs forward, as the reference reads it
 when its step is traced. Both routes give each input position the sum
 of dy over the windows whose first maximum, in row-major window order,
 it is (select-and-scatter's ties); the kernel and its plain version sum
-in fp32 and write dx in x's dtype.
+in fp32 and write dx in x's dtype. The kernel decides each window's
+first maximum once and then gathers into dx; it moves channels 16 bytes
+at a time where C is innermost and every row is 16-byte aligned, the
+main path's channels-last layout, and one channel at a time otherwise
+(`_vector_width` says which route given operands take).
 
 Not carried over: the TPU's VMEM sizing (`_pick_cblock`) with its silent
 XLA fallback, and the shard_map guard. The kernel takes every shape.
@@ -102,7 +106,25 @@ def _lib() -> ctypes.CDLL:
     lib.max_pool_bwd.restype = ctypes.c_int
     lib.max_pool_bwd_error_string.argtypes = [ctypes.c_int]
     lib.max_pool_bwd_error_string.restype = ctypes.c_char_p
+    lib.max_pool_bwd_vector_width.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_int])
+    lib.max_pool_bwd_vector_width.restype = ctypes.c_int
     return lib
+
+
+def _strides(x, y, dy, dx):
+    return (ctypes.c_int64 * 16)(*x.stride(), *y.stride(), *dy.stride(),
+                                 *dx.stride())
+
+
+def _vector_width(x, y, dy, dx) -> int:
+    """Channels per 16-byte access that the kernel takes for these CUDA
+    operands (4 for fp32, 8 for bf16), or 1 where it runs its scalar
+    route: the kernel's own test of strides and alignment."""
+    return _lib().max_pool_bwd_vector_width(
+        x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        x.shape[3], _strides(x, y, dy, dx), _DTYPES[x.dtype])
 
 
 def _check(x, y, dy, window, strides, pads) -> None:
@@ -141,14 +163,12 @@ def _max_pool_bwd(x, y, dy, window: Tuple[int, int],
         raise ValueError(f"no max-pool kernel for device {x.device}")
     n, h, w, c = x.shape
     dx = torch.empty((n, h, w, c), dtype=x.dtype, device=x.device)
-    strides_arr = (ctypes.c_int64 * 16)(
-        *x.stride(), *y.stride(), *dy.stride(), *dx.stride())
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.max_pool_bwd(
             x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             n, h, w, c, y.shape[1], y.shape[2], *window, *strides, *pads,
-            strides_arr, _DTYPES[x.dtype],
+            _strides(x, y, dy, dx), _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         msg = lib.max_pool_bwd_error_string(err).decode()

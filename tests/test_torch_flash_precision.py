@@ -1,6 +1,6 @@
 """The precision plan of the tensor-core flash kernels (csrc/flash_fwd.cu,
-the dK/dV kernel of csrc/flash_bwd.cu), emulated in PyTorch on the CPU and
-held against the reference (singa_tpu.ops.flash_attention, Pallas in
+the dQ and dK/dV kernels of csrc/flash_bwd.cu), emulated in PyTorch on the
+CPU and held against the reference (singa_tpu.ops.flash_attention, Pallas in
 interpret mode, mxu_bf16=False) at gpt_medium's head dim.
 
 - fp32 inputs: every product runs as three TF32 passes. x = hi + lo with
@@ -10,7 +10,8 @@ interpret mode, mxu_bf16=False) at gpt_medium's head dim.
   exact in fp32, so an fp32 matmul of TF32 values is the tensor core's.
 - bf16 inputs: q.k^T and dO.v^T are exact bf16 products; p and dS, which
   the reference keeps in fp32, run as two bf16 products each,
-  p = p_hi + p_lo with p_hi = bf16(p), p_lo = bf16(p - p_hi).
+  p = p_hi + p_lo with p_hi = bf16(p), p_lo = bf16(p - p_hi): P.V, P^T.dO,
+  dS^T.Q and dS.K.
 
 Limits are chip_smoke.py's: max|d| within 1e-4 (fp32) or 2e-2 (bf16) of
 max(1, max|reference|). A plan that cannot meet them fails here, before
@@ -84,8 +85,9 @@ def emulated_forward(q, k, v, causal, mode):
     return o, (m + torch.log(l)).squeeze(-1)
 
 
-def emulated_dkv(q, k, v, do, o, lse, causal, mode):
-    """dK, dV of the kernel's arithmetic, from the emulated forward."""
+def emulated_p_ds(q, k, v, do, o, lse, causal, mode):
+    """P and dS as the backward kernels form them in registers: S and dP
+    from the kernels' products, masked p an exact 0."""
     scale = D ** -0.5
     keep = _mask(causal)
     delta = (do * o).sum(-1, keepdim=True)
@@ -95,11 +97,26 @@ def emulated_dkv(q, k, v, do, o, lse, causal, mode):
     else:
         s, dp = q @ kt, do @ vt
     p = torch.exp(s * scale - lse[..., None]).masked_fill(~keep, 0.0)
-    ds = p * (dp - delta) * scale
+    return p, p * (dp - delta) * scale
+
+
+def emulated_dkv(q, k, v, do, o, lse, causal, mode):
+    """dK, dV of the kernel's arithmetic, from the emulated forward."""
+    p, ds = emulated_p_ds(q, k, v, do, o, lse, causal, mode)
     pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
     if mode == "fp32":
         return mm_tf32x3(dst, q), mm_tf32x3(pt, do)
     return bf16(mm_bf16_split(dst, q)), bf16(mm_bf16_split(pt, do))
+
+
+def emulated_dq(q, k, v, do, o, lse, causal, mode):
+    """dQ of the dQ kernel's arithmetic: dS from the accumulators of S and
+    dP, then dS.K as three TF32 passes (fp32) or as dS_hi.K + dS_lo.K
+    (bf16 inputs, K exact), written in the input dtype."""
+    _, ds = emulated_p_ds(q, k, v, do, o, lse, causal, mode)
+    if mode == "fp32":
+        return mm_tf32x3(ds, k)
+    return bf16(mm_bf16_split(ds, k))
 
 
 def _inputs(mode, seed):
@@ -116,8 +133,8 @@ def _reference(q, k, v, do, causal):
                                            return_lse=True)
 
     (o, lse), vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
-    _, dk, dv = vjp((jnp.asarray(do), jnp.zeros_like(lse)))
-    return [np.asarray(x) for x in (o, lse, dk, dv)]
+    dq, dk, dv = vjp((jnp.asarray(do), jnp.zeros_like(lse)))
+    return [np.asarray(x) for x in (o, lse, dq, dk, dv)]
 
 
 def _worst(got, want):
@@ -130,7 +147,7 @@ def _worst(got, want):
 @pytest.mark.parametrize("causal", [False, True])
 def test_precision_plan_meets_the_chip_limits(causal, mode):
     q, k, v, do = _inputs(mode, seed=70 + 10 * causal)
-    want_o, want_lse, want_dk, want_dv = _reference(q, k, v, do, causal)
+    want_o, want_lse, _, want_dk, want_dv = _reference(q, k, v, do, causal)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o, lse = emulated_forward(tq, tk, tv, causal, mode)
     dk, dv = emulated_dkv(tq, tk, tv, tdo, o, lse, causal, mode)
@@ -141,6 +158,23 @@ def test_precision_plan_meets_the_chip_limits(causal, mode):
         assert worst <= limit, (
             f"{mode} {name}: max|d| / max(1, max|ref|) = {worst:.3e} over "
             f"the limit {limit:.0e}")
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_plan_meets_the_chip_limits(causal, mode):
+    """The dQ kernel's products (3xTF32 for S, dP and dS.K in fp32; exact
+    bf16 S and dP and a hi + lo dS for bf16 inputs) against the
+    reference's dq, from the emulated forward's O and lse."""
+    q, k, v, do = _inputs(mode, seed=110 + 10 * causal)
+    want_dq = _reference(q, k, v, do, causal)[2]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = emulated_forward(tq, tk, tv, causal, mode)
+    dq = emulated_dq(tq, tk, tv, tdo, o, lse, causal, mode)
+    worst = _worst(dq, want_dq)
+    assert worst <= LIMIT[mode], (
+        f"{mode} dQ: max|d| / max(1, max|ref|) = {worst:.3e} over the "
+        f"limit {LIMIT[mode]:.0e}")
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():

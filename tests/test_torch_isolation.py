@@ -1,8 +1,8 @@
 """The port stands alone and never falls back.
 
-- singa_tpu_torch, chip_smoke.py and the port's profiling script import
-  nothing of JAX and nothing of singa_tpu (an AST scan, and a real
-  import with both blocked);
+- singa_tpu_torch, chip_smoke.py and the port's profiling and A/B
+  scripts import nothing of JAX and nothing of singa_tpu (an AST scan,
+  and a real import with both blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -23,7 +23,8 @@ from singa_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "singa_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_gpt.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_gpt.py",
+    ROOT / "scripts" / "ab_torch_kernels.py"]
 
 
 def _forbidden(mod: str) -> bool:
