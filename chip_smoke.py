@@ -47,10 +47,27 @@ Phases, in the order they run (any failure raises and exits non-zero):
    `generate` answers 4 prompts of 224 tokens (48 new, window 256); the
    logits equal the same model with the kernel off, greedy tokens
    repeat, the prefill's logits equal `model(ctx)`; print tokens/s;
-7. gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
+7. gpt_medium serves through `ServingEngine` (slots 8, block 16,
+   window 1024, prefill batch 2, an fp32 pool of 513 blocks): 16
+   seeded requests (prompts 64-768, max_new 32-128, half greedy, half
+   sampled at 0.8) admitted as slots free. The decode step must be one
+   captured CUDA Graph (`decode_compiles == 1`), every request must end
+   with exactly max_new tokens and the allocator drain; `peek_logits`
+   rows must equal the dense `decode_step` (teacher-forced on each
+   stream) within 2e-3, every token must equal the dense pick wherever
+   the top-2 margin is at least 2e-3, and each sampled stream solo
+   `generate` up to its first near-tie. Prints the step's device time
+   captured and uncaptured (in turns), the paged gathers' share, decode
+   tokens/s, the per-token p50/p95 of `serve_token_ms`, prefill ms per
+   batch and the pool's bytes; then the same short mix on fp32, bf16
+   and int8 pools of one pool_bytes (capacity, step time, logit gap to
+   fp32 within 0.15), and 8 requests on a 512-token shared prefix cold
+   and warm (suffix-only prefill, warm streams equal cold ones up to
+   the first near-tie, prefill ms of each);
+8. gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
    kernel-off gradients, one step counted alone (exactly 12 launches of
    each flash kernel), 6 steps whose loss must fall, one bf16 step;
-8. ResNet-50 at full width trains on a seeded (128, 3, 224, 224) batch
+9. ResNet-50 at full width trains on a seeded (128, 3, 224, 224) batch
    through the reference's entry points (`resnet50`, seeded states
    through load_singa_tpu_states, `set_image_layout("NHWC")`, SGD(lr
    0.05, momentum 0.9), `compile(..., precision="fp32")`, `model(x, y)`)
@@ -60,7 +77,7 @@ Phases, in the order they run (any failure raises and exits non-zero):
    BatchNorm statistics, a finite eval-mode forward, images/s with the
    switch on and off in turns, one bf16 step that runs the kernel on
    bf16;
-9. print the `kernels` line (gpt_medium's fused fp32 shape, with the
+10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures and the SASS census beside), then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
@@ -867,6 +884,354 @@ def train_path(torch, fa, mp, model, rng):
                           loss_bf16=loss_bf16)
 
 
+# -- the serving path ---------------------------------------------------------
+
+#: the serve phase's tolerance for logits against the dense decode path:
+#: fp32 through 12 post-LN blocks, products of another batch width (as
+#: the scoring check's)
+SERVE_LOGIT_TOL = 2e-3
+#: the quantized pools' logit gap to the fp32 engine
+#: (tests/test_serving_int8.py's bound)
+KV_GAP_TOL = 0.15
+SERVE_WINDOW = 1024
+
+
+def serve_requests(rng, vocab, n, lo, hi, new_lo, new_hi, window):
+    """n requests from `rng`: prompt lengths in [lo, hi], max_new in
+    [new_lo, new_hi], prompt + max_new <= window; even ones greedy, odd
+    ones sampled at temperature 0.8."""
+    from singa_tpu_torch.serving import Request
+
+    out = []
+    for i in range(n):
+        max_new = int(rng.integers(new_lo, new_hi + 1))
+        t0 = int(rng.integers(lo, min(hi, window - max_new) + 1))
+        out.append(Request(i, rng.integers(0, vocab, t0).astype(np.int32),
+                           max_new, temperature=0.0 if i % 2 == 0 else 0.8,
+                           seed=SEED + i))
+    return out
+
+
+def dense_logits(torch, model, prompt, tokens, window):
+    """The dense cached path's logits for every token of a stream,
+    teacher-forced on `tokens`: row j scores token j (row 0 from the
+    prefill at t0 - 1, row j from `decode_step` on token j - 1)."""
+    prefill, decode_step = model._decode_fns(window)[:2]
+    pv = model._functional_params()
+    t0 = len(prompt)
+    ctx = torch.zeros((1, window), dtype=torch.long, device="cuda")
+    ctx[0, :t0] = torch.from_numpy(prompt).cuda()
+    toks = torch.tensor(tokens, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        logits, kc, vc = prefill(pv, ctx)
+        rows = [logits[0, t0 - 1]]
+        for j in range(len(tokens) - 1):
+            rows.append(decode_step(pv, kc, vc, toks[j:j + 1], t0 + j)[0])
+    return torch.stack(rows)
+
+
+def dense_picks(torch, req, dense):
+    """(tokens, margins) the dense logits give a request: argmax for a
+    greedy one; for a sampled one the Gumbel-max of `pick_rows` with the
+    request's seed at each token's index, its margin scaled back to
+    logit units."""
+    from singa_tpu_torch.models.gpt import gumbel_noise
+
+    n = dense.shape[0]
+    scores, unit = dense.float(), 1.0
+    if req.temperature > 0:
+        temps = torch.full((n,), max(req.temperature, 1e-6),
+                           device=dense.device)
+        seeds = torch.full((n,), req.seed, dtype=torch.long,
+                           device=dense.device)
+        idx = torch.arange(n, device=dense.device)
+        scores = scores / temps[:, None] + gumbel_noise(seeds, idx,
+                                                        dense.shape[1])
+        unit = req.temperature
+    top = scores.topk(2, dim=-1)
+    margin = (top.values[:, 0] - top.values[:, 1]) * unit
+    return top.indices[:, 0].cpu().numpy(), margin.cpu().numpy()
+
+
+def first_near_tie(margins, tol):
+    near = np.flatnonzero(margins < tol)
+    return int(near[0]) if near.size else len(margins)
+
+
+def step_bound(model, eng, lengths):
+    """Least time (ms) of one decode step: the larger of the bytes it
+    must move (every weight once, the live K/V rows read once, one new
+    K/V row per slot and layer written) over the memory rate, and its
+    fp32 operations (the weight products for every slot, QK and PV over
+    the live rows) over the FMA rate."""
+    n_w = sum(p.numel() for p in model.parameters())
+    n_emb = model.tok.table.numel() + model.pos.table.numel()
+    row = 2 * eng._n_layers * eng.heads * eng.hd  # K and V, every layer
+    live = int(sum(lengths)) + len(lengths)
+    nbytes = 4 * (n_w + row * live + row * len(lengths))
+    flops = (2.0 * (n_w - n_emb) * eng.slots
+             + 2.0 * eng._n_layers * eng.heads * eng.hd * 2 * live)
+    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["fp32"]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b > t_o else "operations")
+
+
+def time_decode_step(torch, eng):
+    """Device ms of the decode step captured (a graph replay) and
+    uncaptured (the same function launched from Python), in turns in
+    this process (captured, uncaptured, uncaptured, captured), and of
+    the paged gathers alone: every layer's K and V, each made the
+    contiguous (S, H, W, hd) tensor the step's einsums copy it into."""
+    with torch.inference_mode():
+        eng._upload()
+        cap, unc = [], []
+        for captured in (True, False, False, True):
+            fn = eng._run_step if captured else eng._step_fn
+            (cap if captured else unc).append(
+                cuda_ms(torch, fn, iters=30, warmup=3))
+        pt = eng._step_inputs()[0]
+
+        def gathers():
+            for pools in (eng.kpools, eng.vpools):
+                for pool in pools:
+                    eng._kv.gather(pool, pt).contiguous()
+
+        gather = cuda_ms(torch, gathers, iters=30, warmup=3)
+    return cap, unc, gather
+
+
+def serve_path(torch, model):
+    """The serving path: gpt_medium through `ServingEngine` (8 slots,
+    block 16, window 1024, prefill batch 2, fp32 pool), 16 requests
+    admitted as slots free; the oracle against the dense cached path;
+    the bf16 and int8 pools at one pool_bytes; the prefix cache."""
+    from singa_tpu_torch.observability import metrics
+    from singa_tpu_torch.serving import Request, ServingEngine
+
+    W = SERVE_WINDOW
+    vocab = model.vocab_size
+    rng = np.random.default_rng(SEED)
+    eng = ServingEngine(model, slots=8, block_size=16, window=W,
+                        prefill_batch=2)
+    check(eng._graph is not None and eng.decode_compiles == 1,
+          "the decode step was not captured as a CUDA Graph")
+    reqs = serve_requests(rng, vocab, 16, 64, 768, 32, 128, W)
+    print(f"serve: {len(reqs)} requests, prompts "
+          f"{sorted(len(r.prompt) for r in reqs)}, max_new "
+          f"{sorted(r.max_new for r in reqs)}; pool {eng.pool_bytes} "
+          f"bytes, {eng.allocator.capacity} blocks", flush=True)
+
+    queue, snaps, prefill, step_s, timed = list(reqs), [], [], [], None
+    metrics.reset()
+    metrics.enable()
+    t_all = time.perf_counter()
+    while queue or eng.n_active:
+        batch = []
+        while queue and len(batch) < eng.free_slots:
+            batch.append(queue.pop(0))
+        if batch:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.admit_many(batch)  # reads the first tokens back: synced
+            prefill.append(((time.perf_counter() - t) * 1e3,
+                            -(-len(batch) // eng.prefill_batch)))
+        if timed is None and eng.n_active == eng.slots:
+            timed = time_decode_step(torch, eng)
+            bound = step_bound(model, eng, eng.lengths)
+        if eng.steps % 20 == 0:
+            logits = eng.peek_logits()
+            for s in np.flatnonzero(eng.active):
+                r = eng._reqs[s]
+                snaps.append((r.rid, len(r.tokens), logits[s].copy()))
+        t = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t)
+    wall_s = time.perf_counter() - t_all
+    hist = metrics.histogram("serve_token_ms")
+    p50, p95 = hist.percentile(0.5), hist.percentile(0.95)
+    metrics.disable()
+
+    n_decode = sum(len(r.tokens) - 1 for r in reqs)
+    cap, unc, gather_ms = timed
+    batch_ms = [ms / n for ms, n in prefill]
+    stats = dict(
+        requests=len(reqs), decode_tokens=n_decode, steps=eng.steps,
+        wall_s=wall_s, decode_tokens_per_s=n_decode / sum(step_s),
+        step_ms_host_mean=1e3 * sum(step_s) / len(step_s),
+        token_ms_p50=p50, token_ms_p95=p95,
+        step_ms_captured=cap, step_ms_uncaptured=unc,
+        gather_ms=gather_ms, gather_share=gather_ms / min(cap),
+        step_bound_ms=bound[0], step_bound_by=bound[1],
+        prefill_ms_per_batch=batch_ms, pool_bytes=eng.pool_bytes,
+        decode_compiles=eng.decode_compiles)
+    print(f"serve: decode step {min(cap):.3f} ms captured, {min(unc):.3f} "
+          f"ms uncaptured (in turns: {cap[0]:.3f} {unc[0]:.3f} "
+          f"{unc[1]:.3f} {cap[1]:.3f}); paged gathers {gather_ms:.3f} ms "
+          f"({100 * stats['gather_share']:.1f}% of the captured step); "
+          f"bound {bound[0]:.3f} ms ({bound[1]})", flush=True)
+    print(f"serve: {n_decode} decode tokens in {eng.steps} steps, "
+          f"{stats['decode_tokens_per_s']:.1f} decode tokens/s, host step "
+          f"{stats['step_ms_host_mean']:.3f} ms mean; per-token p50 "
+          f"{p50:.3f} ms, p95 {p95:.3f} ms (serve_token_ms); prefill "
+          f"{np.mean(batch_ms):.3f} ms per batch of 2 (mean of "
+          f"{len(batch_ms)} admissions); {wall_s:.3f} s in all", flush=True)
+    check(eng.decode_compiles == 1,
+          f"{eng.decode_compiles} decode captures, not 1")
+    check(all(r.done and len(r.tokens) == r.max_new for r in reqs),
+          "a request did not finish with exactly max_new tokens")
+    check(eng.allocator.used_blocks == 0 and not eng.allocator._ref,
+          "the allocator did not drain")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the oracle: the engine's logits against the dense cached path, its
+    # tokens against the dense picks wherever the top-2 margin clears
+    # the tolerance, and the sampled streams against solo generate
+    dense = {r.rid: dense_logits(torch, model, r.prompt, r.tokens, W)
+             for r in reqs}
+    err = max(float(np.abs(row - dense[rid][m].cpu().numpy()).max())
+              for rid, m, row in snaps)
+    print(f"serve oracle: peek_logits vs dense decode_step over "
+          f"{len(snaps)} slot rows: max|d| {err:.3e} (tol "
+          f"{SERVE_LOGIT_TOL})", flush=True)
+    check(err <= SERVE_LOGIT_TOL, "engine logits disagree with the dense "
+                                  "decode path")
+    near_streams, skipped, gen_checked = 0, 0, 0
+    for r in reqs:
+        want, margin = dense_picks(torch, r, dense[r.rid])
+        got = np.asarray(r.tokens)
+        clear = margin >= SERVE_LOGIT_TOL
+        bad = np.flatnonzero(clear & (got != want))
+        check(bad.size == 0, f"request {r.rid} ({'sampled' if r.temperature
+              else 'greedy'}) differs from the dense path at clear "
+              f"positions {bad[:5]}")
+        near_streams += int(not clear.all())
+        skipped += int((~clear).sum())
+        if r.temperature > 0:
+            f = first_near_tie(margin, SERVE_LOGIT_TOL)
+            solo = model.generate(r.prompt, r.max_new, window=W,
+                                  temperature=r.temperature,
+                                  seed=r.seed)[0, len(r.prompt):]
+            check(np.array_equal(solo[:f], got[:f]),
+                  f"sampled request {r.rid} differs from solo generate "
+                  f"before its first near-tie ({f})")
+            gen_checked += f
+    print(f"serve oracle: every stream equals the dense picks at every "
+          f"position whose top-2 margin is >= {SERVE_LOGIT_TOL}; "
+          f"{near_streams} streams had a near-tie ({skipped} positions "
+          f"skipped); the 8 sampled streams equal solo generate over "
+          f"{gen_checked} tokens, up to their first near-tie", flush=True)
+    stats.update(logit_err=err, near_tie_streams=near_streams,
+                 near_tie_positions=skipped)
+    del dense
+    torch.cuda.empty_cache()
+
+    stats["kv_formats"] = serve_kv_formats(torch, model, rng)
+    stats["prefix_cache"] = serve_prefix(torch, model, rng)
+    return stats
+
+
+def serve_kv_formats(torch, model, rng):
+    """The same short mix on fp32, bf16 and int8 pools of one
+    pool_bytes: capacity, step time and the logit gap to fp32."""
+    from singa_tpu_torch.serving import Request, ServingEngine, \
+        kv_block_bytes
+
+    W = SERVE_WINDOW
+    dec = model.decoder
+    budget = 256 * kv_block_bytes(dec.n_blocks, dec.num_heads,
+                                  model.d_model // dec.num_heads, 16, "fp32")
+    mix = serve_requests(rng, model.vocab_size, 8, 64, 256, 16, 16, W)
+    out, ref = {}, None
+    for kv in ("fp32", "bf16", "int8"):
+        eng = ServingEngine(model, slots=8, block_size=16, window=W,
+                            prefill_batch=2, kv_dtype=kv,
+                            pool_bytes=budget)
+        reqs = [Request(r.rid, r.prompt, r.max_new, 0.0, r.seed)
+                for r in mix]
+        eng.admit_many(reqs)
+        used = eng.allocator.used_blocks
+        logits = eng.peek_logits()
+        ref = logits if ref is None else ref
+        gap = float(np.abs(logits - ref).max())
+        step_s = []
+        while eng.n_active:
+            t = time.perf_counter()
+            eng.step()
+            step_s.append(time.perf_counter() - t)
+        cap = eng.allocator.capacity
+        out[kv] = dict(pool_bytes=eng.pool_bytes, blocks=cap,
+                       requests_of_256_tokens=cap // 16, blocks_used=used,
+                       step_ms=1e3 * float(np.mean(step_s)),
+                       logit_gap_to_fp32=gap)
+        print(f"serve kv {kv}: pool {eng.pool_bytes} bytes holds {cap} "
+              f"blocks ({cap // 16} requests of 256 tokens); the mix "
+              f"took {used}; step {out[kv]['step_ms']:.3f} ms; logit gap "
+              f"to fp32 {gap:.3e} (tol {KV_GAP_TOL})", flush=True)
+        check(gap <= KV_GAP_TOL, f"{kv} pool logits diverge from fp32")
+        check(eng.decode_compiles == 1, f"{kv}: decode recaptured")
+        del eng
+        torch.cuda.empty_cache()
+    check(out["int8"]["blocks"] >= 1.9 * out["fp32"]["blocks"]
+          and out["bf16"]["blocks"] >= 1.9 * out["fp32"]["blocks"],
+          "the quantized pools do not multiply capacity")
+    return out
+
+
+def serve_prefix(torch, model, rng):
+    """8 requests share a 512-token prefix: cold (no prefix cache) and
+    warm (the cache on) admissions, greedy streams compared up to the
+    first near-tie of the dense path."""
+    from singa_tpu_torch.serving import Request, ServingEngine
+
+    W = SERVE_WINDOW
+    shared = rng.integers(0, model.vocab_size, 512).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, model.vocab_size, int(rng.integers(16, 65))).astype(np.int32)])
+        for _ in range(8)]
+    runs = {}
+    for warm in (False, True):
+        eng = ServingEngine(model, slots=8, block_size=16, window=W,
+                            prefill_batch=2, prefix_cache=warm)
+        rounds = []
+        for _ in range(2):  # the second round is timed: warm, captured
+            reqs = [Request(i, p, 32) for i, p in enumerate(prompts)]
+            eng.admit(reqs[0])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.admit_many(reqs[1:])
+            ms = (time.perf_counter() - t) * 1e3 / (len(reqs) - 1)
+            while eng.n_active:
+                eng.step()
+            rounds.append((reqs, ms, dict(eng.prefix_stats)))
+        runs[warm] = rounds
+        check(eng.decode_compiles == 1, "prefix run recaptured the step")
+        del eng
+        torch.cuda.empty_cache()
+    (cold, _, _), (_, cold_ms, _) = runs[False]
+    (hot, hot_first_ms, st), (_, hot_ms, _) = runs[True]
+    check(st["hits"] == 7 and st["misses"] == 1
+          and all(r.cached_tokens == 512 for r in hot[1:]),
+          f"warm admissions did not map the shared prefix: {st}")
+    same = 0
+    for c, h in zip(cold, hot):
+        _, margin = dense_picks(torch, c, dense_logits(
+            torch, model, c.prompt, c.tokens, W))
+        f = first_near_tie(margin, SERVE_LOGIT_TOL)
+        check(np.array_equal(np.asarray(c.tokens[:f]),
+                             np.asarray(h.tokens[:f])),
+              f"warm stream {h.rid} differs from cold before position {f}")
+        same += f
+    print(f"serve prefix: {st}; admission ms per request of the 7 on "
+          f"the shared prefix (second round): cold {cold_ms:.3f} (full "
+          f"prefill, batches of 2), warm {hot_ms:.3f} (suffix only; "
+          f"{hot_first_ms:.3f} in the first round, its captures "
+          f"included); warm streams equal cold over {same} tokens, up to "
+          f"each first near-tie", flush=True)
+    return dict(cold_prefill_ms=cold_ms, warm_prefill_ms=hot_ms,
+                warm_first_round_ms=hot_first_ms, stats=st,
+                tokens_compared=same)
+
+
 def main() -> int:
     import torch
 
@@ -1022,15 +1387,23 @@ def main() -> int:
     check(err_p <= tol, "prefill logits disagree with the kernel path")
     del logits, logits_kernel, logits_prefill
 
-    # 7. the GPT training path, counted around one step
+    # 7. the serving path, counted: the engine reaches no kernel (its
+    # prefill is the plain one, its decode step a captured CUDA Graph)
+    reset_counts(fa, mp)
+    serve = serve_path(torch, model)
+    serve_launches = counts(fa, mp)
+    print(f"serve path launches {serve_launches}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 8. the GPT training path, counted around one step
     train_launches, train = train_path(torch, fa, mp, model, rng)
     del model
     torch.cuda.empty_cache()
 
-    # 8. the CNN training path: ResNet-50, counted around one step
+    # 9. the CNN training path: ResNet-50, counted around one step
     resnet_launches, resnet = resnet_path(torch, fa, mp)
 
-    # 9. report: the fused fp32 shape, with the bf16 figures beside
+    # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
     common = dict(route="cuda", shape=fwd["shape"], card=card)
@@ -1094,6 +1467,7 @@ def main() -> int:
                   library_ms=pool16["library_ms"],
                   vector_width=pool16["vector_width"]),
         sass=sass_of("max_pool_bwd_kernel"), card=card))
+    print("serve " + json.dumps(serve), flush=True)
     print("train " + json.dumps(train), flush=True)
     print("resnet50_train " + json.dumps(resnet), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

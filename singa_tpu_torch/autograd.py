@@ -311,19 +311,36 @@ def _pool2d(x: torch.Tensor, kernel, stride, padding, kind: str):
     s = _pair(stride if stride is not None else kernel)
     p = _pair(padding)
     if kind == "avg":
-        # padding excluded from the average, as cuDNN's default
-        return F.avg_pool2d(x, k, s, p, count_include_pad=False)
+        return _avg_pool2d(x, k, s, p)
     if x.dim() == 4 and layout_module.image_layout() == "NHWC":
         # the channels-last activation seen as the (N, H, W, C) tensor it
         # is in memory; the op's backward is the K2a kernel when on
         y = max_pool.maxpool2d_nhwc(x.permute(0, 2, 3, 1), k, s, p)
         return y.permute(0, 3, 1, 2)
-    return F.max_pool2d(x, k, s, p)
+    return max_pool.max_pool2d(x, k, s, p)
+
+
+def _avg_pool2d(x: torch.Tensor, k, s, p) -> torch.Tensor:
+    """Average pool with the padding excluded from each window's count
+    (the reference's and cuDNN's default). Pads over half the window,
+    which PyTorch's pool refuses, are applied explicitly: window sums
+    over zero padding divided by the reference's count of cells that are
+    not padding, so a window wholly in padding gives 0/0 = NaN, as the
+    reference's `lax.reduce_window` quotient does."""
+    if not any(2 * pi > ki for ki, pi in zip(k, p)):
+        return F.avg_pool2d(x, k, s, p, count_include_pad=False)
+    pads = (p[1], p[1], p[0], p[0])
+    total = F.avg_pool2d(F.pad(x, pads), k, s, divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(x.shape[-2:]), dtype=x.dtype,
+                      device=x.device)
+    count = F.avg_pool2d(F.pad(ones, pads), k, s, divisor_override=1)
+    return total / count
 
 
 def max_pool2d(x: torch.Tensor, kernel, stride=None,
                padding=0) -> torch.Tensor:
-    """Max-pool; padding is never selected. Under "NHWC" 4-D inputs go
+    """Max-pool; padding is never selected, and any padding is taken (a
+    window wholly in padding gives -inf). Under "NHWC" 4-D inputs go
     through `ops.max_pool.maxpool2d_nhwc` (reference :1264-1277), under
     "NCHW" through PyTorch's max-pool and its autograd."""
     return _pool2d(x, kernel, stride, padding, "max")

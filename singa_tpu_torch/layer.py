@@ -20,6 +20,15 @@ pools, `ReLU`, `Flatten`, `Sequential`) run in the current image layout
 (`layout.py`). `Sequential` keeps its layers in an `nn.ModuleList` named
 `layers`, so dotted names are the reference's
 (`layer1.layers.0.conv1.layers.0.W`).
+
+The paged KV-cache ops (`paged_kv_gather` and the three writes) are the
+serving engine's read/write surface over a block pool laid out (NB, bs,
+H, hd), rows first (reference `layer.py:1647-1715`). The reference
+returns new pools under donation; here the writes go IN PLACE into a
+pool allocated once (`index_put_`), which is what lets the engine
+capture its decode step as one CUDA Graph. Each write still returns the
+pool. Only leading (block, row) indexing is used, so the int8 scale
+pools (NB, bs) ride the same ops.
 """
 
 from __future__ import annotations
@@ -33,11 +42,14 @@ from torch import nn
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch import device as device_module
+from singa_tpu_torch import tensor as tensor_module
 from singa_tpu_torch.ops import flash_attention as fa
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout",
            "ScanTransformerStack", "Conv2d", "BatchNorm2d", "MaxPool2d",
-           "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten", "Sequential"]
+           "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten", "Sequential",
+           "paged_kv_gather", "paged_kv_token_write",
+           "paged_kv_window_write", "paged_kv_pages_write"]
 
 
 def _new(shape, dev, gen, init: str, a: float = 0.0) -> nn.Parameter:
@@ -327,3 +339,60 @@ class Sequential(nn.Module):
         for lyr in self.layers:
             x = lyr(x)
         return x
+
+
+# -- paged KV cache (the serving engine's pools) ------------------------------
+
+
+def paged_kv_gather(pool: torch.Tensor, page_table) -> torch.Tensor:
+    """Every slot's cache through its page table: pool (NB, bs, H, hd)
+    and page_table (S, P) -> (S, H, P*bs, hd), the dense (S, H, W, hd)
+    cache the non-paged decode step attends (W = P*bs)."""
+    return tensor_module.paged_gather(pool, page_table).transpose(1, 2)
+
+
+def _block_rows(pool, page_table, positions):
+    """(block, row) of each logical position; positions past the table's
+    window go to the trash block 0 instead of clamping onto the last
+    real page."""
+    bs, pages = pool.shape[1], page_table.shape[1]
+    page = (positions // bs).clamp(max=pages - 1)
+    blocks = page_table.gather(1, page)
+    blocks = torch.where(positions < pages * bs, blocks,
+                         torch.zeros_like(blocks))
+    return blocks, positions % bs
+
+
+def paged_kv_token_write(pool: torch.Tensor, page_table, pos,
+                         kv: torch.Tensor) -> torch.Tensor:
+    """One new token's K (or V) per slot, in place: kv (S, H, hd) lands
+    at logical position pos (S,) of each slot, block
+    page_table[s, pos[s] // bs], row pos[s] % bs. Slots that must not
+    write point their page-table row at the trash block, so the write
+    keeps one shape; colliding trash writes are never read back."""
+    blocks, rows = _block_rows(pool, page_table, pos[:, None])
+    pool[blocks[:, 0], rows[:, 0]] = kv
+    return pool
+
+
+def paged_kv_window_write(pool: torch.Tensor, page_table, pos,
+                          kv: torch.Tensor) -> torch.Tensor:
+    """T new token rows per slot, in place: kv (S, T, ...) lands at
+    logical positions pos[s] + j for j in [0, T). Positions past the
+    window go to trash. Trailing dims are free: the int8 path writes
+    its (S, T) row scales through this too."""
+    steps = torch.arange(kv.shape[1], device=pos.device)
+    blocks, rows = _block_rows(pool, page_table,
+                               pos[:, None] + steps[None, :])
+    pool[blocks, rows] = kv
+    return pool
+
+
+def paged_kv_pages_write(pool: torch.Tensor, pages,
+                         kv_pages: torch.Tensor) -> torch.Tensor:
+    """Whole pages, in place (the prefill write): kv_pages
+    (B, P, bs, H, hd), each request's full-window K (or V) chunked into
+    pages, lands at blocks pages (B, P). Unallocated table entries point
+    at the trash block; its slack pages are never attended."""
+    pool[pages] = kv_pages
+    return pool

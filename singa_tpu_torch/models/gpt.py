@@ -16,10 +16,14 @@ The reference's scanned decoder (`scan_blocks=True`, `dropout=0.0`, as
   full-window recomputes (a slide moves every learned position). The
   reference compiles this into one executable; here it is a Python loop
   over a preallocated (L, B, H, W, hd) cache written in place. Its
-  attention is the plain `full_attention`, as in the reference. Greedy
-  picks are `argmax` (first maximum), as `jnp.argmax`; sampling draws
-  from a `torch.Generator` seeded with `seed`, which cannot reproduce
-  `jax.random`'s bits.
+  attention is the plain `full_attention`, as in the reference. Tokens
+  are picked by `pick_rows`, which the serving engine shares: greedy is
+  `argmax` (first maximum), as `jnp.argmax`; sampling is Gumbel-max
+  over counter-based noise, an integer hash of (seed, index of the
+  generated token, vocab id), so a row's sample depends only on its
+  seed, its index and its logits, never on the rest of the batch (the
+  counterpart of the reference's `fold_in(key, i)`, without
+  `jax.random`'s bits).
 
 Other constructor options raise `NotImplementedError` naming the ROADMAP
 item that ports them (the MoE auxiliary loss among them).
@@ -36,7 +40,45 @@ import torch.nn.functional as F
 from singa_tpu_torch import autograd, layer, model
 from singa_tpu_torch.parallel.ring import full_attention
 
-__all__ = ["GPT", "gpt_medium"]
+__all__ = ["GPT", "gpt_medium", "pick_rows", "gumbel_noise"]
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """An integer hash of 32-bit values held in int64 (lowbias32's
+    shape; both multipliers are below 2**31, so no product leaves
+    int64)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, index: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Gumbel noise (S, vocab) in fp32, a function of each row's
+    (seed, index) and the vocab id alone. The uniform draw is 24 bits of
+    the hash, centred in its interval, so it lies strictly in (0, 1)."""
+    h = _mix32(_mix32(seeds.long() & _M32) ^ (index.long() & _M32))
+    ids = torch.arange(vocab, device=seeds.device)
+    u = _mix32((_mix32(h[:, None] ^ ids[None, :]) + 0x632BE5AB) & _M32)
+    uf = ((u >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(uf))
+
+
+def pick_rows(logits: torch.Tensor, seeds: torch.Tensor,
+              index: torch.Tensor, temps: torch.Tensor,
+              sample: torch.Tensor) -> torch.Tensor:
+    """Per-row token pick for logits (S, V): `argmax` where `sample` is
+    False, else the Gumbel-max sample at temperature `temps` from the
+    noise of (seeds, index). Plain tensor ops with no host sync, so a
+    captured decode step replays it per slot."""
+    greedy = logits.argmax(dim=-1)
+    g = gumbel_noise(seeds, index, logits.shape[-1])
+    drawn = (logits.float() / temps[:, None] + g).argmax(dim=-1)
+    return torch.where(sample, drawn, greedy)
 
 
 class GPT(model.Model):
@@ -133,6 +175,13 @@ class GPT(model.Model):
 
     # -- incremental decoding ---------------------------------------------
 
+    def _ensure_initialized(self, window: int) -> None:
+        """The reference materializes its lazy layers here with one
+        forward before decoding. The port builds every parameter in the
+        constructor, so there is nothing to materialize; the serving
+        engine calls this as it calls the reference's."""
+        del window
+
     def _functional_params(self):
         dec = self.decoder
         stacked = dict(
@@ -217,31 +266,37 @@ class GPT(model.Model):
             logits, _, _ = prefill(pv, ctx)
             return logits[:, -1]
 
-        def decode_loop(pv, buf, gen, temperature, *, t0, n_grow,
+        def decode_loop(pv, buf, seed, temperature, *, t0, n_grow,
                         n_slide, sampling):
             """Fill buf (B, t0+n) past the prompt in [0, t0): n_grow
-            cached steps, then n_slide full-window recomputes."""
+            cached steps, then n_slide full-window recomputes. Every row
+            samples from `seed` at the index of the token it picks."""
+            b = buf.shape[0]
+            seeds = torch.full((b,), seed, dtype=torch.long,
+                               device=buf.device)
+            temps = torch.full((b,), temperature, device=buf.device)
+            smp = torch.full((b,), sampling, device=buf.device)
 
-            def pick(logits):
-                if sampling:
-                    probs = torch.softmax(logits.float() / temperature, -1)
-                    return torch.multinomial(probs, 1,
-                                             generator=gen).squeeze(-1)
-                return logits.argmax(dim=-1)
+            def pick(logits, i):
+                if not sampling:
+                    return logits.argmax(dim=-1)
+                return pick_rows(logits, seeds, torch.full_like(seeds, i),
+                                 temps, smp)
 
             if n_grow > 0:
                 pad_w = max(0, window - buf.shape[1])
                 ctx0 = F.pad(buf, (0, pad_w))[:, :window]
                 logits, kc, vc = prefill(pv, ctx0)
-                nxt = pick(logits[:, t0 - 1])
+                nxt = pick(logits[:, t0 - 1], 0)
                 buf[:, t0] = nxt
                 for i in range(n_grow - 1):
                     pos = t0 + i
-                    nxt = pick(decode_step(pv, kc, vc, nxt, pos))
+                    nxt = pick(decode_step(pv, kc, vc, nxt, pos), i + 1)
                     buf[:, pos + 1] = nxt
             for i in range(n_slide):
                 end = t0 + n_grow + i  # tokens produced so far
-                buf[:, end] = pick(window_step(pv, buf[:, end - window:end]))
+                buf[:, end] = pick(window_step(pv, buf[:, end - window:end]),
+                                   n_grow + i)
             return buf
 
         return prefill, decode_step, window_step, decode_loop
@@ -280,9 +335,7 @@ class GPT(model.Model):
         buf = torch.zeros((toks.shape[0], t0 + n_new), dtype=torch.long,
                           device=dev)
         buf[:, :t0] = torch.from_numpy(toks).to(dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        out = decode_loop(self._functional_params(), buf, gen,
+        out = decode_loop(self._functional_params(), buf, int(seed),
                           max(temperature, 1e-6), t0=t0, n_grow=n_grow,
                           n_slide=n_slide, sampling=temperature > 0)
         return out.cpu().numpy().astype(np.int32)

@@ -16,7 +16,12 @@ output and the (B, T, 3d) gradient of qkv, with no copy, transpose or
 concatenation. The forward and the dK/dV kernel run on the tensor cores
 and copy rows into shared memory 16 bytes at a time, so every
 (B, H, T, D) operand needs 16-byte-aligned rows (pointer and strides);
-`_check` refuses others with a ValueError on every device.
+`_check` refuses others with a ValueError on every device. The
+dispatchers `attention` and `attention_qkv` never reach that refusal:
+they copy misaligned operands into aligned storage, and send head dims
+or dtypes the kernels are not built for to `full_attention` (the fused
+layout through the split-heads path), as the reference routes what its
+kernel does not cover.
 
 `flash_attention` and `flash_attention_qkv` are `torch.autograd.Function`s
 (`_FlashAttention`, `_FlashAttentionQKV`), the counterparts of the
@@ -436,6 +441,22 @@ def flash_attention_qkv(qkv, num_heads: int, causal: bool = False,
                                     bool(mxu_bf16))
 
 
+def _kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels are built for this head dim and dtype."""
+    return head_dim in _HEAD_DIMS and dtype in _DTYPES
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x when its last dim is contiguous and its pointer and other
+    strides are multiples of 16 bytes, else a contiguous copy (fresh
+    allocations are at least 16-byte aligned)."""
+    nbytes = x.element_size()
+    if (x.stride(-1) == 1 and not x.data_ptr() % 16
+            and not any(s * nbytes % 16 for s in x.stride()[:-1])):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 #: minimum sequence length at which `attention` picks the flash kernel,
 #: per attention kind: the reference's values, measured on a TPU v5e (see
 #: singa_tpu/ops/flash_attention.py); re-tuning for the H100 is queued.
@@ -446,10 +467,15 @@ FLASH_MIN_SEQ_CAUSAL = 256
 def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
               mask=None):
     """Dispatcher: the flash kernel when it covers the case (no arbitrary
-    mask) and the sequence clears the threshold, else `full_attention`."""
+    mask, a head dim and dtype it is built for) and the sequence clears
+    the threshold, else `full_attention`. Operands whose rows the kernel
+    cannot read in 16-byte pieces are copied into aligned storage first."""
     min_seq = FLASH_MIN_SEQ_CAUSAL if causal else FLASH_MIN_SEQ
-    if mask is None and flash_enabled() and q.shape[-2] >= min_seq:
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+    if (mask is None and flash_enabled() and q.shape[-2] >= min_seq
+            and _kernel_takes(q.shape[-1], q.dtype)
+            and k.dtype == v.dtype == q.dtype):
+        return flash_attention(_aligned(q), _aligned(k), _aligned(v),
+                               causal=causal, scale=scale)
     return full_attention(q, k, v, causal=causal, scale=scale, mask=mask)
 
 
@@ -463,13 +489,17 @@ def attention_qkv(qkv, num_heads: int, causal: bool = False,
                   scale: Optional[float] = None, mask=None):
     """Dispatcher over the FUSED projection layout: qkv (B, T, 3d) in,
     merged-head context (B, T, d) out. The fused-layout kernel for any H
-    once the sequence clears the threshold; otherwise heads are split and
-    the plain `attention` dispatcher decides."""
+    once the sequence clears the threshold and the kernel is built for
+    the head dim and dtype (qkv copied into aligned storage if its rows
+    are not); otherwise heads are split and the plain `attention`
+    dispatcher decides, as the reference routes what its kernel does not
+    cover."""
     b, t, d3 = qkv.shape
     d = d3 // 3
     min_seq = FUSED_QKV_MIN_SEQ_CAUSAL if causal else FUSED_QKV_MIN_SEQ
-    if mask is None and flash_enabled() and t >= min_seq:
-        return flash_attention_qkv(qkv, num_heads, causal=causal,
+    if (mask is None and flash_enabled() and t >= min_seq
+            and _kernel_takes(d // num_heads, qkv.dtype)):
+        return flash_attention_qkv(_aligned(qkv), num_heads, causal=causal,
                                    scale=scale)
     q, k, v = _split_qkv(qkv, num_heads)
     o = attention(q, k, v, causal=causal, scale=scale, mask=mask)

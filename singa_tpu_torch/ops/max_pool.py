@@ -3,7 +3,8 @@ of singa_tpu/ops/max_pool.py).
 
 `maxpool2d_nhwc(x, window, strides, pads)` pools an (N, H, W, C) tensor,
 as the reference's custom-VJP op does. Its forward is PyTorch's max-pool
-without indices (the reference's is `lax.reduce_window`, outside Pallas).
+without indices (the reference's is `lax.reduce_window`, outside Pallas),
+through `max_pool2d`, which also takes pads over half the window.
 Its backward is chosen by a process-global switch, off by default as in
 the reference:
 
@@ -38,7 +39,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["maxpool2d_nhwc", "pool_kernel_enabled",
+__all__ = ["maxpool2d_nhwc", "max_pool2d", "pool_kernel_enabled",
            "set_pool_kernel_enabled"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,9 +63,20 @@ def _out_dim(size: int, k: int, s: int, p: int) -> int:
     return (size + 2 * p - k) // s + 1
 
 
+def max_pool2d(x: torch.Tensor, window, strides, pads) -> torch.Tensor:
+    """PyTorch's max-pool of x (N,C,H,W), padding never selected, for any
+    padding: where a pad exceeds half its window (which PyTorch's pool
+    refuses) x is padded with -inf first, so a window lying wholly in
+    padding gives -inf, as `lax.reduce_window` does."""
+    if any(2 * p > k for k, p in zip(window, pads)):
+        (ph, pw), pads = pads, (0, 0)
+        x = F.pad(x, (pw, pw, ph, ph), value=float("-inf"))
+    return F.max_pool2d(x, window, strides, pads)
+
+
 def _fwd(x: torch.Tensor, window, strides, pads) -> torch.Tensor:
     """Max-pool of x (N,H,W,C) -> (N,OH,OW,C), padding never selected."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, strides, pads)
+    y = max_pool2d(x.permute(0, 3, 1, 2), window, strides, pads)
     return y.permute(0, 2, 3, 1)
 
 

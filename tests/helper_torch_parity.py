@@ -162,3 +162,25 @@ def check_cnn_training(ref_model, states, make_port, x, y, lay, lr, tol,
     for k in want[-1]:
         close(after[k], want[-1][k], f"after {steps} steps: {k}", tol_steps)
     return losses
+
+
+def serving_gpt_pair(vocab=61, d_model=48, layers=2, heads=4, max_len=64,
+                     seed=0):
+    """A small scanned reference GPT with seeded random weights, and the
+    port's GPT (on the CPU) carrying the same weights: the serving
+    tests' model pair."""
+    from singa_tpu.models.gpt import GPT as JaxGPT
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import GPT
+
+    kw = dict(vocab_size=vocab, d_model=d_model, num_layers=layers,
+              num_heads=heads, max_len=max_len, dropout=0.0,
+              scan_blocks=True)
+    ref = JaxGPT(**kw)
+    ref.eval()
+    ref._ensure_initialized(max_len)
+    params = randomize_params(ref, seed)
+    port = GPT(**kw, device="cpu")
+    port.eval()
+    load_singa_tpu_params(port, params)
+    return ref, port

@@ -268,3 +268,29 @@ def test_cifar_trainer_refuses_unported_options(flag):
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cnn_cifar10.main(["--device", "cpu", "--epochs", "1", *flag])
+
+
+@pytest.mark.parametrize("k2a", [False, True])
+@pytest.mark.parametrize("lay", LAYOUTS)
+@pytest.mark.parametrize("kind", ["max", "avg"])
+@pytest.mark.parametrize("k,p", [(2, 2), (3, 2), (1, 1)])
+def test_pools_take_padding_over_half_the_window(k2a, lay, kind, k, p):
+    """Pads over half the window, which PyTorch's pools refuse: the port
+    pads explicitly and matches the reference's `lax.reduce_window`,
+    -inf (max) and NaN (average) included where a window lies wholly in
+    padding (every k 1, p 1 border window). Stride 1 on (2, 3, 8, 8)."""
+    max_pool.set_pool_kernel_enabled(k2a)
+    x = rand((2, 3, 8, 8), 11)
+    oh = 8 + 2 * p - k + 1
+    dy = rand((2, 3, oh, oh), 12)
+    cls = (jax_layer.MaxPool2d, layer.MaxPool2d) if kind == "max" else (
+        jax_layer.AvgPool2d, layer.AvgPool2d)
+    y, g, st = _ref(cls[0](k, stride=1, padding=p), x, dy, lay)
+    got = _port(cls[1](k, stride=1, padding=p), x, dy, lay, st)
+    assert got[0].shape == (2, 3, oh, oh)
+    if k == 1:
+        border = ~np.isfinite(y)
+        assert border[..., 0, :].all() and border[..., 1:-1, 1:-1].sum() == 0
+        assert (np.isneginf(y) if kind == "max" else np.isnan(y))[
+            border].all()
+    _compare((y, g), got, atol=1e-6)

@@ -182,3 +182,46 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         fa.flash_attention(q, k, v)
     if bad == "align":
         assert "16-byte-aligned" in str(info.value)
+
+
+@pytest.mark.parametrize("hd", [16, 96])
+def test_dispatchers_route_head_dims_the_kernel_lacks(hd, monkeypatch):
+    """Causal T 256 clears both thresholds, but the kernels are built for
+    head dims (32, 64, 128): the dispatchers send hd 16 (`gpt_draft`'s)
+    and 96 to `full_attention` instead of raising, and match the
+    reference, whose kernel takes every head dim."""
+    calls = []
+    real = fa._flash_fwd
+    monkeypatch.setattr(fa, "_flash_fwd",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    heads = 4
+    qkv = rand((2, 256, 3 * heads * hd), 70 + hd)
+    want = jax_flash().attention_qkv(jnp.asarray(qkv), heads, causal=True)
+    got = fa.attention_qkv(to_torch(qkv), heads, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    q, k, v = _qkv(1, heads, 256, 256, hd, seed=80 + hd)
+    want = jax_flash().attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True)
+    got = fa.attention(to_torch(q), to_torch(k), to_torch(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert calls == []
+
+
+def test_dispatcher_copies_misaligned_rows_for_the_kernel(monkeypatch):
+    """A head-split q whose rows start 4 bytes past a 16-byte boundary
+    (a view into wider rows) takes the kernel path through an aligned
+    copy, and matches the reference."""
+    seen = []
+    real = fa._flash_fwd
+    monkeypatch.setattr(fa, "_flash_fwd",
+                        lambda q, *a: seen.append(q) or real(q, *a))
+    wide = torch.from_numpy(rand((1, 2, 300, 129), 90))
+    q = wide[..., 1:]
+    assert q.data_ptr() % 16 and q.stride()[:3] == (77400, 38700, 129)
+    k, v = (to_torch(a) for a in _qkv(1, 2, 300, 300, 128, seed=91)[1:])
+    want = jax_flash().attention(jnp.asarray(q.numpy()), jnp.asarray(
+        k.numpy()), jnp.asarray(v.numpy()), causal=True)
+    got = fa.attention(q, k, v, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert len(seen) == 1 and seen[0].data_ptr() % 16 == 0
+    assert seen[0].is_contiguous()

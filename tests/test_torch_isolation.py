@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
-- singa_tpu_torch, chip_smoke.py and the port's profiling and A/B
-  scripts import nothing of JAX and nothing of singa_tpu (an AST scan,
-  and a real import with both blocked);
+- singa_tpu_torch (serving/, observability/ and tensor.py among it),
+  chip_smoke.py and the port's profiling and A/B scripts import nothing
+  of JAX and nothing of singa_tpu (an AST scan, and a real import, with
+  both blocked, that serves one request);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -24,7 +25,8 @@ from singa_tpu_torch.ops import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "singa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_gpt.py",
-    ROOT / "scripts" / "ab_torch_kernels.py"]
+    ROOT / "scripts" / "ab_torch_kernels.py",
+    ROOT / "scripts" / "profile_torch_serve.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -67,14 +69,22 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import singa_tpu_torch.examples.cnn_cifar10\n"
         "import singa_tpu_torch.models, singa_tpu_torch.ops.max_pool\n"
         "import singa_tpu_torch.layout, singa_tpu_torch.utils.data\n"
+        "import singa_tpu_torch.tensor, singa_tpu_torch.observability\n"
+        "import singa_tpu_torch.serving, singa_tpu_torch.serving.engine\n"
+        "import singa_tpu_torch.examples.serve_gpt\n"
         "m = singa_tpu_torch.models.gpt.GPT(vocab_size=16, d_model=32,\n"
         "    num_layers=1, num_heads=1, max_len=8, dropout=0.0,\n"
         "    scan_blocks=True, device='cpu')\n"
-        "print(tuple(m(sys.modules['torch'].zeros(1, 8).long()).shape))\n")
+        "print(tuple(m(sys.modules['torch'].zeros(1, 8).long()).shape))\n"
+        "from singa_tpu_torch.serving import Request, ServingEngine\n"
+        "e = ServingEngine(m, slots=1, block_size=4, window=8)\n"
+        "e.admit(Request(0, [1, 2, 3], 2))\n"
+        "e.step()\n"
+        "print(e.decode_compiles, e.allocator.used_blocks)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "(1, 8, 16)"
+    assert out.stdout.split("\n")[:2] == ["(1, 8, 16)", "1 0"]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
