@@ -64,6 +64,31 @@ Phases, in the order they run (any failure raises and exits non-zero):
    fp32 within 0.15), and 8 requests on a 512-token shared prefix cold
    and warm (suffix-only prefill, warm streams equal cold ones up to
    the first near-tie, prefill ms of each);
+   then the serving stack around the engine, each phase with the launch
+   counts set to 0 before it and printed after (none reaches a kernel):
+   `serve spec`, `SpeculativeEngine(spec_k=4)` on 8 requests (prompts
+   64-512, max_new 32-64, half sampled at 0.8) with the target as its
+   own draft and with `gpt_draft(target)` (seed-1 weights), and the
+   plain engine on the same mix, in turns (plain, self, tiny, tiny,
+   self, plain): propose and verify each one captured graph, exact
+   max_new, the allocator drains, greedy streams equal the dense picks
+   outside near-ties, the self draft accepts >= 0.9, a second run
+   repeats every stream; prints propose and verify ms (CUDA events),
+   tokens per round, decode tokens/s and the round's bound. `serve
+   frontend`: `Frontend` over the engine with the serve mix
+   (priorities high/normal/background, tenants a/b), FIFO, overlapped
+   and chunk-scheduled (budget 2) in turns, each stream equal to FIFO's
+   up to its first near-tie (FIFO's to the dense picks); per-token
+   p50/p95 and the decode-stall p95; then a SIGTERM the process sends
+   itself at a stream's 64th token, with a drain budget of 32 tokens.
+   `serve router`: `ReplicaRouter` over two engines (prefix cache,
+   parallel pump), 16 requests on 4 shared 256-token prefixes, replica
+   0 killed mid-stream (affinity hits, requeued streams equal to the
+   dense picks, each token delivered once, the quorum in healthz), and
+   a serial pump on two fresh engines giving the same streams; then
+   one `ProcessReplica` child (`python -m singa_tpu_torch.serving.router
+   --gpt-medium`) serves 4 requests equal to the in-process engine's and
+   exits 0 on stop;
 8. gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
    kernel-off gradients, one step counted alone (exactly 12 launches of
    each flash kernel), 6 steps whose loss must fall, one bf16 step;
@@ -685,24 +710,12 @@ def resnet_path(torch, fa, mp):
 
 def seeded_params(model, seed):
     """Random weights for every parameter, from numpy with `seed`, with
-    the scales of the reference's initialisers."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for name, p in model.named_parameters():
-        shape = tuple(p.shape)
-        if name.endswith(".table"):
-            a = 0.1 * rng.standard_normal(shape, dtype=np.float32)
-        elif name.endswith(("ln1_s", "ln2_s", "scale")):
-            a = 1.0 + 0.05 * rng.standard_normal(shape, dtype=np.float32)
-        elif len(shape) >= 2:
-            a = rng.standard_normal(shape, dtype=np.float32)
-            a *= np.float32(shape[-2] ** -0.5)
-        else:
-            a = 0.02 * rng.standard_normal(shape, dtype=np.float32)
-        out[name] = a
-    return out
+    the scales of the reference's initialisers: `serve_gpt.seeded_weights`,
+    which the spool server's process entry uses too, so a process
+    replica serves the same weights as this process."""
+    from singa_tpu_torch.examples.serve_gpt import seeded_weights
 
-
+    return seeded_weights(model, seed)
 
 
 def kernel_name(mangled):
@@ -1232,6 +1245,464 @@ def serve_prefix(torch, model, rng):
                 tokens_compared=same)
 
 
+# -- the serving stack around the engine ---------------------------------------
+
+SPEC_K = 4
+#: priority lanes and tenants cycled over the frontend and router mixes
+LANES = ("high", "normal", "background")
+TENANTS = ("a", "b")
+
+
+def fresh(reqs):
+    """Unserved copies of `reqs` (a Request accumulates its tokens)."""
+    from singa_tpu_torch.serving import Request
+
+    return [Request(r.rid, r.prompt, r.max_new, r.temperature, r.seed)
+            for r in reqs]
+
+
+def oracle(torch, model, reqs, what):
+    """{rid: dense margins}, after holding every stream to the dense
+    picks wherever the top-2 margin clears SERVE_LOGIT_TOL; returns the
+    margins and the number of positions skipped as near-ties."""
+    margins, skipped = {}, 0
+    for r in reqs:
+        want, margin = dense_picks(torch, r, dense_logits(
+            torch, model, r.prompt, r.tokens, SERVE_WINDOW))
+        got = np.asarray(r.tokens)
+        clear = margin >= SERVE_LOGIT_TOL
+        bad = np.flatnonzero(clear & (got != want))
+        check(bad.size == 0, f"{what}: request {r.rid} differs from the "
+                             f"dense path at clear positions {bad[:5]}")
+        margins[r.rid] = margin
+        skipped += int((~clear).sum())
+    torch.cuda.empty_cache()
+    return margins, skipped
+
+
+def same_until_near_tie(a, b, margin):
+    """Whether token lists a and b agree up to the first near-tie of
+    the dense path (exact where the margins clear the tolerance)."""
+    f = first_near_tie(margin, SERVE_LOGIT_TOL)
+    return list(a[:f]) == list(b[:f]) and len(a) == len(b)
+
+
+def round_bound(model, draft, eng, lengths):
+    """Least time (ms) of one speculative round: the larger of the bytes
+    it must move (the target's weights once, the draft's once per
+    micro-step, the live K/V rows of each cache once per pass over it,
+    K+1 new rows per slot and layer in each) over the memory rate, and
+    its fp32 operations over the FMA rate."""
+    kp1 = eng.spec_k + 1
+    s = len(lengths)
+    n_w = sum(p.numel() for p in model.parameters())
+    n_e = model.tok.table.numel() + model.pos.table.numel()
+    d_w = sum(p.numel() for p in draft.parameters())
+    d_e = draft.tok.table.numel() + draft.pos.table.numel()
+    row_t = 2 * eng._n_layers * eng.heads * eng.hd
+    row_d = 2 * eng._d_layers * eng.d_heads * eng.d_hd
+    live = int(sum(lengths)) + s * kp1
+    nbytes = 4 * (n_w + kp1 * d_w + row_t * (live + s * kp1)
+                  + row_d * (kp1 * live + s * kp1))
+    flops = (2.0 * (n_w - n_e) * s * kp1 + 2.0 * (d_w - d_e) * s * kp1
+             + 2.0 * row_t * live * kp1 + 2.0 * row_d * live * kp1)
+    t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS["fp32"]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b > t_o else "operations")
+
+
+def drive(eng, reqs):
+    """Admit the requests of `reqs` not admitted yet (those without a
+    first token) as slots free, and step until every stream ends:
+    (decode tokens from step(), summed step walls in s, the streams
+    stepped summed over steps)."""
+    queue = [r for r in reqs if not r.tokens]
+    step_s, streams = [], 0
+    while queue or eng.n_active:
+        batch = []
+        while queue and len(batch) < eng.free_slots:
+            batch.append(queue.pop(0))
+        if batch:
+            eng.admit_many(batch)
+        streams += eng.n_active
+        t = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t)
+    n_dec = sum(len(r.tokens) - 1 for r in reqs)
+    return n_dec, sum(step_s), streams
+
+
+def serve_spec(torch, model, card):
+    """`SpeculativeEngine(spec_k=4)` at gpt_medium's width on 8
+    requests (prompts 64-512, max_new 32-64, half sampled at 0.8),
+    with the target as its own draft and with `gpt_draft(target)`
+    (seed-1 weights), against the plain engine on the same mix, in
+    turns."""
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_draft
+    from singa_tpu_torch.serving import ServingEngine, SpeculativeEngine
+
+    W = SERVE_WINDOW
+    tiny = gpt_draft(model)
+    load_singa_tpu_params(tiny, seeded_params(tiny, SEED + 1))
+    tiny.eval()
+    mix = serve_requests(np.random.default_rng(SEED + 7), model.vocab_size,
+                         8, 64, 512, 32, 64, W)
+    kw = dict(slots=8, block_size=16, window=W)
+    runs, out = {}, {}
+    for which in ("plain", "self", "tiny", "tiny", "self", "plain"):
+        if which == "plain":
+            eng = ServingEngine(model, **kw)
+        else:
+            eng = SpeculativeEngine(model, model if which == "self" else tiny,
+                                    spec_k=SPEC_K, **kw)
+            check(eng._propose_graph is not None
+                  and eng._verify_graph is not None,
+                  "propose or verify was not captured as a CUDA Graph")
+        reqs = fresh(mix)
+        timed = None
+        if which != "plain":
+            # propose and verify replayed alone, with every slot live;
+            # their writes land in rows the next round rewrites first
+            eng.admit_many(reqs)
+            with torch.inference_mode():
+                eng._upload()
+                proposed = eng._run_propose()
+                timed = (cuda_ms(torch, eng._run_propose, iters=10),
+                         cuda_ms(torch, lambda: eng._run_verify(proposed),
+                                 iters=10),
+                         round_bound(model, eng.draft_model, eng,
+                                     eng.lengths))
+        n_dec, wall, streams = drive(eng, reqs)
+        check(all(r.done and len(r.tokens) == r.max_new for r in reqs),
+              f"{which}: a request did not end with exactly max_new tokens")
+        check(eng.allocator.used_blocks == 0 and not eng.allocator._ref,
+              f"{which}: the allocator did not drain")
+        check(eng.decode_compiles == 1, f"{which}: decode recaptured")
+        row = dict(decode_tokens_per_s=n_dec / wall, decode_tokens=n_dec,
+                   steps=eng.steps)
+        if which != "plain":
+            check(eng.verify_compiles == 1, f"{which}: verify recaptured")
+            row.update(propose_ms=timed[0], verify_ms=timed[1],
+                       round_bound_ms=timed[2][0], round_bound_by=timed[2][1],
+                       acceptance=eng.acceptance_rate,
+                       tokens_per_round=n_dec / streams, rounds=eng.steps)
+        runs.setdefault(which, []).append((reqs, row))
+        print(f"serve spec [{which}]: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()) + f" ({card})", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    for which in ("self", "tiny"):
+        (a, _), (b, _) = runs[which]
+        check([r.tokens for r in a] == [r.tokens for r in b],
+              f"{which} draft: a second run gave other streams")
+    check(runs["self"][0][1]["acceptance"] >= 0.9,
+          f"self draft acceptance {runs['self'][0][1]['acceptance']:.3f} "
+          f"< 0.9")
+    plain = runs["plain"][0][0]
+    margins, skipped = oracle(torch, model, [r for r in plain
+                                             if r.temperature == 0],
+                              "serve spec plain")
+    for which in ("self", "tiny"):
+        for r in runs[which][0][0]:
+            if r.temperature == 0:
+                want, margin = dense_picks(torch, r, dense_logits(
+                    torch, model, r.prompt, r.tokens, W))
+                clear = margin >= SERVE_LOGIT_TOL
+                bad = np.flatnonzero(clear & (np.asarray(r.tokens) != want))
+                check(bad.size == 0, f"{which} draft: greedy request "
+                                     f"{r.rid} differs from the dense "
+                                     f"picks at {bad[:5]}")
+                skipped += int((~clear).sum())
+    torch.cuda.empty_cache()
+    for which in ("plain", "self", "tiny"):
+        out[which] = [row for _, row in runs[which]]
+    out["near_tie_positions"] = skipped
+    print(f"serve spec: greedy streams of both drafts equal the dense "
+          f"picks at every clear position ({skipped} near-tie positions "
+          f"skipped); sampled streams repeat; tokens/s in turns: " +
+          ", ".join(f"{w} " + "/".join(f"{r['decode_tokens_per_s']:.1f}"
+                                       for r in out[w])
+                    for w in ("plain", "self", "tiny")) + f" ({card})",
+          flush=True)
+    return out
+
+
+def serve_frontend(torch, model, card):
+    """`Frontend` over one plain engine with the serve mix (16 requests,
+    priorities cycled high/normal/background, tenants a/b), FIFO,
+    `overlap_prefill=True` and `ChunkedScheduler(chunk_budget=2)` in
+    turns; then one SIGTERM drain with `drain_token_budget=32`, the
+    process signalling itself at the 64th token of a stream."""
+    import os
+    import signal
+
+    from singa_tpu_torch.observability import metrics
+    from singa_tpu_torch.serving import (
+        ChunkedScheduler, Frontend, ServingEngine)
+
+    W = SERVE_WINDOW
+    mix = serve_requests(np.random.default_rng(SEED), model.vocab_size, 16,
+                         64, 768, 32, 128, W)
+    eng = ServingEngine(model, slots=8, block_size=16, window=W)
+
+    # the drain's trigger: the 64th token of the longest of the streams
+    # admitted first (shorter ones have finished by then, and queued
+    # requests wait for their slots)
+    longest = max(mix[:8], key=lambda r: r.max_new).rid
+
+    def serve(mode, budget=None, on_64=None):
+        fe = Frontend(eng, drain_token_budget=budget,
+                      overlap_prefill=mode == "overlap",
+                      sched=(ChunkedScheduler(chunk_budget=2)
+                             if mode == "chunked" else None))
+        seen = {"n": 0}
+
+        def cb(tok, done, rid):
+            if rid == longest:
+                seen["n"] += 1
+                if on_64 is not None and seen["n"] == 64:
+                    on_64()
+
+        hs = [fe.submit(r.prompt, r.max_new, temperature=r.temperature,
+                        seed=r.seed, rid=r.rid,
+                        on_token=lambda t, d, rid=r.rid: cb(t, d, rid),
+                        priority=LANES[i % 3], tenant=TENANTS[i % 2])
+              for i, r in enumerate(mix)]
+        metrics.reset()
+        metrics.enable()
+        t = time.perf_counter()
+        report = fe.run()
+        wall = time.perf_counter() - t
+        tok, stall = (metrics.histogram("serve_token_ms"),
+                      metrics.histogram("serve_decode_stall_ms"))
+        metrics.disable()
+        row = dict(token_ms_p50=tok.percentile(0.5),
+                   token_ms_p95=tok.percentile(0.95),
+                   stall_ms_p95=stall.percentile(0.95),
+                   stall_ms_max=stall.percentile(1.0),
+                   wall_s=wall, steps=eng.steps)
+        return hs, report, row
+
+    runs = {}
+    for mode in ("fifo", "overlap", "chunked", "chunked", "overlap", "fifo"):
+        steps0 = eng.steps
+        hs, report, row = serve(mode)
+        row["steps"] = eng.steps - steps0
+        check(all(h.status == "done" and len(h.tokens) == h.request.max_new
+                  for h in hs), f"frontend {mode}: a stream did not finish "
+                                f"with exactly max_new tokens")
+        check(eng.allocator.used_blocks == 0 and eng.decode_compiles == 1,
+              f"frontend {mode}: pool not drained or step recaptured")
+        runs.setdefault(mode, []).append((hs, row))
+        print(f"serve frontend [{mode}]: per-token p50 "
+              f"{row['token_ms_p50']:.3f} ms, p95 {row['token_ms_p95']:.3f}"
+              f" ms; decode stall p95 {row['stall_ms_p95']:.3f} ms (max "
+              f"{row['stall_ms_max']:.3f}); {row['wall_s']:.3f} s, "
+              f"{row['steps']} steps ({card})", flush=True)
+    fifo = [h.request for h in runs["fifo"][0][0]]
+    margins, skipped = oracle(torch, model, fifo, "frontend fifo")
+    for mode in ("overlap", "chunked"):
+        for hs, _ in runs[mode]:
+            for h in hs:
+                check(same_until_near_tie(h.tokens, runs["fifo"][0][0][
+                    h.rid].tokens, margins[h.rid]),
+                    f"frontend {mode}: stream {h.rid} differs from FIFO "
+                    f"before its first near-tie")
+
+    # the drain: the process signals itself after 64 streamed tokens
+    hs, report, row = serve("fifo", budget=32, on_64=lambda: os.kill(
+        os.getpid(), signal.SIGTERM))
+    done = [h for h in hs if h.status == "done"]
+    queued_back = [h for h in hs if h.status == "preempted"
+                   and not h.tokens]
+    check(report["drained"], "the SIGTERM did not drain the frontend")
+    check(queued_back and all(h.rid in report["preempted"]
+                              for h in queued_back),
+          "no queued request was handed back without tokens")
+    check(report["drain_tokens"] <= 32 + eng.slots,
+          f"drain_tokens {report['drain_tokens']} > budget + slots")
+    for h in done:
+        check(len(h.tokens) == h.request.max_new and same_until_near_tie(
+            h.tokens, runs["fifo"][0][0][h.rid].tokens, margins[h.rid]),
+            f"drained stream {h.rid} is not intact")
+    check(done, "no stream completed across the drain")
+    check(eng.allocator.used_blocks == 0, "the drain leaked blocks")
+    drain = dict(drained=report["drained"],
+                 drain_tokens=report["drain_tokens"],
+                 completed=len(done), preempted=len(report["preempted"]),
+                 queued_back_without_tokens=len(queued_back))
+    print(f"serve frontend drain: {drain} (budget 32, slots {eng.slots})",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(runs={m: [row for _, row in v] for m, v in runs.items()},
+                near_tie_positions=skipped, drain=drain)
+
+
+def serve_router(torch, model, card):
+    """`ReplicaRouter` over two local gpt_medium engines (one model, a
+    pool and graphs each, prefix cache on, parallel pump): 4 openers,
+    then 16 requests on their 4 shared 256-token prefixes; replica 0 is
+    killed mid-stream. The same requests through a serial pump on two
+    fresh engines, without the kill, give the same streams. Then one
+    `ProcessReplica` child through the port's spool-server entry serves
+    4 requests."""
+    import json as json_module
+    import os
+    import shutil
+    from pathlib import Path
+
+    from singa_tpu_torch.serving import (
+        Frontend, ProcessReplica, ReplicaRouter, Request, ServingEngine)
+
+    W = SERVE_WINDOW
+    vocab = model.vocab_size
+    rng = np.random.default_rng(SEED + 11)
+    prefixes = [rng.integers(0, vocab, 256).astype(np.int32)
+                for _ in range(4)]
+    openers = [np.concatenate([p, rng.integers(0, vocab, 16)])
+               for p in prefixes]
+    reqs = []
+    for i in range(16):
+        prompt = np.concatenate([prefixes[i % 4], rng.integers(
+            0, vocab, int(rng.integers(16, 65)))]).astype(np.int32)
+        reqs.append(Request(i, prompt, int(rng.integers(32, 49)),
+                            0.0 if i % 2 == 0 else 0.8, SEED + i))
+
+    def route(parallel, kill):
+        engines = [ServingEngine(model, slots=8, block_size=16, window=W,
+                                 prefix_cache=True) for _ in range(2)]
+        router = ReplicaRouter(engines, parallel_pump=parallel)
+        t = time.perf_counter()
+        for i, p in enumerate(openers):
+            router.submit(p, 8, rid=f"open{i}")
+        router.run()
+        seen = {r.rid: [] for r in reqs}
+        handles = [router.submit(
+            r.prompt, r.max_new, temperature=r.temperature, seed=r.seed,
+            rid=r.rid, on_token=lambda tok, done, rid=r.rid:
+            seen[rid].append(tok), priority=LANES[i % 3],
+            tenant=TENANTS[i % 2]) for i, r in enumerate(reqs)]
+        health = None
+        if kill:
+            for _ in range(10000):
+                if sum(len(v) for v in seen.values()) >= 96:
+                    break
+                router.pump()
+            router.kill_replica(0)
+            health = router.healthz()
+        router.run()
+        wall = time.perf_counter() - t
+        router.close()
+        check(all(e.decode_compiles == 1 for e in engines),
+              "a replica recaptured its decode step")
+        return router, engines, handles, seen, health, wall
+
+    router, engines, handles, seen, health_killed, wall = route(True, True)
+    check(router.parallel_pump, "the parallel pump is off")
+    st = dict(router.stats)
+    busy = dict(router.replica_busy_s)
+    print(f"serve router: {st}; healthz after the kill: status "
+          f"{health_killed['status']}, live {health_killed['live']} of "
+          f"{health_killed['replicas']}, quorum {health_killed['quorum']}; "
+          f"{wall:.3f} s in all; replica busy s {busy} ({card})",
+          flush=True)
+    check(st["affinity_hits"] > 0, "no affinity hit")
+    check(st["replica_deaths"] == 1 and st["requeued"] > 0,
+          "the kill requeued nothing")
+    check(health_killed["status"] == "degraded"
+          and health_killed["live"] == 1 and health_killed["quorum"] == 2,
+          f"healthz after the kill: {health_killed}")
+    for h in handles:
+        check(h.status == "done" and len(h.tokens) == h.max_new,
+              f"routed stream {h.rid} did not finish with max_new tokens")
+        check(seen[h.rid] == h.tokens,
+              f"routed stream {h.rid}: a token was delivered twice or lost")
+    for r, h in zip(reqs, handles):
+        r.tokens = list(h.tokens)
+    requeued = [r for r, h in zip(reqs, handles) if h.attempts > 1]
+    margins, skipped = oracle(torch, model, reqs, "router")
+    hits = [e.prefix_hits for e in engines]
+    router.revive_replica(0)
+    check(router.healthz()["status"] == "ok", "revive did not restore ok")
+    del router, engines
+    torch.cuda.empty_cache()
+    serial = route(False, False)
+    for r, h in zip(reqs, serial[2]):
+        check(h.status == "done" and same_until_near_tie(
+            h.tokens, r.tokens, margins[r.rid]),
+            f"stream {r.rid}: the serial pump differs from the parallel "
+            f"one before its first near-tie")
+    same = sum(h.tokens == r.tokens for r, h in zip(reqs, serial[2]))
+    print(f"serve router: the serial pump without the kill gives the "
+          f"parallel run's streams ({same}/16 exactly; {serial[5]:.3f} s, "
+          f"busy s {dict(serial[0].replica_busy_s)}) ({card})", flush=True)
+    del serial
+    torch.cuda.empty_cache()
+
+    # one process replica, started as a fresh interpreter
+    spool = Path(__file__).resolve().parent / "build" / "chip_smoke_spool"
+    shutil.rmtree(spool, ignore_errors=True)
+    rep = ProcessReplica(str(spool), block_size=16, stale_after_s=300.0)
+    prouter = ReplicaRouter([rep])
+    root = str(Path(__file__).resolve().parent)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "singa_tpu_torch.serving.router",
+         "--spool", str(spool), "--gpt-medium"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        four = fresh(reqs[:4])
+        t = time.perf_counter()
+        phs = [prouter.submit(r.prompt, r.max_new, temperature=r.temperature,
+                              seed=r.seed, rid=r.rid) for r in four]
+        while not all(h.done for h in phs):
+            check(proc.poll() is None and time.perf_counter() - t < 600,
+                  f"the process replica died or stalled: "
+                  f"{proc.poll()} {proc.stderr.read() if proc.poll() else ''}")
+            prouter.pump()
+            time.sleep(0.05)
+        proc_s = time.perf_counter() - t
+        status = rep.status()
+        rep.stop()
+        rc = proc.wait(timeout=120)
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    check(rc == 0, f"the process replica exited {rc}: {err[-2000:]}")
+    check(status.get("decode_compiles") == 1,
+          f"the process replica's status: {status}")
+    eng = ServingEngine(model, slots=8, block_size=16, window=W)
+    local = Frontend(eng)
+    lhs = [local.submit(r.prompt, r.max_new, temperature=r.temperature,
+                        seed=r.seed, rid=r.rid) for r in four]
+    local.run()
+    margins, _ = oracle(torch, model, [h.request for h in lhs],
+                        "in-process twin")
+    exact = 0
+    for h, lh in zip(phs, lhs):
+        check(h.status == "done" and same_until_near_tie(
+            h.tokens, lh.tokens, margins[h.rid]),
+            f"process replica stream {h.rid} differs from the in-process "
+            f"engine's before its first near-tie")
+        exact += int(h.tokens == lh.tokens)
+    del eng, local
+    torch.cuda.empty_cache()
+    print(f"serve router process replica: 4 streams in {proc_s:.3f} s "
+          f"(child start, gpt_medium build and capture included); "
+          f"{exact}/4 equal the in-process engine's exactly; status "
+          f"{json_module.dumps(status)}; exit 0 on stop ({card})",
+          flush=True)
+    return dict(stats=st, prefix_hits=hits, requeued=len(requeued),
+                near_tie_positions=skipped, wall_s=wall,
+                replica_busy_s=busy, serial_exact=same,
+                process_replica=dict(seconds=proc_s, exact=exact,
+                                     status=status))
+
+
 def main() -> int:
     import torch
 
@@ -1395,6 +1866,18 @@ def main() -> int:
     print(f"serve path launches {serve_launches}", flush=True)
     torch.cuda.empty_cache()
 
+    # 7b. the serving stack around the engine, each phase counted alone:
+    # none reaches a kernel (the reference's reaches no Pallas)
+    stack = {}
+    for name, phase in (("spec", serve_spec), ("frontend", serve_frontend),
+                        ("router", serve_router)):
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        stack[name] = phase(torch, model, card)
+        print(f"serve {name}: {time.perf_counter() - t:.1f} s ({card}); "
+              f"launches {counts(fa, mp)}", flush=True)
+    torch.cuda.empty_cache()
+
     # 8. the GPT training path, counted around one step
     train_launches, train = train_path(torch, fa, mp, model, rng)
     del model
@@ -1468,6 +1951,7 @@ def main() -> int:
                   vector_width=pool16["vector_width"]),
         sass=sass_of("max_pool_bwd_kernel"), card=card))
     print("serve " + json.dumps(serve), flush=True)
+    print("serve_stack " + json.dumps(stack), flush=True)
     print("train " + json.dumps(train), flush=True)
     print("resnet50_train " + json.dumps(resnet), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

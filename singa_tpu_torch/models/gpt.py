@@ -40,7 +40,8 @@ import torch.nn.functional as F
 from singa_tpu_torch import autograd, layer, model
 from singa_tpu_torch.parallel.ring import full_attention
 
-__all__ = ["GPT", "gpt_medium", "pick_rows", "gumbel_noise"]
+__all__ = ["GPT", "gpt_medium", "gpt_draft", "pick_rows", "gumbel_noise",
+           "uniform_noise", "fold_seed"]
 
 _M32 = 0xFFFFFFFF
 
@@ -56,16 +57,36 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def fold_seed(seeds: torch.Tensor, domain: int) -> torch.Tensor:
+    """Seeds of a separate random stream: each seed hashed with a
+    `domain` constant (the speculative engine's draft, acceptance and
+    residual streams), so no draw of one stream repeats another's."""
+    return _mix32((seeds.long() & _M32) ^ domain)
+
+
+def _unit(u: torch.Tensor) -> torch.Tensor:
+    """24 bits of a hash, centred in its interval: strictly in (0, 1)."""
+    return ((u >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _key(seeds: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    return _mix32(_mix32(seeds.long() & _M32) ^ (index.long() & _M32))
+
+
 def gumbel_noise(seeds: torch.Tensor, index: torch.Tensor,
                  vocab: int) -> torch.Tensor:
     """Gumbel noise (S, vocab) in fp32, a function of each row's
-    (seed, index) and the vocab id alone. The uniform draw is 24 bits of
-    the hash, centred in its interval, so it lies strictly in (0, 1)."""
-    h = _mix32(_mix32(seeds.long() & _M32) ^ (index.long() & _M32))
+    (seed, index) and the vocab id alone."""
+    h = _key(seeds, index)
     ids = torch.arange(vocab, device=seeds.device)
     u = _mix32((_mix32(h[:, None] ^ ids[None, :]) + 0x632BE5AB) & _M32)
-    uf = ((u >> 8).float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(uf))
+    return -torch.log(-torch.log(_unit(u)))
+
+
+def uniform_noise(seeds: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """One uniform in (0, 1) per (seed, index) pair, fp32: seeds (S,)
+    against index (S, K)."""
+    return _unit(_mix32((_key(seeds[:, None], index) + 0x2545F491) & _M32))
 
 
 def pick_rows(logits: torch.Tensor, seeds: torch.Tensor,
@@ -339,6 +360,30 @@ class GPT(model.Model):
                           max(temperature, 1e-6), t0=t0, n_grow=n_grow,
                           n_slide=n_slide, sampling=temperature > 0)
         return out.cpu().numpy().astype(np.int32)
+
+
+def gpt_draft(target: Optional[GPT] = None, **kw) -> GPT:
+    """A small draft GPT for speculative serving (`SpeculativeEngine`):
+    d_model 64, 4 heads of hd 16, 1 block, sharing the target's
+    vocabulary and max_len when `target` is given (the verify pass
+    scores the draft's token ids under the target's head, so the vocab
+    must match; the engine refuses otherwise). Any kwarg overrides. A
+    random draft lowers acceptance, never correctness: greedy
+    speculative streams equal the target's `generate` whatever the
+    draft. Built with `scan_blocks=True`, as `gpt_medium` is: the
+    unrolled decoder is ROADMAP queue 1 item 9.4."""
+    if target is not None:
+        kw.setdefault("vocab_size", target.vocab_size)
+        kw.setdefault("max_len", target.pos.table.shape[0])
+        kw.setdefault("device", target.device)
+    kw.setdefault("vocab_size", 256)
+    kw.setdefault("d_model", 64)
+    kw.setdefault("num_layers", 1)
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("max_len", 256)
+    kw.setdefault("dropout", 0.0)
+    kw.setdefault("scan_blocks", True)
+    return GPT(**kw)
 
 
 def gpt_medium(**kw) -> GPT:

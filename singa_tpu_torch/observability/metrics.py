@@ -23,8 +23,8 @@ Two cost tiers, by contract:
 Every metric name the port emits is declared in the `HELP` inventory
 below with a help string; the names and their meaning are the
 reference's. The metric-name lint, the exporters and the names of the
-unported subsystems (resilience, the training step, the frontend and
-router) come with those modules (ROADMAP queue 1 items 7, 11, 17, 18).
+unported subsystems (the rest of resilience, the training step) come
+with those modules (ROADMAP queue 1 items 7, 17, 18).
 
 Stdlib-only and thread-safe (one registry lock).
 """
@@ -328,10 +328,11 @@ def disable() -> None:
 # -- the declared metric inventory --------------------------------------------
 #
 # Name -> help string for every metric singa_tpu_torch/ emits (the
-# serving engine's, as the reference names them).
+# serving stack's, as the reference names them).
 
 HELP: Dict[str, str] = {
-    "serve_steps": "decode steps executed",
+    "serve_steps": "decode steps (speculative: propose+verify "
+                   "rounds) executed",
     "serve_tokens": "tokens emitted by the serving engine "
                     "(hot-path gated; engine.tokens_emitted is the "
                     "ungated lifetime total)",
@@ -361,6 +362,51 @@ HELP: Dict[str, str] = {
                         "a decode write could touch a shared block "
                         "(0 in the normal append-only flow)",
     "serve_prefill_chunks": "block-wide prefill passes run through "
-                            "advance_prefill (the unit of preemptible "
-                            "prefill work)",
+                            "advance_prefill (the chunked scheduler's "
+                            "unit of preemptible prefill work)",
+    # -- the frontend, speculative engine and scheduler ---------------
+    "preempt_drains": "SIGTERM drains the serving frontend absorbed",
+    "spec_accepts": "draft tokens the speculative verify step "
+                    "accepted",
+    "spec_rejects": "draft tokens the speculative verify step "
+                    "rejected",
+    "serve_queue_depth": "requests queued at the frontend awaiting "
+                         "admission",
+    "serve_acceptance_rate": "speculative decoding lifetime "
+                             "acceptance rate (0..1)",
+    "serve_prefill_queue": "streams reserved with a prefill still in "
+                           "flight (dispatched, not yet admitted at a "
+                           "step boundary)",
+    "serve_sched_lane_picks": "requests dispatched by the chunked "
+                              "scheduler's lane/fairness pick "
+                              "(ChunkedScheduler.lane_picks splits "
+                              "the count per lane host-side)",
+    "serve_tenant_deficit": "max served-token spread between any two "
+                            "tenants at the last dispatch (bounded "
+                            "under deficit round-robin; grows "
+                            "unbounded under FIFO — the fairness "
+                            "number)",
+    "serve_decode_stall_ms": "wall time a step boundary (admission + "
+                             "prefill work) spent while decode had "
+                             "active streams waiting, ms — the decode "
+                             "gap chunked prefill exists to bound",
+    # -- the replica router --------------------------------------------
+    "router_dispatches": "requests routed from the fleet queue onto a "
+                         "replica (one per dispatch attempt, so a "
+                         "failover re-route counts again)",
+    "router_affinity_hits": "dispatches whose chosen replica held "
+                            "shadow-resident prefix blocks for the "
+                            "prompt (the router expected a warm "
+                            "prefill there)",
+    "router_rebalances": "dispatches where a MORE prefix-affine "
+                         "replica existed but lost on load — the "
+                         "router traded a warm prefix for balance",
+    "router_replica_deaths": "replicas drained from the routing table "
+                             "(pump raised, heartbeat went stale, or "
+                             "an operator kill_replica)",
+    "router_requeued": "in-flight streams re-queued at the head of "
+                       "the fleet queue by a replica death, awaiting "
+                       "re-route (token identity holds: the retry "
+                       "restarts from the prompt and the handle's "
+                       "high-water mark dedups delivery)",
 }

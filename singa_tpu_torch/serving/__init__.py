@@ -9,14 +9,27 @@
   `finish_prefill` / `abort_prefill`).
 - ``blocks.BlockAllocator`` / ``PrefixIndex``: the paged cache's host
   side (refcounts, LRU, copy-on-write; refusals name the capacity math).
+- ``speculative.SpeculativeEngine``: draft-model speculative decoding
+  through the same paged cache; propose and verify are each one
+  captured graph, greedy streams stay token-identical, sampled streams
+  are residual-rejection distribution-preserving.
+- ``frontend.Frontend``: the streaming front end (queue in, per-token
+  callbacks out), overlapped or chunk-scheduled prefill, and a SIGTERM
+  drain through `resilience.PreemptionGuard`.
+- ``sched.ChunkedScheduler``: the chunked-prefill policy (chunk budget,
+  priority lanes, per-tenant deficit round-robin, prefix affinity).
+- ``router.ReplicaRouter``: N engines behind one queue (prefix
+  affinity, load, health, failover with exactly-once delivery);
+  ``ProcessReplica`` / ``run_spool_server`` are its process-backed
+  replicas.
 
-Correctness contract: token identity. Every stream equals the solo
-`GPT.generate(use_cache=True)` for the same prompt, seed and temperature
-under any admit/evict interleaving and block-table fragmentation.
+Correctness contract: token identity. Every greedy stream equals the
+solo `GPT.generate(use_cache=True)` for the same prompt under any
+admit/evict interleaving and block-table fragmentation, speculative or
+not, routed or not; plain-engine sampled streams equal it too.
 
-Not ported yet: the frontend, scheduler, router and speculative engine
-(ROADMAP queue 1 item 11) and the tensor-parallel engine (item 10's tp
-decode).
+Not ported yet: the tensor-parallel engine and the prefill mesh
+(ROADMAP queue 1 item 10's tp decode, items 13-15).
 """
 
 from singa_tpu_torch.serving.blocks import (          # noqa: F401
@@ -25,8 +38,16 @@ from singa_tpu_torch.serving.blocks import (          # noqa: F401
 from singa_tpu_torch.serving.engine import (          # noqa: F401
     OutOfSlotsError, PrefillTicket, Request, ServingEngine,
     emitted_token_count)
+from singa_tpu_torch.serving.frontend import Frontend  # noqa: F401
+from singa_tpu_torch.serving.router import (           # noqa: F401
+    ProcessReplica, ReplicaRouter, RouterHandle, run_spool_server)
+from singa_tpu_torch.serving.sched import ChunkedScheduler  # noqa: F401
+from singa_tpu_torch.serving.speculative import (      # noqa: F401
+    SpeculativeEngine)
 
-__all__ = ["ServingEngine", "Request", "BlockAllocator", "PrefixIndex",
-           "OutOfBlocksError", "OutOfSlotsError", "PrefillTicket",
-           "blocks_needed", "kv_block_bytes", "KV_DTYPES",
-           "emitted_token_count"]
+__all__ = ["ServingEngine", "SpeculativeEngine", "Request",
+           "BlockAllocator", "OutOfBlocksError", "OutOfSlotsError",
+           "PrefillTicket", "blocks_needed", "kv_block_bytes",
+           "KV_DTYPES", "Frontend", "ChunkedScheduler",
+           "ReplicaRouter", "RouterHandle", "ProcessReplica",
+           "run_spool_server", "PrefixIndex", "emitted_token_count"]

@@ -56,7 +56,9 @@ ROADMAP queue 1 items 10 and 13-15) and the shardlint surface.
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -75,6 +77,30 @@ from singa_tpu_torch.tensor import paged_gather, quantize_int8_rows
 
 __all__ = ["Request", "ServingEngine", "OutOfSlotsError",
            "OutOfBlocksError", "PrefillTicket", "emitted_token_count"]
+
+#: one CUDA Graph capture at a time in the process: engines pumped from
+#: several threads (the replica router) capture their suffix widths
+#: lazily
+_CAPTURE_LOCK = threading.Lock()
+#: the streams of live engines on the card (`cuda_stream` handles):
+#: cuBLAS keys its workspace by (handle, stream), and a graph keeps the
+#: workspace of the stream it was captured on, so engines stepped at
+#: once must capture, and run, on streams no other engine uses
+_ENGINE_STREAMS: set = set()
+
+
+def _private_stream(owner, device):
+    """A CUDA stream from PyTorch's pool that no other live engine
+    holds, released when `owner` is collected."""
+    for _ in range(64):
+        st = torch.cuda.Stream(device)
+        if st.cuda_stream not in _ENGINE_STREAMS:
+            _ENGINE_STREAMS.add(st.cuda_stream)
+            weakref.finalize(owner, _ENGINE_STREAMS.discard, st.cuda_stream)
+            return st
+    raise RuntimeError(
+        f"every pooled CUDA stream is held by one of "
+        f"{len(_ENGINE_STREAMS)} live serving engines")
 
 
 def emitted_token_count(emitted) -> int:
@@ -280,6 +306,11 @@ class ServingEngine:
                 f"{model.pos.table.shape[0]}")
         self.model = model
         self.device = model.device
+        #: the stream this engine captures its graphs on (the card only);
+        #: a caller stepping several engines at once (the router's
+        #: parallel pump) steps each on its own
+        self.stream = (_private_stream(self, self.device)
+                       if self.device.type == "cuda" else None)
         self.slots = int(slots)
         self.block_size = int(block_size)
         self.window = int(window)
@@ -305,7 +336,11 @@ class ServingEngine:
                 raise ValueError(
                     "pass num_blocks= OR pool_bytes=, not both (they "
                     "both size the same pool)")
-            num_blocks = max(2, pool_bytes // kv_bytes)
+            # a block's full cost: subclasses with sibling pools on
+            # the same page table (the speculative draft cache) add
+            # their share, so the budget holds for the whole allocation
+            num_blocks = max(
+                2, pool_bytes // (kv_bytes + self._extra_kv_block_bytes()))
         elif num_blocks is None:
             num_blocks = self.slots * self.pages + 1
         self.allocator = BlockAllocator(num_blocks, block_size,
@@ -314,6 +349,7 @@ class ServingEngine:
                 self.hd, self.device)
         self._kdata, self._kscale, self.kpools = self._kv.make_pools(*args)
         self._vdata, self._vscale, self.vpools = self._kv.make_pools(*args)
+        self._write_prefill = self._build_write_prefill(self.heads, self.hd)
 
         s = self.slots
         self.page_table = np.zeros((s, self.pages), np.int32)
@@ -357,9 +393,9 @@ class ServingEngine:
             self.prefix_index = None
         self._suffix = None
         self._suffix_builds = 0
-        #: captured suffix chunks on the card, one per batch width:
-        #: {width: (graph, static inputs, static output)}
-        self._suffix_graphs: Dict[int, Tuple] = {}
+        #: lazily captured graphs on the card (the suffix chunk per
+        #: batch width): {key: (graph, static inputs, static output)}
+        self._graphs: Dict[Tuple, Tuple] = {}
 
         # -- the decode step: static inputs, then one build/capture -----
         p = self.pages
@@ -378,6 +414,12 @@ class ServingEngine:
 
     # -- the decode step -----------------------------------------------------
 
+    def _extra_kv_block_bytes(self) -> int:
+        """Per-block bytes of any sibling pools riding the same page
+        table (0 here; the speculative engine reports its draft pools'
+        share so `pool_bytes=` budgets the whole allocation)."""
+        return 0
+
     def _prefix_fingerprint(self) -> str:
         """Every knob that shapes a KV block's content for a given token
         prefix: two engines with equal fingerprints make comparable
@@ -385,7 +427,13 @@ class ServingEngine:
         return (f"gpt:v{self.model.vocab_size}:d{self.d_model}"
                 f":h{self.heads}:L{self._n_layers}"
                 f":bs{self.block_size}:W{self.window}"
-                f":{self.kv_dtype}:tp1")
+                f":{self.kv_dtype}:tp1" + self._fingerprint_extra())
+
+    def _fingerprint_extra(self) -> str:
+        """Extra fingerprint material from subclasses whose sibling
+        pools ride the same blocks (the speculative engine adds its
+        draft dims: a block's draft rows are part of its content)."""
+        return ""
 
     def _step_inputs(self):
         """Views of the static device inputs: (page_table, tok, pos,
@@ -414,25 +462,52 @@ class ServingEngine:
                                tok, pos)
         return pick_rows(logits, seeds, n_gen, temps, sample)
 
-    def _build_step(self) -> None:
-        """Capture the step once on the card (warm-ups on a side stream,
-        as PyTorch's CUDA Graph notes ask); on the CPU the step runs
-        uncaptured. The static page table is all trash here, so the
-        warm-up writes land in block 0."""
-        self._decode_builds += 1
-        if self.device.type != "cuda":
-            return
-        with torch.inference_mode():
-            side = torch.cuda.Stream(self.device)
+    def _capture(self, fn):
+        """Capture fn() once as a CUDA Graph: (graph, its output).
+        Warm-ups and capture run on the engine's own stream (off the
+        caller's, as PyTorch's CUDA Graph notes ask), so its graphs hold
+        a cuBLAS workspace no other engine's work touches. One capture
+        at a time in the process, in thread-local mode, so an engine
+        pumped on another thread keeps launching meanwhile. A capture
+        that fails raises: there is no eager fallback."""
+        side = self.stream
+        with _CAPTURE_LOCK, torch.inference_mode():
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 for _ in range(3):
-                    self._step_fn()
+                    fn()
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self._step_fn()
-        self._graph, self._graph_out = graph, out
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        return graph, out
+
+    def _replay(self, key, fn, args):
+        """fn(*args): on the CPU a plain call; on the card fn captured
+        once per `key` over static copies of `args` (first use), then
+        replayed with `args` copied into them. The output tensors are
+        the graph's own, rewritten by the next replay."""
+        if self.device.type != "cuda":
+            return fn(*args)
+        if key not in self._graphs:
+            static = tuple(torch.zeros_like(a) for a in args)
+            graph, out = self._capture(lambda: fn(*static))
+            self._graphs[key] = (graph, static, out)
+        graph, static, out = self._graphs[key]
+        for dst, src in zip(static, args):
+            dst.copy_(src)
+        graph.replay()
+        return out
+
+    def _build_step(self) -> None:
+        """Capture the step once on the card; on the CPU the step runs
+        uncaptured. The static page table is all trash here, so the
+        warm-up writes land in block 0."""
+        self._decode_builds += 1
+        if self.device.type == "cuda":
+            self._graph, self._graph_out = self._capture(self._step_fn)
 
     def _run_step(self) -> torch.Tensor:
         if self._graph is None:
@@ -440,12 +515,16 @@ class ServingEngine:
         self._graph.replay()
         return self._graph_out
 
-    def _build_decode_forward(self):
+    def _build_decode_forward(self, heads=None, hd=None, d=None):
         """The decode forward shared by the step and `peek_logits`:
         every float op mirrors the model's dense `decode_step` (same
         einsums, masking and fp32 LayerNorm), with the dense per-slot
-        cache replaced by the paged gather."""
-        heads, hd, d = self.heads, self.hd, self.d_model
+        cache replaced by the paged gather. Dims default to the target's
+        (the speculative engine builds its draft micro-step at the
+        draft's)."""
+        heads = self.heads if heads is None else heads
+        hd = self.hd if hd is None else hd
+        d = self.d_model if d is None else d
         window = self.window
         scale = hd ** -0.5
         ln = GPT._ln
@@ -481,19 +560,20 @@ class ServingEngine:
 
         return forward
 
-    def _build_suffix_prefill(self):
-        """The suffix-only prefill: ONE block_size-wide causal chunk for
-        up to `prefill_batch` admissions, with the query window anchored
-        at each row's own `start` cursor. Each chunk writes its rows
-        through the page table (`window_write`, never `pages_write`: a
-        warm row maps SHARED pages a whole-row write would clobber), then
-        gathers and attends causally, so chunk c+1's queries see chunk
-        c's rows. Rows past a prompt write masked values at positions
-        >= t0 that decode overwrites before any read. A (B, V)
-        last-logits accumulator takes row t0-1's logits in the chunk
-        that holds it."""
-        heads, hd, d = self.heads, self.hd, self.d_model
-        C = self.block_size
+    def _build_window_forward(self, width: int, heads=None, hd=None,
+                              d=None, with_logits: bool = True):
+        """`width` new tokens per row at positions start + j, j < width:
+        each block writes their K/V through the page table
+        (`window_write`, never `pages_write`: a warm row maps SHARED
+        pages a whole-row write would clobber; positions past the window
+        go to trash), then gathers and attends causally, so the query at
+        start + j sees every row up to its own. The suffix prefill's
+        chunk and the speculative verify pass. Returns logits
+        (B, width, V), or None with `with_logits=False` (the draft
+        cache's writer, which needs only the writes)."""
+        heads = self.heads if heads is None else heads
+        hd = self.hd if hd is None else hd
+        d = self.d_model if d is None else d
         window = self.window
         scale = hd ** -0.5
         ln = GPT._ln
@@ -503,20 +583,19 @@ class ServingEngine:
             f = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
             return f @ bp["w2"] + bp["b2"]
 
-        def suffix(pv, kpools, vpools, page_table, toks, start, t0m1,
-                   last):
+        def forward(pv, kpools, vpools, page_table, toks, start):
             b = toks.shape[0]
-            steps = torch.arange(C, device=toks.device)
-            qpos = start[:, None] + steps[None, :]          # (B, C)
+            steps = torch.arange(width, device=toks.device)
+            qpos = start[:, None] + steps[None, :]          # (B, width)
             h = pv["tok"][toks] + pv["pos"][qpos.clamp(max=window - 1)]
             live = (torch.arange(window, device=toks.device)
                     [None, None, None, :] <= qpos[:, None, :, None])
             for i, bp in enumerate(pv["blocks"]):
                 qkv = h @ bp["wqkv"] + bp["bqkv"]
                 q, k, v = qkv.chunk(3, dim=-1)
-                q = q.reshape(b, C, heads, hd).transpose(1, 2)
-                k = k.reshape(b, C, heads, hd)
-                v = v.reshape(b, C, heads, hd)
+                q = q.reshape(b, width, heads, hd).transpose(1, 2)
+                k = k.reshape(b, width, heads, hd)
+                v = v.reshape(b, width, heads, hd)
                 kv.window_write(kpools[i], page_table, start, k)
                 kv.window_write(vpools[i], page_table, start, v)
                 kc = kv.gather(kpools[i], page_table)   # (B, H, W, hd)
@@ -526,11 +605,37 @@ class ServingEngine:
                 sc = sc.masked_fill(~live, -1e30)
                 p = torch.softmax(sc, dim=-1)
                 o = torch.einsum("bhqw,bhwd->bhqd", p, vc.float())
-                a = o.transpose(1, 2).reshape(b, C, d) @ bp["wo"] + bp["bo"]
+                a = o.transpose(1, 2).reshape(b, width, d) @ bp["wo"] \
+                    + bp["bo"]
                 h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
                 h = ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
+            if not with_logits:
+                return None
             hf = ln(h, pv["lnf_s"], pv["lnf_o"])
-            logits = hf @ pv["head_w"] + pv["head_b"]       # (B, C, V)
+            return hf @ pv["head_w"] + pv["head_b"]        # (B, width, V)
+
+        return forward
+
+    def _build_suffix_prefill(self, with_logits: bool = True, heads=None,
+                              hd=None, d=None):
+        """The suffix-only prefill: ONE block_size-wide causal chunk for
+        up to `prefill_batch` admissions, with the query window anchored
+        at each row's own `start` cursor (`_build_window_forward`), so
+        chunk c+1's queries see chunk c's rows. Rows past a prompt write
+        masked values at positions >= t0 that decode overwrites before
+        any read. With `with_logits` a (B, V) last-logits accumulator
+        takes row t0-1's logits in the chunk that holds it; without
+        (the draft cache's writer, at the draft's dims) the chunk only
+        writes."""
+        C = self.block_size
+        forward = self._build_window_forward(C, heads, hd, d, with_logits)
+        if not with_logits:
+            return forward
+
+        def suffix(pv, kpools, vpools, page_table, toks, start, t0m1,
+                   last):
+            b = toks.shape[0]
+            logits = forward(pv, kpools, vpools, page_table, toks, start)
             inside = (t0m1 >= start) & (t0m1 < start + C)
             lg = logits[torch.arange(b, device=toks.device),
                         (t0m1 - start).clamp(0, C - 1)]
@@ -549,56 +654,51 @@ class ServingEngine:
 
     def _run_suffix(self, rows, toks, start, t0m1, last) -> torch.Tensor:
         """One suffix chunk. On the card each batch width is captured
-        once as a CUDA Graph at its first use (as the decode step is:
-        warm-ups on a side stream with all-trash page rows, so their
-        writes land in block 0), then replayed with the inputs copied
-        into its static buffers; uncaptured, a chunk costs some 400
-        launches from Python. Returns a fresh (B, V) accumulator."""
-        if self.device.type != "cuda":
-            return self._suffix(self.pv, self.kpools, self.vpools, rows,
-                                toks, start, t0m1, last)
-        b = toks.shape[0]
-        if b not in self._suffix_graphs:
-            static = (torch.zeros_like(rows), torch.zeros_like(toks),
-                      torch.zeros_like(start), torch.zeros_like(t0m1),
-                      torch.zeros_like(last))
-
-            def fn():
-                return self._suffix(self.pv, self.kpools, self.vpools,
-                                    *static)
-
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    fn()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = fn()
-            self._suffix_graphs[b] = (graph, static, out)
+        once as a CUDA Graph at its first use (warm-ups with all-trash
+        page rows, so their writes land in block 0), then replayed;
+        uncaptured, a chunk costs some 400 launches from Python. Returns
+        a fresh (B, V) accumulator."""
+        key = ("suffix", toks.shape[0])
+        if self.device.type == "cuda" and key not in self._graphs:
             self._suffix_builds += 1
-        graph, static, out = self._suffix_graphs[b]
-        for dst, src in zip(static, (rows, toks, start, t0m1, last)):
-            dst.copy_(src)
-        graph.replay()
+        out = self._replay(key, lambda *a: self._suffix(
+            self.pv, self.kpools, self.vpools, *a),
+            (rows, toks, start, t0m1, last))
         return out.clone()
 
-    def _write_prefill(self, kc, vc, page_rows) -> None:
-        """Prefill -> pool: chunk each admitted request's full-window
-        K/V (L, B, H, W, hd) into pages and write them at the page
-        table's blocks (slack pages land in trash block 0)."""
-        b = kc.shape[1]
+    def _build_write_prefill(self, heads: int, hd: int):
+        """Prefill -> pool at the given head dims: chunk each admitted
+        request's full-window K/V (L, B, H, W, hd) into pages and write
+        them at the page table's blocks (slack pages land in trash
+        block 0)."""
+        kv, pages, bs = self._kv, self.pages, self.block_size
 
-        def chunk(x):
-            # (B, H, W, hd) -> (B, P, bs, H, hd): rows-leading pages
-            return x.transpose(1, 2).reshape(b, self.pages,
-                                             self.block_size, self.heads,
-                                             self.hd)
+        def write(kpools, vpools, kc, vc, page_rows):
+            b = kc.shape[1]
 
-        for i in range(self._n_layers):
-            self._kv.pages_write(self.kpools[i], page_rows, chunk(kc[i]))
-            self._kv.pages_write(self.vpools[i], page_rows, chunk(vc[i]))
+            def chunk(x):
+                # (B, H, W, hd) -> (B, P, bs, H, hd): rows-leading pages
+                return x.transpose(1, 2).reshape(b, pages, bs, heads, hd)
+
+            for i in range(len(kpools)):
+                kv.pages_write(kpools[i], page_rows, chunk(kc[i]))
+                kv.pages_write(vpools[i], page_rows, chunk(vc[i]))
+
+        return write
+
+    def _prefill_extra(self, ctx: torch.Tensor, rows: torch.Tensor) -> None:
+        """Called once per cold prefill chunk with the padded context
+        batch (B, W) and its page-table rows (B, P), after the target
+        pools are written and before any bookkeeping or eviction. The
+        base engine needs nothing; the speculative engine prefills the
+        draft cache here."""
+
+    def _suffix_extra(self, toks: torch.Tensor, start: torch.Tensor,
+                      rows: torch.Tensor) -> None:
+        """Called once per suffix chunk with the chunk's tokens (B, bs),
+        per-row start cursors (B,) and page-table rows (B, P), after the
+        target pools are written. The base engine needs nothing; the
+        speculative engine writes the draft cache's suffix here."""
 
     # -- observability -------------------------------------------------------
 
@@ -630,10 +730,9 @@ class ServingEngine:
 
     @property
     def pool_bytes(self) -> int:
-        """Device bytes the K and V pools hold (scales included)."""
-        return sum(t.numel() * t.element_size() for t in (
-            self._kdata, self._vdata, self._kscale, self._vscale)
-            if t is not None)
+        """Device bytes every pool on the page table holds (scales, and
+        a speculative engine's draft pools, included)."""
+        return sum(t.numel() * t.element_size() for t in self._cow_pools())
 
     def peek_logits(self) -> np.ndarray:
         """The decode-step logits (S, V) for the CURRENT slot state,
@@ -857,8 +956,13 @@ class ServingEngine:
             rows[j] = row
             t0m1[j] = t0 - 1
         seeds, temps, sample = self._row_sampling(items, bp)
-        logits, kc, vc = self._prefill(self.pv, self._dev(ctx))
-        self._write_prefill(kc, vc, self._dev(rows))
+        ctx_d, rows_d = self._dev(ctx), self._dev(rows)
+        logits, kc, vc = self._prefill(self.pv, ctx_d)
+        self._write_prefill(self.kpools, self.vpools, kc, vc, rows_d)
+        # before any of these slots can be evicted (a max_new=1 request
+        # finishes at its prefill, and the next chunk may reuse its
+        # blocks), the sibling cache fills for the same context and pages
+        self._prefill_extra(ctx_d, rows_d)
         lg = logits[torch.arange(bp, device=self.device), self._dev(t0m1)]
         first = pick_rows(lg, self._dev(seeds),
                           torch.zeros(bp, dtype=torch.long,
@@ -918,8 +1022,10 @@ class ServingEngine:
                 hi = min(lo + bs, t0)
                 toks[j, :hi - lo] = req.prompt[lo:hi]
         with torch.inference_mode():
-            w.last = self._run_suffix(w.rows_d, self._dev(toks),
-                                      self._dev(st), w.t0m1_d, w.last)
+            toks_d, st_d = self._dev(toks), self._dev(st)
+            w.last = self._run_suffix(w.rows_d, toks_d, st_d, w.t0m1_d,
+                                      w.last)
+            self._suffix_extra(toks_d, st_d, w.rows_d)
         w.c += 1
 
     def _finish_suffix_work(self, w: _ChunkWork) -> Tuple:
@@ -1166,14 +1272,20 @@ class ServingEngine:
                     > self._slot_reg_pages[slot]):
                 self._register_decoded_slot(slot)
 
+    def _cow_pools(self) -> List[torch.Tensor]:
+        """The stacked (L, NB, ...) pool tensors a copy-on-write block
+        copy spans: K and V, scales included (the speculative engine
+        adds its draft pools: a block's draft rows share with its target
+        rows as one unit). Writes are in place, so there is no setter."""
+        return [t for t in (self._kdata, self._vdata, self._kscale,
+                            self._vscale) if t is not None]
+
     def _copy_block(self, src: int, dst: int) -> None:
-        """Device copy of one pool block, every layer, K and V, scales
-        included: the copy-on-write payload move."""
+        """Device copy of one block in every pool, every layer: the
+        copy-on-write payload move."""
         with torch.inference_mode():
-            for t in (self._kdata, self._vdata, self._kscale,
-                      self._vscale):
-                if t is not None:
-                    t[:, dst].copy_(t[:, src])
+            for t in self._cow_pools():
+                t[:, dst].copy_(t[:, src])
 
     def _cow_guard(self, span: int) -> None:
         """Copy-on-write sweep before a decode round that writes rows

@@ -1,9 +1,10 @@
 """The port stands alone and never falls back.
 
-- singa_tpu_torch (serving/, observability/ and tensor.py among it),
-  chip_smoke.py and the port's profiling and A/B scripts import nothing
-  of JAX and nothing of singa_tpu (an AST scan, and a real import, with
-  both blocked, that serves one request);
+- singa_tpu_torch (serving/, resilience/, observability/ and tensor.py
+  among it), chip_smoke.py and the port's profiling and A/B scripts
+  import nothing of JAX and nothing of singa_tpu (an AST scan, and a
+  real import, with both blocked, that serves one request; the spool
+  server's process entry runs with both blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -71,6 +72,12 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import singa_tpu_torch.layout, singa_tpu_torch.utils.data\n"
         "import singa_tpu_torch.tensor, singa_tpu_torch.observability\n"
         "import singa_tpu_torch.serving, singa_tpu_torch.serving.engine\n"
+        "import singa_tpu_torch.serving.speculative\n"
+        "import singa_tpu_torch.serving.frontend\n"
+        "import singa_tpu_torch.serving.sched\n"
+        "import singa_tpu_torch.serving.router\n"
+        "import singa_tpu_torch.resilience\n"
+        "import singa_tpu_torch.resilience.counters\n"
         "import singa_tpu_torch.examples.serve_gpt\n"
         "m = singa_tpu_torch.models.gpt.GPT(vocab_size=16, d_model=32,\n"
         "    num_layers=1, num_heads=1, max_len=8, dropout=0.0,\n"
@@ -85,6 +92,27 @@ def test_port_imports_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["(1, 8, 16)", "1 0"]
+
+
+def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):
+    """The process replica's entry (`python -m
+    singa_tpu_torch.serving.router`) builds its model, serves a spool
+    directory that already holds the stop marker, and exits 0 without
+    importing JAX or the reference."""
+    (tmp_path / "stop").write_text("")
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.argv = ['router', '--spool', {str(tmp_path)!r},\n"
+        "            '--device', 'cpu']\n"
+        "runpy.run_module('singa_tpu_torch.serving.router',\n"
+        "                 run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "0 streams served" in out.stdout
+    assert (tmp_path / "status.json").exists()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

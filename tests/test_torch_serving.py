@@ -262,20 +262,23 @@ def test_allocator_math_and_fragmented_reuse():
 
 def test_serve_example_streams_every_request(capsys):
     """The example server on the CPU: every request is served to
-    max_new through on_token, streams equal generate, one decode build;
-    the reference's unported flags raise naming the ROADMAP."""
+    max_new through on_token (the Frontend's handles), one decode
+    build; the reference's still unported flags raise naming the
+    ROADMAP."""
     from singa_tpu_torch.examples import serve_gpt
 
-    reqs = serve_gpt.main(["--device", "cpu", "--requests", "5",
-                           "--slots", "2", "--max-new", "8", "--d-model",
-                           "32", "--heads", "2", "--prefix-cache",
-                           "--echo", "--temperature", "0.7"])
+    handles = serve_gpt.main(["--device", "cpu", "--requests", "5",
+                              "--slots", "2", "--max-new", "8",
+                              "--d-model", "32", "--heads", "2",
+                              "--prefix-cache", "--echo",
+                              "--temperature", "0.7"])
     out = capsys.readouterr().out
     assert "served 5/5 requests" in out and "decode executables: 1" in out
     assert out.count("<done>") == 5
-    assert all(len(r.tokens) == 8 and r.done for r in reqs)
-    assert sum(r.cached_tokens > 0 for r in reqs) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        serve_gpt.main(["--device", "cpu", "--draft", "self"])
+    assert all(len(h.tokens) == 8 and h.done for h in handles)
+    # the first two admit together, before either registers its blocks
+    assert sum(h.request.cached_tokens > 0 for h in handles) == 3
+    with pytest.raises(NotImplementedError, match="item 18"):
+        serve_gpt.main(["--device", "cpu", "--metrics-port", "0"])
     with pytest.raises(NotImplementedError, match="items 10"):
         serve_gpt.main(["--device", "cpu", "--tp", "2"])
