@@ -19,14 +19,17 @@ Phases, in the order they run (any failure raises and exits non-zero):
 3. hold the flash-attention forward kernel against its plain PyTorch
    version: the fused layout at gpt_medium's shape (fp32, fp32 with
    mxu_bf16, bf16), the head-split layout with Tq != Tk (causal and
-   not), head dims 32 and 64, causal rows with no key (Tq > Tk, exact 0);
+   not), head dims 32 and 64, causal rows with no key (Tq > Tk, exact 0),
+   and BERT-base's fused shape (16 x 512, 12 heads of hd 64, non-causal)
+   in fp32 and bf16;
    print max|d|, the kernel's, the plain version's and
    F.scaled_dot_product_attention's times (the last as a yardstick only,
    where its masking is the same) and the data-sheet bound at the rate of
    the kernel's arithmetic (fp32: three TF32 passes, 165 TFLOP/s; bf16:
    989), with the fp32 FMA figure (67 TFLOP/s) beside it;
-4. the same for the dQ and dK/dV backward kernels (9 cases, with bitwise
-   repeats, exact-zero empty rows and an lse cotangent);
+4. the same for the dQ and dK/dV backward kernels (11 cases, with
+   bitwise repeats, exact-zero empty rows, an lse cotangent and the two
+   BERT-base cases);
 5. hold the max-pool backward kernel (K2a) against its plain version on
    ReLU-clamped inputs (exact-zero ties): the reference's eight cases,
    the ResNet-50 stem shape in fp32 and bf16 (which must take the
@@ -92,6 +95,25 @@ Phases, in the order they run (any failure raises and exits non-zero):
 8. gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
    kernel-off gradients, one step counted alone (exactly 12 launches of
    each flash kernel), 6 steps whose loss must fall, one bf16 step;
+   then `gpt_medium(scan_blocks=False, dropout=0.0)`, the reference's
+   default unrolled decoder, on the scanned model's seeded weights
+   (`unstack_params`): scoring 4 x 1024 (12 forward launches) and one
+   training step's gradients (12 launches of each kernel) equal the
+   scanned model's, one counted AdamW step, cached `generate` gives the
+   scanned model's tokens, and `generate(use_cache=False)` (4 prompts
+   filling the window of 256, 8 new; 96 forward launches) equals the
+   cached tokens up to the first near-tie;
+   then BERT-base at full width (`BertForClassification(2)`, vocab
+   30522, 12 layers, d 768, 12 heads, max_len 512) trains at bench.py's
+   chip shape, 16 x 512, with seeded weights, `AdamW(lr=1e-4)`,
+   `compile(..., precision=...)` and `model(ids, y)`: a dropout-0 twin's
+   logits and gradients with the kernels on against off, one fp32 step
+   counted alone (exactly 12 launches of each kernel), a batch padded
+   with a key mask (0 launches, logits equal to the kernel-off model's),
+   the bench's dropout-0.1 model for 6 steps whose loss must fall, then
+   tokens/s and TFLOP/s (bench.py's analytic count) with the kernels on
+   and off in turns, and the same in bf16 (12 launches of each bf16
+   kernel per step, a finite loss that falls);
 9. ResNet-50 at full width trains on a seeded (128, 3, 224, 224) batch
    through the reference's entry points (`resnet50`, seeded states
    through load_singa_tpu_states, `set_image_layout("NHWC")`, SGD(lr
@@ -103,7 +125,8 @@ Phases, in the order they run (any failure raises and exits non-zero):
    switch on and off in turns, one bf16 step that runs the kernel on
    bf16;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
-   bf16 figures and the SASS census beside), then the result line.
+   bf16 figures, the BERT-base shape's figures and launches per step, and
+   the SASS census beside), then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -176,6 +199,11 @@ CASES = [
     # Tq > Tk causal: the first Tq - Tk rows see no key and must be 0
     ("split_empty_rows_tq200_tk70", "split", 2, 4, 200, 70, 64, True,
      "float32", False, 1e-4),
+    # BERT-base at bench.py's chip shape: non-causal, 12 heads of hd 64
+    ("bert_base_fused_fp32", "fused", 16, 12, 512, 512, 64, False,
+     "float32", False, 1e-4),
+    ("bert_base_fused_bf16", "fused", 16, 12, 512, 512, 64, False,
+     "bfloat16", False, 2e-2),
 ]
 # Tolerances: fp32 kernel and plain version differ only in summation
 # order (1e-4 on values of order 1); where operands or O are bf16, one
@@ -303,6 +331,10 @@ BWD_CASES = [
      "float32", False, False, 1e-4),
     ("split_lse_cotangent_tq384_tk1000", "split", 2, 8, 384, 1000, 128,
      True, "float32", False, True, 1e-4),
+    ("bert_base_fused_fp32", "fused", 16, 12, 512, 512, 64, False,
+     "float32", False, False, 1e-4),
+    ("bert_base_fused_bf16", "fused", 16, 12, 512, 512, 64, False,
+     "bfloat16", False, False, 2e-2),
 ]
 # Tolerances are on max|d| / max(1, max|plain|) per gradient. fp32: the
 # kernel and the plain version differ only in summation order (1e-4).
@@ -556,6 +588,20 @@ def cnn_states(shapes, seed):
     return out
 
 
+def named_grads(model, loss):
+    """{name: grad} of every parameter of `model` that `loss` reaches."""
+    from singa_tpu_torch import autograd
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: g for p, g in autograd.grad_pairs(loss)}
+
+
+def worst_rel(a, b):
+    """max over the names of b of max|a - b| / max|b|."""
+    return max((a[n] - b[n]).abs().max().item()
+               / max(b[n].abs().max().item(), 1e-30) for n in b)
+
+
 def cnn_grads(model, x, y):
     """{name: grad} of the mean cross-entropy at the current weights, in
     training mode; the BatchNorm running statistics are put back."""
@@ -564,9 +610,8 @@ def cnn_grads(model, x, y):
     from singa_tpu_torch import autograd
 
     buffers = {k: b.clone() for k, b in model.named_buffers()}
-    loss = autograd.softmax_cross_entropy(model.forward(x), y)
-    names = {id(p): n for n, p in model.named_parameters()}
-    grads = {names[id(p)]: g for p, g in autograd.grad_pairs(loss)}
+    grads = named_grads(model, autograd.softmax_cross_entropy(
+        model.forward(x), y))
     with torch.no_grad():
         for k, b in model.named_buffers():
             b.copy_(buffers[k])
@@ -608,8 +653,7 @@ def resnet_path(torch, fa, mp):
     check(sorted(on) == sorted(off) == sorted(
         n for n, _ in m.named_parameters()), "resnet gradients not complete")
     grad_tol = 1e-3  # of each parameter's max|grad|: cuDNN's order only
-    worst = max((on[n] - off[n]).abs().max().item()
-                / max(off[n].abs().max().item(), 1e-30) for n in on)
+    worst = worst_rel(on, off)
     print(f"resnet50 grads, max-pool kernel on vs off: worst max|d| / "
           f"max|grad| {worst:.3e} over {len(on)} parameters (tol "
           f"{grad_tol})", flush=True)
@@ -802,10 +846,8 @@ def main_grads(torch, model, x, y):
     """{name: grad} of the mean next-token loss at the current weights."""
     from singa_tpu_torch import autograd
 
-    loss = autograd.softmax_cross_entropy(
-        model.forward(x).reshape(-1, model.vocab_size), y.reshape(-1))
-    names = {id(p): n for n, p in model.named_parameters()}
-    return {names[id(p)]: g for p, g in autograd.grad_pairs(loss)}
+    return named_grads(model, autograd.softmax_cross_entropy(
+        model.forward(x).reshape(-1, model.vocab_size), y.reshape(-1)))
 
 
 def train_path(torch, fa, mp, model, rng):
@@ -830,8 +872,7 @@ def train_path(torch, fa, mp, model, rng):
     check(sorted(on) == sorted(off) == sorted(
         n for n, _ in model.named_parameters()), "gradients not complete")
     grad_tol = 1e-3  # of each parameter's max|grad|; summation order only
-    worst = max((on[n] - off[n]).abs().max().item()
-                / max(off[n].abs().max().item(), 1e-30) for n in on)
+    worst = worst_rel(on, off)
     print(f"train grads, kernels on vs off: worst max|d| / max|grad| "
           f"{worst:.3e} over {len(on)} parameters (tol {grad_tol})",
           flush=True)
@@ -895,6 +936,284 @@ def train_path(torch, fa, mp, model, rng):
     return launches, dict(step_ms=step_ms, tokens_per_s=4 * 1024 / step_ms
                           * 1e3, losses=losses, grad_rel_err=worst,
                           loss_bf16=loss_bf16)
+
+
+# -- BERT-base and the unrolled GPT ------------------------------------------
+
+BERT_BATCH, BERT_SEQ = 16, 512  # bench.py's chip shape for --model bert
+
+
+def bert_train_flops(batch, seq, d_model=768, n_layers=12, ffn_mult=4):
+    """Analytic FLOPs of one BERT training step, as bench.py's
+    `_bert_train_flops` counts them (matrix products only, backward ~ 2x
+    forward): per layer forward, QKV and output projections 8*B*T*d^2,
+    the FFN 4*B*T*d*(ffn_mult*d), attention scores and context
+    4*B*T^2*d."""
+    proj = 8 * batch * seq * d_model * d_model
+    ffn = 4 * batch * seq * d_model * (ffn_mult * d_model)
+    attn = 4 * batch * seq * seq * d_model
+    return 3 * n_layers * (proj + ffn + attn)
+
+
+def bert_rates(torch, fa, m, ids, y, steps=3):
+    """Tokens/s of `m(ids, y)` with the flash kernels on and off, in
+    turns (on, off, off, on), each window after one untimed step; the
+    launches of each window are checked (12 per kernel per step, or
+    0)."""
+    rates = {True: [], False: []}
+    for enabled in (True, False, False, True):
+        fa.set_flash_enabled(enabled)
+        m(ids, y)
+        torch.cuda.synchronize()
+        before = fa.FLASH_FWD_LAUNCHES
+        t = time.perf_counter()
+        for _ in range(steps):
+            _, loss = m(ids, y)
+        loss.item()
+        dt = time.perf_counter() - t
+        n = fa.FLASH_FWD_LAUNCHES - before
+        check(n == (12 * steps if enabled else 0),
+              f"flash {enabled}: {n} forward launches in {steps} steps")
+        rates[enabled].append(steps * ids.numel() / dt)
+    fa.set_flash_enabled(True)
+    return rates
+
+
+def bert_path(torch, fa, mp):
+    """BERT-base at full width trains at bench.py's chip shape (16 x 512)
+    through `BertForClassification`, `AdamW(lr=1e-4)`, `compile` and
+    `model(ids, y)`: the fused flash kernels run non-causally at hd 64
+    with 12 heads. Returns the counted fp32 step's launches and the
+    numbers."""
+    from singa_tpu_torch import autograd, opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.transformer import BertForClassification
+
+    rng = np.random.default_rng(SEED + 1)
+    ids = torch.from_numpy(rng.integers(0, 30522, (BERT_BATCH, BERT_SEQ)))
+    ids = ids.cuda()
+    y = torch.arange(BERT_BATCH, device="cuda") % 2
+    flops = bert_train_flops(BERT_BATCH, BERT_SEQ)
+
+    # the dropout-0 twin: kernel on against kernel off
+    m = BertForClassification(2, max_len=BERT_SEQ, dropout=0.0,
+                              device="cuda")
+    weights = seeded_params(m, SEED)
+    load_singa_tpu_params(m, weights)
+    m.set_optimizer(opt.AdamW(lr=1e-4))
+    m.compile([ids], is_train=True, use_graph=True, precision="fp32")
+    print(f"bert_base: {sum(p.numel() for p in m.parameters())} "
+          f"parameters", flush=True)
+    sides = {}
+    for enabled in (True, False):
+        fa.set_flash_enabled(enabled)
+        logits = m.forward(ids)
+        loss = autograd.softmax_cross_entropy(logits, y)
+        sides[enabled] = (logits.detach(), named_grads(m, loss))
+    fa.set_flash_enabled(True)
+    (l_on, g_on), (l_off, g_off) = sides[True], sides[False]
+    check(sorted(g_on) == sorted(g_off) == sorted(
+        n for n, _ in m.named_parameters() if n != "bert.seg.table"),
+        "BERT gradients not complete (every parameter but the segment "
+        "table, which no seg_ids reach)")
+    logit_err = (l_on - l_off).abs().max().item()
+    worst = worst_rel(g_on, g_off)
+    tol = 1e-3  # of each max|grad| (logits: absolute); summation order
+    print(f"bert kernel on vs off: logits max|d| {logit_err:.3e}, grads "
+          f"worst max|d| / max|grad| {worst:.3e} over {len(g_on)} "
+          f"parameters (tol {tol})", flush=True)
+    check(logit_err <= tol and worst <= tol, "BERT kernel path disagrees")
+    del sides, g_on, g_off
+
+    # one fp32 step, counted alone
+    torch.cuda.synchronize()
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    _, loss = m(ids, y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = counts(fa, mp)
+    print(f"bert fp32 step 1: {first_s:.3f} s, loss {loss.item():.4f}, "
+          f"launches {launches}", flush=True)
+    check(launches == {"flash_fwd": 12, "flash_bwd_dq": 12,
+                       "flash_bwd_dkv": 12, "max_pool_bwd": 0},
+          f"one BERT step launched {launches}, not 12 of each flash kernel")
+
+    # a padded batch with a key mask: the plain attention, no kernel
+    lengths = rng.integers(BERT_SEQ // 4, BERT_SEQ + 1, BERT_BATCH)
+    mask = (torch.arange(BERT_SEQ, device="cuda")[None]
+            < torch.from_numpy(lengths).cuda()[:, None])[:, None, None]
+    m.eval()
+    with torch.inference_mode():
+        reset_counts(fa, mp)
+        masked = m(ids, None, mask)
+        masked_launches = counts(fa, mp)
+        fa.set_flash_enabled(False)
+        masked_off = m(ids, None, mask)
+        fa.set_flash_enabled(True)
+    m.train()
+    print(f"bert masked batch (lengths {lengths.min()}-{lengths.max()}): "
+          f"launches {masked_launches}, logits equal to the kernel-off "
+          f"model's: {bool(torch.equal(masked, masked_off))}", flush=True)
+    check(sum(masked_launches.values()) == 0,
+          f"a masked BERT batch launched {masked_launches}")
+    check(torch.equal(masked, masked_off) and bool(
+        torch.isfinite(masked).all()), "masked BERT logits differ")
+    del m, masked, masked_off
+    torch.cuda.empty_cache()
+
+    # the bench's model (dropout 0.1): 6 steps, then tokens/s on and off
+    m = BertForClassification(2, max_len=BERT_SEQ, device="cuda")
+    load_singa_tpu_params(m, weights)
+    m.set_optimizer(opt.AdamW(lr=1e-4))
+    m.compile([ids], is_train=True, use_graph=True, precision="fp32")
+    losses = [m(ids, y)[1].item() for _ in range(6)]
+    print(f"bert fp32 losses (dropout 0.1) {losses}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the BERT fp32 loss did not fall over 6 steps")
+    rates = {"fp32": bert_rates(torch, fa, m, ids, y)}
+
+    # bf16: autocast on, so the kernels get bf16 operands
+    seen = []
+    real_fwd, real_bwd = fa._flash_fwd, fa._flash_bwd
+    fa._flash_fwd = lambda q, *a: seen.append(q.dtype) or real_fwd(q, *a)
+    fa._flash_bwd = lambda q, *a: seen.append(q.dtype) or real_bwd(q, *a)
+    try:
+        load_singa_tpu_params(m, weights)
+        m.set_optimizer(opt.AdamW(lr=1e-4))
+        m.compile([ids], is_train=True, use_graph=True, precision="bf16")
+        reset_counts(fa, mp)
+        _, loss = m(ids, y)
+        losses_bf16 = [loss.item()]
+        bf16_launches = counts(fa, mp)
+        losses_bf16 += [m(ids, y)[1].item() for _ in range(5)]
+        rates["bf16"] = bert_rates(torch, fa, m, ids, y)
+    finally:
+        fa._flash_fwd, fa._flash_bwd = real_fwd, real_bwd
+        autograd.set_autocast(False)
+    print(f"bert bf16: launches of step 1 {bf16_launches}, losses "
+          f"{losses_bf16}, kernel operand dtypes "
+          f"{sorted(set(map(str, seen)))}", flush=True)
+    check(bf16_launches == launches, "the bf16 BERT step launched otherwise")
+    check(set(seen) == {torch.bfloat16},
+          "the bf16 BERT step did not run the kernels on bf16 operands")
+    check(all(np.isfinite(losses_bf16)) and losses_bf16[-1] < losses_bf16[0],
+          "the BERT bf16 loss is not finite or did not fall")
+    out = dict(first_step_s=first_s, losses=losses, losses_bf16=losses_bf16,
+               logit_err=logit_err, grad_rel_err=worst,
+               masked_launches=masked_launches, flops_per_step=flops)
+    for prec, r in rates.items():
+        for enabled, key in ((True, "on"), (False, "off")):
+            tok_s = float(np.mean(r[enabled]))
+            step_ms = BERT_BATCH * BERT_SEQ / tok_s * 1e3
+            out[f"{prec}_kernel_{key}"] = dict(
+                tokens_per_s=tok_s, step_ms=step_ms,
+                tflops=flops / step_ms * 1e-9, windows=r[enabled])
+            print(f"bert {prec} kernel {key}: {step_ms:.2f} ms per "
+                  f"{BERT_BATCH}x{BERT_SEQ} step, {tok_s:.1f} tokens/s, "
+                  f"{flops / step_ms * 1e-9:.1f} TFLOP/s (windows "
+                  f"{r[enabled]})", flush=True)
+    del m
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def gpt_unrolled_path(torch, fa, mp, scanned, ids, prompts):
+    """`gpt_medium(scan_blocks=False, dropout=0.0)`, the reference's
+    default unrolled decoder at gpt_medium's width, on the scanned
+    model's seeded weights carried to its blocks' names: scoring, one
+    training step's gradients, cached and eager `generate`, each
+    against the scanned model. Returns the launches of each part."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium, unstack_params
+
+    weights = seeded_params(scanned, SEED)
+    load_singa_tpu_params(scanned, weights)
+    m = gpt_medium(scan_blocks=False, dropout=0.0, device="cuda")
+    load_singa_tpu_params(m, unstack_params(weights))
+    scanned.eval()
+    m.eval()
+    launches, out = {}, {}
+
+    with torch.inference_mode():
+        reset_counts(fa, mp)
+        logits = m(ids)
+        launches["score"] = counts(fa, mp)
+        err = (logits - scanned(ids)).abs().max().item()
+    print(f"gpt unrolled scoring: launches {launches['score']}, logits vs "
+          f"the scanned model max|d| {err:.3e}", flush=True)
+    check(launches["score"]["flash_fwd"] == 12,
+          f"unrolled scoring launched {launches['score']}")
+    check(err <= 2e-3, "unrolled logits differ from the scanned model's")
+    out["score_err"] = err
+    del logits
+
+    x, y = ids, torch.roll(ids, -1, dims=1)
+    m.train()
+    scanned.train()
+    m.set_optimizer(opt.AdamW(lr=3e-4))
+    m.compile([x], is_train=True, use_graph=True)
+    g_s = main_grads(torch, scanned, x, y)
+    reset_counts(fa, mp)
+    g_u = main_grads(torch, m, x, y)
+    launches["grads"] = counts(fa, mp)
+    worst = worst_rel(g_u, unstack_params(g_s))
+    print(f"gpt unrolled gradients: launches {launches['grads']}, worst "
+          f"max|d| / max|grad| against the scanned model {worst:.3e} over "
+          f"{len(g_u)} parameters", flush=True)
+    check(sorted(g_u) == sorted(n for n, _ in m.named_parameters()),
+          "unrolled gradients not complete")
+    check(launches["grads"] == {"flash_fwd": 12, "flash_bwd_dq": 12,
+                                "flash_bwd_dkv": 12, "max_pool_bwd": 0},
+          f"the unrolled gradients launched {launches['grads']}")
+    check(worst <= 1e-3, "unrolled gradients differ from the scanned ones")
+    out["grad_rel_err"] = worst
+    del g_s, g_u
+    reset_counts(fa, mp)
+    _, loss = m(x, y)
+    launches["train_step"] = counts(fa, mp)
+    check(launches["train_step"] == launches["grads"] and np.isfinite(
+        loss.item()), f"the unrolled step launched {launches['train_step']}")
+    scanned.eval()
+    m.eval()
+    load_singa_tpu_params(m, unstack_params(weights))
+    torch.cuda.empty_cache()
+
+    toks = m.generate(prompts, n_new=48, window=256)
+    check(np.array_equal(toks, scanned.generate(prompts, n_new=48,
+                                                window=256)),
+          "unrolled cached generate differs from the scanned model's")
+
+    # the eager loop from full windows: cached slides recompute the
+    # window with plain attention, eager runs the forward (the kernel)
+    full = toks[:, :256]
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    eager = m.generate(full, n_new=8, window=256, use_cache=False)
+    eager_s = time.perf_counter() - t
+    launches["eager_generate"] = counts(fa, mp)
+    cached = m.generate(full, n_new=8, window=256)
+    margins = []
+    with torch.inference_mode():
+        for j in range(8):
+            ctx = torch.from_numpy(cached[:, j:j + 256]).cuda()
+            top = m(ctx)[:, -1].float().topk(2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+    margins = np.stack(margins, axis=1)
+    agree = all(same_until_near_tie(a, b, mg) for a, b, mg in zip(
+        eager[:, 256:], cached[:, 256:], margins))
+    print(f"gpt unrolled generate: cached equals the scanned model's; eager "
+          f"(4 x 8 new, window 256) {eager_s:.3f} s, launches "
+          f"{launches['eager_generate']}, equals cached up to the first "
+          f"near-tie: {agree} (min margin {margins.min():.3e})", flush=True)
+    check(launches["eager_generate"]["flash_fwd"] == 8 * 12,
+          f"eager generate launched {launches['eager_generate']}")
+    check(agree, "eager generate differs from the cached path")
+    out["eager_min_margin"] = float(margins.min())
+    del m
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 # -- the serving path ---------------------------------------------------------
@@ -1880,8 +2199,15 @@ def main() -> int:
 
     # 8. the GPT training path, counted around one step
     train_launches, train = train_path(torch, fa, mp, model, rng)
+
+    # 8b. the reference's default decoder, unrolled, against the scanned
+    unrolled_launches, unrolled = gpt_unrolled_path(torch, fa, mp, model,
+                                                    ids, prompts)
     del model
     torch.cuda.empty_cache()
+
+    # 8c. BERT-base training: the fused kernels non-causally at hd 64
+    bert_launches, bert = bert_path(torch, fa, mp)
 
     # 9. the CNN training path: ResNet-50, counted around one step
     resnet_launches, resnet = resnet_path(torch, fa, mp)
@@ -1890,6 +2216,28 @@ def main() -> int:
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
     common = dict(route="cuda", shape=fwd["shape"], card=card)
+    fwd_by = {r["case"]: r for r in rows}
+    bwd_by = {r["case"]: r for r in bwd_rows}
+
+    def at_bert(name, key, grads):
+        """A flash kernel's figures at BERT-base's shape, fp32 and bf16,
+        beside its launches per BERT step."""
+        out = dict(shape=fwd_by["bert_base_fused_fp32"]["shape"],
+                   causal=False, launches_per_step=bert_launches[name])
+        for dt in ("fp32", "bf16"):
+            if key is None:
+                r = fwd_by[f"bert_base_fused_{dt}"]
+                fig = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                           bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+            else:
+                r = bwd_by[f"bert_base_fused_{dt}"]
+                fig = dict(max_abs_err=max(r["max_abs_err"][g]
+                                           for g in grads),
+                           ms=r[f"ms_{key}"], bound_ms=r["bound_ms"][key],
+                           bound_by=r["bound_by"][key])
+            out[dt] = dict(fig, plain_ms=r["plain_ms"],
+                           library_ms=r["library_ms"])
+        return out
 
     def sass_of(kernel):
         return {fn: ops for fn, ops in sass.items()
@@ -1900,8 +2248,13 @@ def main() -> int:
              replaces="singa_tpu/ops/flash_attention.py:829",
              also_replaces="singa_tpu/ops/flash_attention.py:263",
              launches=train_launches["flash_fwd"],
-             launches_by_path={"score": fwd_launches,
-                               "train_step": train_launches["flash_fwd"]},
+             launches_by_path={
+                 "score": fwd_launches,
+                 "train_step": train_launches["flash_fwd"],
+                 "unrolled_train_step":
+                     unrolled_launches["train_step"]["flash_fwd"],
+                 "bert_step": bert_launches["flash_fwd"]},
+             bert_base=at_bert("flash_fwd", None, ()),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_fma_ms=fwd["bound_fma_ms"],
@@ -1921,6 +2274,11 @@ def main() -> int:
             replaces=f"singa_tpu/ops/flash_attention.py{sites[0]}",
             also_replaces=f"singa_tpu/ops/flash_attention.py{sites[1]}",
             launches=train_launches[name],
+            launches_by_path={
+                "train_step": train_launches[name],
+                "unrolled_train_step": unrolled_launches["train_step"][name],
+                "bert_step": bert_launches[name]},
+            bert_base=at_bert(name, key, grads),
             max_abs_err=max(bwd["max_abs_err"][g] for g in grads),
             ms=bwd[f"ms_{key}"], plain_ms=bwd["plain_ms"],
             bound_ms=bwd["bound_ms"][key], bound_by=bwd["bound_by"][key],
@@ -1953,6 +2311,10 @@ def main() -> int:
     print("serve " + json.dumps(serve), flush=True)
     print("serve_stack " + json.dumps(stack), flush=True)
     print("train " + json.dumps(train), flush=True)
+    print("gpt_unrolled " + json.dumps(dict(unrolled,
+                                            launches=unrolled_launches)),
+          flush=True)
+    print("bert_train " + json.dumps(bert), flush=True)
     print("resnet50_train " + json.dumps(resnet), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,11 @@ on top of it:
   `max_pool2d`, `avg_pool2d`, `global_avg_pool2d`, `relu`, `add` and
   `flatten` (reference :640-682, :895, :982-1323). Under the "NHWC"
   image layout (`layout.py`) the activations are channels-last tensors
-  of logical NCHW shape, so every op indexes channels on axis 1.
+  of logical NCHW shape, so every op indexes channels on axis 1;
+- the transformer's plain tensor functions `linear` (the bias joined at
+  the product's output dtype), `gelu` (tanh approximation by default,
+  as `jax.nn.gelu`), `tanh` and `reshape` (reference :670, :909-924,
+  :950-965).
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "backward", "grad_pairs", "REMAT_POLICIES", "remat_wrap",
            "softmax_cross_entropy", "cross_entropy", "add", "flatten",
            "relu", "conv2d", "DEGENERATE_STAT_COUNT", "batchnorm",
-           "max_pool2d", "avg_pool2d", "global_avg_pool2d"]
+           "max_pool2d", "avg_pool2d", "global_avg_pool2d", "gelu", "tanh",
+           "reshape", "linear"]
 
 #: reference parity: `Model.train(mode)` sets it; a model's forward
 #: records no tape while it is False
@@ -210,6 +215,30 @@ cross_entropy = softmax_cross_entropy
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a + b
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b), w (in, out); operands under the autocast policy, the
+    bias joined at the product's output dtype (under keep-bf16 autocast
+    an fp32 bias would promote the activation stream back to fp32)."""
+    a, ww = _mxu_cast(x, w)
+    y = _mxu_result(torch.matmul(a, ww))
+    return y if b is None else y + b.to(y.dtype)
+
+
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    return x.reshape(tuple(shape))
+
+
+def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """GELU; `approximate=True` is the tanh form (`jax.nn.gelu`'s
+    default), False the exact erf form."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
 
 
 def flatten(x: torch.Tensor, start_axis: int = 1) -> torch.Tensor:

@@ -4,13 +4,15 @@ Trains a small GPT on a character corpus with the reference's surface:
 `compile(..., is_train=True, use_graph=True)`, then `model(x, y)` per
 step with AdamW; the attention dispatcher switches to the flash kernels
 (forward and backward) from --seq 256 on. Then it samples a continuation
-with the cached `generate`. Runs on the card unless `--device cpu`:
+with the cached `generate`. The decoder is the reference's default, the
+unrolled `TransformerEncoder` with dropout; `--scan-blocks` picks the
+scanned stack (dropout-free), as does a `--remat` policy. Runs on the
+card unless `--device cpu`:
 
-    python -m singa_tpu_torch.examples.gpt_lm --scan-blocks --steps 200
-    python -m singa_tpu_torch.examples.gpt_lm --scan-blocks --device cpu \\
+    python -m singa_tpu_torch.examples.gpt_lm --steps 200
+    python -m singa_tpu_torch.examples.gpt_lm --device cpu \\
         --steps 3 --batch 2 --seq 32 --d-model 32 --heads 2
 
-Only the scanned decoder is ported, so --scan-blocks is required.
 --shard-states, --virtual-devices and --checkpoint raise, naming the
 ROADMAP item that ports them.
 """
@@ -61,6 +63,10 @@ def run(args):
     ids = np.array([c2i[c] for c in text], np.int64)
     print(f"corpus: {len(ids)} chars, vocab {len(chars)}")
 
+    if args.remat != "none" and not args.scan_blocks:
+        print(f"--remat {args.remat} applies to the scanned decoder "
+              "only; forcing --scan-blocks")
+        args.scan_blocks = True
     if args.scan_blocks and args.dropout:
         print("scan-blocks decoder is dropout-free; forcing --dropout 0")
         args.dropout = 0.0
@@ -135,10 +141,11 @@ def main(argv=None):
                    help="virtual multi-device run (not ported)")
     p.add_argument("--scan-blocks", action="store_true",
                    help="scan-over-layers decoder "
-                        "(layer.ScanTransformerStack); required")
+                        "(layer.ScanTransformerStack), dropout-free")
     p.add_argument("--remat", choices=["none", "per_block", "dots_saveable"],
                    default="none",
-                   help="rematerialization policy of the scanned decoder")
+                   help="rematerialization policy of the scanned decoder "
+                        "(implies --scan-blocks)")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint archive path (not ported)")
     run(p.parse_args(argv))

@@ -54,13 +54,14 @@ _BUILTIN = (
 def seeded_weights(model, seed):
     """Random weights for every parameter, from numpy with `seed`, at
     the scales of the reference's initialisers. The scanned decoder
-    stacks its blocks' parameters on a leading axis, so a (L, n) bias
-    or LayerNorm offset is a vector, not a matrix."""
+    stacks its blocks' parameters on a leading axis (`decoder.<name>`),
+    so a (L, n) bias or LayerNorm offset is a vector, not a matrix."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
-        per_block = shape[1:] if name.startswith("decoder.") else shape
+        stacked = name.startswith("decoder.") and name.count(".") == 1
+        per_block = shape[1:] if stacked else shape
         if name.endswith(".table"):
             a = 0.1 * rng.standard_normal(shape, dtype=np.float32)
         elif name.endswith(("ln1_s", "ln2_s", "scale")):

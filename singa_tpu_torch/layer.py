@@ -45,7 +45,7 @@ from singa_tpu_torch import device as device_module
 from singa_tpu_torch import tensor as tensor_module
 from singa_tpu_torch.ops import flash_attention as fa
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout",
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Gelu", "Tanh",
            "ScanTransformerStack", "Conv2d", "BatchNorm2d", "MaxPool2d",
            "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten", "Sequential",
            "paged_kv_gather", "paged_kv_token_write",
@@ -77,11 +77,6 @@ def _setup(device, generator):
     return dev, generator
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    a, w = autograd._mxu_cast(a, w)
-    return autograd._mxu_result(torch.matmul(a, w))
-
-
 def _layernorm(x, scale, offset, eps: float = 1e-5) -> torch.Tensor:
     """fp32 statistics, population variance, cast back to x's dtype."""
     xf = x.float()
@@ -103,10 +98,7 @@ class Linear(nn.Module):
         self.b = _new((out_features,), dev, gen, "zeros") if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _mm(x, self.W)
-        if self.b is None:
-            return y
-        return y + self.b.to(y.dtype)  # bias joins at the output dtype
+        return autograd.linear(x, self.W, self.b)
 
 
 class Embedding(nn.Module):
@@ -142,6 +134,19 @@ class Dropout(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.dropout(x, self.p, training=self.training)
+
+
+class Gelu(nn.Module):
+    """tanh-approximate GELU, the function `ScanTransformerStack`'s FFN
+    applies."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.gelu(x)
+
+
+class Tanh(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.tanh(x)
 
 
 class ScanTransformerStack(nn.Module):
@@ -205,17 +210,11 @@ class ScanTransformerStack(nn.Module):
 
     def _block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
                l2o, w1, b1, w2, b2) -> torch.Tensor:
-        qkv = _mm(h, wqkv)
-        qkv = qkv + bqkv.to(qkv.dtype)
+        qkv = autograd.linear(h, wqkv, bqkv)
         o = fa.attention_qkv(qkv, self.num_heads, causal=self.causal)
-        a = _mm(o, wo)
-        a = a + bo.to(a.dtype)
-        h = _layernorm(h + a, l1s, l1o)
-        f1 = _mm(h, w1)
-        f = F.gelu(f1 + b1.to(f1.dtype), approximate="tanh")
-        f2 = _mm(f, w2)
-        f = f2 + b2.to(f2.dtype)
-        return _layernorm(h + f, l2s, l2o)
+        h = _layernorm(h + autograd.linear(o, wo, bo), l1s, l1o)
+        f = autograd.gelu(autograd.linear(h, w1, b1))
+        return _layernorm(h + autograd.linear(f, w2, b2), l2s, l2o)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         block = autograd.remat_wrap(self._block, self.remat)

@@ -1,7 +1,11 @@
 """GPT-style causal decoder (counterpart of singa_tpu/models/gpt.py).
 
-The reference's scanned decoder (`scan_blocks=True`, `dropout=0.0`, as
-`gpt_medium` builds it):
+Two decoders, as in the reference: by default (`scan_blocks=False`) the
+unrolled `TransformerEncoder(causal=True)` of `models/transformer.py`,
+with per-block dropout; with `scan_blocks=True` (and `dropout=0.0`, as
+`gpt_medium` builds it) a `ScanTransformerStack` over stacked weights.
+Both compute the same function of the same weights (`unstack_params`
+renames the stacked ones). For either:
 
 - `forward(ids)` scores full sequences; every block's attention goes
   through `attention_qkv`, so from T = 256 on it runs the fused-layout
@@ -24,7 +28,15 @@ The reference's scanned decoder (`scan_blocks=True`, `dropout=0.0`, as
   seed, its index and its logits, never on the rest of the batch (the
   counterpart of the reference's `fold_in(key, i)`, without
   `jax.random`'s bits).
+- `generate(..., use_cache=False)` is the reference's eager debugging
+  loop: a full forward per token over the last `window` tokens, short
+  contexts left-padded with `pad_id` (attended, as in the reference, so
+  it equals the cached path only once the context fills the window),
+  picked on the host with numpy's generator seeded with `seed`, as the
+  reference's is.
 
+`remat=True` is stored by the unrolled decoder's attention (on one
+device the reference threads it only into ring and Ulysses attention).
 Other constructor options raise `NotImplementedError` naming the ROADMAP
 item that ports them (the MoE auxiliary loss among them).
 """
@@ -38,10 +50,40 @@ import torch
 import torch.nn.functional as F
 
 from singa_tpu_torch import autograd, layer, model
+from singa_tpu_torch.models.transformer import (TransformerEncoder,
+                                               refuse_distributed)
 from singa_tpu_torch.parallel.ring import full_attention
 
 __all__ = ["GPT", "gpt_medium", "gpt_draft", "pick_rows", "gumbel_noise",
-           "uniform_noise", "fold_seed"]
+           "uniform_noise", "fold_seed", "unstack_params"]
+
+#: a stacked `ScanTransformerStack` weight -> its name in an unrolled
+#: block (`decoder.blocks.{i}.<name>`)
+_BLOCK_NAMES = dict(
+    w_qkv="attn.w_qkv", b_qkv="attn.b_qkv", w_o="attn.w_o", b_o="attn.b_o",
+    ln1_s="ln1.scale", ln1_o="ln1.offset", ln2_s="ln2.scale",
+    ln2_o="ln2.offset", w1="fc1.W", b1="fc1.b", w2="fc2.W", b2="fc2.b")
+#: the decode functions' key of each stacked weight
+_DECODE_KEYS = dict(
+    wqkv="w_qkv", bqkv="b_qkv", wo="w_o", bo="b_o", ln1_s="ln1_s",
+    ln1_o="ln1_o", ln2_s="ln2_s", ln2_o="ln2_o", w1="w1", b1="b1", w2="w2",
+    b2="b2")
+
+
+def unstack_params(params):
+    """A scanned GPT's parameters {name: array} under the unrolled
+    decoder's names: the i-th slice of each stacked `decoder.<w>` becomes
+    `decoder.blocks.{i}.<attr>.<p>`; other names pass through. The two
+    models then compute the same function."""
+    out = {}
+    for name, a in params.items():
+        leaf = name[len("decoder."):] if name.startswith("decoder.") else None
+        if leaf not in _BLOCK_NAMES:
+            out[name] = a
+            continue
+        for i in range(len(a)):
+            out[f"decoder.blocks.{i}.{_BLOCK_NAMES[leaf]}"] = a[i]
+    return out
 
 _M32 = 0xFFFFFFFF
 
@@ -103,7 +145,8 @@ def pick_rows(logits: torch.Tensor, seeds: torch.Tensor,
 
 
 class GPT(model.Model):
-    """Causal decoder LM over a `ScanTransformerStack`."""
+    """Causal decoder LM over a `TransformerEncoder(causal=True)` or,
+    with `scan_blocks=True`, a `ScanTransformerStack`."""
 
     def __init__(
         self,
@@ -133,23 +176,19 @@ class GPT(model.Model):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        del ring_flash, seq_impl, moe_aux_coef, moe_capacity_factor, pp_micro
-        if not scan_blocks:
+        del moe_aux_coef, moe_capacity_factor, pp_micro
+        refuse_distributed(seq_axis, tp_axis, ring_flash, seq_impl,
+                           moe_experts, moe_axis)
+        if pp_axis is not None:
             raise NotImplementedError(
-                "GPT(scan_blocks=False) is the unrolled TransformerEncoder "
-                "decoder (ROADMAP queue 1 item 9.4); pass scan_blocks=True")
-        if remat:
+                "GPT(pp_axis=) is the pipelined stack (ROADMAP queue 1 "
+                "item 15)")
+        if not scan_blocks and (zero3_axis is not None or overlap):
             raise NotImplementedError(
-                "GPT(remat=True) is the unrolled decoder's checkpointing "
-                "(ROADMAP queue 1 item 9.4)")
-        for name, val in (("seq_axis", seq_axis), ("tp_axis", tp_axis),
-                          ("moe_experts", moe_experts),
-                          ("moe_axis", moe_axis), ("pp_axis", pp_axis)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"GPT({name}=) belongs to the distributed slice "
-                    f"(ROADMAP queue 1 items 14-15)")
-        if dropout:
+                "GPT(zero3_axis=) and GPT(overlap=) belong to the scanned "
+                "stack; pass scan_blocks=True: the unrolled decoder has no "
+                "stacked (L, ...) weights to shard or loop to pipeline")
+        if scan_blocks and dropout:
             raise NotImplementedError(
                 "GPT(scan_blocks=True) has no per-block dropout; pass "
                 "dropout=0.0 (as the reference requires)")
@@ -161,10 +200,15 @@ class GPT(model.Model):
         self.pos = layer.Embedding(max_len, d_model, device=dev,
                                    generator=gen)
         self.drop = layer.Dropout(dropout)
-        self.decoder = layer.ScanTransformerStack(
-            num_layers, num_heads, d_model, causal=True, remat=remat_policy,
-            zero3_axis=zero3_axis, overlap=overlap, device=dev,
-            generator=gen)
+        if scan_blocks:
+            self.decoder = layer.ScanTransformerStack(
+                num_layers, num_heads, d_model, causal=True,
+                remat=remat_policy, zero3_axis=zero3_axis, overlap=overlap,
+                device=dev, generator=gen)
+        else:
+            self.decoder = TransformerEncoder(
+                num_layers, num_heads, dropout=dropout, causal=True,
+                remat=remat, d_model=d_model, device=dev, generator=gen)
         self.ln_f = layer.LayerNorm(d_model, device=dev)
         self.head = layer.Linear(d_model, vocab_size, device=dev,
                                  generator=gen)
@@ -205,13 +249,15 @@ class GPT(model.Model):
 
     def _functional_params(self):
         dec = self.decoder
-        stacked = dict(
-            wqkv=dec.w_qkv, bqkv=dec.b_qkv, wo=dec.w_o, bo=dec.b_o,
-            ln1_s=dec.ln1_s, ln1_o=dec.ln1_o, ln2_s=dec.ln2_s,
-            ln2_o=dec.ln2_o, w1=dec.w1, b1=dec.b1, w2=dec.w2, b2=dec.b2)
-        # block i's parameters are the i-th slice of every stacked weight
-        blocks = [{k: v.detach()[i] for k, v in stacked.items()}
-                  for i in range(dec.n_blocks)]
+        if isinstance(dec, layer.ScanTransformerStack):
+            # block i's parameters: the i-th slice of each stacked weight
+            blocks = [{k: getattr(dec, n).detach()[i]
+                       for k, n in _DECODE_KEYS.items()}
+                      for i in range(dec.n_blocks)]
+        else:
+            blocks = [{k: blk.get_parameter(_BLOCK_NAMES[n]).detach()
+                       for k, n in _DECODE_KEYS.items()}
+                      for blk in dec.blocks]
         return dict(
             tok=self.tok.table.detach(), pos=self.pos.table.detach(),
             lnf_s=self.ln_f.scale.detach(), lnf_o=self.ln_f.offset.detach(),
@@ -334,11 +380,6 @@ class GPT(model.Model):
         """Autoregressive decoding from `prompt` (B, T0) int tokens;
         returns (B, T0 + n_new) int32. temperature 0 is greedy argmax;
         > 0 samples from the softmax at that temperature."""
-        del pad_id  # only the uncached loop pads
-        if not use_cache:
-            raise NotImplementedError(
-                "generate(use_cache=False), the reference's eager "
-                "debugging loop, is not ported (ROADMAP queue 1 item 9.5)")
         if window > self.pos.table.shape[0]:
             raise ValueError(
                 f"window {window} exceeds max_len "
@@ -348,6 +389,9 @@ class GPT(model.Model):
             toks = toks[None]
         if toks.size == 0:
             raise ValueError("prompt must contain at least one token")
+        if not use_cache:
+            return self._generate_eager(toks.astype(np.int32), n_new, window,
+                                        temperature, pad_id, seed)
         dev = self.device
         decode_loop = self._decode_fns(window)[3]
         t0 = toks.shape[1]
@@ -361,6 +405,41 @@ class GPT(model.Model):
                           n_slide=n_slide, sampling=temperature > 0)
         return out.cpu().numpy().astype(np.int32)
 
+    def _generate_eager(self, toks, n_new, window, temperature, pad_id,
+                        seed):
+        """The reference's eager loop: per token, a full forward over the
+        last `window` tokens, a short context right-aligned behind
+        ATTENDED `pad_id` left-pads; the pick on the host, greedy or
+        drawn by numpy's generator seeded with `seed`."""
+        rng = np.random.default_rng(seed)
+
+        def pick(logits):
+            if temperature > 0:
+                p = logits / temperature
+                p = np.exp(p - p.max(-1, keepdims=True))
+                p = p / p.sum(-1, keepdims=True)
+                return np.array(
+                    [rng.choice(self.vocab_size, p=row) for row in p],
+                    np.int32)
+            return logits.argmax(-1).astype(np.int32)
+
+        was_training = self.training
+        self.eval()
+        try:
+            for _ in range(n_new):
+                ctx = toks[:, -window:]
+                if ctx.shape[1] < window:
+                    pad = np.full((ctx.shape[0], window - ctx.shape[1]),
+                                  pad_id, np.int32)
+                    ctx = np.concatenate([pad, ctx], axis=1)
+                logits = self(torch.from_numpy(ctx))[:, -1]
+                toks = np.concatenate(
+                    [toks, pick(logits.float().cpu().numpy())[:, None]],
+                    axis=1)
+        finally:
+            self.train(was_training)
+        return toks
+
 
 def gpt_draft(target: Optional[GPT] = None, **kw) -> GPT:
     """A small draft GPT for speculative serving (`SpeculativeEngine`):
@@ -370,8 +449,7 @@ def gpt_draft(target: Optional[GPT] = None, **kw) -> GPT:
     must match; the engine refuses otherwise). Any kwarg overrides. A
     random draft lowers acceptance, never correctness: greedy
     speculative streams equal the target's `generate` whatever the
-    draft. Built with `scan_blocks=True`, as `gpt_medium` is: the
-    unrolled decoder is ROADMAP queue 1 item 9.4."""
+    draft. Built with `scan_blocks=True`, as `gpt_medium` is."""
     if target is not None:
         kw.setdefault("vocab_size", target.vocab_size)
         kw.setdefault("max_len", target.pos.table.shape[0])

@@ -267,7 +267,7 @@ class Request:
 class ServingEngine:
     """Continuous-batching decode over a paged KV pool for one GPT.
 
-    `model` is a port `GPT` (scan_blocks); the engine runs on its
+    `model` is a port `GPT` (either decoder); the engine runs on its
     device. `slots` is the decode batch width, `window` the per-request
     logical cache length (= pages x block_size), `num_blocks` the pool
     size (default: every slot at full window, +1 trash). `kv_dtype`

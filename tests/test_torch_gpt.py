@@ -111,7 +111,8 @@ def test_carry_over_refuses_mismatched_names(pair, fault):
         load_singa_tpu_params(GPT(**KW, device="cpu"), params)
 
 
-@pytest.mark.parametrize("kw", [{"scan_blocks": False}, {"dropout": 0.1},
+@pytest.mark.parametrize("kw", [{"scan_blocks": False, "moe_experts": 2},
+                                {"dropout": 0.1},
                                 {"tp_axis": "model"}, {"seq_axis": "sp"},
                                 {"moe_experts": 2}, {"pp_axis": "pipe"}])
 def test_unported_options_raise(kw):

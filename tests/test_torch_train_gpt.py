@@ -243,14 +243,14 @@ def test_example_trainer_lowers_the_loss():
     assert "--- sample ---" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [[], ["--shard-states"],
+@pytest.mark.parametrize("flag", [["--shard-states", "--scan-blocks"],
+                                  ["--shard-states"],
                                   ["--virtual-devices", "8"],
                                   ["--checkpoint", "ckpt.zip"]])
 def test_example_trainer_refuses_unported_options(flag):
+    """On either decoder (the unrolled default, or --scan-blocks)."""
     from singa_tpu_torch.examples import gpt_lm
 
     argv = ["--device", "cpu", "--steps", "1", *flag]
-    if flag:
-        argv.append("--scan-blocks")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gpt_lm.main(argv)
