@@ -92,45 +92,85 @@ Phases, in the order they run (any failure raises and exits non-zero):
    one `ProcessReplica` child (`python -m singa_tpu_torch.serving.router
    --gpt-medium`) serves 4 requests equal to the in-process engine's and
    exits 0 on stop;
-8. gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
-   kernel-off gradients, one step counted alone (exactly 12 launches of
-   each flash kernel), 6 steps whose loss must fall, one bf16 step;
-   then `gpt_medium(scan_blocks=False, dropout=0.0)`, the reference's
+8. the training phases run their steps through `compile(...,
+   use_graph=True)`, which on the card captures each training step
+   (forward, backward, clipping, the optimizer update) as one CUDA
+   Graph: a phase's step 1 runs uncaptured and is counted alone, step 2
+   captures the step (the kernel wrappers count the launches they record
+   into the graph, once per capture) and replays it, steps 3-6 replay it
+   (no wrapper runs, so no launch is counted: the replays are counted
+   instead). Each phase holds its 6 captured steps against an uncaptured
+   twin (`graph(False)`, the same starting state and batches): the
+   losses and every parameter and buffer after the steps within 1e-6 of
+   their size in fp32 and 2e-3 in bf16, said whether bitwise equal, and
+   prints both step times.
+   gpt_medium trains on 4 x 1024 with AdamW: kernel-on against
+   kernel-off gradients, 6 steps (12 launches of each flash kernel in
+   the counted step and 12 recorded by the capture) whose loss must
+   fall, and the same in bf16 (kernels on bf16 operands); then
+   `gpt_medium(scan_blocks=False, dropout=0.0)`, the reference's
    default unrolled decoder, on the scanned model's seeded weights
    (`unstack_params`): scoring 4 x 1024 (12 forward launches) and one
    training step's gradients (12 launches of each kernel) equal the
-   scanned model's, one counted AdamW step, cached `generate` gives the
-   scanned model's tokens, and `generate(use_cache=False)` (4 prompts
-   filling the window of 256, 8 new; 96 forward launches) equals the
-   cached tokens up to the first near-tie;
+   scanned model's, 6 captured AdamW steps against the twin, cached
+   `generate` gives the scanned model's tokens, and
+   `generate(use_cache=False)` (4 prompts filling the window of 256, 8
+   new; 96 forward launches) equals the cached tokens up to the first
+   near-tie;
    then BERT-base at full width (`BertForClassification(2)`, vocab
    30522, 12 layers, d 768, 12 heads, max_len 512) trains at bench.py's
    chip shape, 16 x 512, with seeded weights, `AdamW(lr=1e-4)`,
    `compile(..., precision=...)` and `model(ids, y)`: a dropout-0 twin's
-   logits and gradients with the kernels on against off, one fp32 step
-   counted alone (exactly 12 launches of each kernel), a batch padded
-   with a key mask (0 launches, logits equal to the kernel-off model's),
-   the bench's dropout-0.1 model for 6 steps whose loss must fall, then
-   tokens/s and TFLOP/s (bench.py's analytic count) with the kernels on
-   and off in turns, and the same in bf16 (12 launches of each bf16
-   kernel per step, a finite loss that falls);
+   logits and gradients with the kernels on against off, its 6 captured
+   steps against the uncaptured twin in fp32 and in bf16, a batch
+   padded with a key mask (0 launches, logits equal to the kernel-off
+   model's), the bench's dropout-0.1 model for 6 captured steps whose
+   loss must fall, tokens/s and TFLOP/s (bench.py's analytic count) of
+   captured steps with the kernels on and off in turns (each switch
+   state's first step and capture untimed, then windows of replays
+   only), 4 steps at lr 0 whose losses must all differ (dropout draws
+   new masks on every replay), and the same in bf16 (kernels on bf16
+   operands, a finite loss that falls);
 9. ResNet-50 at full width trains on a seeded (128, 3, 224, 224) batch
    through the reference's entry points (`resnet50`, seeded states
    through load_singa_tpu_states, `set_image_layout("NHWC")`, SGD(lr
    0.05, momentum 0.9), `compile(..., precision="fp32")`, `model(x, y)`)
    with the max-pool kernel switched on: kernel-on against kernel-off
-   gradients, one step counted alone (exactly 1 K2a launch; 0 with the
-   switch off), 6 steps whose loss must fall, moved and finite
-   BatchNorm statistics, a finite eval-mode forward, images/s with the
-   switch on and off in turns, one bf16 step that runs the kernel on
-   bf16;
+   gradients, 6 captured steps (exactly 1 K2a launch in the counted step
+   and 1 recorded by the capture) whose loss must fall, moved and
+   finite BatchNorm statistics, a finite eval-mode forward, the 6 steps
+   against the uncaptured twin in fp32 and bf16 (K2a on bf16 operands)
+   with cuDNN's deterministic algorithms (its default backward ones sum
+   with atomics in a run-dependent order), then images/s of captured
+   steps with cuDNN's default algorithms and the switch on and off in
+   turns;
+9b. Char-RNN (`CharRNN(64, hidden_size=512, embed_dim=64)`, one LSTM
+   layer, bench.py's `--model rnn` row: batch 64 x 256 seeded ids, Adam
+   lr 1e-3, fp32, seeded weights through load_singa_tpu_params): the
+   LSTM layer's output and its input and weight gradients against
+   `torch.nn.LSTM` (cuDNN) on the same weights within 1e-4 of their
+   size, and a bidirectional `GRU` and a relu `RNN` against
+   `torch.nn.GRU` and `torch.nn.RNN`; 6 captured steps (one
+   `graph_compiles`) against the uncaptured twin; tokens/s captured and
+   uncaptured in turns, the captured step's device ms (CUDA events)
+   beside its bound (the products' FLOPs at the fp32 FMA rate, and the
+   bytes) and cuDNN's LSTM forward+backward at the same shape (a
+   yardstick off the port's path); 30 captured steps on the built-in
+   corpus whose loss must fall; then the trainer
+   `python -m singa_tpu_torch.examples.char_rnn --steps 60` at its own
+   defaults, whose loss must fall and which must print a sample. No
+   kernel of the port runs (the reference's recurrence is a
+   `lax.scan`);
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
-   bf16 figures, the BERT-base shape's figures and launches per step, and
-   the SASS census beside), then the result line.
+   bf16 figures, the BERT-base shape's figures and launches per step,
+   and the SASS census beside; a training step's launches are the ones
+   its capture recorded, which every replay runs again), then the
+   result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -621,8 +661,8 @@ def cnn_grads(model, x, y):
 def resnet_path(torch, fa, mp):
     """ResNet-50 at full width trains on one seeded ImageNet-shape batch
     with the max-pool kernel on (the sequence of bench.py's
-    bench_framework). Returns the counted step's launches and the
-    numbers."""
+    bench_framework), each step captured. Returns the counted step's
+    launches and the numbers."""
     from singa_tpu_torch import autograd, opt
     from singa_tpu_torch.model import load_singa_tpu_states
     from singa_tpu_torch.models.resnet import resnet50
@@ -630,17 +670,28 @@ def resnet_path(torch, fa, mp):
     m = resnet50(num_classes=1000, device="cuda")
     states = cnn_states({n: t.shape for n, t in [*m.named_parameters(),
                                                  *m.named_buffers()]}, SEED)
-    load_singa_tpu_states(m, states)
-    m.set_image_layout("NHWC")
-    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     batch = 128
     x = torch.randn((batch, 3, 224, 224), generator=gen, device="cuda")
     y = torch.arange(batch, device="cuda") % 1000
+
+    def restore(precision, use_graph):
+        def put(model):
+            load_singa_tpu_states(model, states)
+            model.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+            model.compile([x], is_train=True, use_graph=use_graph,
+                          precision=precision)
+        return put
+
+    m.set_image_layout("NHWC")
     mp.set_pool_kernel_enabled(True)
     t = time.perf_counter()
-    m.compile([x], is_train=True, use_graph=True, precision="fp32")
+    restore("fp32", True)(m)
+    # cuDNN's default backward algorithms sum with atomics in an order
+    # that changes from run to run; the captured steps and their twin
+    # run its deterministic ones, so that what differs is the capture
+    torch.backends.cudnn.deterministic = True
     torch.cuda.synchronize()
     print(f"resnet50: {sum(p.numel() for p in m.parameters())} parameters, "
           f"compile {time.perf_counter() - t:.3f} s", flush=True)
@@ -660,23 +711,10 @@ def resnet_path(torch, fa, mp):
     check(worst <= grad_tol, "kernel-path ResNet gradients disagree")
     del on, off
 
-    # one step, counted alone
-    torch.cuda.synchronize()
-    reset_counts(fa, mp)
-    t = time.perf_counter()
-    _, loss = m(x, y)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
-    launches = counts(fa, mp)
-    print(f"resnet50 step 1: {first_s:.3f} s, launches {launches}",
-          flush=True)
-    check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                       "flash_bwd_dkv": 0, "max_pool_bwd": 1},
-          f"one ResNet-50 step launched {launches}, not 1 max-pool kernel")
-    losses = [loss.item()]
-    for _ in range(5):
-        _, loss = m(x, y)
-        losses.append(loss.item())
+    # 6 steps: the first uncaptured and counted alone, then captured
+    launches = dict(NO_LAUNCH, max_pool_bwd=1)
+    losses, first_s, step_ms = captured_steps(
+        torch, fa, mp, m, x, y, launches, "resnet50 fp32 (deterministic)")
     print(f"resnet50 losses {losses}", flush=True)
     check(all(np.isfinite(losses)), "non-finite ResNet-50 loss")
     check(losses[-1] < losses[0], "the ResNet-50 loss did not fall")
@@ -691,6 +729,7 @@ def resnet_path(torch, fa, mp):
           f"{finite}/{n_buf} finite", flush=True)
     check(moved == finite == n_buf, "BatchNorm statistics did not move or "
                                     "are not finite")
+    captured = (losses, state_of(m), step_ms)
     m.eval()
     with torch.inference_mode():
         scores = m(x)
@@ -700,56 +739,57 @@ def resnet_path(torch, fa, mp):
           "eval-mode ResNet-50 scores are not finite (128, 1000)")
     del scores
 
-    # throughput with the switch on and off, in turns (on, off, off, on)
-    rates = {True: [], False: []}
-    for enabled in (True, False, False, True):
-        mp.set_pool_kernel_enabled(enabled)
-        m(x, y)  # the first step after a switch is not timed
-        torch.cuda.synchronize()
-        reset_counts(fa, mp)
-        t = time.perf_counter()
-        for _ in range(5):
-            _, loss = m(x, y)
-        loss.item()
-        dt = time.perf_counter() - t
-        check(mp.MAX_POOL_BWD_LAUNCHES == (5 if enabled else 0),
-              f"switch {enabled}: {mp.MAX_POOL_BWD_LAUNCHES} launches in "
-              f"5 steps")
-        rates[enabled].append(5 * batch / dt)
-    mp.set_pool_kernel_enabled(True)
-    on_rate, off_rate = (float(np.mean(rates[k])) for k in (True, False))
-    print(f"resnet50 fp32 training: {on_rate:.1f} images/s with the "
-          f"max-pool kernel, {off_rate:.1f} without (windows of 5 steps, "
-          f"on/off/off/on: {rates[True]} / {rates[False]})", flush=True)
+    twin = {"fp32": hold_twin(torch, "resnet50 (deterministic cuDNN)",
+                              "fp32", captured,
+                              eager_twin(torch, m, restore("fp32", False),
+                                         x, y))}
+    del captured
+    drop_graphs(torch)
 
-    # one bf16 step from the seeded states: autocast on, so the kernel
-    # gets bf16 operands
-    load_singa_tpu_states(m, states)
-    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+    # bf16 from the seeded states: autocast on, so the kernel gets bf16
+    # operands (in the uncaptured first step and in the capture)
     seen = []
     real = mp._max_pool_bwd
     mp._max_pool_bwd = lambda x_, *a: seen.append(x_.dtype) or real(x_, *a)
     try:
-        m.compile([x], is_train=True, use_graph=True, precision="bf16")
-        reset_counts(fa, mp)
-        _, loss_bf16 = m(x, y)
-        loss_bf16 = loss_bf16.item()
-        bf16_launches = counts(fa, mp)
+        restore("bf16", True)(m)
+        losses_bf16, _, ms = captured_steps(
+            torch, fa, mp, m, x, y, launches,
+            "resnet50 bf16 (deterministic)")
+        twin["bf16"] = hold_twin(
+            torch, "resnet50 (deterministic cuDNN)", "bf16",
+            (losses_bf16, state_of(m), ms),
+            eager_twin(torch, m, restore("bf16", False), x, y))
     finally:
         mp._max_pool_bwd = real
         autograd.set_autocast(False)
-    print(f"resnet50 bf16 step: loss {loss_bf16:.4f}, launches "
-          f"{bf16_launches}, kernel operand dtypes {seen}", flush=True)
-    check(np.isfinite(loss_bf16), "non-finite bf16 ResNet-50 loss")
-    check(bf16_launches == launches, "the bf16 step launched otherwise")
-    check(seen == [torch.bfloat16], "the bf16 step did not run the "
-                                    "max-pool kernel on bf16 operands")
+        torch.backends.cudnn.deterministic = False
+    drop_graphs(torch)
+
+    # throughput with cuDNN's default algorithms, captured, with the
+    # switch on and off in turns (on, off, off, on)
+    restore("fp32", True)(m)
+    rates = switch_turns(torch, m, x, y, mp.set_pool_kernel_enabled,
+                         lambda: mp.MAX_POOL_BWD_LAUNCHES, 1, "resnet50", 5)
+    on_rate, off_rate = (float(np.mean(rates[k])) for k in (True, False))
+    print(f"resnet50 fp32 training: {on_rate:.1f} images/s with the "
+          f"max-pool kernel, {off_rate:.1f} without (captured steps, "
+          f"windows of 5, on/off/off/on: {rates[True]} / {rates[False]})",
+          flush=True)
+    print(f"resnet50 bf16 losses {losses_bf16}, kernel operand dtypes "
+          f"{sorted(set(map(str, seen)))}", flush=True)
+    check(all(np.isfinite(losses_bf16)), "non-finite bf16 ResNet-50 loss")
+    check(set(seen) == {torch.bfloat16}, "the bf16 step did not run the "
+                                         "max-pool kernel on bf16 operands")
     mp.set_pool_kernel_enabled(False)
+    m.graph(False)
+    del m
+    drop_graphs(torch)
     return launches, dict(images_per_s_kernel_on=on_rate,
                           images_per_s_kernel_off=off_rate,
                           rates=[rates[True], rates[False]], losses=losses,
-                          grad_rel_err=worst, loss_bf16=loss_bf16,
-                          first_step_s=first_s)
+                          grad_rel_err=worst, losses_bf16=losses_bf16,
+                          first_step_s=first_s, step_ms=step_ms, twin=twin)
 
 
 def seeded_params(model, seed):
@@ -850,17 +890,143 @@ def main_grads(torch, model, x, y):
         model.forward(x).reshape(-1, model.vocab_size), y.reshape(-1)))
 
 
+# -- captured training steps --------------------------------------------------
+
+#: the captured steps against their uncaptured twin (`graph(False)`, the
+#: same state, the same batches): each loss within TWIN_TOL of |loss|,
+#: each parameter and buffer after the steps within TWIN_TOL of its
+#: max|p|. The same kernels run on the same values either way; bf16 is
+#: allowed the rounding of a product whose cuBLAS algorithm may differ
+TWIN_TOL = {"fp32": 1e-6, "bf16": 2e-3}
+NO_LAUNCH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+             "max_pool_bwd": 0}
+
+
+def state_of(model):
+    """Clones of every parameter and buffer, by name."""
+    own = dict(model.named_parameters())
+    own.update(model.named_buffers())
+    return {n: t.detach().clone() for n, t in own.items()}
+
+
+def run_steps(torch, m, x, y, steps, skip=0):
+    """`steps` calls of m(x, y): their losses, and the mean host ms of
+    the calls after the first `skip` (each ended by reading its loss)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, loss = m(x, y)
+        losses.append(loss.item())
+        ms.append(1e3 * (time.perf_counter() - t))
+    return losses, float(np.mean(ms[skip:])) if ms[skip:] else None
+
+
+def captured_steps(torch, fa, mp, m, x, y, per_step, what, steps=6):
+    """`steps` training steps of a model compiled with use_graph=True,
+    from its compiled state. Step 1 runs uncaptured and launches
+    `per_step` kernels; step 2 captures the whole step (the wrappers
+    count the launches they record into the graph: `per_step` again)
+    and replays it; steps 3 on replay it, and no wrapper runs. Returns
+    the losses, step 1's seconds and the mean ms of steps 3 on."""
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    losses, _ = run_steps(torch, m, x, y, 1)
+    first_s = time.perf_counter() - t
+    launches = counts(fa, mp)
+    gs = m._train_step
+    check(launches == per_step, f"{what}: the uncaptured first step "
+                                f"launched {launches}, not {per_step}")
+    check(gs is not None and (gs.captures, gs.replays) == (0, 0),
+          f"{what}: the first step did not run uncaptured")
+    reset_counts(fa, mp)
+    losses += run_steps(torch, m, x, y, 1)[0]
+    captured = counts(fa, mp)
+    check(captured == per_step and (gs.captures, gs.replays) == (1, 1),
+          f"{what}: the capture recorded {captured} launches (not "
+          f"{per_step}), or made {gs.captures} captures and "
+          f"{gs.replays} replays (not 1 and 1)")
+    reset_counts(fa, mp)
+    rest, ms = run_steps(torch, m, x, y, steps - 2)
+    losses += rest
+    check(counts(fa, mp) == NO_LAUNCH and gs.captures == 1
+          and gs.replays == steps - 1,
+          f"{what}: steps 3-{steps} launched {counts(fa, mp)} from Python "
+          f"or replayed {gs.replays - 1} times, not {steps - 2}")
+    print(f"{what}: step 1 uncaptured {first_s:.3f} s, launches "
+          f"{launches}; step 2 captured ({captured} launches recorded); "
+          f"steps 3-{steps} {gs.replays - 1} replays, {ms:.2f} ms a step",
+          flush=True)
+    return losses, first_s, ms
+
+
+def eager_twin(torch, m, restore, x, y, steps=6):
+    """The uncaptured twin: `restore(m)` puts back the starting state and
+    optimizer and compiles with use_graph=False; then `steps` eager
+    steps. Returns the losses, the state after them and the mean ms of
+    steps 3 on."""
+    restore(m)
+    check(not m._use_graph, "the twin is not uncaptured")
+    losses, ms = run_steps(torch, m, x, y, steps, skip=2)
+    check(m._train_step is None, "the uncaptured twin made a graph step")
+    return losses, state_of(m), ms
+
+
+def hold_twin(torch, what, prec, captured, twin):
+    """Hold (losses, state, ms) of the captured steps against the twin's
+    within TWIN_TOL[prec]; print and return the gaps and both step
+    times."""
+    (lc, sc, ms_c), (le, se, ms_e) = captured, twin
+    loss_gap = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, le))
+    state_gap = max((sc[n].float() - se[n].float()).abs().max().item()
+                    / max(se[n].float().abs().max().item(), 1e-30)
+                    for n in se)
+    bitwise = lc == le and all(torch.equal(sc[n], se[n]) for n in se)
+    tol = TWIN_TOL[prec]
+    print(f"{what} {prec}: captured vs uncaptured twin over {len(lc)} "
+          f"steps: losses max rel {loss_gap:.3e}, state max|d|/max|p| "
+          f"{state_gap:.3e} over {len(se)} tensors (tol {tol}), bitwise "
+          f"equal: {bitwise}; step ms captured {ms_c:.2f} vs uncaptured "
+          f"{ms_e:.2f}", flush=True)
+    check(sorted(sc) == sorted(se) and len(lc) == len(le),
+          f"{what}: the twins differ in shape")
+    check(loss_gap <= tol and state_gap <= tol,
+          f"{what} {prec}: the captured steps differ from the uncaptured "
+          f"twin")
+    return dict(loss_gap=loss_gap, state_gap=state_gap, bitwise=bitwise,
+                step_ms_captured=ms_c, step_ms_uncaptured=ms_e)
+
+
+def drop_graphs(torch):
+    """Free what dropped models and graph steps hold on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_path(torch, fa, mp, model, rng):
     """The training path: gpt_medium, AdamW(lr=3e-4), compile, kernel-on
-    against kernel-off gradients, one counted step, five more, one bf16
-    step. Returns the launches of the counted step and the numbers."""
+    against kernel-off gradients, 6 steps (the first uncaptured and
+    counted, the second captured, then replays) against the uncaptured
+    twin, and the same in bf16. Returns the launches of the counted step
+    and the numbers."""
     from singa_tpu_torch import autograd, opt
 
     seq = torch.from_numpy(rng.integers(0, model.vocab_size,
                                         (4, 1025))).cuda()
     x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
-    model.set_optimizer(opt.AdamW(lr=3e-4))
-    model.compile([x], is_train=True, use_graph=True)
+    start = state_of(model)
+
+    def restore(precision, use_graph):
+        def put(m):
+            with torch.no_grad():
+                for n, p in m.named_parameters():
+                    p.copy_(start[n])
+            m.set_optimizer(opt.AdamW(lr=3e-4))
+            m.compile([x], is_train=True, use_graph=use_graph,
+                      precision=precision)
+        return put
+
+    restore("fp32", True)(model)
 
     # gradients with the kernels on and off, at the seeded weights
     on = main_grads(torch, model, x, y)
@@ -879,34 +1045,23 @@ def train_path(torch, fa, mp, model, rng):
     check(worst <= grad_tol, "kernel-path gradients disagree")
     del on, off
 
-    # one step, counted alone
-    torch.cuda.synchronize()
-    reset_counts(fa, mp)
-    t = time.perf_counter()
-    _, loss = model(x, y)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
-    launches = counts(fa, mp)
-    print(f"train step 1: {first_s:.3f} s, launches {launches}",
-          flush=True)
-    check(launches == {"flash_fwd": 12, "flash_bwd_dq": 12,
-                       "flash_bwd_dkv": 12, "max_pool_bwd": 0},
-          f"one step launched {launches}, not 12 of each flash kernel")
-    losses = [loss.item()]
-    step_s = []
-    for _ in range(5):
-        t = time.perf_counter()
-        _, loss = model(x, y)
-        losses.append(loss.item())  # waits for the step's end
-        step_s.append(time.perf_counter() - t)
-    step_ms = 1e3 * sum(step_s) / len(step_s)
+    per_step = dict(NO_LAUNCH, flash_fwd=12, flash_bwd_dq=12,
+                    flash_bwd_dkv=12)
+    losses, first_s, step_ms = captured_steps(
+        torch, fa, mp, model, x, y, per_step, "train fp32")
+    launches = per_step
     print(f"train losses {losses}", flush=True)
-    print(f"train: {step_ms:.2f} ms per 4x1024 step (mean of steps 2-6), "
-          f"{4 * 1024 / step_ms * 1e3:.1f} tokens/s", flush=True)
+    print(f"train: {step_ms:.2f} ms per 4x1024 captured step (mean of "
+          f"steps 3-6), {4 * 1024 / step_ms * 1e3:.1f} tokens/s",
+          flush=True)
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "the loss did not fall over 6 steps")
+    twin = {"fp32": hold_twin(torch, "train", "fp32",
+                              (losses, state_of(model), step_ms),
+                              eager_twin(torch, model,
+                                         restore("fp32", False), x, y))}
 
-    # one bf16 step: autocast on, so the kernels get bf16 operands
+    # bf16: autocast on, so the kernels get bf16 operands
     seen = []
     real_fwd, real_bwd = fa._flash_fwd, fa._flash_bwd
     fa._flash_fwd = lambda q, *a: seen.append(("fwd", q.dtype)) or real_fwd(
@@ -914,28 +1069,31 @@ def train_path(torch, fa, mp, model, rng):
     fa._flash_bwd = lambda q, *a: seen.append(("bwd", q.dtype)) or real_bwd(
         q, *a)
     try:
-        model.compile([x], is_train=True, use_graph=True, precision="bf16")
-        reset_counts(fa, mp)
-        t = time.perf_counter()
-        _, loss_bf16 = model(x, y)
-        loss_bf16 = loss_bf16.item()
-        bf16_s = time.perf_counter() - t
-        bf16_launches = counts(fa, mp)
+        drop_graphs(torch)
+        restore("bf16", True)(model)
+        losses_bf16, bf16_s, bf16_ms = captured_steps(
+            torch, fa, mp, model, x, y, per_step, "train bf16")
+        twin["bf16"] = hold_twin(
+            torch, "train", "bf16",
+            (losses_bf16, state_of(model), bf16_ms),
+            eager_twin(torch, model, restore("bf16", False), x, y))
     finally:
         fa._flash_fwd, fa._flash_bwd = real_fwd, real_bwd
         autograd.set_autocast(False)
-    print(f"train bf16 step: loss {loss_bf16:.4f}, {bf16_s:.3f} s (first "
-          f"bf16 step), launches {bf16_launches}, kernel operand dtypes "
+    print(f"train bf16 losses {losses_bf16}, {bf16_s:.3f} s (first bf16 "
+          f"step), kernel operand dtypes "
           f"{sorted(set(str(d) for _, d in seen))}", flush=True)
-    check(np.isfinite(loss_bf16), "non-finite bf16 loss")
-    check(bf16_launches == launches, "the bf16 step launched otherwise")
+    check(all(np.isfinite(losses_bf16)), "non-finite bf16 loss")
     check({d for _, d in seen} == {torch.bfloat16} and
           {k for k, _ in seen} == {"fwd", "bwd"},
           "the bf16 step did not run the kernels on bf16 operands")
+    model.graph(False)
     model.eval()
+    drop_graphs(torch)
     return launches, dict(step_ms=step_ms, tokens_per_s=4 * 1024 / step_ms
                           * 1e3, losses=losses, grad_rel_err=worst,
-                          loss_bf16=loss_bf16)
+                          first_step_s=first_s, losses_bf16=losses_bf16,
+                          step_ms_bf16=bf16_ms, twin=twin)
 
 
 # -- BERT-base and the unrolled GPT ------------------------------------------
@@ -955,36 +1113,48 @@ def bert_train_flops(batch, seq, d_model=768, n_layers=12, ffn_mult=4):
     return 3 * n_layers * (proj + ffn + attn)
 
 
-def bert_rates(torch, fa, m, ids, y, steps=3):
-    """Tokens/s of `m(ids, y)` with the flash kernels on and off, in
-    turns (on, off, off, on), each window after one untimed step; the
-    launches of each window are checked (12 per kernel per step, or
-    0)."""
+def switch_turns(torch, m, x, y, switch, launched, per_step, what,
+                 steps):
+    """Samples/s of captured steps `m(x, y)` with a kernel switch on and
+    off, in turns (on, off, off, on). After each switch two untimed
+    steps: for a switch state seen for the first time they are its
+    uncaptured first step and its capture (`per_step` launches each when
+    on, none when off); then a window of `steps` steps that must all be
+    replays, with no launch counted. `launched()` reads the switched
+    kernel's counter."""
     rates = {True: [], False: []}
     for enabled in (True, False, False, True):
-        fa.set_flash_enabled(enabled)
-        m(ids, y)
+        switch(enabled)
+        before = launched()
+        m(x, y)
+        m(x, y)
+        warm = launched() - before
+        check(warm in ((0, 2 * per_step) if enabled else (0,)),
+              f"{what}: switch {enabled}: {warm} launches in the first "
+              f"step and the capture")
+        gs = m._train_step
+        replays, before = gs.replays, launched()
         torch.cuda.synchronize()
-        before = fa.FLASH_FWD_LAUNCHES
         t = time.perf_counter()
         for _ in range(steps):
-            _, loss = m(ids, y)
+            _, loss = m(x, y)
         loss.item()
         dt = time.perf_counter() - t
-        n = fa.FLASH_FWD_LAUNCHES - before
-        check(n == (12 * steps if enabled else 0),
-              f"flash {enabled}: {n} forward launches in {steps} steps")
-        rates[enabled].append(steps * ids.numel() / dt)
-    fa.set_flash_enabled(True)
+        check(launched() == before and gs.replays - replays == steps,
+              f"{what}: switch {enabled}: {launched() - before} launches "
+              f"counted and {gs.replays - replays} replays in {steps} "
+              f"steps")
+        rates[enabled].append(steps * x.shape[0] / dt)
+    switch(True)
     return rates
 
 
 def bert_path(torch, fa, mp):
     """BERT-base at full width trains at bench.py's chip shape (16 x 512)
     through `BertForClassification`, `AdamW(lr=1e-4)`, `compile` and
-    `model(ids, y)`: the fused flash kernels run non-causally at hd 64
-    with 12 heads. Returns the counted fp32 step's launches and the
-    numbers."""
+    `model(ids, y)`, each step captured: the fused flash kernels run
+    non-causally at hd 64 with 12 heads inside a CUDA Graph. Returns the
+    counted fp32 step's launches and the numbers."""
     from singa_tpu_torch import autograd, opt
     from singa_tpu_torch.model import load_singa_tpu_params
     from singa_tpu_torch.models.transformer import BertForClassification
@@ -994,14 +1164,22 @@ def bert_path(torch, fa, mp):
     ids = ids.cuda()
     y = torch.arange(BERT_BATCH, device="cuda") % 2
     flops = bert_train_flops(BERT_BATCH, BERT_SEQ)
+    per_step = dict(NO_LAUNCH, flash_fwd=12, flash_bwd_dq=12,
+                    flash_bwd_dkv=12)
+
+    def restore(precision, use_graph, lr=1e-4):
+        def put(model):
+            load_singa_tpu_params(model, weights)
+            model.set_optimizer(opt.AdamW(lr=lr))
+            model.compile([ids], is_train=True, use_graph=use_graph,
+                          precision=precision)
+        return put
 
     # the dropout-0 twin: kernel on against kernel off
     m = BertForClassification(2, max_len=BERT_SEQ, dropout=0.0,
                               device="cuda")
     weights = seeded_params(m, SEED)
-    load_singa_tpu_params(m, weights)
-    m.set_optimizer(opt.AdamW(lr=1e-4))
-    m.compile([ids], is_train=True, use_graph=True, precision="fp32")
+    restore("fp32", True)(m)
     print(f"bert_base: {sum(p.numel() for p in m.parameters())} "
           f"parameters", flush=True)
     sides = {}
@@ -1023,21 +1201,31 @@ def bert_path(torch, fa, mp):
           f"worst max|d| / max|grad| {worst:.3e} over {len(g_on)} "
           f"parameters (tol {tol})", flush=True)
     check(logit_err <= tol and worst <= tol, "BERT kernel path disagrees")
-    del sides, g_on, g_off
+    # the last loss's tape holds the parameters' gradient accumulators,
+    # made on this stream: a capture on the step's stream cannot use them
+    del sides, g_on, g_off, logits, loss
 
-    # one fp32 step, counted alone
-    torch.cuda.synchronize()
-    reset_counts(fa, mp)
-    t = time.perf_counter()
-    _, loss = m(ids, y)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
-    launches = counts(fa, mp)
-    print(f"bert fp32 step 1: {first_s:.3f} s, loss {loss.item():.4f}, "
-          f"launches {launches}", flush=True)
-    check(launches == {"flash_fwd": 12, "flash_bwd_dq": 12,
-                       "flash_bwd_dkv": 12, "max_pool_bwd": 0},
-          f"one BERT step launched {launches}, not 12 of each flash kernel")
+    # 6 captured fp32 steps (the first uncaptured and counted) against
+    # the uncaptured twin, then the same in bf16
+    launches = per_step
+    losses0, first_s, ms0 = captured_steps(torch, fa, mp, m, ids, y,
+                                           per_step, "bert fp32 dropout 0")
+    twin = {"fp32": hold_twin(torch, "bert dropout 0", "fp32",
+                              (losses0, state_of(m), ms0),
+                              eager_twin(torch, m, restore("fp32", False),
+                                         ids, y))}
+    drop_graphs(torch)
+    try:
+        restore("bf16", True)(m)
+        losses0_bf16, _, ms = captured_steps(
+            torch, fa, mp, m, ids, y, per_step, "bert bf16 dropout 0")
+        twin["bf16"] = hold_twin(
+            torch, "bert dropout 0", "bf16",
+            (losses0_bf16, state_of(m), ms),
+            eager_twin(torch, m, restore("bf16", False), ids, y))
+    finally:
+        autograd.set_autocast(False)
+    m.graph(False)
 
     # a padded batch with a key mask: the plain attention, no kernel
     lengths = rng.integers(BERT_SEQ // 4, BERT_SEQ + 1, BERT_BATCH)
@@ -1060,18 +1248,39 @@ def bert_path(torch, fa, mp):
     check(torch.equal(masked, masked_off) and bool(
         torch.isfinite(masked).all()), "masked BERT logits differ")
     del m, masked, masked_off
-    torch.cuda.empty_cache()
+    drop_graphs(torch)
 
-    # the bench's model (dropout 0.1): 6 steps, then tokens/s on and off
+    # the bench's model (dropout 0.1): 6 captured steps, then tokens/s
+    # on and off
     m = BertForClassification(2, max_len=BERT_SEQ, device="cuda")
-    load_singa_tpu_params(m, weights)
-    m.set_optimizer(opt.AdamW(lr=1e-4))
-    m.compile([ids], is_train=True, use_graph=True, precision="fp32")
-    losses = [m(ids, y)[1].item() for _ in range(6)]
+    restore("fp32", True)(m)
+    losses, _, _ = captured_steps(torch, fa, mp, m, ids, y, per_step,
+                                  "bert fp32 dropout 0.1")
     print(f"bert fp32 losses (dropout 0.1) {losses}", flush=True)
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           "the BERT fp32 loss did not fall over 6 steps")
-    rates = {"fp32": bert_rates(torch, fa, m, ids, y)}
+
+    def turns():
+        return switch_turns(torch, m, ids, y, fa.set_flash_enabled,
+                            lambda: fa.FLASH_FWD_LAUNCHES, 12, "bert", 3)
+
+    rates = {"fp32": turns()}
+
+    # dropout under capture: at lr 0 the weights stay, so two replays
+    # of one batch give two losses only if they draw two masks
+    before = state_of(m)
+    m.set_optimizer(opt.AdamW(lr=0.0))
+    m.graph(True)
+    drawn = run_steps(torch, m, ids, y, 4)[0]
+    check(m._train_step.replays == 3 and all(
+        torch.equal(before[n], t) for n, t in state_of(m).items()),
+        "the lr-0 dropout steps did not replay twice or moved the weights")
+    print(f"bert dropout 0.1 at lr 0: losses {drawn} (uncaptured, capture, "
+          f"replay, replay): the two replays draw different masks: "
+          f"{drawn[2] != drawn[3]}", flush=True)
+    check(len(set(drawn)) == 4, "dropout drew the same masks twice")
+    del before
+    drop_graphs(torch)
 
     # bf16: autocast on, so the kernels get bf16 operands
     seen = []
@@ -1079,42 +1288,38 @@ def bert_path(torch, fa, mp):
     fa._flash_fwd = lambda q, *a: seen.append(q.dtype) or real_fwd(q, *a)
     fa._flash_bwd = lambda q, *a: seen.append(q.dtype) or real_bwd(q, *a)
     try:
-        load_singa_tpu_params(m, weights)
-        m.set_optimizer(opt.AdamW(lr=1e-4))
-        m.compile([ids], is_train=True, use_graph=True, precision="bf16")
-        reset_counts(fa, mp)
-        _, loss = m(ids, y)
-        losses_bf16 = [loss.item()]
-        bf16_launches = counts(fa, mp)
-        losses_bf16 += [m(ids, y)[1].item() for _ in range(5)]
-        rates["bf16"] = bert_rates(torch, fa, m, ids, y)
+        restore("bf16", True)(m)
+        losses_bf16, _, _ = captured_steps(
+            torch, fa, mp, m, ids, y, per_step, "bert bf16 dropout 0.1")
+        rates["bf16"] = turns()
     finally:
         fa._flash_fwd, fa._flash_bwd = real_fwd, real_bwd
         autograd.set_autocast(False)
-    print(f"bert bf16: launches of step 1 {bf16_launches}, losses "
-          f"{losses_bf16}, kernel operand dtypes "
+    print(f"bert bf16: losses {losses_bf16}, kernel operand dtypes "
           f"{sorted(set(map(str, seen)))}", flush=True)
-    check(bf16_launches == launches, "the bf16 BERT step launched otherwise")
     check(set(seen) == {torch.bfloat16},
           "the bf16 BERT step did not run the kernels on bf16 operands")
     check(all(np.isfinite(losses_bf16)) and losses_bf16[-1] < losses_bf16[0],
           "the BERT bf16 loss is not finite or did not fall")
     out = dict(first_step_s=first_s, losses=losses, losses_bf16=losses_bf16,
                logit_err=logit_err, grad_rel_err=worst,
-               masked_launches=masked_launches, flops_per_step=flops)
+               masked_launches=masked_launches, flops_per_step=flops,
+               twin=twin, dropout_lr0_losses=drawn)
     for prec, r in rates.items():
         for enabled, key in ((True, "on"), (False, "off")):
-            tok_s = float(np.mean(r[enabled]))
+            tok_s = float(np.mean(r[enabled])) * BERT_SEQ
             step_ms = BERT_BATCH * BERT_SEQ / tok_s * 1e3
+            windows = [w * BERT_SEQ for w in r[enabled]]
             out[f"{prec}_kernel_{key}"] = dict(
                 tokens_per_s=tok_s, step_ms=step_ms,
-                tflops=flops / step_ms * 1e-9, windows=r[enabled])
+                tflops=flops / step_ms * 1e-9, windows=windows)
             print(f"bert {prec} kernel {key}: {step_ms:.2f} ms per "
-                  f"{BERT_BATCH}x{BERT_SEQ} step, {tok_s:.1f} tokens/s, "
-                  f"{flops / step_ms * 1e-9:.1f} TFLOP/s (windows "
-                  f"{r[enabled]})", flush=True)
+                  f"{BERT_BATCH}x{BERT_SEQ} captured step, {tok_s:.1f} "
+                  f"tokens/s, {flops / step_ms * 1e-9:.1f} TFLOP/s "
+                  f"(windows {windows})", flush=True)
+    m.graph(False)
     del m
-    torch.cuda.empty_cache()
+    drop_graphs(torch)
     return launches, out
 
 
@@ -1152,8 +1357,15 @@ def gpt_unrolled_path(torch, fa, mp, scanned, ids, prompts):
     x, y = ids, torch.roll(ids, -1, dims=1)
     m.train()
     scanned.train()
-    m.set_optimizer(opt.AdamW(lr=3e-4))
-    m.compile([x], is_train=True, use_graph=True)
+
+    def restore(use_graph):
+        def put(model):
+            load_singa_tpu_params(model, unstack_params(weights))
+            model.set_optimizer(opt.AdamW(lr=3e-4))
+            model.compile([x], is_train=True, use_graph=use_graph)
+        return put
+
+    restore(True)(m)
     g_s = main_grads(torch, scanned, x, y)
     reset_counts(fa, mp)
     g_u = main_grads(torch, m, x, y)
@@ -1170,15 +1382,20 @@ def gpt_unrolled_path(torch, fa, mp, scanned, ids, prompts):
     check(worst <= 1e-3, "unrolled gradients differ from the scanned ones")
     out["grad_rel_err"] = worst
     del g_s, g_u
-    reset_counts(fa, mp)
-    _, loss = m(x, y)
-    launches["train_step"] = counts(fa, mp)
-    check(launches["train_step"] == launches["grads"] and np.isfinite(
-        loss.item()), f"the unrolled step launched {launches['train_step']}")
+    losses, _, step_ms = captured_steps(torch, fa, mp, m, x, y,
+                                        launches["grads"], "gpt unrolled")
+    launches["train_step"] = launches["grads"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the unrolled GPT's loss is not finite or did not fall")
+    out["losses"] = losses
+    out["twin"] = hold_twin(torch, "gpt unrolled", "fp32",
+                            (losses, state_of(m), step_ms),
+                            eager_twin(torch, m, restore(False), x, y))
     scanned.eval()
     m.eval()
+    m.graph(False)
     load_singa_tpu_params(m, unstack_params(weights))
-    torch.cuda.empty_cache()
+    drop_graphs(torch)
 
     toks = m.generate(prompts, n_new=48, window=256)
     check(np.array_equal(toks, scanned.generate(prompts, n_new=48,
@@ -1214,6 +1431,276 @@ def gpt_unrolled_path(torch, fa, mp, scanned, ids, prompts):
     del m
     torch.cuda.empty_cache()
     return launches, out
+
+
+# -- Char-RNN ------------------------------------------------------------------
+
+#: bench.py's `--model rnn` row (bench.py:360-437): Char-RNN at batch 64,
+#: sequence 256, hidden 512, embed 64, vocab 64, one layer, Adam(lr 1e-3)
+RNN_BATCH, RNN_SEQ, RNN_HIDDEN, RNN_EMBED, RNN_VOCAB = 64, 256, 512, 64, 64
+#: the layers against PyTorch's cuDNN ones: max|d| / max|ref| of the
+#: output and of every gradient (fp32, TF32 off; summation order only)
+RNN_LAYER_TOL = 1e-4
+
+
+def char_rnn_weights(model, seed):
+    """Seeded weights at the reference's initialisers' scales: the
+    recurrent layer's uniform(-1/sqrt(H), 1/sqrt(H)), the rest as
+    `seeded_params` makes them."""
+    rng = np.random.default_rng(seed + 7)
+    out = seeded_params(model, seed)
+    k = model.lstm.hidden_size ** -0.5
+    for name in out:
+        if name.startswith("lstm."):
+            out[name] = rng.uniform(-k, k, out[name].shape).astype(
+                np.float32)
+    return out
+
+
+def cudnn_twin(torch, port_layer, cls):
+    """torch.nn.LSTM/GRU/RNN (cuDNN) carrying a port layer's weights:
+    the port's (in, G*H) layouts transposed; a port bias `b` becomes
+    cuDNN's input bias beside a zero hidden bias."""
+    kw = dict(num_layers=port_layer.num_layers,
+              bidirectional=port_layer.bidirectional, batch_first=True)
+    if cls is torch.nn.RNN:
+        kw["nonlinearity"] = port_layer.nonlinearity
+    ref = cls(port_layer.input_size, port_layer.hidden_size, **kw).cuda()
+    own = dict(port_layer.named_parameters())
+    with torch.no_grad():
+        for l in range(port_layer.num_layers):
+            for d in range(2 if port_layer.bidirectional else 1):
+                mine = f"_l{l}" + ("_r" if d else "")
+                theirs = f"_l{l}" + ("_reverse" if d else "")
+                getattr(ref, f"weight_ih{theirs}").copy_(
+                    own["w_ih" + mine].t())
+                getattr(ref, f"weight_hh{theirs}").copy_(
+                    own["w_hh" + mine].t())
+                if "b" + mine in own:
+                    getattr(ref, f"bias_ih{theirs}").copy_(own["b" + mine])
+                    getattr(ref, f"bias_hh{theirs}").zero_()
+                else:
+                    getattr(ref, f"bias_ih{theirs}").copy_(
+                        own["b_ih" + mine])
+                    getattr(ref, f"bias_hh{theirs}").copy_(
+                        own["b_hh" + mine])
+    return ref
+
+
+def layer_vs_cudnn(torch, name, port_layer, cls, seed):
+    """The port layer's output and input and weight gradients against
+    cuDNN's layer on the same weights and a seeded input and cotangent
+    (RNN_BATCH x RNN_SEQ); returns the worst gap, relative to each
+    reference tensor's max, and cuDNN's and the port's forward+backward
+    ms."""
+    ref = cudnn_twin(torch, port_layer, cls)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((RNN_BATCH, RNN_SEQ, port_layer.input_size),
+                    generator=gen, device="cuda")
+    dirs = 2 if port_layer.bidirectional else 1
+    dy = torch.randn((RNN_BATCH, RNN_SEQ, dirs * port_layer.hidden_size),
+                     generator=gen, device="cuda")
+
+    def fwd_bwd(layer, params):
+        xi = x.clone().requires_grad_()
+        out = layer(xi)
+        out = out[0] if isinstance(out, tuple) else out
+        return out, torch.autograd.grad(out, [xi, *params], dy)
+
+    mine = list(port_layer.parameters())
+    out, grads = fwd_bwd(port_layer, mine)
+    ref_out, ref_grads = fwd_bwd(ref, list(ref.parameters()))
+    own = dict(zip([n for n, _ in port_layer.named_parameters()], grads[1:]))
+    theirs = dict(zip([n for n, _ in ref.named_parameters()],
+                      ref_grads[1:]))
+    pairs = [("out", out, ref_out), ("dx", grads[0], ref_grads[0])]
+    for l in range(port_layer.num_layers):
+        for d in range(dirs):
+            sm, st = f"_l{l}" + ("_r" if d else ""), \
+                f"_l{l}" + ("_reverse" if d else "")
+            pairs += [("dw_ih" + sm, own["w_ih" + sm],
+                       theirs["weight_ih" + st].t()),
+                      ("dw_hh" + sm, own["w_hh" + sm],
+                       theirs["weight_hh" + st].t())]
+            if "b" + sm in own:  # one port bias feeds both cuDNN biases
+                pairs.append(("db" + sm, own["b" + sm],
+                              theirs["bias_ih" + st]))
+            else:
+                pairs += [("db_ih" + sm, own["b_ih" + sm],
+                           theirs["bias_ih" + st]),
+                          ("db_hh" + sm, own["b_hh" + sm],
+                           theirs["bias_hh" + st])]
+    gaps = {k: (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                 1e-30)
+            for k, a, b in pairs}
+    worst = max(gaps.values())
+    ms = cuda_ms(torch, lambda: fwd_bwd(port_layer, mine), iters=3,
+                 warmup=1)
+    cudnn = cuda_ms(torch, lambda: fwd_bwd(ref, list(ref.parameters())),
+                    iters=10, warmup=2)
+    print(f"char_rnn {name} vs torch.nn.{cls.__name__} (cuDNN), "
+          f"{RNN_BATCH}x{RNN_SEQ}, in {port_layer.input_size}, hidden "
+          f"{port_layer.hidden_size}: worst max|d|/max|ref| {worst:.3e} "
+          f"(tol {RNN_LAYER_TOL}; {gaps}); forward+backward ms: the "
+          f"port's layer {ms:.2f} (uncaptured), cuDNN {cudnn:.3f}",
+          flush=True)
+    check(worst <= RNN_LAYER_TOL,
+          f"char_rnn: the port's {name} differs from cuDNN's")
+    return dict(worst=worst, port_ms=ms, cudnn_ms=cudnn)
+
+
+def char_rnn_step_bound():
+    """Least time (ms) of one training step: the matrix products' FLOPs
+    (forward, and the backward's two products per product) at the fp32
+    FMA rate, against the bytes (the ids in, the logits out, and the
+    parameters and both Adam slots each read and written once)."""
+    bt, h, e, v = RNN_BATCH * RNN_SEQ, RNN_HIDDEN, RNN_EMBED, RNN_VOCAB
+    flops = 3 * (2 * bt * e * 4 * h + 2 * bt * h * 4 * h + 2 * bt * h * v)
+    n_params = v * e + (e + h + 1) * 4 * h + h * v + v
+    nbytes = 4 * (3 * 2 * n_params + bt * v) + 8 * 2 * bt
+    t_ops, t_bytes = flops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops,
+                                                              t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def char_rnn_path(torch, fa, mp, card):
+    """Char-RNN, the reference's judged LSTM configuration, at bench.py's
+    full shape: the layers against cuDNN's, 6 captured Adam steps
+    against the uncaptured twin (one capture), tokens/s captured and
+    uncaptured in turns, the captured step's device ms beside its bound
+    and cuDNN's LSTM, 30 steps on the built-in corpus, then the trainer
+    at its own defaults. Reaches no kernel of the port (the reference's
+    recurrence is a `lax.scan`, no Pallas site)."""
+    from singa_tpu_torch import layer, opt
+    from singa_tpu_torch.examples import char_rnn as trainer
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models import CharRNN
+    from singa_tpu_torch.observability import metrics
+
+    out = {}
+    m = CharRNN(RNN_VOCAB, hidden_size=RNN_HIDDEN, embed_dim=RNN_EMBED,
+                device="cuda")
+    weights = char_rnn_weights(m, SEED)
+    load_singa_tpu_params(m, weights)
+
+    # the layers against cuDNN's (the path the original SINGA's CudnnRNN
+    # took; a yardstick only, never called by the port)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out["lstm_vs_cudnn"] = layer_vs_cudnn(torch, "LSTM", m.lstm,
+                                          torch.nn.LSTM, SEED)
+    gru = layer.GRU(RNN_EMBED, RNN_HIDDEN, bidirectional=True,
+                    device="cuda", generator=gen)
+    out["gru_bidir_vs_cudnn"] = layer_vs_cudnn(torch, "bidirectional GRU",
+                                               gru, torch.nn.GRU, SEED + 1)
+    rnn = layer.RNN(RNN_EMBED, RNN_HIDDEN, nonlinearity="relu",
+                    device="cuda", generator=gen)
+    out["rnn_relu_vs_cudnn"] = layer_vs_cudnn(torch, "relu RNN", rnn,
+                                              torch.nn.RNN, SEED + 2)
+    del gru, rnn
+
+    # 6 captured steps against the uncaptured twin
+    rng = np.random.default_rng(SEED + 2)
+    seq = torch.from_numpy(rng.integers(0, RNN_VOCAB,
+                                        (RNN_BATCH, RNN_SEQ + 1))).cuda()
+    x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+
+    def restore(use_graph):
+        def put(model):
+            load_singa_tpu_params(model, weights)
+            model.set_optimizer(opt.Adam(lr=1e-3))
+            model.compile([x], is_train=True, use_graph=use_graph)
+        return put
+
+    restore(True)(m)
+    compiles = metrics.snapshot().get("graph_compiles", 0)
+    losses, first_s, step_ms = captured_steps(torch, fa, mp, m, x, y,
+                                              NO_LAUNCH, "char_rnn")
+    compiles = metrics.snapshot()["graph_compiles"] - compiles
+    check(compiles == 1 and m._train_step.captures == 1,
+          f"char_rnn: {compiles} graph compiles over 6 steps, not 1")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "char_rnn: the loss is not finite or did not fall")
+    twin_model = CharRNN(RNN_VOCAB, hidden_size=RNN_HIDDEN,
+                         embed_dim=RNN_EMBED, device="cuda")
+    out["twin"] = hold_twin(torch, "char_rnn", "fp32",
+                            (losses, state_of(m), step_ms),
+                            eager_twin(torch, twin_model, restore(False),
+                                       x, y))
+    out.update(losses=losses, first_step_s=first_s, graph_compiles=compiles)
+
+    # tokens/s captured and uncaptured, in turns
+    tokens = RNN_BATCH * RNN_SEQ
+    rates = {True: [], False: []}
+    for captured in (True, False, False, True):
+        model = m if captured else twin_model
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            _, loss = model(x, y)
+        loss.item()
+        rates[captured].append(5 * tokens / (time.perf_counter() - t))
+    on, off = (float(np.mean(rates[k])) for k in (True, False))
+    step = cuda_ms(torch, lambda: m(x, y), iters=10, warmup=1)
+    bound = char_rnn_step_bound()
+    print(f"char_rnn {RNN_BATCH}x{RNN_SEQ}, hidden {RNN_HIDDEN}, Adam: "
+          f"{on:.1f} tokens/s captured, {off:.1f} uncaptured (windows of "
+          f"5 steps, in turns: {rates[True]} / {rates[False]}); captured "
+          f"step {step:.3f} device ms (CUDA events), bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
+          f"{bound['flops'] / 1e9:.1f} GFLOP at the fp32 FMA rate, "
+          f"{bound['bytes'] / 1e6:.1f} MB); cuDNN's LSTM forward+backward "
+          f"{out['lstm_vs_cudnn']['cudnn_ms']:.3f} ms ({card})", flush=True)
+    out.update(tokens_per_s_captured=on, tokens_per_s_uncaptured=off,
+               windows=[rates[True], rates[False]], step_device_ms=step,
+               cudnn_lstm_fwd_bwd_ms=out["lstm_vs_cudnn"]["cudnn_ms"],
+               **bound)
+    del twin_model
+
+    # 30 captured steps on the built-in corpus: the loss falls
+    text = trainer.load_corpus(None)
+    chars = sorted(set(text))
+    data = np.array([chars.index(c) for c in text])
+    restore(True)(m)
+    corpus_losses = []
+    for _ in range(30):
+        starts = rng.integers(0, len(data) - RNN_SEQ - 1, RNN_BATCH)
+        xs = np.stack([data[s:s + RNN_SEQ + 1] for s in starts])
+        xc = torch.from_numpy(xs).cuda()
+        corpus_losses.append(m(xc[:, :-1], xc[:, 1:])[1].item())
+    print(f"char_rnn on the built-in corpus (vocab {len(chars)} of "
+          f"{RNN_VOCAB}): loss {corpus_losses[0]:.4f} -> "
+          f"{corpus_losses[-1]:.4f} over 30 captured steps "
+          f"({m._train_step.replays} replays)", flush=True)
+    check(m._train_step.captures == 1 and m._train_step.replays == 29,
+          "char_rnn: the corpus steps did not replay one graph")
+    check(corpus_losses[-1] < corpus_losses[0],
+          "char_rnn: the corpus loss did not fall")
+    out["corpus_losses"] = corpus_losses
+    m.graph(False)
+    del m
+    drop_graphs(torch)
+
+    # the trainer at its own defaults (2 layers, hidden 256, seq 64,
+    # batch 32), captured
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "singa_tpu_torch.examples.char_rnn",
+         "--steps", "60"], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    print(run.stdout, flush=True)
+    check(run.returncode == 0, f"the Char-RNN trainer failed: "
+                               f"{run.stderr[-2000:]}")
+    trained = [float(line.split("loss")[1]) for line in
+               run.stdout.splitlines() if line.startswith("step")]
+    sample = run.stdout.split("--- sample ---\n")[1]
+    check(len(trained) == 3 and trained[-1] < trained[0] and len(
+        sample) == len("the ") + 200 + 1,
+        "the Char-RNN trainer's loss did not fall or it sampled no text")
+    out["trainer"] = dict(losses=trained, wall_s=wall)
+    return out
 
 
 # -- the serving path ---------------------------------------------------------
@@ -2212,6 +2699,16 @@ def main() -> int:
     # 9. the CNN training path: ResNet-50, counted around one step
     resnet_launches, resnet = resnet_path(torch, fa, mp)
 
+    # 9b. Char-RNN at bench.py's shape, captured: it reaches no kernel
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    char_rnn = char_rnn_path(torch, fa, mp, card)
+    char_rnn_launches = counts(fa, mp)
+    print(f"char_rnn: {time.perf_counter() - t:.1f} s ({card}); launches "
+          f"{char_rnn_launches}", flush=True)
+    check(char_rnn_launches == NO_LAUNCH,
+          f"the Char-RNN phase launched {char_rnn_launches}")
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -2316,6 +2813,7 @@ def main() -> int:
           flush=True)
     print("bert_train " + json.dumps(bert), flush=True)
     print("resnet50_train " + json.dumps(resnet), flush=True)
+    print("char_rnn " + json.dumps(char_rnn), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

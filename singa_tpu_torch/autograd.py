@@ -23,7 +23,13 @@ on top of it:
 - the transformer's plain tensor functions `linear` (the bias joined at
   the product's output dtype), `gelu` (tanh approximation by default,
   as `jax.nn.gelu`), `tanh` and `reshape` (reference :670, :909-924,
-  :950-965).
+  :950-965);
+- the recurrent ops `vanilla_rnn`, `lstm` and `gru` (reference
+  :1356-1500), time-major: the input projection of every step is one
+  product, (T*B, in) x (in, G*H) + b, and a Python loop carries only the
+  (B, H) x (H, G*H) recurrent product, where the reference runs a
+  `lax.scan`. As in the reference, their products are plain `matmul`s
+  outside the autocast policy.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "softmax_cross_entropy", "cross_entropy", "add", "flatten",
            "relu", "conv2d", "DEGENERATE_STAT_COUNT", "batchnorm",
            "max_pool2d", "avg_pool2d", "global_avg_pool2d", "gelu", "tanh",
-           "reshape", "linear"]
+           "reshape", "linear", "vanilla_rnn", "lstm", "gru"]
 
 #: reference parity: `Model.train(mode)` sets it; a model's forward
 #: records no tape while it is False
@@ -383,3 +389,92 @@ def avg_pool2d(x: torch.Tensor, kernel, stride=None,
 def global_avg_pool2d(x: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> (N, C), the mean taken in fp32."""
     return x.float().mean(dim=layout_module.spatial_axes()).to(x.dtype)
+
+
+# -- recurrent ops -------------------------------------------------------------
+#
+# Time is the leading axis (T, B, in); gate orders are torch's and cuDNN's:
+# LSTM i, f, g, o; GRU r, z, n. `reverse=True` walks the steps from the
+# last and keeps the outputs time-aligned; `remat=True` saves only each
+# step's carry and recomputes the cell in the backward
+# (`torch.utils.checkpoint`, where the reference wraps its scan body in
+# `jax.checkpoint`). The reference's RNN_SCAN_UNROLL is an XLA knob with
+# no counterpart here.
+
+
+def _recur(step: Callable, carry: Tuple[torch.Tensor, ...],
+           xproj: torch.Tensor, reverse: bool, remat: bool):
+    """Run carry = step(*carry, xproj[t]) over t; returns the final carry
+    and the stacked first carries (T, B, H)."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        cell = step
+
+        def step(*a):
+            return checkpoint(cell, *a, use_reentrant=False)
+
+    # one unbind: its backward stacks the steps' gradients in one write,
+    # where indexing xproj[t] per step would zero-fill and sum a full
+    # (T, B, G*H) gradient for every step
+    xs = xproj.unbind(0)
+    ys = [None] * len(xs)
+    for t in (reversed(range(len(xs))) if reverse else range(len(xs))):
+        carry = step(*carry, xs[t])
+        ys[t] = carry[0]
+    return carry, torch.stack(ys)
+
+
+def vanilla_rnn(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                b: torch.Tensor, h0: torch.Tensor,
+                nonlinearity: str = "tanh", reverse: bool = False,
+                remat: bool = False):
+    """Elman RNN over x (T, B, in) -> (ys (T, B, H), h_T); w_ih (in, H),
+    w_hh (H, H), b (H,)."""
+    if nonlinearity not in ("tanh", "relu"):
+        raise ValueError(f"unknown nonlinearity {nonlinearity!r}")
+    act = torch.tanh if nonlinearity == "tanh" else F.relu
+
+    def step(h, xt):
+        return (act(xt + torch.matmul(h, w_hh)),)
+
+    (h,), ys = _recur(step, (h0,), torch.matmul(x, w_ih) + b, reverse,
+                      remat)
+    return ys, h
+
+
+def lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+         b: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+         reverse: bool = False, remat: bool = False):
+    """LSTM over x (T, B, in) -> (ys (T, B, H), h_T, c_T); w_ih (in, 4H),
+    w_hh (H, 4H), b (4H,), gates ordered i, f, g, o."""
+
+    def step(h, c, xt):
+        i, f, g, o = (xt + torch.matmul(h, w_hh)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+    (h, c), ys = _recur(step, (h0, c0), torch.matmul(x, w_ih) + b, reverse,
+                        remat)
+    return ys, h, c
+
+
+def gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+        b_ih: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
+        reverse: bool = False, remat: bool = False):
+    """GRU over x (T, B, in) -> (ys (T, B, H), h_T); w_ih (in, 3H),
+    w_hh (H, 3H), gates ordered r, z, n. The biases are separate because
+    r applies inside the hidden-side affine:
+    n = tanh(x_n + b_in + r * (h W_n + b_hn))."""
+
+    def step(h, xt):
+        xr, xz, xn = xt.chunk(3, dim=-1)
+        hr, hz, hn = (torch.matmul(h, w_hh) + b_hh).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return ((1.0 - z) * n + z * h,)
+
+    (h,), ys = _recur(step, (h0,), torch.matmul(x, w_ih) + b_ih, reverse,
+                      remat)
+    return ys, h

@@ -21,6 +21,12 @@ pools, `ReLU`, `Flatten`, `Sequential`) run in the current image layout
 `layers`, so dotted names are the reference's
 (`layer1.layers.0.conv1.layers.0.W`).
 
+The recurrent layers (`RNN`, `LSTM`, `GRU`, `CudnnRNN`) run the
+`autograd` recurrent ops per layer and direction, with the reference's
+parameter names (`w_ih_l{l}`, `w_hh_l{l}`, `b_l{l}`, GRU's `b_ih_l{l}`
+and `b_hh_l{l}`, `_r` for the reverse direction) and layouts ((in, G*H),
+(H, G*H)), each uniform(-1/sqrt(H), 1/sqrt(H)).
+
 The paged KV-cache ops (`paged_kv_gather` and the three writes) are the
 serving engine's read/write surface over a block pool laid out (NB, bs,
 H, hd), rows first (reference `layer.py:1647-1715`). The reference
@@ -48,6 +54,7 @@ from singa_tpu_torch.ops import flash_attention as fa
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Gelu", "Tanh",
            "ScanTransformerStack", "Conv2d", "BatchNorm2d", "MaxPool2d",
            "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten", "Sequential",
+           "RNN", "LSTM", "GRU", "CudnnRNN",
            "paged_kv_gather", "paged_kv_token_write",
            "paged_kv_window_write", "paged_kv_pages_write"]
 
@@ -338,6 +345,146 @@ class Sequential(nn.Module):
         for lyr in self.layers:
             x = lyr(x)
         return x
+
+
+# -- recurrent layers (reference layer.py:514-698) -----------------------------
+
+
+class _RNNBase(nn.Module):
+    """Multi-layer, optionally bidirectional recurrent stack over the
+    `autograd` recurrent ops. The reverse direction runs the op with
+    `reverse=True` (outputs stay time-aligned) and joins the forward one
+    on the feature axis, the composition cuDNN fuses. `batch_first`
+    inputs are (B, T, in), else (T, B, in). `return_sequences=False`
+    gives the last layer's final hidden state (directions joined);
+    `return_state=True` adds the final states, one per (layer,
+    direction): LSTM `(hs, cs)`, the others `hs`; `hx` takes the same
+    form as the initial states (zeros when None). `remat=True`
+    recomputes each cell in the backward."""
+
+    mode = "lstm"
+    n_gates = 4
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, bidirectional: bool = False,
+                 batch_first: bool = True, return_sequences: bool = True,
+                 return_state: bool = False, remat: bool = False,
+                 nonlinearity: str = "tanh", *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if nonlinearity not in ("tanh", "relu"):
+            raise ValueError(f"unknown nonlinearity {nonlinearity!r}")
+        dev, gen = _setup(device, generator)
+        self.input_size, self.hidden_size = input_size, hidden_size
+        self.num_layers, self.bidirectional = num_layers, bidirectional
+        self.batch_first = batch_first
+        self.return_sequences = return_sequences
+        self.return_state = return_state
+        self.remat, self.nonlinearity = remat, nonlinearity
+        H, G = hidden_size, self.n_gates
+        k = 1.0 / math.sqrt(H)
+        biases = ("b_ih", "b_hh") if self.mode == "gru" else ("b",)
+        for l in range(num_layers):
+            layer_in = input_size if l == 0 else H * self._dirs
+            for d in range(self._dirs):
+                setattr(self, self._wname("w_ih", l, d),
+                        _new((layer_in, G * H), dev, gen, "uniform", k))
+                setattr(self, self._wname("w_hh", l, d),
+                        _new((H, G * H), dev, gen, "uniform", k))
+                for kind in biases:
+                    setattr(self, self._wname(kind, l, d),
+                            _new((G * H,), dev, gen, "uniform", k))
+
+    @property
+    def _dirs(self) -> int:
+        return 2 if self.bidirectional else 1
+
+    @staticmethod
+    def _wname(kind: str, l: int, d: int) -> str:
+        return f"{kind}_l{l}" + ("_r" if d else "")
+
+    def _run_dir(self, x, l, d, h0, c0):
+        """One direction of one layer: (ys, h_T, c_T or None)."""
+        def w(kind):
+            return getattr(self, self._wname(kind, l, d))
+
+        reverse = d == 1
+        if self.mode == "lstm":
+            return autograd.lstm(x, w("w_ih"), w("w_hh"), w("b"), h0, c0,
+                                 reverse=reverse, remat=self.remat)
+        if self.mode == "gru":
+            ys, h = autograd.gru(x, w("w_ih"), w("w_hh"), w("b_ih"),
+                                 w("b_hh"), h0, reverse=reverse,
+                                 remat=self.remat)
+        else:
+            ys, h = autograd.vanilla_rnn(
+                x, w("w_ih"), w("w_hh"), w("b"), h0,
+                nonlinearity=self.nonlinearity, reverse=reverse,
+                remat=self.remat)
+        return ys, h, None
+
+    def forward(self, x: torch.Tensor, hx=None):
+        if self.batch_first:
+            x = x.transpose(0, 1)  # -> (T, B, in)
+        h0s, c0s = (hx if self.mode == "lstm" else (hx, None)) if (
+            hx is not None) else (None, None)
+        zeros = x.new_zeros((x.shape[1], self.hidden_size))
+        h_lasts, c_lasts = [], []
+        for l in range(self.num_layers):
+            outs = []
+            for d in range(self._dirs):
+                i = l * self._dirs + d
+                ys, h, c = self._run_dir(
+                    x, l, d, zeros if h0s is None else h0s[i],
+                    zeros if c0s is None else c0s[i])
+                outs.append(ys)
+                h_lasts.append(h)
+                if c is not None:
+                    c_lasts.append(c)
+            x = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+        if self.return_sequences:
+            y = x.transpose(0, 1) if self.batch_first else x
+        else:
+            finals = h_lasts[-self._dirs:]
+            y = torch.cat(finals, dim=-1) if len(finals) > 1 else finals[0]
+        if self.return_state:
+            return y, ((h_lasts, c_lasts) if self.mode == "lstm"
+                       else h_lasts)
+        return y
+
+
+class RNN(_RNNBase):
+    mode = "rnn"
+    n_gates = 1
+
+
+class LSTM(_RNNBase):
+    mode = "lstm"
+    n_gates = 4
+
+
+class GRU(_RNNBase):
+    mode = "gru"
+    n_gates = 3
+
+
+class CudnnRNN(_RNNBase):
+    """The reference's cuDNN-layer surface, `CudnnRNN(input_size,
+    hidden_size, rnn_mode=...)` with rnn_mode "lstm", "gru", "tanh" or
+    "relu", sequence-major by default as cuDNN is; backed by the same
+    recurrent ops as the other layers."""
+
+    _MODES = {"lstm": ("lstm", 4, "tanh"), "gru": ("gru", 3, "tanh"),
+              "tanh": ("rnn", 1, "tanh"), "relu": ("rnn", 1, "relu")}
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 rnn_mode: str = "lstm", **kw):
+        if rnn_mode not in self._MODES:
+            raise ValueError(f"unknown rnn_mode {rnn_mode!r}")
+        self.mode, self.n_gates, nonlin = self._MODES[rnn_mode]
+        kw.setdefault("nonlinearity", nonlin)
+        kw.setdefault("batch_first", False)
+        super().__init__(input_size, hidden_size, **kw)
 
 
 # -- paged KV cache (the serving engine's pools) ------------------------------

@@ -12,9 +12,14 @@ subclass's `train_one_batch`; otherwise `m(ids)` runs `forward`, with
 grad recording only while `autograd.training` is set (so scoring in eval
 mode keeps no tape, as the reference records none).
 
-`graph(True)` keeps the reference's API, but in this slice it runs the
-same step uncaptured: capturing forward, backward and update as one CUDA
-graph is ROADMAP queue 1 item 7, and `memory_estimate` is None until then.
+`graph(True)` (the default of `compile(..., use_graph=True)`) routes the
+training step through `graph.GraphStep`: on the card the whole step
+(forward, backward, clipping, the optimizer update) is captured as one
+CUDA Graph per input signature at its second call and replayed after
+that; on the CPU the same function runs uncaptured. `graph(False)` runs
+the step eagerly. Calls in eval mode run `forward` as they are (the
+reference's compiled eval step is not ported), and `memory_estimate` is
+None (ROADMAP queue 1 item 7).
 
 `load_singa_tpu_params` carries a `singa_tpu` model's weights into the
 port: it takes `{name: np.asarray(t.data) for name, t in
@@ -39,6 +44,7 @@ from torch import nn
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch import layout as layout_module
+from singa_tpu_torch.graph import GraphStep
 
 __all__ = ["Model", "load_singa_tpu_params", "load_singa_tpu_states"]
 
@@ -52,8 +58,11 @@ class Model(nn.Module):
         super().__init__()
         self._optimizer = None
         # bound user implementation, captured by graph(): its presence
-        # routes training-mode calls to the training step
+        # routes training-mode calls (and direct `train_one_batch` calls)
+        # to the training step
         self._user_train_one_batch = None
+        self._use_graph = False
+        self._train_step: Optional[GraphStep] = None
 
     def _apply_opt(self, loss, dist_option: str = "plain", spars=None):
         """The reference trainers' optimizer dispatch. With a plain (not
@@ -97,8 +106,7 @@ class Model(nn.Module):
     @property
     def memory_estimate(self):
         """None: the reference reads this from its compiled step's memory
-        plan, and step capture is not ported yet (ROADMAP queue 1
-        item 7)."""
+        plan, which is not ported yet (ROADMAP queue 1 item 7)."""
         return None
 
     @property
@@ -132,13 +140,29 @@ class Model(nn.Module):
         self.graph(use_graph, sequential)
 
     def graph(self, mode: bool = True, sequential: bool = False) -> None:
-        """Route training-mode calls to `train_one_batch`. `mode` and
-        `sequential` are the reference's API: the step runs uncaptured
-        either way in this slice (see the module docstring)."""
-        del mode, sequential
+        """Route training-mode calls and direct `train_one_batch` calls
+        to the training step: captured (`GraphStep`) when `mode`, eager
+        otherwise. Drops the steps captured so far. `sequential` is
+        accepted for the reference's API: the stream orders the step's
+        kernels either way."""
+        del sequential
+        self._use_graph = bool(mode)
+        self._train_step = None
         if self._user_train_one_batch is None:
             self._user_train_one_batch = type(self).train_one_batch.__get__(
                 self)
+            # an instance attribute shadows the class's method: direct
+            # `m.train_one_batch(x, y)` calls (the reference trainers'
+            # style) take the route of `m(x, y)`, as the reference's
+            # `__getattribute__` routes them
+            self.train_one_batch = self._dispatch_train
+
+    def _dispatch_train(self, *args, **kwargs):
+        if self._use_graph:
+            if self._train_step is None:
+                self._train_step = GraphStep(self, self._user_train_one_batch)
+            return self._train_step(*args, **kwargs)
+        return self._user_train_one_batch(*args, **kwargs)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -151,7 +175,7 @@ class Model(nn.Module):
 
     def __call__(self, *args, **kwargs):
         if self.training and self._user_train_one_batch is not None:
-            return self._user_train_one_batch(*args, **kwargs)
+            return self._dispatch_train(*args, **kwargs)
         with torch.set_grad_enabled(
                 autograd.training and torch.is_grad_enabled()):
             return super().__call__(*args, **kwargs)

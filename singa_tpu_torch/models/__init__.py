@@ -1,9 +1,10 @@
 """Model zoo (counterpart of singa_tpu/models/): the GPT decoder, the
-transformer encoder and BERT, and the CNNs of the reference's CIFAR-10
-and ImageNet trainers."""
+transformer encoder and BERT, the Char-RNN LSTM, and the CNNs of the
+reference's CIFAR-10 and ImageNet trainers."""
 
 from singa_tpu_torch.models.alexnet import (  # noqa: F401
     AlexNet, CifarAlexNet, alexnet, alexnet_cifar)
+from singa_tpu_torch.models.char_rnn import CharRNN  # noqa: F401
 from singa_tpu_torch.models.gpt import (  # noqa: F401
     GPT, gpt_draft, gpt_medium, unstack_params)
 from singa_tpu_torch.models.resnet import (  # noqa: F401
@@ -19,7 +20,7 @@ __all__ = [
     "GPT", "gpt_draft", "gpt_medium", "unstack_params",
     "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
     "Bert", "BertForClassification", "bert_base", "bert_small",
-    "collect_moe_aux",
+    "collect_moe_aux", "CharRNN",
     "AlexNet", "CifarAlexNet", "alexnet", "alexnet_cifar",
     "VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg16_cifar",
     "ResNet", "CifarResNet", "BasicBlock", "Bottleneck",

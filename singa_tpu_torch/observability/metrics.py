@@ -23,8 +23,8 @@ Two cost tiers, by contract:
 Every metric name the port emits is declared in the `HELP` inventory
 below with a help string; the names and their meaning are the
 reference's. The metric-name lint, the exporters and the names of the
-unported subsystems (the rest of resilience, the training step) come
-with those modules (ROADMAP queue 1 items 7, 17, 18).
+unported subsystems (the rest of resilience) come with those modules
+(ROADMAP queue 1 items 17, 18).
 
 Stdlib-only and thread-safe (one registry lock).
 """
@@ -328,9 +328,19 @@ def disable() -> None:
 # -- the declared metric inventory --------------------------------------------
 #
 # Name -> help string for every metric singa_tpu_torch/ emits (the
-# serving stack's, as the reference names them).
+# training step's and the serving stack's, as the reference names them).
 
 HELP: Dict[str, str] = {
+    # -- the training step (graph.GraphStep) ----------------------------
+    "graph_compiles": "GraphStep builds: CUDA Graph captures of the "
+                      "training step on the card, new input signatures "
+                      "on the CPU",
+    "train_steps": "training steps dispatched through GraphStep "
+                   "(hot-path gated)",
+    "train_step_ms": "per-step host wall time of a GraphStep call, ms "
+                     "(a replay returns once it is enqueued; the first "
+                     "samples of a signature include its uncaptured "
+                     "first step and its capture)",
     "serve_steps": "decode steps (speculative: propose+verify "
                    "rounds) executed",
     "serve_tokens": "tokens emitted by the serving engine "

@@ -8,10 +8,17 @@ on the parameters' device, and each update writes its parameter in place
 (under `torch.no_grad()`), where the reference rebinds a new array.
 
 `opt(loss)` runs the backward (`autograd.grad_pairs`) and the update, as
-the reference's `backward_and_update` does. The step counter is a host
-integer, and the schedules are evaluated on the host at each step; the
-reference keeps both on the device so that its compiled step can thread
-them.
+the reference's `backward_and_update` does.
+
+Every update is capturable as part of one CUDA Graph (`graph.GraphStep`):
+
+- the step counter is an int32 tensor on the parameters' device, as the
+  reference's is, and the schedules and Adam's bias corrections are
+  computed from it on the device inside the step (in float32, as the
+  reference computes them), so a replay reads the step it runs, not the
+  one it was captured at; `step_counter` is the host's mirror of it;
+- every slot is written in place, so a replay updates the tensors the
+  next replay reads.
 
 Not ported in this slice: `set_sentinel` (resilience) and `DistOpt`
 (distributed training) raise `NotImplementedError` naming their ROADMAP
@@ -35,11 +42,21 @@ __all__ = ["DecayScheduler", "Constant", "ExponentialDecay", "CosineDecay",
 # -- lr schedules ------------------------------------------------------------
 
 
+def _as_step(step) -> torch.Tensor:
+    """A step as a tensor: the optimizer's device counter as it is, a
+    host number as a 0-dim int64 tensor on the host."""
+    return step if isinstance(step, torch.Tensor) else torch.as_tensor(step)
+
+
 class DecayScheduler:
+    """A learning rate as a function of the step. Called with the
+    optimizer's device counter it returns a float32 tensor on that
+    device (the constant schedule returns its float)."""
+
     def __init__(self, init_value: float):
         self.init_value = float(init_value)
 
-    def __call__(self, step) -> float:
+    def __call__(self, step):
         raise NotImplementedError
 
 
@@ -55,11 +72,11 @@ class ExponentialDecay(DecayScheduler):
         self.decay_rate = decay_rate
         self.staircase = staircase
 
-    def __call__(self, step) -> float:
-        p = step / self.decay_steps
+    def __call__(self, step) -> torch.Tensor:
+        p = _as_step(step) / self.decay_steps
         if self.staircase:
-            p = math.floor(p)
-        return self.init_value * self.decay_rate ** p
+            p = torch.floor(p)
+        return self.init_value * torch.pow(self.decay_rate, p)
 
 
 class CosineDecay(DecayScheduler):
@@ -68,9 +85,9 @@ class CosineDecay(DecayScheduler):
         self.total_steps = total_steps
         self.alpha = alpha
 
-    def __call__(self, step) -> float:
-        frac = min(max(step / self.total_steps, 0.0), 1.0)
-        cos = 0.5 * (1.0 + math.cos(math.pi * frac))
+    def __call__(self, step) -> torch.Tensor:
+        frac = torch.clamp(_as_step(step) / self.total_steps, 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * frac))
         return self.init_value * ((1 - self.alpha) * cos + self.alpha)
 
 
@@ -85,10 +102,11 @@ class Warmup(DecayScheduler):
         self.base = base
         self.warmup_steps = int(warmup_steps)
 
-    def __call__(self, step) -> float:
+    def __call__(self, step):
         if self.warmup_steps <= 0:
             return self.base(step)
-        ramp = min(max((step + 1.0) / self.warmup_steps, 0.0), 1.0)
+        ramp = torch.clamp((_as_step(step) + 1.0) / self.warmup_steps,
+                           0.0, 1.0)
         return ramp * self.base(step)
 
 
@@ -113,7 +131,9 @@ class Optimizer:
         self.lr = lr if isinstance(lr, DecayScheduler) else Constant(lr)
         self.clip_norm = clip_norm
         self.clip_value = clip_value
+        #: the host's mirror of `_step`, the device step counter
         self.step_counter = 0
+        self._step = torch.zeros((), dtype=torch.int32)
         self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
         self._names: Dict[int, str] = {}  # id(param) -> name (dump/load)
         self._anon = 0
@@ -153,6 +173,8 @@ class Optimizer:
     def apply_updates(self, pairs) -> None:
         """Clip the whole gradient set, run the per-param updates, step."""
         pairs = list(pairs)
+        if pairs:
+            self._place_step(pairs[0][0].device)
         grads = self.clip_gradients([g for _, g in pairs])
         with torch.no_grad():
             for (p, _), g in zip(pairs, grads):
@@ -171,14 +193,21 @@ class Optimizer:
                 self._anon += 1
         return s
 
+    def _place_step(self, dev: torch.device) -> None:
+        """Keep the step counter on the parameters' device."""
+        if self._step.device != dev:
+            self._step = self._step.to(dev)
+
     def prepare(self, named_params: Dict[str, torch.Tensor]) -> None:
-        """Name every parameter's slots (for dump/load) and make them."""
+        """Name every parameter's slots (for dump/load) and make them,
+        and put the step counter on the parameters' device."""
         for name, p in named_params.items():
             self._names[id(p)] = name
             self._slot(p)
+            self._place_step(p.device)
 
     def dump_states(self) -> Dict[str, torch.Tensor]:
-        out = {"__step__": torch.tensor(self.step_counter, dtype=torch.int32)}
+        out = {"__step__": self._step.clone()}
         for pid, slots in self._slots.items():
             pname = self._names[pid]
             for sname, arr in slots.items():
@@ -193,6 +222,7 @@ class Optimizer:
         first)."""
         if "__step__" in states:
             self.step_counter = int(states["__step__"])
+            self._step.fill_(self.step_counter)
         by_name = {n: pid for pid, n in self._names.items()}
         dropped = []
         for k, arr in states.items():
@@ -202,9 +232,10 @@ class Optimizer:
             pid = by_name.get(pname)
             if pid is not None and pid in self._slots:
                 slot = self._slots[pid].get(sname)
-                self._slots[pid][sname] = torch.as_tensor(arr).to(
-                    device=slot.device if slot is not None else None,
-                    dtype=slot.dtype if slot is not None else None)
+                if slot is None:
+                    self._slots[pid][sname] = torch.as_tensor(arr).clone()
+                else:  # in place: a captured step keeps reading `slot`
+                    slot.copy_(torch.as_tensor(arr))
             elif pname:
                 dropped.append(k)
         if strict and dropped:
@@ -216,10 +247,13 @@ class Optimizer:
                 f"states belong to a different model")
 
     # -- update --------------------------------------------------------------
-    def lr_value(self) -> float:
-        return self.lr(self.step_counter)
+    def lr_value(self):
+        """The learning rate at the current step: a float32 tensor on the
+        step counter's device, or the float of a constant schedule."""
+        return self.lr(self._step)
 
     def step(self) -> None:
+        self._step.add_(1)
         self.step_counter += 1
 
     def update(self, p: torch.Tensor, g: torch.Tensor) -> None:
@@ -252,8 +286,8 @@ class SGD(Optimizer):
             grad = grad + self.weight_decay * p
         if self.momentum:
             s = self._slot(p)
-            buf = self.momentum * s["momentum"] + (1 - self.dampening) * grad
-            s["momentum"] = buf
+            buf = s["momentum"]
+            buf.copy_(self.momentum * buf + (1 - self.dampening) * grad)
             grad = grad + self.momentum * buf if self.nesterov else buf
         p.sub_(self.lr_value() * grad)
 
@@ -275,11 +309,11 @@ class Adam(Optimizer):
         if self.weight_decay:
             grad = grad + self.weight_decay * p
         s = self._slot(p)
-        t = self.step_counter + 1
-        s["m"] = self.beta1 * s["m"] + (1 - self.beta1) * grad
-        s["v"] = self.beta2 * s["v"] + (1 - self.beta2) * grad * grad
-        mhat = s["m"] / (1 - self.beta1 ** t)
-        vhat = s["v"] / (1 - self.beta2 ** t)
+        t = (self._step + 1).to(p.dtype)
+        s["m"].copy_(self.beta1 * s["m"] + (1 - self.beta1) * grad)
+        s["v"].copy_(self.beta2 * s["v"] + (1 - self.beta2) * grad * grad)
+        mhat = s["m"] / (1 - torch.pow(self.beta1, t))
+        vhat = s["v"] / (1 - torch.pow(self.beta2, t))
         p.sub_(self.lr_value() * mhat / (vhat.sqrt() + self.eps))
 
 
@@ -318,7 +352,7 @@ class AdaGrad(Optimizer):
         if self.weight_decay:
             grad = grad + self.weight_decay * p
         s = self._slot(p)
-        s["accum"] = s["accum"] + grad * grad
+        s["accum"].add_(grad * grad)
         p.sub_(self.lr_value() * grad / (s["accum"].sqrt() + self.eps))
 
 
@@ -337,7 +371,7 @@ class RMSProp(Optimizer):
         if self.weight_decay:
             grad = grad + self.weight_decay * p
         s = self._slot(p)
-        s["ms"] = self.rho * s["ms"] + (1 - self.rho) * grad * grad
+        s["ms"].copy_(self.rho * s["ms"] + (1 - self.rho) * grad * grad)
         p.sub_(self.lr_value() * grad / (s["ms"].sqrt() + self.eps))
 
 

@@ -56,9 +56,7 @@ ROADMAP queue 1 items 10 and 13-15) and the shardlint surface.
 
 from __future__ import annotations
 
-import threading
 import time
-import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -67,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from singa_tpu_torch import layer
+from singa_tpu_torch.graph import CAPTURE_LOCK, private_stream
 from singa_tpu_torch.models.gpt import GPT, pick_rows
 from singa_tpu_torch.observability import metrics as obs_metrics
 from singa_tpu_torch.observability import trace as obs_trace
@@ -77,30 +76,6 @@ from singa_tpu_torch.tensor import paged_gather, quantize_int8_rows
 
 __all__ = ["Request", "ServingEngine", "OutOfSlotsError",
            "OutOfBlocksError", "PrefillTicket", "emitted_token_count"]
-
-#: one CUDA Graph capture at a time in the process: engines pumped from
-#: several threads (the replica router) capture their suffix widths
-#: lazily
-_CAPTURE_LOCK = threading.Lock()
-#: the streams of live engines on the card (`cuda_stream` handles):
-#: cuBLAS keys its workspace by (handle, stream), and a graph keeps the
-#: workspace of the stream it was captured on, so engines stepped at
-#: once must capture, and run, on streams no other engine uses
-_ENGINE_STREAMS: set = set()
-
-
-def _private_stream(owner, device):
-    """A CUDA stream from PyTorch's pool that no other live engine
-    holds, released when `owner` is collected."""
-    for _ in range(64):
-        st = torch.cuda.Stream(device)
-        if st.cuda_stream not in _ENGINE_STREAMS:
-            _ENGINE_STREAMS.add(st.cuda_stream)
-            weakref.finalize(owner, _ENGINE_STREAMS.discard, st.cuda_stream)
-            return st
-    raise RuntimeError(
-        f"every pooled CUDA stream is held by one of "
-        f"{len(_ENGINE_STREAMS)} live serving engines")
 
 
 def emitted_token_count(emitted) -> int:
@@ -309,7 +284,7 @@ class ServingEngine:
         #: the stream this engine captures its graphs on (the card only);
         #: a caller stepping several engines at once (the router's
         #: parallel pump) steps each on its own
-        self.stream = (_private_stream(self, self.device)
+        self.stream = (private_stream(self, self.device)
                        if self.device.type == "cuda" else None)
         self.slots = int(slots)
         self.block_size = int(block_size)
@@ -471,7 +446,7 @@ class ServingEngine:
         pumped on another thread keeps launching meanwhile. A capture
         that fails raises: there is no eager fallback."""
         side = self.stream
-        with _CAPTURE_LOCK, torch.inference_mode():
+        with CAPTURE_LOCK, torch.inference_mode():
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 for _ in range(3):

@@ -1,10 +1,11 @@
 """The port stands alone and never falls back.
 
-- singa_tpu_torch (serving/, resilience/, observability/ and tensor.py
-  among it), chip_smoke.py and the port's profiling and A/B scripts
-  import nothing of JAX and nothing of singa_tpu (an AST scan, and a
-  real import, with both blocked, that serves one request; the spool
-  server's process entry runs with both blocked);
+- singa_tpu_torch (serving/, resilience/, observability/, tensor.py,
+  graph.py and the Char-RNN model and trainer among it), chip_smoke.py
+  and the port's profiling and A/B scripts import nothing of JAX and
+  nothing of singa_tpu (an AST scan, and a real import, with both
+  blocked, that serves one request and takes one graph-mode Char-RNN
+  step; the spool server's process entry runs with both blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -79,6 +80,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import singa_tpu_torch.resilience\n"
         "import singa_tpu_torch.resilience.counters\n"
         "import singa_tpu_torch.examples.serve_gpt\n"
+        "import singa_tpu_torch.graph, singa_tpu_torch.models.char_rnn\n"
+        "import singa_tpu_torch.examples.char_rnn\n"
         "m = singa_tpu_torch.models.gpt.GPT(vocab_size=16, d_model=32,\n"
         "    num_layers=1, num_heads=1, max_len=8, dropout=0.0,\n"
         "    scan_blocks=True, device='cpu')\n"
@@ -87,11 +90,19 @@ def test_port_imports_with_jax_and_reference_blocked():
         "e = ServingEngine(m, slots=1, block_size=4, window=8)\n"
         "e.admit(Request(0, [1, 2, 3], 2))\n"
         "e.step()\n"
-        "print(e.decode_compiles, e.allocator.used_blocks)\n")
+        "print(e.decode_compiles, e.allocator.used_blocks)\n"
+        "from singa_tpu_torch import opt\n"
+        "from singa_tpu_torch.models import CharRNN\n"
+        "r = CharRNN(8, hidden_size=8, embed_dim=4, device='cpu')\n"
+        "r.set_optimizer(opt.Adam(1e-2))\n"
+        "ids = sys.modules['torch'].zeros(2, 5).long()\n"
+        "r.compile([ids], is_train=True, use_graph=True)\n"
+        "r.train_one_batch(ids, ids)\n"
+        "print(r._train_step.captures, r.optimizer.step_counter)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[:2] == ["(1, 8, 16)", "1 0"]
+    assert out.stdout.split("\n")[:3] == ["(1, 8, 16)", "1 0", "1 1"]
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):

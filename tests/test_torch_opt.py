@@ -4,8 +4,8 @@ reference's (singa_tpu.opt) on the same seeded parameters and gradients.
 Each optimizer takes 3 steps through `apply_updates` on both sides, with
 a fresh seeded gradient per step; parameters after every step and the
 slots after the last must agree within rtol 1e-5 / atol 1e-6 (fp32 on
-both sides; the port evaluates schedules and bias corrections in
-float64 on the host, the reference in float32 on the device).
+both sides; both evaluate schedules and bias corrections in float32
+from the step counter on the device).
 """
 
 import numpy as np
