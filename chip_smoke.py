@@ -161,6 +161,31 @@ Phases, in the order they run (any failure raises and exits non-zero):
    defaults, whose loss must fall and which must print a sample. No
    kernel of the port runs (the reference's recurrence is a
    `lax.scan`);
+9c. the judged eager MLP (`MLP(100, 10)`, seeded weights through
+   load_singa_tpu_params, SGD(lr 0.05, momentum 0.9, weight decay
+   1e-5), batch 64 on the synthetic MNIST set, `compile(...,
+   use_graph=False)`): eager epochs and captured ones (`graph(True)`)
+   in turns, steps/s and images/s of each, the captured step's device
+   ms (CUDA events over its graph's replays) beside its bound; 6
+   captured steps against the eager twin at dropout 0 (1e-6); then
+   `python -m singa_tpu_torch.examples.mlp_mnist --epochs 3` at its
+   defaults, whose loss must fall and whose last validation accuracy
+   must be at least 0.5. No kernel launches;
+9d. sonnx at full width: ResNet-50 (seeded states, `set_image_layout(
+   "NHWC")`, its BatchNorm statistics set to a seeded (8, 3, 224, 224)
+   batch's, eval mode) exported with `sonnx.to_onnx` and imported on
+   the card (`sonnx.prepare`, run twice: the first run reads the statics),
+   its logits within 1e-3 of max|logit| of the source's eval forward;
+   3 SGD(lr 1e-3) steps of the imported model through `compile(...,
+   use_graph=True)` (step 1 uncaptured, then one capture and its
+   replays): the loss falls, every parameter moves and the BatchNorm
+   buffers stay bitwise; then BERT-base at 2 x 512 in eval mode
+   (seeded weights), whose export trace must launch the fused flash
+   forward kernel exactly 12 times (and the ResNet-50 export none), the
+   imported (seq, pooled) within 2e-3 absolute and relative of the
+   source's. Prints each export's seconds, bytes and nodes, the
+   imported model's first and second run ms, and its forward's device
+   ms against the source model's;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -1703,6 +1728,291 @@ def char_rnn_path(torch, fa, mp, card):
     return out
 
 
+# -- the judged eager MLP, and sonnx ------------------------------------------
+
+#: the MLP trainer's defaults (examples/mlp_mnist.py): batch 64, hidden 100
+MLP_BATCH, MLP_HIDDEN = 64, 100
+#: the reference's round-trip tolerances: ResNet-50's logits within 1e-3
+#: of max|logit| (examples/onnx_zoo.py), BERT's outputs within 2e-3
+#: absolute and relative (tests/test_sonnx.py)
+RESNET_ONNX_TOL, BERT_ONNX_TOL = 1e-3, 2e-3
+#: the imported ResNet-50's fine-tuning rate: ONNX's BatchNormalization
+#: is the inference form, which leaves the random-weight net's gradient
+#: unnormalised (a norm near 1e3), and SGD at 1e-2 or 3e-3 diverges
+#: within 3 steps on the CPU at (8, 3, 224, 224); 1e-3 falls
+SONNX_FINETUNE_LR = 1e-3
+
+
+def mlp_epoch(torch, m, tx, ty, seed):
+    """One epoch of m(x, y) steps over (tx, ty) on the card, the loss
+    summed on the device; returns (steps, seconds, mean loss)."""
+    from singa_tpu_torch.utils import data
+
+    loss_sum = torch.zeros((), device="cuda")
+    n = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for bx, by in data.device_batches(tx, ty, MLP_BATCH, seed=seed):
+        loss_sum += m(bx, by)[1]
+        n += 1
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - t, loss_sum.item() / n
+
+
+def mlp_path(torch, fa, mp, card):
+    """The judged eager MLP (`MLP(100, 10)`, SGD(lr 0.05, momentum 0.9,
+    weight decay 1e-5), batch 64 on the synthetic MNIST set, seeded
+    weights): eager epochs against captured ones in turns (steps/s,
+    images/s, the captured step's device ms and its bound), 6 captured
+    steps against the uncaptured twin at dropout 0, then the trainer at
+    its defaults. Reaches no kernel of the port."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models import MLP
+    from singa_tpu_torch.utils import data
+
+    xt, yt, _, _ = data.load_mnist()
+    tx, ty = tensor.from_numpy(xt, "cuda"), tensor.from_numpy(yt, "cuda")
+    weights = seeded_params(MLP(MLP_HIDDEN, 10, device="cuda"), SEED)
+
+    def restore(use_graph, p=0.2):
+        def put(m):
+            load_singa_tpu_params(m, weights)
+            m.dropout.p = p
+            m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9,
+                                    weight_decay=1e-5))
+            m.compile([tx[:MLP_BATCH]], is_train=True, use_graph=use_graph)
+        return put
+
+    # eager (the judged mode) and captured, in turns after a warm epoch
+    models = {}
+    for mode in ("eager", "captured"):
+        models[mode] = MLP(MLP_HIDDEN, 10, device="cuda")
+        restore(mode == "captured")(models[mode])
+        mlp_epoch(torch, models[mode], tx, ty, seed=0)
+    rates = {"eager": [], "captured": []}
+    losses = {"eager": [], "captured": []}
+    for i, mode in enumerate(("eager", "captured", "captured", "eager")):
+        n, s, loss = mlp_epoch(torch, models[mode], tx, ty, seed=i + 1)
+        rates[mode].append(n / s)
+        losses[mode].append(loss)
+    check(all(np.isfinite(v) for vs in losses.values() for v in vs),
+          f"mlp: a non-finite epoch loss {losses}")
+    gs = models["captured"]._train_step
+    check(gs is not None and gs.captures == 1,
+          "mlp: the captured model did not capture its step once")
+    entry = next(e for e in gs._cache.values() if hasattr(e, "graph"))
+    dev = torch.device("cuda")
+    step_ms = cuda_ms(torch, lambda: gs._on_stream(dev, entry.graph.replay),
+                      iters=200, warmup=10)
+    n_par = sum(p.numel() for p in models["eager"].parameters())
+    flops = 6.0 * MLP_BATCH * n_par  # forward and backward products
+    nbytes = 4.0 * (MLP_BATCH * (784 + 1) + 5 * n_par)  # batch; p, g, m
+    bound_ms = max(flops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES_S) * 1e3
+    eager_sps = float(np.mean(rates["eager"]))
+    captured_sps = float(np.mean(rates["captured"]))
+    print(f"mlp ({card}): eager {eager_sps:.1f} steps/s "
+          f"({eager_sps * MLP_BATCH:.0f} images/s), captured "
+          f"{captured_sps:.1f} steps/s ({captured_sps * MLP_BATCH:.0f} "
+          f"images/s) in turns {rates}; the captured step "
+          f"{step_ms:.4f} device ms, bound {bound_ms:.5f} ms", flush=True)
+    del models, gs, entry
+
+    # 6 captured steps against the uncaptured twin, dropout 0
+    m = MLP(MLP_HIDDEN, 10, device="cuda")
+    restore(True, 0.0)(m)
+    x, y = tx[:MLP_BATCH], ty[:MLP_BATCH]
+    lc, _, ms_c = captured_steps(torch, fa, mp, m, x, y, NO_LAUNCH, "mlp")
+    twin = hold_twin(torch, "mlp", "fp32", (lc, state_of(m), ms_c),
+                     eager_twin(torch, m, restore(False, 0.0), x, y))
+    del m
+    drop_graphs(torch)
+
+    # the trainer at its defaults (3 epochs, batch 64, eager)
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "singa_tpu_torch.examples.mlp_mnist",
+         "--epochs", "3"], capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    print(run.stdout, flush=True)
+    check(run.returncode == 0, f"the MLP trainer failed: "
+                               f"{run.stderr[-2000:]}")
+    epochs = [line for line in run.stdout.splitlines()
+              if line.startswith("epoch")]
+    trained = [float(line.split("loss ")[1].split()[0]) for line in epochs]
+    accs = [float(line.split("val_acc ")[1].split()[0]) for line in epochs]
+    check(len(epochs) == 3 and trained[-1] < trained[0] and accs[-1] >= 0.5,
+          f"the MLP trainer's loss did not fall or its last validation "
+          f"accuracy is below 0.5: {trained} {accs}")
+    return dict(eager_steps_s=eager_sps, captured_steps_s=captured_sps,
+                eager_images_s=eager_sps * MLP_BATCH,
+                captured_images_s=captured_sps * MLP_BATCH,
+                rates=rates, epoch_losses=losses,
+                captured_step_device_ms=step_ms, step_bound_ms=bound_ms,
+                twin=twin, trainer=dict(losses=trained, val_acc=accs,
+                                        wall_s=wall))
+
+
+def calibrate_bn(torch, m, x):
+    """Set every BatchNorm's running statistics to the batch statistics
+    of its input on `x` (one forward in training mode at momentum 0), as
+    a trained model's match its data; then eval mode."""
+    from singa_tpu_torch import layer
+
+    bns = [b for b in m.modules() if isinstance(b, layer.BatchNorm2d)]
+    saved = [b.momentum for b in bns]
+    for b in bns:
+        b.momentum = 0.0
+    m.train()
+    with torch.no_grad():
+        m.forward(x)
+    for b, mom in zip(bns, saved):
+        b.momentum = mom
+    m.eval()
+
+
+def onnx_round_trip(torch, fa, mp, src, inputs, what):
+    """Export `src` on `inputs` (the export's kernel launches counted
+    alone), encode, import on the card (`sonnx.prepare`), and run the
+    imported graph twice; returns (the imported SONNXModel, its
+    outputs, the numbers)."""
+    from singa_tpu_torch import sonnx
+
+    torch.cuda.synchronize()
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    pb = sonnx.to_onnx(src, inputs)
+    export_launches = counts(fa, mp)
+    blob = sonnx.proto.encode_model(pb)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    imported = sonnx.prepare(blob, device="cuda").model
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    run_ms = []
+    with torch.no_grad():
+        for _ in range(2):  # the first run reads the statics
+            t = time.perf_counter()
+            got = imported(*inputs)
+            torch.cuda.synchronize()
+            run_ms.append(1e3 * (time.perf_counter() - t))
+        imported_ms = cuda_ms(torch, lambda: imported(*inputs), iters=5,
+                              warmup=1)
+        source_ms = cuda_ms(torch, lambda: src(*inputs), iters=5, warmup=1)
+    nums = dict(export_s=export_s, export_launches=export_launches,
+                bytes=len(blob),
+                nodes=len(pb.graph.node),
+                initializers=len(pb.graph.initializer), load_s=load_s,
+                first_run_ms=run_ms[0], second_run_ms=run_ms[1],
+                imported_forward_ms=imported_ms,
+                source_forward_ms=source_ms)
+    print(f"sonnx {what}: export {export_s:.2f} s, {len(blob)} bytes, "
+          f"{nums['nodes']} nodes, launches {export_launches}; load "
+          f"{load_s:.2f} s; runs "
+          f"{run_ms[0]:.1f} ms (records statics), {run_ms[1]:.1f} ms; "
+          f"forward imported {imported_ms:.2f} ms vs source "
+          f"{source_ms:.2f} ms", flush=True)
+    return imported, got, nums
+
+
+def sonnx_path(torch, fa, mp, card):
+    """sonnx at full width: ResNet-50 (NHWC, seeded states with
+    calibrated BatchNorm statistics, batch 8 at 224^2) exported, imported
+    on the card and held to the source's eval forward within 1e-3 of
+    max|logit|, then 3 captured SGD steps of the imported model (loss
+    falls, BatchNorm buffers bitwise unmoved); BERT-base at 2 x 512 in
+    eval mode, whose export trace must launch the fused forward kernel
+    12 times, held within 2e-3. Returns the export's launches and the
+    numbers."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import (load_singa_tpu_params,
+                                       load_singa_tpu_states)
+    from singa_tpu_torch.models.resnet import resnet50
+    from singa_tpu_torch.models.transformer import bert_base
+
+    out = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    src = resnet50(num_classes=1000, device="cuda")
+    load_singa_tpu_states(src, cnn_states(
+        {n: t.shape for n, t in [*src.named_parameters(),
+                                 *src.named_buffers()]}, SEED))
+    src.set_image_layout("NHWC")
+    x = torch.randn((8, 3, 224, 224), generator=gen, device="cuda")
+    calibrate_bn(torch, src, x)
+    with torch.no_grad():
+        want = src(x)
+    imported, got, out["resnet50"] = onnx_round_trip(torch, fa, mp, src,
+                                                     [x], "resnet50")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    out["resnet50"].update(max_abs_err=err, max_abs_logit=scale)
+    print(f"sonnx resnet50: imported vs source logits max|d| {err:.3e}, "
+          f"max|logit| {scale:.3e} (tol {RESNET_ONNX_TOL} of it)",
+          flush=True)
+    check(tuple(got.shape) == (8, 1000) and bool(torch.isfinite(got).all())
+          and err <= RESNET_ONNX_TOL * scale,
+          "the imported ResNet-50 disagrees with its source")
+    del src, want, got
+
+    # fine-tune the imported graph, captured: step 1 uncaptured
+    y = torch.randint(0, 1000, (8,), generator=gen, device="cuda")
+    buffers = {k: v.clone() for k, v in imported.get_buffers().items()}
+    params = {k: v.detach().clone()
+              for k, v in imported.get_params().items()}
+    imported.set_optimizer(opt.SGD(lr=SONNX_FINETUNE_LR))
+    imported.compile([x], is_train=True, use_graph=True)
+    losses, _ = run_steps(torch, imported, x, y, 3)
+    gs = imported._train_step
+    moved = sum(not torch.equal(imported.get_params()[k], v)
+                for k, v in params.items())
+    still = all(torch.equal(imported.get_buffers()[k], v)
+                for k, v in buffers.items())
+    print(f"sonnx resnet50 fine-tune: losses {losses}, {gs.captures} "
+          f"capture, {gs.replays} replays, {moved} of {len(params)} "
+          f"parameters moved, {len(buffers)} buffers bitwise unmoved: "
+          f"{still}", flush=True)
+    check(gs.captures == 1 and gs.replays == 2,
+          "sonnx: the imported model's steps were not captured once")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "sonnx: the imported ResNet-50's loss did not fall")
+    check(still and moved == len(params),
+          "sonnx: fine-tuning moved a buffer or left a parameter")
+    out["resnet50"].update(finetune_losses=losses, params_moved=moved,
+                           buffers=len(buffers), buffers_unmoved=still)
+    del imported, gs, buffers, params
+    drop_graphs(torch)
+
+    # BERT-base, eval mode: the export trace runs the fused kernel
+    bert = bert_base(device="cuda")
+    load_singa_tpu_params(bert, seeded_params(bert, SEED))
+    bert.eval()
+    ids = torch.randint(0, bert.tok.table.shape[0], (2, 512), generator=gen,
+                        device="cuda")
+    with torch.no_grad():
+        want = bert(ids)
+    imported, got, out["bert_base"] = onnx_round_trip(
+        torch, fa, mp, bert, [ids], "bert_base")
+    launches = out["bert_base"]["export_launches"]
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    ok = all(bool(((g - w).abs() <= BERT_ONNX_TOL * (1 + w.abs())).all())
+             for g, w in zip(got, want))
+    out["bert_base"].update(max_abs_err_seq=errs[0],
+                            max_abs_err_pooled=errs[1])
+    print(f"sonnx bert_base: imported vs source max|d| seq {errs[0]:.3e}, "
+          f"pooled {errs[1]:.3e} (tol {BERT_ONNX_TOL} abs and rel)",
+          flush=True)
+    check(ok, "the imported BERT-base disagrees with its source")
+    check(launches == dict(NO_LAUNCH, flash_fwd=12)
+          and out["resnet50"]["export_launches"] == NO_LAUNCH,
+          f"sonnx: the BERT-base export launched {launches}, not the "
+          f"fused forward kernel 12 times (ResNet-50's: "
+          f"{out['resnet50']['export_launches']})")
+    del bert, imported, got, want
+    drop_graphs(torch)
+    return launches, out
+
+
 # -- the serving path ---------------------------------------------------------
 
 #: the serve phase's tolerance for logits against the dense decode path:
@@ -2709,6 +3019,24 @@ def main() -> int:
     check(char_rnn_launches == NO_LAUNCH,
           f"the Char-RNN phase launched {char_rnn_launches}")
 
+    # 9c. the judged eager MLP: it reaches no kernel
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    mlp = mlp_path(torch, fa, mp, card)
+    mlp_launches = counts(fa, mp)
+    print(f"mlp: {time.perf_counter() - t:.1f} s ({card}); launches "
+          f"{mlp_launches}", flush=True)
+    check(mlp_launches == NO_LAUNCH, f"the MLP phase launched {mlp_launches}")
+
+    # 9d. sonnx: ResNet-50 and BERT-base exported, imported, fine-tuned;
+    # the BERT export trace runs the fused forward kernel
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    sonnx_export_launches, sonnx_out = sonnx_path(torch, fa, mp, card)
+    print(f"sonnx: {time.perf_counter() - t:.1f} s ({card}); launches "
+          f"{counts(fa, mp)} (the BERT-base export's alone: "
+          f"{sonnx_export_launches})", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -2750,7 +3078,8 @@ def main() -> int:
                  "train_step": train_launches["flash_fwd"],
                  "unrolled_train_step":
                      unrolled_launches["train_step"]["flash_fwd"],
-                 "bert_step": bert_launches["flash_fwd"]},
+                 "bert_step": bert_launches["flash_fwd"],
+                 "sonnx_bert_export": sonnx_export_launches["flash_fwd"]},
              bert_base=at_bert("flash_fwd", None, ()),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
@@ -2814,6 +3143,8 @@ def main() -> int:
     print("bert_train " + json.dumps(bert), flush=True)
     print("resnet50_train " + json.dumps(resnet), flush=True)
     print("char_rnn " + json.dumps(char_rnn), flush=True)
+    print("mlp " + json.dumps(mlp), flush=True)
+    print("sonnx " + json.dumps(sonnx_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

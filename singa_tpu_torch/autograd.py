@@ -29,18 +29,28 @@ on top of it:
   product, (T*B, in) x (in, G*H) + b, and a Python loop carries only the
   (B, H) x (H, G*H) recurrent product, where the reference runs a
   `lax.scan`. As in the reference, their products are plain `matmul`s
-  outside the autocast policy.
+  outside the autocast policy;
+- `embedding`, `layernorm`, `dropout`, `transpose` and `cat` (reference
+  :676, :709, :1236, :1326-1352), which the layers call;
+- the export trace (`ExportTrace`, `op`), in place of the reference's
+  `Function.meta` on its `Operator` tape (reference :531-546): every op
+  above runs through `op(kind, attrs, fn, *inputs)`, which records
+  (kind, attrs, extras, inputs, outputs) with the reference's ONNX kinds
+  while `sonnx.to_onnx` traces, and otherwise only calls `fn` (one
+  `is None` test).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import threading
 import warnings
 from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch.ops import max_pool
@@ -50,7 +60,8 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "softmax_cross_entropy", "cross_entropy", "add", "flatten",
            "relu", "conv2d", "DEGENERATE_STAT_COUNT", "batchnorm",
            "max_pool2d", "avg_pool2d", "global_avg_pool2d", "gelu", "tanh",
-           "reshape", "linear", "vanilla_rnn", "lstm", "gru"]
+           "reshape", "linear", "vanilla_rnn", "lstm", "gru", "embedding",
+           "layernorm", "dropout", "transpose", "cat", "op", "ExportTrace"]
 
 #: reference parity: `Model.train(mode)` sets it; a model's forward
 #: records no tape while it is False
@@ -101,6 +112,148 @@ def _mxu_result(y: torch.Tensor) -> torch.Tensor:
     if not _autocast["enabled"] or _autocast["keep"]:
         return y
     return y.float()
+
+
+# -- the export trace ---------------------------------------------------------
+#
+# The reference's exporter walks its `Operator` tape and reads each op's
+# `meta = (kind, attrs, extras)`. PyTorch's tape carries no such thing, so
+# the SINGA-level ops record themselves: `op` runs `fn(*inputs)` and, while
+# `sonnx.to_onnx` traces, appends (kind, attrs, extras, inputs, outputs) to
+# the one active `ExportTrace`. A torch call made outside a recorded op on a
+# traced tensor (a graph input or a recorded op's output) would otherwise
+# leave a tensor the exporter cannot tell from a constant leaf; the trace
+# marks what such calls make and raises when a recorded op consumes it.
+
+#: the active export trace; None outside `sonnx.to_onnx`
+_trace: Optional["ExportTrace"] = None
+
+
+def op(kind: str, attrs, fn: Callable, *inputs: torch.Tensor,
+       extras=()):
+    """fn(*inputs) as one SINGA-level op of ONNX kind `kind` (the
+    reference's `Function(fn, meta=(kind, attrs, extras))(*inputs)`);
+    recorded only under an export trace."""
+    if _trace is None:
+        return fn(*inputs)
+    return _trace.op(kind, attrs, extras, fn, inputs)
+
+
+def _fn_name(func) -> str:
+    qual = getattr(func, "__qualname__", None) or repr(func)
+    cls, _, name = qual.rpartition(".")
+    if cls == "_VariableFunctionsClass":
+        return f"torch.{name}"
+    if cls == "TensorBase":
+        return f"Tensor.{name}"
+    mod = getattr(func, "__module__", None)
+    return f"{mod}.{qual}" if mod and not cls else qual
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+#: factories whose values only a later write gives: a tensor they make
+#: outside a recorded op is never a constant the trace may bake
+_UNINITIALIZED = {torch.empty, torch.empty_like, torch.empty_strided,
+                  torch.Tensor.new_empty}
+
+
+class ExportTrace(TorchFunctionMode):
+    """One forward's record of SINGA-level ops, for `sonnx.to_onnx`.
+    `with ExportTrace(inputs) as tr: out = model.forward(*inputs)`
+    leaves `tr.ops`, a list of (kind, attrs, extras, inputs, outputs) in
+    the order they ran. Only the thread that entered it records, never
+    inside a CUDA Graph capture, and ops nested in a recorded op are part
+    of it. Any torch call outside a recorded op that consumes a traced
+    tensor, mutates one, or makes an uninitialized tensor marks what it
+    makes; `check` raises, naming that torch function, when a recorded op
+    or a graph output is such a tensor."""
+
+    def __init__(self, inputs):
+        super().__init__()
+        self.inputs = list(inputs)
+        self.ops = []
+        # id -> tensor: graph inputs and recorded ops' outputs
+        self._traced = {id(t): t for t in self.inputs}
+        # id -> (tensor, torch function): made outside a recorded op
+        self._made_by = {}
+        self._depth = 0
+        self._thread = threading.get_ident()
+
+    def __enter__(self):
+        global _trace
+        if _trace is not None:
+            raise RuntimeError("an export trace is already running")
+        super().__enter__()
+        _trace = self
+        return self
+
+    def __exit__(self, *exc):
+        global _trace
+        _trace = None
+        return super().__exit__(*exc)
+
+    def check(self, t: torch.Tensor, what: str) -> None:
+        made = self._made_by.get(id(t))
+        if made is not None:
+            raise NotImplementedError(
+                f"to_onnx: {what} takes a tensor that the torch function "
+                f"{made[1]} made outside a recorded op (from a traced "
+                f"tensor, or uninitialized); exporting it as a constant "
+                f"would be wrong, so compute it through an autograd op")
+
+    def op(self, kind, attrs, extras, fn, inputs):
+        if self._depth or threading.get_ident() != self._thread or (
+                torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            return fn(*inputs)
+        for t in inputs:
+            self.check(t, f"the {kind} op")
+        self._depth += 1
+        try:
+            out = fn(*inputs)
+        finally:
+            self._depth -= 1
+        outs = out if isinstance(out, tuple) else (out,)
+        for t in outs:
+            self._traced[id(t)] = t
+            self._made_by.pop(id(t), None)
+        self.ops.append((kind, dict(attrs), list(extras), list(inputs),
+                         list(outs)))
+        return out
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self._depth:
+            return out
+        name = getattr(func, "__name__", "")
+        mutates = (name.endswith("_") and not name.endswith("__")) or (
+            name.startswith("__i") or name == "__setitem__")
+        srcs = [t for t in _tensors((args, kwargs))
+                if id(t) in self._traced or id(t) in self._made_by]
+        if srcs:
+            made = next((self._made_by[id(t)][1] for t in srcs
+                         if id(t) in self._made_by), _fn_name(func))
+        elif func in _UNINITIALIZED:
+            made = _fn_name(func)
+        else:
+            return out
+        marked = list(_tensors(out))
+        if mutates and args and isinstance(args[0], torch.Tensor):
+            marked.append(args[0])
+        for t in marked:
+            if mutates or not any(t is s for s in srcs):
+                self._made_by[id(t)] = (t, made)
+        return out
 
 
 # -- backward ----------------------------------------------------------------
@@ -220,7 +373,7 @@ cross_entropy = softmax_cross_entropy
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a + b
+    return op("Add", {}, torch.add, a, b)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -228,32 +381,89 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     """x @ w (+ b), w (in, out); operands under the autocast policy, the
     bias joined at the product's output dtype (under keep-bf16 autocast
     an fp32 bias would promote the activation stream back to fp32)."""
-    a, ww = _mxu_cast(x, w)
-    y = _mxu_result(torch.matmul(a, ww))
-    return y if b is None else y + b.to(y.dtype)
+    def mm(a, ww):
+        a, ww = _mxu_cast(a, ww)
+        return _mxu_result(torch.matmul(a, ww))
+
+    if b is None:
+        return op("MatMul", {}, mm, x, w)
+
+    def mm_bias(a, ww, bb):
+        y = mm(a, ww)
+        return y + bb.to(y.dtype)
+
+    return op("Linear", {}, mm_bias, x, w, b)
 
 
 def reshape(x: torch.Tensor, shape) -> torch.Tensor:
-    return x.reshape(tuple(shape))
+    shape = tuple(shape)
+    return op("Reshape", {"shape": list(shape)},
+              lambda a: a.reshape(shape), x)
+
+
+def transpose(x: torch.Tensor, axes=None) -> torch.Tensor:
+    """Permute the axes (reversed when `axes` is None, as numpy's)."""
+    axes = tuple(axes) if axes is not None else None
+    return op("Transpose", {"perm": list(axes) if axes else None},
+              lambda a: a.permute(axes or tuple(reversed(range(a.dim())))),
+              x)
+
+
+def cat(xs, axis: int = 0) -> torch.Tensor:
+    return op("Concat", {"axis": axis},
+              lambda *ts: torch.cat(ts, dim=axis), *xs)
 
 
 def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
     """GELU; `approximate=True` is the tanh form (`jax.nn.gelu`'s
     default), False the exact erf form."""
-    return F.gelu(x, approximate="tanh" if approximate else "none")
+    form = "tanh" if approximate else "none"
+    return op("Gelu", {"approximate": form},
+              lambda a: F.gelu(a, approximate=form), x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
-    return torch.tanh(x)
+    return op("Tanh", {}, torch.tanh, x)
 
 
 def flatten(x: torch.Tensor, start_axis: int = 1) -> torch.Tensor:
     """Flatten the dims from `start_axis` on (the batch axis stays)."""
-    return x.reshape(*x.shape[:start_axis], -1)
+    return op("Flatten", {"axis": start_axis},
+              lambda a: a.reshape(*a.shape[:start_axis], -1), x)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return F.relu(x)
+    return op("Relu", {}, F.relu, x)
+
+
+def embedding(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """table[idx]; the (table, idx) order of ONNX's Gather."""
+    return op("Gather", {"axis": 0}, lambda t, i: t[i], table, idx)
+
+
+def _layer_norm(x, scale, offset, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 statistics over the last axis, population variance, cast
+    back to x's dtype."""
+    xf = x.float()
+    m = xf.mean(dim=-1, keepdim=True)
+    v = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - m) * torch.rsqrt(v + eps) * scale + offset).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    return op("LayerNormalization", {"axis": -1, "epsilon": eps},
+              lambda a, g, b: _layer_norm(a, g, b, eps), x, gamma, beta)
+
+
+def dropout(x: torch.Tensor, p: float = 0.5,
+            train: bool = True) -> torch.Tensor:
+    """Inverted dropout with PyTorch's draws; the identity when not
+    training or p is 0."""
+    if not train or p <= 0.0:
+        return op("Identity", {}, lambda a: a, x)
+    return op("Dropout", {"ratio": p},
+              lambda a: F.dropout(a, p, training=True), x)
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -273,12 +483,22 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
         raise NotImplementedError(
             "conv2d(padding='same'/'valid') comes with SeparableConv2d "
             "and the mobile nets (ROADMAP queue 1 item 6)")
-    a, ww = _mxu_cast(x, w)
-    out = _mxu_result(F.conv2d(a, ww, None, _pair(stride), _pair(padding),
-                               _pair(dilation), groups))
-    if b is not None:
-        out = out + b.view(1, -1, 1, 1).to(out.dtype)
-    return out
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(
+        dilation)
+
+    def fn(a, ww, *bb):
+        a, ww = _mxu_cast(a, ww)
+        out = _mxu_result(F.conv2d(a, ww, None, stride, padding, dilation,
+                                   groups))
+        if bb:
+            out = out + bb[0].view(1, -1, 1, 1).to(out.dtype)
+        return out
+
+    ph, pw = padding
+    return op("Conv", {"strides": list(stride), "pads": [ph, pw, ph, pw],
+                       "dilations": list(dilation), "group": groups,
+                       "auto_pad": "NOTSET"},
+              fn, *((x, w) if b is None else (x, w, b)))
 
 
 #: per-channel statistic count (N*H*W) below which training-mode batch
@@ -313,17 +533,22 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     red = tuple(i for i in range(x.dim()) if i != c_axis)
     bshape = [1] * x.dim()
     bshape[c_axis] = x.shape[c_axis]
-    xf = x.float()
-    if not train:
-        xhat = (xf - running_mean.view(bshape)) * torch.rsqrt(
+    meta = ("BatchNormalization", {"epsilon": eps})
+    extras = (running_mean, running_var)
+
+    def with_running(xf):
+        return (xf - running_mean.view(bshape)) * torch.rsqrt(
             running_var.view(bshape) + eps)
-        y = xhat * gamma.view(bshape) + beta.view(bshape)
-        return y.to(x.dtype), running_mean, running_var
+
+    if not train:
+        def fn_eval(a, g, b):
+            y = with_running(a.float()) * g.view(bshape) + b.view(bshape)
+            return y.to(a.dtype)
+
+        y = op(*meta, fn_eval, x, gamma, beta, extras=extras)
+        return y, running_mean, running_var
     n_stat = math.prod(x.shape[i] for i in red)
     degenerate = n_stat < DEGENERATE_STAT_COUNT
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not degenerate):
-        m = xf.mean(red)
-        v = (xf.square().mean(red) - m.square()).clamp_min(0.0)
     if degenerate:
         warnings.warn(
             f"BatchNorm: only {n_stat} elements per channel "
@@ -331,28 +556,43 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             "degenerate, so normalizing with the running statistics "
             "instead (the running moments still update from the batch)",
             stacklevel=2)
-        xhat = (xf - running_mean.view(bshape)) * torch.rsqrt(
-            running_var.view(bshape) + eps)
-    else:
-        xhat = (xf - m.view(bshape)) * torch.rsqrt(v.view(bshape) + eps)
-    y = xhat * gamma.view(bshape) + beta.view(bshape)
+
+    def fn_train(a, g, b):
+        xf = a.float()
+        with torch.set_grad_enabled(
+                torch.is_grad_enabled() and not degenerate):
+            m = xf.mean(red)
+            v = (xf.square().mean(red) - m.square()).clamp_min(0.0)
+        xhat = with_running(xf) if degenerate else (
+            (xf - m.view(bshape)) * torch.rsqrt(v.view(bshape) + eps))
+        y = xhat * g.view(bshape) + b.view(bshape)
+        return y.to(a.dtype), m, v
+
+    y, m, v = op(*meta, fn_train, x, gamma, beta, extras=extras)
     new_rm = running_mean * momentum + m.detach() * (1 - momentum)
     new_rv = running_var * momentum + v.detach() * (1 - momentum)
-    return y.to(x.dtype), new_rm, new_rv
+    return y, new_rm, new_rv
 
 
 def _pool2d(x: torch.Tensor, kernel, stride, padding, kind: str):
     k = _pair(kernel)
     s = _pair(stride if stride is not None else kernel)
     p = _pair(padding)
+    attrs = {"kernel_shape": list(k), "strides": list(s),
+             "pads": [p[0], p[1], p[0], p[1]]}
     if kind == "avg":
-        return _avg_pool2d(x, k, s, p)
-    if x.dim() == 4 and layout_module.image_layout() == "NHWC":
-        # the channels-last activation seen as the (N, H, W, C) tensor it
-        # is in memory; the op's backward is the K2a kernel when on
-        y = max_pool.maxpool2d_nhwc(x.permute(0, 2, 3, 1), k, s, p)
-        return y.permute(0, 3, 1, 2)
-    return max_pool.max_pool2d(x, k, s, p)
+        return op("AveragePool", attrs, lambda a: _avg_pool2d(a, k, s, p), x)
+
+    def fn(a):
+        if a.dim() == 4 and layout_module.image_layout() == "NHWC":
+            # the channels-last activation seen as the (N, H, W, C)
+            # tensor it is in memory; the op's backward is the K2a
+            # kernel when on
+            y = max_pool.maxpool2d_nhwc(a.permute(0, 2, 3, 1), k, s, p)
+            return y.permute(0, 3, 1, 2)
+        return max_pool.max_pool2d(a, k, s, p)
+
+    return op("MaxPool", attrs, fn, x)
 
 
 def _avg_pool2d(x: torch.Tensor, k, s, p) -> torch.Tensor:
@@ -388,7 +628,9 @@ def avg_pool2d(x: torch.Tensor, kernel, stride=None,
 
 def global_avg_pool2d(x: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> (N, C), the mean taken in fp32."""
-    return x.float().mean(dim=layout_module.spatial_axes()).to(x.dtype)
+    sp = layout_module.spatial_axes()
+    return op("GlobalAvgPoolFlat", {},
+              lambda a: a.float().mean(dim=sp).to(a.dtype), x)
 
 
 # -- recurrent ops -------------------------------------------------------------
@@ -435,12 +677,18 @@ def vanilla_rnn(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError(f"unknown nonlinearity {nonlinearity!r}")
     act = torch.tanh if nonlinearity == "tanh" else F.relu
 
-    def step(h, xt):
-        return (act(xt + torch.matmul(h, w_hh)),)
+    def fn(xa, wih, whh, bb, h0a):
+        def step(h, xt):
+            return (act(xt + torch.matmul(h, whh)),)
 
-    (h,), ys = _recur(step, (h0,), torch.matmul(x, w_ih) + b, reverse,
-                      remat)
-    return ys, h
+        (h,), ys = _recur(step, (h0a,), torch.matmul(xa, wih) + bb,
+                          reverse, remat)
+        return ys, h
+
+    return op("SingaRNN", {"hidden": int(w_hh.shape[0]),
+                           "reverse": int(reverse),
+                           "nonlinearity": nonlinearity},
+              fn, x, w_ih, w_hh, b, h0)
 
 
 def lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -449,14 +697,19 @@ def lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     """LSTM over x (T, B, in) -> (ys (T, B, H), h_T, c_T); w_ih (in, 4H),
     w_hh (H, 4H), b (4H,), gates ordered i, f, g, o."""
 
-    def step(h, c, xt):
-        i, f, g, o = (xt + torch.matmul(h, w_hh)).chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return torch.sigmoid(o) * torch.tanh(c), c
+    def fn(xa, wih, whh, bb, h0a, c0a):
+        def step(h, c, xt):
+            i, f, g, o = (xt + torch.matmul(h, whh)).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            return torch.sigmoid(o) * torch.tanh(c), c
 
-    (h, c), ys = _recur(step, (h0, c0), torch.matmul(x, w_ih) + b, reverse,
-                        remat)
-    return ys, h, c
+        (h, c), ys = _recur(step, (h0a, c0a), torch.matmul(xa, wih) + bb,
+                            reverse, remat)
+        return ys, h, c
+
+    return op("SingaLSTM", {"hidden": int(w_hh.shape[0]),
+                            "reverse": int(reverse)},
+              fn, x, w_ih, w_hh, b, h0, c0)
 
 
 def gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -467,14 +720,19 @@ def gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     r applies inside the hidden-side affine:
     n = tanh(x_n + b_in + r * (h W_n + b_hn))."""
 
-    def step(h, xt):
-        xr, xz, xn = xt.chunk(3, dim=-1)
-        hr, hz, hn = (torch.matmul(h, w_hh) + b_hh).chunk(3, dim=-1)
-        r = torch.sigmoid(xr + hr)
-        z = torch.sigmoid(xz + hz)
-        n = torch.tanh(xn + r * hn)
-        return ((1.0 - z) * n + z * h,)
+    def fn(xa, wih, whh, bih, bhh, h0a):
+        def step(h, xt):
+            xr, xz, xn = xt.chunk(3, dim=-1)
+            hr, hz, hn = (torch.matmul(h, whh) + bhh).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            return ((1.0 - z) * n + z * h,)
 
-    (h,), ys = _recur(step, (h0,), torch.matmul(x, w_ih) + b_ih, reverse,
-                      remat)
-    return ys, h
+        (h,), ys = _recur(step, (h0a,), torch.matmul(xa, wih) + bih,
+                          reverse, remat)
+        return ys, h
+
+    return op("SingaGRU", {"hidden": int(w_hh.shape[0]),
+                           "reverse": int(reverse)},
+              fn, x, w_ih, w_hh, b_ih, b_hh, h0)

@@ -43,7 +43,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from singa_tpu_torch import autograd
@@ -84,14 +83,6 @@ def _setup(device, generator):
     return dev, generator
 
 
-def _layernorm(x, scale, offset, eps: float = 1e-5) -> torch.Tensor:
-    """fp32 statistics, population variance, cast back to x's dtype."""
-    xf = x.float()
-    m = xf.mean(dim=-1, keepdim=True)
-    v = xf.var(dim=-1, keepdim=True, correction=0)
-    return ((xf - m) * torch.rsqrt(v + eps) * scale + offset).to(x.dtype)
-
-
 class Linear(nn.Module):
     """y = x W (+ b) with W stored (in, out), as in the reference."""
 
@@ -116,7 +107,7 @@ class Embedding(nn.Module):
         self.table = _new((vocab_size, embed_dim), dev, gen, "normal", 0.1)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.table[idx]
+        return autograd.embedding(idx, self.table)
 
 
 class LayerNorm(nn.Module):
@@ -128,7 +119,7 @@ class LayerNorm(nn.Module):
         self.offset = _new((dim,), dev, None, "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _layernorm(x, self.scale, self.offset, self.eps)
+        return autograd.layernorm(x, self.scale, self.offset, self.eps)
 
 
 class Dropout(nn.Module):
@@ -140,7 +131,7 @@ class Dropout(nn.Module):
         self.p = p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, self.p, training=self.training)
+        return autograd.dropout(x, self.p, train=self.training)
 
 
 class Gelu(nn.Module):
@@ -219,9 +210,10 @@ class ScanTransformerStack(nn.Module):
                l2o, w1, b1, w2, b2) -> torch.Tensor:
         qkv = autograd.linear(h, wqkv, bqkv)
         o = fa.attention_qkv(qkv, self.num_heads, causal=self.causal)
-        h = _layernorm(h + autograd.linear(o, wo, bo), l1s, l1o)
+        h = autograd._layer_norm(h + autograd.linear(o, wo, bo), l1s, l1o)
         f = autograd.gelu(autograd.linear(h, w1, b1))
-        return _layernorm(h + autograd.linear(f, w2, b2), l2s, l2o)
+        return autograd._layer_norm(h + autograd.linear(f, w2, b2), l2s,
+                                    l2o)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         block = autograd.remat_wrap(self._block, self.remat)
@@ -425,10 +417,11 @@ class _RNNBase(nn.Module):
 
     def forward(self, x: torch.Tensor, hx=None):
         if self.batch_first:
-            x = x.transpose(0, 1)  # -> (T, B, in)
+            x = autograd.transpose(x, (1, 0, 2))  # -> (T, B, in)
         h0s, c0s = (hx if self.mode == "lstm" else (hx, None)) if (
             hx is not None) else (None, None)
-        zeros = x.new_zeros((x.shape[1], self.hidden_size))
+        zeros = torch.zeros((x.shape[1], self.hidden_size), dtype=x.dtype,
+                            device=x.device)
         h_lasts, c_lasts = [], []
         for l in range(self.num_layers):
             outs = []
@@ -441,12 +434,13 @@ class _RNNBase(nn.Module):
                 h_lasts.append(h)
                 if c is not None:
                     c_lasts.append(c)
-            x = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+            x = autograd.cat(outs, axis=-1) if len(outs) > 1 else outs[0]
         if self.return_sequences:
-            y = x.transpose(0, 1) if self.batch_first else x
+            y = autograd.transpose(x, (1, 0, 2)) if self.batch_first else x
         else:
             finals = h_lasts[-self._dirs:]
-            y = torch.cat(finals, dim=-1) if len(finals) > 1 else finals[0]
+            y = autograd.cat(finals, axis=-1) if len(finals) > 1 else (
+                finals[0])
         if self.return_state:
             return y, ((h_lasts, c_lasts) if self.mode == "lstm"
                        else h_lasts)

@@ -1,12 +1,13 @@
-"""Model zoo (counterpart of singa_tpu/models/): the GPT decoder, the
-transformer encoder and BERT, the Char-RNN LSTM, and the CNNs of the
-reference's CIFAR-10 and ImageNet trainers."""
+"""Model zoo (counterpart of singa_tpu/models/): the MLP, the GPT
+decoder, the transformer encoder and BERT, the Char-RNN LSTM, and the
+CNNs of the reference's CIFAR-10 and ImageNet trainers."""
 
 from singa_tpu_torch.models.alexnet import (  # noqa: F401
     AlexNet, CifarAlexNet, alexnet, alexnet_cifar)
 from singa_tpu_torch.models.char_rnn import CharRNN  # noqa: F401
 from singa_tpu_torch.models.gpt import (  # noqa: F401
-    GPT, gpt_draft, gpt_medium, unstack_params)
+    GPT, gpt_draft, gpt_medium, gpt_small, unstack_params)
+from singa_tpu_torch.models.mlp import MLP  # noqa: F401
 from singa_tpu_torch.models.resnet import (  # noqa: F401
     BasicBlock, Bottleneck, CifarResNet, ResNet, resnet18, resnet20_cifar,
     resnet32_cifar, resnet34, resnet50, resnet56_cifar, resnet101, resnet152)
@@ -17,7 +18,7 @@ from singa_tpu_torch.models.vgg import (  # noqa: F401
     VGG, vgg11, vgg13, vgg16, vgg16_cifar, vgg19)
 
 __all__ = [
-    "GPT", "gpt_draft", "gpt_medium", "unstack_params",
+    "MLP", "GPT", "gpt_draft", "gpt_medium", "gpt_small", "unstack_params",
     "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
     "Bert", "BertForClassification", "bert_base", "bert_small",
     "collect_moe_aux", "CharRNN",

@@ -54,8 +54,8 @@ from singa_tpu_torch.models.transformer import (TransformerEncoder,
                                                refuse_distributed)
 from singa_tpu_torch.parallel.ring import full_attention
 
-__all__ = ["GPT", "gpt_medium", "gpt_draft", "pick_rows", "gumbel_noise",
-           "uniform_noise", "fold_seed", "unstack_params"]
+__all__ = ["GPT", "gpt_medium", "gpt_draft", "gpt_small", "pick_rows",
+           "gumbel_noise", "uniform_noise", "fold_seed", "unstack_params"]
 
 #: a stacked `ScanTransformerStack` weight -> its name in an unrolled
 #: block (`decoder.blocks.{i}.<name>`)
@@ -222,7 +222,8 @@ class GPT(model.Model):
         """ids (B, T) int -> logits (B, T, V)."""
         ids = torch.as_tensor(ids, device=self.device).long()
         t = ids.shape[-1]
-        h = self.tok(ids) + self.pos(torch.arange(t, device=ids.device))
+        h = autograd.add(self.tok(ids),
+                         self.pos(torch.arange(t, device=ids.device)))
         h = self.drop(h)
         h = self.decoder(h)
         return self.head(self.ln_f(h))
@@ -439,6 +440,17 @@ class GPT(model.Model):
         finally:
             self.train(was_training)
         return toks
+
+
+def gpt_small(**kw):
+    """A small GPT for tests and demos (GPT-2 small's head count at 1/6
+    of its width), the reference's `gpt_small`."""
+    kw.setdefault("vocab_size", 256)
+    kw.setdefault("d_model", 128)
+    kw.setdefault("num_layers", 2)
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("max_len", 256)
+    return GPT(**kw)
 
 
 def gpt_draft(target: Optional[GPT] = None, **kw) -> GPT:

@@ -105,8 +105,18 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             mask = torch.as_tensor(mask, device=x.device)
         qkv = autograd.linear(x, self.w_qkv, self.b_qkv)  # (B, T, 3d)
-        ctx = fa.attention_qkv(qkv, self.num_heads, causal=self.causal,
-                               mask=mask)
+        if mask is not None:  # no ONNX decomposition: a trace raises
+            ctx = fa.attention_qkv(qkv, self.num_heads, causal=self.causal,
+                                   mask=mask)
+        else:
+            d = x.shape[-1]
+            ctx = autograd.op(
+                "Attention", {"num_heads": self.num_heads,
+                              "causal": int(self.causal),
+                              "scale": (d // self.num_heads) ** -0.5,
+                              "d_model": d, "seq_len": x.shape[1]},
+                lambda a: fa.attention_qkv(a, self.num_heads,
+                                           causal=self.causal), qkv)
         return autograd.linear(ctx, self.w_o, self.b_o)
 
 
@@ -142,9 +152,9 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         a = self.drop1(self.attn(x, mask))
-        x = self.ln1(x + a)
+        x = self.ln1(autograd.add(x, a))
         f = self.drop2(self.fc2(self.gelu(self.fc1(x))))
-        return self.ln2(x + f)
+        return self.ln2(autograd.add(x, f))
 
 
 class TransformerEncoder(nn.Module):
@@ -214,13 +224,14 @@ class Bert(model.Model):
     def forward(self, ids, seg_ids=None, mask=None):
         ids = torch.as_tensor(ids, device=self.device).long()
         t = ids.shape[-1]
-        emb = self.tok(ids) + self.pos(torch.arange(t, device=ids.device))
+        emb = autograd.add(self.tok(ids),
+                           self.pos(torch.arange(t, device=ids.device)))
         if seg_ids is not None:
-            emb = emb + self.seg(
-                torch.as_tensor(seg_ids, device=ids.device).long())
+            emb = autograd.add(emb, self.seg(
+                torch.as_tensor(seg_ids, device=ids.device).long()))
         x = self.encoder(self.drop(self.ln(emb)), mask)
-        pooled = self.pool_act(self.pooler(x[:, 0]))  # the CLS row
-        return x, pooled
+        cls = autograd.op("GatherCLS", {}, lambda a: a[:, 0], x)
+        return x, self.pool_act(self.pooler(cls))
 
 
 class BertForClassification(model.Model):

@@ -1,7 +1,8 @@
-"""Tensor helpers (counterpart of singa_tpu/tensor.py), three functions
-only: the int8 row quantization and the paged gather that the serving
-engine's KV pools use (`singa_tpu/tensor.py:882-931`). They take and
-return `torch.Tensor`s.
+"""Tensor helpers (counterpart of singa_tpu/tensor.py), six functions
+only: `from_numpy`, `to_numpy` and `argmax`, which the MLP trainer uses
+(`singa_tpu/tensor.py:498`, `:513`, `:700`), and the int8 row
+quantization and the paged gather that the serving engine's KV pools use
+(`singa_tpu/tensor.py:882-931`). They take and return `torch.Tensor`s.
 
 The rest of the reference module, the SINGA `Tensor` wrapper and its
 ~150 ops, is still to be ported (ROADMAP queue 1 item 3); in the port
@@ -11,9 +12,35 @@ the card needs it yet.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["quantize_int8_rows", "dequantize_int8_rows", "paged_gather"]
+from singa_tpu_torch import device as device_module
+
+__all__ = ["from_numpy", "to_numpy", "argmax", "quantize_int8_rows",
+           "dequantize_int8_rows", "paged_gather"]
+
+
+def from_numpy(arr: np.ndarray, dev=None) -> torch.Tensor:
+    """A copy of `arr` on `dev` (the card unless "cpu" is given); float64
+    becomes float32, the reference's default precision. Integers keep
+    their width: the reference, JAX without x64, narrows int64 to int32,
+    while torch indexes with int64."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(arr.copy()).to(device_module.resolve(dev))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The tensor's values on the host (a device-to-host read)."""
+    return t.detach().cpu().numpy()
+
+
+def argmax(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """Index of the first maximum along `axis` (of the flattened tensor
+    when None), int64 where the reference gives int32."""
+    return torch.argmax(t, dim=axis)
 
 
 def quantize_int8_rows(x: torch.Tensor):

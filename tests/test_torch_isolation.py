@@ -4,8 +4,9 @@
   graph.py and the Char-RNN model and trainer among it), chip_smoke.py
   and the port's profiling and A/B scripts import nothing of JAX and
   nothing of singa_tpu (an AST scan, and a real import, with both
-  blocked, that serves one request and takes one graph-mode Char-RNN
-  step; the spool server's process entry runs with both blocked);
+  blocked, that serves one request, takes one graph-mode Char-RNN step
+  and exports a small MLP to ONNX and imports it again; the spool
+  server's process entry runs with both blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -98,11 +99,21 @@ def test_port_imports_with_jax_and_reference_blocked():
         "ids = sys.modules['torch'].zeros(2, 5).long()\n"
         "r.compile([ids], is_train=True, use_graph=True)\n"
         "r.train_one_batch(ids, ids)\n"
-        "print(r._train_step.captures, r.optimizer.step_counter)\n")
+        "print(r._train_step.captures, r.optimizer.step_counter)\n"
+        "import singa_tpu_torch.examples.mlp_mnist\n"
+        "from singa_tpu_torch import sonnx\n"
+        "from singa_tpu_torch.models import MLP\n"
+        "p = MLP(8, 3, in_features=5, device='cpu')\n"
+        "x = sys.modules['torch'].ones(2, 5)\n"
+        "blob = sonnx.proto.encode_model(sonnx.to_onnx(p, [x]))\n"
+        "(y,) = sonnx.prepare(blob, device='cpu').run([x.numpy()])\n"
+        "print(y.shape, abs(y - p.eval()(x).detach().numpy()).max())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[:3] == ["(1, 8, 16)", "1 0", "1 1"]
+    lines = out.stdout.split("\n")
+    assert lines[:3] == ["(1, 8, 16)", "1 0", "1 1"]
+    assert lines[3] == "(2, 3) 0.0"
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):
