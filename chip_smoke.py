@@ -32,8 +32,9 @@ Phases, in the order they run (any failure raises and exits non-zero):
    BERT-base cases);
 5. hold the max-pool backward kernel (K2a) against its plain version on
    ReLU-clamped inputs (exact-zero ties): the reference's eight cases,
-   the ResNet-50 stem shape in fp32 and bf16 (which must take the
-   kernel's 16-byte vector route), the pools of vgg16_cifar,
+   the ResNet-50 stem shape in fp32 and bf16, and in fp32 at the
+   DistOpt phase's 32 images (which must take the kernel's 16-byte
+   vector route), the pools of vgg16_cifar,
    alexnet_cifar and the ImageNet AlexNet at batch 128, a plateau of
    tied values (x rounded to a few levels) under overlapping k3 s1 p1
    windows at batch 128, x in channels-first memory (which must take
@@ -186,6 +187,29 @@ Phases, in the order they run (any failure raises and exits non-zero):
    source's. Prints each export's seconds, bytes and nodes, the
    imported model's first and second run ms, and its forward's device
    ms against the source model's;
+9e. DistOpt ResNet-50 (judged configuration 5) over a world-1 NCCL
+   group (`distributed.init`), with the max-pool kernel on: every
+   `Communicator` method at world 1 (its input back, bf16-rounded on the
+   half wire); `python -m singa_tpu_torch.examples.dist_imagenet` at its
+   defaults (resnet50, batch 32 at 224 x 224, NHWC, SGD with warmup and
+   clip 10, buffSize 2**21, the step captured) through `run`, 6 steps
+   under each --dist-option (plain, half, sparse-topk, sparse-thresh):
+   each passes the loss-sanity check, launches K2a once uncaptured and
+   once in its capture, then replays 5 times; prints losses and
+   images/s/chip. Then a seeded (32, 3, 224, 224) batch: 3 captured
+   steps of the plain DistOpt step against the wrapped SGD's from the
+   same states (bitwise or within 1e-6 of each tensor's size, and says
+   which; then 4 replays of each timed), 6 captured DistOpt steps
+   counted (1 K2a launch in the counted step and 1 in the capture)
+   against their uncaptured twin (1e-6, deterministic cuDNN), the
+   step's ms captured and uncaptured beside the plain SGD's uncaptured;
+   and the sync's device work on ResNet-50's 25.6M-element fp32
+   gradient set, each captured alone and timed over replays by CUDA
+   events, beside its bytes bound at 3.35 TB/s and the step: bucket
+   packing and unpacking, the NCCL all-reduce at world 1,
+   `fused_all_reduce`, the bf16 cast round trip and `all_reduce_half`,
+   top-k at spars 0.05 and `sparse_all_reduce`. All-reduce bandwidth
+   needs more than one card and is not measured;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -538,6 +562,9 @@ POOL_CASES = [
      "float32", {}),
     ("resnet50_stem_bf16", (128, 112, 112, 64), (3, 3), (2, 2), (1, 1),
      "bfloat16", {}),
+    # the DistOpt path's: the stem at dist_imagenet's 32 images a chip
+    ("resnet50_stem_fp32_b32", (32, 112, 112, 64), (3, 3), (2, 2),
+     (1, 1), "float32", {}),
     ("vgg16_cifar_first_pool", (128, 32, 32, 64), (2, 2), (2, 2), (0, 0),
      "float32", {}),
     ("alexnet_cifar_first_pool", (128, 16, 16, 64), (2, 2), (2, 2), (0, 0),
@@ -1616,11 +1643,11 @@ def char_rnn_path(torch, fa, mp, card):
     gen.manual_seed(SEED)
     out["lstm_vs_cudnn"] = layer_vs_cudnn(torch, "LSTM", m.lstm,
                                           torch.nn.LSTM, SEED)
-    gru = layer.GRU(RNN_EMBED, RNN_HIDDEN, bidirectional=True,
+    gru = layer.GRU(RNN_HIDDEN, bidirectional=True, input_size=RNN_EMBED,
                     device="cuda", generator=gen)
     out["gru_bidir_vs_cudnn"] = layer_vs_cudnn(torch, "bidirectional GRU",
                                                gru, torch.nn.GRU, SEED + 1)
-    rnn = layer.RNN(RNN_EMBED, RNN_HIDDEN, nonlinearity="relu",
+    rnn = layer.RNN(RNN_HIDDEN, nonlinearity="relu", input_size=RNN_EMBED,
                     device="cuda", generator=gen)
     out["rnn_relu_vs_cudnn"] = layer_vs_cudnn(torch, "relu RNN", rnn,
                                               torch.nn.RNN, SEED + 2)
@@ -2010,6 +2037,263 @@ def sonnx_path(torch, fa, mp, card):
           f"{out['resnet50']['export_launches']})")
     del bert, imported, got, want
     drop_graphs(torch)
+    return launches, out
+
+
+# -- 9e. DistOpt ResNet-50 over a world-1 NCCL group ---------------------------
+
+DIST_OPTIONS = ("plain", "half", "sparse-topk", "sparse-thresh")
+DIST_BATCH = 32  # dist_imagenet's --batch-per-chip default
+#: the world-1 DistOpt step against the wrapped SGD's: bitwise, or within
+#: this of each tensor's size when only the BN moments' reduction differs
+DIST_VS_SGD_TOL = 1e-6
+
+
+def graph_ms(torch, fn, iters=20):
+    """Device ms of fn()'s work alone: fn is run once uncaptured (its
+    warm-up, NCCL's communicator included), captured as one CUDA Graph on
+    a private stream, and the graph's replays are timed by CUDA events,
+    so the host's launches between its kernels do not count."""
+    from singa_tpu_torch.graph import private_stream
+
+    side = private_stream(fn, torch.device("cuda"))
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side, capture_error_mode="thread_local"):
+        fn()
+    return cuda_ms(torch, g.replay, iters=iters, warmup=2)
+
+
+def sync_timings(torch, comm, grads, step_ms, card):
+    """Device ms of the DistOpt sync's device work on `grads` (ResNet-50's
+    gradient set, fp32), each captured alone and timed over its replays
+    (`graph_ms`), beside its bytes bound at PEAK_BYTES_S (each input
+    read once, each output written once) and the captured step's ms."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch.communicator import plan_buckets
+
+    n = sum(g.numel() for g in grads)
+    sizes = [g.numel() for g in grads]
+    buckets = plan_buckets(sizes, 2 ** 21)
+    flats = [torch.cat([grads[i].reshape(-1) for i in b]) for b in buckets]
+    out = {"elements": n, "buckets": len(buckets), "step_ms": step_ms}
+
+    def row(name, fn, nbytes, iters=20):
+        ms = graph_ms(torch, fn, iters=iters)
+        bound = nbytes / PEAK_BYTES_S * 1e3
+        out[name] = dict(ms=ms, bound_ms=bound, bytes=nbytes,
+                         share_of_step=ms / step_ms if step_ms else None)
+        print(f"dist sync {name}: {ms:.3f} ms, bytes bound {bound:.3f} ms "
+              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), {ms / step_ms:.1%} of "
+              f"the {step_ms:.2f} ms captured step ({card})", flush=True)
+
+    def pack():
+        for b in buckets:
+            torch.cat([grads[i].reshape(-1) for i in b])
+
+    def unpack():
+        for b, flat in zip(buckets, flats):
+            for i, part in zip(b, flat.split([sizes[i] for i in b])):
+                grads[i].copy_(part.view(grads[i].shape))
+
+    def nccl():
+        for flat in flats:
+            tdist.all_reduce(flat, group=comm.group)
+
+    row("bucket_pack", pack, 8 * n)
+    row("bucket_unpack_copy", unpack, 8 * n)
+    row("nccl_all_reduce_world1", nccl, 8 * n)
+    row("fused_all_reduce", lambda: comm.fused_all_reduce(grads), 16 * n)
+    row("bf16_cast_round_trip", lambda: [g.to(torch.bfloat16).to(g.dtype)
+                                         for g in grads], 12 * n)
+    row("all_reduce_half", lambda: [comm.all_reduce_half(g) for g in grads],
+        12 * n)
+    k = sum(max(1, -(-s * 5 // 100)) for s in sizes)
+    row("topk_spars_0.05", lambda: [torch.topk(g.reshape(-1).abs(),
+                                               max(1, -(-g.numel() * 5
+                                                          // 100)))
+                                    for g in grads], 4 * n + 12 * k, 5)
+    row("sparse_all_reduce_topk_0.05",
+        lambda: [comm.sparse_all_reduce(g, spars=0.05, return_local=True)
+                 for g in grads], 12 * n, 5)
+    return out
+
+
+def comm_world1(torch, comm):
+    """Every Communicator method over the world-1 NCCL group gives what a
+    world of one must: its input (bf16-rounded on the half wire), and
+    for the sparse sync its own selection."""
+    x = torch.linspace(-2.0, 2.0, 48, device="cuda").reshape(12, 4)
+    half = x.to(torch.bfloat16).to(x.dtype)
+    dense, local, dropped = comm.sparse_all_reduce(
+        x, spars=0.25, return_local=True, return_stats=True)
+    got = {
+        "all_reduce": (comm.all_reduce(x), x),
+        "all_reduce_sum": (comm.all_reduce(x, average=False), x),
+        "all_reduce_half": (comm.all_reduce_half(x), half),
+        "all_gather": (comm.all_gather(x), x),
+        "reduce_scatter": (comm.reduce_scatter(x), x),
+        "reduce_scatter_half": (comm.reduce_scatter_half(x), half),
+        "all_gather_half": (comm.all_gather_half(x), half),
+        "broadcast": (comm.broadcast(x), x),
+        "fused_all_reduce": (torch.cat([t.reshape(-1) for t in
+                                        comm.fused_all_reduce(
+                                            [x, x[:3]], bucket_elems=20)]),
+                             torch.cat([x.reshape(-1), x[:3].reshape(-1)])),
+        "reduce_scatter_buckets": (comm.reduce_scatter_buckets([x])[0], x),
+        "all_gather_buckets": (comm.all_gather_buckets([x])[0], x),
+        "sparse_all_reduce": (dense, local),
+    }
+    bad = [k for k, (g, w) in got.items() if not torch.equal(g, w)]
+    kept = int((local != 0).sum())
+    print(f"dist communicator over NCCL at world 1: {len(got)} methods, "
+          f"mismatched {bad}; the top-k kept {kept} of 48 (12 expected), "
+          f"dropped {float(dropped)}", flush=True)
+    check(not bad and kept == 12 and float(dropped) == 0.0,
+          f"Communicator methods over NCCL at world 1 gave {bad}")
+    return sorted(got)
+
+
+def dist_path(torch, fa, mp, card):
+    """DistOpt ResNet-50 (judged configuration 5) on one card over a
+    world-1 NCCL group, with the max-pool kernel switched on: the
+    trainer at its defaults under every --dist-option, the world-1 plain
+    step against the wrapped SGD's, 6 captured DistOpt steps counted and
+    held against their uncaptured twin, and the sync's device work
+    timed. Returns the counted step's launches and the numbers."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.communicator import Communicator
+    from singa_tpu_torch.examples import dist_imagenet
+    from singa_tpu_torch.model import load_singa_tpu_states
+    from singa_tpu_torch.models.resnet import resnet50
+
+    distributed.init(device="cuda")
+    check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+          f"the group is {tdist.get_backend()} at world "
+          f"{tdist.get_world_size()}, not NCCL at 1")
+    mp.set_pool_kernel_enabled(True)
+    out = {"card": card, "trainer": {}}
+    try:
+        out["communicator_methods"] = comm_world1(
+            torch, Communicator(distributed.global_mesh()))
+
+        # the trainer at its defaults (batch 32 a chip at 224 x 224,
+        # resnet50(1000), NHWC, fp32, SGD + Warmup + clip 10,
+        # buffSize 2**21, use_graph), 6 steps under each option
+        for option in DIST_OPTIONS:
+            reset_counts(fa, mp)
+            t = time.perf_counter()
+            res = dist_imagenet.run(dist_imagenet.parser().parse_args(
+                ["--steps", "6", "--dist-option", option,
+                 "--device", "cuda"]))
+            launched = counts(fa, mp)
+            gs = res["model"]._train_step
+            print(f"dist_imagenet --dist-option {option}: losses "
+                  f"{[round(v, 4) for v in res['losses']]}, "
+                  f"{res['img_s_chip']:.1f} images/s/chip ({card}), "
+                  f"{time.perf_counter() - t:.1f} s; launches {launched}, "
+                  f"captures {gs.captures}, replays {gs.replays}",
+                  flush=True)
+            check(res["ok"] is True, f"dist_imagenet {option}: the loss "
+                                     f"sanity check failed")
+            check(launched == dict(NO_LAUNCH, max_pool_bwd=2)
+                  and (gs.captures, gs.replays) == (1, 5),
+                  f"dist_imagenet {option}: K2a was not launched once in "
+                  f"the uncaptured step and once in the capture, or the "
+                  f"step was not captured once and replayed 5 times")
+            out["trainer"][option] = dict(
+                losses=res["losses"], images_per_s_chip=res["img_s_chip"],
+                launches=launched)
+            del res, gs
+            drop_graphs(torch)
+
+        # the same model, seeded, stepped by DistOpt and by its SGD
+        m = resnet50(num_classes=1000, device="cuda")
+        m.set_image_layout("NHWC")
+        states = cnn_states({n: t.shape for n, t in m.get_states().items()},
+                            SEED)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        x = torch.randn((DIST_BATCH, 3, 224, 224), generator=gen,
+                        device="cuda")
+        y = torch.arange(DIST_BATCH, device="cuda") % 1000
+        mesh = distributed.global_mesh()
+
+        def restore(kind, use_graph):
+            def put(model):
+                load_singa_tpu_states(model, states)
+                sgd = opt.SGD(lr=opt.Warmup(0.0125, 10), momentum=0.9,
+                              weight_decay=1e-4, clip_norm=10.0)
+                model.set_optimizer(opt.DistOpt(sgd, mesh=mesh)
+                                    if kind == "dist" else sgd)
+                model.compile([x], is_train=True, use_graph=use_graph)
+            return put
+
+        torch.backends.cudnn.deterministic = True
+        after, replay_ms = {}, {}
+        for kind in ("sgd", "dist"):
+            restore(kind, True)(m)
+            run_steps(torch, m, x, y, 3)
+            after[kind] = state_of(m)
+            replay_ms[kind] = run_steps(torch, m, x, y, 4)[1]
+            drop_graphs(torch)
+        print(f"dist resnet50 captured step ms ({card}), 4 replays: "
+              f"DistOpt {replay_ms['dist']:.2f}, plain SGD "
+              f"{replay_ms['sgd']:.2f}", flush=True)
+        out["replay_ms"] = replay_ms
+        gap = max((after["dist"][n] - after["sgd"][n]).abs().max().item()
+                  / max(after["sgd"][n].abs().max().item(), 1e-30)
+                  for n in after["sgd"])
+        bitwise = all(torch.equal(after["dist"][n], after["sgd"][n])
+                      for n in after["sgd"])
+        print(f"dist resnet50: world-1 DistOpt plain vs SGD after 3 "
+              f"captured steps: bitwise equal {bitwise}, max|d|/max|p| "
+              f"{gap:.3e} over {len(after['sgd'])} tensors (tol "
+              f"{DIST_VS_SGD_TOL} if not bitwise)", flush=True)
+        check(bitwise or gap <= DIST_VS_SGD_TOL,
+              "the world-1 DistOpt step differs from the plain SGD step")
+        out["vs_sgd"] = dict(bitwise=bitwise, max_rel=gap)
+        del after
+
+        # 6 captured DistOpt steps, counted, against the uncaptured twin
+        launches = dict(NO_LAUNCH, max_pool_bwd=1)
+        restore("dist", True)(m)
+        losses, first_s, step_ms = captured_steps(
+            torch, fa, mp, m, x, y, launches,
+            "dist resnet50 fp32 (deterministic)")
+        check(all(np.isfinite(losses)), "non-finite DistOpt loss")
+        out["twin"] = hold_twin(
+            torch, "dist resnet50 (deterministic cuDNN)", "fp32",
+            (losses, state_of(m), step_ms),
+            eager_twin(torch, m, restore("dist", False), x, y))
+        sgd_eager = eager_twin(torch, m, restore("sgd", False), x, y)[2]
+        print(f"dist resnet50 step ms ({card}): DistOpt captured "
+              f"{step_ms:.2f}, uncaptured {out['twin']['step_ms_uncaptured']:.2f}"
+              f" (about 160 small NCCL calls a step: 53 BatchNorm moments "
+              f"forward and back, the gradient buckets, the buffers); "
+              f"plain SGD uncaptured {sgd_eager:.2f}", flush=True)
+        torch.backends.cudnn.deterministic = False
+        out.update(losses=losses, first_step_s=first_s, step_ms=step_ms,
+                   sgd_step_ms_uncaptured=sgd_eager)
+
+        # the sync's device work on the real gradient set
+        grads = [torch.randn(p.shape, generator=gen, device="cuda")
+                 for p in m.parameters()]
+        out["sync"] = sync_timings(torch, Communicator(mesh), grads,
+                                   step_ms, card)
+        m.graph(False)
+        del m, grads
+    finally:
+        torch.backends.cudnn.deterministic = False
+        mp.set_pool_kernel_enabled(False)
+        distributed.shutdown()
+        drop_graphs(torch)
     return launches, out
 
 
@@ -2895,6 +3179,7 @@ def main() -> int:
                    f"plain version, or does not repeat: {bad}")
     routes = {r["case"]: r["vector_width"] for r in pool_rows}
     check(routes["resnet50_stem_fp32"] == 4
+          and routes["resnet50_stem_fp32_b32"] == 4
           and routes["resnet50_stem_bf16"] == 8
           and routes["channels_first_scalar_route"] == 1
           and routes["channels_first_scalar_route_bf16"] == 1,
@@ -3037,9 +3322,17 @@ def main() -> int:
           f"{counts(fa, mp)} (the BERT-base export's alone: "
           f"{sonnx_export_launches})", flush=True)
 
+    # 9e. DistOpt ResNet-50 over a world-1 NCCL group: K2a once a step
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    dist_launches, dist_out = dist_path(torch, fa, mp, card)
+    print(f"dist: {time.perf_counter() - t:.1f} s ({card}); the counted "
+          f"step's launches {dist_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
+    (pool32,) = [r for r in pool_rows if r["case"] == "resnet50_stem_fp32_b32"]
     common = dict(route="cuda", shape=fwd["shape"], card=card)
     fwd_by = {r["case"]: r for r in rows}
     bwd_by = {r["case"]: r for r in bwd_rows}
@@ -3123,6 +3416,9 @@ def main() -> int:
         source="singa_tpu_torch/ops/csrc/max_pool_bwd.cu",
         replaces="singa_tpu/ops/max_pool.py:287",
         launches=resnet_launches["max_pool_bwd"],
+        launches_by_path={
+            "resnet50_step": resnet_launches["max_pool_bwd"],
+            "dist_resnet50_step": dist_launches["max_pool_bwd"]},
         max_abs_err=pool["max_abs_err"], ms=pool["ms"],
         plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
         bound_by=pool["bound_by"], library_ms=pool["library_ms"],
@@ -3133,6 +3429,9 @@ def main() -> int:
                   bound_by=pool16["bound_by"],
                   library_ms=pool16["library_ms"],
                   vector_width=pool16["vector_width"]),
+        dist_resnet50_b32={k: pool32[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "vector_width")},
         sass=sass_of("max_pool_bwd_kernel"), card=card))
     print("serve " + json.dumps(serve), flush=True)
     print("serve_stack " + json.dumps(stack), flush=True)
@@ -3145,6 +3444,7 @@ def main() -> int:
     print("char_rnn " + json.dumps(char_rnn), flush=True)
     print("mlp " + json.dumps(mlp), flush=True)
     print("sonnx " + json.dumps(sonnx_out), flush=True)
+    print("dist_resnet50 " + json.dumps(dist_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -135,8 +135,26 @@ def op(kind: str, attrs, fn: Callable, *inputs: torch.Tensor,
     reference's `Function(fn, meta=(kind, attrs, extras))(*inputs)`);
     recorded only under an export trace."""
     if _trace is None:
-        return fn(*inputs)
+        out = fn(*inputs)
+        if torch.is_grad_enabled():
+            _tag_params(out, inputs)
+        return out
     return _trace.op(kind, attrs, extras, fn, inputs)
+
+
+#: the key under which an op's output node (`grad_fn.metadata`) lists the
+#: parameters the op read, in input order (`_leaves` orders by it)
+_PARAMS_KEY = "singa_params"
+
+
+def _tag_params(out, inputs) -> None:
+    params = [t for t in inputs if isinstance(t, torch.Tensor)
+              and t.requires_grad and t.is_leaf]
+    if params:
+        for t in _tensors(out):
+            if t.grad_fn is not None:
+                t.grad_fn.metadata[_PARAMS_KEY] = params
+                return
 
 
 def _fn_name(func) -> str:
@@ -261,18 +279,30 @@ class ExportTrace(TorchFunctionMode):
 
 def _leaves(y: torch.Tensor) -> List[torch.Tensor]:
     """The leaf tensors that need grad and that `y` was computed from, in
-    a fixed order (depth first over the tape from `y`)."""
-    out, seen, stack = [], set(), [y.grad_fn]
-    while stack:
-        fn = stack.pop()
-        if fn is None or fn in seen:
-            continue
-        seen.add(fn)
+    the order the reference's backward walk finalizes them: walking the
+    tape back from `y` (reverse topological order), a parameter comes at
+    the last op that reads it, and the parameters of one op in its input
+    order (an op's output node lists them, `_tag_params`); a leaf no op
+    lists comes at its own node."""
+    order, seen, stack = [], set(), [(y.grad_fn, False)]
+    while stack:  # post-order depth first, inputs in order
+        fn, done = stack.pop()
+        if done:
+            order.append(fn)
+        elif fn is not None and fn not in seen:
+            seen.add(fn)
+            stack.append((fn, True))
+            stack.extend((nxt, False) for nxt, _ in reversed(
+                fn.next_functions))
+    leaves, pos = [], {}
+    for i, fn in enumerate(reversed(order)):
+        for j, p in enumerate(fn.metadata.get(_PARAMS_KEY, ())):
+            pos[id(p)] = (i, j)
         var = getattr(fn, "variable", None)  # AccumulateGrad: a leaf
         if var is not None:
-            out.append(var)
-        stack.extend(nxt for nxt, _ in reversed(fn.next_functions))
-    return out
+            leaves.append(var)
+            pos.setdefault(id(var), (i, 0))
+    return sorted(leaves, key=lambda v: pos[id(v)])
 
 
 def grad_pairs(y: torch.Tensor, dy: Optional[torch.Tensor] = None
@@ -357,13 +387,20 @@ def remat_wrap(fn: Callable, policy: str = "none") -> Callable:
 def softmax_cross_entropy(logits: torch.Tensor, target) -> torch.Tensor:
     """Mean softmax cross-entropy over the rows of `logits` (..., C);
     `target` is int labels (...) or one-hot (..., C). The loss math is
-    fp32 whatever the logits' dtype."""
+    fp32 whatever the logits' dtype. A label outside [0, C) adds 0 to
+    the sum and still counts in the mean, as the reference's all-zero
+    `one_hot` row makes it do."""
     logp = F.log_softmax(logits.float(), dim=-1)
     target = torch.as_tensor(target, device=logits.device)
     if target.is_floating_point():
         return -(target.float() * logp).sum(dim=-1).mean()
-    # the one-hot sum picks one term: a gather computes it exactly
-    return -logp.gather(-1, target.long().unsqueeze(-1)).mean()
+    # the one-hot sum picks one term: a gather computes it exactly; the
+    # index is clamped (the card checks gather indices) and the term of
+    # an out-of-range label masked to 0
+    n = logp.shape[-1]
+    t = target.long().unsqueeze(-1)
+    picked = logp.gather(-1, t.clamp(0, n - 1))
+    return -torch.where((t >= 0) & (t < n), picked, 0.0).mean()
 
 
 cross_entropy = softmax_cross_entropy
@@ -523,12 +560,21 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
       running statistics and still updates them from the batch moments
       held without gradient, and warns.
 
-    `sync` (cross-replica statistics) belongs to the distributed slice:
-    None and False mean local statistics."""
-    if sync:
-        raise NotImplementedError(
-            "batchnorm(sync=True) needs DistOpt's process group (ROADMAP "
-            "queue 1 item 12)")
+    `sync`: cross-replica statistics. None (the default) is automatic:
+    under a DistOpt step (`parallel.mesh.batch_axis_context`) the two
+    moments are averaged over the data group, differentiably (the
+    backward averages their cotangent over the group), so the
+    distributed step is the single-device large-batch step. True
+    requires that context; False keeps local statistics. The
+    degenerate-statistics guard counts the global N*H*W."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    group = mesh_module.current_batch_group() if sync is not False else None
+    if sync and group is None:
+        raise ValueError(
+            "batchnorm(sync=True) outside a data-parallel batch-axis "
+            "context (a DistOpt step over a process group)")
+    world = mesh_module.current_batch_axis_size() if group is not None else 1
     c_axis = layout_module.channel_axis(x.dim())
     red = tuple(i for i in range(x.dim()) if i != c_axis)
     bshape = [1] * x.dim()
@@ -547,7 +593,7 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
         y = op(*meta, fn_eval, x, gamma, beta, extras=extras)
         return y, running_mean, running_var
-    n_stat = math.prod(x.shape[i] for i in red)
+    n_stat = math.prod(x.shape[i] for i in red) * world
     degenerate = n_stat < DEGENERATE_STAT_COUNT
     if degenerate:
         warnings.warn(
@@ -562,7 +608,15 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         with torch.set_grad_enabled(
                 torch.is_grad_enabled() and not degenerate):
             m = xf.mean(red)
-            v = (xf.square().mean(red) - m.square()).clamp_min(0.0)
+            m2 = xf.square().mean(red)
+            if group is not None:
+                from singa_tpu_torch.communicator import pmean_over
+
+                # one collective for both moments: equal shard sizes
+                # make the mean of shard means the global mean
+                m, m2 = pmean_over(torch.stack((m, m2)), group,
+                                   world).unbind(0)
+            v = (m2 - m.square()).clamp_min(0.0)
         xhat = with_running(xf) if degenerate else (
             (xf - m.view(bshape)) * torch.rsqrt(v.view(bshape) + eps))
         y = xhat * g.view(bshape) + b.view(bshape)

@@ -3,8 +3,12 @@ examples/cnn_cifar10.py).
 
 The reference trainer's surface: pick a model, set its internal image
 layout, SGD (momentum 0.9, weight decay 5e-4) with a linear lr warmup,
-`compile(..., is_train=True, use_graph=True)`, then `model(x, y)` per
-batch; after each epoch the validation accuracy. With more than one
+`compile(..., is_train=True, use_graph=True)`, then `model(x, y,
+dist_option, spars)` per batch; after each epoch the validation
+accuracy. `--dist` wraps SGD in `DistOpt` over a process group of one
+(NCCL on the card, gloo on the CPU), whose `--dist-option` and
+`--spars` pick the sync; without it they take a local step, as in the
+reference. With more than one
 epoch it ends with the loss sanity check, exiting 1 when the last
 epoch's mean loss is not below the first's. Runs on the card unless
 `--device cpu`:
@@ -15,9 +19,9 @@ epoch's mean loss is not below the first's. Runs on the card unless
 
 Under `--layout NHWC` (the default) every max-pool runs through
 `ops.max_pool.maxpool2d_nhwc`, whose CUDA backward is off by default, as
-in the reference (`set_pool_kernel_enabled`). `--dist`, `--dist-option`,
-`--spars`, `--checkpoint`, `--virtual-devices` and `--loader prefetch`
-raise, naming the ROADMAP item that ports them.
+in the reference (`set_pool_kernel_enabled`). `--checkpoint`,
+`--virtual-devices` and `--loader prefetch` raise, naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import time
 import torch
 
 from singa_tpu_torch import device as device_module
+from singa_tpu_torch import distributed as dist_mod
 from singa_tpu_torch import opt
 from singa_tpu_torch.models import alexnet_cifar, resnet20_cifar, vgg16_cifar
 from singa_tpu_torch.utils import data
@@ -42,9 +47,6 @@ DEFAULT_LR = {"alexnet": 0.005, "vgg": 0.05, "resnet": 0.05}
 
 def _refuse_unported(args):
     for flag, val, item in (
-            ("--dist", args.dist, "12 (DistOpt)"),
-            ("--dist-option", args.dist_option != "plain", "12 (DistOpt)"),
-            ("--spars", args.spars is not None, "12 (DistOpt)"),
             ("--checkpoint", args.checkpoint, "17 (checkpointing)"),
             ("--virtual-devices", args.virtual_devices,
              "20 (utils/virtual.py)"),
@@ -66,8 +68,15 @@ def run(args) -> int:
 
     model = MODELS[args.model](device=dev)
     model.set_image_layout(args.layout)
-    model.set_optimizer(opt.SGD(lr=opt.Warmup(args.lr, args.warmup),
-                                momentum=0.9, weight_decay=5e-4))
+    optimizer = opt.SGD(lr=opt.Warmup(args.lr, args.warmup), momentum=0.9,
+                        weight_decay=5e-4)
+    if args.dist:
+        dist_mod.init(device=dev)
+        optimizer = opt.DistOpt(optimizer, mesh=dist_mod.global_mesh(),
+                                use_sparse=args.dist_option.startswith(
+                                    "sparse"))
+        print(f"DistOpt over {optimizer.world_size} chips")
+    model.set_optimizer(optimizer)
 
     def on_dev(a):
         return torch.from_numpy(a).to(dev)
@@ -80,7 +89,8 @@ def run(args) -> int:
         t0 = time.time()
         tot_loss = n = seen = 0
         for bx, by in data.batches(xt, yt, args.batch, seed=epoch):
-            _, loss = model(on_dev(bx), on_dev(by))
+            _, loss = model(on_dev(bx), on_dev(by), args.dist_option,
+                            args.spars)
             tot_loss += loss.item()
             n += 1
             seen += len(bx)
@@ -123,12 +133,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:0)")
     p.add_argument("--dist", action="store_true",
-                   help="DistOpt data parallelism (not ported)")
+                   help="DistOpt data parallelism over a process group "
+                        "of one")
     p.add_argument("--dist-option", default="plain",
                    choices=["plain", "half", "sparse-topk", "sparse-thresh"],
-                   help="gradient sync mode of DistOpt (not ported)")
+                   help="gradient sync mode of DistOpt")
     p.add_argument("--spars", type=float, default=None,
-                   help="sparsity of the sparse dist options (not ported)")
+                   help="sparsity of the sparse dist options")
     p.add_argument("--loader", choices=["prefetch", "sync"], default="sync",
                    help="host input pipeline: synchronous slicing (the "
                         "default here) or the native threaded prefetcher "
@@ -137,7 +148,12 @@ def main(argv=None) -> int:
                    help="checkpoint archive path (not ported)")
     p.add_argument("--virtual-devices", type=int, default=0,
                    help="virtual multi-device run (not ported)")
-    return run(p.parse_args(argv))
+    args = p.parse_args(argv)
+    try:
+        return run(args)
+    finally:
+        if args.dist:
+            dist_mod.shutdown()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ card unless `--device cpu`:
     python -m singa_tpu_torch.examples.gpt_lm --device cpu \\
         --steps 3 --batch 2 --seq 32 --d-model 32 --heads 2
 
---shard-states, --virtual-devices and --checkpoint raise, naming the
-ROADMAP item that ports them.
+--shard-states, --virtual-devices, --checkpoint and --save-every raise,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ def _refuse_unported(args):
             ("--shard-states", args.shard_states, "12 (DistOpt, ZeRO-1)"),
             ("--virtual-devices", args.virtual_devices,
              "20 (utils/virtual.py)"),
-            ("--checkpoint", args.checkpoint, "17 (checkpointing)")):
+            ("--checkpoint", args.checkpoint, "17 (checkpointing)"),
+            ("--save-every", args.save_every, "17 (checkpointing)")):
         if val:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
@@ -148,6 +149,8 @@ def main(argv=None):
                         "(implies --scan-blocks)")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint archive path (not ported)")
+    p.add_argument("--save-every", type=int, default=0,
+                   help="checkpoint cadence in steps (not ported)")
     run(p.parse_args(argv))
 
 

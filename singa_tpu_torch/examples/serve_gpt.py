@@ -1,7 +1,10 @@
 """Streaming GPT serving (counterpart of examples/serve_gpt.py).
 
-Builds a GPT with seeded random weights (a small char-level one, or
-`gpt_medium` with --gpt-medium) and serves --requests prompts through
+Builds a GPT with seeded random weights (a small char-level one over
+--data or a builtin corpus, or `gpt_medium` with --gpt-medium; the
+unrolled decoder unless --scan-blocks, as in the reference), optionally
+pre-trains it with AdamW for --steps steps at --lr on 16 windows of the
+corpus (a captured training step), and serves --requests prompts through
 the streaming `Frontend` over the continuous-batching `ServingEngine`:
 requests are admitted as slots free, every step advances all live
 streams, each token streams through its callback, and a SIGTERM
@@ -35,8 +38,10 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from singa_tpu_torch import device as device_module
+from singa_tpu_torch import opt
 from singa_tpu_torch.model import load_singa_tpu_params
 from singa_tpu_torch.models.gpt import GPT, gpt_draft, gpt_medium
 from singa_tpu_torch.observability import metrics
@@ -75,6 +80,22 @@ def seeded_weights(model, seed):
     return out
 
 
+def pretrain(m, ids, args, dev):
+    """AdamW for `args.steps` steps on 16 windows of the corpus, drawn
+    once with `args.seed`, as the reference's serving demo does."""
+    m.set_optimizer(opt.AdamW(lr=args.lr))
+    rng = np.random.default_rng(args.seed)
+    starts = rng.integers(0, len(ids) - args.window - 1, size=16)
+    xs = np.stack([ids[s:s + args.window] for s in starts])
+    ys = np.stack([ids[s + 1:s + args.window + 1] for s in starts])
+    bx, by = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    m.compile([bx], is_train=True, use_graph=True)
+    for step in range(args.steps):
+        _, loss = m(bx, by)
+        if step % max(1, args.steps // 5) == 0:
+            print(f"train step {step}: loss {loss.item():.3f}")
+
+
 def run(args):
     if args.tp > 1:
         raise NotImplementedError(
@@ -91,14 +112,19 @@ def run(args):
             0, m.vocab_size, 4096)
         chars = None
     else:
-        chars = sorted(set(_BUILTIN))
+        text = _BUILTIN if args.data is None else open(
+            args.data, encoding="utf-8", errors="replace").read()
+        chars = sorted(set(text))
         c2i = {c: i for i, c in enumerate(chars)}
-        ids = np.array([c2i[c] for c in _BUILTIN], np.int64)
+        ids = np.array([c2i[c] for c in text], np.int64)
+        print(f"corpus: {len(ids)} chars, vocab {len(chars)}")
         m = GPT(vocab_size=len(chars), d_model=args.d_model,
                 num_layers=args.layers, num_heads=args.heads,
-                max_len=args.window, dropout=0.0, scan_blocks=True,
-                device=dev)
+                max_len=args.window, dropout=0.0,
+                scan_blocks=args.scan_blocks, device=dev)
     load_singa_tpu_params(m, seeded_weights(m, args.seed))
+    if args.steps:
+        pretrain(m, ids, args, dev)
     m.eval()
 
     ekw = dict(slots=args.slots, block_size=args.block_size,
@@ -268,6 +294,14 @@ def run(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--data", default=None,
+                   help="text corpus (default: builtin)")
+    p.add_argument("--steps", type=int, default=0,
+                   help="AdamW pre-training steps before serving (0 = "
+                        "serve the seeded weights)")
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--scan-blocks", action="store_true",
+                   help="serve the scanned decoder (default: unrolled)")
     p.add_argument("--gpt-medium", action="store_true",
                    help="serve gpt_medium (vocab 32768, d 1024, 12 blocks)")
     p.add_argument("--d-model", type=int, default=96)

@@ -32,6 +32,10 @@ raises; there is no eager fallback. Dropout draws from PyTorch's default generat
 the capture registers itself; a step that draws from its own
 `torch.Generator` would repeat its draws on every replay.
 
+A DistOpt step's collectives are captured with it: they enqueue on the
+step's stream, and the key's first, uncaptured call has made NCCL's
+communicator (made lazily at the first collective) before the capture.
+
 Each `GraphStep` captures and replays on a stream that no other live
 step or serving engine holds (`private_stream`): a graph keeps the
 cuBLAS workspace of the stream it was captured on, and graphs that share

@@ -1,12 +1,24 @@
 """Layers (counterpart of singa_tpu/layer.py), as `nn.Module`s.
 
-The reference's layers infer their input width lazily at the first call;
-here widths are constructor arguments, and parameters are made at once
-on `device=` from a `torch.Generator`, with the reference's init
-distributions (not its random bits). Parameter names and layouts are the
-reference's, so `model.load_singa_tpu_params` maps them one to one:
-`Linear.W` is (in, out), and `ScanTransformerStack` keeps its per-block
-weights stacked on a leading (L, ...) dim under the names of `STACKED`.
+Every layer derives from `Layer`, which adds the reference's state API
+to `nn.Module` (`get_params`, `get_buffers`, `get_states`, `set_params`,
+`set_states`, keyed by dotted name; reference `layer.py:92-193`).
+
+The constructors take the reference's positional arguments: output
+widths only (`Linear(10)`, `Conv2d(32, 3, 1)`, `LSTM(64, 2)`,
+`BatchNorm2d()`). The input width is keyword-only and optional
+(`in_features=`, `in_channels=`, `num_features=`, `dim=`, `d_model=`,
+`input_size=`): given, the parameters are made at once; absent, they are
+`UninitializedParameter`s (PyTorch's lazy-module idiom) until the first
+call, which infers the width from its input as the reference's
+`Layer.initialize` does. `Model.compile`'s forward materialises them,
+before `set_optimizer`'s `prepare` names the slots and before any
+capture. Parameters are made on `device=` from a `torch.Generator`, with
+the reference's init distributions (not its random bits). Parameter
+names and layouts are the reference's, so `model.load_singa_tpu_params`
+maps them one to one: `Linear.W` is (in, out), and
+`ScanTransformerStack` keeps its per-block weights stacked on a leading
+(L, ...) dim under the names of `STACKED`.
 
 Numerics follow the reference exactly: layer-norm statistics in fp32 with
 the population variance (`jnp.var`), cast back to the input dtype; the
@@ -40,39 +52,48 @@ pools (NB, bs) ride the same ops.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch import device as device_module
+from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch import tensor as tensor_module
 from singa_tpu_torch.ops import flash_attention as fa
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Gelu", "Tanh",
-           "ScanTransformerStack", "Conv2d", "BatchNorm2d", "MaxPool2d",
-           "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten", "Sequential",
-           "RNN", "LSTM", "GRU", "CudnnRNN",
+__all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Dropout", "Gelu",
+           "Tanh", "ScanTransformerStack", "Conv2d", "BatchNorm2d",
+           "MaxPool2d", "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten",
+           "Sequential", "RNN", "LSTM", "GRU", "CudnnRNN",
            "paged_kv_gather", "paged_kv_token_write",
            "paged_kv_window_write", "paged_kv_pages_write"]
 
 
-def _new(shape, dev, gen, init: str, a: float = 0.0) -> nn.Parameter:
-    """A parameter: uniform(-a, a), normal(0, a), he (normal with
+def _fill(t: torch.Tensor, gen, init: str, a: float = 0.0) -> torch.Tensor:
+    """Fill `t` in place: uniform(-a, a), normal(0, a), he (normal with
     std sqrt(2 / a), `a` the fan-in), ones or zeros."""
-    t = torch.empty(shape, dtype=torch.float32, device=dev)
-    if init == "uniform":
-        t.uniform_(-a, a, generator=gen)
-    elif init == "normal":
-        t.normal_(0.0, a, generator=gen)
-    elif init == "he":
-        t.normal_(0.0, math.sqrt(2.0 / max(1, a)), generator=gen)
-    elif init == "ones":
-        t.fill_(1.0)
-    else:
-        t.zero_()
-    return nn.Parameter(t)
+    with torch.no_grad():
+        if init == "uniform":
+            t.uniform_(-a, a, generator=gen)
+        elif init == "normal":
+            t.normal_(0.0, a, generator=gen)
+        elif init == "he":
+            t.normal_(0.0, math.sqrt(2.0 / max(1, a)), generator=gen)
+        elif init == "ones":
+            t.fill_(1.0)
+        else:
+            t.zero_()
+    return t
+
+
+def _new(shape, dev, gen, init: str, a: float = 0.0) -> nn.Parameter:
+    """A float32 parameter made at once, filled as `_fill` says."""
+    return nn.Parameter(_fill(torch.empty(shape, dtype=torch.float32,
+                                          device=dev), gen, init, a))
 
 
 def _setup(device, generator):
@@ -83,23 +104,126 @@ def _setup(device, generator):
     return dev, generator
 
 
-class Linear(nn.Module):
-    """y = x W (+ b) with W stored (in, out), as in the reference."""
+class Layer(nn.Module):
+    """Base of the port's layers: `nn.Module` with the reference's state
+    API and lazy input widths.
 
-    def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+    A layer whose input width was not given holds
+    `UninitializedParameter`s (and `UninitializedBuffer`s); its first
+    call materialises them (`_make`) at the width its input shows
+    (`_in_width`), drawing from the generator the layer kept.
+    `get_params` and `get_states` leave out what is not materialised
+    yet, as the reference's leave out what its `initialize` has not
+    made."""
+
+    def __init__(self):
         super().__init__()
-        dev, gen = _setup(device, generator)
-        a = math.sqrt(6.0 / max(1, in_features + out_features))  # xavier
-        self.W = _new((in_features, out_features), dev, gen, "uniform", a)
-        self.b = _new((out_features,), dev, gen, "zeros") if bias else None
+        self._lazy = False
+        self._gen = None
+
+    def _lazy_param(self) -> UninitializedParameter:
+        self._lazy = True
+        return UninitializedParameter(device=self._dev, dtype=torch.float32)
+
+    def _lazy_buffer(self, name: str) -> None:
+        self._lazy = True
+        self.register_buffer(name, UninitializedBuffer(
+            device=self._dev, dtype=torch.float32))
+
+    def _materialize(self, t: torch.Tensor, shape, init: str,
+                     a: float = 0.0) -> None:
+        t.materialize(tuple(shape))
+        _fill(t, self._gen, init, a)
+
+    def _in_width(self, x: torch.Tensor) -> int:
+        return x.shape[-1]
+
+    def _make(self, width: int) -> None:
+        """Materialise the input-width-dependent tensors (the layers with
+        lazy widths define it)."""
+        raise NotImplementedError
+
+    def _settle(self, width: Optional[int]) -> None:
+        """Make the lazy tensors at `width` now (a no-op when None)."""
+        if width is not None and self._lazy:
+            self._make(int(width))
+            self._lazy = False
+            self._gen = None  # every draw is done
+
+    def _ready(self, x: torch.Tensor) -> None:
+        if self._lazy:
+            self._settle(self._in_width(x))
+
+    # -- the reference's state API -------------------------------------------
+    def get_params(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        return {prefix + k: p for k, p in self.named_parameters()
+                if not isinstance(p, UninitializedParameter)}
+
+    def get_buffers(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        return {prefix + k: b for k, b in self.named_buffers()
+                if not isinstance(b, UninitializedBuffer)}
+
+    def get_states(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Parameters and buffers: the checkpointable state."""
+        out = self.get_params(prefix)
+        out.update(self.get_buffers(prefix))
+        return out
+
+    def set_params(self, params: Mapping) -> None:
+        _copy_into(self.get_params(), params, "parameter")
+
+    def set_states(self, states: Mapping) -> None:
+        _copy_into(self.get_states(), states, "state")
+
+
+def _copy_into(own: Mapping[str, torch.Tensor], given: Mapping,
+               what: str) -> None:
+    """Copy each given array (numpy or torch) into the tensor of the same
+    name, in place; KeyError on an unknown name, ValueError on a shape
+    mismatch."""
+    for k, v in given.items():
+        if k not in own:
+            raise KeyError(f"unknown {what} {k!r}")
+        if tuple(np.shape(v)) != tuple(own[k].shape):
+            raise ValueError(f"{what} {k!r}: shape {tuple(np.shape(v))} "
+                             f"given, {tuple(own[k].shape)} expected")
+    with torch.no_grad():
+        for k, v in given.items():
+            src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.array(v))
+            own[k].copy_(src)
+
+
+class Linear(Layer):
+    """y = x W (+ b) with W stored (in, out), as in the reference.
+    `Linear(out_features, bias=True)`; `in_features=` makes W at once."""
+
+    def __init__(self, out_features: int, bias: bool = True, tp_axis=None,
+                 tp_mode: str = "col", *, in_features: Optional[int] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        if tp_axis is not None:
+            raise NotImplementedError(
+                "Linear(tp_axis=) is tensor-parallel Linear, which comes "
+                "with parallel/tp.py (ROADMAP queue 1 item 14)")
+        del tp_mode
+        super().__init__()
+        self._dev, self._gen = _setup(device, generator)
+        self.out_features = out_features
+        self.W = self._lazy_param()
+        self.b = _new((out_features,), self._dev, None, "zeros") if (
+            bias) else None
+        self._settle(in_features)
+
+    def _make(self, fan_in):
+        self._materialize(self.W, (fan_in, self.out_features), "uniform",
+                          math.sqrt(6.0 / max(1, fan_in + self.out_features)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
         return autograd.linear(x, self.W, self.b)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     def __init__(self, vocab_size: int, embed_dim: int, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -110,19 +234,29 @@ class Embedding(nn.Module):
         return autograd.embedding(idx, self.table)
 
 
-class LayerNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5, *, device=None):
+class LayerNorm(Layer):
+    """`LayerNorm(eps=1e-5)` over the last axis; `dim=` makes the
+    parameters at once."""
+
+    def __init__(self, eps: float = 1e-5, *, dim: Optional[int] = None,
+                 device=None):
         super().__init__()
-        dev = device_module.resolve(device)
+        self._dev = device_module.resolve(device)
         self.eps = eps
-        self.scale = _new((dim,), dev, None, "ones")
-        self.offset = _new((dim,), dev, None, "zeros")
+        self.scale = self._lazy_param()
+        self.offset = self._lazy_param()
+        self._settle(dim)
+
+    def _make(self, d):
+        self._materialize(self.scale, (d,), "ones")
+        self._materialize(self.offset, (d,), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
         return autograd.layernorm(x, self.scale, self.offset, self.eps)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Inverted dropout in training mode, identity in eval mode. The
     draws are PyTorch's, not the reference's."""
 
@@ -134,7 +268,7 @@ class Dropout(nn.Module):
         return autograd.dropout(x, self.p, train=self.training)
 
 
-class Gelu(nn.Module):
+class Gelu(Layer):
     """tanh-approximate GELU, the function `ScanTransformerStack`'s FFN
     applies."""
 
@@ -142,12 +276,12 @@ class Gelu(nn.Module):
         return autograd.gelu(x)
 
 
-class Tanh(nn.Module):
+class Tanh(Layer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return autograd.tanh(x)
 
 
-class ScanTransformerStack(nn.Module):
+class ScanTransformerStack(Layer):
     """N identical post-LN transformer blocks over stacked (L, ...)
     weights, looped in Python (the reference rolls them into one
     `lax.scan`). Dense single-device branch only (reference
@@ -155,19 +289,20 @@ class ScanTransformerStack(nn.Module):
     `attention_qkv` dispatcher (the fused-layout flash kernel once T
     clears its threshold), output projection, LN, GELU FFN, LN.
     `remat` applies one of `autograd.REMAT_POLICIES` to each block, as
-    the reference wraps its scan body."""
+    the reference wraps its scan body. The model width is the input's
+    last dim, or `d_model=`."""
 
     #: the stacked parameter names, in the reference's order
     STACKED = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o",
                "ln2_s", "ln2_o", "w1", "b1", "w2", "b2")
 
-    def __init__(self, n_blocks: int, num_heads: int, d_model: int,
-                 ffn_mult: int = 4, causal: bool = False,
-                 remat: str = "none", tp_axis: Optional[str] = None,
+    def __init__(self, n_blocks: int, num_heads: int, ffn_mult: int = 4,
+                 causal: bool = False, remat: str = "none",
+                 tp_axis: Optional[str] = None,
                  zero3_axis: Optional[str] = None,
                  seq_axis: Optional[str] = None, overlap: bool = False,
-                 *, device=None, generator: Optional[torch.Generator] = None):
-        super().__init__()
+                 *, d_model: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
         for name, val in (("tp_axis", tp_axis), ("zero3_axis", zero3_axis),
                           ("seq_axis", seq_axis)):
             if val is not None:
@@ -184,27 +319,34 @@ class ScanTransformerStack(nn.Module):
                 f"{autograd.REMAT_POLICIES}")
         if n_blocks < 1:
             raise ValueError("n_blocks must be >= 1")
-        if d_model % num_heads:
-            raise ValueError(
-                f"d_model {d_model} not divisible by {num_heads} heads")
-        dev, gen = _setup(device, generator)
+        super().__init__()
+        self._dev, self._gen = _setup(device, generator)
         self.n_blocks, self.num_heads = n_blocks, num_heads
         self.ffn_mult, self.causal, self.remat = ffn_mult, causal, remat
-        L, d, ff = n_blocks, d_model, ffn_mult * d_model
-        k = 1.0 / math.sqrt(d)
-        self.w_qkv = _new((L, d, 3 * d), dev, gen, "uniform", k)
-        self.b_qkv = _new((L, 3 * d), dev, gen, "uniform", k)
-        self.w_o = _new((L, d, d), dev, gen, "uniform", k)
-        self.b_o = _new((L, d), dev, gen, "uniform", k)
-        self.ln1_s = _new((L, d), dev, gen, "ones")
-        self.ln1_o = _new((L, d), dev, gen, "zeros")
-        self.ln2_s = _new((L, d), dev, gen, "ones")
-        self.ln2_o = _new((L, d), dev, gen, "zeros")
-        xavier = math.sqrt(6.0 / (d + ff))
-        self.w1 = _new((L, d, ff), dev, gen, "uniform", xavier)
-        self.b1 = _new((L, ff), dev, gen, "zeros")
-        self.w2 = _new((L, ff, d), dev, gen, "uniform", xavier)
-        self.b2 = _new((L, d), dev, gen, "zeros")
+        for n in self.STACKED:
+            setattr(self, n, self._lazy_param())
+        self._settle(d_model)
+
+    def _make(self, d):
+        if d % self.num_heads:
+            raise ValueError(
+                f"d_model {d} not divisible by {self.num_heads} heads")
+        L, ff = self.n_blocks, self.ffn_mult * d
+        k, xavier = 1.0 / math.sqrt(d), math.sqrt(6.0 / (d + ff))
+        for name, shape, init, a in (
+                ("w_qkv", (L, d, 3 * d), "uniform", k),
+                ("b_qkv", (L, 3 * d), "uniform", k),
+                ("w_o", (L, d, d), "uniform", k),
+                ("b_o", (L, d), "uniform", k),
+                ("ln1_s", (L, d), "ones", 0.0),
+                ("ln1_o", (L, d), "zeros", 0.0),
+                ("ln2_s", (L, d), "ones", 0.0),
+                ("ln2_o", (L, d), "zeros", 0.0),
+                ("w1", (L, d, ff), "uniform", xavier),
+                ("b1", (L, ff), "zeros", 0.0),
+                ("w2", (L, ff, d), "uniform", xavier),
+                ("b2", (L, d), "zeros", 0.0)):
+            self._materialize(getattr(self, name), shape, init, a)
 
     def _block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
                l2o, w1, b1, w2, b2) -> torch.Tensor:
@@ -216,6 +358,7 @@ class ScanTransformerStack(nn.Module):
                                     l2o)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
         block = autograd.remat_wrap(self._block, self.remat)
         # one unbind per stacked weight: its backward stacks the blocks'
         # gradients in one write, where indexing w[i] per block would
@@ -229,51 +372,78 @@ class ScanTransformerStack(nn.Module):
 # -- CNN layers ----------------------------------------------------------------
 
 
-class Conv2d(nn.Module):
-    """Convolution in the current image layout; `W` is OIHW
-    (nb_kernels, in_channels // group, kh, kw) in both layouts, with the
-    reference's "he" init, and `b` (nb_kernels,) zeros."""
+def _channels(x: torch.Tensor) -> int:
+    return x.shape[layout_module.channel_axis(x.dim())]
 
-    def __init__(self, in_channels: int, nb_kernels: int, kernel_size,
-                 stride=1, padding=0, dilation=1, group: int = 1,
-                 bias: bool = True, *, device=None,
+
+class Conv2d(Layer):
+    """Convolution in the current image layout;
+    `Conv2d(nb_kernels, kernel_size, stride, padding, dilation, group,
+    bias)`. `W` is OIHW (nb_kernels, in_channels // group, kh, kw) in
+    both layouts, with the reference's "he" init, and `b` (nb_kernels,)
+    zeros; `in_channels=` makes W at once."""
+
+    def __init__(self, nb_kernels: int, kernel_size, stride=1, padding=0,
+                 dilation=1, group: int = 1, bias: bool = True, *,
+                 in_channels: Optional[int] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        dev, gen = _setup(device, generator)
-        kh, kw = autograd._pair(kernel_size)
+        self._dev, self._gen = _setup(device, generator)
+        self.nb_kernels = nb_kernels
+        self.kernel_size = autograd._pair(kernel_size)
         self.stride, self.padding = stride, padding
         self.dilation, self.group = dilation, group
-        fan_in = in_channels * kh * kw // group
-        self.W = _new((nb_kernels, in_channels // group, kh, kw), dev, gen,
-                      "he", fan_in)
-        self.b = _new((nb_kernels,), dev, gen, "zeros") if bias else None
+        self.W = self._lazy_param()
+        self.b = _new((nb_kernels,), self._dev, None, "zeros") if (
+            bias) else None
+        self._settle(in_channels)
+
+    _in_width = staticmethod(_channels)
+
+    def _make(self, c):
+        kh, kw = self.kernel_size
+        self._materialize(self.W, (self.nb_kernels, c // self.group, kh, kw),
+                          "he", c * kh * kw // self.group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
         return autograd.conv2d(x, self.W, self.b, self.stride, self.padding,
                                self.dilation, self.group)
 
 
-class BatchNorm2d(nn.Module):
+class BatchNorm2d(Layer):
     """`autograd.batchnorm` with `scale` (ones), `offset` (zeros) and the
-    buffers `running_mean` (zeros) and `running_var` (ones). In training
-    mode each call updates the running statistics in place, including
-    calls without grad recording (such as `Model.compile`'s forward, as
-    in the reference)."""
+    buffers `running_mean` (zeros) and `running_var` (ones);
+    `BatchNorm2d(momentum=0.9, eps=1e-5, sync=None)`, `num_features=`
+    makes them at once. In training mode each call updates the running
+    statistics in place, including calls without grad recording (such
+    as `Model.compile`'s forward, as in the reference). `sync` is
+    `autograd.batchnorm`'s: None averages the moments over the data
+    group when the step runs under DistOpt's group."""
 
-    def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, sync: Optional[bool] = None, *,
-                 device=None):
+    def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
+                 sync: Optional[bool] = None, *,
+                 num_features: Optional[int] = None, device=None):
         super().__init__()
-        dev = device_module.resolve(device)
+        self._dev = device_module.resolve(device)
         self.momentum, self.eps, self.sync = momentum, eps, sync
-        self.scale = _new((num_features,), dev, None, "ones")
-        self.offset = _new((num_features,), dev, None, "zeros")
-        self.register_buffer("running_mean", torch.zeros(
-            num_features, dtype=torch.float32, device=dev))
-        self.register_buffer("running_var", torch.ones(
-            num_features, dtype=torch.float32, device=dev))
+        self.scale = self._lazy_param()
+        self.offset = self._lazy_param()
+        self._lazy_buffer("running_mean")
+        self._lazy_buffer("running_var")
+        self._settle(num_features)
+
+    _in_width = staticmethod(_channels)
+
+    def _make(self, c):
+        c = (c,)
+        self._materialize(self.scale, c, "ones")
+        self._materialize(self.offset, c, "zeros")
+        self._materialize(self.running_mean, c, "zeros")
+        self._materialize(self.running_var, c, "ones")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
         y, new_rm, new_rv = autograd.batchnorm(
             x, self.scale, self.offset, self.running_mean, self.running_var,
             momentum=self.momentum, eps=self.eps, train=self.training,
@@ -285,7 +455,7 @@ class BatchNorm2d(nn.Module):
         return y
 
 
-class MaxPool2d(nn.Module):
+class MaxPool2d(Layer):
     def __init__(self, kernel_size, stride=None, padding=0):
         super().__init__()
         self.k, self.s, self.p = kernel_size, stride, padding
@@ -294,7 +464,7 @@ class MaxPool2d(nn.Module):
         return autograd.max_pool2d(x, self.k, self.s, self.p)
 
 
-class AvgPool2d(nn.Module):
+class AvgPool2d(Layer):
     def __init__(self, kernel_size, stride=None, padding=0):
         super().__init__()
         self.k, self.s, self.p = kernel_size, stride, padding
@@ -303,17 +473,17 @@ class AvgPool2d(nn.Module):
         return autograd.avg_pool2d(x, self.k, self.s, self.p)
 
 
-class GlobalAvgPool2d(nn.Module):
+class GlobalAvgPool2d(Layer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return autograd.global_avg_pool2d(x)
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return autograd.relu(x)
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Flatten the dims from `start_axis` on. The reference rotates an
     NHWC activation back to NCHW first, so that the following Linear
     sees the NCHW feature order in both layouts; here a channels-last
@@ -328,7 +498,7 @@ class Flatten(nn.Module):
         return autograd.flatten(x, self.start_axis)
 
 
-class Sequential(nn.Module):
+class Sequential(Layer):
     def __init__(self, *layers: nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(layers)
@@ -342,7 +512,7 @@ class Sequential(nn.Module):
 # -- recurrent layers (reference layer.py:514-698) -----------------------------
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     """Multi-layer, optionally bidirectional recurrent stack over the
     `autograd` recurrent ops. The reverse direction runs the op with
     `reverse=True` (outputs stay time-aligned) and joins the forward one
@@ -357,35 +527,45 @@ class _RNNBase(nn.Module):
     mode = "lstm"
     n_gates = 4
 
-    def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 1, bidirectional: bool = False,
-                 batch_first: bool = True, return_sequences: bool = True,
-                 return_state: bool = False, remat: bool = False,
-                 nonlinearity: str = "tanh", *, device=None,
+    def __init__(self, hidden_size: int, num_layers: int = 1,
+                 bidirectional: bool = False, batch_first: bool = True,
+                 return_sequences: bool = True, return_state: bool = False,
+                 remat: bool = False, nonlinearity: str = "tanh", *,
+                 input_size: Optional[int] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if nonlinearity not in ("tanh", "relu"):
             raise ValueError(f"unknown nonlinearity {nonlinearity!r}")
-        dev, gen = _setup(device, generator)
+        self._dev, self._gen = _setup(device, generator)
         self.input_size, self.hidden_size = input_size, hidden_size
         self.num_layers, self.bidirectional = num_layers, bidirectional
         self.batch_first = batch_first
         self.return_sequences = return_sequences
         self.return_state = return_state
         self.remat, self.nonlinearity = remat, nonlinearity
-        H, G = hidden_size, self.n_gates
-        k = 1.0 / math.sqrt(H)
+        # every weight waits for the input width, so the draws keep one
+        # order whether it is given here or inferred at the first call
+        for name, _ in self._weights(0):
+            setattr(self, name, self._lazy_param())
+        self._settle(input_size)
+
+    def _weights(self, input_size: int):
+        """(name, shape) of every weight, in the order of the draws."""
+        H, G = self.hidden_size, self.n_gates
         biases = ("b_ih", "b_hh") if self.mode == "gru" else ("b",)
-        for l in range(num_layers):
+        for l in range(self.num_layers):
             layer_in = input_size if l == 0 else H * self._dirs
             for d in range(self._dirs):
-                setattr(self, self._wname("w_ih", l, d),
-                        _new((layer_in, G * H), dev, gen, "uniform", k))
-                setattr(self, self._wname("w_hh", l, d),
-                        _new((H, G * H), dev, gen, "uniform", k))
+                yield self._wname("w_ih", l, d), (layer_in, G * H)
+                yield self._wname("w_hh", l, d), (H, G * H)
                 for kind in biases:
-                    setattr(self, self._wname(kind, l, d),
-                            _new((G * H,), dev, gen, "uniform", k))
+                    yield self._wname(kind, l, d), (G * H,)
+
+    def _make(self, input_size):
+        self.input_size = input_size
+        k = 1.0 / math.sqrt(self.hidden_size)
+        for name, shape in self._weights(input_size):
+            self._materialize(getattr(self, name), shape, "uniform", k)
 
     @property
     def _dirs(self) -> int:
@@ -416,6 +596,7 @@ class _RNNBase(nn.Module):
         return ys, h, None
 
     def forward(self, x: torch.Tensor, hx=None):
+        self._ready(x)
         if self.batch_first:
             x = autograd.transpose(x, (1, 0, 2))  # -> (T, B, in)
         h0s, c0s = (hx if self.mode == "lstm" else (hx, None)) if (
@@ -463,22 +644,21 @@ class GRU(_RNNBase):
 
 
 class CudnnRNN(_RNNBase):
-    """The reference's cuDNN-layer surface, `CudnnRNN(input_size,
-    hidden_size, rnn_mode=...)` with rnn_mode "lstm", "gru", "tanh" or
-    "relu", sequence-major by default as cuDNN is; backed by the same
-    recurrent ops as the other layers."""
+    """The reference's cuDNN-layer surface, `CudnnRNN(hidden_size,
+    rnn_mode=...)` with rnn_mode "lstm", "gru", "tanh" or "relu",
+    sequence-major by default as cuDNN is; backed by the same recurrent
+    ops as the other layers."""
 
     _MODES = {"lstm": ("lstm", 4, "tanh"), "gru": ("gru", 3, "tanh"),
               "tanh": ("rnn", 1, "tanh"), "relu": ("rnn", 1, "relu")}
 
-    def __init__(self, input_size: int, hidden_size: int,
-                 rnn_mode: str = "lstm", **kw):
+    def __init__(self, hidden_size: int, rnn_mode: str = "lstm", **kw):
         if rnn_mode not in self._MODES:
             raise ValueError(f"unknown rnn_mode {rnn_mode!r}")
         self.mode, self.n_gates, nonlin = self._MODES[rnn_mode]
         kw.setdefault("nonlinearity", nonlin)
         kw.setdefault("batch_first", False)
-        super().__init__(input_size, hidden_size, **kw)
+        super().__init__(hidden_size, **kw)
 
 
 # -- paged KV cache (the serving engine's pools) ------------------------------

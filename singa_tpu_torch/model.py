@@ -32,24 +32,41 @@ statistics) together, from the reference's `get_states()`.
 inputs and outputs stay NCHW (`layout.py`). As in the reference,
 `compile`'s forward runs with the layers in training mode (only the tape
 is off), so a BatchNorm's running statistics take one update from it.
+That forward also materialises the widths of layers built without their
+input width (`layer.Layer`); `set_optimizer` names the slots once every
+parameter exists, at once or after that forward.
+
+`Model` is a `layer.Layer`, so it has the reference's state API
+(`get_params`, `get_states`, `set_params`, `set_states`), and
+`save_states(path, aux_states)` / `load_states(path)` write and read the
+reference's single-file archive (a zip of `states/<name>.npy` and
+`aux/<name>.npy`, `singa_tpu/model.py:284-337`). The reference's
+`meta/pspec.json` entry is neither written nor read: the port keeps no
+shardings yet. A file written by either package loads into the other.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+import io
+import zipfile
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch import layout as layout_module
+from singa_tpu_torch.distributed import is_rank_local
 from singa_tpu_torch.graph import GraphStep
+from singa_tpu_torch.layer import Layer
+from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["Model", "load_singa_tpu_params", "load_singa_tpu_states"]
 
 
-class Model(nn.Module):
+class Model(Layer):
     """Base user model; `named_parameters()` gives the reference's
     dotted parameter names. Subclasses define `forward` and
     `train_one_batch`."""
@@ -65,13 +82,26 @@ class Model(nn.Module):
         self._train_step: Optional[GraphStep] = None
 
     def _apply_opt(self, loss, dist_option: str = "plain", spars=None):
-        """The reference trainers' optimizer dispatch. With a plain (not
-        distributed) optimizer every `dist_option` takes a local step, as
-        the reference's does; `spars` only means something to DistOpt."""
-        del dist_option, spars
-        if self._optimizer is None:
+        """The reference trainers' optimizer dispatch: plain (fused
+        all-reduce), half (bf16 wire), sparse-topk or sparse-thresh.
+        With a plain (not distributed) optimizer every option takes a
+        local step, as the reference's does; `spars=None` keeps the
+        optimizer's own sparsity."""
+        opt = self._optimizer
+        if opt is None:
             raise RuntimeError("no optimizer: call set_optimizer() first")
-        self._optimizer(loss)
+        kw = {} if spars is None else {"spars": spars}
+        if dist_option == "plain" or not hasattr(
+                opt, "backward_and_sparse_update"):
+            opt(loss)
+        elif dist_option == "half":
+            opt.backward_and_update_half(loss)
+        elif dist_option == "sparse-topk":
+            opt.backward_and_sparse_update(loss, topK=True, **kw)
+        elif dist_option == "sparse-thresh":
+            opt.backward_and_sparse_update(loss, topK=False, **kw)
+        else:
+            raise ValueError(f"unknown dist_option {dist_option!r}")
 
     def set_image_layout(self, img_layout: str) -> None:
         """Run this model's forward in `img_layout` ("NCHW" or "NHWC")
@@ -115,10 +145,19 @@ class Model(nn.Module):
 
     def set_optimizer(self, opt) -> None:
         """Use `opt` for the training step; its slots take this model's
-        parameter names (the reference names them at its first traced
-        step; here every parameter already exists)."""
+        parameter names, now if every parameter exists, else after
+        `compile`'s forward has made them (the reference names them at
+        its first traced step)."""
         self._optimizer = opt
-        opt.prepare(dict(self.named_parameters()))
+        self._train_step = None
+        self._prepare_optimizer()
+
+    def _prepare_optimizer(self) -> None:
+        params = dict(self.named_parameters())
+        if self._optimizer is not None and not any(
+                isinstance(p, UninitializedParameter)
+                for p in params.values()):
+            self._optimizer.prepare(params)
 
     def compile(self, inputs: Sequence, is_train: bool = True,
                 use_graph: bool = False, sequential: bool = False,
@@ -136,6 +175,7 @@ class Model(nn.Module):
             inputs = [inputs]
         with torch.no_grad():
             self.forward(*inputs)
+        self._prepare_optimizer()
         self.train(is_train)
         self.graph(use_graph, sequential)
 
@@ -157,12 +197,56 @@ class Model(nn.Module):
             # `__getattribute__` routes them
             self.train_one_batch = self._dispatch_train
 
+    def _dist_comm(self):
+        """The DistOpt communicator whose process group the step runs
+        over, or None."""
+        comm = getattr(self._optimizer, "comm", None)
+        return comm if comm is not None and comm._active() else None
+
     def _dispatch_train(self, *args, **kwargs):
+        comm = self._dist_comm()
+        step = self._user_train_one_batch
+        if comm is not None:
+            args = _rank_share(args, comm)
+            step = self._dist_train
         if self._use_graph:
             if self._train_step is None:
-                self._train_step = GraphStep(self, self._user_train_one_batch)
+                self._train_step = GraphStep(self, step)
             return self._train_step(*args, **kwargs)
-        return self._user_train_one_batch(*args, **kwargs)
+        return step(*args, **kwargs)
+
+    def _dist_train(self, *args, **kwargs):
+        """The data-parallel step (the reference's SPMD wrapper,
+        `singa_tpu/graph.py:431-700`) on this rank's share of the batch
+        (`_rank_share`), under the data group's batch axis (BatchNorm
+        syncs its moments over it); then a floating output without this
+        share's rows (the loss) is averaged over the group, an output
+        with them (the logits) is gathered back into the global batch,
+        and the floating buffers (BatchNorm's running statistics) are
+        averaged."""
+        comm = self._optimizer.comm
+        b = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
+        with mesh_module.batch_axis_context(comm.axis_name, comm.world_size,
+                                            comm.group):
+            out = self._user_train_one_batch(*args, **kwargs)
+
+        def merge(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            if t.dim() and t.shape[0] == b:
+                return comm.all_gather(t.detach())
+            if t.is_floating_point():
+                return comm.all_reduce(t.detach())
+            return t
+
+        with torch.no_grad():
+            bufs = [t for t in self.buffers() if t.is_floating_point()]
+            for buf, avg in zip(bufs, comm.fused_all_reduce(
+                    bufs, bucket_elems=self._optimizer.buffSize)):
+                buf.copy_(avg)
+        if isinstance(out, (tuple, list)):
+            return type(out)(merge(o) for o in out)
+        return merge(out)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -179,6 +263,74 @@ class Model(nn.Module):
         with torch.set_grad_enabled(
                 autograd.training and torch.is_grad_enabled()):
             return super().__call__(*args, **kwargs)
+
+    # -- the reference's single-file checkpoint -----------------------------
+    def save_states(self, fpath: str, aux_states: Optional[Dict] = None
+                    ) -> None:
+        """Write parameters and buffers (and `aux_states`) as one zip of
+        `.npy` entries, the reference's layout."""
+        def host(v):
+            return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v))
+
+        with zipfile.ZipFile(fpath, "w", zipfile.ZIP_STORED) as zf:
+            for group, d in (("states", self.get_states()),
+                             ("aux", aux_states or {})):
+                for k, v in d.items():
+                    buf = io.BytesIO()
+                    np.save(buf, host(v), allow_pickle=False)
+                    zf.writestr(f"{group}/{k}.npy", buf.getvalue())
+
+    def load_states(self, fpath: str) -> Dict[str, np.ndarray]:
+        """Load a `save_states` archive (either package's) into this
+        model's parameters and buffers, in place; returns the aux
+        states. Other entries (the reference's `meta/pspec.json`) are
+        skipped."""
+        states, aux = {}, {}
+        with zipfile.ZipFile(fpath, "r") as zf:
+            for info in zf.infolist():
+                group, _, key = info.filename.partition("/")
+                if group not in ("states", "aux") or not key.endswith(
+                        ".npy"):
+                    continue
+                arr = np.load(io.BytesIO(zf.read(info)), allow_pickle=False)
+                (states if group == "states" else aux)[key[:-4]] = arr
+        self.set_states(states)
+        return aux
+
+
+def _rank_share(args, comm) -> list:
+    """This rank's share of a distributed step's batch operands. Operands
+    from `distributed.shard_batch` are that share already; plain ones
+    are the global batch (the reference's step takes it), of which this
+    rank runs rows [rank * b, (rank + 1) * b)."""
+    batch = [a for a in args if isinstance(a, (torch.Tensor, np.ndarray))]
+    marked = [is_rank_local(a) for a in batch]
+    if batch and all(marked):
+        return list(args)
+    if any(marked):
+        raise ValueError("a distributed step takes either every batch "
+                         "operand from shard_batch or none")
+    _check_batch(args, comm.world_size)
+    args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+    b = next(a.shape[0] for a in args
+             if isinstance(a, torch.Tensor)) // comm.world_size
+    return [a.narrow(0, comm.rank * b, b) if isinstance(a, torch.Tensor)
+            else a for a in args]
+
+
+def _check_batch(args, world: int) -> None:
+    """The reference's refusal: every tensor operand of a distributed
+    step has a leading batch dim divisible by the world."""
+    for a in args:
+        shape = tuple(np.shape(a)) if isinstance(
+            a, (torch.Tensor, np.ndarray)) else None
+        if shape is not None and (not shape or shape[0] % world):
+            raise ValueError(
+                "distributed graph mode: every step argument must have a "
+                "leading batch dim divisible by the batch world size "
+                f"{world}; got shape {shape}")
 
 
 def _copy_named(own: Mapping[str, torch.Tensor],

@@ -26,29 +26,29 @@ class AlexNet(Classifier):
         dev, gen = layer._setup(device, generator)
         kw = dict(device=dev, generator=gen)
         self.features = layer.Sequential(
-            layer.Conv2d(3, 64, 11, stride=4, padding=2, **kw),
+            layer.Conv2d(64, 11, in_channels=3, stride=4, padding=2, **kw),
             layer.ReLU(),
             layer.MaxPool2d(3, stride=2),
-            layer.Conv2d(64, 192, 5, padding=2, **kw),
+            layer.Conv2d(192, 5, in_channels=64, padding=2, **kw),
             layer.ReLU(),
             layer.MaxPool2d(3, stride=2),
-            layer.Conv2d(192, 384, 3, padding=1, **kw),
+            layer.Conv2d(384, 3, in_channels=192, padding=1, **kw),
             layer.ReLU(),
-            layer.Conv2d(384, 256, 3, padding=1, **kw),
+            layer.Conv2d(256, 3, in_channels=384, padding=1, **kw),
             layer.ReLU(),
-            layer.Conv2d(256, 256, 3, padding=1, **kw),
+            layer.Conv2d(256, 3, in_channels=256, padding=1, **kw),
             layer.ReLU(),
             layer.MaxPool2d(3, stride=2),
         )
         self.flatten = layer.Flatten()
         self.classifier = layer.Sequential(
             layer.Dropout(0.5),
-            layer.Linear(256 * 6 * 6, 4096, **kw),
+            layer.Linear(4096, in_features=256 * 6 * 6, **kw),
             layer.ReLU(),
             layer.Dropout(0.5),
-            layer.Linear(4096, 4096, **kw),
+            layer.Linear(4096, in_features=4096, **kw),
             layer.ReLU(),
-            layer.Linear(4096, num_classes, **kw),
+            layer.Linear(num_classes, in_features=4096, **kw),
         )
 
     def forward(self, x):
@@ -64,29 +64,29 @@ class CifarAlexNet(Classifier):
         dev, gen = layer._setup(device, generator)
         kw = dict(device=dev, generator=gen)
         self.features = layer.Sequential(
-            layer.Conv2d(3, 64, 3, stride=2, padding=1, **kw),
+            layer.Conv2d(64, 3, in_channels=3, stride=2, padding=1, **kw),
             layer.ReLU(),
             layer.MaxPool2d(2),
-            layer.Conv2d(64, 192, 3, padding=1, **kw),
+            layer.Conv2d(192, 3, in_channels=64, padding=1, **kw),
             layer.ReLU(),
             layer.MaxPool2d(2),
-            layer.Conv2d(192, 384, 3, padding=1, **kw),
+            layer.Conv2d(384, 3, in_channels=192, padding=1, **kw),
             layer.ReLU(),
-            layer.Conv2d(384, 256, 3, padding=1, **kw),
+            layer.Conv2d(256, 3, in_channels=384, padding=1, **kw),
             layer.ReLU(),
-            layer.Conv2d(256, 256, 3, padding=1, **kw),
+            layer.Conv2d(256, 3, in_channels=256, padding=1, **kw),
             layer.ReLU(),
             layer.MaxPool2d(2),
         )
         self.flatten = layer.Flatten()
         self.classifier = layer.Sequential(
             layer.Dropout(0.5),
-            layer.Linear(256 * 2 * 2, 1024, **kw),
+            layer.Linear(1024, in_features=256 * 2 * 2, **kw),
             layer.ReLU(),
             layer.Dropout(0.5),
-            layer.Linear(1024, 512, **kw),
+            layer.Linear(512, in_features=1024, **kw),
             layer.ReLU(),
-            layer.Linear(512, num_classes, **kw),
+            layer.Linear(num_classes, in_features=512, **kw),
         )
 
     def forward(self, x):

@@ -39,12 +39,12 @@ class CharRNN(Model):
         self.vocab_size = vocab_size
         self.embed = layer.Embedding(vocab_size, embed_dim, device=dev,
                                      generator=generator)
-        self.lstm = layer.LSTM(embed_dim, hidden_size,
-                               num_layers=num_layers, batch_first=True,
-                               return_sequences=True, remat=remat,
+        self.lstm = layer.LSTM(hidden_size, num_layers=num_layers,
+                               batch_first=True, return_sequences=True,
+                               remat=remat, input_size=embed_dim,
                                device=dev, generator=generator)
-        self.fc = layer.Linear(hidden_size, vocab_size, device=dev,
-                               generator=generator)
+        self.fc = layer.Linear(vocab_size, in_features=hidden_size,
+                               device=dev, generator=generator)
 
     @property
     def device(self) -> torch.device:

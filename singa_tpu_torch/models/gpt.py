@@ -202,16 +202,16 @@ class GPT(model.Model):
         self.drop = layer.Dropout(dropout)
         if scan_blocks:
             self.decoder = layer.ScanTransformerStack(
-                num_layers, num_heads, d_model, causal=True,
-                remat=remat_policy, zero3_axis=zero3_axis, overlap=overlap,
+                num_layers, num_heads, causal=True, remat=remat_policy,
+                zero3_axis=zero3_axis, overlap=overlap, d_model=d_model,
                 device=dev, generator=gen)
         else:
             self.decoder = TransformerEncoder(
                 num_layers, num_heads, dropout=dropout, causal=True,
                 remat=remat, d_model=d_model, device=dev, generator=gen)
-        self.ln_f = layer.LayerNorm(d_model, device=dev)
-        self.head = layer.Linear(d_model, vocab_size, device=dev,
-                                 generator=gen)
+        self.ln_f = layer.LayerNorm(dim=d_model, device=dev)
+        self.head = layer.Linear(vocab_size, in_features=d_model,
+                                 device=dev, generator=gen)
         self._decode_cache = None
 
     @property

@@ -3,9 +3,10 @@ configuration, the reference SINGA's `examples/mlp` model, an autograd
 MLP on MNIST.
 
 Linear -> ReLU -> Dropout(0.2) -> Linear. The reference infers fc1's
-input width at the first call; here the layers are built at once, so
-`in_features` (784, a flattened MNIST image) is keyword-only beside the
-reference's arguments. Parameter names are the reference's (`fc1.W`,
+input width at the first call; here `in_features` (keyword-only beside
+the reference's arguments) defaults to 784, a flattened MNIST image, so
+the layers are built at once; `in_features=None` infers it at the first
+call, as the reference does. Parameter names are the reference's (`fc1.W`,
 `fc1.b`, `fc2.W`, `fc2.b`), so `model.load_singa_tpu_params` carries its
 weights across unchanged.
 """
@@ -23,15 +24,15 @@ __all__ = ["MLP"]
 
 class MLP(model.Model):
     def __init__(self, perceptron_size: int = 100, num_classes: int = 10, *,
-                 in_features: int = 784, device=None,
+                 in_features: Optional[int] = 784, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev, gen = layer._setup(device, generator)
-        self.fc1 = layer.Linear(in_features, perceptron_size, device=dev,
-                                generator=gen)
+        self.fc1 = layer.Linear(perceptron_size, in_features=in_features,
+                                device=dev, generator=gen)
         self.relu = layer.ReLU()
-        self.fc2 = layer.Linear(perceptron_size, num_classes, device=dev,
-                                generator=gen)
+        self.fc2 = layer.Linear(num_classes, in_features=perceptron_size,
+                                device=dev, generator=gen)
         self.dropout = layer.Dropout(0.2)
 
     def forward(self, x):

@@ -140,15 +140,15 @@ class TransformerEncoderLayer(nn.Module):
             num_heads, causal=causal, seq_axis=seq_axis, remat=remat,
             ring_flash=ring_flash, tp_axis=tp_axis, seq_impl=seq_impl,
             d_model=d_model, device=dev, generator=gen)
-        self.ln1 = layer.LayerNorm(d_model, device=dev)
-        self.ln2 = layer.LayerNorm(d_model, device=dev)
+        self.ln1 = layer.LayerNorm(dim=d_model, device=dev)
+        self.ln2 = layer.LayerNorm(dim=d_model, device=dev)
         self.drop1 = layer.Dropout(dropout)
         self.drop2 = layer.Dropout(dropout)
-        self.fc1 = layer.Linear(d_model, ffn_mult * d_model, device=dev,
-                                generator=gen)
+        self.fc1 = layer.Linear(ffn_mult * d_model, in_features=d_model,
+                                device=dev, generator=gen)
         self.gelu = layer.Gelu()
-        self.fc2 = layer.Linear(ffn_mult * d_model, d_model, device=dev,
-                                generator=gen)
+        self.fc2 = layer.Linear(d_model, in_features=ffn_mult * d_model,
+                                device=dev, generator=gen)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         a = self.drop1(self.attn(x, mask))
@@ -205,7 +205,7 @@ class Bert(model.Model):
                                    generator=gen)
         self.seg = layer.Embedding(type_vocab, d_model, device=dev,
                                    generator=gen)
-        self.ln = layer.LayerNorm(d_model, device=dev)
+        self.ln = layer.LayerNorm(dim=d_model, device=dev)
         self.drop = layer.Dropout(dropout)
         self.encoder = TransformerEncoder(
             num_layers, num_heads, dropout=dropout, seq_axis=seq_axis,
@@ -213,8 +213,8 @@ class Bert(model.Model):
             seq_impl=seq_impl, moe_experts=moe_experts, moe_axis=moe_axis,
             moe_capacity_factor=moe_capacity_factor, d_model=d_model,
             device=dev, generator=gen)
-        self.pooler = layer.Linear(d_model, d_model, device=dev,
-                                   generator=gen)
+        self.pooler = layer.Linear(d_model, in_features=d_model,
+                                   device=dev, generator=gen)
         self.pool_act = layer.Tanh()
 
     @property
@@ -245,7 +245,7 @@ class BertForClassification(model.Model):
         super().__init__()
         dev, gen = layer._setup(device, generator)
         self.bert = Bert(**bert_kw, device=dev, generator=gen)
-        self.head = layer.Linear(self.bert.d_model, num_classes,
+        self.head = layer.Linear(num_classes, in_features=self.bert.d_model,
                                  device=dev, generator=gen)
         self.moe_aux_coef = moe_aux_coef
 

@@ -34,11 +34,11 @@ def _features(cfg: List[Union[int, str]], batch_norm: bool, dev,
         if v == "M":
             layers.append(layer.MaxPool2d(2, stride=2))
             continue
-        layers.append(layer.Conv2d(width, v, 3, padding=1,
+        layers.append(layer.Conv2d(v, 3, in_channels=width, padding=1,
                                    bias=not batch_norm, device=dev,
                                    generator=gen))
         if batch_norm:
-            layers.append(layer.BatchNorm2d(v, device=dev))
+            layers.append(layer.BatchNorm2d(num_features=v, device=dev))
         layers.append(layer.ReLU())
         width = v
     return layer.Sequential(*layers)
@@ -57,13 +57,13 @@ class VGG(Classifier):
         flat = 512 if cifar else 512 * 7 * 7
         kw = dict(device=dev, generator=gen)
         self.classifier = layer.Sequential(
-            layer.Linear(flat, hidden, **kw),
+            layer.Linear(hidden, in_features=flat, **kw),
             layer.ReLU(),
             layer.Dropout(0.5),
-            layer.Linear(hidden, hidden, **kw),
+            layer.Linear(hidden, in_features=hidden, **kw),
             layer.ReLU(),
             layer.Dropout(0.5),
-            layer.Linear(hidden, num_classes, **kw),
+            layer.Linear(num_classes, in_features=hidden, **kw),
         )
 
     def forward(self, x):

@@ -20,9 +20,9 @@ Every update is capturable as part of one CUDA Graph (`graph.GraphStep`):
 - every slot is written in place, so a replay updates the tensors the
   next replay reads.
 
-Not ported in this slice: `set_sentinel` (resilience) and `DistOpt`
-(distributed training) raise `NotImplementedError` naming their ROADMAP
-items.
+`DistOpt` (data-parallel sync over `torch.distributed`) is
+`communicator.DistOpt`. Not ported: `set_sentinel` (resilience) raises
+`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -375,10 +375,6 @@ class RMSProp(Optimizer):
         p.sub_(self.lr_value() * grad / (s["ms"].sqrt() + self.eps))
 
 
-class DistOpt:
-    """Data-parallel optimizer wrapper of the distributed slice."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DistOpt (NCCL gradient sync, ZeRO-1) belongs to the "
-            "distributed slice (ROADMAP queue 1 item 12)")
+# the data-parallel wrapper lives beside its Communicator, as in the
+# reference; `opt.DistOpt` is its public name
+from singa_tpu_torch.communicator import DistOpt  # noqa: E402

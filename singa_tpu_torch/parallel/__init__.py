@@ -1,5 +1,6 @@
 """Parallel building blocks (counterpart of singa_tpu/parallel/).
 
-Only the single-device reference attention (`ring.full_attention`) is
-ported in this slice.
+Ported so far: the single-device reference attention
+(`ring.full_attention`) and the data axis (`mesh`: the 1-D data group
+and the batch-axis context DistOpt's BatchNorm sync reads).
 """

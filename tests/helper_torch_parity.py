@@ -184,3 +184,216 @@ def serving_gpt_pair(vocab=61, d_model=48, layers=2, heads=4, max_len=64,
     port.eval()
     load_singa_tpu_params(port, params)
     return ref, port
+
+
+# -- gloo ranks ----------------------------------------------------------------
+#
+# The distributed parity tests run the port in `world` spawned processes
+# joined by a gloo group whose rendezvous is a file under the test's
+# tmp_path (no TCP port, so parallel pytest workers never collide). Each
+# rank runs one of the `_rank_*` scenarios below, which import only the
+# port, and returns a dict of numpy arrays.
+
+
+def run_ranks(scenario, world, tmp_path, timeout=100, **payload):
+    """[result of rank r for r in range(world)] of `scenario(rank, world,
+    **payload)`, a function of this module run in `world` spawned
+    processes over gloo; a rank's exception fails the call with its
+    traceback."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    init = f"file://{tmp_path}/rendezvous"
+    outs = [tmp_path / f"rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(scenario.__name__, r, world, init, payload,
+                               str(outs[r])))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results = []
+    for r, (p, f) in enumerate(zip(procs, outs)):
+        got = pickle.loads(f.read_bytes()) if f.exists() else None
+        if p.exitcode != 0 or got is None or "traceback" in got:
+            raise AssertionError(
+                f"rank {r} of {world} failed (exit {p.exitcode}):\n"
+                f"{(got or {}).get('traceback', '')}")
+        results.append(got)
+    return results
+
+
+def _rank_main(name, rank, world, init, payload, out):
+    import pickle
+    import traceback
+
+    from singa_tpu_torch import distributed
+
+    torch.set_num_threads(1)
+    try:
+        distributed.init(init, num_processes=world,
+                         process_id=rank, device="cpu")
+        got = globals()[name](rank, world, **payload)
+    except BaseException:  # reported to the parent, which fails the test
+        got = {"traceback": traceback.format_exc()}
+    finally:
+        distributed.shutdown()
+    with open(out, "wb") as f:
+        pickle.dump(got, f)
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def _rank_communicator(rank, world, xs, sparse):
+    """Every Communicator method on this rank's rows of `xs` (name ->
+    (world, ...) array)."""
+    from singa_tpu_torch import distributed
+    from singa_tpu_torch.communicator import Communicator
+
+    c = Communicator(distributed.global_mesh())
+    x = {k: torch.from_numpy(v[rank]) for k, v in xs.items()}
+    out = {
+        "world": np.asarray(c.world_size),
+        "all_reduce": c.all_reduce(x["a"]),
+        "all_reduce_sum": c.all_reduce(x["a"], average=False),
+        "all_reduce_half": c.all_reduce_half(x["a"]),
+        "all_gather": c.all_gather(x["a"]),
+        "reduce_scatter": c.reduce_scatter(x["flat"]),
+        "reduce_scatter_half": c.reduce_scatter_half(x["flat"]),
+        "all_gather_half": c.all_gather_half(x["a"]),
+        "broadcast": c.broadcast(x["a"], root=1),
+        "reduce_scatter_buckets": torch.cat(c.reduce_scatter_buckets(
+            [x["flat"], x["flat"] * 2])),
+        "all_gather_buckets": torch.cat(c.all_gather_buckets(
+            [x["a"], x["a"] * 2])),
+    }
+    for i, t in enumerate(c.fused_all_reduce(
+            [x["f0"], x["f1"], x["f2"]], bucket_elems=6)):
+        out[f"fused{i}"] = t
+    for name, kw in sparse.items():
+        dense, local, dropped = c.sparse_all_reduce(
+            x["g"], return_local=True, return_stats=True, **kw)
+        out[f"{name}_dense"], out[f"{name}_local"] = dense, local
+        out[f"{name}_dropped"] = dropped
+    return {k: v if isinstance(v, np.ndarray) else _np(v)
+            for k, v in out.items()}
+
+
+def port_mlp(params, hidden, classes, in_features, partial=False):
+    """The port's MLP carrying `params`, dropout off; `partial` makes its
+    step DistOpt's partial update (parameter subset idx 0)."""
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models import MLP
+
+    class PartialMLP(MLP):
+        def train_one_batch(self, x, y, dist_option="plain", spars=None):
+            out = self.forward(x)
+            loss = autograd.softmax_cross_entropy(out, y)
+            self.optimizer.backward_and_partial_update(loss, idx=0)
+            return out, loss
+
+    m = (PartialMLP if partial else MLP)(hidden, classes,
+                                         in_features=in_features,
+                                         device="cpu")
+    m.dropout.p = 0.0
+    load_singa_tpu_params(m, params)
+    return m
+
+
+def _rank_distopt(rank, world, params, X, y, mode, steps, lr, spars,
+                  states=None, hidden=16, classes=3):
+    """`steps` DistOpt steps of the port's MLP on the global batch (X, y)
+    in `mode` ("plain", "half", "sparse-topk", "sparse-thresh" or
+    "partial"), from `params` and, when given, the reference's
+    `dump_states()` (its residuals stacked (world, ...)); returns the
+    losses, the parameters and the optimizer's dump."""
+    from singa_tpu_torch import distributed, opt
+
+    m = port_mlp(params, hidden, classes, X.shape[1],
+                 partial=mode == "partial")
+    d = opt.DistOpt(opt.SGD(lr=lr, momentum=0.9),
+                    mesh=distributed.global_mesh(),
+                    use_sparse=mode.startswith("sparse"))
+    m.set_optimizer(d)
+    if states is not None:
+        d.load_states(states, strict=True)
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    m.compile([tx], is_train=True, use_graph=True)
+    dist_option = "plain" if mode == "partial" else mode
+    losses = [m(tx, ty, dist_option, spars)[1].item()
+              for _ in range(steps)]
+    out = {"losses": np.asarray(losses)}
+    out.update({f"param:{k}": _np(v) for k, v in m.get_params().items()})
+    out.update({f"state:{k}": _np(torch.as_tensor(v))
+                for k, v in d.dump_states().items()})
+    out["dropped_last"] = np.asarray(d.sparse_dropped_last)
+    return out
+
+
+def _rank_bn_equivalence(rank, world, states, X, y, steps, lr):
+    """The reference's sync-BN oracle model (`resnet20_cifar`) trained by
+    DistOpt from `states`; returns the losses and every state."""
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.model import load_singa_tpu_states
+    from singa_tpu_torch.models import resnet20_cifar
+
+    m = resnet20_cifar(10, device="cpu")
+    m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr, momentum=0.9),
+                                mesh=distributed.global_mesh()))
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    m.compile([tx], is_train=True, use_graph=True)
+    load_singa_tpu_states(m, states)  # after compile's forward, as there
+    losses = [m(tx, ty)[1].item() for _ in range(steps)]
+    out = {"losses": np.asarray(losses)}
+    out.update({k: _np(v) for k, v in m.get_states().items()})
+    return out
+
+
+def _rank_refusals(rank, world, X, y):
+    """The distributed step's refusals: a batch the world does not
+    divide, and sync BatchNorm outside a DistOpt step."""
+    from singa_tpu_torch import autograd, distributed, opt
+    from singa_tpu_torch.models import MLP
+
+    m = MLP(8, 3, in_features=X.shape[1], device="cpu")
+    m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.1),
+                                mesh=distributed.global_mesh()))
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    m.compile([tx], is_train=True, use_graph=True)
+    out = {}
+    try:
+        m(tx, ty)
+    except ValueError as e:
+        out["divisible"] = str(e)
+    z = torch.ones(4, 2, 3, 3)
+    try:
+        autograd.batchnorm(z, torch.ones(2), torch.zeros(2), torch.zeros(2),
+                           torch.ones(2), sync=True)
+    except ValueError as e:
+        out["sync"] = str(e)
+    return out
+
+
+def _rank_dist_imagenet(rank, world, argv):
+    """`dist_imagenet.run` as rank `rank` of the group: its losses."""
+    from singa_tpu_torch.examples import dist_imagenet
+
+    out = dist_imagenet.run(dist_imagenet.parser().parse_args(
+        [*argv, "--world", str(world), "--rank", str(rank)]))
+    return {"losses": np.asarray(out["losses"]), "world": out["world"]}
+
+
+def _rank_many(rank, world, calls):
+    """Several scenarios in one spawn: {key: scenario(rank, world,
+    **kwargs)} for each (key, scenario name, kwargs) of `calls`."""
+    return {key: globals()[name](rank, world, **kw)
+            for key, name, kw in calls}

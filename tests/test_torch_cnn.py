@@ -115,8 +115,8 @@ def test_conv2d_matches_reference(lay, cin, cout, k, s, p, bias, hw):
     dy = rand((2, cout, oh, oh), 1)
     y, g, st = _ref(jax_layer.Conv2d(cout, k, stride=s, padding=p,
                                      bias=bias), x, dy, lay)
-    port = layer.Conv2d(cin, cout, k, stride=s, padding=p, bias=bias,
-                        device="cpu")
+    port = layer.Conv2d(cout, k, stride=s, padding=p, bias=bias,
+                        in_channels=cin, device="cpu")
     _compare((y, g), _port(port, x, dy, lay, st), atol=1e-4)
 
 
@@ -130,7 +130,7 @@ def test_batchnorm_matches_reference(lay, train):
     dy = rand((4, 6, 5, 5), 3)
     ref = jax_layer.BatchNorm2d()
     y, g, st = _ref(ref, x, dy, lay, train=train)
-    port = layer.BatchNorm2d(6, device="cpu")
+    port = layer.BatchNorm2d(num_features=6, device="cpu")
     _compare((y, g), _port(port, x, dy, lay, st, train=train), atol=1e-5)
     for name in ("running_mean", "running_var"):
         want = np.asarray(getattr(ref, name).data)
@@ -148,7 +148,7 @@ def test_batchnorm_degenerate_guard_matches_reference(lay):
     ref = jax_layer.BatchNorm2d()
     with pytest.warns(UserWarning, match="degenerate"):
         y, g, st = _ref(ref, x, dy, lay)
-    port = layer.BatchNorm2d(4, device="cpu")
+    port = layer.BatchNorm2d(num_features=4, device="cpu")
     with pytest.warns(UserWarning, match="degenerate"):
         got = _port(port, x, dy, lay, st)
     _compare((y, g), got, atol=1e-5)
@@ -214,7 +214,7 @@ def test_layout_keeps_the_logical_shape():
 
 
 def test_load_singa_tpu_states_checks_names_and_shapes():
-    bn = layer.BatchNorm2d(3, device="cpu")
+    bn = layer.BatchNorm2d(num_features=3, device="cpu")
     states = {"scale": np.full(3, 2.0, np.float32),
               "offset": np.zeros(3, np.float32),
               "running_mean": np.arange(3, dtype=np.float32),
@@ -234,8 +234,9 @@ def test_conv_under_bf16_autocast_keeps_bf16_activations():
     batch norm keeps fp32 statistics and returns bf16; the max-pool
     kernel's plain version takes and returns bf16."""
     max_pool.set_pool_kernel_enabled(True)
-    seq = layer.Sequential(layer.Conv2d(3, 8, 3, padding=1, device="cpu"),
-                           layer.BatchNorm2d(8, device="cpu"),
+    seq = layer.Sequential(layer.Conv2d(8, 3, padding=1, in_channels=3,
+                                        device="cpu"),
+                           layer.BatchNorm2d(num_features=8, device="cpu"),
                            layer.ReLU(), layer.MaxPool2d(3, 2, 1))
     x = torch.from_numpy(rand((2, 3, 8, 8), 12)).requires_grad_()
     with autograd.autocast(), layout.use_image_layout("NHWC"):
@@ -260,10 +261,14 @@ def test_cifar_trainer_lowers_the_loss(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dist"], ["--dist-option", "half"], ["--spars", "0.1"],
+    ["--dist", "--checkpoint", "ckpt.zip"],
+    ["--dist-option", "half", "--virtual-devices", "8"],
+    ["--spars", "0.1", "--loader", "prefetch"],
     ["--checkpoint", "ckpt.zip"], ["--virtual-devices", "8"],
     ["--loader", "prefetch"]])
 def test_cifar_trainer_refuses_unported_options(flag):
+    """--dist, --dist-option and --spars run (tests/test_torch_dist_train.py);
+    beside them, as alone, the unported options raise."""
     from singa_tpu_torch.examples import cnn_cifar10
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -65,7 +65,7 @@ class _Regressor(Model):
 
     def __init__(self):
         super().__init__()
-        self.fc = layer.Linear(3, 1, device="cpu")
+        self.fc = layer.Linear(1, in_features=3, device="cpu")
 
     def forward(self, x):
         return self.fc(x)

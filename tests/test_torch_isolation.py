@@ -4,8 +4,9 @@
   graph.py and the Char-RNN model and trainer among it), chip_smoke.py
   and the port's profiling and A/B scripts import nothing of JAX and
   nothing of singa_tpu (an AST scan, and a real import, with both
-  blocked, that serves one request, takes one graph-mode Char-RNN step
-  and exports a small MLP to ONNX and imports it again; the spool
+  blocked, that serves one request, takes one graph-mode Char-RNN step,
+  exports a small MLP to ONNX and imports it again, and takes one
+  DistOpt step over a gloo group of one; the spool
   server's process entry runs with both blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
@@ -107,13 +108,25 @@ def test_port_imports_with_jax_and_reference_blocked():
         "x = sys.modules['torch'].ones(2, 5)\n"
         "blob = sonnx.proto.encode_model(sonnx.to_onnx(p, [x]))\n"
         "(y,) = sonnx.prepare(blob, device='cpu').run([x.numpy()])\n"
-        "print(y.shape, abs(y - p.eval()(x).detach().numpy()).max())\n")
+        "print(y.shape, abs(y - p.eval()(x).detach().numpy()).max())\n"
+        "import singa_tpu_torch.parallel.mesh\n"
+        "import singa_tpu_torch.examples.dist_imagenet\n"
+        "from singa_tpu_torch import communicator, distributed\n"
+        "distributed.init(device='cpu')\n"
+        "d = opt.DistOpt(opt.SGD(0.1), mesh=distributed.global_mesh())\n"
+        "p.set_optimizer(d)\n"
+        "p.compile([x], is_train=True, use_graph=True)\n"
+        "p.train_one_batch(x, sys.modules['torch'].zeros(2).long())\n"
+        "print(d.world_size, d.step_counter,\n"
+        "      sys.modules['torch'].distributed.get_backend())\n"
+        "distributed.shutdown()\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.split("\n")
     assert lines[:3] == ["(1, 8, 16)", "1 0", "1 1"]
     assert lines[3] == "(2, 3) 0.0"
+    assert lines[4] == "1 1 gloo"
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):

@@ -30,7 +30,7 @@ def test_layernorm_matches_reference():
     ref = jax_layer.LayerNorm()
     _run_jax(ref, x)
     params = randomize_params(ref, 1)
-    port = layer.LayerNorm(64, device="cpu")
+    port = layer.LayerNorm(dim=64, device="cpu")
     load_singa_tpu_params(port, params)
     np.testing.assert_allclose(port(to_torch(x)).detach().numpy(),
                                _run_jax(ref, x), atol=ATOL)
@@ -42,7 +42,7 @@ def test_linear_matches_reference(bias):
     ref = jax_layer.Linear(80, bias=bias)
     _run_jax(ref, x)
     params = randomize_params(ref, 3)
-    port = layer.Linear(48, 80, bias=bias, device="cpu")
+    port = layer.Linear(80, bias=bias, in_features=48, device="cpu")
     assert port.W.shape == (48, 80)  # (in, out), as in the reference
     load_singa_tpu_params(port, params)
     np.testing.assert_allclose(port(to_torch(x)).detach().numpy(),
@@ -76,7 +76,7 @@ def test_scan_stack_matches_reference(t, causal):
     ref = jax_layer.ScanTransformerStack(2, 4, causal=causal)
     _run_jax(ref, x)
     params = randomize_params(ref, 7)
-    port = layer.ScanTransformerStack(2, 4, 128, causal=causal,
+    port = layer.ScanTransformerStack(2, 4, causal=causal, d_model=128,
                                       device="cpu")
     assert [n for n, _ in port.named_parameters()] == list(port.STACKED)
     assert list(port.STACKED) == list(ref.STACKED)
@@ -87,7 +87,8 @@ def test_scan_stack_matches_reference(t, causal):
 
 
 def test_scan_stack_under_autocast_keeps_bf16_activations():
-    port = layer.ScanTransformerStack(1, 4, 128, causal=True, device="cpu")
+    port = layer.ScanTransformerStack(1, 4, causal=True, d_model=128,
+                                      device="cpu")
     x = to_torch(rand((1, 16, 128), 8))
     with torch.no_grad():
         want = port(x)
@@ -105,4 +106,4 @@ def test_scan_stack_refuses_what_belongs_to_later_slices(kw):
     """The remat policies are ported; the sharded options stay refused
     under any of them."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.ScanTransformerStack(1, 4, 128, device="cpu", **kw)
+        layer.ScanTransformerStack(1, 4, d_model=128, device="cpu", **kw)

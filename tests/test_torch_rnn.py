@@ -53,7 +53,7 @@ def _pair(cls, kw, x, seed=3, **port_kw):
     ref = getattr(jax_layer, cls)(H, **kw)
     ref(from_numpy(x))
     params = randomize_params(ref, seed)
-    port = getattr(layer, cls)(x.shape[-1], H, **kw, **port_kw,
+    port = getattr(layer, cls)(H, **kw, **port_kw, input_size=x.shape[-1],
                                device="cpu")
     load_singa_tpu_params(port, params)
     return ref, port
@@ -142,8 +142,8 @@ def test_cudnn_rnn_is_sequence_major(mode):
     ref = jax_layer.CudnnRNN(H, rnn_mode=mode, return_state=True)
     ref(from_numpy(x))
     params = randomize_params(ref, 6)
-    port = layer.CudnnRNN(I, H, rnn_mode=mode, return_state=True,
-                          device="cpu")
+    port = layer.CudnnRNN(H, rnn_mode=mode, return_state=True,
+                          input_size=I, device="cpu")
     assert not port.batch_first
     load_singa_tpu_params(port, params)
     want_y, want_state = ref(from_numpy(x))
@@ -184,9 +184,10 @@ def test_remat_gives_the_same_values_and_gradients(cls):
 
 def test_ops_reject_an_unknown_nonlinearity():
     with pytest.raises(ValueError, match="nonlinearity"):
-        layer.RNN(I, H, nonlinearity="gelu", device="cpu")
+        layer.RNN(H, nonlinearity="gelu", input_size=I, device="cpu")
     with pytest.raises(ValueError, match="rnn_mode"):
-        layer.CudnnRNN(I, H, rnn_mode="sigmoid", device="cpu")
+        layer.CudnnRNN(H, rnn_mode="sigmoid", input_size=I,
+                       device="cpu")
     z = torch.zeros(2, 1, I)
     with pytest.raises(ValueError, match="nonlinearity"):
         autograd.vanilla_rnn(z, torch.zeros(I, H), torch.zeros(H, H),
@@ -196,7 +197,7 @@ def test_ops_reject_an_unknown_nonlinearity():
 
 def test_weights_are_uniform_in_one_over_sqrt_h():
     gen = torch.Generator().manual_seed(0)
-    lstm = layer.LSTM(I, 16, num_layers=2, bidirectional=True,
+    lstm = layer.LSTM(16, num_layers=2, bidirectional=True, input_size=I,
                       device="cpu", generator=gen)
     names = [n for n, _ in lstm.named_parameters()]
     assert names == [f"{k}_l{l}{d}" for l in range(2) for d in ("", "_r")

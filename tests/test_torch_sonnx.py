@@ -518,8 +518,8 @@ def test_onehot_and_prelu():
 class _Doubling(model.Model):
     def __init__(self):
         super().__init__()
-        self.fc1 = layer.Linear(4, 4, device="cpu")
-        self.fc2 = layer.Linear(4, 2, device="cpu")
+        self.fc1 = layer.Linear(4, in_features=4, device="cpu")
+        self.fc2 = layer.Linear(2, in_features=4, device="cpu")
 
     def forward(self, x):
         return self.fc2(self.fc1(x) * 2.0)  # a raw torch call
@@ -534,7 +534,7 @@ def test_export_refuses_a_derived_graph_output():
     class Out(model.Model):
         def __init__(self):
             super().__init__()
-            self.fc = layer.Linear(4, 2, device="cpu")
+            self.fc = layer.Linear(2, in_features=4, device="cpu")
 
         def forward(self, x):
             return self.fc(x).exp()

@@ -69,9 +69,10 @@ class CharRNN(model.Model):
         super().__init__()
         self.embed = layer.Embedding(vocab, hidden, device="cpu")
         cls = {"lstm": layer.LSTM, "gru": layer.GRU, "rnn": layer.RNN}[cell]
-        self.rnn = cls(hidden, hidden, device="cpu", **rnn_kw)
+        self.rnn = cls(hidden, input_size=hidden, device="cpu", **rnn_kw)
         dirs = 2 if rnn_kw.get("bidirectional") else 1
-        self.head = layer.Linear(hidden * dirs, vocab, device="cpu")
+        self.head = layer.Linear(vocab, in_features=hidden * dirs,
+                                 device="cpu")
 
     def forward(self, ids):
         ids = torch.as_tensor(ids).long()

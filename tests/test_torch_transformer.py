@@ -287,7 +287,7 @@ def test_scan_stack_ffn_is_the_gelu_layer():
     """`ScanTransformerStack`'s FFN and `TransformerEncoderLayer`'s apply
     one function: a one-block stack equals an encoder layer on the same
     weights."""
-    stack = layer.ScanTransformerStack(1, 2, 64, device="cpu")
+    stack = layer.ScanTransformerStack(1, 2, d_model=64, device="cpu")
     enc = tf.TransformerEncoderLayer(2, dropout=0.0, d_model=64,
                                      device="cpu")
     from singa_tpu_torch.models.gpt import _BLOCK_NAMES
