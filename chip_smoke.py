@@ -210,11 +210,37 @@ Phases, in the order they run (any failure raises and exits non-zero):
    `fused_all_reduce`, the bf16 cast round trip and `all_reduce_half`,
    top-k at spars 0.05 and `sparse_all_reduce`. All-reduce bandwidth
    needs more than one card and is not measured;
+9f. ZeRO-1 (`DistOpt(shard_states=True)`) over a world-1 NCCL group
+   trains gpt_medium's unrolled decoder (`gpt_medium(scan_blocks=False)`,
+   seeded weights through load_singa_tpu_params, AdamW(lr 3e-4), 4 x
+   1024, every step captured): from one state and batch, 3 captured
+   steps of ZeRO-1 against plain `DistOpt(AdamW)` and bare AdamW, of
+   `overlap=True` (buffSize 2**21) against both, and of `half_wire=True`
+   against plain DistOpt's `half` step, at dropout 0 and 0.1, each
+   within 1e-6 of each parameter's max|p| and each loss (printed:
+   bitwise or not); `gather_half=True`: every parameter equals its fp32
+   master shard rounded to bf16, exactly, and the loss falls. ZeRO-1's
+   first step launches each flash kernel 12 times uncaptured and 12 in
+   its capture. Rank 1's dropout stream (`autograd.rank_draws(1)`, 4
+   captured steps at lr 0): 4 different losses, none of rank 0's. 6
+   captured ZeRO-1 steps against their uncaptured twin, 1e-6 in fp32
+   and 2e-3 in bf16, the loss falling; the captured step's ms of AdamW,
+   DistOpt and ZeRO-1 in turns, fp32 and bf16; the slot bytes; the
+   sync's parts (gradient flatten and pad, parameter flatten, NCCL's
+   `reduce_scatter_tensor` and the mean, the flat and the per-parameter
+   AdamW update, NCCL's `all_gather_into_tensor`, the write-back), each
+   captured alone and timed over replays by CUDA events beside its bytes
+   bound at 3.35 TB/s; then `python -m singa_tpu_torch.examples.gpt_lm
+   --shard-states` at its defaults and at gpt_medium's widths (d 1024,
+   12 layers, 8 heads, seq 1024, batch 4, 20 steps at lr 3e-4: the flash
+   kernels),
+   each of whose loss must fall and which must print a sample. At world
+   1 no byte crosses cards and no slot memory is saved;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
-   its capture recorded, which every replay runs again), then the
-   result line.
+   its capture recorded, which every replay runs again; the ZeRO-1
+   step's beside the others), then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -2297,6 +2323,318 @@ def dist_path(torch, fa, mp, card):
     return launches, out
 
 
+# -- 9f. ZeRO-1 gpt_medium over a world-1 NCCL group ---------------------------
+
+#: the equality runs: name -> (DistOpt keywords, None for the bare AdamW;
+#: the dist_option the step takes)
+ZERO1_RUNS = {
+    "adamw": (None, "plain"),
+    "distopt": ({}, "plain"),
+    "zero1": (dict(shard_states=True), "plain"),
+    "overlap": (dict(shard_states=True, overlap=True, buffSize=2 ** 21),
+                "plain"),
+    "distopt_half": ({}, "half"),
+    "half_wire": (dict(shard_states=True, half_wire=True), "plain"),
+    "gather_half": (dict(shard_states=True, gather_half=True), "plain"),
+}
+#: (run, the run it is held to): after 3 captured steps, each parameter
+#: within TWIN_TOL["fp32"] of its max|p| (bitwise is expected at world 1:
+#: the same elementwise update on the same gradients), each loss alike
+ZERO1_PAIRS = (("zero1", "distopt"), ("zero1", "adamw"),
+               ("overlap", "distopt"), ("overlap", "adamw"),
+               ("half_wire", "distopt_half"))
+ZERO1_LR = 3e-4
+ZERO1_DROPOUT = (0.0, 0.1)
+#: gpt_lm --shard-states at gpt_medium's widths (the flash kernels run),
+#: at the phase's AdamW lr (the trainer's default 3e-3 suits its small
+#: default model)
+ZERO1_TRAINER_WIDE = ["--d-model", "1024", "--layers", "12", "--heads",
+                      "8", "--seq", "1024", "--batch", "4", "--steps", "20",
+                      "--lr", "3e-4"]
+
+
+def set_dropout(model, p):
+    """Every dropout layer of `model` at rate p."""
+    from singa_tpu_torch import layer
+
+    for mod in model.modules():
+        if isinstance(mod, layer.Dropout):
+            mod.p = p
+
+
+def params_gap(torch, a, b):
+    """max over tensors of max|a - b| / max|b|, and whether all equal."""
+    gap = max((a[n].float() - b[n].float()).abs().max().item()
+              / max(b[n].float().abs().max().item(), 1e-30) for n in b)
+    return gap, all(torch.equal(a[n], b[n]) for n in b)
+
+
+def zero1_sync_timings(torch, comm, model, step_ms, card):
+    """Device ms of the ZeRO-1 sync's parts on gpt_medium's parameter
+    and gradient set (seeded scratch tensors of the parameters' shapes,
+    fp32), each captured alone and timed over replays (`graph_ms`),
+    beside its bytes bound at PEAK_BYTES_S (each input read once, each
+    output written once) and the captured ZeRO-1 step."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.communicator import (_all_gather_into_tensor,
+                                              _reduce_scatter_tensor)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = {n: torch.randn(p.shape, generator=gen, device="cuda")
+              for n, p in model.named_parameters()}
+    grads = [torch.randn(p.shape, generator=gen, device="cuda")
+             for p in params.values()]
+    d = opt.DistOpt(opt.AdamW(lr=ZERO1_LR), mesh=comm.mesh,
+                    shard_states=True)
+    d.prepare(params)
+    bare = opt.AdamW(lr=ZERO1_LR)
+    bare.prepare(params)
+    dev, sizes = torch.device("cuda"), d._z_sizes
+    n = sum(sizes)
+    flat = d._z_segments(d._z_flat(grads, dev, sizes), 1)[0]
+    shard, full = torch.empty_like(flat), torch.empty_like(flat)
+    out = {"elements": n, "step_ms": step_ms}
+
+    def row(name, fn, nbytes):
+        ms = graph_ms(torch, fn)
+        bound = nbytes / PEAK_BYTES_S * 1e3
+        out[name] = dict(ms=ms, bound_ms=bound, bytes=nbytes,
+                         share_of_step=ms / step_ms)
+        print(f"zero1 sync {name}: {ms:.3f} ms, bytes bound {bound:.3f} ms "
+              f"({nbytes / 1e9:.2f} GB at 3.35 TB/s), {ms / step_ms:.1%} of "
+              f"the {step_ms:.2f} ms captured ZeRO-1 step ({card})",
+              flush=True)
+
+    def write_back():
+        off = 0
+        for p, k in zip(params.values(), sizes):
+            p.copy_(full[off:off + k].view(p.shape))
+            off += k
+
+    def per_param_update():
+        for p, g in zip(params.values(), grads):
+            bare.update(p, g)
+
+    row("grad_flatten_pad",
+        lambda: d._z_segments(d._z_flat(grads, dev, sizes), 1), 8 * n)
+    row("param_flatten", lambda: d._z_shard(
+        d._z_flat(list(params.values()), dev), 1, 0), 8 * n)
+    row("nccl_reduce_scatter_tensor_world1",
+        lambda: _reduce_scatter_tensor(shard, flat, group=comm.group), 8 * n)
+    row("reduce_scatter_mean", lambda: comm.reduce_scatter(flat), 8 * n)
+    # AdamW reads p, g, m, v and writes p, m, v
+    row("flat_adamw_update", lambda: d.opt.update(d._z_proxy, flat[None]),
+        28 * n)
+    row("per_parameter_adamw_update", per_param_update, 28 * n)
+    row("nccl_all_gather_into_tensor_world1",
+        lambda: _all_gather_into_tensor(full, shard, group=comm.group),
+        8 * n)
+    row("write_back", write_back, 8 * n)
+    return out
+
+
+def zero1_path(torch, fa, mp, card):
+    """ZeRO-1 (`DistOpt(shard_states=True)`) trains gpt_medium's unrolled
+    decoder over a world-1 NCCL group: the equalities against plain
+    DistOpt and bare AdamW (and of each wire option) over 3 captured
+    steps at dropout 0 and 0.1, 6 captured steps counted and held
+    against their uncaptured twin in fp32 and bf16, rank 1's dropout
+    stream under capture, the steps' times in turns, the sync's parts
+    timed, the slot bytes, and `gpt_lm --shard-states` twice. Returns
+    the counted step's launches and the numbers."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import autograd, distributed, opt
+    from singa_tpu_torch.communicator import Communicator
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+
+    distributed.init(device="cuda")
+    check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+          f"the group is {tdist.get_backend()} at world "
+          f"{tdist.get_world_size()}, not NCCL at 1")
+    out = {"card": card, "equalities": {}}
+    per_step = dict(NO_LAUNCH, flash_fwd=12, flash_bwd_dq=12,
+                    flash_bwd_dkv=12)
+    try:
+        m = gpt_medium(scan_blocks=False, dropout=0.0, device="cuda")
+        load_singa_tpu_params(m, seeded_params(m, SEED))
+        start = state_of(m)
+        rng = np.random.default_rng(SEED)
+        seq = torch.from_numpy(rng.integers(0, m.vocab_size,
+                                            (4, 1025))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+        mesh = distributed.global_mesh()
+
+        def restore(kw, p=0.0, precision="fp32", use_graph=True,
+                    lr=ZERO1_LR):
+            def put(model):
+                with torch.no_grad():
+                    for name, t in model.named_parameters():
+                        t.copy_(start[name])
+                set_dropout(model, p)
+                torch.manual_seed(SEED)  # the same dropout draws each run
+                base = opt.AdamW(lr=lr)
+                model.set_optimizer(base if kw is None else opt.DistOpt(
+                    base, mesh=mesh, **kw))
+                model.compile([x], is_train=True, use_graph=use_graph,
+                              precision=precision)
+            return put
+
+        # the equalities: 3 captured steps of each run from one state
+        launches = None
+        for p in ZERO1_DROPOUT:
+            runs = {}
+            for name, (kw, option) in ZERO1_RUNS.items():
+                drop_graphs(torch)
+                restore(kw, p)(m)
+                if name == "zero1" and p == 0.0:  # the counted step
+                    reset_counts(fa, mp)
+                    losses = captured_steps(torch, fa, mp, m, x, y,
+                                            per_step, "zero1 fp32",
+                                            steps=3)[0]
+                    launches = per_step
+                else:
+                    args = () if option == "plain" else (option,)
+                    losses = [m(x, y, *args)[1].item() for _ in range(3)]
+                gs = m._train_step
+                check(all(np.isfinite(losses)) and (gs.captures,
+                                                    gs.replays) == (1, 2),
+                      f"zero1 {name} at dropout {p}: non-finite losses "
+                      f"{losses} or not one capture and 2 replays")
+                runs[name] = (losses, state_of(m))
+                if name == "gather_half":
+                    d = m.optimizer
+                    flat = torch.cat([t.detach().reshape(-1)
+                                      for t in m.parameters()])
+                    master = d._z_master[0, :flat.numel()]
+                    exact = torch.equal(
+                        flat, master.to(torch.bfloat16).float())
+                    print(f"zero1 gather_half at dropout {p}: losses "
+                          f"{losses}; every parameter its fp32 master "
+                          f"rounded to bf16: {exact}", flush=True)
+                    check(exact and losses[-1] < losses[0],
+                          f"gather_half at dropout {p}: a parameter is "
+                          f"not its master rounded to bf16, or the loss "
+                          f"did not fall")
+            for a, b in ZERO1_PAIRS:
+                gap, bitwise = params_gap(torch, runs[a][1], runs[b][1])
+                lgap = max(abs(u - v) / max(abs(v), 1e-30)
+                           for u, v in zip(runs[a][0], runs[b][0]))
+                print(f"zero1 {a} vs {b} at dropout {p}, 3 captured steps: "
+                      f"losses {runs[a][0]} vs {runs[b][0]}, bitwise "
+                      f"{bitwise and runs[a][0] == runs[b][0]}, parameters "
+                      f"max|d|/max|p| {gap:.3e}, losses max rel {lgap:.3e} "
+                      f"(tol {TWIN_TOL['fp32']})", flush=True)
+                check(gap <= TWIN_TOL["fp32"] and lgap <= TWIN_TOL["fp32"],
+                      f"zero1 {a} differs from {b} at dropout {p}")
+                out["equalities"][f"{a}_vs_{b}_dropout_{p}"] = dict(
+                    bitwise=bitwise and runs[a][0] == runs[b][0],
+                    max_rel=gap, loss_max_rel=lgap)
+            del runs
+
+        # rank 1's dropout stream through the capture: fresh masks on
+        # every replay, none of rank 0's (4 steps at lr 0)
+        rank_losses = {}
+        for rank in (0, 1):
+            drop_graphs(torch)
+            restore(None, 0.1, lr=0.0)(m)
+            autograd.reset_rank_draws()
+            with autograd.rank_draws(rank):
+                rank_losses[rank] = [m(x, y)[1].item() for _ in range(4)]
+            check(m._train_step.replays == 3, "the rank steps were not "
+                                              "captured")
+        print(f"zero1 dropout streams at lr 0, 4 captured steps: rank 0 "
+              f"{rank_losses[0]}, rank 1 {rank_losses[1]}", flush=True)
+        check(len(set(rank_losses[1])) == 4
+              and not set(rank_losses[0]) & set(rank_losses[1]),
+              "rank 1's captured steps repeat their masks or draw rank 0's")
+        out["rank_dropout_losses"] = rank_losses
+
+        # 6 captured steps, counted, against the uncaptured twin
+        twin = {}
+        for prec in ("fp32", "bf16"):
+            drop_graphs(torch)
+            restore(ZERO1_RUNS["zero1"][0], 0.0, prec)(m)
+            try:
+                losses, first_s, ms = captured_steps(
+                    torch, fa, mp, m, x, y, per_step, f"zero1 {prec}")
+                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      f"zero1 {prec}: the loss did not fall over 6 steps")
+                twin[prec] = hold_twin(
+                    torch, "zero1", prec, (losses, state_of(m), ms),
+                    eager_twin(torch, m, restore(
+                        ZERO1_RUNS["zero1"][0], 0.0, prec, False), x, y))
+                twin[prec]["losses"] = losses
+            finally:
+                autograd.set_autocast(False)
+        out["twin"] = twin
+
+        # the captured steps' ms in turns, and the slot bytes
+        times, slots = {}, {}
+        for prec in ("fp32", "bf16"):
+            for name in ("adamw", "distopt", "zero1", "zero1", "distopt",
+                         "adamw"):
+                drop_graphs(torch)
+                restore(ZERO1_RUNS[name][0], 0.0, prec)(m)
+                try:
+                    run_steps(torch, m, x, y, 2)  # uncaptured, capture
+                    times.setdefault(f"{name}_{prec}", []).append(
+                        run_steps(torch, m, x, y, 4)[1])
+                finally:
+                    autograd.set_autocast(False)
+                slots[name] = sum(
+                    t.numel() * t.element_size() for k, t in
+                    m.optimizer.dump_states().items() if k != "__step__")
+        for prec in ("fp32", "bf16"):
+            print(f"zero1 captured step ms ({card}), {prec}, 4 replays each "
+                  f"in turns (AdamW, DistOpt, ZeRO-1, ZeRO-1, DistOpt, "
+                  f"AdamW): " + ", ".join(
+                      f"{n} {times[f'{n}_{prec}']}" for n in
+                      ("adamw", "distopt", "zero1")), flush=True)
+        print(f"zero1 optimizer slot bytes: ZeRO-1 {slots['zero1']}, "
+              f"plain DistOpt {slots['distopt']}, AdamW {slots['adamw']} "
+              f"(world 1: the shard is the whole vector)", flush=True)
+        out.update(step_ms=times, slot_bytes=slots)
+        zero_ms = float(np.mean(times["zero1_fp32"]))
+        drop_graphs(torch)
+        out["sync"] = zero1_sync_timings(torch, Communicator(mesh), m,
+                                         zero_ms, card)
+        m.graph(False)
+        del m, start
+        drop_graphs(torch)
+
+        # the trainer, at its defaults and at gpt_medium's widths
+        out["trainer"] = {}
+        for label, argv in (("defaults", []),
+                            ("gpt_medium", ZERO1_TRAINER_WIDE)):
+            t = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "singa_tpu_torch.examples.gpt_lm",
+                 "--shard-states", *argv], capture_output=True, text=True,
+                timeout=600)
+            wall = time.perf_counter() - t
+            print(run.stdout, flush=True)
+            check(run.returncode == 0, f"gpt_lm --shard-states {argv} "
+                                       f"failed: {run.stderr[-2000:]}")
+            trained = [float(line.split("loss ")[1].split()[0]) for line in
+                       run.stdout.splitlines() if line.startswith("step ")]
+            check(len(trained) >= 2 and trained[-1] < trained[0]
+                  and "--- sample ---" in run.stdout
+                  and "(ZeRO-1 sharded slots)" in run.stdout,
+                  f"gpt_lm --shard-states {argv}: the loss did not fall, "
+                  f"no sample, or no ZeRO-1")
+            print(f"gpt_lm --shard-states {label}: losses {trained}, "
+                  f"{wall:.1f} s ({card})", flush=True)
+            out["trainer"][label] = dict(losses=trained, wall_s=wall)
+    finally:
+        autograd.set_autocast(False)
+        distributed.shutdown()
+        drop_graphs(torch)
+    return launches, out
+
+
 # -- the serving path ---------------------------------------------------------
 
 #: the serve phase's tolerance for logits against the dense decode path:
@@ -3329,6 +3667,14 @@ def main() -> int:
     print(f"dist: {time.perf_counter() - t:.1f} s ({card}); the counted "
           f"step's launches {dist_launches}", flush=True)
 
+    # 9f. ZeRO-1 gpt_medium over a world-1 NCCL group: 12 launches of
+    # each flash kernel a step
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    zero1_launches, zero1_out = zero1_path(torch, fa, mp, card)
+    print(f"zero1: {time.perf_counter() - t:.1f} s ({card}); the counted "
+          f"step's launches {zero1_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -3372,7 +3718,8 @@ def main() -> int:
                  "unrolled_train_step":
                      unrolled_launches["train_step"]["flash_fwd"],
                  "bert_step": bert_launches["flash_fwd"],
-                 "sonnx_bert_export": sonnx_export_launches["flash_fwd"]},
+                 "sonnx_bert_export": sonnx_export_launches["flash_fwd"],
+                 "zero1_gpt_medium_step": zero1_launches["flash_fwd"]},
              bert_base=at_bert("flash_fwd", None, ()),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
@@ -3396,7 +3743,8 @@ def main() -> int:
             launches_by_path={
                 "train_step": train_launches[name],
                 "unrolled_train_step": unrolled_launches["train_step"][name],
-                "bert_step": bert_launches[name]},
+                "bert_step": bert_launches[name],
+                "zero1_gpt_medium_step": zero1_launches[name]},
             bert_base=at_bert(name, key, grads),
             max_abs_err=max(bwd["max_abs_err"][g] for g in grads),
             ms=bwd[f"ms_{key}"], plain_ms=bwd["plain_ms"],
@@ -3445,6 +3793,7 @@ def main() -> int:
     print("mlp " + json.dumps(mlp), flush=True)
     print("sonnx " + json.dumps(sonnx_out), flush=True)
     print("dist_resnet50 " + json.dumps(dist_out), flush=True)
+    print("zero1_gpt_medium " + json.dumps(zero1_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,10 @@ on top of it:
   `lax.scan`. As in the reference, their products are plain `matmul`s
   outside the autocast policy;
 - `embedding`, `layernorm`, `dropout`, `transpose` and `cat` (reference
-  :676, :709, :1236, :1326-1352), which the layers call;
+  :676, :709, :1236, :1326-1352), which the layers call; `rank_draws`
+  gives each rank of a distributed step its own dropout stream, as the
+  reference folds the rank into the step's key (`singa_tpu/graph.py:
+  669-674`);
 - the export trace (`ExportTrace`, `op`), in place of the reference's
   `Function.meta` on its `Operator` tape (reference :531-546): every op
   above runs through `op(kind, attrs, fn, *inputs)`, which records
@@ -61,7 +64,9 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "relu", "conv2d", "DEGENERATE_STAT_COUNT", "batchnorm",
            "max_pool2d", "avg_pool2d", "global_avg_pool2d", "gelu", "tanh",
            "reshape", "linear", "vanilla_rnn", "lstm", "gru", "embedding",
-           "layernorm", "dropout", "transpose", "cat", "op", "ExportTrace"]
+           "layernorm", "dropout", "rank_draws", "draw_rank",
+           "rank_generators", "reset_rank_draws", "transpose", "cat", "op",
+           "ExportTrace"]
 
 #: reference parity: `Model.train(mode)` sets it; a model's forward
 #: records no tape while it is False
@@ -496,11 +501,90 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def dropout(x: torch.Tensor, p: float = 0.5,
             train: bool = True) -> torch.Tensor:
     """Inverted dropout with PyTorch's draws; the identity when not
-    training or p is 0."""
+    training or p is 0. Inside `rank_draws(r)` with r > 0 the mask comes
+    from rank r's own generator (see there)."""
     if not train or p <= 0.0:
         return op("Identity", {}, lambda a: a, x)
-    return op("Dropout", {"ratio": p},
-              lambda a: F.dropout(a, p, training=True), x)
+    gen = _rank_generator(x.device)
+    if gen is None:
+        return op("Dropout", {"ratio": p},
+                  lambda a: F.dropout(a, p, training=True), x)
+    scale = 1.0 / (1.0 - p) if p < 1.0 else 0.0
+    return op("Dropout", {"ratio": p}, lambda a: a * torch.empty_like(
+        a).bernoulli_(1.0 - p, generator=gen).mul_(scale), x)
+
+
+# -- each rank's dropout draws ------------------------------------------------
+#
+# The reference folds the data-axis index into a distributed step's key
+# (singa_tpu/graph.py:669-674), so every shard draws its own masks. Here a
+# rank is a process whose default generator the trainers seed alike on
+# every rank; `Model._dist_train` runs its step under `rank_draws(rank)`.
+
+_draws = threading.local()
+#: (device, rank) -> [generator, the seed it was made from]
+_RANK_GENERATORS: dict = {}
+#: the seed stride between ranks (2**64 / the golden ratio)
+_RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+class rank_draws:
+    """`with autograd.rank_draws(r):` dropout inside draws rank r's
+    stream. Rank 0 draws from PyTorch's default generator, exactly as
+    outside any distributed step (so a world-1 step is bitwise the plain
+    one); rank r > 0 from a generator of its own on each device, seeded
+    at its first use from `torch.initial_seed()` and r, and seeded anew
+    when `torch.initial_seed()` has changed or after
+    `reset_rank_draws()`. A captured step (`graph.GraphStep`) registers
+    these generators with its graph, so every replay draws fresh masks."""
+
+    def __init__(self, rank: int):
+        self.rank = int(rank)
+
+    def __enter__(self):
+        self._prev = getattr(_draws, "rank", 0)
+        _draws.rank = self.rank
+
+    def __exit__(self, *exc):
+        _draws.rank = self._prev
+
+
+def draw_rank() -> int:
+    """The rank whose dropout stream is active (0 outside `rank_draws`)."""
+    return getattr(_draws, "rank", 0)
+
+
+def rank_generators(device: torch.device) -> List[torch.Generator]:
+    """The rank generators made so far on `device`."""
+    return [g for (dev, _), (g, _) in _RANK_GENERATORS.items()
+            if dev == device]
+
+
+def reset_rank_draws() -> None:
+    """Forget every rank generator: the next draw of rank r > 0 starts
+    its stream from `torch.initial_seed()` again."""
+    _RANK_GENERATORS.clear()
+
+
+def _rank_generator(device: torch.device) -> Optional[torch.Generator]:
+    rank = draw_rank()
+    if rank == 0:
+        return None
+    seed = (torch.initial_seed() + rank * _RANK_SEED_STRIDE) % 2 ** 63
+    entry = _RANK_GENERATORS.get((device, rank))
+    if entry is not None and entry[1] == seed:
+        return entry[0]
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"rank {rank}'s dropout generator on {device} would be made or "
+            f"seeded inside a CUDA Graph capture; run the step once "
+            f"uncaptured first (graph.GraphStep does)")
+    if entry is None:
+        entry = _RANK_GENERATORS[(device, rank)] = [
+            torch.Generator(device=device), seed]
+    entry[0].manual_seed(seed)
+    entry[1] = seed
+    return entry[0]
 
 
 def _pair(v) -> Tuple[int, int]:

@@ -1,5 +1,5 @@
-"""Communicator and DistOpt (counterpart of singa_tpu/communicator.py:140-1064
-and 1289-1429): data-parallel gradient sync over `torch.distributed`.
+"""Communicator and DistOpt (counterpart of singa_tpu/communicator.py:140-1429):
+data-parallel gradient sync over `torch.distributed`.
 
 The reference emits XLA collectives inside a `shard_map` over its data
 axis. Here each rank is one process and the collectives are
@@ -8,10 +8,11 @@ gloo on the CPU. A mean is a SUM followed by `/ world`, exact at world
 1, so NCCL and gloo take one code path, and on the card a world-1 group
 really launches NCCL. When the mesh has no process group (no `init`),
 every collective is the identity, the reference's "outside SPMD" case.
-`reduce_scatter` sums the whole vector and keeps this rank's chunk, on
-both backends (gloo has no reduce-scatter); nothing on the ported path
-calls it, and ZeRO-1 (item 12's open part) is where NCCL's own
-reduce-scatter would pay.
+`reduce_scatter` and `all_gather` are the backends' own
+`reduce_scatter_tensor` and `all_gather_into_tensor` (gloo has both in
+the torch this runs on; torch 2.13 renames them `reduce_scatter_single`
+and `all_gather_single` and warns on the old names, so the new name is
+called where torch has it); ZeRO-1's step runs on them.
 
 Every collective here is capturable in a CUDA Graph with its step
 (`graph.GraphStep`): it enqueues on the current stream and reads no
@@ -23,9 +24,14 @@ optimizer's clipping and update), `backward_and_update_half` (a bf16
 wire), `backward_and_sparse_update` (top-k or threshold selection with
 error-feedback residuals; the residuals and the threshold mode's
 dropped-entry count stay on the device) and
-`backward_and_partial_update`. Its ZeRO-1 options (`shard_states`,
-`half_wire`, `gather_half`, `overlap`) are the next part of ROADMAP
-queue 1 item 12 and raise here; `set_sentinel` is item 17.
+`backward_and_partial_update`. With `shard_states=True` (ZeRO-1)
+`backward_and_update` reduce-scatters one flat gradient, updates this
+rank's 1/world shard of the flat parameter vector (the wrapped
+optimizer's slots exist only for that shard) and all-gathers it back;
+`half_wire` and `gather_half` put the two collectives on a bf16 wire,
+`overlap` runs one pair a `plan_buckets` bucket. `set_sentinel` is
+ROADMAP queue 1 item 17 (so are the reference ZeRO-1 step's sentinel
+branches).
 
 `plan_buckets` is the port's own copy of the reference's Python bucket
 planner (the oracle its native planner is held to).
@@ -38,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch.parallel import mesh as mesh_module
@@ -105,14 +112,29 @@ class Communicator:
         return y
 
     def _gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
-        parts = [torch.empty_like(x) for _ in range(self.world_size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, axis)
+        """The shards of every rank joined along `axis`, by the backend's
+        own all-gather into one tensor."""
+        y = x.movedim(axis, 0).contiguous()
+        out = y.new_empty((self.world_size * y.shape[0], *y.shape[1:]))
+        _all_gather_into_tensor(out, y, group=self.group)
+        return out.movedim(0, axis)
+
+    def _scatter(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """This rank's chunk along `axis` of the sum over the group, by
+        the backend's own reduce-scatter."""
+        y = x.movedim(axis, 0).contiguous()
+        if y.shape[0] % self.world_size:
+            raise ValueError(
+                f"reduce_scatter: axis {axis} has {y.shape[0]} entries, not "
+                f"a multiple of the world {self.world_size}")
+        out = y.new_empty((y.shape[0] // self.world_size, *y.shape[1:]))
+        _reduce_scatter_tensor(out, y, group=self.group)
+        return out.movedim(0, axis)
 
     # -- core collectives ------------------------------------------------------
     def all_reduce(self, x: torch.Tensor, average: bool = True
                    ) -> torch.Tensor:
-        """Sum (or mean) over the data group (reference `synch`)."""
+        """Sum (or mean) over the data group (reference `synch`, :162)."""
         if not self._active():
             return x
         y = self._sum(x)
@@ -120,9 +142,10 @@ class Communicator:
 
     def all_reduce_half(self, x: torch.Tensor, average: bool = True,
                         axes=None) -> torch.Tensor:
-        """The bf16 wire: cast to bfloat16, sum in bf16, cast back to the
-        input dtype, then the mean. `axes` names the axes to reduce over
-        (None: the data axis; an empty tuple: none)."""
+        """The bf16 wire (reference :174): cast to bfloat16, sum in bf16,
+        cast back to the input dtype, then the mean. `axes` names the
+        axes to reduce over (None: the data axis; an empty tuple:
+        none)."""
         axes = (self.axis_name,) if axes is None else tuple(axes)
         if self.axis_name not in axes or not self._active():
             return x
@@ -130,15 +153,15 @@ class Communicator:
         return y / self.world_size if average else y
 
     def all_gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
-        """The shards of every rank joined along `axis` (tiled)."""
+        """The shards of every rank joined along `axis` (tiled; reference
+        :197)."""
         return self._gather(x, axis) if self._active() else x
-
-    def _scatter(self, x: torch.Tensor, axis: int) -> torch.Tensor:
-        """This rank's chunk of the sum over the group along `axis`."""
-        return self._sum(x).chunk(self.world_size, axis)[self.rank]
 
     def reduce_scatter(self, x: torch.Tensor, axis: int = 0,
                        average: bool = True) -> torch.Tensor:
+        """This rank's chunk along `axis` of the sum (or mean) over the
+        group (tiled; reference :205); the axis must divide by the
+        world."""
         if not self._active():
             return x
         y = self._scatter(x, axis)
@@ -146,8 +169,8 @@ class Communicator:
 
     def reduce_scatter_half(self, x: torch.Tensor, axis: int = 0,
                             average: bool = True) -> torch.Tensor:
-        """The bf16-wire reduce-scatter, cast back to the input dtype
-        before the mean."""
+        """The bf16-wire reduce-scatter (reference :215): summed in bf16,
+        cast back to the input dtype before the mean."""
         if not self._active():
             return x
         y = self._scatter(x.to(torch.bfloat16), axis).to(x.dtype)
@@ -155,7 +178,8 @@ class Communicator:
 
     def all_gather_half(self, x: torch.Tensor, axis: int = 0
                         ) -> torch.Tensor:
-        """The bf16-wire all-gather (rounds the gathered values)."""
+        """The bf16-wire all-gather (reference :230; rounds the gathered
+        values)."""
         if not self._active():
             return x
         return self._gather(x.to(torch.bfloat16), axis).to(x.dtype)
@@ -204,13 +228,14 @@ class Communicator:
 
     def reduce_scatter_buckets(self, bucket_flats, average: bool = True,
                                half: bool = False):
-        """One reduce-scatter a bucket (each flat already padded to a
-        world multiple)."""
+        """One reduce-scatter a bucket (reference :294; each flat already
+        padded to a world multiple): DistOpt(overlap=True)'s sync."""
         fn = self.reduce_scatter_half if half else self.reduce_scatter
         return [fn(f, axis=0, average=average) for f in bucket_flats]
 
     def all_gather_buckets(self, bucket_shards, half: bool = False):
-        """The inverse of `reduce_scatter_buckets`."""
+        """One all-gather a bucket shard, the inverse of
+        `reduce_scatter_buckets` (reference :309)."""
         fn = self.all_gather_half if half else self.all_gather
         return [fn(s, axis=0) for s in bucket_shards]
 
@@ -264,6 +289,24 @@ class Communicator:
     sparsification = sparse_all_reduce
 
 
+#: the backends' own reduce-scatter and all-gather into one tensor, under
+#: the name torch 2.13 gives them where torch has it
+_reduce_scatter_tensor = (getattr(dist, "reduce_scatter_single", None)
+                          or dist.reduce_scatter_tensor)
+_all_gather_into_tensor = (getattr(dist, "all_gather_single", None)
+                           or dist.all_gather_into_tensor)
+
+
+def _pad(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """`flat` zero-padded to `n` entries (itself when it has them)."""
+    return flat if flat.numel() == n else F.pad(flat, (0, n - flat.numel()))
+
+
+def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
+    """torch.cat, without the copy of a single part."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def _memory_order(t: torch.Tensor) -> List[int]:
     """t's dims from the largest stride down: t.permute(order) is
     contiguous for a dense tensor in any memory format."""
@@ -297,16 +340,35 @@ def plan_buckets(sizes: Sequence[int], bucket_elems: int
 
 # -- DistOpt -------------------------------------------------------------------
 
-_ZERO1 = ("DistOpt({}=) is ZeRO-1, the next part of ROADMAP queue 1 item 12 "
-          "(shard_states, half_wire, gather_half, overlap)")
+#: the name the wrapped optimizer keeps ZeRO-1's shard proxy (and its slots)
+#: under, and the key of gather_half's fp32 master shard (the reference's)
+ZSHARD = "__zero1__//__zshard__"
+ZMASTER = "__zero1__//__master__//__zshard__"
+_DENSE_ONLY = ("shard_states=True composes with the dense fused sync only "
+               "(dist_option='plain'): the half/sparse/partial paths update "
+               "full parameters and would mint full-size slots, defeating "
+               "the sharding")
 
 
 class DistOpt:
-    """Data-parallel optimizer wrapper (reference `singa.opt.DistOpt`):
-    the gradients are synced over the mesh's group after the backward,
-    then the wrapped optimizer steps. The reference constructor's
-    `nccl_id`, `local_rank` and `world_size` are accepted; the group
-    comes from `distributed.init` and the mesh."""
+    """Data-parallel optimizer wrapper (reference `singa.opt.DistOpt`,
+    `singa_tpu/communicator.py:418-1429`): the gradients are synced over
+    the mesh's group after the backward, then the wrapped optimizer
+    steps. The reference constructor's `nccl_id`, `local_rank` and
+    `world_size` are accepted; the group comes from `distributed.init`
+    and the mesh.
+
+    `shard_states=True` is ZeRO-1 (reference :451-476): the gradients
+    reduce-scatter instead of all-reducing, each rank updates only its
+    1/world shard of the concatenated parameter vector (the wrapped
+    optimizer's slots exist only for that shard, `(1, chunk)` on each
+    rank where the reference holds the `(world, chunk)` stack), and the
+    updated shards all-gather back into the replicated parameters.
+    `half_wire` reduce-scatters in bf16, `gather_half` all-gathers in
+    bf16 and keeps an fp32 master shard, `overlap` runs one
+    reduce-scatter and one all-gather a `plan_buckets(sizes, buffSize)`
+    bucket. With no process group the shard is the whole vector (the
+    reference's world-1 "outside SPMD" case)."""
 
     def __init__(self, opt, mesh: Optional[mesh_module.Mesh] = None,
                  axis_name: str = mesh_module.DATA_AXIS, nccl_id=None,
@@ -333,12 +395,6 @@ class DistOpt:
                 "half_wire/gather_half are ZeRO-1 wire formats "
                 "(shard_states=True); for plain DP use "
                 "dist_option='half' instead")
-        for name, val in (("shard_states", shard_states),
-                          ("half_wire", half_wire),
-                          ("gather_half", gather_half),
-                          ("overlap", overlap)):
-            if val:
-                raise NotImplementedError(_ZERO1.format(name))
         if grad_axes and tuple(grad_axes) != (axis_name,):
             raise NotImplementedError(
                 f"DistOpt(grad_axes={tuple(grad_axes)}): the sequence and "
@@ -347,6 +403,10 @@ class DistOpt:
         self.comm = Communicator(mesh, axis_name)
         self.buffSize = buffSize
         self.use_sparse = use_sparse
+        self.shard_states = bool(shard_states)
+        self.half_wire = bool(half_wire)
+        self.gather_half = bool(gather_half)
+        self.overlap = bool(overlap)
         self._rank_shim = local_rank
         self._world_shim = world_size
         #: error-feedback residuals, keyed by id(param), param-shaped on
@@ -355,6 +415,21 @@ class DistOpt:
         #: the threshold mode's dropped-entry count of the LAST step,
         #: over the group: a device scalar written in place each step
         self._sparse_dropped = torch.zeros((), dtype=torch.float32)
+        # ZeRO-1's layout, fixed by the first prepare(): the parameters
+        # in canonical order, their flat sizes, the world and this
+        # rank's chunk, the bucket plan (overlap), the shard proxy the
+        # wrapped optimizer keeps its slots against, gather_half's fp32
+        # master shard, and the has-gradient masks by pattern
+        self._z_params: List[torch.Tensor] = []
+        self._z_sizes: List[int] = []
+        self._z_world = 1
+        self._z_chunk = 0
+        self._z_buckets: Optional[List[List[int]]] = None
+        self._z_btotals: List[int] = []
+        self._z_proxy: Optional[torch.Tensor] = None
+        self._z_master: Optional[torch.Tensor] = None
+        self._z_master_set = False
+        self._z_masks: Dict[Tuple[bool, ...], torch.Tensor] = {}
 
     # -- introspection ---------------------------------------------------------
     @property
@@ -387,6 +462,14 @@ class DistOpt:
 
     # -- optimizer protocol ----------------------------------------------------
     def prepare(self, named_params) -> None:
+        """Name the parameters' slots and make them (reference :575).
+        Under shard_states the wrapped optimizer gets one proxy instead,
+        this rank's `(1, chunk)` shard of the flat parameter vector, under
+        `ZSHARD`; a second prepare of the same parameters changes nothing
+        and one of another set raises."""
+        if self.shard_states:
+            self._z_prepare(named_params)
+            return
         self.opt.prepare(named_params)
         for p in named_params.values():
             self._sparse_dropped = self._sparse_dropped.to(p.device)
@@ -396,27 +479,84 @@ class DistOpt:
                 if id(p) not in self._residuals:
                     self._residuals[id(p)] = torch.zeros_like(p)
 
+    def _z_prepare(self, named_params) -> None:
+        for name, p in named_params.items():
+            self.opt._names[id(p)] = name
+            if getattr(p, "pspec", None):
+                raise NotImplementedError(
+                    f"DistOpt(shard_states=True) with the sharded parameter "
+                    f"{name!r} (pspec {p.pspec}) is not supported: ZeRO-1 "
+                    f"shards REPLICATED params over the data axis")
+        params = list(named_params.values())
+        if self._z_proxy is not None:
+            if [id(p) for p in params] != [id(p) for p in self._z_params]:
+                raise RuntimeError(
+                    "DistOpt(shard_states=True): the parameter set changed "
+                    "after the first prepare(); the ZeRO shard layout is "
+                    "fixed at first compile - build a fresh DistOpt for the "
+                    "new parameter set")
+            return
+        world = self.comm.world_size
+        self._z_params = params
+        self._z_sizes = [p.numel() for p in params]
+        self._z_world = world
+        if self.overlap and params:
+            self._z_buckets = plan_buckets(self._z_sizes, self.buffSize)
+            self._z_btotals = [sum(self._z_sizes[i] for i in b)
+                               for b in self._z_buckets]
+            self._z_chunk = sum(self._z_bchunks(world))
+        else:
+            self._z_chunk = -(-max(1, sum(self._z_sizes)) // world)
+        dev = params[0].device if params else torch.device("cpu")
+        self._sparse_dropped = self._sparse_dropped.to(dev)
+        self._z_proxy = torch.zeros((1, self._z_chunk), dtype=torch.float32,
+                                    device=dev)
+        if self.gather_half:
+            # filled from the parameters at the first step (the reference
+            # makes it at its first step's prepare), unless loaded first
+            self._z_master = torch.zeros_like(self._z_proxy)
+            self._z_master_set = False
+        self.opt.prepare({ZSHARD: self._z_proxy})
+
     def dump_states(self) -> Dict[str, torch.Tensor]:
+        """The wrapped optimizer's states (under shard_states the proxy's
+        `(1, chunk)` slots, `ZSHARD + "//" + slot`), the residuals, the
+        dropped count and gather_half's master shard (`ZMASTER`, once a
+        step or a load has set it)."""
         states = dict(self.opt.dump_states())
         for pid, arr in self._residuals.items():
             states[f"{self.opt._names[pid]}//__residual__"] = arr
         if self.use_sparse:
             states["//__sparse_dropped__"] = self._sparse_dropped
+        if self._z_master_set:
+            states[ZMASTER] = self._z_master
         return states
 
     def load_states(self, states, strict: bool = False) -> None:
-        """Load a `dump_states` dict (the port's or the reference's). A
-        residual stacked (world, ...) over the reference's data axis
-        gives this rank its row."""
+        """Load a `dump_states` dict (the port's or the reference's, in
+        place). An entry the reference stacks over its data axis, a
+        residual `(world, ...)` or a ZeRO-1 slot or master `(world,
+        chunk)`, gives this rank its row."""
         own = {k for k in states if k.endswith("//__residual__")
-               or k == "//__sparse_dropped__"}
-        self.opt.load_states({k: v for k, v in states.items()
-                              if k not in own}, strict=strict)
+               or k == "//__sparse_dropped__" or k == ZMASTER}
+        rest = {k: self._z_row(k, v) if "//__zshard__" in k else v
+                for k, v in states.items() if k not in own}
+        self.opt.load_states(rest, strict=strict)
         by_name = {n: pid for pid, n in self.opt._names.items()}
         for k in own:
             arr = torch.as_tensor(states[k])
             if k == "//__sparse_dropped__":
                 self._sparse_dropped.copy_(arr)
+                continue
+            if k == ZMASTER:
+                if self._z_master is None:
+                    raise RuntimeError(
+                        "the states hold the ZeRO gather_half fp32 master "
+                        "shard but this DistOpt has none: construct it with "
+                        "shard_states=True, gather_half=True and call "
+                        "prepare() before load_states")
+                self._z_master.copy_(self._z_row(k, arr))
+                self._z_master_set = True
                 continue
             pid = by_name.get(k[: -len("//__residual__")])
             if pid is None:
@@ -429,6 +569,217 @@ class DistOpt:
                 self._residuals[pid] = arr.clone()
             else:  # in place: a captured step keeps reading `res`
                 res.copy_(arr)
+
+    def _z_row(self, key: str, arr) -> torch.Tensor:
+        """This rank's `(1, chunk)` row of a ZeRO-1 entry: the port's own
+        row as it is, the reference's `(world, chunk)` stack's row
+        `rank`."""
+        arr = torch.as_tensor(arr)
+        if not self._z_chunk:
+            return arr
+        if arr.dim() == 2 and arr.shape[0] == self._z_world > 1:
+            arr = arr[self.comm.rank:self.comm.rank + 1]
+        if tuple(arr.shape) != (1, self._z_chunk):
+            raise ValueError(
+                f"ZeRO entry {key!r} has shape {tuple(arr.shape)}; this "
+                f"rank's shard is (1, {self._z_chunk}) at world "
+                f"{self._z_world}: reshard a raw dump of another world or "
+                f"layout with reshard_raw_states, or load the canonical "
+                f"form through reshard_states")
+        return arr
+
+    # -- ZeRO-1's layout (plain or bucketed) -----------------------------------
+    def zero1_layout(self) -> Optional[Dict]:
+        """The world-independent ZeRO-1 layout stamp (reference :710):
+        {"overlap", "buckets" (the bucket totals, or None), "total"}; None
+        before `prepare` or without shard_states. A raw dump of another
+        layout is refused (`reshard_raw_states(layout=)`)."""
+        if not self.shard_states or not self._z_sizes:
+            return None
+        return {"overlap": self._z_bucketed(),
+                "buckets": (list(self._z_btotals) if self._z_bucketed()
+                            else None),
+                "total": sum(self._z_sizes)}
+
+    def _z_bchunks(self, world: int) -> List[int]:
+        """Each bucket's per-rank shard length at `world` (the plan itself
+        depends only on the sizes and buffSize; reference :734)."""
+        return [-(-t // world) for t in self._z_btotals]
+
+    def _z_bucketed(self) -> bool:
+        return self.overlap and bool(self._z_buckets)
+
+    @staticmethod
+    def _z_flat(tensors, dev, sizes=None) -> torch.Tensor:
+        """The fp32 concatenation of `tensors` in logical order; a None
+        entry is `sizes[i]` zeros (a parameter without a gradient)."""
+        parts = [torch.zeros(sizes[i], dtype=torch.float32, device=dev)
+                 if t is None else t.reshape(-1).float()
+                 for i, t in enumerate(tensors)]
+        return torch.cat(parts) if parts else torch.zeros(
+            0, dtype=torch.float32, device=dev)
+
+    def _z_segments(self, flat: torch.Tensor, world: int
+                    ) -> List[torch.Tensor]:
+        """The canonical flat vector in proxy layout at `world`: one
+        padded segment (world * chunk), or one a bucket (world * its
+        chunk)."""
+        if not self._z_bucketed():
+            return [_pad(flat, world * self._z_chunk)]
+        out, off = [], 0
+        for tot, cb in zip(self._z_btotals, self._z_bchunks(world)):
+            out.append(_pad(flat[off:off + tot], world * cb))
+            off += tot
+        return out
+
+    def _z_shard(self, flat: torch.Tensor, world: int, rank: int
+                 ) -> torch.Tensor:
+        """Rank `rank`'s proxy-layout shard of a canonical flat vector
+        (reference `_z_shard_jnp`, :764)."""
+        return _cat([seg.view(world, -1)[rank]
+                     for seg in self._z_segments(flat, world)])
+
+    def _z_rows(self, flat: torch.Tensor, world: int) -> torch.Tensor:
+        """Canonical flat vector -> the `(world, chunk)` proxy stack
+        (reference `_z_proxy_np`, :792)."""
+        return torch.cat([seg.view(world, -1) for seg in
+                          self._z_segments(flat, world)], dim=1)
+
+    def _z_canonical(self, rows: torch.Tensor) -> torch.Tensor:
+        """A `(world, chunk)` proxy stack (its leading dim the world it
+        was written at) -> the unpadded canonical flat vector (reference
+        `_z_canonical_np`, :743)."""
+        rows = rows.reshape(rows.shape[0], -1) if rows.dim() > 1 \
+            else rows.reshape(1, -1)
+        world, total = rows.shape[0], sum(self._z_sizes)
+        if not self._z_bucketed():
+            return rows.reshape(-1)[:total]
+        parts, off = [], 0
+        for tot, cb in zip(self._z_btotals, self._z_bchunks(world)):
+            parts.append(rows[:, off:off + cb].reshape(-1)[:tot])
+            off += cb
+        return torch.cat(parts)
+
+    def _z_mask(self, has_grad: Tuple[bool, ...], dev) -> torch.Tensor:
+        """This rank's shard of the has-gradient mask, made once a
+        pattern (reference :1208-1220)."""
+        mask = self._z_masks.get(has_grad)
+        if mask is None:
+            flat = torch.cat([torch.full((n,), float(h), device=dev)
+                              for h, n in zip(has_grad, self._z_sizes)])
+            mask = self._z_masks[has_grad] = self._z_shard(
+                flat, self._z_world, self.comm.rank) > 0
+        return mask
+
+    # -- world-size-portable state forms ---------------------------------------
+    def canonicalize_states(self, states) -> Dict[str, torch.Tensor]:
+        """This rank's `dump_states()` -> the world-independent canonical
+        form (reference :809): each ZeRO-1 entry becomes the unpadded
+        flat vector, each sparse residual the sum over the ranks, the
+        rest passes through. A COLLECTIVE: every rank of the group calls
+        it, in the same order, with its own dump (the rows of the other
+        ranks come over the wire), never inside a captured step."""
+        out = {}
+        for k, v in states.items():
+            arr = torch.as_tensor(v)
+            if "//__zshard__" in k:
+                if not self._z_sizes:
+                    raise RuntimeError(
+                        "canonicalize_states: ZeRO entries present but "
+                        "prepare() has not established the flat layout")
+                out[k] = self._z_canonical(self.comm.all_gather(
+                    self._z_row(k, arr)))
+            elif k.endswith("//__residual__"):
+                out[k] = self.comm.all_reduce(arr, average=False)
+            else:
+                out[k] = arr
+        return out
+
+    def reshard_states(self, states) -> Dict[str, torch.Tensor]:
+        """The canonical form (either package's) -> this rank's states at
+        this world (reference :848): a flat ZeRO-1 vector becomes this
+        rank's `(1, chunk)` row, a residual sum this rank's 1/world share.
+        Needs `prepare` first."""
+        world, out = self._z_world, {}
+        for k, v in states.items():
+            arr = torch.as_tensor(v)
+            if "//__zshard__" in k:
+                if not self._z_chunk:
+                    raise RuntimeError(
+                        f"reshard_states: canonical ZeRO entry {k!r} but "
+                        f"this DistOpt has no ZeRO flat layout: construct "
+                        f"it with shard_states=True and call prepare() "
+                        f"before loading, or drop the '//__zshard__' "
+                        f"entries to resume without optimizer-state "
+                        f"sharding")
+                total = sum(self._z_sizes)
+                if tuple(arr.shape) != (total,):
+                    raise ValueError(
+                        f"canonical ZeRO entry {k!r} has {arr.numel()} "
+                        f"elements; this parameter set needs {total}: the "
+                        f"states belong to a different model")
+                out[k] = self._z_shard(arr, world, self.comm.rank)[None]
+            elif k.endswith("//__residual__"):
+                out[k] = arr / self.comm.world_size
+            else:
+                out[k] = arr
+        return out
+
+    def reshard_raw_states(self, states, layout: Optional[Dict] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """Raw states of a run at ANY world -> this rank's at this world
+        (reference :885). A ZeRO-1 entry is the saving run's `(world_A,
+        chunk_A)` stack (the reference's dump, or every rank's row
+        stacked) and goes through the canonical vector; an entry already
+        this rank's `(1, chunk)` row passes through; a residual stacked
+        `(world_A, ...)` is summed, and every residual split evenly.
+        `layout` is the saving run's `zero1_layout()`: a raw stack is
+        bucket-dependent, so another layout is refused."""
+        mine = self.zero1_layout()
+        if layout is not None and mine is not None and layout != mine:
+            raise ValueError(
+                f"raw ZeRO-1 states with shard layout {layout} but this "
+                f"DistOpt uses {mine} (overlap/buffSize changed between "
+                f"save and load): the raw proxy layout is bucket-dependent "
+                f"and would scramble the slots. Load with the saving run's "
+                f"overlap/buffSize, or go through the CANONICAL layout-blind "
+                f"form (canonicalize_states, then reshard_states)")
+        world, out = self._z_world, {}
+        for k, v in states.items():
+            arr = torch.as_tensor(v)
+            if "//__zshard__" in k:
+                if not self._z_chunk:
+                    raise RuntimeError(
+                        f"reshard_raw_states: ZeRO entry {k!r} but this "
+                        f"DistOpt has no ZeRO flat layout: construct it "
+                        f"with shard_states=True and call prepare() before "
+                        f"loading")
+                total = sum(self._z_sizes)
+                if arr.numel() < total:
+                    raise ValueError(
+                        f"raw ZeRO entry {k!r} holds {arr.numel()} "
+                        f"elements; this parameter set needs {total}: the "
+                        f"states belong to a different model")
+                if world > 1 and tuple(arr.shape) == (1, self._z_chunk):
+                    out[k] = arr
+                else:
+                    out[k] = self._z_shard(self._z_canonical(arr), world,
+                                           self.comm.rank)[None]
+            elif k.endswith("//__residual__"):
+                pnd = self._residual_param_ndim(k)
+                canon = arr.sum(0) if pnd is not None and \
+                    arr.dim() == pnd + 1 else arr
+                out[k] = canon / self.comm.world_size
+            else:
+                out[k] = arr
+        return out
+
+    def _residual_param_ndim(self, key: str) -> Optional[int]:
+        pname = key[: -len("//__residual__")]
+        for pid, arr in self._residuals.items():
+            if self.opt._names.get(pid) == pname:
+                return arr.dim()
+        return None
 
     @property
     def sparse_dropped_last(self) -> float:
@@ -463,15 +814,108 @@ class DistOpt:
     def backward_and_update(self, loss: torch.Tensor,
                             threshold: Optional[int] = None) -> None:
         """Backward, the fused-bucket all-reduce (`threshold` aliases
-        buffSize), then the clip and the update."""
+        buffSize), then the clip and the update (reference :1028); with
+        shard_states the ZeRO-1 step instead."""
+        if self.shard_states:
+            return self._backward_and_zero1_update(loss)
         pairs = list(autograd.grad_pairs(loss))
         synced = self.comm.fused_all_reduce(
             [g for _, g in pairs], average=True,
             bucket_elems=threshold or self.buffSize)
         self._stream_or_clip((p, g) for (p, _), g in zip(pairs, synced))
 
+    def _backward_and_zero1_update(self, loss: torch.Tensor) -> None:
+        """The ZeRO-1 step (reference :1065-1287, without its sentinel
+        branches, item 17): the gradients flat in prepare() order (zeros
+        for a parameter without one), padded to a world multiple and
+        reduce-scattered (bf16 with half_wire; one collective a bucket
+        with overlap); clip_value, then clip_norm over the group's square
+        sum; the wrapped optimizer's update of this rank's parameter
+        shard (from the replicated parameters, or the fp32 master with
+        gather_half), values and slot coordinates of gradient-less
+        parameters rolled back; the all-gather (bf16 with gather_half)
+        and the write-back. Every state is written in place, so a
+        captured step replays against the same tensors."""
+        if self._z_proxy is None:
+            raise RuntimeError(
+                "DistOpt(shard_states=True) requires prepare() before "
+                "stepping (Model.set_optimizer / compile does this)")
+        world, rank = self._z_world, self.comm.rank
+        active = self.comm._active()
+        if world != self.comm.world_size or (world > 1 and not active):
+            raise RuntimeError(
+                f"DistOpt(shard_states=True) was prepared over a world of "
+                f"{world}; its process group is gone or changed")
+        grads = {id(p): g for p, g in autograd.grad_pairs(loss)}
+        known = {id(p) for p in self._z_params}
+        unknown = [pid for pid in grads if pid not in known]
+        if unknown:
+            raise RuntimeError(
+                f"DistOpt(shard_states=True): gradients arrived for "
+                f"{len(unknown)} tensor(s) outside the prepare()-time "
+                f"parameter set (parameters replaced after the first "
+                f"compile?); rebuild the DistOpt or copy into the "
+                f"parameters in place. Known-name sample: "
+                f"{[self.opt._names[id(p)] for p in self._z_params[:3]]}")
+        opt, proxy, dev = self.opt, self._z_proxy, self._z_proxy.device
+        with torch.no_grad():
+            segs = self._z_segments(self._z_flat(
+                [grads.get(id(p)) for p in self._z_params], dev,
+                self._z_sizes), world)
+            gsh = _cat(self.comm.reduce_scatter_buckets(
+                segs, average=True, half=self.half_wire) if active
+                else segs)  # no group: the shard is the whole vector
+            if opt.clip_value is not None:
+                cv = float(opt.clip_value)
+                gsh = gsh.clamp(-cv, cv)
+            if opt.clip_norm is not None:
+                sq = self.comm.all_reduce(gsh.square().sum(), average=False)
+                gsh = gsh * torch.clamp(
+                    opt.clip_norm / torch.clamp(sq.sqrt(), min=1e-12),
+                    max=1.0)
+            if self._z_master is None or not self._z_master_set:
+                psh = self._z_shard(self._z_flat(
+                    [p.detach() for p in self._z_params], dev), world, rank)
+                if self._z_master is not None:
+                    self._z_master.copy_(psh[None])
+                    self._z_master_set = True
+            if self._z_master is not None:
+                psh = self._z_master[0]
+            has_grad = tuple(id(p) in grads for p in self._z_params)
+            mask = None if all(has_grad) else self._z_mask(has_grad, dev)
+            proxy.copy_(psh[None])
+            slots = opt._slots.get(id(proxy), {})
+            before = ({k: v.clone() for k, v in slots.items()}
+                      if mask is not None else None)
+            opt.update(proxy, gsh[None])
+            new_sh = proxy[0]
+            if mask is not None:
+                for k, v in slots.items():
+                    v.copy_(torch.where(mask[None], v, before[k]))
+                new_sh = torch.where(mask, new_sh, psh)
+            if self._z_master is not None:
+                self._z_master.copy_(new_sh[None])
+            shards = list(new_sh.split(self._z_bchunks(world))) \
+                if self._z_bucketed() else [new_sh]
+            fulls = (self.comm.all_gather_buckets(shards,
+                                                  half=self.gather_half)
+                     if active else shards)
+            groups = self._z_buckets if self._z_bucketed() else [
+                range(len(self._z_params))]
+            for idx, full in zip(groups, fulls):
+                off = 0
+                for i in idx:
+                    p, n = self._z_params[i], self._z_sizes[i]
+                    if has_grad[i]:
+                        p.copy_(full[off:off + n].view(p.shape))
+                    off += n
+        opt.step()
+
     def backward_and_update_half(self, loss: torch.Tensor) -> None:
-        """The bf16-wire sync, one all-reduce a gradient."""
+        """The bf16-wire sync, one all-reduce a gradient (reference
+        :1303)."""
+        if self.shard_states:
+            raise RuntimeError(_DENSE_ONLY)
         self._stream_or_clip((p, self.comm.all_reduce_half(g))
                              for p, g in autograd.grad_pairs(loss))
 
@@ -480,7 +924,10 @@ class DistOpt:
                                    corr: bool = True) -> None:
         """Sparsified sync with error feedback (`corr`): g~ = g + e, put
         select(g~) on the wire, e' = g~ - select(g~), this rank's own
-        untransmitted remainder (never the averaged result)."""
+        untransmitted remainder (never the averaged result; reference
+        :1331)."""
+        if self.shard_states:
+            raise RuntimeError(_DENSE_ONLY)
         count = (not topK) and self.use_sparse
         dropped = []
 
@@ -522,7 +969,10 @@ class DistOpt:
         """Update a rotating subset of the parameters from the synced
         gradient (parameter i when i % world == idx % world), the others
         from their local one. No clipping: the update set mixes synced
-        and per-rank gradients, so a global norm would differ by rank."""
+        and per-rank gradients, so a global norm would differ by rank
+        (reference :1397)."""
+        if self.shard_states:
+            raise RuntimeError(_DENSE_ONLY)
         w = max(1, self.world_size)
         with torch.no_grad():
             for i, (p, g) in enumerate(autograd.grad_pairs(loss)):

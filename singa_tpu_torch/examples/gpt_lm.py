@@ -12,9 +12,15 @@ card unless `--device cpu`:
     python -m singa_tpu_torch.examples.gpt_lm --steps 200
     python -m singa_tpu_torch.examples.gpt_lm --device cpu \\
         --steps 3 --batch 2 --seq 32 --d-model 32 --heads 2
+    python -m singa_tpu_torch.examples.gpt_lm --shard-states --steps 20
 
---shard-states, --virtual-devices, --checkpoint and --save-every raise,
-naming the ROADMAP item that ports them.
+`--shard-states` wraps AdamW in `DistOpt(shard_states=True)` (ZeRO-1)
+over the process group, a world-1 group (NCCL on the card, gloo on the
+CPU) when none is live. `run` called inside a live group of more than
+one process wraps DistOpt whatever the flag, and the global batch is
+`--batch` times the world (the reference's `len(jax.devices())`); each
+rank runs its share. --virtual-devices, --checkpoint and --save-every
+raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 
 from singa_tpu_torch import device as device_module
-from singa_tpu_torch import opt
+from singa_tpu_torch import distributed, opt
 from singa_tpu_torch.models.gpt import GPT
 
 _BUILTIN = (
@@ -46,7 +52,6 @@ def load_corpus(path):
 
 def _refuse_unported(args):
     for flag, val, item in (
-            ("--shard-states", args.shard_states, "12 (DistOpt, ZeRO-1)"),
             ("--virtual-devices", args.virtual_devices,
              "20 (utils/virtual.py)"),
             ("--checkpoint", args.checkpoint, "17 (checkpointing)"),
@@ -56,7 +61,9 @@ def _refuse_unported(args):
                 f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
 
 
-def run(args):
+def run(args) -> dict:
+    """Train and sample; returns the losses of every step, the world and
+    the model."""
     _refuse_unported(args)
     text = load_corpus(args.data)
     chars = sorted(set(text))
@@ -72,6 +79,7 @@ def run(args):
         print("scan-blocks decoder is dropout-free; forcing --dropout 0")
         args.dropout = 0.0
     dev = device_module.resolve(args.device)
+    torch.manual_seed(args.seed)  # dropout's draws (the reference's set_seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     m = GPT(vocab_size=len(chars), d_model=args.d_model,
@@ -79,7 +87,18 @@ def run(args):
             max_len=args.seq, dropout=args.dropout,
             scan_blocks=args.scan_blocks, remat_policy=args.remat,
             device=dev, generator=gen)
-    m.set_optimizer(opt.AdamW(lr=args.lr))
+    base = opt.AdamW(lr=args.lr)
+    world = distributed.process_count()
+    if args.shard_states or world > 1:
+        if not distributed.is_initialized():
+            distributed.init(device=dev)
+        m.set_optimizer(opt.DistOpt(base, mesh=distributed.global_mesh(),
+                                    shard_states=args.shard_states))
+        print(f"DistOpt over {world} chips ("
+              f"{torch.distributed.get_backend()})"
+              + (" (ZeRO-1 sharded slots)" if args.shard_states else ""))
+    else:
+        m.set_optimizer(base)
 
     # stride-1 windows so sampling's sliding context is in-distribution
     n_win = len(ids) - args.seq - 1
@@ -87,10 +106,11 @@ def run(args):
         raise SystemExit(
             f"corpus has {len(ids)} chars but --seq {args.seq} needs at "
             f"least {args.seq + 2}; shrink --seq or supply more text")
+    batch = args.batch * world
 
     def make_batch(step):
         rng = np.random.default_rng((args.seed, step))
-        starts = rng.integers(0, n_win, size=args.batch)
+        starts = rng.integers(0, n_win, size=batch)
         xs = np.stack([ids[s:s + args.seq] for s in starts])
         ys = np.stack([ids[s + 1:s + args.seq + 1] for s in starts])
         return (torch.from_numpy(xs).to(m.device),
@@ -100,12 +120,14 @@ def run(args):
     m.compile([bx], is_train=True, use_graph=True, precision=args.precision)
 
     t0 = time.time()
+    losses = []
     for step in range(args.steps):
         bx, by = make_batch(step)
         _, loss = m(bx, by)
+        losses.append(loss)
         if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
             dt = time.time() - t0
-            tok_s = args.batch * args.seq * (step + 1) / max(dt, 1e-9)
+            tok_s = batch * args.seq * (step + 1) / max(dt, 1e-9)
             print(f"step {step}: loss {float(loss.item()):.4f} "
                   f"({tok_s:.0f} tok/s)")
 
@@ -116,9 +138,11 @@ def run(args):
                          seed=args.seed)
         print("--- sample ---")
         print("".join(chars[i] for i in out[0]))
+    return {"losses": [float(v) for v in losses], "world": world,
+            "model": m}
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--data", default=None,
                    help="text corpus (default: builtin)")
@@ -137,7 +161,9 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:0)")
     p.add_argument("--shard-states", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported)")
+                   help="ZeRO-1 optimizer-state sharding: DistOpt("
+                        "shard_states=True) over the process group (a "
+                        "world of one when none is live)")
     p.add_argument("--virtual-devices", type=int, default=0,
                    help="virtual multi-device run (not ported)")
     p.add_argument("--scan-blocks", action="store_true",
@@ -151,7 +177,16 @@ def main(argv=None):
                    help="checkpoint archive path (not ported)")
     p.add_argument("--save-every", type=int, default=0,
                    help="checkpoint cadence in steps (not ported)")
-    run(p.parse_args(argv))
+    return p
+
+
+def main(argv=None):
+    live = distributed.is_initialized()
+    try:
+        run(parser().parse_args(argv))
+    finally:
+        if not live:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@
 per key: the tensor operands' shapes and dtypes, the static arguments,
 `training`, and the dispatch switches a step reads while it runs (the
 autocast policy, `flash_attention.flash_enabled()`,
-`max_pool.pool_kernel_enabled()`).
+`max_pool.pool_kernel_enabled()`, the dropout rank
+`autograd.draw_rank()`).
 
 On the card a key's
 
@@ -28,8 +29,10 @@ both), and nothing in the step may wait for the host: no `.item()`, no
 Python branch on a device value; and no tape of the model's parameters
 may still be alive from an uncaptured forward on another stream (it
 pins their gradient accumulators to that stream). A capture that fails
-raises; there is no eager fallback. Dropout draws from PyTorch's default generator, which
-the capture registers itself; a step that draws from its own
+raises; there is no eager fallback. Dropout draws from PyTorch's default
+generator, which the capture registers itself, or, in a distributed step
+of rank r > 0, from that rank's generator (`autograd.rank_draws`), which
+`_capture` registers with the graph; a step that draws from another
 `torch.Generator` would repeat its draws on every replay.
 
 A DistOpt step's collectives are captured with it: they enqueue on the
@@ -162,7 +165,8 @@ class GraphStep:
         return (tuple((tuple(t.shape), t.dtype) for t in tensors),
                 static_key, bool(self.model.training),
                 tuple(sorted(autograd._autocast.items(), key=str)),
-                fa.flash_enabled(), max_pool.pool_kernel_enabled())
+                fa.flash_enabled(), max_pool.pool_kernel_enabled(),
+                autograd.draw_rank())
 
     def _device(self, tensors) -> torch.device:
         for p in self.model.parameters():
@@ -226,6 +230,8 @@ class GraphStep:
         opt = self.model.optimizer
         before = opt.step_counter if opt is not None else 0
         graph = torch.cuda.CUDAGraph()
+        for gen in autograd.rank_generators(dev):
+            graph.register_generator_state(gen)
         side, cur = self._side(dev), torch.cuda.current_stream(dev)
         with CAPTURE_LOCK:
             side.wait_stream(cur)

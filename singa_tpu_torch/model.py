@@ -223,11 +223,14 @@ class Model(Layer):
         share's rows (the loss) is averaged over the group, an output
         with them (the logits) is gathered back into the global batch,
         and the floating buffers (BatchNorm's running statistics) are
-        averaged."""
+        averaged. Dropout draws this rank's stream (`autograd.rank_draws`:
+        rank 0 the default generator, so a world-1 step is the plain
+        one), as the reference folds the rank into the step's key."""
         comm = self._optimizer.comm
         b = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
         with mesh_module.batch_axis_context(comm.axis_name, comm.world_size,
-                                            comm.group):
+                                            comm.group), \
+                autograd.rank_draws(comm.rank):
             out = self._user_train_one_batch(*args, **kwargs)
 
         def merge(t):

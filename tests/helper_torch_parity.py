@@ -397,3 +397,288 @@ def _rank_many(rank, world, calls):
     **kwargs)} for each (key, scenario name, kwargs) of `calls`."""
     return {key: globals()[name](rank, world, **kw)
             for key, name, kw in calls}
+
+
+# -- ZeRO-1 and each rank's dropout draws -----------------------------------------
+
+
+def port_two_head(params, d_in=8):
+    """The port's counterpart of the reference ZeRO-1 oracle's model
+    (`tests/test_zero1.py::test_gradless_params_left_untouched`): a head
+    the loss reads and one it never reaches, carrying `params`."""
+    from singa_tpu_torch import autograd, layer, model
+    from singa_tpu_torch.model import load_singa_tpu_params
+
+    class TwoHead(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc = layer.Linear(3, in_features=d_in, device="cpu")
+            self.unused = layer.Linear(5, in_features=d_in, device="cpu")
+
+        def forward(self, x):
+            return self.fc(x)
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = autograd.softmax_cross_entropy(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    m = TwoHead()
+    load_singa_tpu_params(m, params)
+    return m
+
+
+def _zero1_step(m, X, y, steps, dist_option="plain"):
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    m.compile([tx], is_train=True, use_graph=True)
+    args = () if dist_option == "plain" else (dist_option,)
+    return [m(tx, ty, *args)[1].item() for _ in range(steps)]
+
+
+def _rank_zero1(rank, world, params, X, y, steps, lr, distkw,
+                clip_norm=None, wd=0.0, states=None, two_head=False,
+                reshard_to=None, dist_option="plain"):
+    """`steps` DistOpt(SGD(lr, momentum 0.9), **distkw) steps of the
+    port's MLP (or the two-head model) on the global batch (X, y) from
+    `params` and, when given, the states `states` (a reference dump);
+    returns the losses, the parameters, this rank's dump, its canonical
+    form (a collective over the group), the layout, and the state round
+    trips' verdicts. `reshard_to=w`: then ranks [0, w) take one more
+    step as a group of w from the canonical form."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    def build(p, mesh):
+        m = (port_two_head(p) if two_head
+             else port_mlp(p, 16, 3, X.shape[1]))
+        d = opt.DistOpt(opt.SGD(lr=lr, momentum=0.9, weight_decay=wd,
+                                clip_norm=clip_norm), mesh=mesh, **distkw)
+        m.set_optimizer(d)
+        return m, d
+
+    m, d = build(params, distributed.global_mesh())
+    if states is not None:
+        d.load_states(states, strict=True)
+    out = {"losses": np.asarray(_zero1_step(m, X, y, steps,
+                                            dist_option))}
+    out.update({f"param:{k}": _np(v) for k, v in m.get_params().items()})
+    dump = d.dump_states()
+    out.update({f"state:{k}": _np(torch.as_tensor(v))
+                for k, v in dump.items()})
+    if not d.shard_states:
+        return out
+    out["chunk"] = np.asarray(d._z_chunk)
+    out["buckets"] = np.asarray(len(d._z_buckets or []))
+    canon = d.canonicalize_states(dump)
+    out.update({f"canon:{k}": _np(v) for k, v in canon.items()})
+    back = d.reshard_states(canon)
+    out["reshard_roundtrip"] = np.asarray(all(
+        torch.equal(back[k], torch.as_tensor(dump[k])) for k in dump))
+    # the raw stack of every rank's rows, resharded at this world
+    raw = {k: d.comm.all_gather(torch.as_tensor(v)) if "//__zshard__" in k
+           else v for k, v in dump.items()}
+    layout = d.zero1_layout()
+    again = d.reshard_raw_states(raw, layout=layout)
+    out["raw_roundtrip"] = np.asarray(all(
+        torch.equal(again[k], torch.as_tensor(dump[k])) for k in dump))
+    other = dict(layout, overlap=not layout["overlap"])
+    try:
+        d.reshard_raw_states(raw, layout=other)
+    except ValueError as e:
+        out["raw_refused"] = str(e)
+    before = {k: torch.as_tensor(v).clone() for k, v in dump.items()}
+    d.load_states(before, strict=True)
+    out["load_roundtrip"] = np.asarray(all(
+        torch.equal(torch.as_tensor(v), before[k])
+        for k, v in d.dump_states().items()))
+    if reshard_to is not None:
+        sub = tdist.new_group(list(range(reshard_to)))
+        if rank < reshard_to:
+            after = {k: _np(v) for k, v in m.get_params().items()}
+            m2, d2 = build(after, mesh_module.Mesh(sub))
+            d2.load_states(d2.reshard_states(canon), strict=True)
+            out["next_losses"] = np.asarray(_zero1_step(m2, X, y, 1))
+            out.update({f"next:{k}": _np(v)
+                        for k, v in m2.get_params().items()})
+    return out
+
+
+def _rank_gpt_lm(rank, world, argv):
+    """`gpt_lm.run` as rank `rank` of the group: its losses and
+    parameters."""
+    from singa_tpu_torch.examples import gpt_lm
+
+    out = gpt_lm.run(gpt_lm.parser().parse_args(argv))
+    got = {"losses": np.asarray(out["losses"]),
+           "world": np.asarray(out["world"])}
+    got.update({f"param:{k}": _np(v)
+                for k, v in out["model"].get_params().items()})
+    return got
+
+
+def dropout_masks(m):
+    """Record the zero pattern each call of `m.dropout` leaves (where
+    its input was not already 0)."""
+    masks = []
+    m.dropout.register_forward_hook(
+        lambda mod, inp, o: masks.append(_np((o == 0) & (inp[0] != 0))))
+    return masks
+
+
+def _rank_dropout(rank, world, params, X, y, steps, lr, p, seed):
+    """Plain DistOpt steps of the port's MLP at dropout `p` from torch
+    seed `seed`: the losses, the parameters and the first step's mask
+    (each rank draws its own, `autograd.rank_draws`)."""
+    from singa_tpu_torch import autograd, distributed, opt
+
+    torch.manual_seed(seed)
+    autograd.reset_rank_draws()
+    m = port_mlp(params, 16, 3, X.shape[1])
+    m.dropout.p = p
+    m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr, momentum=0.9),
+                                mesh=distributed.global_mesh()))
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    m.compile([tx], is_train=True, use_graph=True)
+    masks = dropout_masks(m)
+    losses = [m(tx, ty)[1].item() for _ in range(steps)]
+    out = {"losses": np.asarray(losses), "mask": masks[0]}
+    out.update({f"param:{k}": _np(v) for k, v in m.get_params().items()})
+    return out
+
+
+# -- the reference's ZeRO-1 runs ---------------------------------------------------
+
+
+def zero1_blobs(n, d, classes=3, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    W = rng.randn(d, classes).astype(np.float32)
+    return X, (X @ W).argmax(1).astype(np.int32)
+
+
+def zero1_data(kind):
+    """The global batch of the ZeRO-1 cases: the MLP's (32 x 12) or the
+    two-head model's (16 x 8)."""
+    return zero1_blobs(32, 12) if kind == "mlp" else zero1_blobs(
+        16, 8, seed=1)
+
+
+def ref_mesh(world):
+    """The reference's mesh over its first `world` virtual devices."""
+    import jax
+
+    from singa_tpu import parallel
+
+    return parallel.get_mesh((world,), devices=jax.devices()[:world])
+
+
+def ref_two_head():
+    """The reference ZeRO-1 oracle's two-head model
+    (`tests/test_zero1.py::test_gradless_params_left_untouched`)."""
+    from singa_tpu import autograd, layer, model
+
+    class TwoHead(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc = layer.Linear(3)
+            self.unused = layer.Linear(5)
+
+        def forward(self, x):
+            return self.fc(x)
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = autograd.softmax_cross_entropy(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    return TwoHead()
+
+
+def ref_zero1(world, distkw, clip_norm, wd, kind, dist_option, seed, steps,
+              lr, snapshot_at=None):
+    """The reference's DistOpt(SGD(lr, momentum 0.9, wd, clip_norm),
+    **distkw) run on its `world`-device mesh: the seeded parameters, the
+    losses, the parameters and dump after, its canonical form; with
+    `snapshot_at=k`, also the parameters and dump after step k."""
+    from singa_tpu import opt as ref_opt
+    from singa_tpu import tensor
+    from singa_tpu.communicator import DistOpt as RefDistOpt
+    from singa_tpu.models import MLP as RefMLP
+
+    tensor.set_seed(seed)
+    X, y = zero1_data(kind)
+    if kind == "two_head":
+        m = ref_two_head()
+    else:
+        m = RefMLP(perceptron_size=16, num_classes=3)
+        m.dropout.p = 0.0
+    d = RefDistOpt(ref_opt.SGD(lr=lr, momentum=0.9, weight_decay=wd,
+                               clip_norm=clip_norm), mesh=ref_mesh(world),
+                   **distkw)
+    m.set_optimizer(d)
+    tx, ty = tensor.from_numpy(X), tensor.from_numpy(y)
+    if kind == "two_head":  # build the head the loss never reaches too
+        m.compile([tx], is_train=False, use_graph=False)
+        m.unused(tx)
+        m.train()
+    m.compile([tx], is_train=True, use_graph=True)
+    params = randomize_params(m, seed)
+    args = () if dist_option == "plain" else (dist_option,)
+
+    def state():
+        return ({k: np.asarray(v.data) for k, v in m.get_params().items()},
+                {k: np.asarray(v) for k, v in d.dump_states().items()})
+
+    out = dict(params=params, losses=[])
+    for i in range(steps):
+        out["losses"].append(float(np.asarray(m(tx, ty, *args)[1].data)))
+        if i + 1 == snapshot_at:
+            out["snapshot"] = state()
+    out["after"], out["dump"] = state()
+    out["canon"] = ({k: np.asarray(v) for k, v in d.canonicalize_states(
+        d.dump_states()).items()} if d.shard_states else None)
+    return out
+
+
+def ref_zero1_continue(world, params, canonical, seed, lr):
+    """One reference ZeRO-1 step of the MLP on a `world`-device mesh from
+    `params` and a canonical dump: (loss, parameters after)."""
+    from singa_tpu import opt as ref_opt
+    from singa_tpu import tensor
+    from singa_tpu.communicator import DistOpt as RefDistOpt
+    from singa_tpu.models import MLP as RefMLP
+
+    tensor.set_seed(seed)
+    X, y = zero1_data("mlp")
+    m = RefMLP(perceptron_size=16, num_classes=3)
+    m.dropout.p = 0.0
+    d = RefDistOpt(ref_opt.SGD(lr=lr, momentum=0.9), mesh=ref_mesh(world),
+                   shard_states=True)
+    m.set_optimizer(d)
+    tx, ty = tensor.from_numpy(X), tensor.from_numpy(y)
+    m.compile([tx], is_train=True, use_graph=True)
+    m.set_params(params)
+    d.prepare(m.get_params())
+    d.load_states(d.reshard_states(canonical))
+    loss = float(np.asarray(m(tx, ty)[1].data))
+    return loss, {k: np.asarray(v.data) for k, v in m.get_params().items()}
+
+
+def _rank_scatter_axis(rank, world, xs):
+    """reduce_scatter and all_gather along axis 1 and on the bf16 wires,
+    on this rank's rows of `xs`."""
+    from singa_tpu_torch import distributed
+    from singa_tpu_torch.communicator import Communicator
+
+    c = Communicator(distributed.global_mesh())
+    x = torch.from_numpy(xs[rank])
+    return {k: _np(v) for k, v in {
+        "reduce_scatter": c.reduce_scatter(x, axis=1),
+        "reduce_scatter_sum": c.reduce_scatter(x, axis=1, average=False),
+        "reduce_scatter_half": c.reduce_scatter_half(x, axis=1),
+        "all_gather": c.all_gather(x, axis=1),
+        "all_gather_half": c.all_gather_half(x, axis=1)}.items()}

@@ -309,9 +309,12 @@ def test_distopt_refuses_what_the_reference_refuses():
         DistOpt(sgd, use_sparse=True, shard_states=True)
     with pytest.raises(ValueError, match="ZeRO-1"):
         DistOpt(sgd, half_wire=True)
+    with pytest.raises(ValueError, match="ZeRO-1"):
+        DistOpt(sgd, gather_half=True)
     for kw in ("shard_states", "overlap", "half_wire", "gather_half"):
         extra = {"shard_states": True} if kw != "shard_states" else {}
-        with pytest.raises(NotImplementedError, match="item 12"):
-            DistOpt(sgd, **{kw: True}, **extra)
+        assert getattr(DistOpt(sgd, **{kw: True}, **extra), kw) is True
     with pytest.raises(NotImplementedError, match="item 17"):
         DistOpt(sgd).set_sentinel(object())
+    with pytest.raises(NotImplementedError, match="items 14-15"):
+        DistOpt(sgd, grad_axes=("seq",))

@@ -1,7 +1,9 @@
 """DistOpt training of the port against singa_tpu: the reference's
 equivalences (`tests/test_dist.py:166, 182`), its batch refusal (:212),
-the world-1 step against the plain optimizer, and the two trainers that
-take DistOpt (`cnn_cifar10 --dist`, `dist_imagenet`) on the CPU.
+the world-1 step against the plain optimizer, each rank's own dropout
+draws (F6: the reference folds the rank into the step's key,
+`singa_tpu/graph.py:669-674`), and the two trainers that take DistOpt
+(`cnn_cifar10 --dist`, `dist_imagenet`) on the CPU.
 
 The multi-rank runs are the port in 2 spawned processes over gloo
 (`helper_torch_parity.run_ranks`, one spawn for the file); the
@@ -32,6 +34,8 @@ from singa_tpu_torch.examples import cnn_cifar10, dist_imagenet  # noqa: E402
 
 WORLD = 2
 STEPS = 3
+#: the dropout runs (F6): the MLP's dropout rate and the torch seed
+DROP_P, DROP_SEED = 0.5, 7
 #: dist_imagenet at 32 px on the CPU (its ranks add --world and --rank)
 TRAINER = ["--device", "cpu", "--steps", "3", "--image-size", "32",
            "--classes", "10"]
@@ -96,10 +100,14 @@ def runs(tmp_path_factory):
         ("refusals", "_rank_refusals", dict(X=X[:5], y=y[:5])),
         ("trainer", "_rank_dist_imagenet", dict(argv=[
             *TRAINER, "--batch-per-chip", "2"])),
+        ("dropout", "_rank_dropout", dict(params=params, X=X, y=y,
+                                          steps=STEPS, lr=0.1, p=DROP_P,
+                                          seed=DROP_SEED)),
     ]
     port = run_ranks(_rank_many, WORLD, tmp_path_factory.mktemp("ranks"),
                      calls=calls)
-    return dict(mlp=(losses, after), bn=(bn_losses, bn_after)), port
+    return dict(mlp=(losses, after), bn=(bn_losses, bn_after),
+                params=params, X=X, y=y), port
 
 
 def close(got, want, what, tol):
@@ -278,3 +286,80 @@ def test_dist_imagenet_refuses_the_unported_flags(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         dist_imagenet.main(["--device", "cpu", *flag])
     assert not distributed.is_initialized()
+
+
+# -- F6: each rank's dropout draws ---------------------------------------------
+
+
+def test_each_rank_draws_its_own_dropout_masks(runs):
+    """Seeded alike, the two ranks draw different masks on their rows
+    (rank 1 from its own generator, rank 0 from the default one)."""
+    _, port = runs
+    m0, m1 = port[0]["dropout"]["mask"], port[1]["dropout"]["mask"]
+    assert m0.shape == m1.shape and m0.any() and m1.any()
+    assert not np.array_equal(m0, m1)
+
+
+def test_two_rank_dropout_step_equals_one_process_of_both_shares(runs):
+    """The 2-rank DistOpt steps equal one process that runs rank 0's
+    share on the default generator and rank 1's under
+    `autograd.rank_draws(1)`, averages the two losses and steps the
+    plain SGD: the same masks, losses and parameters (1e-5)."""
+    from helper_torch_parity import dropout_masks, port_mlp
+    from singa_tpu_torch import autograd
+
+    ref, port = runs
+    X, y = ref["X"], ref["y"]
+    torch.manual_seed(DROP_SEED)
+    autograd.reset_rank_draws()
+    m = port_mlp(ref["params"], 16, 3, X.shape[1])
+    m.dropout.p = DROP_P
+    sgd = opt.SGD(lr=0.1, momentum=0.9)
+    m.set_optimizer(sgd)
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    m.compile([tx], is_train=True)
+    masks = dropout_masks(m)
+    b = len(X) // WORLD
+    losses = []
+    for _ in range(STEPS):
+        shares = []
+        for r in range(WORLD):
+            with autograd.rank_draws(r):
+                out = m.forward(tx[r * b:(r + 1) * b])
+            shares.append(autograd.softmax_cross_entropy(
+                out, ty[r * b:(r + 1) * b]))
+        loss = sum(shares) / WORLD
+        sgd(loss)
+        losses.append(loss.item())
+    for r in range(WORLD):
+        got = port[r]["dropout"]
+        np.testing.assert_array_equal(got["mask"], masks[r])
+        close(got["losses"], losses, "losses", 1e-5)
+        for k, v in m.get_params().items():
+            close(got[f"param:{k}"], v.detach().numpy(), f"{k}, rank {r}",
+                  1e-5)
+
+
+def test_world_one_distopt_step_with_dropout_is_bitwise_the_plain_one():
+    """Rank 0 draws what the non-distributed step draws, so at world 1
+    the DistOpt step with dropout stays bitwise the wrapped SGD's."""
+    from helper_torch_parity import port_mlp
+
+    X, y = blobs(16)
+    params, _, _ = ref_mlp_single(X, y)
+    tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
+    got = {}
+    with world_of_one() as mesh:
+        for kind in ("dist", "plain"):
+            torch.manual_seed(DROP_SEED)
+            m = port_mlp(params, 16, 3, 12)
+            m.dropout.p = DROP_P
+            sgd = opt.SGD(lr=0.1, momentum=0.9)
+            m.set_optimizer(opt.DistOpt(sgd, mesh=mesh) if kind == "dist"
+                            else sgd)
+            m.compile([tx], is_train=True, use_graph=True)
+            got[kind] = [m(tx, ty)[1].item() for _ in range(STEPS)], {
+                k: v.detach().clone() for k, v in m.get_params().items()}
+    assert got["dist"][0] == got["plain"][0]
+    for k, v in got["plain"][1].items():
+        assert torch.equal(got["dist"][1][k], v), k

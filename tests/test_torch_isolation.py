@@ -6,7 +6,8 @@
   nothing of singa_tpu (an AST scan, and a real import, with both
   blocked, that serves one request, takes one graph-mode Char-RNN step,
   exports a small MLP to ONNX and imports it again, and takes one
-  DistOpt step over a gloo group of one; the spool
+  DistOpt step and one ZeRO-1 step (every wire option, rank 1's dropout
+  draws) over a gloo group of one; the spool
   server's process entry runs with both blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
@@ -119,6 +120,17 @@ def test_port_imports_with_jax_and_reference_blocked():
         "p.train_one_batch(x, sys.modules['torch'].zeros(2).long())\n"
         "print(d.world_size, d.step_counter,\n"
         "      sys.modules['torch'].distributed.get_backend())\n"
+        "z = opt.DistOpt(opt.Adam(1e-2), mesh=distributed.global_mesh(),\n"
+        "                shard_states=True, overlap=True, buffSize=8,\n"
+        "                half_wire=True, gather_half=True)\n"
+        "q = MLP(8, 3, in_features=5, device='cpu')\n"
+        "q.set_optimizer(z)\n"
+        "q.compile([x], is_train=True, use_graph=True)\n"
+        "from singa_tpu_torch import autograd\n"
+        "with autograd.rank_draws(1):\n"
+        "    q.train_one_batch(x, sys.modules['torch'].zeros(2).long())\n"
+        "print(z.zero1_layout()['overlap'], z.step_counter,\n"
+        "      sorted(z.canonicalize_states(z.dump_states()))[0])\n"
         "distributed.shutdown()\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -127,6 +139,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert lines[:3] == ["(1, 8, 16)", "1 0", "1 1"]
     assert lines[3] == "(2, 3) 0.0"
     assert lines[4] == "1 1 gloo"
+    assert lines[5] == "True 1 __step__"
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):

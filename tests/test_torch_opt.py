@@ -164,7 +164,7 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         opt.SGD().set_sentinel(object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.DistOpt(opt.SGD(), shard_states=True)  # ZeRO-1, item 12
+        opt.DistOpt(opt.SGD(), grad_axes=("seq",))  # items 14-15
 
 
 def test_call_runs_backward_and_update():

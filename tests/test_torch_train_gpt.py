@@ -243,12 +243,14 @@ def test_example_trainer_lowers_the_loss():
     assert "--- sample ---" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--shard-states", "--scan-blocks"],
-                                  ["--shard-states"],
+@pytest.mark.parametrize("flag", [["--virtual-devices", "8",
+                                   "--scan-blocks"],
+                                  ["--save-every", "5"],
                                   ["--virtual-devices", "8"],
                                   ["--checkpoint", "ckpt.zip"]])
 def test_example_trainer_refuses_unported_options(flag):
-    """On either decoder (the unrolled default, or --scan-blocks)."""
+    """On either decoder (the unrolled default, or --scan-blocks).
+    `--shard-states` is ported (tests/test_torch_zero1.py)."""
     from singa_tpu_torch.examples import gpt_lm
 
     argv = ["--device", "cpu", "--steps", "1", *flag]
