@@ -38,8 +38,10 @@ Phases, in the order they run (any failure raises and exits non-zero):
    alexnet_cifar and the ImageNet AlexNet at batch 128, a plateau of
    tied values (x rounded to a few levels) under overlapping k3 s1 p1
    windows at batch 128, x in channels-first memory (which must take
-   the kernel's one-channel route, in fp32 and bf16) and k7 s1 windows
-   (taken in chunks);
+   the kernel's one-channel route, in fp32 and bf16), k7 s1 windows
+   (taken in chunks), and Xception's four k3 s2 p1 pools at batch 128
+   ((112, 112, 128), (56, 56, 256), (28, 28, 728), (14, 14, 1024)) in
+   fp32 and bf16, which must take the 16-byte vector route;
    the same selected positions, max|d| within 1e-6 (fp32) or 1e-2 (bf16)
    of max(1, max|plain|), a bitwise repeat; and the default route
    (PyTorch's max-pool backward) must pick the same positions; print the
@@ -236,11 +238,38 @@ Phases, in the order they run (any failure raises and exits non-zero):
    kernels),
    each of whose loss must fall and which must print a sample. At world
    1 no byte crosses cards and no slot memory is saved;
+9g. F7 on the card: the MLP (seeded weights, SGD with momentum, batch
+   64) takes 3 captured steps, then `fc2.W` is replaced by a new
+   `nn.Parameter` and 2 more steps run: the new tensor must move, the
+   old one stay bitwise, and `graph_compiles` and the captures rise by
+   one. The layers this slice adds (`LeakyReLU`, `Sigmoid`, `SoftMax`,
+   `Cat`, `Add`, a stride-2 `SeparableConv2d(padding="same")`) on the
+   card against their CPU outputs within 1e-5 of their size. Then
+   `mobilenet_v1(1000)` and `xception(1000)` (8 middle blocks) train at
+   (128, 3, 224, 224) through ResNet-50's sequence (`cnn_path`:
+   kernel-on against kernel-off gradients, 6 captured steps with 0 and
+   4 K2a launches in the counted step and 4 and 0 in the capture, loss,
+   BatchNorm statistics, an eval forward, the uncaptured twins in fp32
+   and bf16, images/s, Xception's with the pool switch on and off in
+   turns), print the peak memory, the captured step's device ms (CUDA
+   events over replays) beside its bound (3 passes of 2 x MACs at 67
+   TFLOP/s fp32 or 989 bf16, or the conv and fc layers' activations read
+   and written in each pass at 3.35 TB/s, the larger), and one
+   uncaptured step's device time by kernel family (`torch.profiler`
+   with shapes: depthwise forward, backward-data and backward-weight,
+   dense and 1x1 convs and fc, batch norm and elementwise, layout
+   copies, K2a; idle); `python -m singa_tpu_torch.examples.cnn_cifar10
+   --model mobilenet|xception --epochs 2` as child processes, each of
+   which must print "loss sanity: ... ok"; and `mobilenet_v1(1000)`
+   NHWC at batch 8 in eval mode (calibrated BatchNorm statistics)
+   exported and imported on the card, its logits within 1e-3 of
+   max|logit| of the source's (grouped `Conv` in the importer);
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
    its capture recorded, which every replay runs again; the ZeRO-1
-   step's beside the others), then the result line.
+   step's beside the others; K2a's at Xception's four pool shapes and
+   its 4 launches a step), then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -564,6 +593,14 @@ def run_bwd_case(torch, fa, case):
     return row
 
 
+#: phase 9g: the batch of the full-width MobileNetV1 and Xception steps
+#: (ResNet-50's)
+MOBILE_BATCH = 128
+XCEPTION_BATCH = 128
+#: Xception's four max-pools (k3 s2 p1, NHWC) at 224 px: the three entry
+#: blocks' and the exit block's inputs
+XCEPTION_POOLS = [(112, 128), (56, 256), (28, 728), (14, 1024)]
+
 POOL_CASES = [
     # name, x (N, H, W, C), window, strides, pads, dtype, options
     # ("levels": x rounded to multiples of 1/levels, plateaus of ties;
@@ -607,7 +644,12 @@ POOL_CASES = [
      "float32", {}),
     ("channels_first_scalar_route_bf16", (16, 28, 28, 64), (3, 3), (2, 2),
      (1, 1), "bfloat16", {"channels_first": True}),
-]
+] + [
+    # phase 9g's: Xception's four pools at its batch, fp32 and bf16
+    (f"xception_pool{i}_{short}", (XCEPTION_BATCH, hw, hw, c), (3, 3),
+     (2, 2), (1, 1), dt, {})
+    for dt, short in (("float32", "fp32"), ("bfloat16", "bf16"))
+    for i, (hw, c) in enumerate(XCEPTION_POOLS)]
 POOL_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 # Tolerances are on max|d| / max(1, max|plain|): both sum at most
 # ceil(k/s)^2 values of dy in fp32, in another order (fp32: 1e-6); in bf16
@@ -736,21 +778,165 @@ def cnn_grads(model, x, y):
     return grads
 
 
-def resnet_path(torch, fa, mp):
-    """ResNet-50 at full width trains on one seeded ImageNet-shape batch
+def cnn_macs(torch, m, size):
+    """(multiply-adds, activation elements) of one image through `m`'s
+    convolutions and fc layers at `size` x `size`: each conv's output
+    elements times its (in/group) * kh * kw, each fc's in * out; and
+    the elements those layers read and write. Counted from forward hooks
+    on a batch-1 eval forward (BatchNorm, ReLU and the pools are not
+    counted)."""
+    from singa_tpu_torch import layer
+
+    macs, elems, hooks = [0], [0], []
+
+    def hook(mod, inputs, out):
+        x = inputs[0]
+        if isinstance(mod, layer.Conv2d):
+            kh, kw = mod.W.shape[2:]
+            macs[0] += out.numel() * mod.W.shape[1] * kh * kw
+        else:
+            macs[0] += out.numel() * mod.W.shape[0]
+        elems[0] += x.numel() + out.numel()
+
+    for mod in m.modules():
+        if isinstance(mod, (layer.Conv2d, layer.Linear)):
+            hooks.append(mod.register_forward_hook(hook))
+    was = m.training
+    m.eval()
+    with torch.no_grad():
+        m(torch.zeros((1, 3, size, size), device="cuda"))
+    m.train(was)
+    for h in hooks:
+        h.remove()
+    return macs[0], elems[0]
+
+
+def step_bound_ms(macs, elems, n_params, batch, prec):
+    """Least ms of one training step: the larger of its products'
+    operations (3 passes of 2 * MACs an image: forward, backward-data,
+    backward-weight) at the card's peak rate for `prec`, and its bytes
+    at the memory rate: each counted layer's input and output read or
+    written once in each of the 3 passes, and the parameters read,
+    their gradients written and the momentum slot read and written."""
+    elem = 2 if prec == "bf16" else 4
+    flops = 3 * 2 * macs * batch
+    nbytes = 3 * elems * batch * elem + 5 * 4 * n_params
+    return max(flops / PEAK_FLOPS[prec], nbytes / PEAK_BYTES_S) * 1e3, dict(
+        flops=flops, bytes=nbytes,
+        bound_by="operations" if flops / PEAK_FLOPS[prec]
+        > nbytes / PEAK_BYTES_S else "bytes")
+
+
+#: the kernel families of a CNN step's breakdown
+CNN_FAMILIES = ("depthwise_fwd", "depthwise_bwd_data",
+                "depthwise_bwd_weight", "dense_and_1x1_conv_and_fc",
+                "batchnorm_and_elementwise", "layout_copies",
+                "max_pool_bwd")
+_CONV_OPS = ("aten::cudnn_convolution", "aten::_convolution",
+             "aten::convolution", "aten::_conv_depthwise2d",
+             "aten::conv_depthwise2d", "aten::_slow_conv2d_forward")
+_LAYOUT = ("nchwtonhwc", "nhwctonchw", "transpose", "copy_kernel",
+           "nchw_to_nhwc", "nhwc_to_nchw")
+_WEIGHT_GRAD = ("wgrad", "grad_weight", "gradweight", "filter", "dw_")
+
+
+def _cnn_family(torch, evt, kernel_name):
+    """The family of a kernel launched under the CPU op `evt`: K2a and
+    layout conversions by name; the convolutions by the op above the
+    launch (a depthwise one has an (C, 1, kh, kw) weight; in a
+    backward, a weight-gradient kernel by name); the fc products by
+    name; the rest is batch norm and elementwise work."""
+    n = kernel_name.lower()
+    if "max_pool_bwd" in n:
+        return "max_pool_bwd"
+    if any(s in n for s in _LAYOUT):
+        return "layout_copies"
+    e = evt
+    while e is not None:
+        shapes = getattr(e, "input_shapes", None) or []
+        if e.name == "aten::convolution_backward" and len(shapes) > 2:
+            if len(shapes[2]) == 4 and shapes[2][1] == 1:
+                return ("depthwise_bwd_weight"
+                        if any(s in n for s in _WEIGHT_GRAD)
+                        else "depthwise_bwd_data")
+            return "dense_and_1x1_conv_and_fc"
+        if e.name in _CONV_OPS and len(shapes) > 1 and shapes[1]:
+            if len(shapes[1]) == 4 and shapes[1][1] == 1:
+                return "depthwise_fwd"
+            return "dense_and_1x1_conv_and_fc"
+        if e.name in ("aten::copy_", "aten::contiguous", "aten::clone"):
+            return "layout_copies"
+        e = e.cpu_parent
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
+                            "sm90_", "sm80_")):
+        return "dense_and_1x1_conv_and_fc"
+    return "batchnorm_and_elementwise"
+
+
+def cnn_breakdown(torch, m, x, y, name):
+    """Device ms of one uncaptured training step by kernel family
+    (`torch.profiler`, CPU ops with their input shapes), the idle share
+    of the step's wall time, and the top kernels of each family."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    m(x, y)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t = time.perf_counter()
+        m(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_family = dict.fromkeys(CNN_FAMILIES, 0.0)
+    names = defaultdict(lambda: defaultdict(float))
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            fam = _cnn_family(torch, e, k.name)
+            by_family[fam] += k.duration / 1e3
+            names[fam][k.name[:80]] += k.duration / 1e3
+            n_kernels += 1
+    busy = sum(by_family.values())
+    check(busy > 0, f"{name}: the profiler saw no device time")
+    row = dict(wall_ms=wall_ms, device_busy_ms=busy,
+               idle_share=max(0.0, 1.0 - busy / wall_ms),
+               n_kernels=n_kernels, by_family_ms=by_family,
+               share={k: v / busy for k, v in by_family.items()},
+               top={f: sorted(d.items(), key=lambda kv: -kv[1])[:3]
+                    for f, d in names.items()})
+    print(f"{name} breakdown of one uncaptured fp32 step: "
+          + json.dumps(row), flush=True)
+    return row
+
+
+def cnn_path(torch, fa, mp, name, ctor, per_step, batch, card=None,
+             window=5):
+    """A CNN at full width trains on one seeded ImageNet-shape batch
     with the max-pool kernel on (the sequence of bench.py's
-    bench_framework), each step captured. Returns the counted step's
-    launches and the numbers."""
+    bench_framework), each step captured: kernel-on against kernel-off
+    gradients, 6 captured steps counted (`per_step` launches in the
+    uncaptured step and in the capture), BatchNorm statistics, an eval
+    forward, the captured steps against the uncaptured twin in fp32 and
+    bf16 (deterministic cuDNN), then images/s of captured steps in
+    windows of `window` (with the kernel switch on and off in turns
+    where the model max-pools).
+    With `card` given, also the peak memory, the captured step's device
+    ms beside its bound and the step's kernel-family breakdown. Returns
+    the counted step's launches and the numbers."""
     from singa_tpu_torch import autograd, opt
     from singa_tpu_torch.model import load_singa_tpu_states
-    from singa_tpu_torch.models.resnet import resnet50
 
-    m = resnet50(num_classes=1000, device="cuda")
+    pools = per_step["max_pool_bwd"]
+    torch.cuda.reset_peak_memory_stats()
+    m = ctor(num_classes=1000, device="cuda")
     states = cnn_states({n: t.shape for n, t in [*m.named_parameters(),
                                                  *m.named_buffers()]}, SEED)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    batch = 128
     x = torch.randn((batch, 3, 224, 224), generator=gen, device="cuda")
     y = torch.arange(batch, device="cuda") % 1000
 
@@ -771,7 +957,8 @@ def resnet_path(torch, fa, mp):
     # run its deterministic ones, so that what differs is the capture
     torch.backends.cudnn.deterministic = True
     torch.cuda.synchronize()
-    print(f"resnet50: {sum(p.numel() for p in m.parameters())} parameters, "
+    n_params = sum(p.numel() for p in m.parameters())
+    print(f"{name}: {n_params} parameters, "
           f"compile {time.perf_counter() - t:.3f} s", flush=True)
 
     # gradients with the kernel on and off, at the seeded weights
@@ -780,22 +967,27 @@ def resnet_path(torch, fa, mp):
     off = cnn_grads(m, x, y)
     mp.set_pool_kernel_enabled(True)
     check(sorted(on) == sorted(off) == sorted(
-        n for n, _ in m.named_parameters()), "resnet gradients not complete")
+        n for n, _ in m.named_parameters()),
+        f"{name} gradients not complete")
     grad_tol = 1e-3  # of each parameter's max|grad|: cuDNN's order only
     worst = worst_rel(on, off)
-    print(f"resnet50 grads, max-pool kernel on vs off: worst max|d| / "
+    print(f"{name} grads, max-pool kernel on vs off: worst max|d| / "
           f"max|grad| {worst:.3e} over {len(on)} parameters (tol "
           f"{grad_tol})", flush=True)
-    check(worst <= grad_tol, "kernel-path ResNet gradients disagree")
+    check(worst <= grad_tol, f"kernel-path {name} gradients disagree")
     del on, off
 
     # 6 steps: the first uncaptured and counted alone, then captured
-    launches = dict(NO_LAUNCH, max_pool_bwd=1)
     losses, first_s, step_ms = captured_steps(
-        torch, fa, mp, m, x, y, launches, "resnet50 fp32 (deterministic)")
-    print(f"resnet50 losses {losses}", flush=True)
-    check(all(np.isfinite(losses)), "non-finite ResNet-50 loss")
-    check(losses[-1] < losses[0], "the ResNet-50 loss did not fall")
+        torch, fa, mp, m, x, y, per_step, f"{name} fp32 (deterministic)")
+    print(f"{name} losses {losses}", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite {name} loss")
+    check(losses[-1] < losses[0], f"the {name} loss did not fall")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if card is not None:
+        free, total = torch.cuda.mem_get_info()
+        print(f"{name} at batch {batch}: peak allocated {peak_gb:.2f} GiB "
+              f"of {total / 2**30:.1f} GiB ({card})", flush=True)
 
     # BatchNorm: the running statistics moved and are finite
     moved = finite = 0
@@ -803,7 +995,7 @@ def resnet_path(torch, fa, mp):
         finite += int(bool(torch.isfinite(b).all()))
         moved += int(not np.array_equal(b.cpu().numpy(), states[k]))
     n_buf = len(list(m.named_buffers()))
-    print(f"resnet50 BatchNorm buffers: {moved}/{n_buf} moved, "
+    print(f"{name} BatchNorm buffers: {moved}/{n_buf} moved, "
           f"{finite}/{n_buf} finite", flush=True)
     check(moved == finite == n_buf, "BatchNorm statistics did not move or "
                                     "are not finite")
@@ -814,10 +1006,10 @@ def resnet_path(torch, fa, mp):
     m.train()
     check(tuple(scores.shape) == (batch, 1000)
           and bool(torch.isfinite(scores).all()),
-          "eval-mode ResNet-50 scores are not finite (128, 1000)")
+          f"eval-mode {name} scores are not finite ({batch}, 1000)")
     del scores
 
-    twin = {"fp32": hold_twin(torch, "resnet50 (deterministic cuDNN)",
+    twin = {"fp32": hold_twin(torch, f"{name} (deterministic cuDNN)",
                               "fp32", captured,
                               eager_twin(torch, m, restore("fp32", False),
                                          x, y))}
@@ -832,10 +1024,10 @@ def resnet_path(torch, fa, mp):
     try:
         restore("bf16", True)(m)
         losses_bf16, _, ms = captured_steps(
-            torch, fa, mp, m, x, y, launches,
-            "resnet50 bf16 (deterministic)")
+            torch, fa, mp, m, x, y, per_step,
+            f"{name} bf16 (deterministic)")
         twin["bf16"] = hold_twin(
-            torch, "resnet50 (deterministic cuDNN)", "bf16",
+            torch, f"{name} (deterministic cuDNN)", "bf16",
             (losses_bf16, state_of(m), ms),
             eager_twin(torch, m, restore("bf16", False), x, y))
     finally:
@@ -844,30 +1036,77 @@ def resnet_path(torch, fa, mp):
         torch.backends.cudnn.deterministic = False
     drop_graphs(torch)
 
-    # throughput with cuDNN's default algorithms, captured, with the
-    # switch on and off in turns (on, off, off, on)
+    # throughput with cuDNN's default algorithms, captured: with the
+    # switch on and off in turns (on, off, off, on) where the model
+    # max-pools, else two windows
     restore("fp32", True)(m)
-    rates = switch_turns(torch, m, x, y, mp.set_pool_kernel_enabled,
-                         lambda: mp.MAX_POOL_BWD_LAUNCHES, 1, "resnet50", 5)
-    on_rate, off_rate = (float(np.mean(rates[k])) for k in (True, False))
-    print(f"resnet50 fp32 training: {on_rate:.1f} images/s with the "
-          f"max-pool kernel, {off_rate:.1f} without (captured steps, "
-          f"windows of 5, on/off/off/on: {rates[True]} / {rates[False]})",
-          flush=True)
-    print(f"resnet50 bf16 losses {losses_bf16}, kernel operand dtypes "
+    if pools:
+        rates = switch_turns(torch, m, x, y, mp.set_pool_kernel_enabled,
+                             lambda: mp.MAX_POOL_BWD_LAUNCHES, pools, name,
+                             window)
+    else:
+        rates = switch_turns(torch, m, x, y, lambda on: None,
+                             lambda: 0, 0, name, window)
+        rates = {True: rates[True] + rates[False], False: []}
+    on_rate = float(np.mean(rates[True]))
+    off_rate = float(np.mean(rates[False])) if rates[False] else None
+    if pools:
+        print(f"{name} fp32 training: {on_rate:.1f} images/s with the "
+              f"max-pool kernel, {off_rate:.1f} without (captured steps, "
+              f"windows of {window}, on/off/off/on: {rates[True]} / "
+              f"{rates[False]})", flush=True)
+    else:
+        print(f"{name} fp32 training: {on_rate:.1f} images/s (captured "
+              f"steps, 4 windows of {window}: {rates[True]})", flush=True)
+    print(f"{name} bf16 losses {losses_bf16}, kernel operand dtypes "
           f"{sorted(set(map(str, seen)))}", flush=True)
-    check(all(np.isfinite(losses_bf16)), "non-finite bf16 ResNet-50 loss")
-    check(set(seen) == {torch.bfloat16}, "the bf16 step did not run the "
-                                         "max-pool kernel on bf16 operands")
+    check(all(np.isfinite(losses_bf16)), f"non-finite bf16 {name} loss")
+    check(set(seen) == ({torch.bfloat16} if pools else set()),
+          f"the bf16 {name} step did not run the max-pool kernel on bf16 "
+          f"operands")
+    out = dict(images_per_s_kernel_on=on_rate,
+               images_per_s_kernel_off=off_rate,
+               rates=[rates[True], rates[False]], losses=losses,
+               grad_rel_err=worst, losses_bf16=losses_bf16,
+               first_step_s=first_s, step_ms=step_ms, twin=twin)
+    if card is not None:
+        # the captured step's device time, by CUDA events over replays
+        gs = m._train_step
+        entry = next(e for e in gs._cache.values() if hasattr(e, "graph"))
+        dev = torch.device("cuda")
+        device_ms = cuda_ms(torch, lambda: gs._on_stream(
+            dev, entry.graph.replay), iters=10, warmup=2)
+        del gs, entry
+        m.graph(False)  # the breakdown's steps run uncaptured
+        drop_graphs(torch)  # the captured steps' memory pools
+        macs, elems = cnn_macs(torch, m, 224)
+        bound, parts = step_bound_ms(macs, elems, n_params, batch, "fp32")
+        bound16, _ = step_bound_ms(macs, elems, n_params, batch, "bf16")
+        print(f"{name} ({card}): captured fp32 step {device_ms:.3f} device "
+              f"ms at batch {batch} ({batch / device_ms * 1e3:.1f} "
+              f"images/s); bound {bound:.3f} ms by {parts['bound_by']} "
+              f"({macs / 1e9:.3f} GMAC an image, {parts['flops'] / 1e12:.3f}"
+              f" TFLOP, {parts['bytes'] / 1e9:.2f} GB a step); the bf16 "
+              f"bound {bound16:.3f} ms", flush=True)
+        out.update(peak_allocated_gib=peak_gb, batch=batch,
+                   captured_step_device_ms=device_ms, step_bound_ms=bound,
+                   step_bound_bf16_ms=bound16, gmac_per_image=macs / 1e9,
+                   step_flops=parts["flops"], step_bytes=parts["bytes"],
+                   bound_by=parts["bound_by"],
+                   breakdown=cnn_breakdown(torch, m, x, y, name))
     mp.set_pool_kernel_enabled(False)
     m.graph(False)
     del m
     drop_graphs(torch)
-    return launches, dict(images_per_s_kernel_on=on_rate,
-                          images_per_s_kernel_off=off_rate,
-                          rates=[rates[True], rates[False]], losses=losses,
-                          grad_rel_err=worst, losses_bf16=losses_bf16,
-                          first_step_s=first_s, step_ms=step_ms, twin=twin)
+    return per_step, out
+
+
+def resnet_path(torch, fa, mp):
+    """ResNet-50 at full width (`cnn_path`): one K2a launch a step."""
+    from singa_tpu_torch.models.resnet import resnet50
+
+    return cnn_path(torch, fa, mp, "resnet50", resnet50,
+                    dict(NO_LAUNCH, max_pool_bwd=1), 128)
 
 
 def seeded_params(model, seed):
@@ -1904,6 +2143,185 @@ def mlp_path(torch, fa, mp, card):
                 captured_step_device_ms=step_ms, step_bound_ms=bound_ms,
                 twin=twin, trainer=dict(losses=trained, val_acc=accs,
                                         wall_s=wall))
+
+
+def f7_path(torch, card):
+    """F7: a parameter object replaced between captured steps. The MLP
+    (seeded weights, SGD with momentum, batch 64) takes 3 captured
+    steps (uncaptured, capture, replay); then `fc2.W` is replaced by a
+    new `nn.Parameter` of other values and 2 more steps run. Returns
+    whether the new tensor moved, whether the old one stayed bitwise,
+    and the `graph_compiles` and captures those 2 steps added; the
+    caller holds them."""
+    from torch import nn
+
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models import MLP
+    from singa_tpu_torch.observability import metrics
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn((MLP_BATCH, 784), generator=gen, device="cuda")
+    y = torch.arange(MLP_BATCH, device="cuda") % 10
+    m = MLP(MLP_HIDDEN, 10, device="cuda")
+    load_singa_tpu_params(m, seeded_params(m, SEED))
+    m.dropout.p = 0.0
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+    m.compile([x], is_train=True, use_graph=True)
+    for _ in range(3):
+        m(x, y)
+    gs = m._train_step
+    old = m.fc2.W
+    new = nn.Parameter(torch.randn(old.shape, generator=gen,
+                                   device="cuda") * 0.1)
+    old0, new0 = old.detach().clone(), new.detach().clone()
+    compiles = metrics.snapshot().get("graph_compiles", 0)
+    captures = gs.captures
+    m.fc2.W = new
+    for _ in range(2):
+        m(x, y)
+    torch.cuda.synchronize()
+    out = dict(new_moved=not torch.equal(m.fc2.W, new0),
+               new_is_the_layers=m.fc2.W is new,
+               old_bitwise=torch.equal(old, old0),
+               graph_compiles_added=metrics.snapshot().get(
+                   "graph_compiles", 0) - compiles,
+               captures_added=gs.captures - captures,
+               replays=gs.replays)
+    print(f"f7 ({card}): after fc2.W is replaced, 2 captured steps: "
+          f"{out}", flush=True)
+    del m, gs
+    drop_graphs(torch)
+    return out
+
+
+#: phase 9g: the new layers' limit against their CPU outputs
+LAYER_TOL = 1e-5
+
+
+def layers_path(torch, card):
+    """The layers this slice adds run on the card and equal their CPU
+    outputs on the same seeded weights and inputs within LAYER_TOL of
+    each output's max|value| (TF32 off; only the summation order
+    differs): `LeakyReLU`, `Sigmoid`, `SoftMax`, `Cat`, `Add` and a
+    stride-2 `SeparableConv2d(padding="same")`, in NHWC."""
+    import copy
+
+    from singa_tpu_torch import layer, layout
+
+    gen = torch.Generator().manual_seed(SEED)
+    a = torch.randn((8, 32, 57, 57), generator=gen)
+    b = torch.randn((8, 32, 57, 57), generator=gen)
+    cases = {
+        "leakyrelu": (layer.LeakyReLU(0.1), (a,)),
+        "sigmoid": (layer.Sigmoid(), (a,)),
+        "softmax": (layer.SoftMax(1), (a,)),
+        "cat": (layer.Cat(1), (a, b)),
+        "add": (layer.Add(), (a, b)),
+        "separable_same_s2": (layer.SeparableConv2d(
+            64, 3, stride=2, padding="same", in_channels=32, device="cpu",
+            generator=torch.Generator().manual_seed(SEED)), (a,)),
+    }
+    out = {}
+    with layout.use_image_layout("NHWC"), torch.no_grad():
+        for name, (lyr, xs) in cases.items():
+            xs = [layout.from_nchw(v) for v in xs]
+            want = lyr(*xs)
+            got = copy.deepcopy(lyr).to("cuda")(*[v.cuda() for v in xs])
+            err = (got.cpu() - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-30)
+            out[name] = dict(shape=list(got.shape), max_abs_err=err,
+                             rel_err=rel)
+            check(tuple(got.shape) == tuple(want.shape) and rel <= LAYER_TOL,
+                  f"layer {name} on the card differs from its CPU output: "
+                  f"{out[name]}")
+    print(f"new layers on the card vs the CPU ({card}, tol {LAYER_TOL}): "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def cifar_trainer(torch, model, card):
+    """`python -m singa_tpu_torch.examples.cnn_cifar10 --model <model>
+    --epochs 2` at its defaults (NHWC, batch 128, the synthetic CIFAR
+    set of 2048 images when none is on disk): exit 0 and "loss sanity:
+    ... ok"."""
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "singa_tpu_torch.examples.cnn_cifar10",
+         "--model", model, "--epochs", "2"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    print(run.stdout, flush=True)
+    check(run.returncode == 0, f"cnn_cifar10 --model {model} failed: "
+                               f"{run.stderr[-2000:]}")
+    sanity = [line for line in run.stdout.splitlines()
+              if line.startswith("loss sanity:")]
+    check(len(sanity) == 1 and sanity[0].endswith("ok"),
+          f"cnn_cifar10 --model {model}: no 'loss sanity: ... ok' line")
+    epochs = [line for line in run.stdout.splitlines()
+              if line.startswith("epoch")]
+    print(f"cnn_cifar10 --model {model} ({card}): {wall:.1f} s", flush=True)
+    return dict(wall_s=wall, sanity=sanity[0], epochs=epochs)
+
+
+def mobile_path(torch, fa, mp, card):
+    """Phase 9g: F7 on the card, the new layers, MobileNetV1 and Xception
+    at full width (`cnn_path`), both CIFAR trainers, and MobileNetV1's
+    ONNX round trip on the card. Returns Xception's counted-step
+    launches and the numbers."""
+    from singa_tpu_torch.models.mobilenet import mobilenet_v1
+    from singa_tpu_torch.models.xception import xception
+
+    out = {}
+    f7 = out["f7"] = f7_path(torch, card)
+    check(f7["new_moved"] and f7["new_is_the_layers"] and f7["old_bitwise"]
+          and f7["graph_compiles_added"] == 1 and f7["captures_added"] == 1,
+          f"F7: after a parameter object was replaced, the captured steps "
+          f"did not train the new tensor alone in one new capture: {f7}")
+    out["layers"] = layers_path(torch, card)
+
+    reset_counts(fa, mp)
+    launches, out["mobilenet_v1"] = cnn_path(
+        torch, fa, mp, "mobilenet_v1", mobilenet_v1, NO_LAUNCH,
+        MOBILE_BATCH, card)
+    check(launches == NO_LAUNCH, f"mobilenet_v1 launched {launches}")
+    reset_counts(fa, mp)
+    xception_launches, out["xception"] = cnn_path(
+        torch, fa, mp, "xception", xception,
+        dict(NO_LAUNCH, max_pool_bwd=4), XCEPTION_BATCH, card, window=3)
+
+    out["trainers"] = {name: cifar_trainer(torch, name, card)
+                       for name in ("mobilenet", "xception")}
+
+    # sonnx: MobileNetV1 (grouped Convs) exported and imported on the card
+    from singa_tpu_torch.model import load_singa_tpu_states
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    src = mobilenet_v1(1000, device="cuda")
+    load_singa_tpu_states(src, cnn_states(
+        {n: t.shape for n, t in [*src.named_parameters(),
+                                 *src.named_buffers()]}, SEED))
+    src.set_image_layout("NHWC")
+    x = torch.randn((8, 3, 224, 224), generator=gen, device="cuda")
+    calibrate_bn(torch, src, x)
+    with torch.no_grad():
+        want = src(x)
+    _, got, nums = onnx_round_trip(torch, fa, mp, src, [x], "mobilenet_v1")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    nums.update(max_abs_err=err, max_abs_logit=scale)
+    print(f"sonnx mobilenet_v1: imported vs source logits max|d| "
+          f"{err:.3e}, max|logit| {scale:.3e} (tol {RESNET_ONNX_TOL} of "
+          f"it)", flush=True)
+    check(tuple(got.shape) == (8, 1000) and bool(torch.isfinite(got).all())
+          and err <= RESNET_ONNX_TOL * scale,
+          "the imported MobileNetV1 disagrees with its source")
+    out["sonnx_mobilenet_v1"] = nums
+    del src, want, got
+    drop_graphs(torch)
+    return xception_launches, out
 
 
 def calibrate_bn(torch, m, x):
@@ -3520,7 +3938,10 @@ def main() -> int:
           and routes["resnet50_stem_fp32_b32"] == 4
           and routes["resnet50_stem_bf16"] == 8
           and routes["channels_first_scalar_route"] == 1
-          and routes["channels_first_scalar_route_bf16"] == 1,
+          and routes["channels_first_scalar_route_bf16"] == 1
+          and all(routes[f"xception_pool{i}_{dt}"] == w
+                  for i in range(len(XCEPTION_POOLS))
+                  for dt, w in (("fp32", 4), ("bf16", 8))),
           f"the stem cases did not take the 16-byte vector route, or the "
           f"channels-first case not the scalar one: {routes}")
 
@@ -3675,6 +4096,14 @@ def main() -> int:
     print(f"zero1: {time.perf_counter() - t:.1f} s ({card}); the counted "
           f"step's launches {zero1_launches}", flush=True)
 
+    # 9g. F7, the new layers, MobileNetV1 and Xception at full width (K2a
+    # 4 times an Xception step), their trainers, MobileNetV1's ONNX
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    xception_launches, mobile_out = mobile_path(torch, fa, mp, card)
+    print(f"mobile: {time.perf_counter() - t:.1f} s ({card}); Xception's "
+          f"counted step's launches {xception_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -3766,7 +4195,8 @@ def main() -> int:
         launches=resnet_launches["max_pool_bwd"],
         launches_by_path={
             "resnet50_step": resnet_launches["max_pool_bwd"],
-            "dist_resnet50_step": dist_launches["max_pool_bwd"]},
+            "dist_resnet50_step": dist_launches["max_pool_bwd"],
+            "xception_step": xception_launches["max_pool_bwd"]},
         max_abs_err=pool["max_abs_err"], ms=pool["ms"],
         plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
         bound_by=pool["bound_by"], library_ms=pool["library_ms"],
@@ -3780,6 +4210,10 @@ def main() -> int:
         dist_resnet50_b32={k: pool32[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "vector_width")},
+        xception_pools=[{k: r[k] for k in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "vector_width")} for r in pool_rows
+            if r["case"].startswith("xception_pool")],
         sass=sass_of("max_pool_bwd_kernel"), card=card))
     print("serve " + json.dumps(serve), flush=True)
     print("serve_stack " + json.dumps(stack), flush=True)
@@ -3794,6 +4228,7 @@ def main() -> int:
     print("sonnx " + json.dumps(sonnx_out), flush=True)
     print("dist_resnet50 " + json.dumps(dist_out), flush=True)
     print("zero1_gpt_medium " + json.dumps(zero1_out), flush=True)
+    print("mobile " + json.dumps(mobile_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,11 @@ on top of it:
 - the remat policies `REMAT_POLICIES` and `remat_wrap` (reference
   :427-450) on `torch.utils.checkpoint`;
 - `softmax_cross_entropy` / `cross_entropy` (reference :1507-1533);
-- the CNN ops, as plain functions on tensors: `conv2d`, `batchnorm`,
+- the CNN ops, as plain functions on tensors: `conv2d` (explicit pads,
+  or "same"/"valid" with XLA's pad placement), `batchnorm`,
   `max_pool2d`, `avg_pool2d`, `global_avg_pool2d`, `relu`, `add` and
-  `flatten` (reference :640-682, :895, :982-1323). Under the "NHWC"
+  `flatten` (reference :640-682, :895, :982-1323), and the activations
+  `leakyrelu`, `sigmoid` and `softmax` (reference :899-935). Under the "NHWC"
   image layout (`layout.py`) the activations are channels-last tensors
   of logical NCHW shape, so every op indexes channels on axis 1;
 - the transformer's plain tensor functions `linear` (the bias joined at
@@ -61,7 +63,8 @@ from singa_tpu_torch.ops import max_pool
 __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "backward", "grad_pairs", "REMAT_POLICIES", "remat_wrap",
            "softmax_cross_entropy", "cross_entropy", "add", "flatten",
-           "relu", "conv2d", "DEGENERATE_STAT_COUNT", "batchnorm",
+           "relu", "leakyrelu", "sigmoid", "softmax", "conv2d",
+           "DEGENERATE_STAT_COUNT", "batchnorm",
            "max_pool2d", "avg_pool2d", "global_avg_pool2d", "gelu", "tanh",
            "reshape", "linear", "vanilla_rnn", "lstm", "gru", "embedding",
            "layernorm", "dropout", "rank_draws", "draw_rank",
@@ -478,6 +481,25 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return op("Relu", {}, F.relu, x)
 
 
+def leakyrelu(x: torch.Tensor, a: float = 0.01) -> torch.Tensor:
+    """x where x >= 0, else a * x (`jax.nn.leaky_relu`: slope 1 at 0)."""
+    return op("LeakyRelu", {"alpha": a},
+              lambda v: torch.where(v >= 0, v, v * a), x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return op("Sigmoid", {}, torch.sigmoid, x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Softmax over logical `axis` (NCHW axes in both image layouts)."""
+    def fn(v):
+        y = torch.softmax(v, dim=axis)
+        return layout_module.from_nchw(y) if v.dim() == 4 else y
+
+    return op("Softmax", {"axis": axis}, fn, x)
+
+
 def embedding(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """table[idx]; the (table, idx) order of ONNX's Gather."""
     return op("Gather", {"axis": 0}, lambda t, i: t[i], table, idx)
@@ -591,34 +613,61 @@ def _pair(v) -> Tuple[int, int]:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+def _same_pads(in_sizes, kernel, strides, dilations, lower: bool = False
+              ) -> List[Tuple[int, int]]:
+    """(begin, end) pads per spatial dim that keep ceil(n / s) outputs:
+    the total (the dilated window's overhang) split in two, the odd cell
+    at the end (XLA's "SAME", ONNX's SAME_UPPER) or, `lower`, at the
+    beginning (SAME_LOWER)."""
+    out = []
+    for n, k, s, d in zip(in_sizes, kernel, strides, dilations):
+        eff = (k - 1) * d + 1
+        total = max((-(-n // s) - 1) * s + eff - n, 0)
+        small, big = total // 2, total - total // 2
+        out.append((big, small) if lower else (small, big))
+    return out
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, stride=1, padding=0,
            dilation=1, groups: int = 1) -> torch.Tensor:
     """2-D convolution, weight OIHW in both image layouts; operands under
     the autocast policy, the bias joined at the output dtype. cuDNN keeps
-    a channels-last input channels-last. The reference lowers 1x1 convs
-    over small outputs to matrix products, a tiling choice of the TPU;
-    here every conv is one `F.conv2d` (only the summation order
-    differs)."""
+    a channels-last input channels-last. `padding` is a number, a pair,
+    or "same"/"valid" (either case): "same" pads as XLA does, the odd
+    cell at the end at any stride, with one explicit `F.pad` where the
+    two ends differ (`F.conv2d`'s own "same" refuses strides over 1).
+    The reference lowers 1x1 convs over small outputs to matrix
+    products, a tiling choice of the TPU; here every conv is one
+    `F.conv2d` (only the summation order differs)."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    auto_pad = "NOTSET"
     if isinstance(padding, str):
-        raise NotImplementedError(
-            "conv2d(padding='same'/'valid') comes with SeparableConv2d "
-            "and the mobile nets (ROADMAP queue 1 item 6)")
-    stride, padding, dilation = _pair(stride), _pair(padding), _pair(
-        dilation)
+        auto_pad = padding.upper()
+        if auto_pad not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = [(0, 0)] * 2 if auto_pad == "VALID" else _same_pads(
+            x.shape[2:], w.shape[2:], stride, dilation)
+    else:
+        pads = [(p, p) for p in _pair(padding)]
+    even = all(lo == hi for lo, hi in pads)
+    padding = tuple(lo for lo, _ in pads) if even else (0, 0)
+    torch_pads = [p for pair in reversed(pads) for p in pair]
 
     def fn(a, ww, *bb):
         a, ww = _mxu_cast(a, ww)
+        if not even:
+            a = F.pad(a, torch_pads)
         out = _mxu_result(F.conv2d(a, ww, None, stride, padding, dilation,
                                    groups))
         if bb:
             out = out + bb[0].view(1, -1, 1, 1).to(out.dtype)
         return out
 
-    ph, pw = padding
+    ph, pw = (0, 0) if auto_pad != "NOTSET" else padding
     return op("Conv", {"strides": list(stride), "pads": [ph, pw, ph, pw],
                        "dilations": list(dilation), "group": groups,
-                       "auto_pad": "NOTSET"},
+                       "auto_pad": auto_pad},
               fn, *((x, w) if b is None else (x, w, b)))
 
 

@@ -1,5 +1,5 @@
-"""AlexNet / VGG / ResNet on CIFAR-10 (counterpart of
-examples/cnn_cifar10.py).
+"""AlexNet / VGG / ResNet / MobileNetV1 / Xception on CIFAR-10
+(counterpart of examples/cnn_cifar10.py).
 
 The reference trainer's surface: pick a model, set its internal image
 layout, SGD (momentum 0.9, weight decay 5e-4) with a linear lr warmup,
@@ -16,8 +16,11 @@ epoch's mean loss is not below the first's. Runs on the card unless
     python -m singa_tpu_torch.examples.cnn_cifar10 --model resnet --epochs 5
     python -m singa_tpu_torch.examples.cnn_cifar10 --device cpu \\
         --model resnet --epochs 2 --batch 32
+    python -m singa_tpu_torch.examples.cnn_cifar10 --model xception --epochs 2
 
-Under `--layout NHWC` (the default) every max-pool runs through
+`--model mobilenet` is `mobilenet_v1_cifar` (depthwise-separable units,
+no max-pool) and `--model xception` is `xception_cifar` (four max-pools
+a step). Under `--layout NHWC` (the default) every max-pool runs through
 `ops.max_pool.maxpool2d_nhwc`, whose CUDA backward is off by default, as
 in the reference (`set_pool_kernel_enabled`). `--checkpoint`,
 `--virtual-devices` and `--loader prefetch` raise, naming the ROADMAP
@@ -35,14 +38,18 @@ import torch
 from singa_tpu_torch import device as device_module
 from singa_tpu_torch import distributed as dist_mod
 from singa_tpu_torch import opt
-from singa_tpu_torch.models import alexnet_cifar, resnet20_cifar, vgg16_cifar
+from singa_tpu_torch.models import (alexnet_cifar, mobilenet_v1_cifar,
+                                    resnet20_cifar, vgg16_cifar,
+                                    xception_cifar)
 from singa_tpu_torch.utils import data
 
 MODELS = {"alexnet": alexnet_cifar, "vgg": vgg16_cifar,
-          "resnet": resnet20_cifar}
+          "resnet": resnet20_cifar, "mobilenet": mobilenet_v1_cifar,
+          "xception": xception_cifar}
 
 # alexnet_cifar has no BatchNorm: SGD at the BN models' 0.05 diverges
-DEFAULT_LR = {"alexnet": 0.005, "vgg": 0.05, "resnet": 0.05}
+DEFAULT_LR = {"alexnet": 0.005, "vgg": 0.05, "resnet": 0.05,
+              "mobilenet": 0.05, "xception": 0.05}
 
 
 def _refuse_unported(args):
@@ -121,8 +128,9 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--lr", type=float, default=None,
-                   help="default: 0.05 for resnet/vgg (BatchNorm models), "
-                        "0.005 for alexnet (no BN; diverges at 0.05)")
+                   help="default: 0.05 for the BatchNorm models "
+                        "(resnet, vgg, mobilenet, xception), 0.005 for "
+                        "alexnet (no BN; diverges at 0.05)")
     p.add_argument("--warmup", type=int, default=50,
                    help="linear lr warmup steps")
     p.add_argument("--layout", choices=["NCHW", "NHWC"], default="NHWC",

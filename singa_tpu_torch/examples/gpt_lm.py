@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from singa_tpu_torch import device as device_module
-from singa_tpu_torch import distributed, opt
+from singa_tpu_torch import distributed, opt, tensor
 from singa_tpu_torch.models.gpt import GPT
 
 _BUILTIN = (
@@ -79,7 +79,7 @@ def run(args) -> dict:
         print("scan-blocks decoder is dropout-free; forcing --dropout 0")
         args.dropout = 0.0
     dev = device_module.resolve(args.device)
-    torch.manual_seed(args.seed)  # dropout's draws (the reference's set_seed)
+    tensor.set_seed(args.seed)  # dropout's draws
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     m = GPT(vocab_size=len(chars), d_model=args.d_model,

@@ -3,10 +3,15 @@
 
 `GraphStep` wraps a model's bound `train_one_batch` and keeps one entry
 per key: the tensor operands' shapes and dtypes, the static arguments,
-`training`, and the dispatch switches a step reads while it runs (the
+`training`, the dispatch switches a step reads while it runs (the
 autocast policy, `flash_attention.flash_enabled()`,
 `max_pool.pool_kernel_enabled()`, the dropout rank
-`autograd.draw_rank()`).
+`autograd.draw_rank()`), and `layer.mutation_stamp()`. A graph reads
+and writes the storage it was captured on, so a parameter object
+replaced since (`m.fc.W = nn.Parameter(...)`) would be left training
+the old tensor; the stamp moves on such an assignment (reference
+`graph.py:228-249`), the next step takes a new key, and the entries of
+older stamps are dropped with their graphs.
 
 On the card a key's
 
@@ -66,6 +71,7 @@ import numpy as np
 import torch
 
 from singa_tpu_torch import autograd
+from singa_tpu_torch import layer as layer_module
 from singa_tpu_torch.observability import metrics as obs_metrics
 from singa_tpu_torch.observability import trace as obs_trace
 from singa_tpu_torch.ops import flash_attention as fa
@@ -131,6 +137,7 @@ class GraphStep:
         self.model = model
         self.method = method
         self._cache: Dict[Any, Any] = {}
+        self._stamp = layer_module.mutation_stamp()
         self._stream = None
         self._step_metrics = None
         #: captures made (builds, on the CPU) and replays run
@@ -161,12 +168,12 @@ class GraphStep:
         return args, dyn_idx, tensors, (tuple(static), tuple(sorted(
             kwargs.items())))
 
-    def _key(self, tensors, static_key):
+    def _key(self, tensors, static_key, stamp):
         return (tuple((tuple(t.shape), t.dtype) for t in tensors),
                 static_key, bool(self.model.training),
                 tuple(sorted(autograd._autocast.items(), key=str)),
                 fa.flash_enabled(), max_pool.pool_kernel_enabled(),
-                autograd.draw_rank())
+                autograd.draw_rank(), stamp)
 
     def _device(self, tensors) -> torch.device:
         for p in self.model.parameters():
@@ -176,7 +183,11 @@ class GraphStep:
     # ------------------------------------------------------------------
     def __call__(self, *args, **kwargs):
         args, dyn_idx, tensors, static_key = self._split_args(args, kwargs)
-        key = self._key(tensors, static_key)
+        stamp = layer_module.mutation_stamp()
+        if stamp != self._stamp:  # captured against replaced objects
+            self._cache.clear()
+            self._stamp = stamp
+        key = self._key(tensors, static_key, stamp)
         dev = self._device(tensors)
         t0 = time.perf_counter() if obs_metrics.enabled() else None
         entry = self._cache.get(key)

@@ -11,9 +11,20 @@ widths only (`Linear(10)`, `Conv2d(32, 3, 1)`, `LSTM(64, 2)`,
 `input_size=`): given, the parameters are made at once; absent, they are
 `UninitializedParameter`s (PyTorch's lazy-module idiom) until the first
 call, which infers the width from its input as the reference's
-`Layer.initialize` does. `Model.compile`'s forward materialises them,
-before `set_optimizer`'s `prepare` names the slots and before any
-capture. Parameters are made on `device=` from a `torch.Generator`, with
+`Layer.initialize` does. A layer made of sub-layers whose widths follow
+its input (`SeparableConv2d`, the blocks of MobileNet and Xception)
+makes those sub-layers at the same point, on its device and from its
+generator: at once when the width is given, else at the first call,
+which is where the reference's `initialize(x)` hook makes them.
+`Model.compile`'s forward materialises them, before `set_optimizer`'s
+`prepare` names the slots and before any capture.
+
+Setting a layer attribute to a tensor, a module or a list/tuple bumps
+the process-wide `mutation_stamp()` (reference `layer.py:92-107`), which
+keys `graph.GraphStep`'s captured steps: a step after `layer.W =
+nn.Parameter(...)` trains the new tensor, with fresh optimizer slots.
+
+Parameters are made on `device=` from a `torch.Generator`, with
 the reference's init distributions (not its random bits). Parameter
 names and layouts are the reference's, so `model.load_singa_tpu_params`
 maps them one to one: `Linear.W` is (in, out), and
@@ -26,12 +37,14 @@ tanh approximation of GELU (`jax.nn.gelu(approximate=True)`); the bias
 joined at the product's output dtype; matrix products under the autocast
 policy of `autograd`.
 
-The CNN layers (`Conv2d` with OIHW `W` and "he" init, `BatchNorm2d` with
-`scale`, `offset` and the buffers `running_mean`, `running_var`, the
-pools, `ReLU`, `Flatten`, `Sequential`) run in the current image layout
-(`layout.py`). `Sequential` keeps its layers in an `nn.ModuleList` named
-`layers`, so dotted names are the reference's
-(`layer1.layers.0.conv1.layers.0.W`).
+The CNN layers (`Conv2d` with OIHW `W` and "he" init, `padding` a
+number or "same"/"valid"; `SeparableConv2d`, a depthwise `Conv2d` named
+`depthwise` into a 1x1 one named `pointwise`; `BatchNorm2d` with
+`scale`, `offset` and the buffers `running_mean`, `running_var`; the
+pools, `ReLU`, `LeakyReLU`, `Sigmoid`, `SoftMax`, `Flatten`, `Cat`,
+`Add`, `Sequential`) run in the current image layout (`layout.py`).
+`Sequential` keeps its layers in an `nn.ModuleList` named `layers`, so
+dotted names are the reference's (`layer1.layers.0.conv1.layers.0.W`).
 
 The recurrent layers (`RNN`, `LSTM`, `GRU`, `CudnnRNN`) run the
 `autograd` recurrent ops per layer and direction, with the reference's
@@ -66,11 +79,13 @@ from singa_tpu_torch import tensor as tensor_module
 from singa_tpu_torch.ops import flash_attention as fa
 
 __all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Dropout", "Gelu",
-           "Tanh", "ScanTransformerStack", "Conv2d", "BatchNorm2d",
-           "MaxPool2d", "AvgPool2d", "GlobalAvgPool2d", "ReLU", "Flatten",
-           "Sequential", "RNN", "LSTM", "GRU", "CudnnRNN",
+           "Tanh", "Sigmoid", "ScanTransformerStack", "Conv2d",
+           "SeparableConv2d", "BatchNorm2d", "MaxPool2d", "AvgPool2d",
+           "GlobalAvgPool2d", "ReLU", "LeakyReLU", "SoftMax", "Flatten",
+           "Sequential", "Cat", "Add", "RNN", "LSTM", "GRU", "CudnnRNN",
            "paged_kv_gather", "paged_kv_token_write",
-           "paged_kv_window_write", "paged_kv_pages_write"]
+           "paged_kv_window_write", "paged_kv_pages_write",
+           "mutation_stamp"]
 
 
 def _fill(t: torch.Tensor, gen, init: str, a: float = 0.0) -> torch.Tensor:
@@ -94,6 +109,20 @@ def _new(shape, dev, gen, init: str, a: float = 0.0) -> nn.Parameter:
     """A float32 parameter made at once, filled as `_fill` says."""
     return nn.Parameter(_fill(torch.empty(shape, dtype=torch.float32,
                                           device=dev), gen, init, a))
+
+
+#: bumped whenever a Layer attribute is set to a tensor, a module or a
+#: list/tuple (reference layer.py:92-107): `graph.GraphStep` keys its
+#: captured steps by it, so a step after `layer.W = new_tensor` captures
+#: afresh against the new tensor instead of replaying onto the old one.
+#: In-place writes (`set_params`, `set_states`, the carry-overs) and the
+#: materialisation of a lazy parameter keep the objects and the stamp
+_MUTATION = [0]
+
+
+def mutation_stamp() -> int:
+    """The process-wide count of structural attribute assignments."""
+    return _MUTATION[0]
 
 
 def _setup(device, generator):
@@ -121,6 +150,11 @@ class Layer(nn.Module):
         self._lazy = False
         self._gen = None
 
+    def __setattr__(self, key, value):
+        if isinstance(value, (torch.Tensor, nn.Module, list, tuple)):
+            _MUTATION[0] += 1
+        super().__setattr__(key, value)
+
     def _lazy_param(self) -> UninitializedParameter:
         self._lazy = True
         return UninitializedParameter(device=self._dev, dtype=torch.float32)
@@ -139,8 +173,9 @@ class Layer(nn.Module):
         return x.shape[-1]
 
     def _make(self, width: int) -> None:
-        """Materialise the input-width-dependent tensors (the layers with
-        lazy widths define it)."""
+        """Materialise the input-width-dependent tensors, or make the
+        input-width-dependent sub-layers (the layers with lazy widths
+        define it)."""
         raise NotImplementedError
 
     def _settle(self, width: Optional[int]) -> None:
@@ -411,6 +446,37 @@ class Conv2d(Layer):
                                self.dilation, self.group)
 
 
+class SeparableConv2d(Layer):
+    """A depthwise convolution (groups = in_channels) into a pointwise
+    1x1 one, as the reference's (`layer.py:335-359`):
+    `SeparableConv2d(nb_kernels, kernel_size, stride, padding, bias)`.
+    Both sub-layers depend on the input width, so they are made when
+    `in_channels=` is given, else at the first call."""
+
+    def __init__(self, nb_kernels: int, kernel_size, stride=1, padding=0,
+                 bias: bool = False, *, in_channels: Optional[int] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._dev, self._gen = _setup(device, generator)
+        self.nb_kernels, self.kernel_size = nb_kernels, kernel_size
+        self.stride, self.padding, self.bias = stride, padding, bias
+        self._lazy = True  # the sub-layers wait for the input width
+        self._settle(in_channels)
+
+    _in_width = staticmethod(_channels)
+
+    def _make(self, c):
+        kw = dict(bias=self.bias, in_channels=c, device=self._dev,
+                  generator=self._gen)
+        self.depthwise = Conv2d(c, self.kernel_size, stride=self.stride,
+                                padding=self.padding, group=c, **kw)
+        self.pointwise = Conv2d(self.nb_kernels, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
+        return self.pointwise(self.depthwise(x))
+
+
 class BatchNorm2d(Layer):
     """`autograd.batchnorm` with `scale` (ones), `offset` (zeros) and the
     buffers `running_mean` (zeros) and `running_var` (ones);
@@ -483,6 +549,29 @@ class ReLU(Layer):
         return autograd.relu(x)
 
 
+class LeakyReLU(Layer):
+    def __init__(self, a: float = 0.01):
+        super().__init__()
+        self.a = a
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.leakyrelu(x, self.a)
+
+
+class Sigmoid(Layer):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.sigmoid(x)
+
+
+class SoftMax(Layer):
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd.softmax(x, self.axis)
+
+
 class Flatten(Layer):
     """Flatten the dims from `start_axis` on. The reference rotates an
     NHWC activation back to NCHW first, so that the following Linear
@@ -507,6 +596,25 @@ class Sequential(Layer):
         for lyr in self.layers:
             x = lyr(x)
         return x
+
+
+class Cat(Layer):
+    """Concatenate the inputs on `axis`. Axes are logical NCHW ones in
+    both image layouts, so `Cat(axis=1)` joins channels under "NHWC"
+    too; the reference concatenates the raw NHWC array there, where
+    axis 1 is the height."""
+
+    def __init__(self, axis: int = 1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+        return autograd.cat(list(xs), self.axis)
+
+
+class Add(Layer):
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return autograd.add(a, b)
 
 
 # -- recurrent layers (reference layer.py:514-698) -----------------------------

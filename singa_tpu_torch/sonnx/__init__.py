@@ -188,18 +188,6 @@ def _onnx_pads(attrs, spatial: int):
     return [(pads[i], pads[i + spatial]) for i in range(spatial)]
 
 
-def _same_pads(in_sizes, kernel, strides, dilations, lower: bool):
-    """Explicit SAME_UPPER / SAME_LOWER pads: the odd cell goes to the end
-    (upper) or the beginning (lower)."""
-    out = []
-    for n, k, s, d in zip(in_sizes, kernel, strides, dilations):
-        eff = (k - 1) * d + 1
-        total = max((-(-n // s) - 1) * s + eff - n, 0)
-        small, big = total // 2, total - total // 2
-        out.append((big, small) if lower else (small, big))
-    return out
-
-
 def _torch_pads(pads) -> List[int]:
     """[(b1, e1), ..., (bn, en)] over the trailing dims -> F.pad's order
     (the last dim first)."""
@@ -216,9 +204,9 @@ def _conv(ctx, node, attrs, ins):
     dilations = tuple(attrs.get("dilations", [1] * spatial))
     pads = _onnx_pads(attrs, spatial)
     if isinstance(pads, str):
-        pads = _same_pads(x.shape[2:],
-                          attrs.get("kernel_shape", w.shape[2:]), strides,
-                          dilations, lower="LOWER" in attrs["auto_pad"])
+        pads = autograd._same_pads(
+            x.shape[2:], attrs.get("kernel_shape", w.shape[2:]), strides,
+            dilations, lower="LOWER" in attrs["auto_pad"])
     if all(lo == hi for lo, hi in pads):
         padding = tuple(lo for lo, _ in pads)
     else:

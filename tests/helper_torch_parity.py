@@ -70,6 +70,36 @@ def ref_cnn(ref_model, x, seed):
     return states
 
 
+def ref_cnn_case(jax_ctor, shape, seed):
+    """A reference CNN built on seeded images of `shape` with seeded
+    states (`ref_cnn`), and its eval-mode logits: (model, states, x, y,
+    logits), y the labels 3, 7, 3, ..."""
+    from singa_tpu.tensor import from_numpy
+
+    x = rand(shape, seed)
+    ref = jax_ctor()
+    states = ref_cnn(ref, x, seed + 1)
+    ref.eval()
+    logits = np.asarray(ref(from_numpy(x)).data)
+    y = np.array([3, 7] * (shape[0] // 2) + [3] * (shape[0] % 2), np.int32)
+    return ref, states, x, y, logits
+
+
+def check_cnn_eval(states, make_port, x, want, lay, tol):
+    """The port's eval-mode logits in layout `lay` against the
+    reference's `want` (the function is the same in both layouts), and
+    no tape recorded."""
+    from singa_tpu_torch.model import load_singa_tpu_states
+
+    m = make_port()
+    load_singa_tpu_states(m, states)
+    m.set_image_layout(lay)
+    got = m.eval()(torch.from_numpy(x))
+    assert got.grad_fn is None
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+    return m
+
+
 def set_ref_states(ref_model, states):
     ref_model.set_params({k: v for k, v in states.items()
                           if k in ref_model.get_params()})
@@ -82,7 +112,8 @@ def ref_states(ref_model):
 
 
 def check_cnn_training(ref_model, states, make_port, x, y, lay, lr, tol,
-                       tol_steps, steps=3, momentum=0.9, wd=5e-4):
+                       tol_steps, steps=3, momentum=0.9, wd=5e-4,
+                       tol_grads=None):
     """Train the reference CNN (graph mode) and the port's from the same
     states in image layout `lay` with SGD(lr, momentum, weight decay wd)
     on one batch for `steps` steps, and hold the port to the reference
@@ -98,7 +129,8 @@ def check_cnn_training(ref_model, states, make_port, x, y, lay, lr, tol,
     and within `tol_steps` every later loss and every parameter and
     buffer after the last step (the two trajectories part where a ReLU
     input lies within rounding of 0, so the steps carry more than one
-    step's rounding)."""
+    step's rounding). `tol_grads`, when given, replaces `tol` for the
+    gradients."""
     from singa_tpu import opt as jax_opt
     from singa_tpu.tensor import from_numpy
     from singa_tpu_torch import autograd, opt
@@ -153,7 +185,8 @@ def check_cnn_training(ref_model, states, make_port, x, y, lay, lr, tol,
     assert sorted(grads) == sorted(n for n, _ in g.named_parameters())
     for k, v in grads.items():
         p0, p1 = want[0][k], want[1][k]
-        close(v, (p0 - p1) / lr - wd * p0, f"gradient of {k}")
+        close(v, (p0 - p1) / lr - wd * p0, f"gradient of {k}",
+              tol if tol_grads is None else tol_grads)
 
     m = port()
     losses = [m(xt, yt)[1].item() for _ in range(steps)]

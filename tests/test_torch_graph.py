@@ -16,7 +16,14 @@ Model's routing through it) on the CPU, where the step runs uncaptured.
   keeps its storage across steps (`data_ptr`), the step counter lives on
   the parameters' device and its host mirror follows it, and a scheduled
   learning rate is a tensor computed from that counter; `load_states`
-  writes into the slots in place.
+  writes into the slots in place;
+- F7: the key carries `layer.mutation_stamp()`, which a parameter object
+  replaced on a layer moves (a new key, one more build, the old entry
+  dropped) and in-place writes (`set_params`, `set_states`, the
+  carry-over, a lazy parameter's materialisation) do not; after such a
+  replacement the step trains the new tensor with fresh slots, as
+  `singa_tpu`'s graph step does after the same replacement (the MLP,
+  SGD with momentum, 2 steps before and 2 after, within 1e-5).
 """
 
 import numpy as np
@@ -25,8 +32,8 @@ import torch
 
 from singa_tpu_torch import autograd, layer, opt
 from singa_tpu_torch.graph import GraphStep
-from singa_tpu_torch.model import Model
-from singa_tpu_torch.models import CharRNN
+from singa_tpu_torch.model import Model, load_singa_tpu_params
+from singa_tpu_torch.models import MLP, CharRNN
 from singa_tpu_torch.observability import metrics, trace
 
 KW = dict(vocab_size=12, hidden_size=16, embed_dim=8, num_layers=1)
@@ -202,3 +209,86 @@ def test_scheduled_learning_rate_is_a_tensor_of_the_device_step():
     assert float(lr1) > float(lr0)  # the warmup ramp read the new step
     # a constant rate stays a host float: a constant of the step
     assert opt.SGD(lr=0.5).lr_value() == 0.5
+
+
+def test_a_replaced_parameter_moves_the_key_and_in_place_writes_do_not():
+    m = _Regressor()
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+    x, y = torch.ones(4, 3), torch.zeros(4, 1)
+    m.compile([x], is_train=True, use_graph=True)
+    lazy = layer.Linear(2, device="cpu")  # building a layer moves it
+    m(x, y)
+    step = m._train_step
+    (key,) = step._cache
+    stamp = layer.mutation_stamp()
+    m.set_params({"fc.W": np.full((3, 1), 0.5, np.float32)})
+    m.set_states({"fc.b": np.zeros(1, np.float32)})
+    load_singa_tpu_params(m, {"fc.W": np.ones((3, 1), np.float32),
+                              "fc.b": np.ones(1, np.float32)})
+    m.eval()
+    m.train()
+    lazy(torch.ones(1, 3))  # materialises W in place
+    assert layer.mutation_stamp() == stamp
+    m(x, y)
+    assert step.captures == 1 and list(step._cache) == [key]
+
+    old = m.fc.W
+    old0 = old.detach().clone()
+    m.fc.W = torch.nn.Parameter(torch.full((3, 1), 2.0))
+    assert layer.mutation_stamp() > stamp
+    m(x, y)
+    (new_key,) = step._cache  # the entry of the old stamp is gone
+    assert new_key != key and new_key[:-1] == key[:-1]
+    assert step.captures == 2
+    assert not torch.equal(m.fc.W, torch.full((3, 1), 2.0))
+    assert torch.equal(old, old0)
+    assert id(m.fc.W) in m.optimizer._slots
+
+
+def test_steps_after_a_replacement_match_the_reference():
+    from singa_tpu import autograd as ref_autograd
+    from singa_tpu import opt as ref_opt
+    from singa_tpu import tensor as ref_tensor
+    from singa_tpu.models import MLP as RefMLP
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 6)).astype(np.float32)
+    y = rng.integers(0, 3, 8).astype(np.int32)
+    new_w = rng.standard_normal((5, 3)).astype(np.float32)
+    ref = RefMLP(perceptron_size=5, num_classes=3)
+    ref.dropout.p = 0.0
+    ref.eval()
+    ref(ref_tensor.from_numpy(x))
+    params = {k: rng.standard_normal(v.shape).astype(np.float32)
+              for k, v in ref.get_params().items()}
+    ref.set_params(params)
+    ref.set_optimizer(ref_opt.SGD(lr=0.1, momentum=0.9))
+    ref.compile([ref_tensor.from_numpy(x)], is_train=True, use_graph=True)
+    port = MLP(5, 3, in_features=6, device="cpu")
+    port.dropout.p = 0.0
+    load_singa_tpu_params(port, params)
+    port.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+    port.compile([torch.from_numpy(x)], is_train=True, use_graph=True)
+    try:
+        losses = {"ref": [], "port": []}
+        for i in range(4):
+            if i == 2:
+                ref.fc2.W = ref_tensor.Tensor(data=new_w, requires_grad=True,
+                                              stores_grad=True)
+                port.fc2.W = torch.nn.Parameter(torch.from_numpy(
+                    new_w.copy()))
+            losses["ref"].append(float(np.asarray(ref(
+                ref_tensor.from_numpy(x), ref_tensor.from_numpy(y))[1].data)))
+            losses["port"].append(port(torch.from_numpy(x),
+                                       torch.from_numpy(y).long())[1].item())
+    finally:
+        ref_autograd.training = False
+    np.testing.assert_allclose(losses["port"], losses["ref"], rtol=1e-5)
+    want = {k: np.asarray(v.data) for k, v in ref.get_params().items()}
+    got = {k: v.detach().numpy() for k, v in port.named_parameters()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=1e-5,
+                                   err_msg=k)
+    assert not np.allclose(got["fc2.W"], new_w)  # the new tensor trained
+    assert port._train_step.captures == 2

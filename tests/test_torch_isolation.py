@@ -1,14 +1,16 @@
 """The port stands alone and never falls back.
 
 - singa_tpu_torch (serving/, resilience/, observability/, tensor.py,
-  graph.py and the Char-RNN model and trainer among it), chip_smoke.py
+  graph.py, the Char-RNN model and trainer, MobileNetV1 and Xception
+  among it), chip_smoke.py
   and the port's profiling and A/B scripts import nothing of JAX and
   nothing of singa_tpu (an AST scan, and a real import, with both
   blocked, that serves one request, takes one graph-mode Char-RNN step,
   exports a small MLP to ONNX and imports it again, and takes one
   DistOpt step and one ZeRO-1 step (every wire option, rank 1's dropout
-  draws) over a gloo group of one; the spool
-  server's process entry runs with both blocked);
+  draws) over a gloo group of one; MobileNetV1 and Xception each take
+  a graph-mode step; the spool server's process entry runs with both
+  blocked);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -140,6 +142,40 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert lines[3] == "(2, 3) 0.0"
     assert lines[4] == "1 1 gloo"
     assert lines[5] == "True 1 __step__"
+
+
+def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():
+    """MobileNetV1 and Xception (narrow CIFAR shapes), the new layers and
+    the tensor module import, and each net takes one graph-mode step on
+    the CPU, with JAX and the reference blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import layer, opt, tensor, _kernels\n"
+        "from singa_tpu_torch.models import MobileNetV1, Xception\n"
+        "x = torch.randn(2, 3, 16, 16)\n"
+        "y = torch.tensor([1, 2])\n"
+        "for m in (MobileNetV1(10, alpha=0.25, stem_stride=1,\n"
+        "                      device='cpu'),\n"
+        "          Xception(10, middle_reps=1, stem_stride=1,\n"
+        "                   device='cpu')):\n"
+        "    m.set_image_layout('NHWC')\n"
+        "    m.set_optimizer(opt.SGD(0.05, momentum=0.9))\n"
+        "    m.compile([x], is_train=True, use_graph=True)\n"
+        "    out, loss = m(x, y)\n"
+        "    print(tuple(out.shape), bool(torch.isfinite(loss)),\n"
+        "          m._train_step.captures)\n"
+        "print(tuple(layer.SeparableConv2d(4, 3, padding='same',\n"
+        "    device='cpu')(torch.ones(1, 2, 5, 5)).shape),\n"
+        "      float(tensor.sum(tensor.ones((2, 3), dev='cpu'))),\n"
+        "      layer.mutation_stamp() > 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:3] == [
+        "(2, 10) True 1", "(2, 10) True 1", "(1, 4, 5, 5) 6.0 True"]
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):
