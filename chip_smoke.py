@@ -264,6 +264,26 @@ Phases, in the order they run (any failure raises and exits non-zero):
    NHWC at batch 8 in eval mode (calibrated BatchNorm statistics)
    exported and imported on the card, its logits within 1e-3 of
    max|logit| of the source's (grouped `Conv` in the importer);
+9h. the captured eval step: gpt_medium (seeded weights, 4 x 1024, fp32
+   then bf16) compiled with use_graph=True and scored in eval mode: the
+   eval step's first call runs uncaptured and launches the flash forward
+   12 times (and makes the step's native memory plan, 0 < peak <=
+   naive), the second captures (12 launches recorded, one more
+   `graph_compiles`), the third replays; the captured and replayed
+   logits must equal the uncaptured `forward`'s bitwise; print the
+   replay's device ms (CUDA events over the graph's replays), the
+   uncaptured forward's host ms and the idle share of each
+   (`torch.profiler`). ResNet-50 and MobileNetV1 at (128, 3, 224, 224)
+   NHWC fp32 the same way (no kernel), with images/s of eval-step calls
+   and of the uncaptured forward in turns, and the training step's
+   memory plan; `cnn_cifar10 --model resnet --epochs 1` in this process,
+   whose validation loop must replay the eval step; gpt_medium's
+   training step's plan, and `step_memory_analysis` under remat "none"
+   and "per_block" (per_block's `temp_bytes` below none's); a user
+   `autograd.Function` with its own backward and one with the default
+   VJP in an MLP trained 6 captured steps, equal to the same steps on
+   the CPU within 1e-5 and bitwise to the uncaptured twin; and the 40
+   functional ops, forward and gradient, against the CPU within 1e-5;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -3859,6 +3879,477 @@ def serve_router(torch, model, card):
                                      status=status))
 
 
+# -- 9h. the captured eval step, the memory plan, Operator / Function and
+# the functional ops --------------------------------------------------------------
+
+EVAL_BATCH = 128
+#: the functional ops' tolerance on the card against the CPU, as the
+#: CPU tests hold them against the reference (relative and absolute)
+OPS_TOL = 1e-5
+FUNCTION_STEPS = 6
+
+
+def profiled(torch, fn):
+    """fn() once under `torch.profiler`: its wall ms (ending in a
+    synchronize), the device's kernel ms and the idle share (None where
+    the profiler saw no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall) if busy > 0 else None)
+
+
+def host_ms(torch, fn, iters=5):
+    """Mean host ms of fn() calls each ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def graph_compiles():
+    from singa_tpu_torch.observability import metrics
+
+    return metrics.snapshot().get("graph_compiles", 0)
+
+
+def held_plan(what, plan, native_before, mem_bytes):
+    """Check a step's native memory plan and print it beside the card's
+    allocator peak."""
+    from singa_tpu_torch import native
+
+    moved = native.native_call_count() - native_before
+    print(f"{what} memory plan: {plan}; native calls +{moved}; "
+          f"max_memory_allocated {mem_bytes / 2**30:.2f} GiB", flush=True)
+    check(plan is not None and 0 < plan["peak_bytes"] <= plan["naive_bytes"]
+          and moved > 0,
+          f"{what}: no native plan with 0 < peak <= naive ({plan}), or the "
+          f"native count did not move ({moved})")
+    return dict(plan, native_calls=moved, max_memory_allocated=mem_bytes)
+
+
+def eval_calls(torch, fa, mp, m, args, what, per_call):
+    """The eval step's sequence: the key's first call (uncaptured, the
+    plan; `per_call` launches), the second (a capture: `per_call`
+    launches recorded, one more graph compile), the third (a replay: no
+    launch); each equal bitwise to the uncaptured `forward` on the same
+    inputs. Returns the plain output and the numbers."""
+    from singa_tpu_torch import native
+
+    native_before = native.native_call_count()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, mp)
+    with torch.no_grad():
+        t = time.perf_counter()
+        first = m(*args)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        first_launches = counts(fa, mp)
+        step = m._eval_step
+        check(step is not None and (step.captures, step.replays) == (0, 0)
+              and first_launches == per_call,
+              f"{what}: the first eval call did not run uncaptured through "
+              f"the eval step with {per_call} launches ({first_launches})")
+        plan = held_plan(f"{what} eval step", m.memory_estimate,
+                         native_before, torch.cuda.max_memory_allocated())
+        reset_counts(fa, mp)
+        compiles = graph_compiles()
+        second = m(*args)
+        recorded = counts(fa, mp)
+        check(graph_compiles() - compiles == 1 and step.captures == 1
+              and step.replays == 1 and recorded == per_call,
+              f"{what}: the second eval call did not capture once with "
+              f"{per_call} launches recorded ({recorded}, "
+              f"{graph_compiles() - compiles} compiles)")
+        reset_counts(fa, mp)
+        third = m(*args)
+        check(counts(fa, mp) == NO_LAUNCH and step.replays == 2,
+              f"{what}: a replay launched {counts(fa, mp)}")
+        plain = m.forward(*args)
+    bitwise = [torch.equal(o, plain) for o in (first, second, third)]
+    print(f"{what} eval: first call {first_s:.3f} s ({first_launches}), "
+          f"capture recorded {recorded}; first / captured / replayed "
+          f"output bitwise the uncaptured forward: {bitwise}", flush=True)
+    check(bitwise[1] and bitwise[2], f"{what}: the captured eval step's "
+                                     f"output is not bitwise the "
+                                     f"uncaptured forward's")
+    return plain, dict(first_call_s=first_s, launches_first=first_launches,
+                       launches_recorded=recorded, bitwise=bitwise,
+                       plan=plan)
+
+
+def gpt_eval(torch, fa, mp, card, precision):
+    """gpt_medium scoring 4 x 1024 tokens through the captured eval step
+    in `precision`: `eval_calls` (12 flash forward launches), then the
+    replay's device ms (CUDA events over the graph's replays), the
+    uncaptured forward's host ms, and the idle share of a captured and
+    an uncaptured call (`torch.profiler`)."""
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+
+    m = gpt_medium(device="cuda")
+    load_singa_tpu_params(m, seeded_params(m, SEED))
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, m.vocab_size, (4, 1024))).cuda()
+    m.compile([ids], is_train=False, use_graph=True, precision=precision)
+    try:
+        what = f"gpt_medium {precision}"
+        plain, out = eval_calls(torch, fa, mp, m, (ids,), what,
+                                dict(NO_LAUNCH, flash_fwd=12))
+        check(tuple(plain.shape) == (4, 1024, m.vocab_size)
+              and bool(torch.isfinite(plain).all()),
+              f"{what}: eval logits not finite of (4, 1024, vocab)")
+        (graph,) = [e.graph for e in m._eval_step._cache.values()
+                    if hasattr(e, "graph")]
+        del plain
+        with torch.no_grad():
+            replay_ms = cuda_ms(torch, graph.replay, iters=10, warmup=2)
+            eager_ms = host_ms(torch, lambda: m.forward(ids))
+            captured = profiled(torch, lambda: m(ids))
+            uncaptured = profiled(torch, lambda: m.forward(ids))
+        out.update(replay_device_ms=replay_ms, uncaptured_host_ms=eager_ms,
+                   speedup=eager_ms / replay_ms, captured_call=captured,
+                   uncaptured_call=uncaptured)
+        print(f"{what} eval ({card}): replay {replay_ms:.3f} device ms, "
+              f"uncaptured forward {eager_ms:.3f} host ms "
+              f"({eager_ms / replay_ms:.2f}x); idle share captured call "
+              f"{captured['idle_share']}, uncaptured "
+              f"{uncaptured['idle_share']}", flush=True)
+    finally:
+        autograd.set_autocast(False)
+    del m
+    drop_graphs(torch)
+    return out
+
+
+def cnn_eval(torch, fa, mp, card, name, ctor):
+    """A CNN at full width in eval mode (batch 128, NHWC, fp32, seeded
+    states, cuDNN's deterministic algorithms) through the captured eval
+    step: `eval_calls`, then images/s of eval-step calls and of the
+    uncaptured forward in turns; then the training step's memory plan
+    (one uncaptured SGD step)."""
+    from singa_tpu_torch import native, opt
+    from singa_tpu_torch.model import load_singa_tpu_states
+
+    m = ctor(num_classes=1000, device="cuda")
+    load_singa_tpu_states(m, cnn_states(
+        {n: t.shape for n, t in [*m.named_parameters(),
+                                 *m.named_buffers()]}, SEED))
+    m.set_image_layout("NHWC")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn((EVAL_BATCH, 3, 224, 224), generator=gen, device="cuda")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m.compile([x], is_train=False, use_graph=True)
+        plain, out = eval_calls(torch, fa, mp, m, (x,), name, NO_LAUNCH)
+        check(tuple(plain.shape) == (EVAL_BATCH, 1000)
+              and bool(torch.isfinite(plain).all()),
+              f"{name}: eval scores not finite")
+        del plain
+        rates = {"captured": [], "uncaptured": []}
+        with torch.no_grad():
+            for which in ("captured", "uncaptured", "uncaptured",
+                          "captured"):
+                fn = (lambda: m(x)) if which == "captured" else (
+                    lambda: m.forward(x))
+                rates[which].append(EVAL_BATCH / cuda_ms(
+                    torch, fn, iters=10, warmup=2) * 1e3)
+        out["images_per_s"] = {k: float(np.mean(v))
+                               for k, v in rates.items()}
+        print(f"{name} eval ({card}): images/s {out['images_per_s']} "
+              f"(turns: captured, uncaptured, uncaptured, captured)",
+              flush=True)
+        # the training step's plan: its first, uncaptured call
+        y = torch.arange(EVAL_BATCH, device="cuda") % 1000
+        m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+        m.compile([x], is_train=True, use_graph=True)
+        before = native.native_call_count()
+        torch.cuda.reset_peak_memory_stats()
+        m(x, y)
+        torch.cuda.synchronize()
+        out["train_plan"] = held_plan(f"{name} training step",
+                                      m._train_step.memory_plan, before,
+                                      torch.cuda.max_memory_allocated())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    del m
+    drop_graphs(torch)
+    return out
+
+
+def cifar_eval_trainer(torch, card):
+    """`cnn_cifar10 --model resnet --epochs 1` in this process (the
+    synthetic CIFAR set when none is on disk; batch 128): its validation
+    loop takes the captured eval step, which replays."""
+    from singa_tpu_torch.examples import cnn_cifar10
+
+    built, ctor = [], cnn_cifar10.MODELS["resnet"]
+
+    def keep(**kw):
+        built.append(ctor(**kw))
+        return built[-1]
+
+    cnn_cifar10.MODELS["resnet"] = keep
+    t = time.perf_counter()
+    try:
+        rc = cnn_cifar10.main(["--model", "resnet", "--epochs", "1"])
+    finally:
+        cnn_cifar10.MODELS["resnet"] = ctor
+    step = built[0]._eval_step
+    out = dict(exit=rc, wall_s=time.perf_counter() - t,
+               eval_captures=step.captures if step else 0,
+               eval_replays=step.replays if step else 0)
+    print(f"cnn_cifar10 --model resnet --epochs 1 ({card}): {out}",
+          flush=True)
+    check(rc == 0 and step is not None and step.replays > 0,
+          f"cnn_cifar10's validation did not replay the eval step: {out}")
+    del built
+    drop_graphs(torch)
+    return out
+
+
+def gpt_train_memory(torch, card):
+    """gpt_medium's training step (AdamW, 4 x 1024): the native plan of
+    its first, uncaptured call; then `step_memory_analysis` of the
+    scanned stack under remat "none" and "per_block", whose saved bytes
+    (the remat floor) must be lower under per_block."""
+    from singa_tpu_torch import native, opt
+    from singa_tpu_torch.graph import step_memory_analysis
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+
+    out = {}
+    rng = np.random.default_rng(SEED)
+    for policy in ("none", "per_block"):
+        m = gpt_medium(remat_policy=policy, device="cuda")
+        load_singa_tpu_params(m, seeded_params(m, SEED))
+        x, y = (torch.from_numpy(rng.integers(0, m.vocab_size, (4, 1024)))
+                .cuda() for _ in range(2))
+        m.set_optimizer(opt.AdamW(lr=3e-4))
+        m.compile([x], is_train=True, use_graph=True)
+        if policy == "none":
+            before = native.native_call_count()
+            torch.cuda.reset_peak_memory_stats()
+            m(x, y)
+            torch.cuda.synchronize()
+            out["train_plan"] = held_plan(
+                "gpt_medium training step", m._train_step.memory_plan,
+                before, torch.cuda.max_memory_allocated())
+        out[policy] = step_memory_analysis(m, x, y)
+        print(f"gpt_medium remat {policy} step_memory_analysis ({card}): "
+              f"{out[policy]}", flush=True)
+        del m
+        drop_graphs(torch)
+    check(out["per_block"]["temp_bytes"] < out["none"]["temp_bytes"],
+          f"remat floor: per_block saves {out['per_block']['temp_bytes']} "
+          f"bytes, not below none's {out['none']['temp_bytes']}")
+    return out
+
+
+def functions_on_card(torch, card):
+    """A user `autograd.Function` with its own backward (softsign) and
+    one with the default VJP, inside an MLP's training step: 6 captured
+    steps on the card (step 1 uncaptured, step 2 the capture) against
+    the same 6 steps on the CPU (within 1e-5 of each tensor's max) and
+    against their uncaptured twin on the card (bitwise)."""
+    from singa_tpu_torch import autograd, opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.mlp import MLP
+
+    class Softsign(autograd.Function):
+        def __init__(self):
+            super().__init__(lambda v: v / (1.0 + v.abs()), name="Softsign")
+
+        def backward(self, dy):
+            (v,) = self.inputs
+            return (dy / (1.0 + v.abs()).square(),)
+
+    class SquashMLP(MLP):
+        def forward(self, x):
+            h = Softsign()(self.fc1(x))
+            return self.fc2(autograd.Function(
+                lambda v: v * 0.5 + v.sin(), name="HalfSin")(h))
+
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((64, 784)).astype(np.float32)
+    y = rng.integers(0, 10, 64)
+    ref = SquashMLP(128, 10, in_features=784, device="cpu")
+    weights = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32)
+               * 0.05 for k, v in ref.named_parameters()}
+
+    def train(dev, use_graph):
+        m = SquashMLP(128, 10, in_features=784, device=dev)
+        m.dropout.p = 0.0
+        load_singa_tpu_params(m, weights)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+        tx, ty = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        m.compile([tx], is_train=True, use_graph=use_graph)
+        losses = [m(tx, ty)[1].item() for _ in range(FUNCTION_STEPS)]
+        step = m._train_step
+        return losses, {k: v.detach().cpu() for k, v in
+                        m.get_params().items()}, step
+
+    lc, pc, step = train("cuda", True)
+    lt, pt, _ = train("cuda", False)
+    lh, ph, _ = train("cpu", False)
+    check(step.captures == 1 and step.replays == FUNCTION_STEPS - 1,
+          f"Function MLP: {step.captures} captures, {step.replays} replays")
+    bitwise = lc == lt and all(torch.equal(pc[k], pt[k]) for k in pc)
+    gap = max(max(abs(a - b) for a, b in zip(lc, lh)),
+              max((pc[k] - ph[k]).abs().max().item()
+                  / max(ph[k].abs().max().item(), 1e-30) for k in pc))
+    out = dict(losses=lc, bitwise_twin=bitwise, cpu_gap=gap)
+    print(f"Function MLP ({card}): losses {lc}; captured bitwise its "
+          f"uncaptured twin: {bitwise}; vs the CPU max gap {gap:.3e} "
+          f"(tol {OPS_TOL})", flush=True)
+    check(bitwise, "the captured Function MLP is not bitwise its twin")
+    check(gap <= OPS_TOL and lc[-1] < lc[0],
+          "the Function MLP on the card differs from the CPU's, or its "
+          "loss did not fall")
+    return out
+
+
+def _ops_cases(torch, A):
+    """The 40 functional ops as (name, fn(*xs), inputs (shape, kind))."""
+    idx = torch.tensor([[2, 0], [1, 2]])
+    labels = np.array([0, 3, 1, -1, 4])
+    cond = np.random.default_rng(99).standard_normal((3, 4)) > 0
+    target = np.random.default_rng(7).standard_normal((3, 4)).astype(
+        np.float32)
+    a34, pos, small = ((3, 4), "any"), ((3, 4), "pos"), ((3, 4), "small")
+    return [
+        ("sub", A.sub, [a34, a34]), ("mul", A.mul, [a34, a34]),
+        ("div", A.div, [a34, pos]), ("pow", A.pow, [pos, small]),
+        ("matmul", A.matmul, [((2, 3, 4), "any"), ((4, 5), "any")]),
+        ("squeeze", lambda a: A.squeeze(a, 1), [((3, 1, 4), "any")]),
+        ("unsqueeze", lambda a: A.unsqueeze(a, (0, 2)), [a34]),
+        ("split", lambda a: A.mul(*A.split(a, [1, 3], axis=1)[1:]),
+         [((3, 5), "any")]),
+        ("gather", lambda a: A.gather(a, idx.to(a.device), axis=1), [a34]),
+        ("stack", lambda a, b: A.stack([a, b], axis=1), [a34, a34]),
+        ("where", lambda a, b: A.where(cond, a, b), [a34, a34]),
+        ("clip", lambda a: A.clip(a, -0.5, 0.5), [a34]),
+        ("abs", A.abs, [a34]), ("exp", A.exp, [a34]), ("log", A.log, [pos]),
+        ("sqrt", A.sqrt, [pos]), ("square", A.square, [a34]),
+        ("maximum", A.maximum, [a34, a34]), ("minimum", A.minimum,
+                                             [a34, a34]),
+        ("max", lambda a: A.max(a, axis=1, keepdims=True), [a34]),
+        ("min", lambda a: A.min(a, axis=(0, 2)), [((3, 4, 2), "any")]),
+        ("prod", lambda a: A.prod(a, axis=1), [a34]),
+        ("var", lambda a: A.var(a, axis=0, ddof=1), [((5, 4), "any")]),
+        ("std", lambda a: A.std(a, axis=1, keepdims=True),
+         [((3, 6), "any")]),
+        ("cumsum", lambda a: A.cumsum(a, axis=1), [a34]),
+        ("cumprod", lambda a: A.cumprod(a, axis=0), [((4, 3), "any")]),
+        ("norm", lambda a: A.norm(a, ord=3.0, axis=1), [a34]),
+        ("sort", lambda a: A.sort(a, axis=0, descending=True),
+         [((4, 3), "any")]),
+        ("argsort", lambda a: A.argsort(a, descending=True),
+         [((3, 5), "any")]),
+        ("topk", lambda a: A.topk(a, 2, axis=0)[0], [((5, 3), "any")]),
+        ("one_hot", lambda a: A.one_hot(torch.from_numpy(labels).to(
+            a.device), 4), [((1,), "any")]),
+        ("einsum", lambda a, b: A.einsum("bij,jk->bik", a, b),
+         [((2, 3, 4), "any"), ((4, 5), "any")]),
+        ("pad", lambda a: A.pad(a, ((1, 0), (2, 1)), value=0.5), [a34]),
+        ("elu", lambda a: A.elu(a, alpha=0.7), [a34]), ("erf", A.erf, [a34]),
+        ("softplus", A.softplus, [a34]),
+        ("log_softmax", lambda a: A.log_softmax(a, axis=0), [a34]),
+        ("sum", lambda a: A.sum(a, axis=(0, 1)), [((3, 4, 2), "any")]),
+        ("mean", lambda a: A.mean(a, axis=-1, keepdims=True), [a34]),
+        ("mse_loss", lambda a: A.mse_loss(a, target), [a34]),
+    ]
+
+
+def ops_on_card(torch, card):
+    """The 40 functional ops on the card: forward and the gradient of
+    sum(op(x) * w) against the same on the CPU, within 1e-5 relative and
+    absolute; `argsort` and `one_hot` (no gradient) equal."""
+    from singa_tpu_torch import autograd as A
+
+    cases = _ops_cases(torch, A)
+    check(len(cases) == 40, f"{len(cases)} op cases, not 40")
+    prev = A.training
+    A.training = True
+    worst, bad = {}, []
+    try:
+        for i, (name, fn, specs) in enumerate(cases):
+            rng = np.random.default_rng(100 + i)
+            arrays = []
+            for shape, kind in specs:
+                a = rng.standard_normal(shape).astype(np.float32)
+                arrays.append(np.abs(a) + 0.5 if kind == "pos" else
+                              0.5 * a if kind == "small" else a)
+            res = {}
+            for dev in ("cpu", "cuda"):
+                xs = [torch.from_numpy(a).to(dev).requires_grad_()
+                      for a in arrays]
+                v = fn(*xs)
+                grads = []
+                if v.requires_grad:
+                    w = torch.from_numpy(np.random.default_rng(1)
+                                         .standard_normal(tuple(v.shape))
+                                         .astype(np.float32)).to(dev)
+                    got = dict((id(p), g) for p, g in A.backward(
+                        A.sum(A.mul(v, w))))
+                    grads = [got[id(t)].cpu() for t in xs if id(t) in got]
+                res[dev] = (v.detach().cpu(), grads)
+            (vh, gh), (vd, gd) = res["cpu"], res["cuda"]
+            gaps = [(vd.double() - vh.double()).abs().max().item()
+                    if vh.numel() else 0.0]
+            ok = vd.shape == vh.shape and len(gd) == len(gh)
+            if ok and not vh.is_floating_point():
+                ok = torch.equal(vd, vh)
+            for a, b in [(vd, vh)] + list(zip(gd, gh)):
+                ok = ok and bool(torch.allclose(a.double(), b.double(),
+                                                rtol=OPS_TOL, atol=OPS_TOL))
+            gaps += [(a - b).abs().max().item() for a, b in zip(gd, gh)]
+            worst[name] = max(gaps)
+            if not ok:
+                bad.append(name)
+    finally:
+        A.training = prev
+    print(f"functional ops on the card ({card}) vs the CPU: max|d| "
+          f"{max(worst.values()):.3e} over {len(worst)} ops (tol {OPS_TOL} "
+          f"rel and abs); disagreeing: {bad}", flush=True)
+    check(not bad, f"functional ops disagree with the CPU: {bad}")
+    return dict(max_abs_err=worst)
+
+
+def eval_path(torch, fa, mp, card):
+    """Phase 9h. Returns the launches of gpt_medium's uncaptured eval
+    call (fp32) and the numbers."""
+    from singa_tpu_torch.models.mobilenet import mobilenet_v1
+    from singa_tpu_torch.models.resnet import resnet50
+
+    out = {f"gpt_medium_{p}": gpt_eval(torch, fa, mp, card, p)
+           for p in ("fp32", "bf16")}
+    out["resnet50"] = cnn_eval(torch, fa, mp, card, "resnet50", resnet50)
+    out["mobilenet_v1"] = cnn_eval(torch, fa, mp, card, "mobilenet_v1",
+                                   mobilenet_v1)
+    out["cifar_trainer"] = cifar_eval_trainer(torch, card)
+    out["gpt_medium_memory"] = gpt_train_memory(torch, card)
+    out["functions"] = functions_on_card(torch, card)
+    out["ops"] = ops_on_card(torch, card)
+    return out["gpt_medium_fp32"]["launches_first"], out
+
+
 def main() -> int:
     import torch
 
@@ -4104,6 +4595,15 @@ def main() -> int:
     print(f"mobile: {time.perf_counter() - t:.1f} s ({card}); Xception's "
           f"counted step's launches {xception_launches}", flush=True)
 
+    # 9h. the captured eval step (gpt_medium's uncaptured eval call
+    # launches the flash forward 12 times, its capture records 12), the
+    # memory plans, Operator / Function and the functional ops
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    eval_launches, eval_out = eval_path(torch, fa, mp, card)
+    print(f"eval: {time.perf_counter() - t:.1f} s ({card}); gpt_medium's "
+          f"uncaptured eval call's launches {eval_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -4148,7 +4648,8 @@ def main() -> int:
                      unrolled_launches["train_step"]["flash_fwd"],
                  "bert_step": bert_launches["flash_fwd"],
                  "sonnx_bert_export": sonnx_export_launches["flash_fwd"],
-                 "zero1_gpt_medium_step": zero1_launches["flash_fwd"]},
+                 "zero1_gpt_medium_step": zero1_launches["flash_fwd"],
+                 "eval_step": eval_launches["flash_fwd"]},
              bert_base=at_bert("flash_fwd", None, ()),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
@@ -4229,6 +4730,7 @@ def main() -> int:
     print("dist_resnet50 " + json.dumps(dist_out), flush=True)
     print("zero1_gpt_medium " + json.dumps(zero1_out), flush=True)
     print("mobile " + json.dumps(mobile_out), flush=True)
+    print("eval " + json.dumps(eval_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

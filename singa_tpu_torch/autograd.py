@@ -42,21 +42,45 @@ on top of it:
   above runs through `op(kind, attrs, fn, *inputs)`, which records
   (kind, attrs, extras, inputs, outputs) with the reference's ONNX kinds
   while `sonnx.to_onnx` traces, and otherwise only calls `fn` (one
-  `is None` test).
+  `is None` test);
+- `Operator` and `Function` (reference :454-546), the reference's way to
+  write an op: a pure `forward` on tensors and an optional `backward`,
+  which defaults to the VJP of `forward` (`torch.func.vjp`), run as one
+  `torch.autograd.Function` node;
+- `clear_op_cache` and `set_op_cache_enabled` (reference :218-234);
+- the rest of the reference's functional ops (reference :640-948,
+  :1536): `sub mul div pow matmul squeeze unsqueeze split gather stack
+  where clip abs exp log sqrt square maximum minimum max min prod var std
+  cumsum cumprod norm sort argsort topk one_hot einsum pad elu erf
+  softplus log_softmax sum mean mse_loss`, plain functions on tensors with
+  the reference's signatures, defaults and tie rules (a reduction's max
+  or min shares its gradient evenly among tied entries, elementwise
+  `maximum`/`minimum` and `clip` give half to each side of a tie, `sort`
+  and `topk` send gradients back through the permutation); `sort`,
+  `argsort`, `topk`, `norm` and `one_hot` are `_kernels`' formulations,
+  which `tensor` shares.
+
+Names that shadow Python's builtins (`sum`, `max`, `min`, `abs`, `pow`)
+are the reference's; code in this module reaches the builtins through
+`builtins`.
 """
 
 from __future__ import annotations
 
+import builtins
 import functools
 import math
 import threading
 import warnings
-from typing import Callable, Iterator, List, Optional, Tuple
+import weakref
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from singa_tpu_torch import _kernels
 from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch.ops import max_pool
 
@@ -69,7 +93,14 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "reshape", "linear", "vanilla_rnn", "lstm", "gru", "embedding",
            "layernorm", "dropout", "rank_draws", "draw_rank",
            "rank_generators", "reset_rank_draws", "transpose", "cat", "op",
-           "ExportTrace"]
+           "ExportTrace", "clear_op_cache", "set_op_cache_enabled",
+           "Operator", "Function", "sub", "mul", "div", "pow", "matmul",
+           "squeeze", "unsqueeze", "split", "gather", "stack", "where",
+           "clip", "abs", "exp", "log", "sqrt", "square", "maximum",
+           "minimum", "max", "min", "prod", "var", "std", "cumsum",
+           "cumprod", "norm", "sort", "argsort", "topk", "one_hot", "einsum",
+           "pad", "elu", "erf", "softplus", "log_softmax", "sum", "mean",
+           "mse_loss"]
 
 #: reference parity: `Model.train(mode)` sets it; a model's forward
 #: records no tape while it is False
@@ -313,6 +344,11 @@ def _leaves(y: torch.Tensor) -> List[torch.Tensor]:
     return sorted(leaves, key=lambda v: pos[id(v)])
 
 
+#: callables given the root of every backward (`grad_pairs`) before the
+#: backward frees its tape (graph.py's memory plan; reference :553-555)
+_tape_observers: List[Callable] = []
+
+
 def grad_pairs(y: torch.Tensor, dy: Optional[torch.Tensor] = None
                ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Yield (param, grad) for every leaf tensor needing grad that `y`
@@ -321,6 +357,8 @@ def grad_pairs(y: torch.Tensor, dy: Optional[torch.Tensor] = None
     finalizes, all of them are computed before the first is yielded."""
     if y.grad_fn is None:
         return
+    for cb in _tape_observers:
+        cb(y)
     params = _leaves(y)
     if not params:
         return
@@ -334,6 +372,156 @@ def grad_pairs(y: torch.Tensor, dy: Optional[torch.Tensor] = None
 def backward(y: torch.Tensor, dy: Optional[torch.Tensor] = None):
     """[(param, grad), ...] for every parameter `y` reaches."""
     return list(grad_pairs(y, dy))
+
+
+# -- Operator and Function ---------------------------------------------------
+
+
+def _vjp(fn: Callable, xs: Sequence[torch.Tensor]):
+    """fn(*xs) as a tuple, whether it was one, and the VJP of its
+    floating outputs in the floating inputs (`torch.func.vjp`; integer
+    outputs, such as indices, and integer inputs take no gradient)."""
+    fpos = [i for i, x in enumerate(xs) if x.is_floating_point()]
+    info = {}
+
+    def on_floats(*fx):
+        args = list(xs)
+        for i, v in zip(fpos, fx):
+            args[i] = v
+        ys = fn(*args)
+        info["multi"] = isinstance(ys, (tuple, list))
+        ys = tuple(ys) if info["multi"] else (ys,)
+        info["floating"] = [y.is_floating_point() for y in ys]
+        return (tuple(y for y in ys if y.is_floating_point()),
+                tuple(y for y in ys if not y.is_floating_point()))
+
+    fys, vjp, iys = torch.func.vjp(
+        on_floats, *[xs[i] for i in fpos], has_aux=True)
+    # new tensor objects on the same memory: the VJP closure holds the
+    # ones it returned, and an output must not lead back to its own node
+    fys, iys = iter(fys), iter(iys)
+    ys = tuple(next(fys).detach() if f else next(iys)
+               for f in info["floating"])
+    return ys, info["multi"], vjp, fpos
+
+
+class _OperatorNode(torch.autograd.Function):
+    """One `Operator` call on the tape: its forward, then its backward
+    (the operator's own, or the VJP of its forward)."""
+
+    @staticmethod
+    def forward(ctx, operator, *xs):
+        if type(operator).backward is Operator.backward:
+            ys, multi, vjp, fpos = _vjp(operator.forward, xs)
+            operator._vjp = (vjp, fpos, len(xs),
+                             [y.is_floating_point() for y in ys])
+        else:
+            ys = operator.forward(*xs)
+            multi = isinstance(ys, (tuple, list))
+            ys = tuple(ys) if multi else (ys,)
+        operator._multi_out = multi
+        ctx.operator = operator
+        ctx.mark_non_differentiable(
+            *[y for y in ys if not y.is_floating_point()])
+        return ys if multi else ys[0]
+
+    @staticmethod
+    def backward(ctx, *dys):
+        dxs = ctx.operator.backward(*dys)
+        if not isinstance(dxs, (tuple, list)):
+            dxs = (dxs,)
+        return (None, *dxs)
+
+
+class Operator:
+    """One differentiable op (reference :454-525), a node of the tape
+    once called while `training` is set and an input requires grad.
+
+    Subclasses define `forward(*tensors)`, pure (no state, no in-place
+    writes to its inputs), returning a tensor or a tuple of them, and may
+    define `backward(*dys)`: one gradient per output in, one per input
+    out (None for none); by default it is the VJP of `forward`. The call
+    keeps `inputs` and `outputs` (the outputs by weak reference: an
+    output holds its node, which holds the op) and returns the output, or
+    a tuple of them for a multi-output op. An op called again is a new
+    node."""
+
+    def __init__(self, name: Optional[str] = None):
+        self.name = name or type(self).__name__
+        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self._outputs: Tuple[weakref.ref, ...] = ()
+        self._vjp = None
+        self._multi_out = False
+
+    @property
+    def outputs(self) -> Tuple[Optional[torch.Tensor], ...]:
+        return tuple(r() for r in self._outputs)
+
+    def forward(self, *xs):
+        raise NotImplementedError
+
+    def backward(self, *dys):
+        """The VJP of `forward`; override for a custom adjoint."""
+        if self._vjp is None:
+            raise RuntimeError(f"{self.name}: backward called before forward")
+        vjp, fpos, n, floating = self._vjp
+        grads = vjp(tuple(d for d, f in zip(dys, floating) if f))
+        out: List[Optional[torch.Tensor]] = [None] * n
+        for i, g in zip(fpos, grads):
+            out[i] = g
+        return tuple(out)
+
+    def __call__(self, *xs: torch.Tensor):
+        meta = getattr(self, "meta", None)
+        kind, attrs, extras = meta if meta is not None else (None, {}, ())
+        return op(kind, attrs, self._apply, *xs, extras=extras)
+
+    def _apply(self, *xs):
+        record = training and torch.is_grad_enabled() and builtins.any(
+            x.requires_grad for x in xs)
+        if not record:
+            with torch.no_grad():
+                ys = self.forward(*xs)
+            return tuple(ys) if isinstance(ys, list) else ys
+        out = _OperatorNode.apply(self, *xs)
+        self.inputs = tuple(xs)
+        self._outputs = tuple(weakref.ref(t) for t in (
+            out if self._multi_out else (out,)))
+        return out
+
+
+class Function(Operator):
+    """An `Operator` around a pure function of tensors (reference
+    :528-546). `meta = (kind, attrs, extras)` is the op's ONNX form, which
+    `sonnx.to_onnx` records; an op without it has none, and its export
+    raises."""
+
+    def __init__(self, fn: Callable, name: Optional[str] = None, meta=None):
+        super().__init__(name=name or getattr(fn, "__name__", "fn"))
+        self._fn = fn
+        self.meta = meta
+
+    def forward(self, *xs):
+        return self._fn(*xs)
+
+
+# -- the op cache ------------------------------------------------------------
+#
+# The reference compiles each eager op once per signature and keeps the
+# executables (reference :203-234). PyTorch launches each op's kernels
+# directly, so the port has no executable to keep: these two keep the
+# reference's observable contract (disabling flushes; the numbers are the
+# same either way), and `flash_attention.set_flash_enabled` flushes, as
+# the reference's does.
+
+def clear_op_cache() -> None:
+    """Drop every cached per-op executable (none are kept here)."""
+
+
+def set_op_cache_enabled(enabled: bool) -> None:
+    """Turn the eager op cache on or off; turning it off flushes it."""
+    if not enabled:
+        clear_op_cache()
 
 
 # -- rematerialization policies ----------------------------------------------
@@ -622,7 +810,7 @@ def _same_pads(in_sizes, kernel, strides, dilations, lower: bool = False
     out = []
     for n, k, s, d in zip(in_sizes, kernel, strides, dilations):
         eff = (k - 1) * d + 1
-        total = max((-(-n // s) - 1) * s + eff - n, 0)
+        total = builtins.max((-(-n // s) - 1) * s + eff - n, 0)
         small, big = total // 2, total - total // 2
         out.append((big, small) if lower else (small, big))
     return out
@@ -923,3 +1111,302 @@ def gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     return op("SingaGRU", {"hidden": int(w_hh.shape[0]),
                            "reverse": int(reverse)},
               fn, x, w_ih, w_hh, b_ih, b_hh, h0)
+
+
+# -- the rest of the functional ops --------------------------------------------
+#
+# Plain functions on tensors with the reference's signatures (reference
+# :640-948, :1536), each one op: the ONNX kind of the reference's `meta`
+# where the exporter can write it as it is, None (no ONNX form: export
+# raises) otherwise.
+
+
+def _dims(x: torch.Tensor, axis):
+    """A reduction's dims: every dim when `axis` is None."""
+    if axis is None:
+        return tuple(range(x.dim()))
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _as_tensor(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """`v` (a tensor, array or number) on `like`'s device."""
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    return t.to(device=like.device, dtype=dtype)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return op("Sub", {}, torch.sub, a, b)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return op("Mul", {}, torch.mul, a, b)
+
+
+def div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return op("Div", {}, torch.div, a, b)
+
+
+def pow(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:  # noqa: A001
+    return op("Pow", {}, torch.pow, a, b)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched matrix product; operands under the autocast policy."""
+    def fn(x, y):
+        x, y = _mxu_cast(x, y)
+        return _mxu_result(torch.matmul(x, y))
+
+    return op("MatMul", {}, fn, a, b)
+
+
+def squeeze(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Drop the size-1 `axis` (an int or a tuple), or every size-1 dim;
+    naming a dim that is not size 1 raises, as numpy's."""
+    def fn(a):
+        dims = tuple(d for d in range(a.dim()) if a.shape[d] == 1) \
+            if axis is None else _dims(a, axis)
+        if builtins.any(a.shape[d] != 1 for d in dims):
+            raise ValueError(f"squeeze: axis {axis} of shape "
+                             f"{tuple(a.shape)} is not 1")
+        return a.squeeze(dims) if dims else a
+
+    return op(None, {}, fn, x)
+
+
+def unsqueeze(x: torch.Tensor, axis) -> torch.Tensor:
+    """New size-1 dims at `axis` (an int or a tuple, positions in the
+    output), inserted in increasing order."""
+    axes = axis if isinstance(axis, (tuple, list)) else (axis,)
+
+    def fn(a):
+        for ax in sorted(axes):
+            a = a.unsqueeze(ax)
+        return a
+
+    return op(None, {}, fn, x)
+
+
+def split(x: torch.Tensor, parts, axis: int = 0):
+    """numpy's split: `parts` an int (that many equal pieces; it must
+    divide the axis) or the indices to cut at; a tuple of pieces."""
+    def fn(a):
+        if isinstance(parts, int) and a.shape[axis] % parts:
+            raise ValueError(f"split: {parts} pieces do not divide "
+                             f"{a.shape[axis]} entries")
+        sections = parts if isinstance(parts, int) else list(parts)
+        return tuple(torch.tensor_split(a, sections, dim=axis))
+
+    return op(None, {}, fn, x)
+
+
+def gather(x: torch.Tensor, indices, axis: int = 0) -> torch.Tensor:
+    """numpy's take along `axis`: the result's shape is x's with that
+    axis replaced by the indices' shape; a negative index counts from
+    the end."""
+    def fn(a):
+        idx = _as_tensor(indices, a, torch.long)
+        idx = torch.where(idx < 0, idx + a.shape[axis], idx)
+        ax = axis % a.dim()
+        out = a.index_select(ax, idx.reshape(-1))
+        return out.reshape(a.shape[:ax] + idx.shape + a.shape[ax + 1:])
+
+    return op(None, {}, fn, x)
+
+
+def pad(x: torch.Tensor, pad_width, value: float = 0.0) -> torch.Tensor:
+    """numpy's constant pad: `pad_width` an int, a (before, after) pair
+    or one pair per dim."""
+    def fn(a):
+        widths = np.broadcast_to(np.asarray(pad_width, np.int64),
+                                 (a.dim(), 2))
+        flat = [int(w) for pair in widths[::-1] for w in pair]
+        return F.pad(a, flat, value=value)
+
+    return op(None, {}, fn, x)
+
+
+def _reduce(reducer, x, axis, keepdims):
+    dims = _dims(x, axis)
+    return reducer(x, dims, keepdims) if dims else x
+
+
+def sum(x: torch.Tensor, axis=None,  # noqa: A001
+        keepdims: bool = False) -> torch.Tensor:
+    return op(None, {}, lambda a: _reduce(
+        lambda t, d, k: t.sum(dim=d, keepdim=k), a, axis, keepdims), x)
+
+
+def mean(x: torch.Tensor, axis=None, keepdims: bool = False
+         ) -> torch.Tensor:
+    return op(None, {}, lambda a: _reduce(
+        lambda t, d, k: t.mean(dim=d, keepdim=k), a, axis, keepdims), x)
+
+
+def max(x: torch.Tensor, axis=None,  # noqa: A001
+        keepdims: bool = False) -> torch.Tensor:
+    """The maximum over `axis`; tied maxima share the gradient evenly."""
+    return op(None, {}, lambda a: _reduce(
+        lambda t, d, k: t.amax(dim=d, keepdim=k), a, axis, keepdims), x)
+
+
+def min(x: torch.Tensor, axis=None,  # noqa: A001
+        keepdims: bool = False) -> torch.Tensor:
+    """The minimum over `axis`; tied minima share the gradient evenly."""
+    return op(None, {}, lambda a: _reduce(
+        lambda t, d, k: t.amin(dim=d, keepdim=k), a, axis, keepdims), x)
+
+
+def prod(x: torch.Tensor, axis=None, keepdims: bool = False
+         ) -> torch.Tensor:
+    def fn(t, dims, k):
+        for d in sorted(dims, reverse=True):
+            t = t.prod(dim=d, keepdim=k)
+        return t
+
+    return op(None, {}, lambda a: _reduce(fn, a, axis, keepdims), x)
+
+
+def var(x: torch.Tensor, axis=None, keepdims: bool = False,
+        ddof: int = 0) -> torch.Tensor:
+    return op(None, {}, lambda a: _reduce(
+        lambda t, d, k: t.var(dim=d, keepdim=k, correction=ddof), a, axis,
+        keepdims), x)
+
+
+def std(x: torch.Tensor, axis=None, keepdims: bool = False,
+        ddof: int = 0) -> torch.Tensor:
+    return op(None, {}, lambda a: _reduce(
+        lambda t, d, k: t.std(dim=d, keepdim=k, correction=ddof), a, axis,
+        keepdims), x)
+
+
+def cumsum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    return op(None, {}, lambda a: a.cumsum(dim=axis), x)
+
+
+def cumprod(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    return op(None, {}, lambda a: a.cumprod(dim=axis), x)
+
+
+def norm(x: torch.Tensor, ord: float = 2, axis=None,  # noqa: A002
+         keepdims: bool = False) -> torch.Tensor:
+    """Vector p-norm over `axis` (None: the flattened tensor); ord 1, 2,
+    inf or any p > 0 (`_kernels.norm_`, as `tensor.norm`)."""
+    return op(None, {}, lambda a: _kernels.norm_(a, ord, axis, keepdims), x)
+
+
+def sort(x: torch.Tensor, axis: int = -1, descending: bool = False
+         ) -> torch.Tensor:
+    """Sorted values along `axis`; gradients go back through the
+    permutation."""
+    return op(None, {}, lambda a: _kernels.sort_(a, axis, descending), x)
+
+
+def argsort(x: torch.Tensor, axis: int = -1, descending: bool = False
+            ) -> torch.Tensor:
+    """The sorting indices along `axis` (no gradient)."""
+    return _kernels.argsort_(x, axis, descending)
+
+
+def topk(x: torch.Tensor, k: int, axis: int = -1):
+    """(values, indices) of the k largest along `axis`, largest first;
+    the values take gradients, the indices none."""
+    return op(None, {}, lambda a: _kernels.topk_(a, k, axis), x)
+
+
+def one_hot(x, num_classes: int, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """Integer labels to one-hot rows (no gradient); a label outside
+    [0, num_classes) gives a row of zeros."""
+    return _kernels.one_hot_(torch.as_tensor(np.asarray(x) if not isinstance(
+        x, torch.Tensor) else x), num_classes, dtype)
+
+
+def where(cond, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a where `cond` (a tensor or array, nonzero is true), else b."""
+    return op(None, {}, lambda x_, y_: torch.where(
+        _as_tensor(cond, x_, torch.bool), x_, y_), a, b)
+
+
+def stack(xs, axis: int = 0) -> torch.Tensor:
+    return op(None, {}, lambda *ts: torch.stack(ts, dim=axis), *xs)
+
+
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """max(x, lo) then min(., hi), as numpy's clip: an entry equal to a
+    bound takes half the gradient."""
+    def fn(a):
+        if lo is not None:
+            a = torch.maximum(a, _as_tensor(lo, a, a.dtype))
+        if hi is not None:
+            a = torch.minimum(a, _as_tensor(hi, a, a.dtype))
+        return a
+
+    return op(None, {}, fn, x)
+
+
+def abs(x: torch.Tensor) -> torch.Tensor:  # noqa: A001
+    return op("Abs", {}, torch.abs, x)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    return op("Exp", {}, torch.exp, x)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    return op("Log", {}, torch.log, x)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    return op("Sqrt", {}, torch.sqrt, x)
+
+
+def square(x: torch.Tensor) -> torch.Tensor:
+    return op(None, {}, torch.square, x)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise max; a tie gives each side half the gradient."""
+    return op("Max", {}, torch.maximum, a, b)
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise min; a tie gives each side half the gradient."""
+    return op("Min", {}, torch.minimum, a, b)
+
+
+def einsum(spec: str, *xs: torch.Tensor) -> torch.Tensor:
+    """einsum, operands under the autocast policy like `matmul`."""
+    def fn(*ts):
+        return _mxu_result(torch.einsum(spec, *_mxu_cast(*ts)))
+
+    return op("Einsum", {"equation": spec}, fn, *xs)
+
+
+def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    return op("Elu", {"alpha": alpha}, lambda v: F.elu(v, alpha), x)
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    return op("Erf", {}, torch.erf, x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x), as `jax.nn.softplus` (logaddexp(x, 0))."""
+    return op("Softplus", {}, lambda v: torch.logaddexp(
+        v, torch.zeros((), dtype=v.dtype, device=v.device)), x)
+
+
+def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """log(softmax) over logical `axis`, as `softmax`."""
+    def fn(v):
+        y = torch.log_softmax(v, dim=axis)
+        return layout_module.from_nchw(y) if v.dim() == 4 else y
+
+    return op("LogSoftmax", {"axis": axis}, fn, x)
+
+
+def mse_loss(x: torch.Tensor, target) -> torch.Tensor:
+    """mean((x - target)^2) over every entry."""
+    return op(None, {}, lambda a: (a - _as_tensor(target, a, a.dtype))
+              .square().mean(), x)

@@ -1,8 +1,12 @@
-"""The captured training step (counterpart of singa_tpu/graph.py's
-`GraphStep`, :146-172 and :717-786).
+"""The captured step and its memory accounting (counterpart of
+singa_tpu/graph.py's `GraphStep`, :146-199 and :717-975,
+`tape_memory_plan` and `plan_from_ops`, :51-122, and
+`step_memory_analysis`, :1181-1207).
 
-`GraphStep` wraps a model's bound `train_one_batch` and keeps one entry
-per key: the tensor operands' shapes and dtypes, the static arguments,
+`GraphStep(model, method, train_step)` wraps a model's bound
+`train_one_batch` (a training step) or `forward` (an eval step, run
+without a tape: no backward, optimizer or step counter) and keeps one
+entry per key: the tensor operands' shapes and dtypes, the static arguments,
 `training`, the dispatch switches a step reads while it runs (the
 autocast policy, `flash_attention.flash_enabled()`,
 `max_pool.pool_kernel_enabled()`, the dropout rank
@@ -19,9 +23,9 @@ On the card a key's
   stream: it is the warm-up (cuBLAS handles, the kernels' libraries, the
   autograd threads) and changes the state exactly as a step does;
 - second call captures the whole step (forward, backward, clipping and
-  the optimizer update) as one `torch.cuda.CUDAGraph` over static copies
-  of the tensor operands, then replays it once, which is that call's
-  step;
+  the optimizer update; an eval step's forward) as one
+  `torch.cuda.CUDAGraph` over static copies of the tensor operands, then
+  replays it once, which is that call's step;
 - later calls copy their operands into the static buffers and replay.
 
 Every call returns its outputs detached, as the reference returns new
@@ -55,29 +59,56 @@ build, and every call is a plain call.
 
 Counted (the reference's names): `graph_compiles` per capture (per new
 key on the CPU) with the `graph.compile` span around it; `train_steps`
-and `train_step_ms` (host wall of a call) while the hot-path metrics are
-on. `captures` and `replays` count the same on the instance.
+and `train_step_ms` (host wall of a training step's call) while the
+hot-path metrics are on. `captures` and `replays` count the same on the
+instance.
+
+The memory plan. A key's first call also hands the step's op graph to
+the native planner (`native.GraphPlanner`, g++'s build of
+`native/graph_core.cc`; graph mode raises if it cannot be built), once
+per step, and keeps its verdict as `memory_plan = {"ops", "peak_bytes",
+"naive_bytes"}` (`Model.memory_estimate`). The op graph is PyTorch's
+tape (`tape_memory_plan`): an op is an autograd node, so `ops` counts
+PyTorch's nodes, not the reference's ops; a buffer is a node's output
+(its bytes `numel * element_size` from the node's output metadata), a
+parameter, or one of the step's tensor operands (live for the whole
+step). A training step is planned when its backward starts
+(`autograd._tape_observers`), before the backward frees the tape, as the
+reference plans inside its backward walk. An eval step records no tape,
+so its first call of a key records one for the plan, with grad on and a
+saved-tensor hook that keeps nothing (memory as without a tape); no plan
+is made under `torch.inference_mode`, where no tape can be recorded.
+
+`step_memory_analysis(model, *args, train=True)` runs the step once on
+the given inputs and puts the model and optimizer state back; see
+`GraphStep.memory_analysis` for its keys.
 """
 
 from __future__ import annotations
 
 import gc
+import logging
+import math
 import threading
 import time
 import weakref
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch import layer as layer_module
+from singa_tpu_torch import native
 from singa_tpu_torch.observability import metrics as obs_metrics
 from singa_tpu_torch.observability import trace as obs_trace
 from singa_tpu_torch.ops import flash_attention as fa
 from singa_tpu_torch.ops import max_pool
 
-__all__ = ["GraphStep", "CAPTURE_LOCK", "private_stream"]
+__all__ = ["GraphStep", "CAPTURE_LOCK", "private_stream", "plan_from_ops",
+           "step_memory_analysis", "tape_memory_plan"]
+
+_log = logging.getLogger("singa_tpu_torch.graph")
 
 #: one CUDA Graph capture at a time in the process (training steps and
 #: the serving engines, which may be pumped from several threads)
@@ -117,6 +148,98 @@ def _map(obj, fn):
     return obj
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# -- the memory plan over PyTorch's tape ---------------------------------------
+
+
+def _tape_nodes(roots) -> List[Any]:
+    """The autograd nodes that `roots` (tensors) were computed through,
+    in an order where every node follows the nodes of its inputs
+    (depth first, inputs in order, as the reference's walk); parameters'
+    `AccumulateGrad` nodes are left out (they are graph inputs)."""
+    order, seen = [], set()
+    stack = [(t.grad_fn, False) for t in reversed(roots)]
+    while stack:
+        fn, done = stack.pop()
+        if done:
+            order.append(fn)
+        elif fn is not None and fn not in seen:
+            seen.add(fn)
+            stack.append((fn, True))
+            stack.extend((nxt, False) for nxt, _ in reversed(
+                fn.next_functions))
+    return [fn for fn in order if not hasattr(fn, "variable")]
+
+
+def plan_from_ops(ops, inputs=(), require_native: bool = True):
+    """Arena-plan a list of autograd nodes in forward order (see
+    `_tape_nodes`) with the native planner: (order, peak bytes, naive
+    bytes). A buffer is a node's output or a parameter (an
+    `AccumulateGrad` input, live from the start); a node's output that
+    no node of the list reads is a graph output (live to the end).
+    `inputs`, the step's tensor operands, are live for the whole step
+    (the caller holds them). Saved tensors are not read: reading one
+    that a remat checkpoint holds would run its block again."""
+    if not ops:
+        return [], 0, 0
+    planner = native.GraphPlanner(require_native=require_native)
+    node_of = {op: planner.add_node() for op in ops}
+    buf_ids: Dict[Any, int] = {}
+    consumed = set()
+
+    def edge(src, dst, key, nbytes):
+        if key not in buf_ids:
+            buf_ids[key] = len(buf_ids)
+        planner.add_edge(src, dst, buf_ids[key], int(nbytes))
+        consumed.add(key)
+
+    def out_bytes(op, i):
+        md = op._input_metadata[i]
+        return math.prod(md.shape) * md.dtype.itemsize
+
+    for t in inputs:
+        edge(-1, -1, ("leaf", id(t)), _nbytes(t))
+    for op in ops:
+        dst = node_of[op]
+        for nxt, i in op.next_functions:
+            var = getattr(nxt, "variable", None)
+            if var is not None:
+                edge(-1, dst, ("leaf", id(var)), _nbytes(var))
+            elif nxt in node_of:
+                edge(node_of[nxt], dst, ("out", nxt, i), out_bytes(nxt, i))
+    for op in ops:
+        for i in range(len(op._input_metadata)):
+            if ("out", op, i) not in consumed:
+                edge(node_of[op], -1, ("out", op, i), out_bytes(op, i))
+    order = planner.toposort()
+    _, peak, naive = planner.plan_memory(order)
+    return order, peak, naive
+
+
+def tape_memory_plan(y, inputs=(), require_native: bool = True):
+    """The native planner over the tape reaching `y` (a tensor, or a
+    (nested) tuple/list/dict of them), with `inputs` live for the whole
+    step: (order, peak bytes, naive bytes), the arena size with
+    buffer-lifetime reuse and without. ([], 0, 0) when `y` has no
+    tape."""
+    roots = []
+    _map(y, lambda t: roots.append(t) if t.grad_fn is not None else None)
+    return plan_from_ops(_tape_nodes(roots), inputs,
+                         require_native=require_native)
+
+
+def _drop(t: torch.Tensor):
+    """The eval plan's pack hook: the tape keeps nothing."""
+    return None
+
+
+def _no_unpack(_):
+    raise RuntimeError("the eval step's planning tape keeps no tensor")
+
+
 class _Captured:
     __slots__ = ("graph", "static", "out", "opt_steps")
 
@@ -130,16 +253,21 @@ _WARM = object()
 
 
 class GraphStep:
-    """A model's training step `method(*args, **kwargs)`, captured per
-    key on the card and plain on the CPU (see the module docstring)."""
+    """A model's training step or eval forward `method(*args, **kwargs)`,
+    captured per key on the card and plain on the CPU (see the module
+    docstring)."""
 
-    def __init__(self, model, method: Callable):
+    def __init__(self, model, method: Callable, train_step: bool = True):
         self.model = model
         self.method = method
+        self.train_step = bool(train_step)
         self._cache: Dict[Any, Any] = {}
         self._stamp = layer_module.mutation_stamp()
         self._stream = None
         self._step_metrics = None
+        #: the native planner's {"ops", "peak_bytes", "naive_bytes"},
+        #: from the first call that could record a tape
+        self.memory_plan: Optional[Dict[str, int]] = None
         #: captures made (builds, on the CPU) and replays run
         self.captures = 0
         self.replays = 0
@@ -196,24 +324,66 @@ class GraphStep:
                 obs_metrics.counter("graph_compiles").inc()
                 self.captures += 1
                 self._cache[key] = _WARM
-                with obs_trace.span("graph.compile", train=True):
-                    out = self.method(*args, **kwargs)
+                with obs_trace.span("graph.compile", train=self.train_step):
+                    out = self._first(args, kwargs)
             else:
-                out = self.method(*args, **kwargs)
+                out = self._run(args, kwargs)
         elif entry is None:
             self._cache[key] = _WARM
-            out = self._on_stream(dev, lambda: self.method(*args, **kwargs))
+            out = self._on_stream(dev, lambda: self._first(args, kwargs))
         else:
             if entry is _WARM:
                 obs_metrics.counter("graph_compiles").inc()
-                with obs_trace.span("graph.compile", train=True):
+                with obs_trace.span("graph.compile", train=self.train_step):
                     entry = self._capture(dev, args, kwargs, dyn_idx,
                                           tensors)
                 self._cache[key] = entry
             out = self._replay(dev, entry, tensors)
-        if t0 is not None:
+        if t0 is not None and self.train_step:
             self._record_step(time.perf_counter() - t0)
         return _map(out, torch.Tensor.detach)
+
+    def _run(self, args, kwargs):
+        """One plain call of the method (an eval step without a tape)."""
+        if self.train_step:
+            return self.method(*args, **kwargs)
+        with torch.no_grad():
+            return self.method(*args, **kwargs)
+
+    def _first(self, args, kwargs):
+        """A key's first call: the plain call, which also makes the
+        memory plan while the step has none."""
+        if self.memory_plan is not None or torch.is_inference_mode_enabled():
+            return self._run(args, kwargs)
+        operands = [a for a in args if isinstance(a, torch.Tensor)]
+        if not self.train_step:
+            with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                    _drop, _no_unpack):
+                out = self.method(*args, **kwargs)
+            self._set_plan(tape_memory_plan(out, operands))
+            return out
+        seen = []
+
+        def observe(y):
+            if not seen:
+                seen.append(tape_memory_plan(y, operands))
+
+        autograd._tape_observers.append(observe)
+        try:
+            out = self.method(*args, **kwargs)
+        finally:
+            autograd._tape_observers.remove(observe)
+        self._set_plan(seen[0] if seen else tape_memory_plan(out, operands))
+        return out
+
+    def _set_plan(self, plan) -> None:
+        order, peak, naive = plan
+        if not order:
+            return
+        self.memory_plan = {"ops": len(order), "peak_bytes": int(peak),
+                            "naive_bytes": int(naive)}
+        _log.info("graph step: %d autograd nodes, arena %.2f MB (naive "
+                  "%.2f MB)", len(order), peak / 1e6, naive / 1e6)
 
     # ------------------------------------------------------------------
     def _side(self, dev) -> torch.cuda.Stream:
@@ -238,7 +408,7 @@ class GraphStep:
         call_args = args[:]
         for i, buf in zip(dyn_idx, static):
             call_args[i] = buf
-        opt = self.model.optimizer
+        opt = self.model.optimizer if self.train_step else None
         before = opt.step_counter if opt is not None else 0
         graph = torch.cuda.CUDAGraph()
         for gen in autograd.rank_generators(dev):
@@ -249,10 +419,11 @@ class GraphStep:
             try:
                 with torch.cuda.graph(graph, stream=side,
                                       capture_error_mode="thread_local"):
-                    out = self.method(*call_args, **kwargs)
+                    out = self._run(call_args, kwargs)
             except RuntimeError as e:
                 raise RuntimeError(
-                    f"capturing the training step failed: {e}. A tape "
+                    f"capturing the {'training' if self.train_step else 'eval'}"
+                    f" step failed: {e}. A tape "
                     f"still alive from an uncaptured forward on another "
                     f"stream (a loss or output of the model kept by the "
                     f"caller) pins the parameters' gradient accumulators "
@@ -281,3 +452,123 @@ class GraphStep:
                 obs_metrics.counter("train_steps"))
         h[0].observe(dt_s * 1000.0)
         h[1].inc()
+
+    # ------------------------------------------------------------------
+    def memory_analysis(self, *args, **kwargs) -> Dict[str, int]:
+        """Run the step once, uncaptured, on these inputs, put the
+        parameters, buffers, optimizer state and random streams back, and
+        return the reference's keys (singa_tpu/graph.py:910-975):
+
+        - `temp_bytes`: the bytes the step saves for its backward (each
+          storage once; parameters and buffers are state, not counted),
+          counted by a saved-tensor hook; on the card, the allocator's
+          high-water mark above the step's start when that is larger (it
+          holds the saved tensors and the step's transient buffers).
+          Under a `per_block` remat stack a block saves only its input
+          (the checkpoint's); under `none`, every residual;
+        - `argument_bytes`: the state the step threads (parameters and
+          buffers, and a training step's optimizer slots) and its tensor
+          operands;
+        - `alias_bytes`: the state a training step updates in place
+          (parameters, buffers, slots; 0 for an eval step);
+        - `output_bytes`: the step's outputs and the state it writes;
+        - `peak_bytes`: argument + output - alias + temp, the reference's
+          formula;
+        - `parameter_bytes`, `attention_bytes` and `gathered_block_bytes`:
+          the reference's analytic terms at world 1 (every parameter;
+          fp32 scores (B, heads, T, T) per live block of each
+          `ScanTransformerStack`, one block under `per_block`; 0)."""
+        args, _, tensors, _ = self._split_args(args, kwargs)
+        model = self.model
+        opt = model.optimizer if self.train_step else None
+        params = list(model.parameters())
+        bufs = list(model.buffers())
+        slots = ([t for t in opt.dump_states().values()
+                  if isinstance(t, torch.Tensor)] if opt is not None else [])
+        state_ptrs = {t.untyped_storage().data_ptr()
+                      for t in params + bufs + slots}
+        dev = self._device(tensors)
+        saved: Dict[int, int] = {}
+
+        def pack(t):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in state_ptrs:
+                saved[ptr] = t.untyped_storage().nbytes()
+            return t
+
+        with torch.no_grad():
+            keep = ([t.detach().clone() for t in params + bufs],
+                    {k: v.detach().clone() if isinstance(v, torch.Tensor)
+                     else v for k, v in (opt.dump_states().items()
+                                         if opt is not None else ())})
+        rng = torch.get_rng_state()
+        cuda_rng = (torch.cuda.get_rng_state(dev) if dev.type == "cuda"
+                    else None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                out = self._run(args, kwargs)
+            outs = []
+            _map(out, outs.append)
+            out_bytes = sum(_nbytes(t) for t in outs)
+            temp = sum(saved.values())
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                temp = max(temp, torch.cuda.max_memory_allocated(dev) - base)
+            del out, outs
+        finally:
+            with torch.no_grad():
+                for t, v in zip(params + bufs, keep[0]):
+                    t.copy_(v)
+            if opt is not None:
+                opt.load_states(keep[1])
+            torch.set_rng_state(rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, dev)
+        state = sum(_nbytes(t) for t in params + bufs + slots)
+        alias = state if self.train_step else 0
+        res = {"temp_bytes": int(temp),
+               "argument_bytes": state + sum(_nbytes(t) for t in tensors),
+               "output_bytes": out_bytes + alias,
+               "alias_bytes": alias}
+        res["peak_bytes"] = (res["argument_bytes"] + res["output_bytes"]
+                             - res["alias_bytes"] + res["temp_bytes"])
+        res["parameter_bytes"] = sum(_nbytes(p) for p in params)
+        res["attention_bytes"] = self._attention_bytes(tensors)
+        res["gathered_block_bytes"] = 0
+        return res
+
+    def _attention_bytes(self, tensors) -> int:
+        """The reference's analytic dense-equivalent attention scores at
+        world 1 (singa_tpu/graph.py:1023-1064): per live block of each
+        scan stack, B x heads x T x T fp32 scores of the first operand
+        with two dims (the tokens)."""
+        tok = next((t for t in tensors if t.dim() >= 2), None)
+        if tok is None:
+            return 0
+        b, t = int(tok.shape[0]), int(tok.shape[1])
+        total = 0
+        for mod in self.model.modules():
+            if isinstance(mod, layer_module.ScanTransformerStack):
+                live = 1 if mod.remat == "per_block" else mod.n_blocks
+                total += live * b * mod.num_heads * t * t * 4
+        return total
+
+
+def _step_for(model, train: bool) -> GraphStep:
+    """A fresh GraphStep over the model's training step (or forward)."""
+    method = model.forward
+    if train:
+        method = getattr(model, "_user_train_one_batch", None) or (
+            type(model).train_one_batch.__get__(model))
+    return GraphStep(model, method, train_step=train)
+
+
+def step_memory_analysis(model, *args, train: bool = True) -> Dict[str, int]:
+    """`GraphStep.memory_analysis` of a model's training step (or eval
+    forward) on these inputs; the remat policies' memory floors are
+    measured with it."""
+    return _step_for(model, train).memory_analysis(*args)

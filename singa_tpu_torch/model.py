@@ -16,10 +16,12 @@ mode keeps no tape, as the reference records none).
 training step through `graph.GraphStep`: on the card the whole step
 (forward, backward, clipping, the optimizer update) is captured as one
 CUDA Graph per input signature at its second call and replayed after
-that; on the CPU the same function runs uncaptured. `graph(False)` runs
-the step eagerly. Calls in eval mode run `forward` as they are (the
-reference's compiled eval step is not ported), and `memory_estimate` is
-None (ROADMAP queue 1 item 7).
+that; on the CPU the same function runs uncaptured. Calls outside
+training mode take the eval step (`GraphStep(model, forward,
+train_step=False)`, reference `model.py:227-250`): `forward` without a
+tape, captured the same way on the card. `graph(False)` runs both
+eagerly. `memory_estimate` is the native planner's verdict on the
+training step, else on the eval step (`graph.py`'s memory plan).
 
 `load_singa_tpu_params` carries a `singa_tpu` model's weights into the
 port: it takes `{name: np.asarray(t.data) for name, t in
@@ -80,6 +82,7 @@ class Model(Layer):
         self._user_train_one_batch = None
         self._use_graph = False
         self._train_step: Optional[GraphStep] = None
+        self._eval_step: Optional[GraphStep] = None
 
     def _apply_opt(self, loss, dist_option: str = "plain", spars=None):
         """The reference trainers' optimizer dispatch: plain (fused
@@ -108,9 +111,12 @@ class Model(Layer):
         while its 4-D inputs and outputs stay NCHW: under "NHWC" a 4-D
         input is copied into channels-last memory once at the boundary
         and a 4-D output back. Weights keep their OIHW shapes. Call
-        before `compile()`; "NCHW" restores the default."""
+        before `compile()`; "NCHW" restores the default. A change drops
+        the captured steps."""
         if img_layout not in ("NCHW", "NHWC"):
             raise ValueError(f"unknown image layout {img_layout!r}")
+        if getattr(self, "_img_layout", None) == img_layout:
+            return
         if getattr(self, "_img_layout", None) is None:
             inner = type(self).forward.__get__(self)
 
@@ -132,11 +138,16 @@ class Model(Layer):
 
             self.forward = wrapped_forward
         self._img_layout = img_layout
+        self._train_step = self._eval_step = None
 
     @property
     def memory_estimate(self):
-        """None: the reference reads this from its compiled step's memory
-        plan, which is not ported yet (ROADMAP queue 1 item 7)."""
+        """The native planner's {"ops", "peak_bytes", "naive_bytes"} for
+        the training step, else the eval step; None before a graph-mode
+        step has been planned. `ops` counts PyTorch's autograd nodes."""
+        for step in (self._train_step, self._eval_step):
+            if step is not None and step.memory_plan is not None:
+                return step.memory_plan
         return None
 
     @property
@@ -181,13 +192,13 @@ class Model(Layer):
 
     def graph(self, mode: bool = True, sequential: bool = False) -> None:
         """Route training-mode calls and direct `train_one_batch` calls
-        to the training step: captured (`GraphStep`) when `mode`, eager
-        otherwise. Drops the steps captured so far. `sequential` is
-        accepted for the reference's API: the stream orders the step's
-        kernels either way."""
+        to the training step, and other calls to the eval step: captured
+        (`GraphStep`) when `mode`, eager otherwise. Drops the steps
+        captured so far. `sequential` is accepted for the reference's
+        API: the stream orders the step's kernels either way."""
         del sequential
         self._use_graph = bool(mode)
-        self._train_step = None
+        self._train_step = self._eval_step = None
         if self._user_train_one_batch is None:
             self._user_train_one_batch = type(self).train_one_batch.__get__(
                 self)
@@ -211,9 +222,22 @@ class Model(Layer):
             step = self._dist_train
         if self._use_graph:
             if self._train_step is None:
-                self._train_step = GraphStep(self, step)
+                self._train_step = GraphStep(self, step, train_step=True)
             return self._train_step(*args, **kwargs)
         return step(*args, **kwargs)
+
+    def _dispatch_eval(self, *args, **kwargs):
+        """`forward` through the eval step in graph mode (a DistOpt
+        model's too: its eval runs on each rank's own inputs, as the
+        reference's), else as a plain module call."""
+        if self._use_graph:
+            if self._eval_step is None:
+                self._eval_step = GraphStep(self, self.forward,
+                                            train_step=False)
+            return self._eval_step(*args, **kwargs)
+        with torch.set_grad_enabled(
+                autograd.training and torch.is_grad_enabled()):
+            return super().__call__(*args, **kwargs)
 
     def _dist_train(self, *args, **kwargs):
         """The data-parallel step (the reference's SPMD wrapper,
@@ -263,9 +287,7 @@ class Model(Layer):
     def __call__(self, *args, **kwargs):
         if self.training and self._user_train_one_batch is not None:
             return self._dispatch_train(*args, **kwargs)
-        with torch.set_grad_enabled(
-                autograd.training and torch.is_grad_enabled()):
-            return super().__call__(*args, **kwargs)
+        return self._dispatch_eval(*args, **kwargs)
 
     # -- the reference's single-file checkpoint -----------------------------
     def save_states(self, fpath: str, aux_states: Optional[Dict] = None

@@ -82,8 +82,12 @@ _flash = {"enabled": True}
 
 
 def set_flash_enabled(enabled: bool) -> None:
-    """Process-global switch for the kernel path of the dispatchers."""
+    """Process-global switch for the kernel path of the dispatchers; it
+    flushes the op cache, as the reference's does."""
+    from singa_tpu_torch import autograd
+
     _flash["enabled"] = bool(enabled)
+    autograd.clear_op_cache()
 
 
 def flash_enabled() -> bool:

@@ -378,8 +378,8 @@ def to_onnx(model, inputs: Sequence, model_name: str = "singa_tpu",
     was_training, prev_flag = model.training, autograd.training
     nhwc = getattr(model, "_img_layout", None) == "NHWC"
     model.eval()
-    if nhwc:
-        model.set_image_layout("NCHW")
+    if nhwc:  # the attribute, not set_image_layout: that drops the steps
+        model._img_layout = "NCHW"
     try:
         with torch.no_grad(), autograd.ExportTrace(inputs) as trace:
             out = model.forward(*inputs)
@@ -388,7 +388,7 @@ def to_onnx(model, inputs: Sequence, model_name: str = "singa_tpu",
                 trace.check(o, "a graph output")
     finally:
         if nhwc:
-            model.set_image_layout("NHWC")
+            model._img_layout = "NHWC"
         model.train(was_training)
         autograd.training = prev_flag
 
@@ -415,6 +415,11 @@ def to_onnx(model, inputs: Sequence, model_name: str = "singa_tpu",
         return nm
 
     for kind, attrs, extras, op_in, op_out in _live_ops(trace.ops, outs):
+        if kind is None:
+            raise NotImplementedError(
+                "to_onnx: the forward runs an op that carries no export "
+                "metadata (an autograd op without an ONNX form, or a "
+                "Function without meta)")
         in_names = [name_of(t) for t in op_in]
         extra_names = [name_of(t) for t in extras]
         out_names = []

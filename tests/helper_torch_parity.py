@@ -262,6 +262,51 @@ def run_ranks(scenario, world, tmp_path, timeout=100, **payload):
     return results
 
 
+def run_reference(module, name, tmp_path, timeout=300, **kwargs):
+    """`name(**kwargs)`, a function of the test module `module` that
+    computes the reference's side of a parity test, run in a spawned
+    process of its own: a fresh singa_tpu, so no process-wide switch an
+    earlier test left set in this pytest worker (the autocast policy,
+    `autograd.training`, a mesh axis pushed and not popped, the op
+    cache) reaches the reference's numbers. It inherits the worker's
+    environment (conftest's 8-device CPU platform). Returns what the
+    function returned (picklable: numpy arrays and numbers); its
+    exception fails the call with its traceback."""
+    import multiprocessing as mp
+    import pickle
+
+    out = tmp_path / f"{name}.pkl"
+    p = mp.get_context("spawn").Process(
+        target=_reference_main, args=(module, name, kwargs, str(out)))
+    p.start()
+    p.join(timeout)
+    if p.is_alive():
+        p.kill()
+        p.join()
+    got = pickle.loads(out.read_bytes()) if out.exists() else None
+    if p.exitcode != 0 or got is None or "traceback" in got:
+        raise AssertionError(
+            f"the reference's {module}.{name} failed (exit {p.exitcode}):\n"
+            f"{(got or {}).get('traceback', '')}")
+    return got["result"]
+
+
+def _reference_main(module, name, kwargs, out):
+    import pickle
+    import traceback
+
+    try:
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        got = {"result": getattr(importlib.import_module(module), name)(
+            **kwargs)}
+    except BaseException:  # reported to the parent, which fails the test
+        got = {"traceback": traceback.format_exc()}
+    with open(out, "wb") as f:
+        pickle.dump(got, f)
+
+
 def _rank_main(name, rank, world, init, payload, out):
     import pickle
     import traceback

@@ -147,7 +147,9 @@ def test_port_imports_with_jax_and_reference_blocked():
 def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():
     """MobileNetV1 and Xception (narrow CIFAR shapes), the new layers and
     the tensor module import, and each net takes one graph-mode step on
-    the CPU, with JAX and the reference blocked."""
+    the CPU, with JAX and the reference blocked; so do the native planner
+    (g++'s build of native/graph_core.cc), Xception's eval step and its
+    memory estimate, and a user `autograd.Function`."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
@@ -170,12 +172,23 @@ def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():
         "print(tuple(layer.SeparableConv2d(4, 3, padding='same',\n"
         "    device='cpu')(torch.ones(1, 2, 5, 5)).shape),\n"
         "      float(tensor.sum(tensor.ones((2, 3), dev='cpu'))),\n"
-        "      layer.mutation_stamp() > 0)\n")
+        "      layer.mutation_stamp() > 0)\n"
+        "from singa_tpu_torch import autograd, native\n"
+        "p = native.GraphPlanner(require_native=True)\n"
+        "p.add_edge(p.add_node(), p.add_node(), 0, 8)\n"
+        "m.eval()\n"
+        "m(x)\n"
+        "autograd.training = True\n"
+        "f = autograd.Function(lambda v: v * 2.0)\n"
+        "g = autograd.backward(autograd.sum(f(x.requires_grad_())))\n"
+        "print(p.native, p.plan_memory()[1:], m.memory_estimate is not None,\n"
+        "      m._eval_step.captures, float(g[0][1].sum()))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[:3] == [
-        "(2, 10) True 1", "(2, 10) True 1", "(1, 4, 5, 5) 6.0 True"]
+    assert out.stdout.split("\n")[:4] == [
+        "(2, 10) True 1", "(2, 10) True 1", "(1, 4, 5, 5) 6.0 True",
+        "True (256, 256) True 1 3072.0"]
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):
