@@ -284,12 +284,34 @@ Phases, in the order they run (any failure raises and exits non-zero):
    VJP in an MLP trained 6 captured steps, equal to the same steps on
    the CPU within 1e-5 and bitwise to the uncaptured twin; and the 40
    functional ops, forward and gradient, against the CPU within 1e-5;
+9i. the Device classes on the card (`create_cuda_gpu().device_info()`
+   names it, `memory_stats()`'s bytes in use above 0, `TpuDevice`,
+   `OpenclGPU` and `RunConfig(device="tpu")` are `cuda:0`, `op_count`
+   grows on an uncaptured step and on the capture, not on 3 replays, of
+   the MLP at batch 64); then sequence parallelism over a world-1 NCCL
+   group and the mesh (data 1, sp 1), each model's steps captured and
+   counted (`captured_steps`) and its losses held to the same model
+   without `seq_axis` from the same seeded weights, `DistOpt(SGD)`:
+   gpt_medium's widths unrolled at 1 x 8192 with `seq_axis`,
+   `remat=True` and `ring_flash=True` (one causal flash block a layer:
+   12 launches of the head-split forward with its lse, of dQ and of
+   dK/dV a step), then `seq_impl="ulysses"` (24 forward launches: the
+   remat recomputes them), each loss within 1e-5 of its twin's (said
+   whether bitwise), 5 steps; BERT-base at 16 x 512 with `seq_axis` and
+   `ring_flash` (the bidirectional block, 12 of each), 5 steps within
+   1e-5; the scanned gpt_medium at 4 x 2048 with `seq_axis` and
+   `overlap=True` (the pipelined plain ring, no kernel), 3 steps within
+   1e-3 of its fused-kernel twin; step ms, tokens/s and peak memory of
+   each. The head-split kernels are held to their plain versions at
+   these shapes in phases 3-4 (`sp_*` cases). At world 1 no NCCL
+   point-to-point op or all-to-all is issued;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
    its capture recorded, which every replay runs again; the ZeRO-1
    step's beside the others; K2a's at Xception's four pool shapes and
-   its 4 launches a step), then the result line.
+   its 4 launches a step; the sequence-parallel steps' launches and the
+   head-split figures at their shapes), then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -368,6 +390,12 @@ CASES = [
      "float32", False, 1e-4),
     ("bert_base_fused_bf16", "fused", 16, 12, 512, 512, 64, False,
      "bfloat16", False, 2e-2),
+    # the sequence-parallel path (phase 9i): head-split q, k, v (views of
+    # the fused projection) into a (B, H, T, D) output, with lse
+    ("sp_gpt_medium_causal_t8192", "sp", 1, 8, 8192, 8192, 128, True,
+     "float32", False, 1e-4),
+    ("sp_bert_base_bidir_t512", "sp", 16, 12, 512, 512, 64, False,
+     "float32", False, 1e-4),
 ]
 # Tolerances: fp32 kernel and plain version differ only in summation
 # order (1e-4 on values of order 1); where operands or O are bf16, one
@@ -391,6 +419,9 @@ def run_case(torch, fa, case):
         q, k, v = fa._split_qkv(qkv, h)
         out = torch.empty((b, tq, h * d), dtype=dtype, device="cuda")
         o = fa._heads(out, h)
+    elif layout == "sp":
+        q, k, v = fa._split_qkv(randn(b, tq, 3 * h * d), h)
+        o = torch.empty((b, h, tq, d), dtype=dtype, device="cuda")
     else:
         q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
         o = torch.empty_like(q)
@@ -499,6 +530,10 @@ BWD_CASES = [
      "float32", False, False, 1e-4),
     ("bert_base_fused_bf16", "fused", 16, 12, 512, 512, 64, False,
      "bfloat16", False, False, 2e-2),
+    ("sp_gpt_medium_causal_t8192", "sp", 1, 8, 8192, 8192, 128, True,
+     "float32", False, False, 1e-4),
+    ("sp_bert_base_bidir_t512", "sp", 16, 12, 512, 512, 64, False,
+     "float32", False, False, 1e-4),
 ]
 # Tolerances are on max|d| / max(1, max|plain|) per gradient. fp32: the
 # kernel and the plain version differ only in summation order (1e-4).
@@ -537,6 +572,10 @@ def run_bwd_case(torch, fa, case):
         out = torch.empty((b, tq, h * d), dtype=dtype, device="cuda")
         o = fa._heads(out, h)
         do = fa._heads(randn(b, tq, h * d), h)
+    elif layout == "sp":
+        q, k, v = fa._split_qkv(randn(b, tq, 3 * h * d), h)
+        o = torch.empty((b, h, tq, d), dtype=dtype, device="cuda")
+        do = randn(b, h, tq, d)
     else:
         q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
         o = torch.empty_like(q)
@@ -4350,6 +4389,243 @@ def eval_path(torch, fa, mp, card):
     return out["gpt_medium_fp32"]["launches_first"], out
 
 
+# -- phase 9i: the Device classes and sequence parallelism -------------------
+
+#: the sequence-parallel phases: gpt_medium's widths, unrolled, at one
+#: sequence of 8192 tokens; BERT-base at bench.py's 16 x 512; the scanned
+#: stack's plain ring at 4 x 2048 (it builds (B, H, T, T) scores)
+SP_SEQ, SP_STEPS = 8192, 5
+SP_SCAN_BATCH, SP_SCAN_SEQ, SP_SCAN_STEPS = 4, 2048, 3
+SP_LR, SP_BERT_LR = 0.05, 1e-3
+#: the flash paths against their twin without seq_axis: at world 1 the
+#: ring is one flash block merged with weight exactly 1, and Ulysses
+#: moves nothing, so the same kernels run on the same values (the
+#: head-split tensors are the fused projection's own views); each loss
+#: is held to 1e-5 of its size over the 5 SGD steps, and whether the
+#: losses are bitwise equal is printed
+SP_TWIN_TOL = 1e-5
+#: the scanned stack's plain ring against the fused flash kernel of its
+#: twin: the two sum in other orders (phase 6 holds logits to 2e-3); the
+#: mean loss over 3 SGD steps is held to 1e-3 of its size
+SP_PLAIN_TOL = 1e-3
+
+
+def devices_path(torch, card):
+    """The Device classes on the card: `create_cuda_gpu().device_info()`
+    names the card, `memory_stats()` sees the allocator, TpuDevice and
+    RunConfig("tpu") are the card, and `op_count` grows on an eager step
+    and on the capture, not on the replays (the MLP, batch 64)."""
+    from singa_tpu_torch import device as device_module
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.config import RunConfig
+    from singa_tpu_torch.models import MLP
+
+    d = device_module.create_cuda_gpu()
+    info = d.device_info()
+    name = torch.cuda.get_device_name(0)
+    check(info["device_kind"] == name and info["platform"] == "gpu"
+          and d.platform == "gpu",
+          f"device_info {info} does not name the card {name!r}")
+    for alias in (device_module.create_tpu_device(),
+                  device_module.create_opencl_device(),
+                  RunConfig(device="tpu").make_device()):
+        check(isinstance(alias, device_module.CudaGPU)
+              and alias.torch_device == torch.device("cuda", 0),
+              f"{alias!r} is not the card")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn(64, 784, device="cuda", generator=gen)
+    y = torch.randint(0, 10, (64,), device="cuda", generator=gen)
+    m = MLP(100, 10, device=d)
+    m.dropout.p = 0.0
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9))
+    m.compile([x], is_train=True, use_graph=True)
+    stats = d.memory_stats()
+    check(stats["bytes_in_use"] > 0 and stats["bytes_limit"] > 0
+          and stats["peak_bytes_in_use"] >= stats["bytes_in_use"],
+          f"memory_stats {stats}")
+    grown = []
+    for _ in range(5):
+        before = d.op_count
+        m(x, y)[1].item()
+        grown.append(d.op_count - before)
+    gs = m._train_step
+    m.graph(False)
+    before = d.op_count
+    m(x, y)[1].item()
+    eager = d.op_count - before
+    print(f"devices ({card}): {info}; memory_stats {stats}; op_count "
+          f"growth per step: uncaptured {grown[0]}, capture {grown[1]}, "
+          f"replays {grown[2:]} ({gs.replays - 1} replays), eager "
+          f"{eager}", flush=True)
+    check(grown[0] > 0 and grown[1] > 0 and grown[2:] == [0, 0, 0]
+          and eager > 0 and (gs.captures, gs.replays) == (1, 4),
+          f"op_count grew {grown} over the uncaptured step, the capture "
+          f"and 3 replays, and {eager} on an eager step")
+    return dict(device_info=info, memory_stats=stats, op_count_growth=dict(
+        uncaptured=grown[0], capture=grown[1], replays=grown[2:],
+        eager=eager))
+
+
+def sp_path(torch, fa, mp, card):
+    """Sequence parallelism over a world-1 NCCL group, the mesh (data 1,
+    sp 1), every step captured: gpt_medium's unrolled decoder at 1 x
+    8192 with `seq_axis`, `remat=True` and `ring_flash=True` (one
+    diagonal flash block a layer), then with `seq_impl="ulysses"` (the
+    head-split flash kernels over the whole sequence, recomputed in the
+    backward); BERT-base at 16 x 512 with `seq_axis` and `ring_flash`
+    (the bidirectional block); the scanned gpt_medium at 4 x 2048 with
+    `seq_axis` and `overlap=True` (the pipelined plain ring). Each runs
+    `DistOpt(SGD)` captured steps, counted, and is held to the same
+    model without `seq_axis` from the same weights. Returns each
+    phase's counted launches and the numbers."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.models.transformer import BertForClassification
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    distributed.init(device="cuda")
+    check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+          f"the group is {tdist.get_backend()} at world "
+          f"{tdist.get_world_size()}, not NCCL at 1")
+    mesh = mesh_module.get_mesh((1, 1), ("data", "sp"))
+    check(mesh.shape == {"data": 1, "sp": 1}, f"mesh {mesh.shape}")
+    flash = dict(NO_LAUNCH, flash_fwd=12, flash_bwd_dq=12,
+                 flash_bwd_dkv=12)
+    launches, out = {}, {"card": card, "mesh": mesh.shape}
+
+    def train(make, params, x, y, per_step, what, steps, lr=SP_LR):
+        m = make()
+        load_singa_tpu_params(m, params)
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr, momentum=0.9),
+                                    mesh=mesh, axis_name="data"))
+        m.compile([x], is_train=True, use_graph=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses, first_s, ms = captured_steps(torch, fa, mp, m, x, y,
+                                             per_step, what, steps=steps)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{what}: losses {losses} are not finite or did not fall")
+        grad_axes = list(m.optimizer.grad_axes)
+        m.graph(False)
+        del m
+        drop_graphs(torch)
+        return dict(losses=losses, first_step_s=first_s, step_ms=ms,
+                    peak_bytes=peak, grad_axes=grad_axes)
+
+    def held(what, got, twin, tol):
+        gap = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(got["losses"], twin["losses"]))
+        bitwise = got["losses"] == twin["losses"]
+        print(f"{what} ({card}): losses {got['losses']} vs the model "
+              f"without seq_axis {twin['losses']}: max rel {gap:.3e} (tol "
+              f"{tol}), bitwise {bitwise}", flush=True)
+        check(gap <= tol, f"{what}: the losses differ from the model "
+                          f"without seq_axis")
+        return dict(got, twin_losses=twin["losses"],
+                    twin_step_ms=twin["step_ms"], loss_max_rel=gap,
+                    bitwise=bitwise, tolerance=tol)
+
+    try:
+        rng = np.random.default_rng(SEED)
+
+        # gpt_medium's widths, unrolled, one sequence of 8192 tokens
+        def gpt(**kw):
+            return lambda: gpt_medium(scan_blocks=False, max_len=SP_SEQ,
+                                      device="cuda", **kw)
+
+        probe = gpt()()
+        params, vocab = seeded_params(probe, SEED), probe.vocab_size
+        del probe
+        drop_graphs(torch)
+        seq = torch.from_numpy(rng.integers(0, vocab,
+                                            (1, SP_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+        twin = train(gpt(), params, x, y, flash, "sp twin gpt 1x8192",
+                     SP_STEPS)
+        # ring_flash at world 1: one causal flash block a layer, once in
+        # the forward and once in the backward
+        ring = train(gpt(seq_axis="sp", ring_flash=True, remat=True),
+                     params, x, y, flash, "sp-ring-flash", SP_STEPS)
+        launches["ring_flash"] = flash
+        out["ring_flash"] = held("sp-ring-flash", ring, twin, SP_TWIN_TOL)
+        # Ulysses with remat: the checkpointed attention's forward runs
+        # again in the backward, 24 forward launches a step
+        uly_step = dict(flash, flash_fwd=24)
+        uly = train(gpt(seq_axis="sp", seq_impl="ulysses", ring_flash=True,
+                        remat=True), params, x, y, uly_step,
+                    "sp-ulysses-flash", SP_STEPS)
+        launches["ulysses_flash"] = uly_step
+        out["ulysses_flash"] = held("sp-ulysses-flash", uly, twin,
+                                    SP_TWIN_TOL)
+        for key in ("ring_flash", "ulysses_flash"):
+            r = out[key]
+            r["tokens_per_s"] = SP_SEQ / (r["step_ms"] / 1e3)
+            print(f"{key} ({card}): {r['step_ms']:.2f} ms a captured step, "
+                  f"{r['tokens_per_s']:.1f} tokens/s (the twin "
+                  f"{r['twin_step_ms']:.2f} ms), peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del params, seq, x, y
+        drop_graphs(torch)
+
+        # BERT-base, non-causal: the bidirectional block
+        def bert(**kw):
+            return lambda: BertForClassification(
+                2, vocab_size=30522, max_len=BERT_SEQ, dropout=0.0,
+                device="cuda", **kw)
+
+        probe = bert()()
+        params = seeded_params(probe, SEED)
+        vocab = probe.bert.tok.table.shape[0]
+        del probe
+        bx = torch.from_numpy(rng.integers(0, vocab,
+                                           (BERT_BATCH, BERT_SEQ))).cuda()
+        by = torch.from_numpy(rng.integers(0, 2, (BERT_BATCH,))).cuda()
+        btwin = train(bert(), params, bx, by, flash, "sp twin bert",
+                      SP_STEPS, SP_BERT_LR)
+        sb = train(bert(seq_axis="sp", ring_flash=True), params, bx, by,
+                   flash, "sp-bert", SP_STEPS, SP_BERT_LR)
+        launches["bert"] = flash
+        out["bert"] = held("sp-bert", sb, btwin, SP_TWIN_TOL)
+        out["bert"]["tokens_per_s"] = BERT_BATCH * BERT_SEQ / (
+            sb["step_ms"] / 1e3)
+        del params, bx, by
+        drop_graphs(torch)
+
+        # the scanned stack's pipelined plain ring: no kernel
+        def scan(**kw):
+            return lambda: gpt_medium(max_len=SP_SCAN_SEQ, device="cuda",
+                                      **kw)
+
+        probe = scan()()
+        params, vocab = seeded_params(probe, SEED), probe.vocab_size
+        del probe
+        seq = torch.from_numpy(rng.integers(
+            0, vocab, (SP_SCAN_BATCH, SP_SCAN_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+        stwin = train(scan(), params, x, y, flash, "sp twin scan",
+                      SP_SCAN_STEPS)
+        ss = train(scan(seq_axis="sp", overlap=True), params, x, y,
+                   NO_LAUNCH, "sp-scan", SP_SCAN_STEPS)
+        launches["scan"] = NO_LAUNCH
+        out["scan"] = held("sp-scan", ss, stwin, SP_PLAIN_TOL)
+        out["scan"]["tokens_per_s"] = SP_SCAN_BATCH * SP_SCAN_SEQ / (
+            ss["step_ms"] / 1e3)
+        for key in ("bert", "scan"):
+            r = out[key]
+            print(f"sp-{key} ({card}): {r['step_ms']:.2f} ms a captured "
+                  f"step, {r['tokens_per_s']:.1f} tokens/s (the twin "
+                  f"{r['twin_step_ms']:.2f} ms)", flush=True)
+        del params, seq, x, y
+    finally:
+        distributed.shutdown()
+        drop_graphs(torch)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4604,6 +4880,17 @@ def main() -> int:
     print(f"eval: {time.perf_counter() - t:.1f} s ({card}); gpt_medium's "
           f"uncaptured eval call's launches {eval_launches}", flush=True)
 
+    # 9i. the Device classes, then sequence parallelism over a world-1
+    # NCCL group: the head-split flash kernels on a main path
+    reset_counts(fa, mp)
+    devices_out = devices_path(torch, card)
+    check(counts(fa, mp) == NO_LAUNCH, "the devices phase launched a kernel")
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    sp_launches, sp_out = sp_path(torch, fa, mp, card)
+    print(f"sp: {time.perf_counter() - t:.1f} s ({card}); each phase's "
+          f"counted step's launches {sp_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -4632,6 +4919,32 @@ def main() -> int:
                            library_ms=r["library_ms"])
         return out
 
+    def at_sp(key, grads):
+        """A flash kernel's figures at the sequence-parallel path's
+        head-split shapes (fp32)."""
+        out = {}
+        for case in ("sp_gpt_medium_causal_t8192", "sp_bert_base_bidir_t512"):
+            if key is None:
+                r = fwd_by[case]
+                fig = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                           bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+            else:
+                r = bwd_by[case]
+                fig = dict(max_abs_err=max(r["max_abs_err"][g]
+                                           for g in grads),
+                           ms=r[f"ms_{key}"], bound_ms=r["bound_ms"][key],
+                           bound_by=r["bound_by"][key])
+            out[case] = dict(fig, shape=r["shape"], causal=r["causal"],
+                             plain_ms=r["plain_ms"],
+                             library_ms=r["library_ms"])
+        return out
+
+    def sp_counts(name):
+        return {"sp_ring_flash_step": sp_launches["ring_flash"][name],
+                "sp_ulysses_flash_step": sp_launches["ulysses_flash"][name],
+                "sp_bert_step": sp_launches["bert"][name],
+                "sp_scan_step": sp_launches["scan"][name]}
+
     def sass_of(kernel):
         return {fn: ops for fn, ops in sass.items()
                 if fn.startswith(kernel + "<")}
@@ -4649,8 +4962,10 @@ def main() -> int:
                  "bert_step": bert_launches["flash_fwd"],
                  "sonnx_bert_export": sonnx_export_launches["flash_fwd"],
                  "zero1_gpt_medium_step": zero1_launches["flash_fwd"],
-                 "eval_step": eval_launches["flash_fwd"]},
+                 "eval_step": eval_launches["flash_fwd"],
+                 **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
+             head_split_sp=at_sp(None, ()),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_fma_ms=fwd["bound_fma_ms"],
@@ -4674,8 +4989,10 @@ def main() -> int:
                 "train_step": train_launches[name],
                 "unrolled_train_step": unrolled_launches["train_step"][name],
                 "bert_step": bert_launches[name],
-                "zero1_gpt_medium_step": zero1_launches[name]},
+                "zero1_gpt_medium_step": zero1_launches[name],
+                **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
+            head_split_sp=at_sp(key, grads),
             max_abs_err=max(bwd["max_abs_err"][g] for g in grads),
             ms=bwd[f"ms_{key}"], plain_ms=bwd["plain_ms"],
             bound_ms=bwd["bound_ms"][key], bound_by=bwd["bound_by"][key],
@@ -4731,6 +5048,8 @@ def main() -> int:
     print("zero1_gpt_medium " + json.dumps(zero1_out), flush=True)
     print("mobile " + json.dumps(mobile_out), flush=True)
     print("eval " + json.dumps(eval_out), flush=True)
+    print("devices " + json.dumps(devices_out), flush=True)
+    print("sp " + json.dumps(sp_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,6 +81,7 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from singa_tpu_torch import _kernels
+from singa_tpu_torch import device as device_module
 from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch.ops import max_pool
 
@@ -174,7 +175,9 @@ def op(kind: str, attrs, fn: Callable, *inputs: torch.Tensor,
     reference's `Function(fn, meta=(kind, attrs, extras))(*inputs)`);
     recorded only under an export trace."""
     if _trace is None:
-        out = fn(*inputs)
+        # the Device dispatch seam (reference :496-504): counted on the
+        # device of the first tensor operand
+        out = device_module.dispatch(fn, inputs, *inputs)
         if torch.is_grad_enabled():
             _tag_params(out, inputs)
         return out
@@ -931,11 +934,11 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             m = xf.mean(red)
             m2 = xf.square().mean(red)
             if group is not None:
-                from singa_tpu_torch.communicator import pmean_over
+                from singa_tpu_torch.communicator import group_mean
 
                 # one collective for both moments: equal shard sizes
                 # make the mean of shard means the global mean
-                m, m2 = pmean_over(torch.stack((m, m2)), group,
+                m, m2 = group_mean(torch.stack((m, m2)), group,
                                    world).unbind(0)
             v = (m2 - m.square()).clamp_min(0.0)
         xhat = with_running(xf) if degenerate else (

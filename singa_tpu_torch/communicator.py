@@ -29,9 +29,18 @@ dropped-entry count stay on the device) and
 rank's 1/world shard of the flat parameter vector (the wrapped
 optimizer's slots exist only for that shard) and all-gathers it back;
 `half_wire` and `gather_half` put the two collectives on a bf16 wire,
-`overlap` runs one pair a `plan_buckets` bucket. `set_sentinel` is
-ROADMAP queue 1 item 17 (so are the reference ZeRO-1 step's sentinel
-branches).
+`overlap` runs one pair a `plan_buckets` bucket. `grad_axes` names
+the mesh axes every gradient reduces over: in each mode a gradient is
+first averaged over the live ones other than the data axis (a
+sequence-parallel model's distributed step adds its seq axis), in fused
+buckets, then synced over the data axis as above; the expert axis is
+ROADMAP queue 1 item 15. `set_sentinel` is item 17 (so are the
+reference ZeRO-1 step's sentinel branches).
+
+`psum_over`, `pmean_over` and `broadcast_from` are the reference's
+functional collectives over mesh axis names (the live axes of
+`parallel.mesh`'s context), differentiable `torch.autograd.Function`s
+over each axis's process group.
 
 `plan_buckets` is the port's own copy of the reference's Python bucket
 planner (the oracle its native planner is held to).
@@ -49,7 +58,8 @@ import torch.nn.functional as F
 from singa_tpu_torch import autograd
 from singa_tpu_torch.parallel import mesh as mesh_module
 
-__all__ = ["Communicator", "DistOpt", "plan_buckets", "pmean_over"]
+__all__ = ["Communicator", "DistOpt", "plan_buckets", "pmean_over",
+           "psum_over", "broadcast_from"]
 
 
 class _GroupMean(torch.autograd.Function):
@@ -73,10 +83,88 @@ def _mean(x: torch.Tensor, group, world: int) -> torch.Tensor:
     return y / world
 
 
-def pmean_over(x: torch.Tensor, group, world: int) -> torch.Tensor:
-    """The differentiable mean of `x` over `group` (batchnorm's
-    cross-replica moments)."""
+def group_mean(x: torch.Tensor, group, world: int) -> torch.Tensor:
+    """The differentiable mean of `x` over a process `group` of `world`
+    ranks (batchnorm's cross-replica moments)."""
     return _GroupMean.apply(x, group, world)
+
+
+# -- the functional collectives over axis names (reference :61-90) --------------
+#
+# Each reduces over the live mesh axes it names (`parallel.mesh`'s axis
+# context), one all-reduce per axis of more than one rank; an axis of
+# one rank is the identity. They are differentiable with the adjoints of
+# the reference's SPMD program, where every rank's loss adds into the
+# objective: psum's is psum, pmean's pmean, and broadcast_from's the sum
+# of the cotangents landing on the root.
+
+
+def _live_axes(axes) -> Tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in axes if mesh_module.axis_size(a) > 1)
+
+
+def _reduce_axes(x: torch.Tensor, axes, mean: bool) -> torch.Tensor:
+    for ax in axes:
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=mesh_module.axis_group(ax))
+        x = y / mesh_module.axis_size(ax) if mean else y
+    return x
+
+
+class _AxesReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mean):
+        ctx.axes, ctx.mean = axes, mean
+        return _reduce_axes(x, axes, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_axes(g, ctx.axes, ctx.mean), None, None
+
+
+def psum_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of `x` over the named mesh axes (one name or several)."""
+    live = _live_axes(axes)
+    return _AxesReduce.apply(x, live, False) if live else x
+
+
+def pmean_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The mean of `x` over the named mesh axes (graph.py's merge of the
+    loss, the extra gradient axes of DistOpt)."""
+    live = _live_axes(axes)
+    return _AxesReduce.apply(x, live, True) if live else x
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    """psum of the root-masked value (reference :78-90): shard `root`'s
+    `x` on every rank of the axis; the backward sums the cotangents of
+    every rank onto the root and gives the others zero."""
+
+    @staticmethod
+    def forward(ctx, x, axis, root):
+        ctx.axis, ctx.root = axis, root
+        mine = mesh_module.axis_index(axis) == root
+        y = (x if mine else torch.zeros_like(x)).contiguous().clone()
+        dist.all_reduce(y, group=mesh_module.axis_group(axis))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y = g.contiguous().clone()
+        dist.all_reduce(y, group=mesh_module.axis_group(ctx.axis))
+        if mesh_module.axis_index(ctx.axis) != ctx.root:
+            y = torch.zeros_like(y)
+        return y, None, None
+
+
+def broadcast_from(x: torch.Tensor, axis_name: str, root: int = 0
+                   ) -> torch.Tensor:
+    """Shard `root`'s value of `x` on every rank of a live axis (Bert's
+    CLS row, which lives on sequence shard 0)."""
+    if mesh_module.axis_size(axis_name) == 1:
+        return x
+    return _BroadcastFrom.apply(x, axis_name, int(root))
 
 
 class Communicator:
@@ -85,20 +173,28 @@ class Communicator:
 
     def __init__(self, mesh: Optional[mesh_module.Mesh] = None,
                  axis_name: str = mesh_module.DATA_AXIS):
+        if mesh is not None and axis_name not in mesh.axis_names:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(f"mesh {mesh.axis_names} has no axis "
+                                 f"{axis_name!r}")
+            axis_name = mesh.axis_names[0]  # a 1-D mesh: its one axis
         self.mesh = mesh
         self.axis_name = axis_name
 
     @property
     def world_size(self) -> int:
-        return 1 if self.mesh is None else self.mesh.size
+        return 1 if self.mesh is None else self.mesh.axis_size(
+            self.axis_name)
 
     @property
     def rank(self) -> int:
-        return 0 if self.mesh is None else self.mesh.rank
+        return 0 if self.mesh is None else self.mesh.axis_index(
+            self.axis_name)
 
     @property
     def group(self):
-        return None if self.mesh is None else self.mesh.group
+        return None if self.mesh is None else self.mesh.axis_group(
+            self.axis_name)
 
     def _active(self) -> bool:
         """True when a process group is initialised under the mesh (at
@@ -395,12 +491,17 @@ class DistOpt:
                 "half_wire/gather_half are ZeRO-1 wire formats "
                 "(shard_states=True); for plain DP use "
                 "dist_option='half' instead")
-        if grad_axes and tuple(grad_axes) != (axis_name,):
+        grad_axes = tuple(grad_axes) if grad_axes else (axis_name,)
+        if mesh_module.EXPERT_AXIS in grad_axes:
             raise NotImplementedError(
-                f"DistOpt(grad_axes={tuple(grad_axes)}): the sequence and "
-                f"expert axes come with ROADMAP queue 1 items 14-15")
+                f"DistOpt(grad_axes={grad_axes}): the expert axis comes "
+                f"with the Switch MoE FFN (ROADMAP queue 1 item 15)")
         self.opt = opt
         self.comm = Communicator(mesh, axis_name)
+        #: the mesh axes each gradient reduces over: the data axis (the
+        #: per-mode sync) and, first, any other live one (a sequence
+        #: axis registers itself here; reference :501)
+        self.grad_axes: Tuple[str, ...] = grad_axes
         self.buffSize = buffSize
         self.use_sparse = use_sparse
         self.shard_states = bool(shard_states)
@@ -807,6 +908,25 @@ class DistOpt:
         else:
             self.opt.apply_updates(list(pairs))
 
+    def _synced_grad_pairs(self, loss: torch.Tensor):
+        """`grad_pairs` with the extra-axis pre-reduction (reference
+        :996-1026): under sequence parallelism every gradient is first
+        averaged over the live grad axes other than the data axis (each
+        seq shard saw other tokens), in fused buckets of `buffSize`, so
+        it is the same on every shard of those axes; the per-mode
+        data-axis sync then runs as in plain data parallelism."""
+        pairs = list(autograd.grad_pairs(loss))
+        extra = [ax for ax in self.grad_axes
+                 if ax != self.comm.axis_name and mesh_module.in_axis(ax)
+                 and mesh_module.axis_size(ax) > 1]
+        if not extra or not pairs:
+            return pairs
+        grads = [g for _, g in pairs]
+        for ax in extra:
+            grads = Communicator(self.comm.mesh, ax).fused_all_reduce(
+                grads, average=True, bucket_elems=self.buffSize)
+        return [(p, g) for (p, _), g in zip(pairs, grads)]
+
     # -- the reference's API ---------------------------------------------------
     def __call__(self, loss: torch.Tensor):
         return self.backward_and_update(loss)
@@ -818,7 +938,7 @@ class DistOpt:
         shard_states the ZeRO-1 step instead."""
         if self.shard_states:
             return self._backward_and_zero1_update(loss)
-        pairs = list(autograd.grad_pairs(loss))
+        pairs = self._synced_grad_pairs(loss)
         synced = self.comm.fused_all_reduce(
             [g for _, g in pairs], average=True,
             bucket_elems=threshold or self.buffSize)
@@ -846,7 +966,7 @@ class DistOpt:
             raise RuntimeError(
                 f"DistOpt(shard_states=True) was prepared over a world of "
                 f"{world}; its process group is gone or changed")
-        grads = {id(p): g for p, g in autograd.grad_pairs(loss)}
+        grads = {id(p): g for p, g in self._synced_grad_pairs(loss)}
         known = {id(p) for p in self._z_params}
         unknown = [pid for pid in grads if pid not in known]
         if unknown:
@@ -917,7 +1037,7 @@ class DistOpt:
         if self.shard_states:
             raise RuntimeError(_DENSE_ONLY)
         self._stream_or_clip((p, self.comm.all_reduce_half(g))
-                             for p, g in autograd.grad_pairs(loss))
+                             for p, g in self._synced_grad_pairs(loss))
 
     def backward_and_sparse_update(self, loss: torch.Tensor,
                                    spars: float = 0.05, topK: bool = True,
@@ -932,7 +1052,7 @@ class DistOpt:
         dropped = []
 
         def dense_pairs():
-            for p, g in autograd.grad_pairs(loss):
+            for p, g in self._synced_grad_pairs(loss):
                 res = self._residuals.get(id(p)) if corr else None
                 if corr and res is None and (
                         torch.cuda.is_available()
@@ -975,7 +1095,7 @@ class DistOpt:
             raise RuntimeError(_DENSE_ONLY)
         w = max(1, self.world_size)
         with torch.no_grad():
-            for i, (p, g) in enumerate(autograd.grad_pairs(loss)):
+            for i, (p, g) in enumerate(self._synced_grad_pairs(loss)):
                 self.opt.update(p, self.comm.all_reduce(g)
                                 if i % w == idx % w else g)
         self.opt.step()

@@ -10,6 +10,7 @@ a CUDA device, gloo for `device="cpu"`; there is no switch between them.
 
     dist.init("host:port", num_processes=4, process_id=rank)
     mesh = dist.global_mesh()                    # the 1-D data group
+    # or dist.global_mesh((2, 2), ("data", "sp")): data x sequence
     opt_ = opt.DistOpt(opt.SGD(lr), mesh=mesh)
     out, loss = model(tx, ty)                    # the global batch
 
@@ -20,7 +21,7 @@ model's step takes the GLOBAL batch, as the reference's does, and each
 rank runs its 1/world share (`model.Model`); `shard_batch` marks a
 process's own slice as its share of that global batch, so that no input
 crosses the wire. The pspec helpers (`shard_owner_map`, `active_pspec`,
-`place_*`) come with ROADMAP queue 1 item 13.
+`place_*`) come with tensor parallelism (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -117,7 +118,10 @@ def device() -> Optional[torch.device]:
 def global_mesh(shape: Optional[Sequence[int]] = None,
                 axis_names: Tuple[str, ...] = (mesh_module.DATA_AXIS,),
                 dcn_mesh_shape=None) -> mesh_module.Mesh:
-    """The 1-D data mesh over every rank of the group."""
+    """The mesh of `shape` over `axis_names` across every rank of the
+    group, ranks laid out row-major (`parallel.mesh.get_mesh`): by
+    default the 1-D data mesh, e.g. `global_mesh((2, 4), ("data",
+    "sp"))` for data x sequence parallelism."""
     if dcn_mesh_shape is not None:
         raise NotImplementedError(
             "global_mesh(dcn_mesh_shape=): multi-slice meshes are not "

@@ -319,13 +319,20 @@ class Tanh(Layer):
 class ScanTransformerStack(Layer):
     """N identical post-LN transformer blocks over stacked (L, ...)
     weights, looped in Python (the reference rolls them into one
-    `lax.scan`). Dense single-device branch only (reference
-    layer.py:1373-1389): fused QKV projection, attention through the
+    `lax.scan`): fused QKV projection, attention, output projection,
+    LN, GELU FFN, LN. `remat` applies one of `autograd.REMAT_POLICIES`
+    to each block, as the reference wraps its scan body. The model
+    width is the input's last dim, or `d_model=`.
+
+    Dense (reference layer.py:1373-1389), attention goes through the
     `attention_qkv` dispatcher (the fused-layout flash kernel once T
-    clears its threshold), output projection, LN, GELU FFN, LN.
-    `remat` applies one of `autograd.REMAT_POLICIES` to each block, as
-    the reference wraps its scan body. The model width is the input's
-    last dim, or `d_model=`."""
+    clears its threshold). With `seq_axis` (reference :1341-1372) the
+    heads are split out of the projection: inside the axis's context
+    they go through `ring_attention` over the axis (the plain ring,
+    its block update checkpointed; `overlap=True` pipelines it, posting
+    hop s+1 before block s), outside it the same head-split tensors go
+    through the plain `attention` dispatcher, the same function.
+    `tp_axis` and `zero3_axis` are ROADMAP queue 1 item 15."""
 
     #: the stacked parameter names, in the reference's order
     STACKED = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o",
@@ -338,16 +345,12 @@ class ScanTransformerStack(Layer):
                  seq_axis: Optional[str] = None, overlap: bool = False,
                  *, d_model: Optional[int] = None, device=None,
                  generator: Optional[torch.Generator] = None):
-        for name, val in (("tp_axis", tp_axis), ("zero3_axis", zero3_axis),
-                          ("seq_axis", seq_axis)):
+        for name, val in (("tp_axis", tp_axis), ("zero3_axis", zero3_axis)):
             if val is not None:
                 raise NotImplementedError(
                     f"ScanTransformerStack({name}=) is the sharded stack of "
-                    f"the distributed slice (ROADMAP queue 1 item 15)")
-        if overlap:
-            raise NotImplementedError(
-                "ScanTransformerStack(overlap=) belongs to the distributed "
-                "slice (ROADMAP queue 1 item 15)")
+                    f"tensor parallelism and ZeRO-3 (ROADMAP queue 1 item "
+                    f"15)")
         if remat not in autograd.REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat policy {remat!r}; pick one of "
@@ -358,6 +361,10 @@ class ScanTransformerStack(Layer):
         self._dev, self._gen = _setup(device, generator)
         self.n_blocks, self.num_heads = n_blocks, num_heads
         self.ffn_mult, self.causal, self.remat = ffn_mult, causal, remat
+        self.seq_axis = seq_axis
+        #: communication-compute overlap: the pipelined ring (a no-op
+        #: without a live seq_axis)
+        self.overlap = bool(overlap)
         for n in self.STACKED:
             setattr(self, n, self._lazy_param())
         self._settle(d_model)
@@ -383,10 +390,43 @@ class ScanTransformerStack(Layer):
                 ("b2", (L, d), "zeros", 0.0)):
             self._materialize(getattr(self, name), shape, init, a)
 
+    def declared_schedule(self, mesh) -> Dict:
+        """The per-block forward collective schedule this stack declares
+        for `mesh` (reference :1137-1185): `{"n_blocks": L, "per_block":
+        {(primitive, axis): count}}`. The seq axis's entry is the
+        reference's count of ring ppermutes, `KV_TENSORS_PER_HOP *
+        rotation_steps(world)`, the same with `overlap` (the pipelined
+        ring only reorders). An axis the mesh lacks adds nothing."""
+        from singa_tpu_torch.parallel import ring
+
+        per_block: Dict = {}
+        shape = mesh.shape
+        if self.seq_axis is not None and self.seq_axis in shape:
+            per_block[("ppermute", self.seq_axis)] = (
+                ring.KV_TENSORS_PER_HOP
+                * ring.rotation_steps(int(shape[self.seq_axis])))
+        return {"n_blocks": self.n_blocks, "per_block": per_block}
+
+    def _attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Attention of the fused projection (B, T, 3d) -> (B, T, d)."""
+        if self.seq_axis is None:
+            return fa.attention_qkv(qkv, self.num_heads, causal=self.causal)
+        from singa_tpu_torch.parallel import mesh as mesh_module
+        from singa_tpu_torch.parallel.ring import ring_attention
+
+        b, t, d3 = qkv.shape
+        q, k, v = fa._split_qkv(qkv, self.num_heads)
+        if mesh_module.in_axis(self.seq_axis):
+            o = ring_attention(q, k, v, self.seq_axis, causal=self.causal,
+                               pipelined=self.overlap)
+        else:
+            o = fa.attention(q, k, v, causal=self.causal)
+        return o.permute(0, 2, 1, 3).reshape(b, t, d3 // 3)
+
     def _block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
                l2o, w1, b1, w2, b2) -> torch.Tensor:
         qkv = autograd.linear(h, wqkv, bqkv)
-        o = fa.attention_qkv(qkv, self.num_heads, causal=self.causal)
+        o = self._attend(qkv)
         h = autograd._layer_norm(h + autograd.linear(o, wo, bo), l1s, l1o)
         f = autograd.gelu(autograd.linear(h, w1, b1))
         return autograd._layer_norm(h + autograd.linear(f, w2, b2), l2s,

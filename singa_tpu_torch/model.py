@@ -60,6 +60,7 @@ from torch.nn.parameter import UninitializedParameter
 
 from singa_tpu_torch import autograd
 from singa_tpu_torch import layout as layout_module
+from singa_tpu_torch.communicator import Communicator
 from singa_tpu_torch.distributed import is_rank_local
 from singa_tpu_torch.graph import GraphStep
 from singa_tpu_torch.layer import Layer
@@ -214,11 +215,55 @@ class Model(Layer):
         comm = getattr(self._optimizer, "comm", None)
         return comm if comm is not None and comm._active() else None
 
+    def _seq_layout(self, comm):
+        """(seq axis, its size) of a sequence-parallel model's
+        distributed step: the model's `seq_axis` when the mesh has it,
+        else (None, 1)."""
+        ax = getattr(self, "seq_axis", None)
+        mesh = comm.mesh
+        if ax is None or mesh is None or ax not in mesh.axis_names:
+            return None, 1
+        return ax, mesh.axis_size(ax)
+
+    def _seq_args(self, args, world: int, check: bool) -> set:
+        """The indices of the step's token arguments, cut along dim 1
+        over the seq axis (reference graph.py:485-509): the model's
+        `seq_sharded_args` (per method when a dict), else every tensor
+        argument of ndim >= 2 whose dim 1 divides by the axis. `check`
+        raises the reference's ValueError on a declared argument whose
+        dim 1 does not divide."""
+        declared = getattr(self, "seq_sharded_args", None)
+        if isinstance(declared, dict):
+            declared = declared.get("train_one_batch")
+        shapes = {i: tuple(np.shape(a)) for i, a in enumerate(args)
+                  if isinstance(a, (torch.Tensor, np.ndarray))}
+        if declared is None:
+            return {i for i, sh in shapes.items()
+                    if len(sh) >= 2 and sh[1] % world == 0}
+        out = set(declared) & set(shapes)
+        for i in sorted(out):
+            if check and (len(shapes[i]) < 2 or shapes[i][1] % world):
+                raise ValueError(
+                    f"seq-parallel graph mode: arg {i} (shape {shapes[i]}) "
+                    f"must have dim-1 divisible by the "
+                    f"'{self.seq_axis}' axis size {world}")
+        return out
+
     def _dispatch_train(self, *args, **kwargs):
         comm = self._dist_comm()
         step = self._user_train_one_batch
         if comm is not None:
-            args = _rank_share(args, comm)
+            ax, sp_world = self._seq_layout(comm)
+            seq = None
+            if sp_world > 1:
+                seq = (sp_world, comm.mesh.axis_index(ax),
+                       self._seq_args(args, sp_world, check=True))
+                # each seq shard sees other tokens: the gradients of
+                # replicated parameters are partial over the axis
+                if ax not in self._optimizer.grad_axes:
+                    self._optimizer.grad_axes = tuple(
+                        self._optimizer.grad_axes) + (ax,)
+            args = _rank_share(args, comm, seq)
             step = self._dist_train
         if self._use_graph:
             if self._train_step is None:
@@ -240,36 +285,57 @@ class Model(Layer):
             return super().__call__(*args, **kwargs)
 
     def _dist_train(self, *args, **kwargs):
-        """The data-parallel step (the reference's SPMD wrapper,
+        """The distributed step (the reference's SPMD wrapper,
         `singa_tpu/graph.py:431-700`) on this rank's share of the batch
-        (`_rank_share`), under the data group's batch axis (BatchNorm
-        syncs its moments over it); then a floating output without this
-        share's rows (the loss) is averaged over the group, an output
-        with them (the logits) is gathered back into the global batch,
-        and the floating buffers (BatchNorm's running statistics) are
-        averaged. Dropout draws this rank's stream (`autograd.rank_draws`:
-        rank 0 the default generator, so a world-1 step is the plain
-        one), as the reference folds the rank into the step's key."""
+        (`_rank_share`: its rows, and for a sequence-parallel model its
+        dim-1 shard of the token arguments), under every axis of the
+        mesh (`axes_context`) and the data group's batch axis (BatchNorm
+        syncs its moments over it); then an output with this share's
+        rows (the logits) is gathered back into the global batch (along
+        the sequence first where it is seq-sharded), a floating output
+        without them (the loss) is averaged over the data and seq
+        groups, and so are the floating buffers (BatchNorm's running
+        statistics). Dropout draws this rank's stream
+        (`autograd.rank_draws` of its rank in the mesh: rank 0 the
+        default generator, so a world-1 step is the plain one), as the
+        reference folds the axis indices into the step's key."""
         comm = self._optimizer.comm
+        mesh = comm.mesh
+        ax, sp_world = self._seq_layout(comm)
+        seq_comm = Communicator(mesh, ax) if sp_world > 1 else None
+        local_t = None
+        if seq_comm is not None:
+            idx = self._seq_args(args, sp_world, check=False)
+            local_t = args[min(idx)].shape[1] if idx else None
         b = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
-        with mesh_module.batch_axis_context(comm.axis_name, comm.world_size,
-                                            comm.group), \
-                autograd.rank_draws(comm.rank):
+        with mesh_module.axes_context(*mesh.axis_names, mesh=mesh), \
+                mesh_module.batch_axis_context(
+                    comm.axis_name, comm.world_size, comm.group), \
+                autograd.rank_draws(mesh.rank):
             out = self._user_train_one_batch(*args, **kwargs)
 
         def merge(t):
             if not isinstance(t, torch.Tensor):
                 return t
+            t = t.detach()
             if t.dim() and t.shape[0] == b:
-                return comm.all_gather(t.detach())
+                if local_t is not None and t.dim() >= 2 and (
+                        t.shape[1] == local_t):
+                    t = seq_comm.all_gather(t, axis=1)
+                return comm.all_gather(t)
             if t.is_floating_point():
-                return comm.all_reduce(t.detach())
+                t = comm.all_reduce(t)
+                return seq_comm.all_reduce(t) if seq_comm else t
             return t
 
         with torch.no_grad():
             bufs = [t for t in self.buffers() if t.is_floating_point()]
-            for buf, avg in zip(bufs, comm.fused_all_reduce(
-                    bufs, bucket_elems=self._optimizer.buffSize)):
+            avgs = comm.fused_all_reduce(
+                bufs, bucket_elems=self._optimizer.buffSize)
+            if seq_comm is not None:
+                avgs = seq_comm.fused_all_reduce(
+                    avgs, bucket_elems=self._optimizer.buffSize)
+            for buf, avg in zip(bufs, avgs):
                 buf.copy_(avg)
         if isinstance(out, (tuple, list)):
             return type(out)(merge(o) for o in out)
@@ -324,11 +390,13 @@ class Model(Layer):
         return aux
 
 
-def _rank_share(args, comm) -> list:
+def _rank_share(args, comm, seq=None) -> list:
     """This rank's share of a distributed step's batch operands. Operands
     from `distributed.shard_batch` are that share already; plain ones
     are the global batch (the reference's step takes it), of which this
-    rank runs rows [rank * b, (rank + 1) * b)."""
+    rank runs rows [rank * b, (rank + 1) * b), and with `seq` = (seq
+    world, this rank's seq index, the token argument indices) columns
+    [index * t, (index + 1) * t) of dim 1 of each token argument."""
     batch = [a for a in args if isinstance(a, (torch.Tensor, np.ndarray))]
     marked = [is_rank_local(a) for a in batch]
     if batch and all(marked):
@@ -341,8 +409,14 @@ def _rank_share(args, comm) -> list:
             for a in args]
     b = next(a.shape[0] for a in args
              if isinstance(a, torch.Tensor)) // comm.world_size
-    return [a.narrow(0, comm.rank * b, b) if isinstance(a, torch.Tensor)
+    args = [a.narrow(0, comm.rank * b, b) if isinstance(a, torch.Tensor)
             else a for a in args]
+    if seq is not None:
+        world, index, cut = seq
+        for i in cut:
+            t = args[i].shape[1] // world
+            args[i] = args[i].narrow(1, index * t, t)
+    return args
 
 
 def _check_batch(args, world: int) -> None:

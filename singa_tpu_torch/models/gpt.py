@@ -35,10 +35,21 @@ renames the stacked ones). For either:
   picked on the host with numpy's generator seeded with `seed`, as the
   reference's is.
 
-`remat=True` is stored by the unrolled decoder's attention (on one
-device the reference threads it only into ring and Ulysses attention).
+Sequence parallelism, as in the reference: with `seq_axis` naming a
+mesh axis, inside that axis's context (a distributed step over a mesh
+that has it) each rank holds a T/world shard of the tokens, the
+positions are offset by the shard's index times T_local, and the
+blocks' attention runs over the global sequence. The unrolled decoder's
+attention is ring attention (`ring_flash=True`: each block through the
+head-split flash kernels) or, with `seq_impl="ulysses"`, Ulysses'
+all-to-all; `remat=True` reaches the ring's block update and Ulysses'
+attention. The scanned stack runs the plain ring, pipelined with
+`overlap=True`. `seq_sharded_args = (0, 1)`: x and y of
+`train_one_batch` and ids of `forward` are cut along dim 1.
+
 Other constructor options raise `NotImplementedError` naming the ROADMAP
-item that ports them (the MoE auxiliary loss among them).
+item that ports them: `tp_axis` (item 14), `moe_*`, `pp_axis` and
+`zero3_axis` (item 15).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import torch.nn.functional as F
 from singa_tpu_torch import autograd, layer, model
 from singa_tpu_torch.models.transformer import (TransformerEncoder,
                                                refuse_distributed)
+from singa_tpu_torch.parallel import mesh as mesh_module
 from singa_tpu_torch.parallel.ring import full_attention
 
 __all__ = ["GPT", "gpt_medium", "gpt_draft", "gpt_small", "pick_rows",
@@ -177,8 +189,7 @@ class GPT(model.Model):
     ):
         super().__init__()
         del moe_aux_coef, moe_capacity_factor, pp_micro
-        refuse_distributed(seq_axis, tp_axis, ring_flash, seq_impl,
-                           moe_experts, moe_axis)
+        refuse_distributed(tp_axis, seq_impl, moe_experts, moe_axis)
         if pp_axis is not None:
             raise NotImplementedError(
                 "GPT(pp_axis=) is the pipelined stack (ROADMAP queue 1 "
@@ -195,6 +206,10 @@ class GPT(model.Model):
         dev, gen = layer._setup(device, generator)
         self.vocab_size = vocab_size
         self.d_model = d_model
+        self.seq_axis = seq_axis
+        #: the distributed step's token arguments (dim 1 is T): x and y
+        #: of train_one_batch, ids of forward
+        self.seq_sharded_args = (0, 1)
         self.tok = layer.Embedding(vocab_size, d_model, device=dev,
                                    generator=gen)
         self.pos = layer.Embedding(max_len, d_model, device=dev,
@@ -203,12 +218,15 @@ class GPT(model.Model):
         if scan_blocks:
             self.decoder = layer.ScanTransformerStack(
                 num_layers, num_heads, causal=True, remat=remat_policy,
-                zero3_axis=zero3_axis, overlap=overlap, d_model=d_model,
+                zero3_axis=zero3_axis, seq_axis=seq_axis, overlap=overlap,
+                d_model=d_model,
                 device=dev, generator=gen)
         else:
             self.decoder = TransformerEncoder(
                 num_layers, num_heads, dropout=dropout, causal=True,
-                remat=remat, d_model=d_model, device=dev, generator=gen)
+                seq_axis=seq_axis, remat=remat, ring_flash=ring_flash,
+                seq_impl=seq_impl, d_model=d_model, device=dev,
+                generator=gen)
         self.ln_f = layer.LayerNorm(dim=d_model, device=dev)
         self.head = layer.Linear(vocab_size, in_features=d_model,
                                  device=dev, generator=gen)
@@ -222,8 +240,12 @@ class GPT(model.Model):
         """ids (B, T) int -> logits (B, T, V)."""
         ids = torch.as_tensor(ids, device=self.device).long()
         t = ids.shape[-1]
-        h = autograd.add(self.tok(ids),
-                         self.pos(torch.arange(t, device=ids.device)))
+        # positions: offset by this rank's shard under sequence parallel
+        off = mesh_module.axis_index(self.seq_axis) * t if (
+            self.seq_axis is not None
+            and mesh_module.in_axis(self.seq_axis)) else 0
+        h = autograd.add(self.tok(ids), self.pos(
+            torch.arange(off, off + t, device=ids.device)))
         h = self.drop(h)
         h = self.decoder(h)
         return self.head(self.ln_f(h))

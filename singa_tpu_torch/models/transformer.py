@@ -1,12 +1,20 @@
 """Transformer encoder and the BERT family (counterpart of
-singa_tpu/models/transformer.py), dense and on one device.
+singa_tpu/models/transformer.py).
 
 - `MultiHeadAttention`: one fused (d, 3d) QKV projection, attention
   through the `attention_qkv` dispatcher (the fused-layout flash kernels
   once T clears the threshold and no mask is given; a key-padding or
   other mask takes the plain `full_attention`), then the output
   projection. `w_qkv`, `b_qkv`, `w_o`, `b_o` are drawn from
-  uniform(-1/sqrt(d), 1/sqrt(d)), as the reference's.
+  uniform(-1/sqrt(d), 1/sqrt(d)), as the reference's. With `seq_axis`
+  naming a mesh axis of sequence shards, inside that axis's context
+  (a distributed step over a mesh that has it) attention runs as ring
+  attention over the axis (`parallel/ring.py`; `ring_flash=True` puts
+  each block through the head-split flash kernels) or, with
+  `seq_impl="ulysses"`, as Ulysses' all-to-all (`parallel/ulysses.py`;
+  `ring_flash=True` attends through the flash kernels); outside it, the
+  same weights compute ordinary attention. `remat` reaches the ring's
+  block update and Ulysses' attention, as in the reference.
 - `TransformerEncoderLayer`: post-LN, attention + Add&LN, then the dense
   tanh-GELU FFN + Add&LN, each branch behind its dropout.
 - `TransformerEncoder`: the blocks in an `nn.ModuleList` named `blocks`,
@@ -15,7 +23,11 @@ singa_tpu/models/transformer.py), dense and on one device.
   `model.load_singa_tpu_params` carries weights across unchanged. It is
   also the unrolled decoder of `GPT(scan_blocks=False)`.
 - `Bert`, `BertForClassification` (`train_one_batch(ids, y)`),
-  `bert_base`, `bert_small`.
+  `bert_base`, `bert_small`. Under their `seq_axis` the positions are
+  offset by the shard's index times T_local and the CLS row, which
+  lives on shard 0, reaches every shard by `broadcast_from`;
+  `seq_sharded_args` tells the distributed step which arguments to cut
+  along the sequence.
 
 The reference infers widths at the first call; here every layer is built
 at once, so the attention and encoder layers take `d_model=` beside the
@@ -23,12 +35,9 @@ reference's arguments, and every constructor takes `device=` and
 `generator=` keyword-only. Dropout's draws are PyTorch's.
 
 Not ported in this slice, raising `NotImplementedError` naming their
-ROADMAP items: sequence parallelism (`seq_axis`, `ring_flash`,
-`seq_impl="ulysses"`) and head-parallel tensor parallelism (`tp_axis`),
-items 14-15; the Switch MoE FFN (`moe_experts`), item 15; and
-`states_to_tp` / `states_from_tp`, which come with item 14. `remat` is
-stored: on one device the reference threads it only into ring and
-Ulysses attention.
+ROADMAP items: head-parallel tensor parallelism (`tp_axis`) and
+`states_to_tp` / `states_from_tp`, item 14; the Switch MoE FFN
+(`moe_experts`, `moe_axis`), item 15.
 """
 
 from __future__ import annotations
@@ -41,26 +50,24 @@ from torch import nn
 
 from singa_tpu_torch import autograd, layer, model
 from singa_tpu_torch.ops import flash_attention as fa
+from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "Bert", "BertForClassification",
            "bert_base", "bert_small", "collect_moe_aux"]
 
 
-def refuse_distributed(seq_axis=None, tp_axis=None, ring_flash=False,
-                       seq_impl="ring", moe_experts=None, moe_axis=None):
-    """Raise on the options of the distributed slice, naming the ROADMAP
-    items that port them, and on an unknown `seq_impl`."""
+def refuse_distributed(tp_axis=None, seq_impl="ring", moe_experts=None,
+                       moe_axis=None):
+    """Raise on the options not ported yet, naming the ROADMAP items
+    that port them, and on an unknown `seq_impl`."""
     if seq_impl not in ("ring", "ulysses"):
         raise ValueError(f"seq_impl must be 'ring' or 'ulysses', "
                          f"got {seq_impl!r}")
-    for name, val in (("seq_axis", seq_axis), ("tp_axis", tp_axis),
-                      ("ring_flash", ring_flash or None),
-                      ("seq_impl", None if seq_impl == "ring" else seq_impl)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= belongs to the distributed slice (ROADMAP queue 1 "
-                f"items 14-15)")
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tp_axis= is head-parallel tensor parallelism (ROADMAP queue 1 "
+            "item 14)")
     for name, val in (("moe_experts", moe_experts), ("moe_axis", moe_axis)):
         if val is not None:
             raise NotImplementedError(
@@ -78,7 +85,9 @@ def collect_moe_aux(root: nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention with a fused QKV projection; `forward(x, mask)`
     with x (B, T, d) and an optional mask broadcastable to
-    (B, H, T, T), True where a query may attend a key."""
+    (B, H, T, T), True where a query may attend a key. Inside the
+    context of `seq_axis`, x is this rank's sequence shard and attention
+    runs over the global sequence (ring or Ulysses, `seq_impl`)."""
 
     def __init__(self, num_heads: int, causal: bool = False,
                  seq_axis: Optional[str] = None, remat: bool = False,
@@ -87,12 +96,14 @@ class MultiHeadAttention(nn.Module):
                  d_model: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        refuse_distributed(seq_axis, tp_axis, ring_flash, seq_impl)
+        refuse_distributed(tp_axis, seq_impl)
         if d_model % num_heads:
             raise ValueError(
                 f"d_model {d_model} not divisible by {num_heads}")
         dev, gen = layer._setup(device, generator)
         self.num_heads, self.causal, self.remat = num_heads, causal, remat
+        self.seq_axis, self.ring_flash = seq_axis, ring_flash
+        self.seq_impl = seq_impl
         k = 1.0 / math.sqrt(d_model)
         d = d_model
         self.w_qkv = layer._new((d, 3 * d), dev, gen, "uniform", k)
@@ -105,7 +116,13 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             mask = torch.as_tensor(mask, device=x.device)
         qkv = autograd.linear(x, self.w_qkv, self.b_qkv)  # (B, T, 3d)
-        if mask is not None:  # no ONNX decomposition: a trace raises
+        if self.seq_axis is not None and mesh_module.in_axis(self.seq_axis):
+            if mask is not None:
+                raise NotImplementedError(
+                    "ring attention with an explicit attention mask is not "
+                    "supported yet; use causal=True or pad-free batches")
+            ctx = self._sequence_parallel(qkv)
+        elif mask is not None:  # no ONNX decomposition: a trace raises
             ctx = fa.attention_qkv(qkv, self.num_heads, causal=self.causal,
                                    mask=mask)
         else:
@@ -118,6 +135,25 @@ class MultiHeadAttention(nn.Module):
                 lambda a: fa.attention_qkv(a, self.num_heads,
                                            causal=self.causal), qkv)
         return autograd.linear(ctx, self.w_o, self.b_o)
+
+    def _sequence_parallel(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Attention of this rank's sequence shard over the global
+        sequence: the heads split out of the fused projection, then ring
+        attention or Ulysses over `seq_axis` (no ONNX decomposition: an
+        export trace raises by name)."""
+        from singa_tpu_torch.parallel.ring import ring_attention
+        from singa_tpu_torch.parallel.ulysses import ulysses_attention
+
+        b, t, d3 = qkv.shape
+        q, k, v = fa._split_qkv(qkv, self.num_heads)
+        if self.seq_impl == "ulysses":
+            o = ulysses_attention(q, k, v, self.seq_axis, causal=self.causal,
+                                  use_flash=self.ring_flash,
+                                  remat=self.remat)
+        else:
+            o = ring_attention(q, k, v, self.seq_axis, causal=self.causal,
+                               remat=self.remat, use_flash=self.ring_flash)
+        return o.permute(0, 2, 1, 3).reshape(b, t, d3 // 3)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -134,7 +170,7 @@ class TransformerEncoderLayer(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         del moe_capacity_factor
-        refuse_distributed(moe_experts=moe_experts, moe_axis=moe_axis)
+        refuse_distributed(tp_axis, seq_impl, moe_experts, moe_axis)
         dev, gen = layer._setup(device, generator)
         self.attn = MultiHeadAttention(
             num_heads, causal=causal, seq_axis=seq_axis, remat=remat,
@@ -216,21 +252,38 @@ class Bert(model.Model):
         self.pooler = layer.Linear(d_model, in_features=d_model,
                                    device=dev, generator=gen)
         self.pool_act = layer.Tanh()
+        self.seq_axis = seq_axis
+        #: the distributed step's token arguments (dim 1 is T): ids and
+        #: seg_ids
+        self.seq_sharded_args = (0, 1)
 
     @property
     def device(self) -> torch.device:
         return self.tok.table.device
 
+    def _sharded(self) -> bool:
+        return self.seq_axis is not None and mesh_module.in_axis(
+            self.seq_axis)
+
     def forward(self, ids, seg_ids=None, mask=None):
         ids = torch.as_tensor(ids, device=self.device).long()
         t = ids.shape[-1]
-        emb = autograd.add(self.tok(ids),
-                           self.pos(torch.arange(t, device=ids.device)))
+        # positions: offset by this rank's shard under sequence parallel
+        off = mesh_module.axis_index(self.seq_axis) * t if (
+            self._sharded()) else 0
+        emb = autograd.add(self.tok(ids), self.pos(
+            torch.arange(off, off + t, device=ids.device)))
         if seg_ids is not None:
             emb = autograd.add(emb, self.seg(
                 torch.as_tensor(seg_ids, device=ids.device).long()))
         x = self.encoder(self.drop(self.ln(emb)), mask)
-        cls = autograd.op("GatherCLS", {}, lambda a: a[:, 0], x)
+        if self._sharded():
+            from singa_tpu_torch.communicator import broadcast_from
+
+            # the global CLS row lives on shard 0
+            cls = broadcast_from(x[:, 0], self.seq_axis, root=0)
+        else:
+            cls = autograd.op("GatherCLS", {}, lambda a: a[:, 0], x)
         return x, self.pool_act(self.pooler(cls))
 
 
@@ -248,6 +301,12 @@ class BertForClassification(model.Model):
         self.head = layer.Linear(num_classes, in_features=self.bert.d_model,
                                  device=dev, generator=gen)
         self.moe_aux_coef = moe_aux_coef
+        self.seq_axis = self.bert.seq_axis
+        #: per method: train_one_batch(ids, y) has per-example labels at
+        #: arg 1 (data axis only), eval forward(ids, seg_ids) token
+        #: arguments at both
+        self.seq_sharded_args = {"train_one_batch": (0,),
+                                 "forward": (0, 1)}
 
     @property
     def device(self) -> torch.device:

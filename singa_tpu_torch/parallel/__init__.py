@@ -1,6 +1,18 @@
 """Parallel building blocks (counterpart of singa_tpu/parallel/).
 
-Ported so far: the single-device reference attention
-(`ring.full_attention`) and the data axis (`mesh`: the 1-D data group
-and the batch-axis context DistOpt's BatchNorm sync reads).
+Ported so far: the process mesh and its axis context (`mesh`: N-D
+meshes of process groups, the batch-axis context DistOpt's BatchNorm
+sync reads), and sequence parallelism (`ring`: ring attention, plain
+and with flash blocks, and the single-device `full_attention`;
+`ulysses`: all-to-all head re-sharding). Tensor parallelism (`tp`),
+MoE, GPipe and `raw_steps` come with ROADMAP queue 1 items 14-15.
 """
+
+from singa_tpu_torch.parallel.mesh import (  # noqa: F401
+    axis_context,
+    get_mesh,
+    in_axis,
+    local_world_size,
+)
+
+__all__ = ["get_mesh", "axis_context", "in_axis", "local_world_size"]

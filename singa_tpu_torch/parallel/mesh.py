@@ -1,89 +1,273 @@
-"""The data axis and its batch context (counterpart of the data-axis part
-of singa_tpu/parallel/mesh.py).
+"""The process mesh and its SPMD axis context (counterpart of
+singa_tpu/parallel/mesh.py).
 
-The reference's mesh is a `jax.sharding.Mesh` of chips with named axes.
-Here the one axis the port has, `DATA_AXIS`, is a `torch.distributed`
-process group with one process a rank: `Mesh` names the group (None
-when no group is initialised, a world of 1 whose collectives are the
-identity). The tensor, sequence, expert and pipe axes come with ROADMAP
-queue 1 items 13-15.
+The reference's mesh is a `jax.sharding.Mesh` of chips with named axes,
+and a collective names the axis it runs over inside a `shard_map`. Here
+each rank is one process, and a mesh lays the ranks of the
+`torch.distributed` group out row-major over its axes, as JAX's mesh
+lays out devices: in `get_mesh((dp, sp), ("data", "seq"))` rank
+`d * sp + s` has data index d and seq index s. Each axis is a process
+group: the ranks that differ only in that axis's index, made by
+`dist.new_group` on every rank in the same order (an axis that spans
+the whole world is the world's group). With no group initialised the
+mesh is a world of one process whose every axis has size 1 and whose
+collectives are the identity, the reference's "outside SPMD" case.
+
+`axis_context` / `axes_context` push axis names (and the mesh that
+carries them) while a distributed step runs, as the reference's SPMD
+wrapper does: axis-aware code (ring and Ulysses attention, the
+position offsets of sequence-parallel models, DistOpt's extra gradient
+axes) keys off `in_axis` and reads its axis's size, index and group
+from the innermost mesh (`axis_size`, `axis_index`, `axis_group`).
+An axis entered without a mesh has size 1.
 
 `batch_axis_context` marks the data group as THE batch axis while a
 distributed step runs (`model.Model` enters it under DistOpt):
 `autograd.batchnorm(sync=None)` then averages its moments over the
 group (cross-replica BN, reference :167-180).
+
+`get_mesh_3d` and the pspec helpers come with tensor parallelism
+(ROADMAP queue 1 items 13-14).
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
-__all__ = ["DATA_AXIS", "Mesh", "get_mesh", "batch_axis_context",
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
+           "PIPE_AXIS", "Mesh", "get_mesh", "axis_entry", "axis_size",
+           "axis_index", "axis_group", "axis_context", "axes_context",
+           "in_axis", "local_world_size", "batch_axis_context",
            "current_batch_axis", "current_batch_axis_size",
            "current_batch_group"]
 
+# -- the canonical axis names (the reference's) ---------------------------------
+
 #: data parallelism: batch shards and DistOpt's gradient sync
 DATA_AXIS = "data"
+#: Megatron tensor parallelism: weight column/row shards
+MODEL_AXIS = "model"
+#: sequence parallelism: ring/Ulysses token shards
+SEQ_AXIS = "sp"
+#: expert parallelism: Switch-MoE expert shards
+EXPERT_AXIS = "expert"
+#: pipeline parallelism: GPipe stage shards
+PIPE_AXIS = "pipe"
+
+
+def _live() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 class Mesh:
-    """A 1-D data mesh: `group` (a process group, or None for the world
-    of one process with no group) under `axis_names[0]`. `shape` maps the
-    axis to the group's size, as a jax mesh's does."""
+    """Ranks of the process group laid out over named axes.
+
+    `Mesh(group, axis_names)` is a 1-D mesh over `group` (a process
+    group, or None for the world of one process with no group), as in
+    the data-parallel slices; `get_mesh` builds N-D meshes. `shape` maps
+    each axis to its size, as a jax mesh's does; `axis_group`,
+    `axis_index` give this rank's group and index along an axis; `group`,
+    `size` and `rank` are the whole mesh's."""
 
     def __init__(self, group=None, axis_names: Tuple[str, ...] = (
-            DATA_AXIS,)):
-        if len(axis_names) != 1:
-            raise NotImplementedError(
-                f"a mesh over {axis_names}: only the 1-D data mesh is "
-                f"ported (ROADMAP queue 1 item 13)")
+            DATA_AXIS,), *, axis_groups: Optional[Dict] = None):
         self.group = group
         self.axis_names = tuple(axis_names)
+        if axis_groups is None:
+            if len(self.axis_names) != 1:
+                raise ValueError(
+                    f"Mesh(group, {self.axis_names}): a group makes a 1-D "
+                    f"mesh; build N-D meshes with get_mesh(shape, names)")
+            axis_groups = {self.axis_names[0]: group}
+        self._groups = dict(axis_groups)
+
+    def axis_group(self, name: str):
+        """This rank's process group along axis `name` (None: a world of
+        one)."""
+        if name not in self._groups:
+            raise ValueError(f"mesh {self.axis_names} has no axis {name!r}")
+        return self._groups[name]
+
+    def axis_size(self, name: str) -> int:
+        g = self.axis_group(name)
+        if g is None or not _live():
+            return 1
+        return dist.get_world_size(g)
+
+    def axis_index(self, name: str) -> int:
+        g = self.axis_group(name)
+        if g is None or not _live():
+            return 0
+        return dist.get_rank(g)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {n: self.axis_size(n) for n in self.axis_names}
 
     @property
     def size(self) -> int:
-        if self.group is None or not dist.is_initialized():
+        if self.group is None or not _live():
             return 1
         return dist.get_world_size(self.group)
 
     @property
-    def shape(self):
-        return {self.axis_names[0]: self.size}
-
-    @property
     def rank(self) -> int:
-        if self.group is None or not dist.is_initialized():
+        if self.group is None or not _live():
             return 0
         return dist.get_rank(self.group)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
 
 
 def get_mesh(shape: Optional[Sequence[int]] = None,
              axis_names: Tuple[str, ...] = (DATA_AXIS,),
              devices=None) -> Mesh:
-    """The data mesh over every process of the initialised group (one
-    process with no group when none is). `shape`, when given, must be
-    that world; a device subset is not ported (item 13)."""
+    """The mesh of `shape` over `axis_names` across every process of the
+    initialised group (one process with no group when none is), ranks
+    laid out row-major. `shape` None is the 1-D mesh over the whole
+    world. The product of `shape` must be the world; a device subset is
+    not ported (each process of the group is one device)."""
     if devices is not None:
         raise NotImplementedError(
             "get_mesh(devices=): a mesh over a device subset is not ported "
             "(ROADMAP queue 1 item 13); each process of the group is one "
             "device")
-    mesh = Mesh(dist.group.WORLD if dist.is_initialized() else None,
-                axis_names)
-    if shape is not None and tuple(shape) != (mesh.size,):
+    axis_names = tuple(axis_names)
+    world = dist.get_world_size() if _live() else 1
+    if shape is None:
+        if len(axis_names) != 1:
+            raise ValueError(
+                f"mesh shape None does not match axis names {axis_names}")
+        shape = (world,)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names):
         raise ValueError(
-            f"mesh shape {tuple(shape)} does not match the {mesh.size} "
-            f"processes of the group")
-    return mesh
+            f"mesh shape {shape} does not match axis names {axis_names}")
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"mesh shape {shape} does not match the {world} processes of "
+            f"the group")
+    if not _live():
+        return Mesh(None, axis_names, axis_groups={n: None
+                                                   for n in axis_names})
+    rank = dist.get_rank()
+    groups = {}
+    for a, name in enumerate(axis_names):
+        if shape[a] == world:
+            groups[name] = dist.group.WORLD
+            continue
+        # every rank makes every group of this axis, in the same order
+        for ranks in _axis_rank_sets(shape, a):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = g
+    return Mesh(dist.group.WORLD, axis_names, axis_groups=groups)
+
+
+def _axis_rank_sets(shape: Tuple[int, ...], axis: int):
+    """The rank sets of axis `axis`: for each index of the other axes
+    (row-major), the ranks that differ only along `axis`, in order."""
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    others = [i for i in range(len(shape)) if i != axis]
+    sets = []
+    for flat in range(math.prod(shape[i] for i in others)):
+        base, rem = 0, flat
+        for i in reversed(others):
+            base += (rem % shape[i]) * strides[i]
+            rem //= shape[i]
+        sets.append([base + j * strides[axis] for j in range(shape[axis])])
+    return sets
+
+
+def axis_entry(*axis_names: Optional[str]):
+    """Collapse mesh-axis names into one PartitionSpec dim entry: Nones
+    drop out; no names -> None, one name -> that name, several -> a
+    tuple (the first name major)."""
+    named = tuple(a for a in axis_names if a)
+    if not named:
+        return None
+    if len(named) == 1:
+        return named[0]
+    return named
+
+
+def local_world_size() -> int:
+    """The processes of the group (each drives one device)."""
+    return dist.get_world_size() if _live() else 1
+
+
+# -- the SPMD axis context -------------------------------------------------------
+
+_state = threading.local()
+
+
+def _stack():
+    if not hasattr(_state, "axes"):
+        _state.axes = []
+    return _state.axes
+
+
+@contextmanager
+def axis_context(axis_name: str, mesh: Optional[Mesh] = None):
+    """Mark `axis_name` (an axis of `mesh`) live while the block runs."""
+    _stack().append((axis_name, mesh))
+    try:
+        yield
+    finally:
+        _stack().pop()
+
+
+@contextmanager
+def axes_context(*axis_names: str, mesh: Optional[Mesh] = None):
+    """Enter several axis contexts at once, as the reference's SPMD
+    wrapper does for every axis of the mesh (the distributed step enters
+    all of them)."""
+    s = _stack()
+    s.extend((n, mesh) for n in axis_names)
+    try:
+        yield
+    finally:
+        del s[len(s) - len(axis_names):]
+
+
+def in_axis(axis_name: str) -> bool:
+    return any(n == axis_name for n, _ in _stack())
+
+
+def _axis_mesh(axis_name: str) -> Optional[Mesh]:
+    for n, m in reversed(_stack()):
+        if n == axis_name:
+            return m
+    raise ValueError(f"axis {axis_name!r} is not live: enter "
+                     f"axis_context({axis_name!r}, mesh) first")
+
+
+def axis_size(axis_name: str) -> int:
+    """The size of a live axis (the reference's `psum(1, axis)`)."""
+    m = _axis_mesh(axis_name)
+    return 1 if m is None else m.axis_size(axis_name)
+
+
+def axis_index(axis_name: str) -> int:
+    """This rank's index along a live axis (`lax.axis_index`)."""
+    m = _axis_mesh(axis_name)
+    return 0 if m is None else m.axis_index(axis_name)
+
+
+def axis_group(axis_name: str):
+    """This rank's process group along a live axis (None: a world of
+    one)."""
+    m = _axis_mesh(axis_name)
+    return None if m is None else m.axis_group(axis_name)
 
 
 # -- the batch axis ------------------------------------------------------------
-
-_state = threading.local()
 
 
 def _batch_stack():

@@ -760,3 +760,99 @@ def _rank_scatter_axis(rank, world, xs):
         "reduce_scatter_half": c.reduce_scatter_half(x, axis=1),
         "all_gather": c.all_gather(x, axis=1),
         "all_gather_half": c.all_gather_half(x, axis=1)}.items()}
+
+
+# -- sequence parallelism -----------------------------------------------------------
+
+
+def _rank_ring(rank, world, q, k, v, cases):
+    """Ring or Ulysses attention on this rank's sequence shard of the
+    global (B, H, T, D) q, k, v, for each case (name -> dict of impl,
+    dtype, causal, use_flash, pipelined, remat), over a 1-D "sp" mesh of
+    the group: the output shard and the shards' gradients of
+    sum(sin(out)); and the Ulysses head guard's message."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel.ring import ring_attention
+    from singa_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = mesh_module.get_mesh((world,), ("sp",))
+    t = q.shape[2] // world
+    out = {}
+    for name, c in cases.items():
+        dt = getattr(torch, c["dtype"])
+        xs = [torch.from_numpy(a[:, :, rank * t:(rank + 1) * t].copy()).to(
+            dt).requires_grad_() for a in (q, k, v)]
+        with mesh_module.axes_context("sp", mesh=mesh):
+            if c["impl"] == "ring":
+                o = ring_attention(*xs, "sp", causal=c["causal"],
+                                   remat=c["remat"],
+                                   use_flash=c["use_flash"],
+                                   pipelined=c["pipelined"])
+            else:
+                o = ulysses_attention(*xs, "sp", causal=c["causal"],
+                                      use_flash=c["use_flash"],
+                                      remat=c["remat"])
+        torch.sin(o.float()).sum().backward()
+        out[name] = {"o": _np(o.float()), "dtype": str(o.dtype),
+                     **{g: _np(x.grad.float())
+                        for g, x in zip(("dq", "dk", "dv"), xs)}}
+    with mesh_module.axes_context("sp", mesh=mesh):
+        try:
+            x = torch.zeros(1, world - 1, t, 32)
+            ulysses_attention(x, x, x, "sp")
+        except ValueError as e:
+            out["head_guard"] = str(e)
+    return out
+
+
+def port_sp_model(kind, params, **kw):
+    """A port model on the CPU carrying `params`: "gpt" is
+    `GPT(**kw)`, "bert" `BertForClassification(**kw)`."""
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import GPT
+    from singa_tpu_torch.models.transformer import BertForClassification
+
+    m = (GPT if kind == "gpt" else BertForClassification)(
+        device="cpu", **kw)
+    load_singa_tpu_params(m, params)
+    return m
+
+
+def sp_train(m, opt_, x, y, steps, dist_option="plain"):
+    """`steps` graph-mode `train_one_batch(x, y[, dist_option])` calls of
+    `m` under `opt_`: the losses."""
+    tx, ty = torch.from_numpy(x).long(), torch.from_numpy(y).long()
+    m.set_optimizer(opt_)
+    m.compile([tx], is_train=True, use_graph=True)
+    args = () if dist_option == "plain" else (dist_option,)
+    return [m.train_one_batch(tx, ty, *args)[1].item()
+            for _ in range(steps)]
+
+
+def _rank_sp(rank, world, kind, params, kw, x, y, steps, mesh_shape, lr,
+             momentum=0.0, dist_option="plain", seq_axis="seq"):
+    """The port's `kind` model with `seq_axis` trained by DistOpt(SGD)
+    over a (data, seq_axis) mesh of `mesh_shape` on the global batch:
+    its losses, the optimizer's grad_axes, or the error it raised."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    mesh = mesh_module.get_mesh(mesh_shape, ("data", seq_axis))
+    m = port_sp_model(kind, params, seq_axis=seq_axis, **kw)
+    d = opt.DistOpt(opt.SGD(lr=lr, momentum=momentum), mesh=mesh,
+                    axis_name="data")
+    try:
+        losses = sp_train(m, d, x, y, steps, dist_option)
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"losses": np.asarray(losses),
+            "grad_axes": list(d.grad_axes)}
+
+
+def _rank_long_context(rank, world, argv):
+    """`long_context.run` as rank `rank` of the group: its losses and
+    mesh."""
+    from singa_tpu_torch.examples import long_context
+
+    out = long_context.run(long_context.parser().parse_args(argv))
+    return {"losses": np.asarray(out["losses"]), "mesh": out["mesh"]}

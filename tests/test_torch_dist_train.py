@@ -8,7 +8,10 @@ draws (F6: the reference folds the rank into the step's key,
 The multi-rank runs are the port in 2 spawned processes over gloo
 (`helper_torch_parity.run_ranks`, one spawn for the file); the
 reference trains the same global batch single-device and, for the
-BatchNorm model, data-parallel on its 8-device virtual mesh. Tolerances
+BatchNorm model, data-parallel on its 8-device virtual mesh, in a
+process of its own (`helper_torch_parity.run_reference`, F8's
+follow-up: no process-wide switch of singa_tpu an earlier file left set
+in the pytest worker reaches it). Tolerances
 are 1e-5 for the MLP and 1e-4 for the CNN (relative and absolute: the
 two packages' convolutions and all-reduces sum in different orders, and
 three SGD steps carry that rounding).
@@ -23,7 +26,8 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from helper_torch_parity import _rank_many, randomize_params, run_ranks  # noqa: E402
+from helper_torch_parity import (_rank_many, randomize_params,  # noqa: E402
+                                 run_ranks, run_reference)
 from singa_tpu import opt as ref_opt  # noqa: E402
 from singa_tpu import parallel, tensor  # noqa: E402
 from singa_tpu.communicator import DistOpt as RefDistOpt  # noqa: E402
@@ -86,12 +90,31 @@ def ref_bn_dist(X, y, lr=0.05):
     return states, losses, ref_states(m)
 
 
+def reference_side():
+    """Everything the file holds the port to, from the reference: the
+    MLP's single-device runs on the 64-row and the 16-row batches and
+    the sync-BN model's data-parallel run (run by `run_reference` in a
+    process of its own, F8)."""
+    return {"mlp": ref_mlp_single(*blobs(64)),
+            "mlp16": ref_mlp_single(*blobs(16)),
+            "bn": ref_bn_dist(*cnn_data())}
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def reference(tmp_path_factory):
+    """The reference's side, computed in a process of its own, so no
+    process-wide switch an earlier file left set in this worker reaches
+    it (F8)."""
+    return run_reference("test_torch_dist_train", "reference_side",
+                         tmp_path_factory.mktemp("reference"))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, reference):
     X, y = blobs(64)
-    params, losses, after = ref_mlp_single(X, y)
+    params, losses, after = reference["mlp"]
     Xc, yc = cnn_data()
-    states, bn_losses, bn_after = ref_bn_dist(Xc, yc)
+    states, bn_losses, bn_after = reference["bn"]
     calls = [
         ("mlp", "_rank_distopt", dict(params=params, X=X, y=y, mode="plain",
                                       steps=STEPS, lr=0.1, spars=None)),
@@ -159,14 +182,14 @@ def world_of_one():
         distributed.shutdown()
 
 
-def test_world_one_plain_distopt_is_bitwise_the_plain_optimizer():
+def test_world_one_plain_distopt_is_bitwise_the_plain_optimizer(reference):
     """At world 1 the fused buckets, the NCCL/gloo sum and the division
     by 1 are exact, so DistOpt's plain step equals the wrapped SGD's bit
     for bit (the claim chip_smoke.py checks on the card)."""
     from helper_torch_parity import port_mlp
 
     X, y = blobs(16)
-    params, _, _ = ref_mlp_single(X, y)
+    params, _, _ = reference["mlp16"]
     tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
     got = {}
     with world_of_one() as mesh:
@@ -340,13 +363,14 @@ def test_two_rank_dropout_step_equals_one_process_of_both_shares(runs):
                   1e-5)
 
 
-def test_world_one_distopt_step_with_dropout_is_bitwise_the_plain_one():
+def test_world_one_distopt_step_with_dropout_is_bitwise_the_plain_one(
+        reference):
     """Rank 0 draws what the non-distributed step draws, so at world 1
     the DistOpt step with dropout stays bitwise the wrapped SGD's."""
     from helper_torch_parity import port_mlp
 
     X, y = blobs(16)
-    params, _, _ = ref_mlp_single(X, y)
+    params, _, _ = reference["mlp16"]
     tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
     got = {}
     with world_of_one() as mesh:

@@ -10,7 +10,8 @@
   DistOpt step and one ZeRO-1 step (every wire option, rank 1's dropout
   draws) over a gloo group of one; MobileNetV1 and Xception each take
   a graph-mode step; the spool server's process entry runs with both
-  blocked);
+  blocked; the Device classes, RunConfig, ring and Ulysses attention
+  and the long-context trainer's steps over a group of one);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -189,6 +190,38 @@ def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():
     assert out.stdout.split("\n")[:4] == [
         "(2, 10) True 1", "(2, 10) True 1", "(1, 4, 5, 5) 6.0 True",
         "True (256, 256) True 1 3072.0"]
+
+
+def test_devices_and_sequence_parallelism_run_with_jax_and_reference_blocked():
+    """The Device classes, RunConfig, the N-D mesh, ring and Ulysses
+    attention and the long-context trainer import and run with JAX and
+    the reference blocked: the trainer's ring and Ulysses steps over a
+    gloo group of one, an op counted through the exec seam."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import device, tensor\n"
+        "from singa_tpu_torch.config import RunConfig\n"
+        "from singa_tpu_torch.parallel import mesh, ring, ulysses\n"
+        "from singa_tpu_torch.examples import long_context\n"
+        "d = RunConfig(device='cpu').make_device()\n"
+        "d.reset_op_count()\n"
+        "tensor.add(tensor.ones((2,), dev=d), 1.0)\n"
+        "print(type(d).__name__, d.platform, d.op_count)\n"
+        "for impl in ('ring', 'ulysses'):\n"
+        "    long_context.main(['--device', 'cpu', '--steps', '1',\n"
+        "                       '--seq-len', '64', '--layers', '1',\n"
+        "                       '--d-model', '64', '--heads', '2',\n"
+        "                       '--seq-impl', impl])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[0] == "CppCPU cpu 1"
+    assert "impl=ring" in out.stdout and "impl=ulysses" in out.stdout
+    assert sum(line.startswith("step 0") for line in lines) == 2
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):

@@ -100,10 +100,14 @@ def test_scan_stack_under_autocast_keeps_bf16_activations():
 
 @pytest.mark.parametrize("kw", [{"tp_axis": "model"},
                                 {"zero3_axis": "data"},
-                                {"seq_axis": "sp"}, {"overlap": True},
-                                {"remat": "per_block", "seq_axis": "sp"}])
+                                {"tp_axis": "model", "seq_axis": "sp"},
+                                {"zero3_axis": "data", "overlap": True},
+                                {"remat": "per_block", "zero3_axis": "data"}])
 def test_scan_stack_refuses_what_belongs_to_later_slices(kw):
-    """The remat policies are ported; the sharded options stay refused
-    under any of them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The remat policies, seq_axis and overlap are ported; tensor
+    parallelism and ZeRO-3 stay refused under any of them."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
         layer.ScanTransformerStack(1, 4, d_model=128, device="cpu", **kw)
+    stack = layer.ScanTransformerStack(1, 4, d_model=128, device="cpu",
+                                       seq_axis="sp", overlap=True)
+    assert (stack.seq_axis, stack.overlap) == ("sp", True)

@@ -163,8 +163,10 @@ def test_dump_names_and_load_round_trip():
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         opt.SGD().set_sentinel(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.DistOpt(opt.SGD(), grad_axes=("seq",))  # items 14-15
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        opt.DistOpt(opt.SGD(), grad_axes=("data", "expert"))
+    assert opt.DistOpt(opt.SGD(), grad_axes=("data", "seq")).grad_axes == (
+        "data", "seq")
 
 
 def test_call_runs_backward_and_update():

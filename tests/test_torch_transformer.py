@@ -312,11 +312,19 @@ def test_bert_presets_have_the_reference_widths(monkeypatch):
              max_len=128, device="cpu")]
 
 
-@pytest.mark.parametrize("kw", [{"seq_axis": "sp"}, {"tp_axis": "model"},
-                                {"ring_flash": True},
-                                {"seq_impl": "ulysses"},
+@pytest.mark.parametrize("kw", [{"tp_axis": "model"},
+                                {"tp_axis": "model", "seq_axis": "sp"},
+                                {"moe_axis": "expert"},
+                                {"moe_experts": 4, "ring_flash": True},
                                 {"moe_experts": 4}])
 def test_distributed_options_raise_naming_the_roadmap(kw):
+    """Tensor parallelism (item 14) and MoE (item 15) stay refused; the
+    sequence options are ported (tests/test_torch_sp_model.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         tf.Bert(**BERT, **kw, device="cpu")
     assert tf.collect_moe_aux(tf.bert_small(device="cpu")) == []
+    bert = tf.Bert(**BERT, seq_axis="sp", ring_flash=True,
+                   seq_impl="ulysses", device="cpu")
+    attn = bert.encoder.blocks[0].attn
+    assert (attn.seq_axis, attn.ring_flash, attn.seq_impl) == (
+        "sp", True, "ulysses")

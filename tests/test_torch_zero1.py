@@ -5,7 +5,8 @@ CPU mesh, as `tests/test_zero1.py` holds the reference to plain DP.
 The port runs in 4 spawned processes over gloo (one spawn for the whole
 file, `helper_torch_parity.run_ranks`); the reference runs the same
 seeded MLP on the same global batch under `shard_map` over the first 4
-devices of its 8-device mesh. Each rank's losses, parameters and ZeRO-1
+devices of its 8-device mesh, in a process of its own
+(`helper_torch_parity.run_reference`, F8's follow-up). Each rank's losses, parameters and ZeRO-1
 rows are held to the reference's, the rows to the reference's row of
 that rank. A canonical dump of the 4 ranks then takes one more step on
 ranks 0-1 as a group of 2 and on the reference's 2-device mesh.
@@ -24,7 +25,7 @@ jax = pytest.importorskip("jax")
 
 from helper_torch_parity import (_rank_many, port_mlp,  # noqa: E402
                                  ref_zero1, ref_zero1_continue, run_ranks,
-                                 zero1_data)
+                                 run_reference, zero1_data)
 from singa_tpu_torch import autograd, communicator, opt  # noqa: E402
 
 WORLD = 4
@@ -50,12 +51,36 @@ PLAIN = {"plain": ({}, None, "plain"), "plain_clip": ({}, 0.5, "plain"),
 BF16_CASES = ("half_wire", "gather_half")
 
 
+def reference_side():
+    """The reference's ZeRO-1 run of every case on its 4-device mesh and
+    its world-1 runs with and without ZeRO-1 (run by `run_reference` in
+    a process of its own, F8)."""
+    out = {name: ref_zero1(WORLD, *case, STEPS, LR)
+           for name, case in CASES.items()}
+    out["world1_zero"] = ref_zero1(1, dict(shard_states=True), None, 0.0,
+                                   "mlp", "plain", 5, STEPS, LR)
+    out["world1_plain"] = ref_zero1(1, {}, None, 0.0, "mlp", "plain", 5,
+                                    STEPS, LR)
+    return out
+
+
+def reference_continue(after, canon):
+    """The reference's next step from a canonical dump on its 2-device
+    mesh (for `run_reference`)."""
+    return ref_zero1_continue(2, after, canon, 3, LR)
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def reference(tmp_path_factory):
+    return run_reference("test_torch_zero1", "reference_side",
+                         tmp_path_factory.mktemp("reference"))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, reference):
     """One spawn of 4 gloo ranks for the whole file: every ZeRO-1 case
     and the port's plain-DP runs; beside them, the reference's."""
-    refs = {name: ref_zero1(WORLD, *case, STEPS, LR)
-            for name, case in CASES.items()}
+    refs = {name: reference[name] for name in CASES}
     calls = []
     for name, (distkw, clip, wd, kind, option, _) in CASES.items():
         X, y = zero1_data(kind)
@@ -201,7 +226,7 @@ def test_a_raw_dump_of_another_layout_is_refused(runs):
 
 
 def test_a_canonical_dump_of_4_ranks_reshards_into_2_ranks_and_the_reference(
-        runs):
+        runs, tmp_path):
     """The 4 ranks' canonical form equals the reference's; resharded on
     ranks 0-1 (a group of 2) and on the reference's 2-device mesh, the
     next step of the global batch matches."""
@@ -212,7 +237,8 @@ def test_a_canonical_dump_of_4_ranks_reshards_into_2_ranks_and_the_reference(
         close(canon[k], v, f"canonical {k}")
     after = {k[len("param:"):]: v for k, v in port[0]["zero"].items()
              if k.startswith("param:")}
-    loss, params = ref_zero1_continue(2, after, canon, 3, LR)
+    loss, params = run_reference("test_torch_zero1", "reference_continue",
+                                 tmp_path, after=after, canon=canon)
     for r in range(2):
         got = port[r]["zero"]
         close(got["next_losses"], [loss], f"next loss, rank {r}")
@@ -224,15 +250,14 @@ def test_a_canonical_dump_of_4_ranks_reshards_into_2_ranks_and_the_reference(
 # -- without a process group -----------------------------------------------------
 
 
-def test_world_one_without_a_group_is_the_plain_step_and_the_reference():
+def test_world_one_without_a_group_is_the_plain_step_and_the_reference(
+        reference):
     """No group: the shard is the whole vector (the reference's
     "outside SPMD" case). Bitwise the wrapped optimizer's step, dropout
     on (rank 0 draws the default stream), and within fp32 tolerance of
     the reference's world-1 ZeRO-1 run."""
     X, y = zero1_data("mlp")
-    ref = ref_zero1(1, dict(shard_states=True), None, 0.0, "mlp", "plain", 5,
-                    STEPS, LR)
-    want_ref = ref_zero1(1, {}, None, 0.0, "mlp", "plain", 5, STEPS, LR)
+    ref, want_ref = reference["world1_zero"], reference["world1_plain"]
     close(ref["losses"], want_ref["losses"], "reference world 1")
     tx, ty = torch.from_numpy(X), torch.from_numpy(y).long()
     got = {}

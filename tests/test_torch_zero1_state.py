@@ -6,7 +6,8 @@ row, the scatter and gather along another axis, and `gpt_lm
 
 The port runs in 2 spawned processes over gloo (one spawn for the whole
 file, `helper_torch_parity.run_ranks`); the reference under `shard_map`
-over the first 2 devices of its 8-device mesh. Tolerances (relative and
+over the first 2 devices of its 8-device mesh, in a process of its own
+(`helper_torch_parity.run_reference`, F8's follow-up). Tolerances (relative and
 absolute): fp32 1e-5; the bf16 wires 1e-2. On the CPU the trainer runs
 the port's plain attention. The attention's K bias has a gradient of 0
 analytically (softmax ignores a shift shared by a row), so AdamW moves
@@ -21,7 +22,7 @@ import torch
 jax = pytest.importorskip("jax")
 
 from helper_torch_parity import (_rank_many, ref_zero1,  # noqa: E402
-                                 run_ranks, zero1_data)
+                                 run_ranks, run_reference, zero1_data)
 from singa_tpu_torch import distributed  # noqa: E402
 from singa_tpu_torch.examples import gpt_lm  # noqa: E402
 
@@ -43,15 +44,24 @@ def scatter_inputs():
         (WORLD, 3, 4 * WORLD)).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """One spawn of 2 gloo ranks for the whole file."""
-    X, y = zero1_data("mlp")
+def reference_side():
+    """The reference's ZeRO-1 runs on its 2-device mesh (run by
+    `run_reference` in a process of its own, F8)."""
     refs = {name: ref_zero1(WORLD, kw, None, 0.0, "mlp", "plain", 3, STEPS,
                             LR) for name, kw in CASES.items()}
     refs["resume"] = ref_zero1(WORLD, CASES["zero"], None, 0.0, "mlp",
                                "plain", 4, STEPS + 1, LR,
                                snapshot_at=STEPS)
+    return refs
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """One spawn of 2 gloo ranks for the whole file; the reference's side
+    in a process of its own."""
+    X, y = zero1_data("mlp")
+    refs = run_reference("test_torch_zero1_state", "reference_side",
+                         tmp_path_factory.mktemp("reference"))
     calls = [(name, "_rank_zero1", dict(
         params=refs[name]["params"], X=X, y=y, steps=STEPS, lr=LR,
         distkw=kw)) for name, kw in CASES.items()]
