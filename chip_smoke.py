@@ -396,11 +396,33 @@ CASES = [
      "float32", False, 1e-4),
     ("sp_bert_base_bidir_t512", "sp", 16, 12, 512, 512, 64, False,
      "float32", False, 1e-4),
+    # the tensor-parallel paths (phase 9j) at gpt_medium's step shape: the
+    # scanned stack's views of the head-interleaved projection (head
+    # stride 3 * hd), and the unrolled MHA's per-projection tensors
+    ("tp_gpt_medium_interleaved_t1024", "tp_interleaved", 4, 8, 1024, 1024,
+     128, True, "float32", False, 1e-4),
+    ("tp_gpt_medium_projections_t1024", "tp_projections", 4, 8, 1024, 1024,
+     128, True, "float32", False, 1e-4),
 ]
 # Tolerances: fp32 kernel and plain version differ only in summation
 # order (1e-4 on values of order 1); where operands or O are bf16, one
 # bf16 rounding step of O (2^-9 relative) and p rounded at another
 # running max than the plain version's whole-row max (2e-2).
+
+
+def head_split_operands(torch, fa, layout, randn, b, h, t, d):
+    """Head-split (B, H, T, hd) q, k, v with the strides a path hands the
+    kernels: "sp" views of the [q | k | v] projection, "tp_interleaved"
+    views of the scanned tp stack's head-interleaved one
+    (`tp.split_interleaved_qkv`), "tp_projections" the unrolled tp MHA's
+    three (B, T, H*hd) projections seen per head."""
+    from singa_tpu_torch.parallel import tp as tp_module
+
+    if layout == "sp":
+        return fa._split_qkv(randn(b, t, 3 * h * d), h)
+    if layout == "tp_interleaved":
+        return tp_module.split_interleaved_qkv(randn(b, t, 3 * h * d), d)
+    return tuple(fa._heads(randn(b, t, h * d), h) for _ in range(3))
 
 
 def run_case(torch, fa, case):
@@ -419,8 +441,8 @@ def run_case(torch, fa, case):
         q, k, v = fa._split_qkv(qkv, h)
         out = torch.empty((b, tq, h * d), dtype=dtype, device="cuda")
         o = fa._heads(out, h)
-    elif layout == "sp":
-        q, k, v = fa._split_qkv(randn(b, tq, 3 * h * d), h)
+    elif layout in ("sp", "tp_interleaved", "tp_projections"):
+        q, k, v = head_split_operands(torch, fa, layout, randn, b, h, tq, d)
         o = torch.empty((b, h, tq, d), dtype=dtype, device="cuda")
     else:
         q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
@@ -534,6 +556,10 @@ BWD_CASES = [
      "float32", False, False, 1e-4),
     ("sp_bert_base_bidir_t512", "sp", 16, 12, 512, 512, 64, False,
      "float32", False, False, 1e-4),
+    ("tp_gpt_medium_interleaved_t1024", "tp_interleaved", 4, 8, 1024, 1024,
+     128, True, "float32", False, False, 1e-4),
+    ("tp_gpt_medium_projections_t1024", "tp_projections", 4, 8, 1024, 1024,
+     128, True, "float32", False, False, 1e-4),
 ]
 # Tolerances are on max|d| / max(1, max|plain|) per gradient. fp32: the
 # kernel and the plain version differ only in summation order (1e-4).
@@ -576,6 +602,12 @@ def run_bwd_case(torch, fa, case):
         q, k, v = fa._split_qkv(randn(b, tq, 3 * h * d), h)
         o = torch.empty((b, h, tq, d), dtype=dtype, device="cuda")
         do = randn(b, h, tq, d)
+    elif layout in ("tp_interleaved", "tp_projections"):
+        q, k, v = head_split_operands(torch, fa, layout, randn, b, h, tq, d)
+        o = torch.empty((b, h, tq, d), dtype=dtype, device="cuda")
+        # the context's gradient as autograd hands it back through
+        # o.transpose(1, 2).reshape(B, T, d): a (B, T, H, hd) layout
+        do = fa._heads(randn(b, tq, h * d), h)
     else:
         q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
         o = torch.empty_like(q)
@@ -1255,7 +1287,18 @@ def reset_counts(fa, mp):
     fa.FLASH_FWD_LAUNCHES = 0
     fa.FLASH_BWD_DQ_LAUNCHES = 0
     fa.FLASH_BWD_DKV_LAUNCHES = 0
+    for k in fa.FUSED_LAUNCHES:
+        fa.FUSED_LAUNCHES[k] = 0
     mp.MAX_POOL_BWD_LAUNCHES = 0
+
+
+def split_counts(fa, mp):
+    """Each flash kernel's launches by layout since the last reset:
+    {"head_split": {...}, "fused": {...}}."""
+    total = counts(fa, mp)
+    fused = dict(fa.FUSED_LAUNCHES)
+    return {"head_split": {k: total[k] - v for k, v in fused.items()},
+            "fused": fused}
 
 
 def main_grads(torch, model, x, y):
@@ -1298,18 +1341,23 @@ def run_steps(torch, m, x, y, steps, skip=0):
     return losses, float(np.mean(ms[skip:])) if ms[skip:] else None
 
 
-def captured_steps(torch, fa, mp, m, x, y, per_step, what, steps=6):
+def captured_steps(torch, fa, mp, m, x, y, per_step, what, steps=6,
+                   layouts=None):
     """`steps` training steps of a model compiled with use_graph=True,
     from its compiled state. Step 1 runs uncaptured and launches
     `per_step` kernels; step 2 captures the whole step (the wrappers
     count the launches they record into the graph: `per_step` again)
     and replays it; steps 3 on replay it, and no wrapper runs. Returns
-    the losses, step 1's seconds and the mean ms of steps 3 on."""
+    the losses, step 1's seconds and the mean ms of steps 3 on. A dict
+    `layouts` receives the flash launches by layout (`split_counts`) of
+    step 1 ("first") and of the capture ("capture")."""
     reset_counts(fa, mp)
     t = time.perf_counter()
     losses, _ = run_steps(torch, m, x, y, 1)
     first_s = time.perf_counter() - t
     launches = counts(fa, mp)
+    if layouts is not None:
+        layouts["first"] = split_counts(fa, mp)
     gs = m._train_step
     check(launches == per_step, f"{what}: the uncaptured first step "
                                 f"launched {launches}, not {per_step}")
@@ -1318,6 +1366,8 @@ def captured_steps(torch, fa, mp, m, x, y, per_step, what, steps=6):
     reset_counts(fa, mp)
     losses += run_steps(torch, m, x, y, 1)[0]
     captured = counts(fa, mp)
+    if layouts is not None:
+        layouts["capture"] = split_counts(fa, mp)
     check(captured == per_step and (gs.captures, gs.replays) == (1, 1),
           f"{what}: the capture recorded {captured} launches (not "
           f"{per_step}), or made {gs.captures} captures and "
@@ -4626,6 +4676,239 @@ def sp_path(torch, fa, mp, card):
     return launches, out
 
 
+# -- phase 9j: tensor parallelism -----------------------------------------------
+
+#: the tp phases: gpt_medium's full width at phase 9i's scanned batch and
+#: T 1024, scanned and unrolled; BERT-base at bench.py's 16 x 512
+TP_BATCH, TP_SEQ, TP_STEPS, TP_LR = SP_SCAN_BATCH, 1024, 6, SP_LR
+#: each tp step against its twin without tp_axis, on one rank: the same
+#: weights, the model axis of size 1 (its all-reduces sum one operand).
+#: The scanned stack differs from its twin only in the column order of
+#: the fused QKV product and in the route (the head-split flash kernels
+#: on views of the interleaved projection, where the twin's fused kernel
+#: reads the [q|k|v] one); the unrolled MHA in three (d, d) products in
+#: place of one (d, 3d) and the same route. Both are fp32 rounding: each
+#: loss over the 6 SGD steps is held to 1e-4 of its size (phase 9i
+#: holds its same-kernel twins to 1e-5). BERT's tp attention at T 512
+#: non-causal takes the plain attention (the head-split threshold is
+#: 1024) where its twin takes the fused kernel, another summation
+#: order: 1e-3, phase 9i's plain-ring limit
+TP_TWIN_TOL, TP_BERT_TOL = 1e-4, 1e-3
+#: serve_gpt on gpt_medium with and without --tp 1: 48 requests of 128
+#: new tokens, a window of several seconds a serve, in TP_SERVE_PAIRS
+#: alternating pairs, so a difference is read against the serves' spread
+TP_SERVE_ARGV = ["--gpt-medium", "--window", "1024", "--slots", "8",
+                 "--requests", "48", "--max-new", "128"]
+TP_SERVE_PAIRS = 3
+
+
+def tp_path(torch, fa, mp, card):
+    """Tensor parallelism over a world-1 NCCL group, the mesh
+    `get_mesh_3d(1, 1, 1)`, every step captured: the scanned gpt_medium
+    with `tp_axis="model"` (the head-interleaved stack through the
+    head-split flash kernels), the same unrolled (head-parallel MHA),
+    BERT-base with `tp_axis`; each `DistOpt(SGD)` over the data axis,
+    held to its twin without tp_axis from the same weights, with the
+    flash launches by layout. Then `serve_gpt --tp 1` on gpt_medium
+    against the same serve without --tp. Returns each step's launches
+    by layout and the numbers."""
+    import contextlib
+    import io
+    import re
+
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.examples import serve_gpt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.models.transformer import (BertForClassification,
+                                                    states_to_tp)
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp as tp_module
+
+    flash = dict(NO_LAUNCH, flash_fwd=12, flash_bwd_dq=12,
+                 flash_bwd_dkv=12)
+    split_12 = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    zero = {k: 0 for k in split_12}
+    launches, out = {}, {"card": card}
+
+    distributed.init(device="cuda")
+    try:
+        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+              f"the group is {tdist.get_backend()} at world "
+              f"{tdist.get_world_size()}, not NCCL at 1")
+        mesh = mesh_module.get_mesh_3d(1, 1, 1)
+        check(mesh.shape == {"data": 1, "model": 1, "sp": 1},
+              f"mesh {mesh.shape}")
+        out["mesh"] = mesh.shape
+
+        def train(make, states, x, y, per_step, layout, what, lr=TP_LR):
+            m = make()
+            m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr, momentum=0.9),
+                                        mesh=mesh, axis_name="data"))
+            m.compile([x], is_train=True, use_graph=True)
+            m.set_states(states)
+            g0 = tp_module.COUNTS["g", "model"]
+            got = {}
+            losses, first_s, ms = captured_steps(
+                torch, fa, mp, m, x, y, per_step, what, steps=TP_STEPS,
+                layouts=got)
+            check(got["first"] == layout and got["capture"] == layout,
+                  f"{what}: flash launches by layout {got}, not {layout} "
+                  f"in the first step and in the capture")
+            check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+            psums = tp_module.COUNTS["g", "model"] - g0
+            m.graph(False)
+            del m
+            drop_graphs(torch)
+            return dict(losses=losses, first_step_s=first_s, step_ms=ms,
+                        layouts=got, model_axis_psums=psums)
+
+        def held(what, got, twin, tol):
+            gap = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(got["losses"], twin["losses"]))
+            bitwise = got["losses"] == twin["losses"]
+            print(f"{what} ({card}): losses {got['losses']} vs the twin "
+                  f"without tp_axis {twin['losses']}: max rel {gap:.3e} "
+                  f"(tol {tol}), bitwise {bitwise}; {got['step_ms']:.2f} ms "
+                  f"a captured step, the twin {twin['step_ms']:.2f} ms "
+                  f"({100 * (got['step_ms'] / twin['step_ms'] - 1):+.1f}%)",
+                  flush=True)
+            check(gap <= tol, f"{what}: the losses differ from the twin")
+            return dict(got, twin_losses=twin["losses"],
+                        twin_step_ms=twin["step_ms"],
+                        twin_layouts=twin["layouts"], loss_max_rel=gap,
+                        bitwise=bitwise, tolerance=tol)
+
+        rng = np.random.default_rng(SEED)
+        for key, scan in (("scan", True), ("unrolled", False)):
+            def gpt(tp_axis=None, scan=scan):
+                return lambda: gpt_medium(scan_blocks=scan, dropout=0.0,
+                                          tp_axis=tp_axis, device="cuda")
+
+            probe = gpt()()
+            load_singa_tpu_params(probe, seeded_params(probe, SEED))
+            states = {k: v.detach().clone()
+                      for k, v in probe.get_states().items()}
+            vocab, heads = probe.vocab_size, probe.decoder.num_heads
+            del probe
+            drop_graphs(torch)
+            if scan:
+                # the tp stack stores its QKV head-interleaved
+                tp_states = dict(states)
+                for k in ("decoder.w_qkv", "decoder.b_qkv"):
+                    tp_states[k] = tp_module.interleave_qkv_shards(
+                        states[k], heads)
+            else:
+                tp_states = states_to_tp(
+                    {k: v.cpu().numpy() for k, v in states.items()})
+            seq = torch.from_numpy(rng.integers(
+                0, vocab, (TP_BATCH, TP_SEQ + 1))).cuda()
+            x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+            twin = train(gpt(), states, x, y, flash,
+                         {"head_split": zero, "fused": split_12},
+                         f"tp twin {key}")
+            got = train(gpt("model"), tp_states, x, y, flash,
+                        {"head_split": split_12, "fused": zero},
+                        f"tp-{key}")
+            # PSUMS_PER_BLOCK "g" a block in each forward Python runs:
+            # step 1's and the capture's (the replays run none)
+            check(got["model_axis_psums"] == 2 * 12 * tp_module.PSUMS_PER_BLOCK,
+                  f"tp-{key}: {got['model_axis_psums']} model-axis "
+                  f"all-reduces run from Python")
+            launches[key] = got["layouts"]["first"]
+            out[key] = held(f"tp-{key}", got, twin, TP_TWIN_TOL)
+            out[key]["tokens_per_s"] = TP_BATCH * TP_SEQ / (
+                got["step_ms"] / 1e3)
+            del seq, x, y, states, tp_states
+            drop_graphs(torch)
+
+        # BERT-base: T 512 non-causal takes the plain attention on the tp
+        # path (head-split threshold 1024), the fused kernel on the twin's
+        def bert(tp_axis=None):
+            return lambda: BertForClassification(
+                2, vocab_size=30522, max_len=BERT_SEQ, dropout=0.0,
+                tp_axis=tp_axis, device="cuda")
+
+        probe = bert()()
+        load_singa_tpu_params(probe, seeded_params(probe, SEED))
+        states = {k: v.detach().clone() for k, v in probe.get_states().items()}
+        vocab = probe.bert.tok.table.shape[0]
+        del probe
+        bx = torch.from_numpy(rng.integers(0, vocab,
+                                           (BERT_BATCH, BERT_SEQ))).cuda()
+        by = torch.from_numpy(rng.integers(0, 2, (BERT_BATCH,))).cuda()
+        btwin = train(bert(), states, bx, by, flash,
+                      {"head_split": zero, "fused": split_12},
+                      "tp twin bert", SP_BERT_LR)
+        bt = train(bert("model"), states_to_tp(
+            {k: v.cpu().numpy() for k, v in states.items()}), bx, by,
+            NO_LAUNCH, {"head_split": zero, "fused": zero}, "tp-bert",
+            SP_BERT_LR)
+        launches["bert"] = bt["layouts"]["first"]
+        out["bert"] = held("tp-bert", bt, btwin, TP_BERT_TOL)
+        out["bert"]["route"] = "plain attention (full_attention)"
+        out["bert"]["tokens_per_s"] = BERT_BATCH * BERT_SEQ / (
+            bt["step_ms"] / 1e3)
+        del states, bx, by
+        drop_graphs(torch)
+    finally:
+        distributed.shutdown()
+        drop_graphs(torch)
+
+    # serve_gpt --tp 1 against the same serve without --tp
+    serves = {}
+    for key, extra in [(f"{kind}_{i}", argv) for i in range(TP_SERVE_PAIRS)
+                       for kind, argv in (("plain", []),
+                                          ("tp1", ["--tp", "1"]))]:
+        buf = io.StringIO()
+        reset_counts(fa, mp)
+        with contextlib.redirect_stdout(buf):
+            handles = serve_gpt.main(TP_SERVE_ARGV + extra)
+        text = buf.getvalue()
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("served "))
+        num = re.search(r"(\d+) tokens in ([\d.]+) s .*p50 ([\d.]+) ms, "
+                        r"p95 ([\d.]+) ms", line)
+        n_tok, wall = int(num.group(1)), float(num.group(2))
+        serves[key] = dict(
+            tokens={h.rid: list(h.tokens) for h in handles},
+            tokens_per_s=n_tok / wall, wall_s=wall,
+            token_ms_p50=float(num.group(3)),
+            token_ms_p95=float(num.group(4)), launches=counts(fa, mp),
+            captures=[ln for ln in text.splitlines()
+                      if ln.startswith("decode executables")])
+        print(f"serve {key} ({card}): {line}", flush=True)
+        drop_graphs(torch)
+    for key in serves:
+        check(serves[key]["tokens"] == serves["plain_0"]["tokens"],
+              f"serve {key}: token streams differ from the serve without "
+              f"--tp")
+    out["serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                    for k, v in serves.items()}
+    spread = {}
+    for kind in ("plain", "tp1"):
+        for metric in ("tokens_per_s", "token_ms_p50", "token_ms_p95"):
+            vals = [serves[f"{kind}_{i}"][metric]
+                    for i in range(TP_SERVE_PAIRS)]
+            spread[f"{kind}_{metric}"] = dict(
+                min=min(vals), max=max(vals), mean=float(np.mean(vals)),
+                spread_rel=(max(vals) - min(vals)) / float(np.mean(vals)))
+    # each pair's ratio, tp over plain, run back to back
+    spread["tp1_over_plain_tokens_per_s"] = [
+        serves[f"tp1_{i}"]["tokens_per_s"] / serves[f"plain_{i}"][
+            "tokens_per_s"] for i in range(TP_SERVE_PAIRS)]
+    spread["tp1_over_plain_p50"] = [
+        serves[f"tp1_{i}"]["token_ms_p50"] / serves[f"plain_{i}"][
+            "token_ms_p50"] for i in range(TP_SERVE_PAIRS)]
+    print(f"serve spread ({card}): " + json.dumps(spread), flush=True)
+    out["serve"]["spread"] = spread
+    out["serve"]["streams_equal"] = True
+    out["serve"]["streams"] = len(serves["plain_0"]["tokens"])
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -4891,6 +5174,14 @@ def main() -> int:
     print(f"sp: {time.perf_counter() - t:.1f} s ({card}); each phase's "
           f"counted step's launches {sp_launches}", flush=True)
 
+    # 9j. tensor parallelism over a world-1 NCCL group: the head-split
+    # flash kernels under the tp stacks, then serve_gpt --tp 1
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    tp_launches, tp_out = tp_path(torch, fa, mp, card)
+    print(f"tp: {time.perf_counter() - t:.1f} s ({card}); each phase's "
+          f"counted step's launches by layout {tp_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -4919,11 +5210,15 @@ def main() -> int:
                            library_ms=r["library_ms"])
         return out
 
-    def at_sp(key, grads):
-        """A flash kernel's figures at the sequence-parallel path's
-        head-split shapes (fp32)."""
+    sp_cases = ("sp_gpt_medium_causal_t8192", "sp_bert_base_bidir_t512")
+    tp_cases = ("tp_gpt_medium_interleaved_t1024",
+                "tp_gpt_medium_projections_t1024")
+
+    def at_cases(key, grads, cases):
+        """A flash kernel's figures at a parallel path's head-split shapes
+        and strides (fp32)."""
         out = {}
-        for case in ("sp_gpt_medium_causal_t8192", "sp_bert_base_bidir_t512"):
+        for case in cases:
             if key is None:
                 r = fwd_by[case]
                 fig = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -4943,7 +5238,10 @@ def main() -> int:
         return {"sp_ring_flash_step": sp_launches["ring_flash"][name],
                 "sp_ulysses_flash_step": sp_launches["ulysses_flash"][name],
                 "sp_bert_step": sp_launches["bert"][name],
-                "sp_scan_step": sp_launches["scan"][name]}
+                "sp_scan_step": sp_launches["scan"][name],
+                **{f"tp_{k}_step_{layout}": tp_launches[k][layout][name]
+                   for k in ("scan", "unrolled", "bert")
+                   for layout in ("head_split", "fused")}}
 
     def sass_of(kernel):
         return {fn: ops for fn, ops in sass.items()
@@ -4965,7 +5263,8 @@ def main() -> int:
                  "eval_step": eval_launches["flash_fwd"],
                  **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
-             head_split_sp=at_sp(None, ()),
+             head_split_sp=at_cases(None, (), sp_cases),
+             head_split_tp=at_cases(None, (), tp_cases),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_fma_ms=fwd["bound_fma_ms"],
@@ -4992,7 +5291,8 @@ def main() -> int:
                 "zero1_gpt_medium_step": zero1_launches[name],
                 **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
-            head_split_sp=at_sp(key, grads),
+            head_split_sp=at_cases(key, grads, sp_cases),
+            head_split_tp=at_cases(key, grads, tp_cases),
             max_abs_err=max(bwd["max_abs_err"][g] for g in grads),
             ms=bwd[f"ms_{key}"], plain_ms=bwd["plain_ms"],
             bound_ms=bwd["bound_ms"][key], bound_by=bwd["bound_by"][key],
@@ -5050,6 +5350,7 @@ def main() -> int:
     print("eval " + json.dumps(eval_out), flush=True)
     print("devices " + json.dumps(devices_out), flush=True)
     print("sp " + json.dumps(sp_out), flush=True)
+    print("tp " + json.dumps(tp_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

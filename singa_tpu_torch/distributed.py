@@ -20,8 +20,25 @@ or an init method such as "file:///path") is the rendezvous. The
 model's step takes the GLOBAL batch, as the reference's does, and each
 rank runs its 1/world share (`model.Model`); `shard_batch` marks a
 process's own slice as its share of that global batch, so that no input
-crosses the wire. The pspec helpers (`shard_owner_map`, `active_pspec`,
-`place_*`) come with tensor parallelism (ROADMAP queue 1 item 13).
+crosses the wire.
+
+The pspec helpers (reference :207-311). A parameter of a tensor-parallel
+layer carries `pspec`, one entry per dim: None (replicated), a mesh
+axis name, or a tuple of names (split jointly, the first major). The
+reference keeps one global array and its SPMD wrapper hands each chip
+its block; here a rank is one process, so it holds ONLY its block.
+`place_model_states(mesh, model)` slices each such parameter down to
+this rank's block in place (the block of dim i is index
+`mesh.axis_index(axis)` of `mesh.axis_size(axis)` equal parts) and tags
+it `placed` = (full shape, active spec, mesh); `Model` does this when a
+DistOpt over a mesh meets the model, before the optimizer makes its
+slots. `gather_full` all-gathers a placed block back into the full
+array (what `Model.get_states` and `save_states` return, so a
+checkpoint does not depend on the layout) and `block_of` slices a full
+array the way `place_model_states` does (what `set_states` and
+`load_singa_tpu_states` copy in). `active_pspec` drops the axes the mesh
+lacks (extent 1, replicated). `shard_owner_map` belongs to the sharded
+checkpoint (ROADMAP queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -38,7 +55,9 @@ from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["init", "shutdown", "is_initialized", "process_index",
            "process_count", "device", "global_mesh", "shard_batch",
-           "is_rank_local"]
+           "is_rank_local", "active_pspec", "infer_state_mesh",
+           "place_model_states", "place_opt_states", "gather_full",
+           "block_of"]
 
 _device: Optional[torch.device] = None
 #: the rendezvous and collective timeout
@@ -124,8 +143,9 @@ def global_mesh(shape: Optional[Sequence[int]] = None,
     "sp"))` for data x sequence parallelism."""
     if dcn_mesh_shape is not None:
         raise NotImplementedError(
-            "global_mesh(dcn_mesh_shape=): multi-slice meshes are not "
-            "ported (ROADMAP queue 1 item 13)")
+            "global_mesh(dcn_mesh_shape=): multi-slice (multi-host ICI x "
+            "DCN) meshes are not ported (ROADMAP queue 1 item 13): one "
+            "host's ranks make one mesh")
     return mesh_module.get_mesh(shape, axis_names)
 
 
@@ -157,3 +177,154 @@ def is_rank_local(t) -> bool:
     """Whether `t` came from `shard_batch`: this rank's share of the
     global batch."""
     return bool(getattr(t, "rank_local", False))
+
+
+# -- the pspec helpers ------------------------------------------------------------
+
+
+def active_pspec(spec, mesh: mesh_module.Mesh) -> Tuple:
+    """`spec` restricted to the axes `mesh` has (reference :207-227): an
+    axis the mesh lacks is a collapsed axis of extent 1, so its entry
+    becomes None (inside joint tuples too)."""
+    names = set(mesh.axis_names)
+    out = []
+    for entry in (spec or ()):
+        if isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if a and a in names)
+            out.append(kept if kept else None)
+        elif entry is not None and entry not in names:
+            out.append(None)
+        else:
+            out.append(entry)
+    return tuple(out)
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def block_of(full: torch.Tensor, spec, mesh: mesh_module.Mesh
+             ) -> torch.Tensor:
+    """This rank's block of `full` under the active `spec` on `mesh`: along
+    each dim, part `index` of `n` equal parts, where n is the product of
+    the entry's axis sizes and index their joint index (first major).
+    A view of `full`."""
+    out = full
+    for dim, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        if not axes:
+            continue
+        n, idx = 1, 0
+        for a in axes:
+            n *= mesh.axis_size(a)
+            idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+        size = full.shape[dim]
+        if size % n:
+            raise ValueError(
+                f"dim {dim} of size {size} is not divisible by the "
+                f"{n} shards of {axes} on {mesh}")
+        out = out.narrow(dim, idx * (size // n), size // n)
+    return out
+
+
+def gather_full(t: torch.Tensor) -> torch.Tensor:
+    """The full array of a placed block (`place_model_states`): one
+    all-gather over each axis of its spec, minor axes first, every rank
+    of the mesh calling; an unplaced tensor comes back as it is. A
+    collective: call on every rank."""
+    from singa_tpu_torch.parallel.tp import gather_in_group
+
+    placed = getattr(t, "placed", None)
+    if placed is None:
+        return t
+    _, spec, mesh = placed
+    out = t.detach()
+    for dim, entry in enumerate(spec):
+        for a in reversed(_axes_of(entry)):
+            g = mesh.axis_group(a)
+            world = mesh.axis_size(a)
+            if g is None or world == 1:
+                continue
+            out = gather_in_group(out, g, world, dim)
+    return out
+
+
+def infer_state_mesh(model, optimizer=None
+                     ) -> Optional[mesh_module.Mesh]:
+    """The mesh a (model, optimizer) pair's states belong on (reference
+    :230-253): the DistOpt's mesh, else the mesh the model's parameters
+    are already placed on; None for a mesh of one rank (or none). The
+    reference's checkpoint code calls it; the port's model places its
+    states where DistOpt meets it (`model.Model`) and does not."""
+    comm = getattr(optimizer, "comm", None)
+    mesh = getattr(comm, "mesh", None)
+    if mesh is None:
+        for t in list(model.parameters()) + list(model.buffers()):
+            placed = getattr(t, "placed", None)
+            if placed is not None:
+                mesh = placed[2]
+                break
+    if mesh is not None and mesh.size <= 1:
+        mesh = None
+    return mesh
+
+
+def place_model_states(mesh: mesh_module.Mesh, model,
+                       optimizer=None) -> int:
+    """Slice every parameter and buffer of `model` that has a pspec down
+    to this rank's block on `mesh`, in place (`tensor.data` becomes a
+    contiguous copy of the block, so the parameter object, its name and
+    its `pspec` stay), before the optimizer makes slots for it
+    (reference :256-281: there the arrays are placed on their
+    NamedSharding). Tensors without a pspec stay replicated. With
+    `optimizer`, its loaded states are placed too (`place_opt_states`).
+    Placing twice on the same mesh changes nothing; on another mesh it
+    raises. Returns the number of tensors placed."""
+    placed = 0
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            spec = getattr(t, "pspec", None)
+            if not spec:
+                continue
+            prior = getattr(t, "placed", None)
+            if prior is not None:
+                if prior[2] is not mesh:
+                    raise ValueError(
+                        f"a tensor of pspec {spec} is placed on "
+                        f"{prior[2]} already; its states cannot move to "
+                        f"{mesh} in place (save_states, then load them "
+                        f"into a fresh model)")
+                continue
+            act = active_pspec(spec, mesh)
+            full = tuple(t.shape)
+            t.data = block_of(t.data, act, mesh).contiguous()
+            t.placed = (full, act, mesh)
+            placed += 1
+    if optimizer is not None:
+        placed += place_opt_states(mesh, model, optimizer)
+    return placed
+
+
+def place_opt_states(mesh: mesh_module.Mesh, model, optimizer) -> int:
+    """Re-place an optimizer's loaded states (reference :284-311): a slot
+    of a placed parameter given as the full array (a checkpoint's) is
+    sliced to the parameter's block; the rest stay. Call after
+    `optimizer.load_states(...)`; returns the number of slots sliced.
+    A parameter placed on another mesh than `mesh` raises."""
+    by_name = {n: p for n, p in model.named_parameters()}
+    out, n = {}, 0
+    for k, v in optimizer.dump_states().items():
+        pname = k.rpartition("//")[0]
+        p = by_name.get(pname)
+        placed = getattr(p, "placed", None)
+        if placed is not None and placed[2] is not mesh:
+            raise ValueError(
+                f"{pname} is placed on {placed[2]}, not on {mesh}")
+        if placed is not None and tuple(v.shape) == placed[0]:
+            v = block_of(v, placed[1], mesh).contiguous()
+            n += 1
+        out[k] = v
+    optimizer.load_states(out)
+    return n

@@ -27,9 +27,23 @@ with --priority and --tenant labels cycled over the requests for its
 lanes and per-tenant fairness; --replicas N puts N engines (one model,
 a pool and graphs each) behind one `ReplicaRouter` queue
 (--router-affinity off: load and round-robin only). Every greedy stream
-equals a solo `generate(use_cache=True)` of the same prompt. The
-reference's tensor-parallel and metrics-endpoint flags raise, naming
-the ROADMAP item that ports them.
+equals a solo `generate(use_cache=True)` of the same prompt.
+
+--tp N serves through the tensor-parallel decode over a (N,) "model"
+mesh: this process is rank 0 and spawns ranks 1..N-1 (each on card r,
+or over gloo with --device cpu; a file rendezvous in a temporary
+directory), every rank running the same serve in lockstep with its
+heads' KV pools and its blocks of the weights; rank 0 prints. With
+--steps, rank 0 alone pretrains and broadcasts the weights, so every
+rank shards the same model. Its streams equal those without --tp.
+--tp with --draft (the sharded speculative round, ROADMAP queue 1 item
+11), with --replicas, and with --metrics-port (item 18) raise.
+
+--tp differs from the reference's here: the reference's default is 1,
+and its --tp 1 is the single-device serve (it takes --draft and
+--replicas). Here the default is 0, the single-device serve, and --tp 1
+runs the tensor-parallel engine over a world-1 group, which is how one
+card runs the tp decode.
 """
 
 from __future__ import annotations
@@ -39,12 +53,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from singa_tpu_torch import device as device_module
-from singa_tpu_torch import opt
+from singa_tpu_torch import distributed, opt
 from singa_tpu_torch.model import load_singa_tpu_params
 from singa_tpu_torch.models.gpt import GPT, gpt_draft, gpt_medium
 from singa_tpu_torch.observability import metrics
+from singa_tpu_torch.parallel import mesh as mesh_module
 from singa_tpu_torch.serving import (
     ChunkedScheduler, Frontend, ReplicaRouter, ServingEngine,
     SpeculativeEngine)
@@ -97,15 +113,86 @@ def pretrain(m, ids, args, dev):
 
 
 def run(args):
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp is not ported yet (ROADMAP queue 1 items 10 (tp "
-            "decode) and 14 (parallel/tp.py))")
     if args.metrics_port is not None:
         raise NotImplementedError(
             "--metrics-port is not ported yet (ROADMAP queue 1 item 18 "
             "(the exporters))")
+    if args.tp and args.draft != "none":
+        raise NotImplementedError(
+            "--tp with --draft is the sharded speculative round (ROADMAP "
+            "queue 1 item 11)")
+    if args.tp and args.replicas > 1:
+        raise ValueError("--tp serves one engine per rank; drop --replicas")
+    if args.tp > 1 and not distributed.is_initialized():
+        return _spawn_tp(args)
+    if args.tp and not distributed.is_initialized():
+        distributed.init(device=args.device)
+        try:
+            return _serve(args)
+        finally:
+            distributed.shutdown()
+    return _serve(args)
+
+
+def _spawn_tp(args):
+    """--tp N: ranks 1..N-1 in spawned processes, this one rank 0, over
+    a file rendezvous; every rank serves, rank 0 returns its handles."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="serve_tp_")
+    init = f"file://{root}/rendezvous"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(args, r, init))
+             for r in range(1, args.tp)]
+    for p in procs:
+        p.start()
+    try:
+        distributed.init(init, num_processes=args.tp, process_id=0,
+                         device=_rank_device(args.device, 0))
+        try:
+            handles = _serve(args)
+            tdist.barrier()
+        finally:
+            distributed.shutdown()
+    finally:
+        for p in procs:
+            p.join(600)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"--tp {args.tp}: a rank exited with {bad}")
+    return handles
+
+
+def _rank_device(device, rank):
+    dev = device_module.resolve(device)
+    return "cpu" if dev.type == "cpu" else f"cuda:{rank}"
+
+
+def _tp_rank(args, rank, init):
+    """Rank `rank` of `--tp N`: the same serve, its output dropped."""
+    import contextlib
+    import io
+
+    distributed.init(init, num_processes=args.tp, process_id=rank,
+                     device=_rank_device(args.device, rank))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _serve(args)
+        tdist.barrier()
+    finally:
+        distributed.shutdown()
+
+
+def _serve(args):
     dev = device_module.resolve(args.device)
+    if args.tp and dev.type == "cuda":
+        dev = distributed.device()
     if args.gpt_medium:
         m = gpt_medium(device=dev)
         ids = np.random.default_rng(args.seed).integers(
@@ -123,14 +210,25 @@ def run(args):
                 max_len=args.window, dropout=0.0,
                 scan_blocks=args.scan_blocks, device=dev)
     load_singa_tpu_params(m, seeded_weights(m, args.seed))
-    if args.steps:
+    if args.steps and (args.tp <= 1 or distributed.process_index() == 0):
         pretrain(m, ids, args, dev)
+    if args.steps and args.tp > 1:
+        # one pretraining, on rank 0: every rank shards its weights
+        with torch.no_grad():
+            for t in list(m.parameters()) + list(m.buffers()):
+                tdist.broadcast(t, 0)
     m.eval()
 
     ekw = dict(slots=args.slots, block_size=args.block_size,
                window=args.window, num_blocks=args.num_blocks,
                prefill_batch=args.prefill_batch, kv_dtype=args.kv_dtype,
                prefix_cache=args.prefix_cache)
+    if args.tp:
+        # the tensor-parallel decode: heads and block weights over the
+        # model axis, one logits all-gather a step
+        ekw.update(mesh=mesh_module.get_mesh((args.tp,),
+                                             (mesh_module.MODEL_AXIS,)),
+                   tp_axis=mesh_module.MODEL_AXIS)
     draft = None
     if args.draft == "tiny":
         # an untrained draft: acceptance ~0, the same tokens (draft
@@ -361,8 +459,9 @@ def main(argv=None):
                    help="print every streamed token")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:0)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="not ported (ROADMAP queue 1 items 10 and 14)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="serve through the tensor-parallel decode over N "
+                        "ranks (0: the single-device engine)")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="not ported (ROADMAP queue 1 item 18)")
     return run(p.parse_args(argv))

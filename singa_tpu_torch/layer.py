@@ -77,6 +77,8 @@ from singa_tpu_torch import device as device_module
 from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch import tensor as tensor_module
 from singa_tpu_torch.ops import flash_attention as fa
+from singa_tpu_torch.parallel import mesh as mesh_module
+from singa_tpu_torch.parallel import tp as tp_module
 
 __all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Dropout", "Gelu",
            "Tanh", "Sigmoid", "ScanTransformerStack", "Conv2d",
@@ -215,38 +217,75 @@ def _copy_into(own: Mapping[str, torch.Tensor], given: Mapping,
                what: str) -> None:
     """Copy each given array (numpy or torch) into the tensor of the same
     name, in place; KeyError on an unknown name, ValueError on a shape
-    mismatch."""
+    mismatch. A tensor placed on a mesh (`distributed.place_model_states`)
+    takes either its block or the full array, of which it copies its
+    block."""
     for k, v in given.items():
         if k not in own:
             raise KeyError(f"unknown {what} {k!r}")
-        if tuple(np.shape(v)) != tuple(own[k].shape):
+        if tuple(np.shape(v)) not in _accepted_shapes(own[k]):
             raise ValueError(f"{what} {k!r}: shape {tuple(np.shape(v))} "
                              f"given, {tuple(own[k].shape)} expected")
     with torch.no_grad():
         for k, v in given.items():
             src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.array(v))
-            own[k].copy_(src)
+            own[k].copy_(block_source(own[k], src))
+
+
+def _accepted_shapes(t: torch.Tensor):
+    placed = getattr(t, "placed", None)
+    return {tuple(t.shape)} | ({tuple(placed[0])} if placed else set())
+
+
+def block_source(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`src` as `t` takes it: this rank's block of a full array when `t`
+    is placed on a mesh and `src` has the full shape, else `src`."""
+    placed = getattr(t, "placed", None)
+    if placed is not None and tuple(src.shape) == tuple(placed[0]) and (
+            tuple(src.shape) != tuple(t.shape)):
+        from singa_tpu_torch.distributed import block_of
+
+        return block_of(src, placed[1], placed[2])
+    return src
 
 
 class Linear(Layer):
     """y = x W (+ b) with W stored (in, out), as in the reference.
-    `Linear(out_features, bias=True)`; `in_features=` makes W at once."""
+    `Linear(out_features, bias=True, tp_axis=None, tp_mode="col")`;
+    `in_features=` makes W at once.
+
+    Tensor parallelism (reference :222-281): `tp_axis` names a mesh axis
+    and `tp_mode` the split. "col" splits W's output dim (pspec (None,
+    axis), the bias (axis,)); "row" splits its input dim (pspec (axis,
+    None), the bias replicated and added once, after the all-reduce).
+    Inside the axis a column layer takes its input through Megatron's
+    "f" (full input gradient upstream) and a row layer closes with "g"
+    (the all-reduce); a col -> act -> row pair is the Megatron MLP.
+    Outside the axis the same layer is the dense product. A rank holds
+    W's block once the layer's model is placed on a mesh
+    (`distributed.place_model_states`); until then W is full."""
 
     def __init__(self, out_features: int, bias: bool = True, tp_axis=None,
                  tp_mode: str = "col", *, in_features: Optional[int] = None,
                  device=None, generator: Optional[torch.Generator] = None):
-        if tp_axis is not None:
-            raise NotImplementedError(
-                "Linear(tp_axis=) is tensor-parallel Linear, which comes "
-                "with parallel/tp.py (ROADMAP queue 1 item 14)")
-        del tp_mode
+        if tp_axis is not None and tp_mode not in ("col", "row"):
+            raise ValueError(
+                f"tp_mode must be 'col' or 'row', got {tp_mode!r}")
         super().__init__()
         self._dev, self._gen = _setup(device, generator)
         self.out_features = out_features
+        self.tp_axis, self.tp_mode = tp_axis, tp_mode
         self.W = self._lazy_param()
         self.b = _new((out_features,), self._dev, None, "zeros") if (
             bias) else None
+        if tp_axis is not None:
+            if tp_mode == "col":
+                self.W.pspec = (None, tp_axis)
+                if bias:
+                    self.b.pspec = (tp_axis,)
+            else:
+                self.W.pspec = (tp_axis, None)
         self._settle(in_features)
 
     def _make(self, fan_in):
@@ -255,6 +294,13 @@ class Linear(Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._ready(x)
+        if self.tp_axis is not None and mesh_module.in_axis(self.tp_axis):
+            if self.tp_mode == "row":
+                y = tp_module.psum_identity_bwd(self.tp_axis)(
+                    autograd.linear(x, self.W))
+                return y if self.b is None else autograd.add(
+                    y, self.b.to(y.dtype))
+            x = tp_module.identity_psum_bwd(self.tp_axis)(x)
         return autograd.linear(x, self.W, self.b)
 
 
@@ -332,7 +378,19 @@ class ScanTransformerStack(Layer):
     its block update checkpointed; `overlap=True` pipelines it, posting
     hop s+1 before block s), outside it the same head-split tensors go
     through the plain `attention` dispatcher, the same function.
-    `tp_axis` and `zero3_axis` are ROADMAP queue 1 item 15."""
+
+    With `tp_axis` (reference :1213-1230, :1301-1330) the fused QKV is
+    drawn in the standard layout and stored HEAD-INTERLEAVED
+    (`tp.interleave_qkv_shards(w, num_heads)`, as the reference stores
+    it), so a contiguous column block over any axis size dividing the
+    heads is a rank's [q|k|v] head triples; `w_qkv`, `w1` split their
+    output dim over the axis, `b_qkv`, `b1` too, `w_o`, `w2` their input
+    dim, and the rest stays replicated. Each block runs "f", the local
+    heads through the head-split `attention` dispatcher (the ring over
+    `seq_axis` when that distinct axis is live), "g" after the out
+    projection, "f" and "g" around the FFN: `tp.PSUMS_PER_BLOCK`
+    all-reduces on the model axis a block. Outside the axis the same
+    body runs dense. `zero3_axis` is ROADMAP queue 1 item 15."""
 
     #: the stacked parameter names, in the reference's order
     STACKED = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o",
@@ -345,12 +403,20 @@ class ScanTransformerStack(Layer):
                  seq_axis: Optional[str] = None, overlap: bool = False,
                  *, d_model: Optional[int] = None, device=None,
                  generator: Optional[torch.Generator] = None):
-        for name, val in (("tp_axis", tp_axis), ("zero3_axis", zero3_axis)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ScanTransformerStack({name}=) is the sharded stack of "
-                    f"tensor parallelism and ZeRO-3 (ROADMAP queue 1 item "
-                    f"15)")
+        if zero3_axis is not None:
+            raise NotImplementedError(
+                "ScanTransformerStack(zero3_axis=) is ZeRO-3's sharded stack "
+                "(ROADMAP queue 1 item 15)")
+        if tp_axis is not None and tp_axis == seq_axis:
+            raise ValueError(
+                f"ScanTransformerStack needs tp_axis and seq_axis on "
+                f"DISTINCT mesh axes (both got {tp_axis!r}): tp_axis "
+                f"carries the Megatron weight shards while seq_axis carries "
+                f"the ring's token shards, and a single axis cannot serve "
+                f"both — its collectives would mix DIFFERENT shards. Build "
+                f"the mesh with one axis per scheme, e.g. "
+                f"parallel.mesh.get_mesh_3d(dp, tp, sp, ('data', 'model', "
+                f"'sp'))")
         if remat not in autograd.REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat policy {remat!r}; pick one of "
@@ -361,7 +427,7 @@ class ScanTransformerStack(Layer):
         self._dev, self._gen = _setup(device, generator)
         self.n_blocks, self.num_heads = n_blocks, num_heads
         self.ffn_mult, self.causal, self.remat = ffn_mult, causal, remat
-        self.seq_axis = seq_axis
+        self.seq_axis, self.tp_axis = seq_axis, tp_axis
         #: communication-compute overlap: the pipelined ring (a no-op
         #: without a live seq_axis)
         self.overlap = bool(overlap)
@@ -389,6 +455,19 @@ class ScanTransformerStack(Layer):
                 ("w2", (L, ff, d), "uniform", xavier),
                 ("b2", (L, d), "zeros", 0.0)):
             self._materialize(getattr(self, name), shape, init, a)
+        if self.tp_axis is not None:
+            ax = self.tp_axis
+            with torch.no_grad():
+                for name in ("w_qkv", "b_qkv"):
+                    t = getattr(self, name)
+                    t.copy_(tp_module.interleave_qkv_shards(
+                        t.clone(), self.num_heads))
+            for name, spec in (("w_qkv", (None, None, ax)),
+                               ("b_qkv", (None, ax)),
+                               ("w_o", (None, ax, None)),
+                               ("w1", (None, None, ax)), ("b1", (None, ax)),
+                               ("w2", (None, ax, None))):
+                getattr(self, name).pspec = spec
 
     def declared_schedule(self, mesh) -> Dict:
         """The per-block forward collective schedule this stack declares
@@ -401,6 +480,8 @@ class ScanTransformerStack(Layer):
 
         per_block: Dict = {}
         shape = mesh.shape
+        if self.tp_axis is not None and self.tp_axis in shape:
+            per_block[("psum", self.tp_axis)] = tp_module.PSUMS_PER_BLOCK
         if self.seq_axis is not None and self.seq_axis in shape:
             per_block[("ppermute", self.seq_axis)] = (
                 ring.KV_TENSORS_PER_HOP
@@ -423,6 +504,31 @@ class ScanTransformerStack(Layer):
             o = fa.attention(q, k, v, causal=self.causal)
         return o.permute(0, 2, 1, 3).reshape(b, t, d3 // 3)
 
+    def _tp_block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
+                  l2o, w1, b1, w2, b2) -> torch.Tensor:
+        """The tensor-parallel block (reference :1301-1330): the same body
+        dense (full weights, local heads = all heads) and sharded (this
+        rank's blocks), "f" and "g" the identity outside the axis."""
+        f_op = tp_module.identity_psum_bwd(self.tp_axis)
+        g_op = tp_module.psum_identity_bwd(self.tp_axis)
+        hd = h.shape[-1] // self.num_heads
+        qkv = autograd.linear(f_op(h), wqkv, bqkv)
+        q, k, v = tp_module.split_interleaved_qkv(qkv, hd)
+        if self.seq_axis is not None and mesh_module.in_axis(self.seq_axis):
+            from singa_tpu_torch.parallel.ring import ring_attention
+
+            o = ring_attention(q, k, v, self.seq_axis, causal=self.causal,
+                               pipelined=self.overlap)
+        else:
+            o = fa.attention(q, k, v, causal=self.causal)
+        b_, hl, t, _ = o.shape
+        a = g_op(autograd.linear(o.transpose(1, 2).reshape(b_, t, hl * hd),
+                                 wo))
+        h = autograd._layer_norm(h + (a + bo.to(a.dtype)), l1s, l1o)
+        f = autograd.gelu(autograd.linear(f_op(h), w1, b1))
+        f2 = g_op(autograd.linear(f, w2))
+        return autograd._layer_norm(h + (f2 + b2.to(f2.dtype)), l2s, l2o)
+
     def _block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
                l2o, w1, b1, w2, b2) -> torch.Tensor:
         qkv = autograd.linear(h, wqkv, bqkv)
@@ -434,7 +540,9 @@ class ScanTransformerStack(Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._ready(x)
-        block = autograd.remat_wrap(self._block, self.remat)
+        block = autograd.remat_wrap(
+            self._block if self.tp_axis is None else self._tp_block,
+            self.remat)
         # one unbind per stacked weight: its backward stacks the blocks'
         # gradients in one write, where indexing w[i] per block would
         # zero-fill and sum a full (L, ...) gradient for every block

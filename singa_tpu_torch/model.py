@@ -43,12 +43,27 @@ parameter exists, at once or after that forward.
 `save_states(path, aux_states)` / `load_states(path)` write and read the
 reference's single-file archive (a zip of `states/<name>.npy` and
 `aux/<name>.npy`, `singa_tpu/model.py:284-337`). The reference's
-`meta/pspec.json` entry is neither written nor read: the port keeps no
-shardings yet. A file written by either package loads into the other.
+`meta/pspec.json` entry is neither written nor read. A file written by
+either package loads into the other.
+
+Tensor parallelism: a model whose layers carry `pspec`s (`tp_axis=`)
+holds full weights until a DistOpt over a live mesh meets it
+(`set_optimizer`, or `compile` once lazy widths exist); then, before the
+optimizer makes its slots, `distributed.place_model_states` cuts each
+such parameter down to this rank's block. From then on `compile`'s
+forward and the eval step run under the mesh's axes (every rank calls
+them together: the blocks need the collectives), the distributed step
+draws dropout by the rank's index over the mesh's axes other than the
+tensor-parallel ones (their ranks hold the same activations), and
+`get_states` / `save_states` all-gather the blocks back to full arrays,
+so a checkpoint does not depend on the layout; `set_states`,
+`load_states` and `load_singa_tpu_states` take full arrays and copy
+each rank's block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import zipfile
 from typing import Dict, Mapping, Optional, Sequence
@@ -61,9 +76,11 @@ from torch.nn.parameter import UninitializedParameter
 from singa_tpu_torch import autograd
 from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch.communicator import Communicator
-from singa_tpu_torch.distributed import is_rank_local
+from singa_tpu_torch.distributed import (gather_full, is_rank_local,
+                                         place_model_states)
 from singa_tpu_torch.graph import GraphStep
-from singa_tpu_torch.layer import Layer
+from singa_tpu_torch.layer import (Layer, _accepted_shapes, _copy_into,
+                                   block_source)
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["Model", "load_singa_tpu_params", "load_singa_tpu_states"]
@@ -169,7 +186,39 @@ class Model(Layer):
         if self._optimizer is not None and not any(
                 isinstance(p, UninitializedParameter)
                 for p in params.values()):
+            comm = getattr(self._optimizer, "comm", None)
+            if comm is not None and comm._active() and any(
+                    getattr(p, "pspec", None) for p in params.values()):
+                place_model_states(comm.mesh, self)
             self._optimizer.prepare(params)
+
+    def _placed_mesh(self):
+        """The mesh this model's parameters are placed on, or None."""
+        for p in self.parameters():
+            placed = getattr(p, "placed", None)
+            if placed is not None:
+                return placed[2]
+        return None
+
+    def _tp_axes(self) -> tuple:
+        """The mesh axes the placed parameters are split over."""
+        axes = []
+        for p in self.parameters():
+            placed = getattr(p, "placed", None)
+            for entry in (placed[1] if placed else ()):
+                for a in (entry if isinstance(entry, tuple) else (entry,)):
+                    if a and a not in axes:
+                        axes.append(a)
+        return tuple(axes)
+
+    def _placed_axes(self):
+        """A context with the mesh's axes live when the parameters are
+        placed (their blocks compute only with the collectives), else a
+        no-op."""
+        mesh = self._placed_mesh()
+        if mesh is None:
+            return contextlib.nullcontext()
+        return mesh_module.axes_context(*mesh.axis_names, mesh=mesh)
 
     def compile(self, inputs: Sequence, is_train: bool = True,
                 use_graph: bool = False, sequential: bool = False,
@@ -185,7 +234,7 @@ class Model(Layer):
             autograd.set_autocast(precision == "bf16")
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
-        with torch.no_grad():
+        with torch.no_grad(), self._placed_axes():
             self.forward(*inputs)
         self._prepare_optimizer()
         self.train(is_train)
@@ -277,12 +326,17 @@ class Model(Layer):
         reference's), else as a plain module call."""
         if self._use_graph:
             if self._eval_step is None:
-                self._eval_step = GraphStep(self, self.forward,
+                self._eval_step = GraphStep(self, self._placed_forward,
                                             train_step=False)
             return self._eval_step(*args, **kwargs)
         with torch.set_grad_enabled(
-                autograd.training and torch.is_grad_enabled()):
+                autograd.training and torch.is_grad_enabled()), \
+                self._placed_axes():
             return super().__call__(*args, **kwargs)
+
+    def _placed_forward(self, *args, **kwargs):
+        with self._placed_axes():
+            return self.forward(*args, **kwargs)
 
     def _dist_train(self, *args, **kwargs):
         """The distributed step (the reference's SPMD wrapper,
@@ -311,7 +365,9 @@ class Model(Layer):
         with mesh_module.axes_context(*mesh.axis_names, mesh=mesh), \
                 mesh_module.batch_axis_context(
                     comm.axis_name, comm.world_size, comm.group), \
-                autograd.rank_draws(mesh.rank):
+                autograd.rank_draws(mesh.flat_index(
+                    [a for a in mesh.axis_names
+                     if a not in self._tp_axes()])):
             out = self._user_train_one_batch(*args, **kwargs)
 
         def merge(t):
@@ -354,6 +410,17 @@ class Model(Layer):
         if self.training and self._user_train_one_batch is not None:
             return self._dispatch_train(*args, **kwargs)
         return self._dispatch_eval(*args, **kwargs)
+
+    # -- the state API over placed blocks ------------------------------------
+    def get_states(self, prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Parameters and buffers by name, a placed block as its full
+        array (all-gathered: a collective on every rank of its mesh)."""
+        return {k: gather_full(v)
+                for k, v in super().get_states(prefix).items()}
+
+    def set_states(self, states: Mapping) -> None:
+        """Copy full arrays (or blocks) into the live tensors, in place."""
+        _copy_into(Layer.get_states(self), states, "state")
 
     # -- the reference's single-file checkpoint -----------------------------
     def save_states(self, fpath: str, aux_states: Optional[Dict] = None
@@ -440,12 +507,14 @@ def _copy_named(own: Mapping[str, torch.Tensor],
         raise KeyError(f"names differ: unknown {unknown}, "
                        f"missing {missing}")
     bad = {k: (tuple(np.shape(v)), tuple(own[k].shape))
-           for k, v in given.items() if tuple(np.shape(v)) != own[k].shape}
+           for k, v in given.items()
+           if tuple(np.shape(v)) not in _accepted_shapes(own[k])}
     if bad:
         raise ValueError(f"shape mismatch (given, expected): {bad}")
     with torch.no_grad():
         for k, v in given.items():
-            own[k].copy_(torch.from_numpy(np.array(v)))
+            # a placed block takes its block of the full array
+            own[k].copy_(block_source(own[k], torch.from_numpy(np.array(v))))
 
 
 def load_singa_tpu_params(model: nn.Module,
@@ -458,8 +527,10 @@ def load_singa_tpu_params(model: nn.Module,
 def load_singa_tpu_states(model: nn.Module,
                           states: Mapping[str, np.ndarray]) -> None:
     """Copy a reference model's `get_states()` (parameters and buffers)
-    into `model`, name for name. Raises on an unknown name, a missing
-    name or a shape mismatch."""
+    into `model`, name for name; a parameter placed on a mesh takes this
+    rank's block of the full array (a tp stack's QKV is head-interleaved
+    in both packages, so it carries across as it is). Raises on an
+    unknown name, a missing name or a shape mismatch."""
     own = dict(model.named_parameters())
     own.update(model.named_buffers())
     _copy_named(own, states)

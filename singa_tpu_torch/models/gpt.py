@@ -47,9 +47,16 @@ attention. The scanned stack runs the plain ring, pipelined with
 `overlap=True`. `seq_sharded_args = (0, 1)`: x and y of
 `train_one_batch` and ids of `forward` are cut along dim 1.
 
+Tensor parallelism (reference :103-170): `tp_axis` reaches either
+decoder (the scanned stack's head-interleaved blocks, or the unrolled
+blocks' head-parallel attention and col/row FFN); `seq_axis` on a
+distinct axis composes with it. Cached decoding of a scanned tp stack
+gathers its blocks (when placed on a mesh) and de-interleaves the QKV
+on the host (reference :270-282); that of an unrolled tp GPT raises, as
+the reference's does.
+
 Other constructor options raise `NotImplementedError` naming the ROADMAP
-item that ports them: `tp_axis` (item 14), `moe_*`, `pp_axis` and
-`zero3_axis` (item 15).
+item that ports them: `moe_*`, `pp_axis` and `zero3_axis` (item 15).
 """
 
 from __future__ import annotations
@@ -189,11 +196,11 @@ class GPT(model.Model):
     ):
         super().__init__()
         del moe_aux_coef, moe_capacity_factor, pp_micro
-        refuse_distributed(tp_axis, seq_impl, moe_experts, moe_axis)
+        refuse_distributed(seq_impl, moe_experts, moe_axis)
         if pp_axis is not None:
             raise NotImplementedError(
-                "GPT(pp_axis=) is the pipelined stack (ROADMAP queue 1 "
-                "item 15)")
+                "GPT(pp_axis=) is GPipe: ROADMAP queue 1 item 14's "
+                "parallel/pipeline.py under item 15's pipelined stack")
         if not scan_blocks and (zero3_axis is not None or overlap):
             raise NotImplementedError(
                 "GPT(zero3_axis=) and GPT(overlap=) belong to the scanned "
@@ -206,7 +213,7 @@ class GPT(model.Model):
         dev, gen = layer._setup(device, generator)
         self.vocab_size = vocab_size
         self.d_model = d_model
-        self.seq_axis = seq_axis
+        self.seq_axis, self.tp_axis = seq_axis, tp_axis
         #: the distributed step's token arguments (dim 1 is T): x and y
         #: of train_one_batch, ids of forward
         self.seq_sharded_args = (0, 1)
@@ -218,15 +225,15 @@ class GPT(model.Model):
         if scan_blocks:
             self.decoder = layer.ScanTransformerStack(
                 num_layers, num_heads, causal=True, remat=remat_policy,
-                zero3_axis=zero3_axis, seq_axis=seq_axis, overlap=overlap,
-                d_model=d_model,
+                tp_axis=tp_axis, zero3_axis=zero3_axis, seq_axis=seq_axis,
+                overlap=overlap, d_model=d_model,
                 device=dev, generator=gen)
         else:
             self.decoder = TransformerEncoder(
                 num_layers, num_heads, dropout=dropout, causal=True,
                 seq_axis=seq_axis, remat=remat, ring_flash=ring_flash,
-                seq_impl=seq_impl, d_model=d_model, device=dev,
-                generator=gen)
+                seq_impl=seq_impl, tp_axis=tp_axis, d_model=d_model,
+                device=dev, generator=gen)
         self.ln_f = layer.LayerNorm(dim=d_model, device=dev)
         self.head = layer.Linear(vocab_size, in_features=d_model,
                                  device=dev, generator=gen)
@@ -271,12 +278,31 @@ class GPT(model.Model):
         del window
 
     def _functional_params(self):
+        """The decode functions' parameters: full arrays (a placed
+        tensor-parallel stack's blocks gathered, a collective on every
+        rank of its mesh), the stacked QKV of a tp stack de-interleaved
+        into [q | k | v]."""
+        from singa_tpu_torch.distributed import gather_full
+
         dec = self.decoder
         if isinstance(dec, layer.ScanTransformerStack):
-            # block i's parameters: the i-th slice of each stacked weight
-            blocks = [{k: getattr(dec, n).detach()[i]
+            stacked = {k: gather_full(getattr(dec, n)).detach()
                        for k, n in _DECODE_KEYS.items()}
+            if dec.tp_axis is not None:
+                from singa_tpu_torch.parallel import tp as tp_module
+
+                for k in ("wqkv", "bqkv"):
+                    stacked[k] = tp_module.deinterleave_qkv_shards(
+                        stacked[k], dec.num_heads)
+            # block i's parameters: the i-th slice of each stacked weight
+            blocks = [{k: v[i] for k, v in stacked.items()}
                       for i in range(dec.n_blocks)]
+        elif any(getattr(b.attn, "tp_axis", None) or getattr(b, "tp_axis",
+                                                             None)
+                 for b in dec.blocks):
+            raise NotImplementedError(
+                "cached decoding of a tensor-parallel GPT is not supported; "
+                "generate on the single-device model")
         else:
             blocks = [{k: blk.get_parameter(_BLOCK_NAMES[n]).detach()
                        for k, n in _DECODE_KEYS.items()}

@@ -34,10 +34,25 @@ at once, so the attention and encoder layers take `d_model=` beside the
 reference's arguments, and every constructor takes `device=` and
 `generator=` keyword-only. Dropout's draws are PyTorch's.
 
-Not ported in this slice, raising `NotImplementedError` naming their
-ROADMAP items: head-parallel tensor parallelism (`tp_axis`) and
-`states_to_tp` / `states_from_tp`, item 14; the Switch MoE FFN
-(`moe_experts`, `moe_axis`), item 15.
+Tensor parallelism (reference :110-200, :275-325, :330-476): with
+`tp_axis`, `MultiHeadAttention` keeps separate `w_q`, `w_k`, `w_v`
+(drawn as ONE fused (d, 3d) tensor from the layer's generator, then
+split, so a tp model starts from exactly the dense init; each pspec
+(None, axis), the biases (axis,)), and `w_o` row-split (axis, None)
+with `b_o` replicated. Inside the axis each rank projects and attends
+its own heads through the head-split `attention` dispatcher (the
+head-split flash kernels from T 256 causal or T 1024 non-causal, where
+the dense layer's fused `attention_qkv` takes the fused kernel from
+T 256 causal or T 512), and the out projection closes with one
+all-reduce; outside it the same weights compute dense attention. The
+encoder block's `fc1` is column- and `fc2` row-parallel. A distinct
+`seq_axis` beside `tp_axis` leaves attention to the ring (the FFN stays
+tensor-parallel), as the reference does; the same axis for both raises.
+`states_to_tp` / `states_from_tp` convert checkpoints between the fused
+and the split layout.
+
+Not ported in this slice, raising `NotImplementedError` naming its
+ROADMAP item: the Switch MoE FFN (`moe_experts`, `moe_axis`), item 15.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -54,20 +70,52 @@ from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "Bert", "BertForClassification",
-           "bert_base", "bert_small", "collect_moe_aux"]
+           "bert_base", "bert_small", "collect_moe_aux", "states_to_tp",
+           "states_from_tp"]
 
 
-def refuse_distributed(tp_axis=None, seq_impl="ring", moe_experts=None,
-                       moe_axis=None):
-    """Raise on the options not ported yet, naming the ROADMAP items
-    that port them, and on an unknown `seq_impl`."""
+def states_to_tp(states):
+    """A fused-attention checkpoint (`w_qkv`/`b_qkv` entries) in the
+    head-parallel layout (`w_q`/`w_k`/`w_v`, the biases alike), so a model
+    trained without `tp_axis` restores into a `tp_axis=` one (reference
+    :43-57). Exact: the tp initializer splits the same fused draw."""
+    out = {}
+    for k, v in states.items():
+        if k.endswith("w_qkv") or k.endswith("b_qkv"):
+            base = k[: -len("_qkv")]
+            q, kk, vv = np.split(np.asarray(v), 3, axis=-1)
+            out[base + "_q"], out[base + "_k"], out[base + "_v"] = q, kk, vv
+        else:
+            out[k] = v
+    return out
+
+
+def states_from_tp(states):
+    """The inverse of `states_to_tp`: re-fuse each `w_q`/`w_k`/`w_v` (and
+    bias) triple into `w_qkv` (reference :60-75)."""
+    out, triples = {}, {}
+    for k, v in states.items():
+        root, _, leaf = k.rpartition(".")
+        if leaf in ("w_q", "w_k", "w_v", "b_q", "b_k", "b_v"):
+            triples.setdefault((root, leaf[0]), {})[leaf[-1]] = np.asarray(v)
+        else:
+            out[k] = v
+    for (root, kind), t in triples.items():
+        if set(t) != {"q", "k", "v"}:
+            raise ValueError(
+                f"incomplete q/k/v triple under {root!r}: {sorted(t)}")
+        prefix = f"{root}." if root else ""
+        out[f"{prefix}{kind}_qkv"] = np.concatenate(
+            [t["q"], t["k"], t["v"]], axis=-1)
+    return out
+
+
+def refuse_distributed(seq_impl="ring", moe_experts=None, moe_axis=None):
+    """Raise on the options not ported yet, naming the ROADMAP item that
+    ports them, and on an unknown `seq_impl`."""
     if seq_impl not in ("ring", "ulysses"):
         raise ValueError(f"seq_impl must be 'ring' or 'ulysses', "
                          f"got {seq_impl!r}")
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "tp_axis= is head-parallel tensor parallelism (ROADMAP queue 1 "
-            "item 14)")
     for name, val in (("moe_experts", moe_experts), ("moe_axis", moe_axis)):
         if val is not None:
             raise NotImplementedError(
@@ -83,11 +131,12 @@ def collect_moe_aux(root: nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with a fused QKV projection; `forward(x, mask)`
-    with x (B, T, d) and an optional mask broadcastable to
-    (B, H, T, T), True where a query may attend a key. Inside the
-    context of `seq_axis`, x is this rank's sequence shard and attention
-    runs over the global sequence (ring or Ulysses, `seq_impl`)."""
+    """Self-attention with a fused QKV projection (or, with `tp_axis`,
+    head-parallel q/k/v projections); `forward(x, mask)` with x (B, T, d)
+    and an optional mask broadcastable to (B, H, T, T), True where a
+    query may attend a key. Inside the context of `seq_axis`, x is this
+    rank's sequence shard and attention runs over the global sequence
+    (ring or Ulysses, `seq_impl`)."""
 
     def __init__(self, num_heads: int, causal: bool = False,
                  seq_axis: Optional[str] = None, remat: bool = False,
@@ -96,25 +145,47 @@ class MultiHeadAttention(nn.Module):
                  d_model: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        refuse_distributed(tp_axis, seq_impl)
+        if tp_axis is not None and seq_axis is not None:
+            raise NotImplementedError(
+                "tp_axis and seq_axis on the same MultiHeadAttention are "
+                "not supported yet; pick head-parallel or ring attention")
+        refuse_distributed(seq_impl)
         if d_model % num_heads:
             raise ValueError(
                 f"d_model {d_model} not divisible by {num_heads}")
         dev, gen = layer._setup(device, generator)
         self.num_heads, self.causal, self.remat = num_heads, causal, remat
         self.seq_axis, self.ring_flash = seq_axis, ring_flash
-        self.seq_impl = seq_impl
+        self.seq_impl, self.tp_axis = seq_impl, tp_axis
         k = 1.0 / math.sqrt(d_model)
         d = d_model
-        self.w_qkv = layer._new((d, 3 * d), dev, gen, "uniform", k)
-        self.w_o = layer._new((d, d), dev, gen, "uniform", k)
-        self.b_qkv = layer._new((3 * d,), dev, gen, "uniform", k) if (
-            bias) else None
-        self.b_o = layer._new((d,), dev, gen, "uniform", k) if bias else None
+        w_qkv = layer._new((d, 3 * d), dev, gen, "uniform", k)
+        w_o = layer._new((d, d), dev, gen, "uniform", k)
+        b_qkv = layer._new((3 * d,), dev, gen, "uniform", k) if bias else None
+        b_o = layer._new((d,), dev, gen, "uniform", k) if bias else None
+        if tp_axis is None:
+            self.w_qkv, self.w_o, self.b_qkv, self.b_o = w_qkv, w_o, b_qkv, b_o
+            return
+        # the dense layer's draws, split: the same init at any world
+        for name, part in zip(("w_q", "w_k", "w_v"), w_qkv.detach().chunk(
+                3, dim=-1)):
+            setattr(self, name, nn.Parameter(part.contiguous()))
+            getattr(self, name).pspec = (None, tp_axis)
+        self.w_o = w_o
+        self.w_o.pspec = (tp_axis, None)
+        for name, part in zip(("b_q", "b_k", "b_v"), (
+                b_qkv.detach().chunk(3) if bias else (None,) * 3)):
+            setattr(self, name, None if part is None else nn.Parameter(
+                part.contiguous()))
+            if part is not None:
+                getattr(self, name).pspec = (tp_axis,)
+        self.b_o = b_o
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         if mask is not None:
             mask = torch.as_tensor(mask, device=x.device)
+        if self.tp_axis is not None:
+            return self._head_parallel(x, mask)
         qkv = autograd.linear(x, self.w_qkv, self.b_qkv)  # (B, T, 3d)
         if self.seq_axis is not None and mesh_module.in_axis(self.seq_axis):
             if mask is not None:
@@ -135,6 +206,40 @@ class MultiHeadAttention(nn.Module):
                 lambda a: fa.attention_qkv(a, self.num_heads,
                                            causal=self.causal), qkv)
         return autograd.linear(ctx, self.w_o, self.b_o)
+
+    def _head_parallel(self, x: torch.Tensor, mask) -> torch.Tensor:
+        """Megatron's attention block (reference :275-325): "f", this
+        rank's heads projected and attended through the head-split
+        dispatcher, the row-parallel out projection, "g", then the bias.
+        Outside the axis the same weights give dense attention."""
+        from singa_tpu_torch.parallel import tp as tp_module
+
+        hd = x.shape[-1] // self.num_heads
+        sharded = mesh_module.in_axis(self.tp_axis)
+        if sharded:
+            x = tp_module.identity_psum_bwd(self.tp_axis)(x)
+        q, k, v = (autograd.linear(x, w, b) for w, b in (
+            (self.w_q, self.b_q), (self.w_k, self.b_k),
+            (self.w_v, self.b_v)))
+        b_, t, width = q.shape
+        if width % hd:
+            raise ValueError(
+                f"head-parallel attention: local projection width {width} "
+                f"is not a multiple of head_dim {hd} — num_heads "
+                f"({self.num_heads}) must be divisible by the "
+                f"'{self.tp_axis}' axis size")
+
+        def heads(a):  # (B, T, h_local*hd) -> (B, h_local, T, hd)
+            return a.reshape(b_, t, width // hd, hd).transpose(1, 2)
+
+        o = fa.attention(heads(q), heads(k), heads(v), causal=self.causal,
+                         mask=mask)
+        y = autograd.linear(o.transpose(1, 2).reshape(b_, t, width),
+                            self.w_o)
+        if sharded:
+            y = tp_module.psum_identity_bwd(self.tp_axis)(y)
+        return y if self.b_o is None else autograd.add(
+            y, self.b_o.to(y.dtype))
 
     def _sequence_parallel(self, qkv: torch.Tensor) -> torch.Tensor:
         """Attention of this rank's sequence shard over the global
@@ -170,20 +275,31 @@ class TransformerEncoderLayer(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         del moe_capacity_factor
-        refuse_distributed(tp_axis, seq_impl, moe_experts, moe_axis)
+        if tp_axis is not None and tp_axis == seq_axis:
+            raise ValueError(
+                "seq_axis and tp_axis must be distinct mesh axes: the FFN "
+                "col->row pair would psum partial contractions of "
+                "DIFFERENT sequence shards over the shared axis")
+        refuse_distributed(seq_impl, moe_experts, moe_axis)
         dev, gen = layer._setup(device, generator)
+        # with seq_axis the ring owns attention and only the FFN is
+        # tensor-parallel (reference :379-388)
+        self.tp_axis = tp_axis
         self.attn = MultiHeadAttention(
             num_heads, causal=causal, seq_axis=seq_axis, remat=remat,
-            ring_flash=ring_flash, tp_axis=tp_axis, seq_impl=seq_impl,
-            d_model=d_model, device=dev, generator=gen)
+            ring_flash=ring_flash,
+            tp_axis=tp_axis if seq_axis is None else None,
+            seq_impl=seq_impl, d_model=d_model, device=dev, generator=gen)
         self.ln1 = layer.LayerNorm(dim=d_model, device=dev)
         self.ln2 = layer.LayerNorm(dim=d_model, device=dev)
         self.drop1 = layer.Dropout(dropout)
         self.drop2 = layer.Dropout(dropout)
-        self.fc1 = layer.Linear(ffn_mult * d_model, in_features=d_model,
+        self.fc1 = layer.Linear(ffn_mult * d_model, tp_axis=tp_axis,
+                                tp_mode="col", in_features=d_model,
                                 device=dev, generator=gen)
         self.gelu = layer.Gelu()
-        self.fc2 = layer.Linear(d_model, in_features=ffn_mult * d_model,
+        self.fc2 = layer.Linear(d_model, tp_axis=tp_axis, tp_mode="row",
+                                in_features=ffn_mult * d_model,
                                 device=dev, generator=gen)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
@@ -252,7 +368,7 @@ class Bert(model.Model):
         self.pooler = layer.Linear(d_model, in_features=d_model,
                                    device=dev, generator=gen)
         self.pool_act = layer.Tanh()
-        self.seq_axis = seq_axis
+        self.seq_axis, self.tp_axis = seq_axis, tp_axis
         #: the distributed step's token arguments (dim 1 is T): ids and
         #: seg_ids
         self.seq_sharded_args = (0, 1)
@@ -301,7 +417,7 @@ class BertForClassification(model.Model):
         self.head = layer.Linear(num_classes, in_features=self.bert.d_model,
                                  device=dev, generator=gen)
         self.moe_aux_coef = moe_aux_coef
-        self.seq_axis = self.bert.seq_axis
+        self.seq_axis, self.tp_axis = self.bert.seq_axis, self.bert.tp_axis
         #: per method: train_one_batch(ids, y) has per-example labels at
         #: arg 1 (data axis only), eval forward(ids, seg_ids) token
         #: arguments at both

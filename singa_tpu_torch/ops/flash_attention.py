@@ -77,6 +77,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
+#: of those, the launches over the fused (B, T, 3d) projection
+#: (`_FlashAttentionQKV`, the reference's `_fwd_kernel_qkv` sites), by
+#: kernel; the rest are head-split launches
+FUSED_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _flash = {"enabled": True}
 
@@ -228,7 +232,7 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _flash_fwd(q, k, v, o, causal: bool, scale: float,
-               mxu_bf16: bool) -> torch.Tensor:
+               mxu_bf16: bool, fused: bool = False) -> torch.Tensor:
     """Attention of q (B,H,Tq,D) over k/v (B,H,Tk,D), any (batch, head,
     time) strides, written into `o` (q's shape and dtype); returns lse
     (B,H,Tq) fp32. CUDA tensors launch the kernel; CPU tensors run
@@ -256,11 +260,14 @@ def _flash_fwd(q, k, v, o, causal: bool, scale: float,
             _stream(q))
     _raise_on(lib, "flash_fwd", "flash_fwd", err)
     FLASH_FWD_LAUNCHES += 1
+    if fused:
+        FUSED_LAUNCHES["flash_fwd"] += 1
     return lse
 
 
 def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, dq, dk, dv,
-                      causal: bool, scale: float, mxu_bf16: bool) -> None:
+                      causal: bool, scale: float, mxu_bf16: bool,
+                      fused: bool = False) -> None:
     """One launch of `flash_bwd_dq` or `flash_bwd_dkv` on CUDA tensors;
     the gradients it does not write may be any tensor."""
     global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DKV_LAUNCHES
@@ -284,10 +291,12 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, dq, dk, dv,
         FLASH_BWD_DQ_LAUNCHES += 1
     else:
         FLASH_BWD_DKV_LAUNCHES += 1
+    if fused:
+        FUSED_LAUNCHES[kernel] += 1
 
 
 def _flash_bwd_dq(q, k, v, do, lse, delta, dq, causal: bool, scale: float,
-                  mxu_bf16: bool) -> None:
+                  mxu_bf16: bool, fused: bool = False) -> None:
     """dQ of attention written into `dq` (q's shape): the dQ kernel on
     CUDA tensors, `_flash_bwd_plain` on CPU tensors. Operands as in
     `_flash_bwd`."""
@@ -298,11 +307,11 @@ def _flash_bwd_dq(q, k, v, do, lse, delta, dq, causal: bool, scale: float,
                                   mxu_bf16)[0])
         return
     _flash_bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, dq, dq,
-                      causal, scale, mxu_bf16)
+                      causal, scale, mxu_bf16, fused)
 
 
 def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool,
-                   scale: float, mxu_bf16: bool) -> None:
+                   scale: float, mxu_bf16: bool, fused: bool = False) -> None:
     """dK and dV of attention written into `dk`, `dv` (k's shape): the
     dK/dV kernel on CUDA tensors, `_flash_bwd_plain` on CPU tensors.
     Operands as in `_flash_bwd`."""
@@ -315,18 +324,20 @@ def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool,
         dv.copy_(gv)
         return
     _flash_bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dk, dv,
-                      causal, scale, mxu_bf16)
+                      causal, scale, mxu_bf16, fused)
 
 
 def _flash_bwd(q, k, v, do, lse, delta, dq, dk, dv, causal: bool,
-               scale: float, mxu_bf16: bool) -> None:
+               scale: float, mxu_bf16: bool, fused: bool = False) -> None:
     """Gradients of attention written into dq (q's shape) and dk, dv (k's
     shape), from the incoming gradient `do` (q's shape), the forward's lse
     and delta (B,H,Tq) fp32; every (B,H,T,D) operand may have any (batch,
     head, time) strides. CUDA tensors launch the dQ and the dK/dV
     kernels; CPU tensors run `_flash_bwd_plain` (for each of the two)."""
-    _flash_bwd_dq(q, k, v, do, lse, delta, dq, causal, scale, mxu_bf16)
-    _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, mxu_bf16)
+    _flash_bwd_dq(q, k, v, do, lse, delta, dq, causal, scale, mxu_bf16,
+                  fused)
+    _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, mxu_bf16,
+                   fused)
 
 
 def _grad_in(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
@@ -378,8 +389,9 @@ class _FlashAttentionQKV(torch.autograd.Function):
         q, k, v = _split_qkv(qkv, num_heads)
         out = torch.empty((b, t, d3 // 3), dtype=qkv.dtype,
                           device=qkv.device)
+        # the layout flag positional: wrappers wrapped as f(*a) pass it on
         lse = _flash_fwd(q, k, v, _heads(out, num_heads), causal, scale,
-                         mxu_bf16)
+                         mxu_bf16, True)
         ctx.save_for_backward(qkv, out, lse)
         ctx.cfg = (num_heads, causal, scale, mxu_bf16)
         return out
@@ -395,7 +407,7 @@ class _FlashAttentionQKV(torch.autograd.Function):
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
         _flash_bwd(*_split_qkv(qkv, num_heads), _heads(g, num_heads), lse,
                    delta, *_split_qkv(dqkv, num_heads), causal, scale,
-                   mxu_bf16)
+                   mxu_bf16, True)
         return dqkv, None, None, None, None
 
 

@@ -136,6 +136,9 @@ class Optimizer:
         self._step = torch.zeros((), dtype=torch.int32)
         self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
         self._names: Dict[int, str] = {}  # id(param) -> name (dump/load)
+        #: id(param) -> param, of the prepared ones (load_states reads a
+        #: placed parameter's block layout)
+        self._params: Dict[int, torch.Tensor] = {}
         self._anon = 0
 
     def set_sentinel(self, sentinel) -> None:
@@ -203,6 +206,7 @@ class Optimizer:
         and put the step counter on the parameters' device."""
         for name, p in named_params.items():
             self._names[id(p)] = name
+            self._params[id(p)] = p
             self._slot(p)
             self._place_step(p.device)
 
@@ -232,10 +236,18 @@ class Optimizer:
             pid = by_name.get(pname)
             if pid is not None and pid in self._slots:
                 slot = self._slots[pid].get(sname)
+                src = torch.as_tensor(arr)
+                p = self._params.get(pid)
+                if p is not None:
+                    from singa_tpu_torch.layer import block_source
+
+                    # a parameter placed on a mesh takes the block of a
+                    # full (checkpoint) slot
+                    src = block_source(p, src)
                 if slot is None:
-                    self._slots[pid][sname] = torch.as_tensor(arr).clone()
+                    self._slots[pid][sname] = src.clone()
                 else:  # in place: a captured step keeps reading `slot`
-                    slot.copy_(torch.as_tensor(arr))
+                    slot.copy_(src)
             elif pname:
                 dropped.append(k)
         if strict and dropped:

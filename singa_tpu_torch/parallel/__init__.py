@@ -4,8 +4,9 @@ Ported so far: the process mesh and its axis context (`mesh`: N-D
 meshes of process groups, the batch-axis context DistOpt's BatchNorm
 sync reads), and sequence parallelism (`ring`: ring attention, plain
 and with flash blocks, and the single-device `full_attention`;
-`ulysses`: all-to-all head re-sharding). Tensor parallelism (`tp`),
-MoE, GPipe and `raw_steps` come with ROADMAP queue 1 items 14-15.
+`ulysses`: all-to-all head re-sharding), and tensor parallelism (`tp`:
+Megatron's column and row products, the interleaved QKV helpers). MoE,
+GPipe and `raw_steps` come with ROADMAP queue 1 items 14-15.
 """
 
 from singa_tpu_torch.parallel.mesh import (  # noqa: F401

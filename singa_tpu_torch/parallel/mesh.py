@@ -26,8 +26,14 @@ distributed step runs (`model.Model` enters it under DistOpt):
 `autograd.batchnorm(sync=None)` then averages its moments over the
 group (cross-replica BN, reference :167-180).
 
-`get_mesh_3d` and the pspec helpers come with tensor parallelism
-(ROADMAP queue 1 items 13-14).
+`get_mesh_3d(dp, tp, sp)` is the (data, model, sp) mesh of the 3-D
+recipe, in the reference's axis order. `get_mesh(devices=)` lays the
+mesh over a subset of the group's ranks (a list of ranks, or of devices
+each naming its rank by index). `discovery_context` / `in_discovery`
+mark a shape-discovery pass, as the reference's do (reference
+:216-225); they are surface only: the port runs no discovery pass
+(a rank's first eager call gives the shapes), so nothing in it enters
+or reads the flag.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
            "axis_index", "axis_group", "axis_context", "axes_context",
            "in_axis", "local_world_size", "batch_axis_context",
            "current_batch_axis", "current_batch_axis_size",
-           "current_batch_group"]
+           "current_batch_group", "get_mesh_3d", "discovery_context",
+           "in_discovery"]
 
 # -- the canonical axis names (the reference's) ---------------------------------
 
@@ -121,6 +128,17 @@ class Mesh:
             return 0
         return dist.get_rank(self.group)
 
+    def flat_index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over `axes` (in mesh order), the
+        other axes left out: the dropout stream of a rank, which the
+        ranks of a tensor-parallel axis share (they hold the same
+        activations)."""
+        idx = 0
+        for name in self.axis_names:
+            if name in axes:
+                idx = idx * self.axis_size(name) + self.axis_index(name)
+        return idx
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
 
@@ -130,44 +148,79 @@ def get_mesh(shape: Optional[Sequence[int]] = None,
              devices=None) -> Mesh:
     """The mesh of `shape` over `axis_names` across every process of the
     initialised group (one process with no group when none is), ranks
-    laid out row-major. `shape` None is the 1-D mesh over the whole
-    world. The product of `shape` must be the world; a device subset is
-    not ported (each process of the group is one device)."""
-    if devices is not None:
-        raise NotImplementedError(
-            "get_mesh(devices=): a mesh over a device subset is not ported "
-            "(ROADMAP queue 1 item 13); each process of the group is one "
-            "device")
+    laid out row-major. `shape` None is the 1-D mesh over the ranks.
+    `devices` lays it over a subset of the group instead: a list of
+    ranks, or of devices that map one to one onto ranks (a device's
+    `index`, or a port `Device`'s `id`), in mesh order; every rank of
+    the group must still call this (group creation is collective), and
+    a rank outside the subset gets a ValueError. The product of `shape`
+    must be the number of ranks the mesh spans."""
     axis_names = tuple(axis_names)
     world = dist.get_world_size() if _live() else 1
+    ranks = list(range(world)) if devices is None else [
+        _rank_of(d) for d in devices]
+    if len(set(ranks)) != len(ranks) or not all(
+            0 <= r < world for r in ranks):
+        raise ValueError(f"mesh devices {ranks} are not distinct ranks of "
+                         f"the {world} processes of the group")
     if shape is None:
         if len(axis_names) != 1:
             raise ValueError(
                 f"mesh shape None does not match axis names {axis_names}")
-        shape = (world,)
+        shape = (len(ranks),)
     shape = tuple(int(s) for s in shape)
     if len(shape) != len(axis_names):
         raise ValueError(
             f"mesh shape {shape} does not match axis names {axis_names}")
-    if math.prod(shape) != world:
+    if math.prod(shape) != len(ranks):
         raise ValueError(
-            f"mesh shape {shape} does not match the {world} processes of "
-            f"the group")
+            f"mesh shape {shape} does not match the {len(ranks)} processes "
+            f"of the " + ("group" if devices is None else "devices"))
     if not _live():
         return Mesh(None, axis_names, axis_groups={n: None
                                                    for n in axis_names})
     rank = dist.get_rank()
+    whole = ranks == list(range(world))
+    mesh_group = dist.group.WORLD if whole else dist.new_group(ranks)
     groups = {}
     for a, name in enumerate(axis_names):
-        if shape[a] == world:
-            groups[name] = dist.group.WORLD
+        if shape[a] == len(ranks):
+            groups[name] = mesh_group
             continue
         # every rank makes every group of this axis, in the same order
-        for ranks in _axis_rank_sets(shape, a):
-            g = dist.new_group(ranks)
-            if rank in ranks:
+        for pos in _axis_rank_sets(shape, a):
+            members = [ranks[i] for i in pos]
+            g = dist.new_group(members)
+            if rank in members:
                 groups[name] = g
-    return Mesh(dist.group.WORLD, axis_names, axis_groups=groups)
+    if rank not in ranks:
+        raise ValueError(f"rank {rank} is not among the mesh's devices "
+                         f"{ranks}")
+    return Mesh(mesh_group, axis_names, axis_groups=groups)
+
+
+def _rank_of(device) -> int:
+    """The rank a mesh device names: an int, a torch.device's index or a
+    port Device's id."""
+    if isinstance(device, int):
+        return device
+    for attr in ("index", "id"):
+        v = getattr(device, attr, None)
+        if isinstance(v, int):
+            return v
+    raise ValueError(f"mesh device {device!r} names no rank: pass ranks, "
+                     f"or devices with an index")
+
+
+def get_mesh_3d(dp: int = 1, tp: int = 1, sp: int = 1,
+                axis_names: Tuple[str, str, str] = (DATA_AXIS, MODEL_AXIS,
+                                                    SEQ_AXIS),
+                devices=None) -> Mesh:
+    """The dp x tp x sp mesh of the 3-D recipe (reference :76-93): "data"
+    carries the batch shards, "model" the Megatron column/row shards,
+    "sp" the ring's sequence shards. The order is the reference's: the
+    model and sp axes vary fastest, so ranks d*tp*sp + m*sp + s."""
+    return get_mesh((dp, tp, sp), tuple(axis_names), devices=devices)
 
 
 def _axis_rank_sets(shape: Tuple[int, ...], axis: int):
@@ -302,3 +355,23 @@ def current_batch_group():
     """The process group of the active batch axis (None when none)."""
     s = _batch_stack()
     return s[-1][2] if s else None
+
+
+# -- shape discovery -------------------------------------------------------------
+
+
+@contextmanager
+def discovery_context():
+    """Mark a shape-discovery pass (the reference runs one outside its
+    SPMD wrapper to learn a step's output structure): ops whose shapes
+    depend on a collective check `in_discovery` and make placeholders."""
+    prev = getattr(_state, "discovery", 0)
+    _state.discovery = prev + 1
+    try:
+        yield
+    finally:
+        _state.discovery = prev
+
+
+def in_discovery() -> bool:
+    return getattr(_state, "discovery", 0) > 0

@@ -49,9 +49,27 @@ gather and diverge only by the storage rounding.
 Requests must fit one window (prompt + max_new <= window): refused at
 admission, by name, as in the reference.
 
-Not ported here: the tensor-parallel decode and the prefill mesh
-(`mesh=`, `tp_axis=`, `prefill_mesh=`, `prefill_axis=` raise, naming
-ROADMAP queue 1 items 10 and 13-15) and the shardlint surface.
+The tensor-parallel decode (`mesh=`, `tp_axis=`; reference :307-385,
+:842-1115): one engine per rank of the mesh's `tp_axis`, every rank
+running the same host program in lockstep. Each rank's KV pools hold
+its heads/tp heads (an int8 pool's scales are per row of those heads:
+per (row, rank)); its decode step runs Megatron-sharded block weights
+(the QKV columns of its heads, `wo` and `w2` row blocks, `w1` column
+blocks), one all-reduce after each row product, and the LM head
+column-parallel over the vocab (padded to a multiple of tp), whose
+logits row one all-gather assembles (`tp.LOGITS_GATHERS_PER_STEP`), so
+every rank picks the same token. Prefill is the model's own dense
+prefill (the weights gathered when the model is placed on a mesh); each
+rank writes its heads' K/V. So every rank keeps the full weights for
+that prefill beside its decode shards: a rank's weight memory is
+(1 + 1/tp) times the single-device engine's at any tp, and what tp
+divides is the KV pools and the decode step's products (a prefill
+through the sharded window forward, which would drop the full weights,
+comes with ROADMAP queue 1 item 10's prefill half). The prefix cache composes: a suffix chunk
+runs the sharded window forward over the local pools. Not ported here:
+the disaggregated prefill mesh (`prefill_mesh=`, `prefill_axis=`
+raise, naming ROADMAP queue 1 item 10), the sharded speculative round
+(item 11) and the shardlint surface.
 """
 
 from __future__ import annotations
@@ -65,6 +83,7 @@ import torch
 import torch.nn.functional as F
 
 from singa_tpu_torch import layer
+from singa_tpu_torch.distributed import block_of
 from singa_tpu_torch.graph import CAPTURE_LOCK, private_stream
 from singa_tpu_torch.models.gpt import GPT, pick_rows
 from singa_tpu_torch.observability import metrics as obs_metrics
@@ -259,18 +278,12 @@ class ServingEngine:
                  tp_axis: Optional[str] = None, prefill_mesh=None,
                  prefill_axis: Optional[str] = None,
                  prefix_cache: bool = False):
-        for name, val in (("mesh", mesh), ("tp_axis", tp_axis)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=) is the tensor-parallel decode "
-                    f"(ROADMAP queue 1 item 10, tp decode, over the mesh of "
-                    f"items 13-15)")
         for name, val in (("prefill_mesh", prefill_mesh),
                           ("prefill_axis", prefill_axis)):
             if val is not None:
                 raise NotImplementedError(
                     f"ServingEngine({name}=) is the disaggregated prefill "
-                    f"mesh (ROADMAP queue 1 items 10 and 13-15)")
+                    f"mesh (ROADMAP queue 1 item 10, its prefill half)")
         if window % block_size:
             raise ValueError(
                 f"window {window} must be a multiple of block_size "
@@ -302,10 +315,36 @@ class ServingEngine:
         self.hd = self.d_model // self.heads
         self._n_layers = len(self.pv["blocks"])
 
+        # -- the decode mesh: the tensor-parallel step ----------------------
+        self.mesh = mesh
+        self.tp_axis = tp_axis if mesh is not None else None
+        self.tp, self._tp_rank, self._tp_group = 1, 0, None
+        if mesh is not None:
+            if tp_axis is None:
+                raise ValueError(
+                    "ServingEngine(mesh=) needs tp_axis= — the axis the KV "
+                    "pools (heads) and block weights shard over; use "
+                    "parallel.mesh.MODEL_AXIS")
+            if tp_axis not in mesh.axis_names:
+                raise ValueError(f"tp_axis {tp_axis!r} is not on the mesh "
+                                 f"{tuple(mesh.axis_names)}")
+            self.tp = mesh.axis_size(tp_axis)
+            self._tp_rank = mesh.axis_index(tp_axis)
+            self._tp_group = mesh.axis_group(tp_axis)
+            if self.heads % self.tp:
+                raise ValueError(
+                    f"ServingEngine: {self.heads} heads do not divide over "
+                    f"tp={self.tp} — the pool shards whole heads per rank "
+                    f"(pad num_heads or shrink the tp axis)")
+        #: this rank's heads, and the parameters its step runs
+        self._hl = self.heads // self.tp
+        self._step_pv = (self.pv if mesh is None
+                         else self._shard_params(self.pv))
+
         self.kv_dtype = kv_dtype
         self._kv = _KVOps(kv_dtype)
         kv_bytes = kv_block_bytes(self._n_layers, self.heads, self.hd,
-                                  self.block_size, kv_dtype)
+                                  self.block_size, kv_dtype, tp=self.tp)
         if pool_bytes is not None:
             if num_blocks is not None:
                 raise ValueError(
@@ -320,11 +359,11 @@ class ServingEngine:
             num_blocks = self.slots * self.pages + 1
         self.allocator = BlockAllocator(num_blocks, block_size,
                                         bytes_per_block=kv_bytes)
-        args = (self._n_layers, num_blocks, self.block_size, self.heads,
+        args = (self._n_layers, num_blocks, self.block_size, self._hl,
                 self.hd, self.device)
         self._kdata, self._kscale, self.kpools = self._kv.make_pools(*args)
         self._vdata, self._vscale, self.vpools = self._kv.make_pools(*args)
-        self._write_prefill = self._build_write_prefill(self.heads, self.hd)
+        self._write_prefill = self._build_write_prefill(self._hl, self.hd)
 
         s = self.slots
         self.page_table = np.zeros((s, self.pages), np.int32)
@@ -402,7 +441,61 @@ class ServingEngine:
         return (f"gpt:v{self.model.vocab_size}:d{self.d_model}"
                 f":h{self.heads}:L{self._n_layers}"
                 f":bs{self.block_size}:W{self.window}"
-                f":{self.kv_dtype}:tp1" + self._fingerprint_extra())
+                f":{self.kv_dtype}:tp{self.tp}" + self._fingerprint_extra())
+
+    # -- the tensor-parallel step's pieces -----------------------------------
+
+    def _shard_params(self, pv):
+        """This rank's parameters of the sharded step: per block the QKV
+        columns of its heads ([q_c | k_c | v_c]), `wo` and `w2` row
+        blocks, `w1` and `b1` column blocks, the rest replicated; the LM
+        head's column block of the vocab padded to a multiple of tp."""
+        n, ax = self.tp, self.tp_axis
+
+        def cols(w):
+            spec = (None,) * (w.dim() - 1) + (ax,)
+            return block_of(w, spec, self.mesh).contiguous()
+
+        def rows(w):
+            return block_of(w, (ax, None), self.mesh).contiguous()
+
+        def qkv(w):
+            return torch.cat([cols(p) for p in w.chunk(3, dim=-1)], dim=-1)
+
+        blocks = [dict(bp, wqkv=qkv(bp["wqkv"]), bqkv=qkv(bp["bqkv"]),
+                       wo=rows(bp["wo"]), w1=cols(bp["w1"]),
+                       b1=cols(bp["b1"]), w2=rows(bp["w2"]))
+                  for bp in pv["blocks"]]
+        vocab = pv["head_w"].shape[-1]
+        pad = -(-vocab // n) * n - vocab
+        return dict(pv, blocks=blocks,
+                    head_w=cols(F.pad(pv["head_w"], (0, pad))),
+                    head_b=cols(F.pad(pv["head_b"], (0, pad))))
+
+    def _tp_ops(self):
+        """(reduce, gather_logits) of the target step: the all-reduce
+        after a row product and the vocab all-gather (sliced back to the
+        vocab) on the mesh, identities without one (or on a mesh of one
+        process with no group)."""
+        if self.tp_axis is None or self._tp_group is None:
+            return (lambda x: x), (lambda x: x)
+        from singa_tpu_torch.parallel import tp as tp_module
+
+        g, ax, n = self._tp_group, self.tp_axis, self.tp
+        vocab = self.model.vocab_size
+
+        def reduce(x):
+            return tp_module.psum_in_group(x, g, ax)
+
+        def gather(x):
+            return tp_module.gather_cols_in_group(x, g, ax, n)[..., :vocab]
+
+        return reduce, gather
+
+    def _local_heads(self, kv: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of a dense (L, B, H, W, hd) prefill cache."""
+        return kv[:, :, self._tp_rank * self._hl:(self._tp_rank + 1)
+                  * self._hl]
 
     def _fingerprint_extra(self) -> str:
         """Extra fingerprint material from subclasses whose sibling
@@ -433,7 +526,7 @@ class ServingEngine:
         """The decode step over the static inputs: the shared decode
         forward, then the token pick. Returns the next tokens (S,)."""
         pt, tok, pos, seeds, n_gen, sample, temps = self._step_inputs()
-        logits = self._forward(self.pv, self.kpools, self.vpools, pt,
+        logits = self._forward(self._step_pv, self.kpools, self.vpools, pt,
                                tok, pos)
         return pick_rows(logits, seeds, n_gen, temps, sample)
 
@@ -490,24 +583,25 @@ class ServingEngine:
         self._graph.replay()
         return self._graph_out
 
-    def _build_decode_forward(self, heads=None, hd=None, d=None):
+    def _build_decode_forward(self, heads=None, hd=None):
         """The decode forward shared by the step and `peek_logits`:
         every float op mirrors the model's dense `decode_step` (same
         einsums, masking and fp32 LayerNorm), with the dense per-slot
         cache replaced by the paged gather. Dims default to the target's
         (the speculative engine builds its draft micro-step at the
-        draft's)."""
-        heads = self.heads if heads is None else heads
+        draft's); on a tp mesh `heads` are this rank's, and the row
+        products' all-reduces and the logits gather close the step."""
+        heads = self._hl if heads is None else heads
         hd = self.hd if hd is None else hd
-        d = self.d_model if d is None else d
         window = self.window
         scale = hd ** -0.5
         ln = GPT._ln
         kv = self._kv
+        reduce, gather = self._tp_ops()
 
         def ffn(h, bp):
             f = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
-            return f @ bp["w2"] + bp["b2"]
+            return reduce(f @ bp["w2"]) + bp["b2"]
 
         def forward(pv, kpools, vpools, page_table, tok, pos):
             s = tok.shape[0]
@@ -527,16 +621,16 @@ class ServingEngine:
                 sc = sc.masked_fill(~live, -1e30)
                 p = torch.softmax(sc, dim=-1)
                 o = torch.einsum("bhw,bhwd->bhd", p, vc.float())
-                a = o.reshape(s, d) @ bp["wo"] + bp["bo"]
+                a = reduce(o.reshape(s, heads * hd) @ bp["wo"]) + bp["bo"]
                 h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
                 h = ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
             hf = ln(h, pv["lnf_s"], pv["lnf_o"])
-            return hf @ pv["head_w"] + pv["head_b"]  # (S, V)
+            return gather(hf @ pv["head_w"] + pv["head_b"])  # (S, V)
 
         return forward
 
     def _build_window_forward(self, width: int, heads=None, hd=None,
-                              d=None, with_logits: bool = True):
+                              with_logits: bool = True):
         """`width` new tokens per row at positions start + j, j < width:
         each block writes their K/V through the page table
         (`window_write`, never `pages_write`: a warm row maps SHARED
@@ -545,18 +639,19 @@ class ServingEngine:
         start + j sees every row up to its own. The suffix prefill's
         chunk and the speculative verify pass. Returns logits
         (B, width, V), or None with `with_logits=False` (the draft
-        cache's writer, which needs only the writes)."""
-        heads = self.heads if heads is None else heads
+        cache's writer, which needs only the writes). On a tp mesh, as
+        the decode forward."""
+        heads = self._hl if heads is None else heads
         hd = self.hd if hd is None else hd
-        d = self.d_model if d is None else d
         window = self.window
         scale = hd ** -0.5
         ln = GPT._ln
         kv = self._kv
+        reduce, gather = self._tp_ops()
 
         def ffn(h, bp):
             f = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
-            return f @ bp["w2"] + bp["b2"]
+            return reduce(f @ bp["w2"]) + bp["b2"]
 
         def forward(pv, kpools, vpools, page_table, toks, start):
             b = toks.shape[0]
@@ -580,19 +675,19 @@ class ServingEngine:
                 sc = sc.masked_fill(~live, -1e30)
                 p = torch.softmax(sc, dim=-1)
                 o = torch.einsum("bhqw,bhwd->bhqd", p, vc.float())
-                a = o.transpose(1, 2).reshape(b, width, d) @ bp["wo"] \
-                    + bp["bo"]
+                a = reduce(o.transpose(1, 2).reshape(b, width, heads * hd)
+                           @ bp["wo"]) + bp["bo"]
                 h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
                 h = ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
             if not with_logits:
                 return None
             hf = ln(h, pv["lnf_s"], pv["lnf_o"])
-            return hf @ pv["head_w"] + pv["head_b"]        # (B, width, V)
+            return gather(hf @ pv["head_w"] + pv["head_b"])  # (B, width, V)
 
         return forward
 
     def _build_suffix_prefill(self, with_logits: bool = True, heads=None,
-                              hd=None, d=None):
+                              hd=None):
         """The suffix-only prefill: ONE block_size-wide causal chunk for
         up to `prefill_batch` admissions, with the query window anchored
         at each row's own `start` cursor (`_build_window_forward`), so
@@ -603,7 +698,7 @@ class ServingEngine:
         (the draft cache's writer, at the draft's dims) the chunk only
         writes."""
         C = self.block_size
-        forward = self._build_window_forward(C, heads, hd, d, with_logits)
+        forward = self._build_window_forward(C, heads, hd, with_logits)
         if not with_logits:
             return forward
 
@@ -637,7 +732,7 @@ class ServingEngine:
         if self.device.type == "cuda" and key not in self._graphs:
             self._suffix_builds += 1
         out = self._replay(key, lambda *a: self._suffix(
-            self.pv, self.kpools, self.vpools, *a),
+            self._step_pv, self.kpools, self.vpools, *a),
             (rows, toks, start, t0m1, last))
         return out.clone()
 
@@ -724,8 +819,8 @@ class ServingEngine:
             pools = [t for t in (self._kdata, self._vdata, self._kscale,
                                  self._vscale) if t is not None]
             saved = [t[:, blocks, rows].clone() for t in pools]
-            logits = self._forward(self.pv, self.kpools, self.vpools, pt,
-                                   tok, pos)
+            logits = self._forward(self._step_pv, self.kpools, self.vpools,
+                                   pt, tok, pos)
             for t, old in zip(pools, saved):
                 t[:, blocks, rows] = old
             return logits.float().cpu().numpy()
@@ -933,6 +1028,8 @@ class ServingEngine:
         seeds, temps, sample = self._row_sampling(items, bp)
         ctx_d, rows_d = self._dev(ctx), self._dev(rows)
         logits, kc, vc = self._prefill(self.pv, ctx_d)
+        if self.tp_axis is not None:
+            kc, vc = self._local_heads(kc), self._local_heads(vc)
         self._write_prefill(self.kpools, self.vpools, kc, vc, rows_d)
         # before any of these slots can be evicted (a max_new=1 request
         # finishes at its prefill, and the next chunk may reuse its

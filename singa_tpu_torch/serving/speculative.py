@@ -89,6 +89,10 @@ class SpeculativeEngine(ServingEngine):
     """
 
     def __init__(self, model, draft_model, *, spec_k: int = 4, **kw):
+        if kw.get("mesh") is not None or kw.get("tp_axis") is not None:
+            raise NotImplementedError(
+                "SpeculativeEngine(mesh=, tp_axis=) is the sharded "
+                "speculative round (ROADMAP queue 1 item 11)")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if draft_model.vocab_size != model.vocab_size:
@@ -171,7 +175,7 @@ class SpeculativeEngine(ServingEngine):
         self._draft_write_prefill = self._build_write_prefill(
             self.d_heads, self.d_hd)
         self._propose = self._build_propose(self._build_decode_forward(
-            self.d_heads, self.d_hd, self.d_model_draft))
+            self.d_heads, self.d_hd))
         self._verify = self._build_verify()
 
         self._decode_builds = self._verify_builds = 1
@@ -264,8 +268,7 @@ class SpeculativeEngine(ServingEngine):
         super()._ensure_suffix()
         if self._draft_suffix is None:
             self._draft_suffix = self._build_suffix_prefill(
-                with_logits=False, heads=self.d_heads, hd=self.d_hd,
-                d=self.d_model_draft)
+                with_logits=False, heads=self.d_heads, hd=self.d_hd)
 
     def _prefill_extra(self, ctx, rows) -> None:
         _, kc, vc = self._draft_prefill(self.dpv, ctx)

@@ -226,43 +226,139 @@ def serving_gpt_pair(vocab=61, d_model=48, layers=2, heads=4, max_len=64,
 # tmp_path (no TCP port, so parallel pytest workers never collide). Each
 # rank runs one of the `_rank_*` scenarios below, which import only the
 # port, and returns a dict of numpy arrays.
+#
+# The children run beside the suite's other workers on shared cores, so
+# the harness holds them to rules that hold under that load:
+# - one deadline for the whole group (and for the reference's process),
+#   `SPAWN_DEADLINE_S`, the per-file budget of tests/conftest.py: a run
+#   that needs longer is over the file's budget anyway;
+# - each child writes its stderr (C++ aborts included) and, just before
+#   the deadline, every thread's Python stack (`faulthandler`) to a log
+#   beside its result; a failure's message carries that log's tail;
+# - a rank passes a barrier of the whole group before the group is
+#   destroyed, so no rank tears down its gloo pairs while a peer still
+#   talks to them, and only then writes its result; a rank that failed
+#   writes its traceback at once and skips the barrier;
+# - the first rank that fails ends the wait: its peers, stuck in a
+#   collective with it, are killed after a short grace.
+
+#: seconds a spawn (a rank group, or the reference's process) may take
+SPAWN_DEADLINE_S = 120.0
+#: seconds before the deadline at which a child dumps its stacks
+_DUMP_MARGIN_S = 10.0
+#: seconds the surviving ranks get to finish once a peer has failed
+_GRACE_S = 5.0
 
 
-def run_ranks(scenario, world, tmp_path, timeout=100, **payload):
+def _wait_all(procs, deadline_s):
+    """Wait for every process until the deadline or the first nonzero
+    exit (then the others get `_GRACE_S`); kill what is left. Returns
+    {index: "killed at the deadline" | "killed after a peer failed"}."""
+    import time
+
+    end = time.monotonic() + deadline_s
+    failed_at = None
+    while True:
+        alive = [p for p in procs if p.is_alive()]
+        if not alive:
+            break
+        now = time.monotonic()
+        if failed_at is None and any(
+                p.exitcode not in (None, 0) for p in procs):
+            failed_at = now
+        if now >= end or (failed_at is not None
+                          and now >= failed_at + _GRACE_S):
+            break
+        time.sleep(0.02)
+    why = {}
+    for i, p in enumerate(procs):
+        if p.is_alive():
+            why[i] = ("killed after a peer failed" if failed_at is not None
+                      and time.monotonic() < end else
+                      f"killed at the {deadline_s:.0f} s deadline")
+            p.kill()
+            p.join()
+    return why
+
+
+def _log_tail(path, n=4000) -> str:
+    try:
+        with open(path, "r", errors="replace") as f:
+            text = f.read()
+    except OSError:
+        return ""
+    return text[-n:]
+
+
+def _child_logging(log, deadline_s):
+    """Send this child's stderr (fd 2, so C++ messages too) to `log` and
+    arm a dump of every thread's stack just before the deadline."""
+    import faulthandler
+    import os
+    import sys
+
+    f = open(log, "w", buffering=1)
+    os.dup2(f.fileno(), 2)
+    sys.stderr = f
+    faulthandler.enable(file=f)
+    faulthandler.dump_traceback_later(
+        max(1.0, deadline_s - _DUMP_MARGIN_S), exit=False, file=f)
+    return f
+
+
+def _write_result(out, got) -> None:
+    """Write a child's result whole: to a temporary name, flushed and
+    synced, then renamed, so the parent never reads half a file."""
+    import os
+    import pickle
+
+    tmp = f"{out}.part"
+    with open(tmp, "wb") as f:
+        pickle.dump(got, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, out)
+
+
+def run_ranks(scenario, world, tmp_path, timeout=SPAWN_DEADLINE_S,
+              **payload):
     """[result of rank r for r in range(world)] of `scenario(rank, world,
     **payload)`, a function of this module run in `world` spawned
-    processes over gloo; a rank's exception fails the call with its
-    traceback."""
+    processes over gloo, all within one deadline of `timeout` seconds; a
+    rank's exception, nonzero exit or missing result fails the call with
+    every failed rank's traceback and log tail."""
     import multiprocessing as mp
     import pickle
 
     ctx = mp.get_context("spawn")
     init = f"file://{tmp_path}/rendezvous"
     outs = [tmp_path / f"rank{r}.pkl" for r in range(world)]
+    logs = [tmp_path / f"rank{r}.log" for r in range(world)]
     procs = [ctx.Process(target=_rank_main,
                          args=(scenario.__name__, r, world, init, payload,
-                               str(outs[r])))
+                               str(outs[r]), str(logs[r]), float(timeout)))
              for r in range(world)]
     for p in procs:
         p.start()
-    for p in procs:
-        p.join(timeout)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    results = []
+    why = _wait_all(procs, timeout)
+    results, errors = [], []
     for r, (p, f) in enumerate(zip(procs, outs)):
         got = pickle.loads(f.read_bytes()) if f.exists() else None
         if p.exitcode != 0 or got is None or "traceback" in got:
-            raise AssertionError(
-                f"rank {r} of {world} failed (exit {p.exitcode}):\n"
-                f"{(got or {}).get('traceback', '')}")
+            errors.append(
+                f"rank {r} of {world} failed (exit {p.exitcode}"
+                f"{', ' + why[r] if r in why else ''}"
+                f"{', no result' if got is None else ''}):\n"
+                f"{(got or {}).get('traceback', '')}"
+                f"--- its log ---\n{_log_tail(logs[r])}")
         results.append(got)
+    if errors:
+        raise AssertionError("\n".join(errors))
     return results
 
 
-def run_reference(module, name, tmp_path, timeout=300, **kwargs):
+def run_reference(module, name, tmp_path, timeout=SPAWN_DEADLINE_S,
+                  **kwargs):
     """`name(**kwargs)`, a function of the test module `module` that
     computes the reference's side of a parity test, run in a spawned
     process of its own: a fresh singa_tpu, so no process-wide switch an
@@ -271,30 +367,33 @@ def run_reference(module, name, tmp_path, timeout=300, **kwargs):
     cache) reaches the reference's numbers. It inherits the worker's
     environment (conftest's 8-device CPU platform). Returns what the
     function returned (picklable: numpy arrays and numbers); its
-    exception fails the call with its traceback."""
+    exception, a nonzero exit or the deadline fails the call with its
+    traceback and its log's tail."""
     import multiprocessing as mp
     import pickle
 
     out = tmp_path / f"{name}.pkl"
+    log = tmp_path / f"{name}.log"
     p = mp.get_context("spawn").Process(
-        target=_reference_main, args=(module, name, kwargs, str(out)))
+        target=_reference_main,
+        args=(module, name, kwargs, str(out), str(log), float(timeout)))
     p.start()
-    p.join(timeout)
-    if p.is_alive():
-        p.kill()
-        p.join()
+    why = _wait_all([p], timeout)
     got = pickle.loads(out.read_bytes()) if out.exists() else None
     if p.exitcode != 0 or got is None or "traceback" in got:
         raise AssertionError(
-            f"the reference's {module}.{name} failed (exit {p.exitcode}):\n"
-            f"{(got or {}).get('traceback', '')}")
+            f"the reference's {module}.{name} failed (exit {p.exitcode}"
+            f"{', ' + why[0] if why else ''}"
+            f"{', no result' if got is None else ''}):\n"
+            f"{(got or {}).get('traceback', '')}"
+            f"--- its log ---\n{_log_tail(log)}")
     return got["result"]
 
 
-def _reference_main(module, name, kwargs, out):
-    import pickle
+def _reference_main(module, name, kwargs, out, log, deadline_s):
     import traceback
 
+    _child_logging(log, deadline_s)
     try:
         import jax
 
@@ -303,27 +402,36 @@ def _reference_main(module, name, kwargs, out):
             **kwargs)}
     except BaseException:  # reported to the parent, which fails the test
         got = {"traceback": traceback.format_exc()}
-    with open(out, "wb") as f:
-        pickle.dump(got, f)
+    _write_result(out, got)
 
 
-def _rank_main(name, rank, world, init, payload, out):
-    import pickle
+def _rank_main(name, rank, world, init, payload, out, log, deadline_s):
     import traceback
+
+    import torch.distributed as dist
 
     from singa_tpu_torch import distributed
 
+    _child_logging(log, deadline_s)
     torch.set_num_threads(1)
     try:
         distributed.init(init, num_processes=world,
                          process_id=rank, device="cpu")
         got = globals()[name](rank, world, **payload)
     except BaseException:  # reported to the parent, which fails the test
+        # the peers may be stuck in a collective with this rank: no
+        # barrier, the parent ends them
+        _write_result(out, {"traceback": traceback.format_exc()})
+        distributed.shutdown()
+        return
+    try:
+        # every rank is done talking before any tears its pairs down
+        dist.barrier()
+    except BaseException:
         got = {"traceback": traceback.format_exc()}
     finally:
         distributed.shutdown()
-    with open(out, "wb") as f:
-        pickle.dump(got, f)
+    _write_result(out, got)
 
 
 def _np(t):
@@ -856,3 +964,423 @@ def _rank_long_context(rank, world, argv):
 
     out = long_context.run(long_context.parser().parse_args(argv))
     return {"losses": np.asarray(out["losses"]), "mesh": out["mesh"]}
+
+
+# -- tensor parallelism ------------------------------------------------------------
+
+
+#: the cases of `tp_function_cases`: their leaves, and of those the ones
+#: each rank uses only a block of (its gradient is that block's part)
+TP_FUNCTION_LEAVES = {
+    "mlp": (("x", "w1", "b1", "w2", "b2"), ("w1", "b1", "w2")),
+    "attention": (("x", "w_qkv", "b_qkv", "w_o", "b_o"),
+                  ("w_qkv", "b_qkv", "w_o")),
+    "col_gather": (("x", "w_col", "b_col"), ("w_col", "b_col")),
+    "row": (("x_row", "w_row", "b_row"), ("x_row", "w_row")),
+}
+
+
+def tp_function_cases(tp, full_attention, arrays):
+    """The port's Part-B functions of `tp` on full weights from `arrays`
+    (numpy), each output replicated over the model axis: yields (case,
+    output, {name: leaf tensor}), each case's forward run as it is
+    drawn. The column product opens with "f", as the composites do."""
+    a = arrays
+    h = int(a["heads"])
+
+    def leaf(name):
+        return torch.from_numpy(a[name].copy()).requires_grad_()
+
+    def cases():
+        x = leaf("x")
+        w1, b1, w2, b2 = (leaf(n) for n in ("w1", "b1", "w2", "b2"))
+        yield "mlp", tp.tp_mlp(x, w1, b1, w2, b2, "model"), dict(
+            x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+        x = leaf("x")
+        wq, bq, wo, bo = (leaf(n) for n in ("w_qkv", "b_qkv", "w_o", "b_o"))
+        q, k, v = tp.tp_attention_qkv(x, wq, bq, h, "model")
+        yield "attention", tp.tp_attention_out(
+            full_attention(q, k, v), wo, bo, "model"), dict(
+            x=x, w_qkv=wq, b_qkv=bq, w_o=wo, b_o=bo)
+        x, w, b = leaf("x"), leaf("w_col"), leaf("b_col")
+        xin = tp.identity_psum_bwd("model")(x)
+        yield "col_gather", tp.gather_cols(tp.col_linear(
+            xin, tp.shard_col(w, "model"), tp.shard_col(b, "model")),
+            "model"), dict(x=x, w_col=w, b_col=b)
+        x, w, b = leaf("x_row"), leaf("w_row"), leaf("b_row")
+        yield "row", tp.row_linear(tp.shard_col(x, "model"),
+                                   tp.shard_row(w, "model"), "model", b), \
+            dict(x_row=x, w_row=w, b_row=b)
+
+    return cases()
+
+
+def tp_function_arrays(world=2, b=2, t=4, d=16, heads=4):
+    """Seeded inputs of the tp function cases: weights at the 1/sqrt(fan
+    in) scale of an init, so activations stay O(1) through the blocks."""
+    rng = np.random.default_rng(17)
+
+    def r(*shape):
+        scale = 1.0 if len(shape) != 2 else shape[0] ** -0.5
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(x=r(b, t, d), w1=r(d, 4 * d), b1=r(4 * d), w2=r(4 * d, d),
+                b2=r(d), w_qkv=r(d, 3 * d), b_qkv=r(3 * d), w_o=r(d, d),
+                b_o=r(d), w_col=r(d, 8), b_col=r(8), x_row=r(b, t, 8),
+                w_row=r(8, d), b_row=r(d), heads=np.array(heads),
+                world=np.array(world))
+
+
+def _rank_tp_funcs(rank, world, arrays):
+    """Every Part-B function of `parallel.tp` over a 1-D "model" mesh of
+    the group, on the full weights of `arrays`: each case's output and
+    this rank's gradients of sum(out**2) (the loss replicated over the
+    axis, counted once), the "g"/"f" counts of each case, the
+    pre-sharded MLP and interleaved attention on this rank's blocks, the
+    divisibility guard's message, and the dense forms outside the
+    axis."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp
+    from singa_tpu_torch.parallel.ring import full_attention
+
+    mesh = mesh_module.get_mesh((world,), ("model",))
+    out = {}
+    with mesh_module.axes_context("model", mesh=mesh):
+        cases = tp_function_cases(tp, full_attention, arrays)
+        while True:
+            before = dict(tp.COUNTS)
+            try:
+                name, y, leaves = next(cases)
+            except StopIteration:
+                break
+            (y ** 2).sum().backward()
+            out[name] = {"out": _np(y), **{
+                f"grad:{k}": _np(v.grad) for k, v in leaves.items()}}
+            out[name]["counts"] = {
+                f"{k[0]}:{k[1]}": v - before.get(k, 0)
+                for k, v in tp.COUNTS.items() if v != before.get(k, 0)}
+        # the production layout: each rank holds only its blocks
+        a = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+        loc = 4 * a["x"].shape[-1] // world
+        w1 = a["w1"][:, rank * loc:(rank + 1) * loc]
+        b1 = a["b1"][rank * loc:(rank + 1) * loc]
+        w2 = a["w2"][rank * loc:(rank + 1) * loc]
+        out["mlp_pre_sharded"] = _np(tp.tp_mlp(a["x"], w1, b1, w2, a["b2"],
+                                               "model", pre_sharded=True))
+        h = int(arrays["heads"])
+        w_int = tp.interleave_qkv_shards(a["w_qkv"], world)
+        b_int = tp.interleave_qkv_shards(a["b_qkv"], world)
+        c3 = w_int.shape[-1] // world
+        d_loc = a["w_o"].shape[0] // world
+        q, k, v = tp.tp_attention_qkv(
+            a["x"], w_int[:, rank * c3:(rank + 1) * c3],
+            b_int[rank * c3:(rank + 1) * c3], h, "model", pre_sharded=True)
+        out["attention_interleaved"] = _np(tp.tp_attention_out(
+            full_attention(q, k, v), a["w_o"][rank * d_loc:(rank + 1) *
+                                              d_loc],
+            a["b_o"], "model", pre_sharded=True))
+        try:
+            tp.shard_col(torch.zeros(3, 2 * world + 1), "model")
+        except ValueError as e:
+            out["guard"] = str(e)
+    # outside the axis: the dense forms, no collective
+    before = sum(tp.COUNTS.values())
+    out["dense"] = {name: _np(y) for name, y, _ in tp_function_cases(
+        tp, full_attention, arrays)}
+    out["dense_collectives"] = sum(tp.COUNTS.values()) - before
+    return out
+
+
+def port_tp_mlp(hidden=16, num_classes=4, tp_axis=None):
+    """The port's counterpart of tests/test_tp_model.py's TpMLP: a plain
+    Linear upstream of a column -> row tensor-parallel pair."""
+    from singa_tpu_torch import autograd, layer, model
+
+    class TpMLP(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc0 = layer.Linear(12, device="cpu")
+            self.fc1 = layer.Linear(hidden, tp_axis=tp_axis, tp_mode="col",
+                                    device="cpu")
+            self.act = layer.Gelu()
+            self.fc2 = layer.Linear(num_classes, tp_axis=tp_axis,
+                                    tp_mode="row", device="cpu")
+
+        def forward(self, x):
+            return self.fc2(self.act(self.fc1(self.fc0(x))))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = autograd.softmax_cross_entropy(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    return TpMLP()
+
+
+def port_tp_bert(tp_axis=None):
+    """tests/test_tp_model.py's BERT: one block, d 16, 4 heads."""
+    from singa_tpu_torch.models.transformer import BertForClassification
+
+    return BertForClassification(
+        num_classes=4, num_layers=1, d_model=16, num_heads=4, vocab_size=50,
+        max_len=8, dropout=0.0, tp_axis=tp_axis, device="cpu")
+
+
+def tp_train(m, states, x, y, steps, lr, momentum, mesh):
+    """`steps` graph-mode steps of `m` from `states` (full arrays,
+    loaded after compile: a DistOpt over `mesh` places the model there)
+    on the global batch: (losses, gathered states after, the eval
+    logits)."""
+    from singa_tpu_torch import opt
+
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y).long()
+    sgd = opt.SGD(lr=lr, momentum=momentum)
+    m.set_optimizer(sgd if mesh is None else opt.DistOpt(
+        sgd, mesh=mesh, axis_name="data"))
+    m.compile([tx], is_train=True, use_graph=True)
+    m.set_states(states)
+    losses = [m.train_one_batch(tx, ty)[1].item() for _ in range(steps)]
+    after = {k: _np(v) for k, v in m.get_states().items()}
+    m.eval()
+    with torch.no_grad():
+        logits = _np(m(tx))
+    return losses, after, logits
+
+
+def _rank_tp_model(rank, world, mlp, bert, steps):
+    """tests/test_tp_model.py's training cases over the group: the MLP
+    and BERT on a (data 2, model 2) mesh of the 4 ranks, the MLP on a
+    (data 1, model 2) mesh of ranks 0-1 (`get_mesh(devices=)`), rank 0's
+    dense twins without a group's mesh; each run's losses, gathered
+    states and eval logits, and the placed blocks' shapes and pspecs."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    out = {}
+    dp_tp = mesh_module.get_mesh((2, 2), ("data", "model"))
+    try:
+        tp_only = mesh_module.get_mesh((1, 2), ("data", "model"),
+                                       devices=[0, 1])
+    except ValueError as e:
+        tp_only, out["outside_the_subset"] = None, str(e)
+    cfg = dict(mlp=(lambda ax: port_tp_mlp(tp_axis=ax), mlp, 0.1, 0.9),
+               bert=(port_tp_bert, bert, 0.1, 0.0))
+    for kind, (make, d, lr, mom) in cfg.items():
+        m = make("model")
+        out[f"{kind}_dp_tp"] = tp_train(m, d["states"], d["x"], d["y"],
+                                        steps[kind], lr, mom, dp_tp)
+        out[f"{kind}_blocks"] = {
+            n: (tuple(p.shape), p.pspec, p.placed[0])
+            for n, p in m.named_parameters() if getattr(p, "placed", None)}
+        if rank == 0:
+            out[f"{kind}_dense"] = tp_train(
+                make(None), d["dense_states"], d["x"], d["y"], steps[kind],
+                lr, mom, None)
+    if tp_only is not None:
+        out["mlp_tp"] = tp_train(port_tp_mlp(tp_axis="model"),
+                                 mlp["states"], mlp["x"], mlp["y"],
+                                 steps["mlp"], 0.1, 0.9, tp_only)
+    return out
+
+
+def _rank_scan_tp(rank, world, kw, states, dense_params, x, y, steps, lr,
+                  prompt, n_new, window):
+    """The scanned GPT with `tp_axis` trained by DistOpt(SGD) on a (data
+    1, model 2) mesh of ranks 0-1 (`get_mesh(devices=)`), and with
+    `tp_axis` x `seq_axis` on `get_mesh_3d(1, 2, 2)` of the 4 ranks:
+    losses, gathered states after, the "g"/"f" counts of one step, the
+    declared schedule, and the greedy `generate` of the trained stack
+    (its blocks gathered, its QKV de-interleaved); rank 0's dense twin
+    (the unrolled decoder) losses and `generate` from the same init."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import GPT
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp
+
+    out = {}
+    meshes = {}
+    try:
+        meshes["tp"] = mesh_module.get_mesh((1, 2), ("data", "model"),
+                                            devices=[0, 1])
+    except ValueError:
+        pass
+    meshes["tp_seq"] = mesh_module.get_mesh_3d(1, 2, 2)
+    tx, ty = torch.from_numpy(x).long(), torch.from_numpy(y).long()
+    for name, mesh in meshes.items():
+        m = GPT(**kw, scan_blocks=True, tp_axis="model",
+                seq_axis="sp" if name == "tp_seq" else None, device="cpu")
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr), mesh=mesh,
+                                    axis_name="data"))
+        m.compile([tx], is_train=True, use_graph=True)
+        m.set_states(states)
+        losses = []
+        for i in range(steps):
+            before = dict(tp.COUNTS)
+            losses.append(m.train_one_batch(tx, ty)[1].item())
+            if i == 0:
+                counts = {f"{k[0]}:{k[1]}": v - before.get(k, 0)
+                          for k, v in tp.COUNTS.items()
+                          if v != before.get(k, 0)}
+        out[name] = dict(
+            losses=np.asarray(losses), counts=counts,
+            schedule=m.decoder.declared_schedule(mesh),
+            block_shape=tuple(m.decoder.w_qkv.shape),
+            after={k: _np(v) for k, v in m.get_states().items()},
+            tokens=m.generate(prompt, n_new, window=window))
+    if rank == 0:
+        d = GPT(**kw, scan_blocks=False, device="cpu")
+        load_singa_tpu_params(d, dense_params)
+        d.set_optimizer(opt.SGD(lr=lr))
+        d.compile([tx], is_train=True, use_graph=True)
+        out["dense"] = dict(
+            losses=np.asarray([d.train_one_batch(tx, ty)[1].item()
+                               for _ in range(steps)]),
+            tokens=d.generate(prompt, n_new, window=window))
+    return out
+
+
+# -- the tensor-parallel serving decode --------------------------------------------
+
+
+def staggered_workload(engine, prompts, max_new, temperature=0.0, seed=0):
+    """tests/test_serving_tp.py's staggered admit/evict workload over the
+    prompts a-d (b cancelled mid-flight so its freed blocks fragment
+    and c, d reuse them): the surviving requests' tokens by id."""
+    from singa_tpu_torch.serving import Request
+
+    reqs = {k: Request(k, prompts[k], max_new[k], temperature=temperature,
+                       seed=seed) for k in "abcd"}
+    engine.admit(reqs["a"])
+    engine.admit(reqs["b"])
+    for _ in range(3):
+        engine.step()
+    engine.cancel("b")
+    engine.admit(reqs["c"])
+    engine.admit(reqs["d"])
+    while engine.n_active:
+        engine.step()
+    return {k: np.asarray(reqs[k].tokens, np.int32) for k in "acd"}
+
+
+def shared_workload(engine, shared, tails, max_new, temperature=0.0):
+    """tests/test_serving_prefix_tp.py's workload: one cold registering
+    admission and two warm sharers of a 32-token prefix (the third
+    admitted mid-decode): each request's tokens and cached tokens."""
+    from singa_tpu_torch.serving import Request
+
+    reqs = [Request(f"r{i}", np.concatenate([shared, t]), max_new,
+                    temperature=temperature, seed=3)
+            for i, t in enumerate(tails)]
+    engine.admit(reqs[0])
+    engine.admit(reqs[1])
+    for _ in range(2):
+        engine.step()
+    engine.admit(reqs[2])
+    while engine.n_active:
+        engine.step()
+    return [(np.asarray(r.tokens, np.int32), r.cached_tokens) for r in reqs]
+
+
+def _rank_serving_tp(rank, world, kw, params, window, prompts, max_new,
+                     shared, tails, odd_kw):
+    """The port's tensor-parallel decode over the group's (2,) "model"
+    mesh, on a GPT carrying `params`: the staggered workload greedy fp32,
+    int8 and sampled, the prefix-cache workload greedy and sampled, one
+    step's collectives, the per-rank block bytes, the refusals; a (1,)
+    mesh of this rank alone against the single-device engine (peek
+    logits); rank 0's solo `generate` of every stream."""
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import GPT
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp
+    from singa_tpu_torch.serving import (Request, ServingEngine,
+                                         SpeculativeEngine)
+
+    def gpt(k, p=None):
+        m = GPT(**k, device="cpu")
+        if p is not None:
+            load_singa_tpu_params(m, p)
+        m.eval()
+        return m
+
+    m = gpt(kw, params)
+    mesh = mesh_module.get_mesh((world,), ("model",))
+    alone = None
+    for r in range(world):
+        try:
+            got = mesh_module.get_mesh((1,), ("model",), devices=[r])
+        except ValueError:
+            continue
+        alone = got
+    ekw = dict(slots=3, block_size=16, window=window, mesh=mesh,
+               tp_axis="model")
+    out = {}
+    if True:
+        for name, extra, temp in (("fp32", {}, 0.0),
+                                  ("int8", {"kv_dtype": "int8"}, 0.0),
+                                  ("sampled", {}, 0.8)):
+            eng = ServingEngine(m, **ekw, **extra)
+            out[name] = staggered_workload(eng, prompts, max_new, temp,
+                                           seed=5)
+            out[f"{name}_compiles"] = eng.decode_compiles
+        eng = ServingEngine(m, **ekw)
+        eng.admit(Request("s", prompts["a"], 4))
+        before = dict(tp.COUNTS)
+        eng.step()
+        out["step_counts"] = {f"{k[0]}:{k[1]}": v - before.get(k, 0)
+                              for k, v in tp.COUNTS.items()
+                              if v != before.get(k, 0)}
+        out["bytes_per_block"] = eng.allocator.bytes_per_block
+        out["pool_heads"] = tuple(eng._kdata.shape)
+        for temp in (0.0, 0.9):
+            eng = ServingEngine(m, **ekw, prefix_cache=True)
+            out[f"prefix_{temp}"] = shared_workload(eng, shared, tails, 8,
+                                                    temp)
+            out[f"prefix_{temp}_stats"] = (eng.prefix_stats["hits"],
+                                           eng.decode_compiles,
+                                           eng.prefix_prefill_compiles)
+        # a mesh of this rank alone: the single-device engine's logits
+        pair = (ServingEngine(m, slots=2, block_size=16, window=window),
+                ServingEngine(m, slots=2, block_size=16, window=window,
+                              mesh=alone, tp_axis="model"))
+        for e in pair:
+            e.admit(Request("a", prompts["d"].copy(), 8))
+            e.step()
+            e.step()
+        out["tp1_logits"] = [e.peek_logits() for e in pair]
+        refusals = {}
+        for key, fn in (
+                ("needs_tp_axis", lambda: ServingEngine(
+                    m, window=window, mesh=mesh)),
+                ("not_on_mesh", lambda: ServingEngine(
+                    m, window=window, mesh=mesh, tp_axis="nope")),
+                ("heads", lambda: ServingEngine(
+                    gpt(odd_kw), window=window, mesh=mesh,
+                    tp_axis="model")),
+                ("prefill_mesh", lambda: ServingEngine(
+                    m, window=window, mesh=mesh, tp_axis="model",
+                    prefill_mesh=mesh)),
+                ("prefill_axis", lambda: ServingEngine(
+                    m, window=window, mesh=mesh, tp_axis="model",
+                    prefill_axis="data")),
+                ("speculative", lambda: SpeculativeEngine(
+                    m, m, window=window, mesh=mesh, tp_axis="model"))):
+            try:
+                fn()
+                refusals[key] = "no error"
+            except (ValueError, NotImplementedError) as e:
+                refusals[key] = f"{type(e).__name__}: {e}"
+        out["refusals"] = refusals
+        if rank == 0:
+            def solo(p, n, temp=0.0, seed=5):
+                return m.generate(p, n, window=window, temperature=temp,
+                                  seed=seed)[0, len(p):]
+
+            out["solo"] = {k: solo(prompts[k], max_new[k]) for k in "acd"}
+            out["solo_sampled"] = {k: solo(prompts[k], max_new[k], 0.8)
+                                   for k in "acd"}
+            out["solo_prefix"] = {
+                temp: [solo(np.concatenate([shared, t]), 8, temp, 3)
+                       for t in tails] for temp in (0.0, 0.9)}
+    return out

@@ -146,8 +146,10 @@ def test_the_input_width_keyword_builds_at_once():
     assert tuple(lstm.w_ih_l0.shape) == (64, 8)
     bn = layer.BatchNorm2d(num_features=6, device="cpu")
     assert tuple(bn.running_var.shape) == (6,)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        layer.Linear(4, tp_axis="model", device="cpu")
+    tp = layer.Linear(4, tp_axis="model", in_features=6, device="cpu")
+    assert tp.W.pspec == (None, "model") and tuple(tp.W.shape) == (6, 4)
+    with pytest.raises(ValueError, match="tp_mode"):
+        layer.Linear(4, tp_axis="model", tp_mode="diagonal", device="cpu")
 
 
 def test_widths_exist_before_the_optimizer_names_its_slots():

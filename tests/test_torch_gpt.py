@@ -113,11 +113,13 @@ def test_carry_over_refuses_mismatched_names(pair, fault):
 
 @pytest.mark.parametrize("kw", [{"scan_blocks": False, "moe_experts": 2},
                                 {"dropout": 0.1},
-                                {"tp_axis": "model"}, {"zero3_axis": "data"},
+                                {"tp_axis": "model", "pp_axis": "pipe"},
+                                {"zero3_axis": "data"},
                                 {"moe_experts": 2}, {"pp_axis": "pipe"}])
 def test_unported_options_raise(kw):
-    """Tensor parallelism, ZeRO-3, MoE and GPipe stay refused; the
-    sequence axis is ported (tests/test_torch_sp_model.py)."""
+    """ZeRO-3, MoE and GPipe stay refused, beside tensor parallelism too;
+    the sequence and model axes are ported (tests/test_torch_sp_model.py,
+    tests/test_torch_scan_tp.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP|dropout"):
         GPT(**{**KW, **kw}, device="cpu")
     assert GPT(**KW, seq_axis="sp", overlap=True,

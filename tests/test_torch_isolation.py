@@ -224,6 +224,46 @@ def test_devices_and_sequence_parallelism_run_with_jax_and_reference_blocked():
     assert sum(line.startswith("step 0") for line in lines) == 2
 
 
+def test_tensor_parallelism_runs_with_jax_and_reference_blocked():
+    """parallel.tp, the pspec helpers, the tp layers and models and the
+    tp serving decode import and run with JAX and the reference blocked:
+    a scanned tp GPT placed on a (data 1, model 1, sp 1) mesh of a gloo
+    group of one trains a step, and `serve_gpt --tp 1` serves."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import distributed, opt\n"
+        "from singa_tpu_torch.parallel import mesh, tp\n"
+        "from singa_tpu_torch.models.gpt import GPT\n"
+        "from singa_tpu_torch.models.transformer import states_to_tp\n"
+        "from singa_tpu_torch.examples import serve_gpt\n"
+        "distributed.init(device='cpu')\n"
+        "m3 = mesh.get_mesh_3d(1, 1, 1)\n"
+        "g = GPT(vocab_size=16, d_model=32, num_layers=2, num_heads=2,\n"
+        "        max_len=16, dropout=0.0, scan_blocks=True,\n"
+        "        tp_axis='model', device='cpu')\n"
+        "g.set_optimizer(opt.DistOpt(opt.SGD(lr=0.1), mesh=m3))\n"
+        "x = torch.randint(0, 16, (2, 16))\n"
+        "g.compile([x], is_train=True, use_graph=True)\n"
+        "loss = g.train_one_batch(x, x)[1].item()\n"
+        "print(g.decoder.w_qkv.placed[1], loss > 0,\n"
+        "      tp.COUNTS['g', 'model'])\n"
+        "distributed.shutdown()\n"
+        "serve_gpt.main(['--device', 'cpu', '--requests', '2', '--slots',\n"
+        "                '2', '--max-new', '4', '--d-model', '32',\n"
+        "                '--heads', '2', '--tp', '1'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    # 2 blocks x PSUMS_PER_BLOCK all-reduces in compile's forward (run
+    # under the mesh's axes once the model is placed) and in the step's
+    assert lines[0] == "(None, None, 'model') True 8"
+    assert "served 2/2 requests" in out.stdout
+
+
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):
     """The process replica's entry (`python -m
     singa_tpu_torch.serving.router`) builds its model, serves a spool

@@ -98,14 +98,14 @@ def test_scan_stack_under_autocast_keeps_bf16_activations():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=0.1)
 
 
-@pytest.mark.parametrize("kw", [{"tp_axis": "model"},
+@pytest.mark.parametrize("kw", [{"tp_axis": "model", "zero3_axis": "data"},
                                 {"zero3_axis": "data"},
-                                {"tp_axis": "model", "seq_axis": "sp"},
+                                {"zero3_axis": "data", "seq_axis": "sp"},
                                 {"zero3_axis": "data", "overlap": True},
                                 {"remat": "per_block", "zero3_axis": "data"}])
 def test_scan_stack_refuses_what_belongs_to_later_slices(kw):
-    """The remat policies, seq_axis and overlap are ported; tensor
-    parallelism and ZeRO-3 stay refused under any of them."""
+    """The remat policies, seq_axis, overlap and tp_axis are ported;
+    ZeRO-3 stays refused under any of them."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
         layer.ScanTransformerStack(1, 4, d_model=128, device="cpu", **kw)
     stack = layer.ScanTransformerStack(1, 4, d_model=128, device="cpu",

@@ -235,7 +235,9 @@ def test_window_must_divide_into_blocks(model):
         ServingEngine(model, slots=1, block_size=24, window=_W)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"tp_axis": "model"},
+@pytest.mark.parametrize("kw", [{"mesh": object(), "prefill_axis": "data"},
+                                {"tp_axis": "model",
+                                 "prefill_mesh": object()},
                                 {"prefill_mesh": object()},
                                 {"prefill_axis": "data"}])
 def test_mesh_options_raise_naming_the_roadmap(model, kw):
@@ -280,5 +282,5 @@ def test_serve_example_streams_every_request(capsys):
     assert sum(h.request.cached_tokens > 0 for h in handles) == 3
     with pytest.raises(NotImplementedError, match="item 18"):
         serve_gpt.main(["--device", "cpu", "--metrics-port", "0"])
-    with pytest.raises(NotImplementedError, match="items 10"):
-        serve_gpt.main(["--device", "cpu", "--tp", "2"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve_gpt.main(["--device", "cpu", "--tp", "2", "--draft", "tiny"])

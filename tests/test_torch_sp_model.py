@@ -272,7 +272,7 @@ def test_outside_the_axis_the_models_compute_the_dense_function():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(tp_axis="model"), "item 14"),
+    (dict(tp_axis="model", pp_axis="pipe"), "item 14"),
     (dict(moe_experts=4), "item 15"),
     (dict(pp_axis="pipe"), "item 15"),
     (dict(scan_blocks=True, zero3_axis="data"), "item 15"),

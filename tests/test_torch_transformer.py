@@ -312,14 +312,15 @@ def test_bert_presets_have_the_reference_widths(monkeypatch):
              max_len=128, device="cpu")]
 
 
-@pytest.mark.parametrize("kw", [{"tp_axis": "model"},
-                                {"tp_axis": "model", "seq_axis": "sp"},
+@pytest.mark.parametrize("kw", [{"tp_axis": "model", "moe_experts": 4},
+                                {"tp_axis": "model", "moe_axis": "expert"},
                                 {"moe_axis": "expert"},
                                 {"moe_experts": 4, "ring_flash": True},
                                 {"moe_experts": 4}])
 def test_distributed_options_raise_naming_the_roadmap(kw):
-    """Tensor parallelism (item 14) and MoE (item 15) stay refused; the
-    sequence options are ported (tests/test_torch_sp_model.py)."""
+    """MoE (item 15) stays refused, beside tensor parallelism too; the
+    sequence and model axes are ported (tests/test_torch_sp_model.py,
+    tests/test_torch_tp_model.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         tf.Bert(**BERT, **kw, device="cpu")
     assert tf.collect_moe_aux(tf.bert_small(device="cpu")) == []
