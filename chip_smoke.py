@@ -305,13 +305,37 @@ Phases, in the order they run (any failure raises and exits non-zero):
    each. The head-split kernels are held to their plain versions at
    these shapes in phases 3-4 (`sp_*` cases). At world 1 no NCCL
    point-to-point op or all-to-all is issued;
+9j. tensor parallelism over a world-1 NCCL group on `get_mesh_3d(1, 1,
+   1)` (`tp_path`): the scanned and unrolled gpt_medium and BERT-base
+   with `tp_axis`, captured, against their twins without it, with the
+   flash launches by layout; then `serve_gpt --tp 1` against the serve
+   without `--tp`, in turns;
+9k. ZeRO-3 and the MoE FFN over a world-1 NCCL group (`zero3_path`),
+   every step captured: the scanned gpt_medium at 4 x 1024 fp32 with
+   `zero3_axis="data"`, serial (12 launches of each fused kernel a step)
+   and with `overlap=True` (24 forward launches: its backward recomputes
+   each block), each within 1e-6 of the twin without zero3_axis, with
+   peak memory and `gathered_block_bytes` (two blocks overlapped, one
+   serial); with `tp_axis="model"` beside it (12 of each head-split
+   kernel); bench.py's 3-D recipe (tp x zero3 x seq, bf16, AdamW(1e-4),
+   8 x 1024) with overlap and serial back to back, tokens/s each (no
+   flash kernel: at world 1 the seq axis takes the plain ring); the
+   unrolled gpt_medium with 8 experts a block and `moe_axis="expert"` on
+   (data 1, expert 1) within 1e-6 of its dense-formulation twin (12 of
+   each fused kernel); one MoEFFN forward and backward at the step's
+   shapes, through `moe_ffn` and `moe_ffn_dense`, at capacity factors
+   1.25 and 0.5, against `plain_moe` (written apart from parallel/
+   moe.py) within 1e-4 of each tensor's largest entry; then the device
+   ms of the MoE step's families (gate, dispatch and combine, expert
+   products, attention) at its shapes;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
    its capture recorded, which every replay runs again; the ZeRO-1
    step's beside the others; K2a's at Xception's four pool shapes and
-   its 4 launches a step; the sequence-parallel steps' launches and the
-   head-split figures at their shapes), then the result line.
+   its 4 launches a step; the sequence-, tensor-parallel, ZeRO-3 and
+   MoE steps' launches and the head-split figures at their shapes),
+   then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 """
@@ -4909,6 +4933,356 @@ def tp_path(torch, fa, mp, card):
     return launches, out
 
 
+# -- phase 9k: ZeRO-3 on the scanned stack, the 3-D recipe, the MoE FFN ---------
+
+#: the zero3 and tp x zero3 steps: gpt_medium's full width at phase 9j's
+#: batch and T, fp32; each against its twin without zero3_axis (the
+#: zero3 steps within 1e-6 of the loss: the same kernels on the same
+#: values, the weights gathered by one-rank copies; the tp x zero3 step
+#: at phase 9j's TP_TWIN_TOL, its twin being the stack without tp)
+Z3_BATCH, Z3_SEQ, Z3_STEPS, Z3_LR, Z3_TWIN_TOL = 4, 1024, 4, SP_LR, 1e-6
+#: bench.py's 3-D recipe (bench.py:1276-1277, :1690-1718): batch 8 x 1024,
+#: bf16, DistOpt(AdamW(1e-4)); overlap and serial back to back
+RECIPE_BATCH, RECIPE_LR = 8, 1e-4
+#: the MoE GPT: gpt_medium unrolled with 8 experts a block (capacity
+#: factor 1.25, ceil(4096 / 8 * 1.25) = 640 slots an expert), fp32
+MOE_EXPERTS, MOE_TWIN_TOL = 8, 1e-6
+#: MoEFFN against `plain_moe`, fp32 (TF32 off): max |Δ| of the output
+#: and of every gradient over that tensor's largest entry. Both sides
+#: compute the same gate logits with the same product, so they route
+#: alike; one token in a wrong slot, or weighed by a wrong probability,
+#: moves a row by the order of the row itself
+MOE_PLAIN_TOL = 1e-4
+#: the step's capacity factor, then a tight one that drops tokens
+MOE_PLAIN_CFS = (1.25, 0.5)
+
+
+def plain_moe(torch, h, w_gate, w1, b1, w2, b2, cf, act):
+    """Switch top-1 MoE written apart from parallel/moe.py: softmax and
+    argmax, each expert's queue by a cumulative sum of its token mask and
+    the capacity drop, a Python loop over the experts each running its
+    FFN on every token, and a dense masked combine. Returns (y, aux,
+    tokens dropped)."""
+    n, e = h.shape[0], w_gate.shape[1]
+    cap = int(np.ceil(n / e * cf))
+    probs = torch.softmax(h @ w_gate, dim=-1)
+    mask = torch.nn.functional.one_hot(probs.argmax(dim=-1), e).to(h.dtype)
+    kept = mask * (torch.cumsum(mask, dim=0) <= cap).to(h.dtype)
+    gate = (probs * mask).sum(dim=-1)
+    y = torch.zeros_like(h)
+    for i in range(e):
+        out = act(h @ w1[i] + b1[i]) @ w2[i] + b2[i]
+        y = y + (kept[:, i] * gate)[:, None] * out
+    aux = e * (mask.mean(dim=0) * probs.mean(dim=0)).sum()
+    return y, aux, int(n - kept.sum().item())
+
+
+def moe_vs_plain(torch, ffn, mesh):
+    """One MoEFFN forward and backward at the MoE step's shapes (4096
+    tokens of d 1024, the layer's 8 experts), inside the expert axis
+    (`moe_ffn`, the step's path) and outside it (`moe_ffn_dense`, the
+    twin's), at each of MOE_PLAIN_CFS, against `plain_moe` on the same
+    seeded inputs: y, aux and the gradients of sum(y * r) + aux for the
+    tokens and all five weights."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    F = torch.nn.functional
+    acts = {"relu": F.relu, "tanh": torch.tanh,
+            "gelu": lambda a: F.gelu(a, approximate="tanh")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n, d = Z3_BATCH * Z3_SEQ, ffn.w_gate.shape[0]
+    h = torch.randn(n, d, device="cuda", generator=gen)
+    r = torch.randn(n, d, device="cuda", generator=gen)
+    names = ("w_gate", "w1", "b1", "w2", "b2")
+    weights = [getattr(ffn, k).detach() for k in names]
+
+    def fwd_bwd(fn, ws):
+        leaves = [h.clone().requires_grad_(True)] + ws
+        y, aux, *rest = fn(*leaves)
+        grads = torch.autograd.grad((y * r).sum() + aux, leaves)
+        return [y.detach(), aux.detach()] + list(grads), rest
+
+    def layer_fn(ep):
+        def run(hh, *_):  # the weights are the layer's own parameters
+            if not ep:
+                return ffn(hh), ffn.aux
+            with mesh_module.axis_context(ffn.moe_axis, mesh=mesh):
+                return ffn(hh), ffn.aux
+        return run
+
+    out, cf0 = {}, ffn.capacity_factor
+    try:
+        for cf in MOE_PLAIN_CFS:
+            ffn.capacity_factor = cf
+            want, (dropped,) = fwd_bwd(lambda *a: plain_moe(
+                torch, *a, cf, acts[ffn.activation]),
+                [w.clone().requires_grad_(True) for w in weights])
+            for path, ep in (("moe_ffn", True), ("moe_ffn_dense", False)):
+                got, _ = fwd_bwd(layer_fn(ep),
+                                 [getattr(ffn, k) for k in names])
+                errs = {}
+                for k, a, b in zip(("y", "aux", "d_x") + tuple(
+                        f"d_{k}" for k in names), got, want):
+                    errs[k] = float((a - b).abs().max() / b.abs().max()
+                                    .clamp(min=1e-30))
+                worst = max(errs.values())
+                print(f"moe vs plain, {path}, capacity factor {cf} "
+                      f"({dropped} of {n} tokens dropped): max |Δ| / max "
+                      f"|ref| {worst:.3e} (tol {MOE_PLAIN_TOL}) {errs}",
+                      flush=True)
+                check(worst <= MOE_PLAIN_TOL,
+                      f"MoEFFN ({path}, capacity factor {cf}) disagrees "
+                      f"with the plain MoE: {errs}")
+                out[f"{path}_cf{cf}"] = dict(rel_err=errs, dropped=dropped)
+    finally:
+        ffn.capacity_factor = cf0
+    return dict(out, tolerance=MOE_PLAIN_TOL)
+
+
+def moe_families(torch, fa, m, x):
+    """Device ms of one fp32 forward and backward of each family of the
+    MoE step at its shapes (one block's input, taken from `x`), by CUDA
+    events, and that times the blocks: the gate (`route_top1`), dispatch
+    and combine (the index_add and the row gather), the expert products
+    (the batched FFNs at 640 slots an expert) and attention (the fused
+    flash kernels)."""
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.parallel import moe
+
+    blk = m.decoder.blocks[0]
+    ffn = blk.ffn
+    n_blocks = len(m.decoder.blocks)
+    with torch.no_grad():
+        h = m.tok(x).reshape(-1, m.d_model).contiguous()
+    e = ffn.n_experts
+    cap = int(np.ceil(h.shape[0] / e * ffn.capacity_factor))
+    slot, weight, _ = moe.route_top1(h, ffn.w_gate, e, cap)
+    slot, weight = slot.detach(), weight.detach()
+    q = moe._dispatch(h, slot, e * cap).reshape(e, cap, -1).detach()
+    qkv = torch.randn(x.shape[0], x.shape[1], 3 * m.d_model,
+                      device=x.device) * 0.5
+    w = [t.detach().requires_grad_(True) for t in (
+        ffn.w_gate, ffn.w1, ffn.b1, ffn.w2, ffn.b2)]
+
+    def fb(fn, *leaves):
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+
+        def run():
+            out = fn(*leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            torch.autograd.grad(sum(o.float().sum() for o in outs), leaves,
+                                allow_unused=True)
+        return run
+
+    fams = {
+        "gate": fb(lambda a, g: moe.route_top1(a, g, e, cap)[1:], h, w[0]),
+        "dispatch_combine": fb(lambda a, wt: moe._combine(
+            moe._dispatch(a, slot, e * cap), slot, wt), h, weight),
+        "expert_products": fb(lambda a, *ws: moe._experts(
+            a, *ws, autograd.gelu), q, *w[1:]),
+        "attention": fb(lambda a: fa.attention_qkv(a, m.decoder.num_heads,
+                                                   causal=True), qkv),
+    }
+    out = {}
+    for k, fn in fams.items():
+        ms = cuda_ms(torch, fn, iters=10, warmup=2)
+        out[k] = dict(ms_a_block=ms, ms_a_step=ms * n_blocks)
+    return out
+
+
+def zero3_path(torch, fa, mp, card):
+    """ZeRO-3 and the MoE FFN over a world-1 NCCL group, every step
+    captured: the scanned gpt_medium with `zero3_axis="data"` serial and
+    with `overlap=True`, each against its twin without zero3_axis; with
+    `tp_axis="model"` beside it (the head-split kernels); bench.py's 3-D
+    recipe (tp x zero3 x seq, bf16, AdamW) with overlap and serial back
+    to back (at world 1 the seq axis takes the plain ring: no flash
+    kernel); and the unrolled gpt_medium with 8 experts a block and
+    `moe_axis="expert"` on a (data 1, expert 1) mesh against its twin
+    without moe_axis (the dense formulation, the same capacity at world
+    1). Returns each step's launches by layout and the numbers."""
+    from singa_tpu_torch import autograd, distributed, graph, opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp as tp_module
+
+    fused_12 = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    zero = {k: 0 for k in fused_12}
+    flash = dict(NO_LAUNCH, **fused_12)
+    # overlap's backward recomputes each block's forward: 24 forward
+    # launches a step
+    flash_overlap = dict(flash, flash_fwd=24)
+    launches, out = {}, {"card": card}
+    distributed.init(device="cuda")
+    try:
+        mesh = mesh_module.get_mesh_3d(1, 1, 1)
+        ep_mesh = mesh_module.get_mesh((1, 1), ("data", "expert"))
+        check(mesh.shape == {"data": 1, "model": 1, "sp": 1},
+              f"mesh {mesh.shape}")
+
+        def train(make, states, x, y, per_step, layout, what, mesh=mesh,
+                  optimizer=None, precision=None, steps=Z3_STEPS):
+            m = make()
+            m.set_optimizer(opt.DistOpt(
+                optimizer() if optimizer else opt.SGD(lr=Z3_LR,
+                                                      momentum=0.9),
+                mesh=mesh, axis_name="data"))
+            m.compile([x], is_train=True, use_graph=True,
+                      precision=precision)
+            m.set_states(states)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got = {}
+            try:
+                losses, first_s, ms = captured_steps(
+                    torch, fa, mp, m, x, y, per_step, what, steps=steps,
+                    layouts=got)
+            finally:
+                autograd.set_autocast(False)
+            peak = torch.cuda.max_memory_allocated()
+            check(got["first"] == layout and got["capture"] == layout,
+                  f"{what}: flash launches by layout {got}, not {layout} "
+                  f"in the first step and in the capture")
+            check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+            gathered = graph._step_for(m, True)._gathered_block_bytes()
+            params = sum(p.numel() for p in m.parameters())
+            m.graph(False)
+            del m
+            drop_graphs(torch)
+            return dict(losses=losses, first_step_s=first_s, step_ms=ms,
+                        layouts=got, peak_bytes=peak,
+                        gathered_block_bytes=gathered,
+                        params_on_rank=params,
+                        tokens_per_s=x.numel() / (ms / 1e3))
+
+        def held(what, got, twin, tol):
+            gap = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(got["losses"], twin["losses"]))
+            print(f"{what} ({card}): losses {got['losses']} vs the twin "
+                  f"{twin['losses']}: max rel {gap:.3e} (tol {tol}); "
+                  f"{got['step_ms']:.2f} ms a captured step, the twin "
+                  f"{twin['step_ms']:.2f} ms "
+                  f"({100 * (got['step_ms'] / twin['step_ms'] - 1):+.1f}%); "
+                  f"peak {got['peak_bytes'] / 2**30:.2f} GiB (twin "
+                  f"{twin['peak_bytes'] / 2**30:.2f}); gathered block "
+                  f"bytes {got['gathered_block_bytes']}", flush=True)
+            check(gap <= tol, f"{what}: the losses differ from the twin")
+            return dict(got, twin_losses=twin["losses"],
+                        twin_step_ms=twin["step_ms"],
+                        twin_peak_bytes=twin["peak_bytes"],
+                        loss_max_rel=gap, tolerance=tol)
+
+        rng = np.random.default_rng(SEED)
+
+        def gpt(**kw):
+            return lambda: gpt_medium(device="cuda", **kw)
+
+        probe = gpt()()
+        load_singa_tpu_params(probe, seeded_params(probe, SEED))
+        states = {k: v.detach().clone() for k, v in probe.get_states().items()}
+        vocab, heads = probe.vocab_size, probe.decoder.num_heads
+        del probe
+        drop_graphs(torch)
+        tp_states = dict(states)
+        for k in ("decoder.w_qkv", "decoder.b_qkv"):
+            tp_states[k] = tp_module.interleave_qkv_shards(states[k], heads)
+        seq = torch.from_numpy(rng.integers(
+            0, vocab, (Z3_BATCH, Z3_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+
+        # 1. zero3 alone, serial and overlapped, against the twin
+        fused = {"head_split": zero, "fused": fused_12}
+        twin = train(gpt(), states, x, y, flash, fused, "zero3 twin")
+        z3 = train(gpt(zero3_axis="data"), states, x, y, flash, fused,
+                   "zero3")
+        out["zero3"] = held("zero3", z3, twin, Z3_TWIN_TOL)
+        launches["zero3"] = z3["layouts"]["first"]
+        ov = train(gpt(zero3_axis="data", overlap=True), states, x, y,
+                   flash_overlap, {"head_split": zero,
+                                   "fused": dict(fused_12, flash_fwd=24)},
+                   "zero3 overlap")
+        out["zero3_overlap"] = held("zero3 overlap", ov, twin, Z3_TWIN_TOL)
+        launches["zero3_overlap"] = ov["layouts"]["first"]
+        check(ov["gathered_block_bytes"] == 2 * z3["gathered_block_bytes"]
+              > 0, "gathered_block_bytes: not one block serial, two "
+                   "overlapped")
+
+        # 2. tp x zero3: the head-split kernels
+        split = {"head_split": fused_12, "fused": zero}
+        tz = train(gpt(tp_axis="model", zero3_axis="data"), tp_states, x, y,
+                   flash, split, "tp x zero3")
+        out["tp_zero3"] = held("tp x zero3", tz, twin, TP_TWIN_TOL)
+        launches["tp_zero3"] = tz["layouts"]["first"]
+        del seq, x, y
+
+        # 3. bench.py's 3-D recipe, overlap then serial, bf16, AdamW
+        seq = torch.from_numpy(rng.integers(
+            0, vocab, (RECIPE_BATCH, Z3_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+        recipe = {}
+        none = {"head_split": zero, "fused": zero}
+        for key, overlap in (("overlap", True), ("serial", False)):
+            recipe[key] = train(
+                gpt(tp_axis="model", zero3_axis="data", seq_axis="sp",
+                    overlap=overlap), tp_states, x, y, NO_LAUNCH, none,
+                f"3-D recipe {key}",
+                optimizer=lambda: opt.AdamW(lr=RECIPE_LR), precision="bf16")
+            print(f"3-D recipe {key} ({card}): "
+                  f"{recipe[key]['tokens_per_s']:.1f} tokens/s, "
+                  f"{recipe[key]['step_ms']:.2f} ms a captured step, peak "
+                  f"{recipe[key]['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        gap = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+            recipe["overlap"]["losses"], recipe["serial"]["losses"]))
+        check(gap <= TWIN_TOL["bf16"],
+              f"3-D recipe: overlap and serial losses differ by {gap:.3e}")
+        recipe["overlap_vs_serial_loss_max_rel"] = gap
+        out["recipe_3d"] = recipe
+        launches["recipe_3d"] = recipe["overlap"]["layouts"]["first"]
+        del seq, x, y, states, tp_states
+        drop_graphs(torch)
+
+        # 4. the MoE GPT (unrolled, 8 experts a block) against its twin
+        def moe(moe_axis):
+            return lambda: gpt_medium(
+                device="cuda", scan_blocks=False, moe_experts=MOE_EXPERTS,
+                moe_axis=moe_axis)
+
+        probe = moe(None)()
+        mstates = seeded_params(probe, SEED)
+        for k in mstates:  # the expert biases at a bias's scale
+            if k.endswith(("ffn.b1", "ffn.b2")):
+                mstates[k] = 0.02 * mstates[k] / np.float32(
+                    MOE_EXPERTS ** -0.5)
+        n_params = sum(p.numel() for p in probe.parameters())
+        del probe
+        drop_graphs(torch)
+        seq = torch.from_numpy(rng.integers(
+            0, vocab, (Z3_BATCH, Z3_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+        mtwin = train(moe(None), mstates, x, y, flash, fused, "moe twin",
+                      mesh=ep_mesh)
+        mo = train(moe("expert"), mstates, x, y, flash, fused, "moe",
+                   mesh=ep_mesh)
+        out["moe"] = held("moe", mo, mtwin, MOE_TWIN_TOL)
+        out["moe"]["n_params"] = n_params
+        launches["moe"] = mo["layouts"]["first"]
+        m = moe("expert")()
+        load_singa_tpu_params(m, mstates)
+        out["moe"]["vs_plain"] = moe_vs_plain(
+            torch, m.decoder.blocks[0].ffn, ep_mesh)
+        out["moe"]["families"] = moe_families(torch, fa, m, x)
+        print(f"moe families ({card}): " + json.dumps(
+            out["moe"]["families"]), flush=True)
+        del m, seq, x, y, mstates
+        drop_graphs(torch)
+    finally:
+        autograd.set_autocast(False)
+        distributed.shutdown()
+        drop_graphs(torch)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -5182,6 +5556,14 @@ def main() -> int:
     print(f"tp: {time.perf_counter() - t:.1f} s ({card}); each phase's "
           f"counted step's launches by layout {tp_launches}", flush=True)
 
+    # 9k. ZeRO-3 (serial, overlapped, beside tp), bench.py's 3-D recipe
+    # and the MoE GPT over a world-1 NCCL group
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    z3_launches, z3_out = zero3_path(torch, fa, mp, card)
+    print(f"zero3: {time.perf_counter() - t:.1f} s ({card}); each phase's "
+          f"counted step's launches by layout {z3_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -5241,6 +5623,10 @@ def main() -> int:
                 "sp_scan_step": sp_launches["scan"][name],
                 **{f"tp_{k}_step_{layout}": tp_launches[k][layout][name]
                    for k in ("scan", "unrolled", "bert")
+                   for layout in ("head_split", "fused")},
+                **{f"{k}_step_{layout}": z3_launches[k][layout][name]
+                   for k in ("zero3", "zero3_overlap", "tp_zero3",
+                             "recipe_3d", "moe")
                    for layout in ("head_split", "fused")}}
 
     def sass_of(kernel):
@@ -5351,6 +5737,7 @@ def main() -> int:
     print("devices " + json.dumps(devices_out), flush=True)
     print("sp " + json.dumps(sp_out), flush=True)
     print("tp " + json.dumps(tp_out), flush=True)
+    print("zero3 " + json.dumps(z3_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

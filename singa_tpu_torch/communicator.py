@@ -32,10 +32,18 @@ optimizer's slots exist only for that shard) and all-gathers it back;
 `overlap` runs one pair a `plan_buckets` bucket. `grad_axes` names
 the mesh axes every gradient reduces over: in each mode a gradient is
 first averaged over the live ones other than the data axis (a
-sequence-parallel model's distributed step adds its seq axis), in fused
-buckets, then synced over the data axis as above; the expert axis is
-ROADMAP queue 1 item 15. `set_sentinel` is item 17 (so are the
+sequence-parallel model's distributed step adds its seq axis, an
+expert-parallel one its expert axis), in fused buckets, then synced
+over the data axis as above. The sync is pspec-aware
+(`_grad_axes_for`): a parameter sharded over a grad axis (a ZeRO-3
+stack over the data axis, an expert shard over the expert axis) skips
+that axis and is divided by its size, and one set of fused buckets is
+made for each distinct axis set. `set_sentinel` is item 17 (so are the
 reference ZeRO-1 step's sentinel branches).
+
+`all_gather_tiled` is ZeRO-3's per-block weight gather (its backward a
+reduce-scatter); `pspec_axis_names` gives the axes a parameter is
+sharded over.
 
 `psum_over`, `pmean_over` and `broadcast_from` are the reference's
 functional collectives over mesh axis names (the live axes of
@@ -59,7 +67,8 @@ from singa_tpu_torch import autograd
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["Communicator", "DistOpt", "plan_buckets", "pmean_over",
-           "psum_over", "broadcast_from"]
+           "psum_over", "broadcast_from", "all_gather_tiled",
+           "pspec_axis_names"]
 
 
 class _GroupMean(torch.autograd.Function):
@@ -104,23 +113,29 @@ def _live_axes(axes) -> Tuple[str, ...]:
     return tuple(a for a in axes if mesh_module.axis_size(a) > 1)
 
 
-def _reduce_axes(x: torch.Tensor, axes, mean: bool) -> torch.Tensor:
-    for ax in axes:
+def _reduce_groups(x: torch.Tensor, groups, mean: bool) -> torch.Tensor:
+    for group, size in groups:
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=mesh_module.axis_group(ax))
-        x = y / mesh_module.axis_size(ax) if mean else y
+        dist.all_reduce(y, group=group)
+        x = y / size if mean else y
     return x
 
 
 class _AxesReduce(torch.autograd.Function):
+    """The reduction over the axes' groups, resolved in the forward (the
+    backward may run on the autograd engine's thread, where no axis is
+    live)."""
+
     @staticmethod
     def forward(ctx, x, axes, mean):
-        ctx.axes, ctx.mean = axes, mean
-        return _reduce_axes(x, axes, mean)
+        ctx.groups = [(mesh_module.axis_group(ax), mesh_module.axis_size(ax))
+                      for ax in axes]
+        ctx.mean = mean
+        return _reduce_groups(x, ctx.groups, mean)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_axes(g, ctx.axes, ctx.mean), None, None
+        return _reduce_groups(g, ctx.groups, ctx.mean), None, None
 
 
 def psum_over(x: torch.Tensor, axes) -> torch.Tensor:
@@ -143,17 +158,17 @@ class _BroadcastFrom(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis, root):
-        ctx.axis, ctx.root = axis, root
-        mine = mesh_module.axis_index(axis) == root
-        y = (x if mine else torch.zeros_like(x)).contiguous().clone()
-        dist.all_reduce(y, group=mesh_module.axis_group(axis))
+        ctx.group = mesh_module.axis_group(axis)
+        ctx.mine = mesh_module.axis_index(axis) == root
+        y = (x if ctx.mine else torch.zeros_like(x)).contiguous().clone()
+        dist.all_reduce(y, group=ctx.group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         y = g.contiguous().clone()
-        dist.all_reduce(y, group=mesh_module.axis_group(ctx.axis))
-        if mesh_module.axis_index(ctx.axis) != ctx.root:
+        dist.all_reduce(y, group=ctx.group)
+        if not ctx.mine:
             y = torch.zeros_like(y)
         return y, None, None
 
@@ -165,6 +180,85 @@ def broadcast_from(x: torch.Tensor, axis_name: str, root: int = 0
     if mesh_module.axis_size(axis_name) == 1:
         return x
     return _BroadcastFrom.apply(x, axis_name, int(root))
+
+
+class _GatherTiled(torch.autograd.Function):
+    """The tiled all-gather along `dim` over an axis group; its backward
+    reduce-scatters (sums) the cotangent back to this rank's shard."""
+
+    @staticmethod
+    def forward(ctx, x, group, world, dim):
+        ctx.cfg = (group, world, dim)
+        return _gather_dim(x, group, world, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, world, dim = ctx.cfg
+        return _scatter_dim(g, group, world, dim), None, None, None
+
+
+def _gather_dim(x: torch.Tensor, group, world: int, dim: int,
+                async_op: bool = False):
+    """The shards of the group joined along `dim`: gathered into a
+    leading world dim (the backends gather along dim 0), then moved.
+    With `async_op` returns (work, finish), `finish()` giving the
+    result once the work is waited on."""
+    y = x.contiguous()
+    flat = y.new_empty((world * y.shape[0], *y.shape[1:]))
+    work = _all_gather_into_tensor(flat, y, group=group, async_op=async_op)
+
+    def finish():
+        out = flat.view(world, *y.shape)
+        return out.movedim(0, dim).reshape(
+            *y.shape[:dim], world * y.shape[dim], *y.shape[dim + 1:])
+
+    return (work, finish) if async_op else finish()
+
+
+def _scatter_dim(g: torch.Tensor, group, world: int,
+                 dim: int) -> torch.Tensor:
+    """This rank's chunk along `dim` of the sum of `g` over the group."""
+    shape = list(g.shape)
+    n = shape[dim] // world
+    send = g.reshape(*shape[:dim], world, n, *shape[dim + 1:]).movedim(
+        dim, 0).contiguous()
+    out = send.new_empty(send.shape[1:])
+    _reduce_scatter_tensor(
+        out, send.view(world * out.shape[0], *out.shape[1:]), group=group)
+    return out
+
+
+def all_gather_tiled(x: torch.Tensor, axis_name: str,
+                     dim: int = 0) -> torch.Tensor:
+    """The tiled all-gather of `x` along `dim` over a live mesh axis
+    (reference :73-78): the ZeRO-3 per-block weight gather of
+    `layer.ScanTransformerStack`. Differentiable: its backward is the
+    tiled reduce-scatter (sum) of the cotangent back to the shard.
+    Outside the axis, or on an axis of one rank with no group, the
+    identity."""
+    if not mesh_module.in_axis(axis_name):
+        return x
+    group = mesh_module.axis_group(axis_name)
+    if group is None:
+        return x
+    return _GatherTiled.apply(x, group, mesh_module.axis_size(axis_name),
+                              dim)
+
+
+def pspec_axis_names(p) -> frozenset:
+    """The mesh axes a parameter's pspec shards over (empty for a
+    replicated one; reference :118-137). The pspec-aware reductions
+    read it: a gradient of a parameter sharded over an axis is already
+    that axis's sum (the gather's or the all-to-all's backward), so it
+    skips that axis's reduction, and its square sum enters a global
+    norm only after a sum over it."""
+    names = set()
+    for entry in getattr(p, "pspec", None) or ():
+        if isinstance(entry, (tuple, list)):
+            names.update(a for a in entry if a)
+        elif entry is not None:
+            names.add(entry)
+    return frozenset(names)
 
 
 class Communicator:
@@ -492,10 +586,6 @@ class DistOpt:
                 "(shard_states=True); for plain DP use "
                 "dist_option='half' instead")
         grad_axes = tuple(grad_axes) if grad_axes else (axis_name,)
-        if mesh_module.EXPERT_AXIS in grad_axes:
-            raise NotImplementedError(
-                f"DistOpt(grad_axes={grad_axes}): the expert axis comes "
-                f"with the Switch MoE FFN (ROADMAP queue 1 item 15)")
         self.opt = opt
         self.comm = Communicator(mesh, axis_name)
         #: the mesh axes each gradient reduces over: the data axis (the
@@ -908,24 +998,70 @@ class DistOpt:
         else:
             self.opt.apply_updates(list(pairs))
 
-    def _synced_grad_pairs(self, loss: torch.Tensor):
-        """`grad_pairs` with the extra-axis pre-reduction (reference
-        :996-1026): under sequence parallelism every gradient is first
-        averaged over the live grad axes other than the data axis (each
-        seq shard saw other tokens), in fused buckets of `buffSize`, so
-        it is the same on every shard of those axes; the per-mode
-        data-axis sync then runs as in plain data parallelism."""
-        pairs = list(autograd.grad_pairs(loss))
-        extra = [ax for ax in self.grad_axes
-                 if ax != self.comm.axis_name and mesh_module.in_axis(ax)
-                 and mesh_module.axis_size(ax) > 1]
-        if not extra or not pairs:
-            return pairs
-        grads = [g for _, g in pairs]
-        for ax in extra:
-            grads = Communicator(self.comm.mesh, ax).fused_all_reduce(
-                grads, average=True, bucket_elems=self.buffSize)
+    def _grad_axes_for(self, p) -> Tuple[Tuple[str, ...], float]:
+        """The grad axes `p`'s gradient reduces over, and the divisor it
+        owes for the axes it skips (reference :977-995). The data axis
+        counts whenever the group is; another grad axis while it is live
+        with more than one rank. A parameter sharded over one of them (a
+        ZeRO-3 stack over the data axis, an expert shard over the expert
+        axis) skips it: its gradient is already the sum over that axis
+        (the gather's or the all-to-all's backward), so it is divided by
+        the axis size instead, and every update stays the gradient of
+        the global mean loss."""
+        active = tuple(
+            ax for ax in self.grad_axes if ax == self.comm.axis_name or (
+                mesh_module.in_axis(ax) and mesh_module.axis_size(ax) > 1))
+        skip = pspec_axis_names(p) & set(active)
+        if not skip or self.comm.mesh is None:
+            return active, 1.0
+        scale = 1.0
+        for ax in sorted(skip):
+            scale *= float(self.comm.mesh.axis_size(ax))
+        return tuple(ax for ax in active if ax not in skip), scale
+
+    def _skips_data(self, p) -> bool:
+        """Whether `p` is sharded over the data axis (a ZeRO-3 stack): its
+        gradient takes no data-axis sync."""
+        return self.comm.axis_name in pspec_axis_names(p)
+
+    def _presync(self, pairs, bucket_elems: int, data: bool):
+        """Each gradient divided by the sizes of the axes it skips, then
+        averaged over its other grad axes, the axes other than the data
+        axis first and the data axis last (only with `data`): one set of
+        fused buckets of `bucket_elems` an axis for each distinct axis
+        set (reference :1028-1063)."""
+        groups: Dict[Tuple[str, ...], List[int]] = {}
+        grads = []
+        for i, (p, g) in enumerate(pairs):
+            axes, scale = self._grad_axes_for(p)
+            data_last = tuple(a for a in axes if a != self.comm.axis_name)
+            if data and self.comm.axis_name in axes:
+                data_last += (self.comm.axis_name,)
+            groups.setdefault(data_last, []).append(i)
+            grads.append(g if scale == 1.0 else g / scale)
+        for axes, idxs in groups.items():
+            part = [grads[i] for i in idxs]
+            for ax in axes:
+                comm = (self.comm if ax == self.comm.axis_name
+                        else Communicator(self.comm.mesh, ax))
+                part = comm.fused_all_reduce(part, average=True,
+                                             bucket_elems=bucket_elems)
+            for i, g in zip(idxs, part):
+                grads[i] = g
         return [(p, g) for (p, _), g in zip(pairs, grads)]
+
+    def _synced_grad_pairs(self, loss: torch.Tensor):
+        """`grad_pairs` with the pre-reduction over the grad axes other
+        than the data axis (reference :996-1026, pspec-aware): under
+        sequence or expert parallelism each gradient is averaged over
+        the live extra axes it is not sharded over (each shard saw other
+        tokens), so it is the same on every shard of those axes; a
+        gradient sharded over an axis is divided by its size instead.
+        The per-mode data-axis sync then runs as in plain data
+        parallelism (a ZeRO-3 stack's gradients skip it,
+        `_skips_data`)."""
+        return self._presync(list(autograd.grad_pairs(loss)),
+                             self.buffSize, data=False)
 
     # -- the reference's API ---------------------------------------------------
     def __call__(self, loss: torch.Tensor):
@@ -938,11 +1074,9 @@ class DistOpt:
         shard_states the ZeRO-1 step instead."""
         if self.shard_states:
             return self._backward_and_zero1_update(loss)
-        pairs = self._synced_grad_pairs(loss)
-        synced = self.comm.fused_all_reduce(
-            [g for _, g in pairs], average=True,
-            bucket_elems=threshold or self.buffSize)
-        self._stream_or_clip((p, g) for (p, _), g in zip(pairs, synced))
+        self._stream_or_clip(self._presync(
+            list(autograd.grad_pairs(loss)), threshold or self.buffSize,
+            data=True))
 
     def _backward_and_zero1_update(self, loss: torch.Tensor) -> None:
         """The ZeRO-1 step (reference :1065-1287, without its sentinel
@@ -1036,8 +1170,9 @@ class DistOpt:
         :1303)."""
         if self.shard_states:
             raise RuntimeError(_DENSE_ONLY)
-        self._stream_or_clip((p, self.comm.all_reduce_half(g))
-                             for p, g in self._synced_grad_pairs(loss))
+        self._stream_or_clip(
+            (p, g if self._skips_data(p) else self.comm.all_reduce_half(g))
+            for p, g in self._synced_grad_pairs(loss))
 
     def backward_and_sparse_update(self, loss: torch.Tensor,
                                    spars: float = 0.05, topK: bool = True,
@@ -1062,6 +1197,9 @@ class DistOpt:
                         "step needs DistOpt(..., use_sparse=True), so the "
                         "residuals exist before the capture; or pass "
                         "corr=False")
+                if self._skips_data(p):  # summed over the data axis
+                    yield p, g
+                    continue
                 if res is not None:
                     g = g + res
                 dense, local, n_drop = self.comm.sparse_all_reduce(
@@ -1097,5 +1235,6 @@ class DistOpt:
         with torch.no_grad():
             for i, (p, g) in enumerate(self._synced_grad_pairs(loss)):
                 self.opt.update(p, self.comm.all_reduce(g)
-                                if i % w == idx % w else g)
+                                if i % w == idx % w
+                                and not self._skips_data(p) else g)
         self.opt.step()

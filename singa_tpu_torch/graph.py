@@ -106,7 +106,8 @@ from singa_tpu_torch.ops import flash_attention as fa
 from singa_tpu_torch.ops import max_pool
 
 __all__ = ["GraphStep", "CAPTURE_LOCK", "private_stream", "plan_from_ops",
-           "step_memory_analysis", "tape_memory_plan"]
+           "step_memory_analysis", "tape_memory_plan",
+           "check_param_shard_divisibility", "check_sharded_layers"]
 
 _log = logging.getLogger("singa_tpu_torch.graph")
 
@@ -474,10 +475,16 @@ class GraphStep:
         - `output_bytes`: the step's outputs and the state it writes;
         - `peak_bytes`: argument + output - alias + temp, the reference's
           formula;
-        - `parameter_bytes`, `attention_bytes` and `gathered_block_bytes`:
-          the reference's analytic terms at world 1 (every parameter;
-          fp32 scores (B, heads, T, T) per live block of each
-          `ScanTransformerStack`, one block under `per_block`; 0)."""
+        - `parameter_bytes`: the parameters this rank holds (a placed
+          tensor's block: the sharded resting footprint);
+        - `attention_bytes`: the reference's analytic term at world 1
+          (fp32 scores (B, heads, T, T) per live block of each
+          `ScanTransformerStack`, one block under `per_block`);
+        - `gathered_block_bytes`: the analytic ZeRO-3 working set on top
+          of `parameter_bytes` (reference `_per_shard_gathered_bytes`,
+          :970-1010): one block of per-tp-shard weights of each stack
+          whose zero3 axis is on the training step's mesh, two under
+          `overlap` (the double buffer); 0 without one."""
         args, _, tensors, _ = self._split_args(args, kwargs)
         model = self.model
         opt = model.optimizer if self.train_step else None
@@ -538,8 +545,35 @@ class GraphStep:
                              - res["alias_bytes"] + res["temp_bytes"])
         res["parameter_bytes"] = sum(_nbytes(p) for p in params)
         res["attention_bytes"] = self._attention_bytes(tensors)
-        res["gathered_block_bytes"] = 0
+        res["gathered_block_bytes"] = self._gathered_block_bytes()
         return res
+
+    def _gathered_block_bytes(self) -> int:
+        from singa_tpu_torch.communicator import pspec_axis_names
+
+        opt = self.model.optimizer if self.train_step else None
+        mesh = getattr(getattr(opt, "comm", None), "mesh", None)
+        if mesh is None:
+            return 0
+        total = 0
+        for st in self.model.modules():
+            if not isinstance(st, layer_module.ScanTransformerStack) or (
+                    st.zero3_axis not in mesh.axis_names):
+                continue
+            tp_world = (mesh.axis_size(st.tp_axis)
+                        if st.tp_axis in mesh.axis_names else 1)
+            block = 0
+            for name in st.STACKED:
+                t = getattr(st, name)
+                full = getattr(t, "placed", None)
+                full = full[0] if full else tuple(t.shape)
+                per_block = math.prod(full[1:]) * t.element_size()
+                if st.tp_axis is not None and (
+                        st.tp_axis in pspec_axis_names(t)):
+                    per_block //= tp_world  # this rank's tp block
+                block += per_block
+            total += (2 if st.overlap else 1) * block
+        return total
 
     def _attention_bytes(self, tensors) -> int:
         """The reference's analytic dense-equivalent attention scores at
@@ -558,12 +592,86 @@ class GraphStep:
         return total
 
 
+def check_param_shard_divisibility(named_params, mesh) -> None:
+    """Every pspec'd dim of a parameter must divide evenly over the
+    product of its entry's axes on `mesh` (reference :314-340): raises
+    naming the parameter, before it is placed."""
+    for n, t in named_params.items():
+        full = getattr(t, "placed", None)
+        full = full[0] if full else tuple(t.shape)
+        for i, entry in enumerate(getattr(t, "pspec", None) or ()):
+            axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+            named = [ax for ax in axes if ax and ax in mesh.axis_names]
+            world = math.prod(mesh.axis_size(ax) for ax in named)
+            if world > 1 and full[i] % world:
+                desc = "x".join(f"'{ax}'" for ax in named)
+                raise ValueError(
+                    f"parameter {n!r}: dim {i} (size {full[i]}) does not "
+                    f"divide evenly over the {desc} mesh ax"
+                    f"{'es' if len(named) > 1 else 'is'} (size {world}); "
+                    f"pick the model dims as multiples of the axis size")
+
+
+def check_sharded_layers(model, mesh, model_moe_axis, ep_world: int
+                         ) -> None:
+    """The layer <-> model couplings of a distributed step (reference
+    `_check_moe_layers`, :342-430), checked before it runs: a scanned
+    stack's heads must divide over its tp axis (tp splits whole heads);
+    a stack's `seq_axis` must be the model's (else the ring would run
+    over replicated tokens); a `MoEFFN(moe_axis=)` needs the model to
+    declare the same `moe_axis` (else the batch is replicated over the
+    axis and expert gradients come out ep-fold), and its experts must
+    divide over the axis."""
+    for lyr in model.modules():
+        if isinstance(lyr, layer_module.ScanTransformerStack):
+            tp_ax = lyr.tp_axis
+            if tp_ax in mesh.axis_names and (
+                    lyr.num_heads % mesh.axis_size(tp_ax)):
+                raise ValueError(
+                    f"ScanTransformerStack(num_heads={lyr.num_heads}) does "
+                    f"not divide evenly over the '{tp_ax}' mesh axis (size "
+                    f"{mesh.axis_size(tp_ax)}); head-parallel TP shards "
+                    f"whole heads")
+            sq_ax = lyr.seq_axis
+            model_sq = getattr(model, "seq_axis", None)
+            if sq_ax in mesh.axis_names and sq_ax != model_sq:
+                raise ValueError(
+                    f"ScanTransformerStack(seq_axis={sq_ax!r}) inside a "
+                    f"model whose seq_axis is {model_sq!r}: ring attention "
+                    f"needs the MODEL to declare the axis (self.seq_axis = "
+                    f"{sq_ax!r}) so the token arguments shard over it")
+        elif isinstance(lyr, layer_module.MoEFFN):
+            ax = lyr.moe_axis
+            if ax is None or ax not in mesh.axis_names:
+                continue
+            if ax != model_moe_axis:
+                raise ValueError(
+                    f"layer.MoEFFN(moe_axis={ax!r}) inside a model whose "
+                    f"moe_axis is {model_moe_axis!r}: expert parallelism "
+                    f"needs the MODEL to declare the axis (self.moe_axis = "
+                    f"{ax!r}) so the batch shards over (data, {ax}) and "
+                    f"expert grads skip the {ax}-axis reduction; without it "
+                    f"expert gradients come out {mesh.axis_size(ax)}x too "
+                    f"large")
+            if lyr.n_experts % ep_world:
+                raise ValueError(
+                    f"layer.MoEFFN(n_experts={lyr.n_experts}) does not "
+                    f"divide evenly over the '{ax}' mesh axis (size "
+                    f"{ep_world}); pick n_experts as a multiple of the axis "
+                    f"size")
+
+
 def _step_for(model, train: bool) -> GraphStep:
     """A fresh GraphStep over the model's training step (or forward)."""
     method = model.forward
     if train:
-        method = getattr(model, "_user_train_one_batch", None) or (
-            type(model).train_one_batch.__get__(model))
+        if getattr(model, "_user_train_one_batch", None) is None:
+            method = type(model).train_one_batch.__get__(model)
+        else:
+            def method(*args, **kwargs):
+                # a DistOpt model's distributed step on this rank's share
+                step, args = model._train_route(args)
+                return step(*args, **kwargs)
     return GraphStep(model, method, train_step=train)
 
 

@@ -87,7 +87,7 @@ __all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Dropout", "Gelu",
            "Sequential", "Cat", "Add", "RNN", "LSTM", "GRU", "CudnnRNN",
            "paged_kv_gather", "paged_kv_token_write",
            "paged_kv_window_write", "paged_kv_pages_write",
-           "mutation_stamp"]
+           "mutation_stamp", "MoEFFN"]
 
 
 def _fill(t: torch.Tensor, gen, init: str, a: float = 0.0) -> torch.Tensor:
@@ -390,11 +390,45 @@ class ScanTransformerStack(Layer):
     `seq_axis` when that distinct axis is live), "g" after the out
     projection, "f" and "g" around the FFN: `tp.PSUMS_PER_BLOCK`
     all-reduces on the model axis a block. Outside the axis the same
-    body runs dense. `zero3_axis` is ROADMAP queue 1 item 15."""
+    body runs dense.
+
+    With `zero3_axis` (reference :1008-1025, :1186-1256, :1391-1425),
+    ZeRO-3 over that axis (the data axis, as a rule): each stacked
+    weight keeps 1/world of one non-block dim on a rank (dim 1 without
+    tp; with tp on a distinct axis the dim the tp split does not claim,
+    the tp-split biases jointly (tp, zero3)), and each block's shards
+    are all-gathered (`communicator.all_gather_tiled`) inside the
+    remat-wrapped block, so one block's full (per-tp-shard) weights are
+    live at once and `remat="per_block"` re-gathers in the backward;
+    the gather's backward reduce-scatters each gradient back to the
+    shard, and DistOpt's pspec-aware sync skips the data axis for them.
+    `overlap=True` adds the double-buffered prefetch (reference
+    :1045-1062, :1427-1510): block k+1's gather is issued
+    (`async_op=True`) before block k's products and waited on before
+    block k+1; a prologue gather fills block 0's buffer, and the last
+    block re-gathers block 0 and drops it, so each block issues the same
+    gathers. Each block is then a `torch.autograd.Function` that saves
+    its input and its shards only: its backward re-gathers the shards,
+    recomputes the block and reduce-scatters the weight gradients (the
+    ZeRO-3 recipe under every remat policy; the prefetched buffer is
+    never saved). `overlap` without a live zero3 or seq axis changes
+    nothing."""
 
     #: the stacked parameter names, in the reference's order
     STACKED = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o",
                "ln2_s", "ln2_o", "w1", "b1", "w2", "b2")
+
+    #: each sharding-axis kwarg's role (of `mesh.COMPATIBLE_ROLE_PAIRS`'s
+    #: vocabulary) and the scheme it implements (the distinct-axes
+    #: refusal names what would collide)
+    _AXIS_ROLES = {
+        "tp_axis": ("tp", "Megatron weight columns/rows (replicated "
+                          "tokens)"),
+        "zero3_axis": ("zero3", "ZeRO-3 weight/slot shards gathered per "
+                                "block"),
+        "seq_axis": ("seq", "ring-attention token shards rotated per "
+                            "block"),
+    }
 
     def __init__(self, n_blocks: int, num_heads: int, ffn_mult: int = 4,
                  causal: bool = False, remat: str = "none",
@@ -403,20 +437,26 @@ class ScanTransformerStack(Layer):
                  seq_axis: Optional[str] = None, overlap: bool = False,
                  *, d_model: Optional[int] = None, device=None,
                  generator: Optional[torch.Generator] = None):
-        if zero3_axis is not None:
-            raise NotImplementedError(
-                "ScanTransformerStack(zero3_axis=) is ZeRO-3's sharded stack "
-                "(ROADMAP queue 1 item 15)")
-        if tp_axis is not None and tp_axis == seq_axis:
-            raise ValueError(
-                f"ScanTransformerStack needs tp_axis and seq_axis on "
-                f"DISTINCT mesh axes (both got {tp_axis!r}): tp_axis "
-                f"carries the Megatron weight shards while seq_axis carries "
-                f"the ring's token shards, and a single axis cannot serve "
-                f"both — its collectives would mix DIFFERENT shards. Build "
-                f"the mesh with one axis per scheme, e.g. "
-                f"parallel.mesh.get_mesh_3d(dp, tp, sp, ('data', 'model', "
-                f"'sp'))")
+        named = [(k, v) for k, v in (("tp_axis", tp_axis),
+                                     ("zero3_axis", zero3_axis),
+                                     ("seq_axis", seq_axis))
+                 if v is not None]
+        for i in range(len(named)):
+            for j in range(i + 1, len(named)):
+                (ki, ax), (kj, axj) = named[i], named[j]
+                ri, si = self._AXIS_ROLES[ki]
+                rj, sj = self._AXIS_ROLES[kj]
+                if ax == axj and frozenset(
+                        {ri, rj}) not in mesh_module.COMPATIBLE_ROLE_PAIRS:
+                    raise ValueError(
+                        f"ScanTransformerStack needs {ki} and {kj} on "
+                        f"DISTINCT mesh axes (both got {ax!r}): {ki} "
+                        f"carries {si} while {kj} carries {sj}, and a "
+                        f"single axis cannot serve both — its collectives "
+                        f"would mix DIFFERENT shards. Build the mesh with "
+                        f"one axis per scheme, e.g. parallel.mesh."
+                        f"get_mesh_3d(dp, tp, sp, ('data', 'model', "
+                        f"'sp'))")
         if remat not in autograd.REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat policy {remat!r}; pick one of "
@@ -428,9 +468,14 @@ class ScanTransformerStack(Layer):
         self.n_blocks, self.num_heads = n_blocks, num_heads
         self.ffn_mult, self.causal, self.remat = ffn_mult, causal, remat
         self.seq_axis, self.tp_axis = seq_axis, tp_axis
-        #: communication-compute overlap: the pipelined ring (a no-op
-        #: without a live seq_axis)
+        self.zero3_axis = zero3_axis
+        #: communication-compute overlap: the double-buffered ZeRO-3
+        #: prefetch and the pipelined ring (a no-op without a live
+        #: zero3_axis or seq_axis)
         self.overlap = bool(overlap)
+        #: each stacked weight's per-block gather dim under zero3 (0
+        #: unless set by _make)
+        self._z3_gather_axes: Dict[str, int] = {}
         for n in self.STACKED:
             setattr(self, n, self._lazy_param())
         self._settle(d_model)
@@ -455,19 +500,33 @@ class ScanTransformerStack(Layer):
                 ("w2", (L, ff, d), "uniform", xavier),
                 ("b2", (L, d), "zeros", 0.0)):
             self._materialize(getattr(self, name), shape, init, a)
-        if self.tp_axis is not None:
-            ax = self.tp_axis
+        ax, z3 = self.tp_axis, self.zero3_axis
+        if ax is not None:
             with torch.no_grad():
                 for name in ("w_qkv", "b_qkv"):
                     t = getattr(self, name)
                     t.copy_(tp_module.interleave_qkv_shards(
                         t.clone(), self.num_heads))
-            for name, spec in (("w_qkv", (None, None, ax)),
-                               ("b_qkv", (None, ax)),
-                               ("w_o", (None, ax, None)),
-                               ("w1", (None, None, ax)), ("b1", (None, ax)),
-                               ("w2", (None, ax, None))):
+            # zero3 on a distinct axis shards the dim the tp split does
+            # not claim, so the per-block gather reassembles this rank's
+            # tp block; the tp-split biases shard jointly, tp major
+            joint = mesh_module.axis_entry(ax, z3)
+            for name, spec in (("w_qkv", (None, z3, ax)),
+                               ("b_qkv", (None, joint)),
+                               ("w_o", (None, ax, z3)),
+                               ("w1", (None, z3, ax)), ("b1", (None, joint)),
+                               ("w2", (None, ax, z3))):
                 getattr(self, name).pspec = spec
+            if z3 is not None:
+                for name in ("b_o", "b2", "ln1_s", "ln1_o", "ln2_s",
+                             "ln2_o"):
+                    getattr(self, name).pspec = (None, z3)
+                # row-split weights gather their output dim
+                self._z3_gather_axes = {"w_o": 1, "w2": 1}
+        elif z3 is not None:
+            for name in self.STACKED:
+                t = getattr(self, name)
+                t.pspec = (None, z3) + (None,) * (t.dim() - 2)
 
     def declared_schedule(self, mesh) -> Dict:
         """The per-block forward collective schedule this stack declares
@@ -482,6 +541,10 @@ class ScanTransformerStack(Layer):
         shape = mesh.shape
         if self.tp_axis is not None and self.tp_axis in shape:
             per_block[("psum", self.tp_axis)] = tp_module.PSUMS_PER_BLOCK
+        if self.zero3_axis is not None and self.zero3_axis in shape:
+            # one gather a stacked weight, the same under overlap (the
+            # last block re-gathers block 0; the prologue is outside)
+            per_block[("all_gather", self.zero3_axis)] = len(self.STACKED)
         if self.seq_axis is not None and self.seq_axis in shape:
             per_block[("ppermute", self.seq_axis)] = (
                 ring.KV_TENSORS_PER_HOP
@@ -538,18 +601,201 @@ class ScanTransformerStack(Layer):
         return autograd._layer_norm(h + autograd.linear(f, w2, b2), l2s,
                                     l2o)
 
+    def _body(self, h: torch.Tensor, *params) -> torch.Tensor:
+        return (self._block if self.tp_axis is None else self._tp_block)(
+            h, *params)
+
+    def _gather_block(self, shards, async_op: bool = False):
+        """One block's shards gathered over the zero3 axis, each along its
+        per-block gather dim: differentiable (`all_gather_tiled`), or,
+        with `async_op` (the overlapped forward's prefetch), detached and
+        issued at once, returning a function that waits and gives the
+        gathered tuple."""
+        dims = [self._z3_gather_axes.get(n, 0) for n in self.STACKED]
+        if not async_op:
+            from singa_tpu_torch.communicator import all_gather_tiled
+
+            return tuple(all_gather_tiled(t, self.zero3_axis, d)
+                         for t, d in zip(shards, dims))
+        from singa_tpu_torch.communicator import _gather_dim
+
+        group = mesh_module.axis_group(self.zero3_axis)
+        world = mesh_module.axis_size(self.zero3_axis)
+        if group is None:
+            got = tuple(t.detach() for t in shards)
+            return lambda: got
+        pending = [_gather_dim(t.detach(), group, world, d, async_op=True)
+                   for t, d in zip(shards, dims)]
+
+        def finish():
+            for work, _ in pending:
+                work.wait()
+            return tuple(f() for _, f in pending)
+
+        return finish
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._ready(x)
-        block = autograd.remat_wrap(
-            self._block if self.tp_axis is None else self._tp_block,
-            self.remat)
         # one unbind per stacked weight: its backward stacks the blocks'
         # gradients in one write, where indexing w[i] per block would
         # zero-fill and sum a full (L, ...) gradient for every block
-        for params in zip(*(getattr(self, n).unbind(0)
-                            for n in self.STACKED)):
+        blocks = list(zip(*(getattr(self, n).unbind(0)
+                            for n in self.STACKED)))
+        z3 = self.zero3_axis is not None and mesh_module.in_axis(
+            self.zero3_axis)
+        if z3 and self.overlap:
+            return self._prefetched(x, blocks)
+        # a block recomputed in the backward (remat) runs on the autograd
+        # engine's thread: it brings the axes live here
+        axes = mesh_module.live_axes()
+
+        def body(h, *params):
+            with mesh_module.restore_axes(axes):
+                return self._body(h, *(self._gather_block(params) if z3
+                                       else params))
+
+        block = autograd.remat_wrap(body, self.remat)
+        for params in blocks:
             x = block(x, *params)
         return x
+
+    def _prefetched(self, x: torch.Tensor, blocks) -> torch.Tensor:
+        """The double-buffered ZeRO-3 loop: block k runs on the buffer
+        gathered during block k-1 while block k+1's gather is in
+        flight."""
+        n = len(blocks)
+        buf = self._gather_block(blocks[0], async_op=True)()
+        for k in range(n):
+            pending = self._gather_block(blocks[(k + 1) % n], async_op=True)
+            broken = _MUTATE_CONSUME_CURRENT_GATHER
+            if broken:  # the mutation test: block k on block k+1's gather
+                buf = pending()
+            x = _PrefetchedBlock.apply(x, self, buf, *blocks[k])
+            if not broken:
+                buf = pending()
+        return x
+
+
+#: test hook (the port of tests/test_scan_overlap.py's mutation case): a
+#: defective prefetch rotation that runs block k on block k+1's weights,
+#: which the equality oracle must catch
+_MUTATE_CONSUME_CURRENT_GATHER = False
+
+
+class _PrefetchedBlock(torch.autograd.Function):
+    """One block of the overlapped ZeRO-3 loop. The forward runs the
+    block on the prefetched buffer and saves only its input and this
+    block's shards; the backward re-gathers the shards, recomputes the
+    block with grad on, and reduce-scatters the weight gradients back to
+    the shards (the gather's adjoint)."""
+
+    @staticmethod
+    def forward(ctx, h, stack, buf, *shards):
+        ctx.stack, ctx.axes = stack, mesh_module.live_axes()
+        ctx.save_for_backward(h, *shards)
+        return stack._body(h, *buf)
+
+    @staticmethod
+    def backward(ctx, dh):
+        from singa_tpu_torch.communicator import _scatter_dim
+
+        stack = ctx.stack
+        h, *shards = ctx.saved_tensors
+        # the engine's thread: the forward's axes, brought back
+        with mesh_module.restore_axes(ctx.axes):
+            buf = stack._gather_block(shards)  # grad is off here
+            with torch.enable_grad():
+                hh = h.detach().requires_grad_(True)
+                bb = [b.detach().requires_grad_(True) for b in buf]
+                out = stack._body(hh, *bb)
+                grads = torch.autograd.grad(out, [hh] + bb, dh,
+                                            allow_unused=True)
+            group = mesh_module.axis_group(stack.zero3_axis)
+            world = mesh_module.axis_size(stack.zero3_axis)
+        dshards = []
+        for name, s, g in zip(stack.STACKED, shards, grads[1:]):
+            if g is None:
+                dshards.append(torch.zeros_like(s))
+            elif group is None:
+                dshards.append(g)
+            else:
+                dshards.append(_scatter_dim(
+                    g, group, world, stack._z3_gather_axes.get(name, 0)))
+        return (grads[0], None, None, *dshards)
+
+
+class MoEFFN(Layer):
+    """The Switch Mixture-of-Experts FFN (top-1 routing; reference
+    :1527-1611), expert-parallel over the mesh axis `moe_axis`.
+    `MoEFFN(n_experts, ffn_mult=4, ff_dim=None, moe_axis=None,
+    capacity_factor=1.25, activation="gelu")`; `d_model=` makes the
+    weights at once.
+
+    The gate `w_gate` (d, E) is replicated; the experts' `w1` (E, d, ff),
+    `b1` (E, ff), `w2` (E, ff, d), `b2` (E, d) are stacked over E, with
+    pspec (moe_axis, ...) when `moe_axis` is set, so a placed rank holds
+    its E/world experts. Inside the axis (a distributed step over a mesh
+    that has it, the batch cut over (data, expert)) the layer runs the
+    expert-parallel `parallel.moe.moe_ffn` (per-shard capacity, the
+    all-to-all dispatch); outside it the dense `moe_ffn_dense` (global
+    capacity). Without a dropped token the two route alike. The
+    load-balance loss of the last forward is `self.aux`; the models add
+    `aux_coef * aux` to their loss. `activation` is "relu", "gelu"
+    (tanh-approximate) or "tanh"."""
+
+    _ACTS = {"relu": autograd.relu, "gelu": autograd.gelu,
+             "tanh": autograd.tanh}
+
+    def __init__(self, n_experts: int, ffn_mult: int = 4,
+                 ff_dim: Optional[int] = None, moe_axis=None,
+                 capacity_factor: float = 1.25, activation: str = "gelu",
+                 *, d_model: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        if n_experts < 1:
+            raise ValueError("n_experts must be >= 1")
+        if activation not in self._ACTS:
+            raise ValueError(f"unknown activation {activation!r}; pick one "
+                             f"of {sorted(self._ACTS)}")
+        super().__init__()
+        self._dev, self._gen = _setup(device, generator)
+        self.n_experts, self.ffn_mult, self.ff_dim = n_experts, ffn_mult, ff_dim
+        self.moe_axis, self.capacity_factor = moe_axis, capacity_factor
+        self.activation = activation
+        self.__dict__["aux"] = None  # not a mutation: written each forward
+        for n in ("w_gate", "w1", "b1", "w2", "b2"):
+            setattr(self, n, self._lazy_param())
+        self._settle(d_model)
+
+    def _make(self, d):
+        ff, e = self.ff_dim or self.ffn_mult * d, self.n_experts
+        for name, shape, init, a in (
+                ("w_gate", (d, e), "uniform", math.sqrt(6.0 / (d + e))),
+                ("w1", (e, d, ff), "uniform", math.sqrt(6.0 / (d + ff))),
+                ("b1", (e, ff), "zeros", 0.0),
+                ("w2", (e, ff, d), "uniform", math.sqrt(6.0 / (ff + d))),
+                ("b2", (e, d), "zeros", 0.0)):
+            self._materialize(getattr(self, name), shape, init, a)
+        if self.moe_axis is not None:
+            for name in ("w1", "b1", "w2", "b2"):
+                t = getattr(self, name)
+                t.pspec = (self.moe_axis,) + (None,) * (t.dim() - 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from singa_tpu_torch.parallel.moe import moe_ffn, moe_ffn_dense
+
+        self._ready(x)
+        act = self._ACTS[self.activation]
+        tok = x.reshape(-1, x.shape[-1])
+        weights = (self.w_gate, self.w1, self.b1, self.w2, self.b2)
+        if self.moe_axis is not None and mesh_module.in_axis(self.moe_axis):
+            y, aux = moe_ffn(tok, *weights, self.moe_axis,
+                             capacity_factor=self.capacity_factor, act=act)
+        else:
+            y, aux = moe_ffn_dense(tok, *weights, self.n_experts,
+                                   capacity_factor=self.capacity_factor,
+                                   act=act)
+        self.__dict__["aux"] = aux
+        return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 # -- CNN layers ----------------------------------------------------------------

@@ -78,7 +78,8 @@ from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch.communicator import Communicator
 from singa_tpu_torch.distributed import (gather_full, is_rank_local,
                                          place_model_states)
-from singa_tpu_torch.graph import GraphStep
+from singa_tpu_torch.graph import (GraphStep, check_param_shard_divisibility,
+                                   check_sharded_layers)
 from singa_tpu_torch.layer import (Layer, _accepted_shapes, _copy_into,
                                    block_source)
 from singa_tpu_torch.parallel import mesh as mesh_module
@@ -189,6 +190,7 @@ class Model(Layer):
             comm = getattr(self._optimizer, "comm", None)
             if comm is not None and comm._active() and any(
                     getattr(p, "pspec", None) for p in params.values()):
+                check_param_shard_divisibility(params, comm.mesh)
                 place_model_states(comm.mesh, self)
             self._optimizer.prepare(params)
 
@@ -274,6 +276,16 @@ class Model(Layer):
             return None, 1
         return ax, mesh.axis_size(ax)
 
+    def _moe_layout(self, comm):
+        """(expert axis, its size) of an expert-parallel model's
+        distributed step: the model's `moe_axis` when the mesh has it,
+        else (None, 1)."""
+        ax = getattr(self, "moe_axis", None)
+        mesh = comm.mesh
+        if ax is None or mesh is None or ax not in mesh.axis_names:
+            return None, 1
+        return ax, mesh.axis_size(ax)
+
     def _seq_args(self, args, world: int, check: bool) -> set:
         """The indices of the step's token arguments, cut along dim 1
         over the seq axis (reference graph.py:485-509): the model's
@@ -299,9 +311,31 @@ class Model(Layer):
         return out
 
     def _dispatch_train(self, *args, **kwargs):
+        step, args = self._train_route(args)
+        if self._use_graph:
+            if self._train_step is None:
+                self._train_step = GraphStep(self, step, train_step=True)
+            return self._train_step(*args, **kwargs)
+        return step(*args, **kwargs)
+
+    def _train_route(self, args):
+        """(the step function, its arguments) of a training call: the
+        user's `train_one_batch` on the arguments as they are, or, under
+        a DistOpt over a live group, the distributed step on this rank's
+        share of them."""
         comm = self._dist_comm()
         step = self._user_train_one_batch
         if comm is not None:
+            moe_ax, ep_world = self._moe_layout(comm)
+            check_sharded_layers(self, comm.mesh, moe_ax, ep_world)
+            ep = None
+            if ep_world > 1:
+                ep = (ep_world, comm.mesh.axis_index(moe_ax))
+                # each expert shard sees other tokens: the gradients of
+                # replicated parameters are partial over the axis
+                if moe_ax not in self._optimizer.grad_axes:
+                    self._optimizer.grad_axes = tuple(
+                        self._optimizer.grad_axes) + (moe_ax,)
             ax, sp_world = self._seq_layout(comm)
             seq = None
             if sp_world > 1:
@@ -312,13 +346,9 @@ class Model(Layer):
                 if ax not in self._optimizer.grad_axes:
                     self._optimizer.grad_axes = tuple(
                         self._optimizer.grad_axes) + (ax,)
-            args = _rank_share(args, comm, seq)
+            args = _rank_share(args, comm, seq, ep)
             step = self._dist_train
-        if self._use_graph:
-            if self._train_step is None:
-                self._train_step = GraphStep(self, step, train_step=True)
-            return self._train_step(*args, **kwargs)
-        return step(*args, **kwargs)
+        return step, args
 
     def _dispatch_eval(self, *args, **kwargs):
         """`forward` through the eval step in graph mode (a DistOpt
@@ -357,6 +387,13 @@ class Model(Layer):
         mesh = comm.mesh
         ax, sp_world = self._seq_layout(comm)
         seq_comm = Communicator(mesh, ax) if sp_world > 1 else None
+        moe_ax, ep_world = self._moe_layout(comm)
+        ep_comm = Communicator(mesh, moe_ax) if ep_world > 1 else None
+        # the other token-sharding axes: means over them too
+        token_comms = [c for c in (seq_comm, ep_comm) if c is not None]
+        # dropout draws by the rank's index over every axis but the
+        # tensor-parallel ones (a ZeRO-3 or expert shard is a batch shard)
+        tp_only = set(self._tp_axes()) - {comm.axis_name, moe_ax}
         local_t = None
         if seq_comm is not None:
             idx = self._seq_args(args, sp_world, check=False)
@@ -366,8 +403,7 @@ class Model(Layer):
                 mesh_module.batch_axis_context(
                     comm.axis_name, comm.world_size, comm.group), \
                 autograd.rank_draws(mesh.flat_index(
-                    [a for a in mesh.axis_names
-                     if a not in self._tp_axes()])):
+                    [a for a in mesh.axis_names if a not in tp_only])):
             out = self._user_train_one_batch(*args, **kwargs)
 
         def merge(t):
@@ -378,18 +414,21 @@ class Model(Layer):
                 if local_t is not None and t.dim() >= 2 and (
                         t.shape[1] == local_t):
                     t = seq_comm.all_gather(t, axis=1)
+                if ep_comm is not None:  # rows (data, expert), data major
+                    t = ep_comm.all_gather(t)
                 return comm.all_gather(t)
             if t.is_floating_point():
                 t = comm.all_reduce(t)
-                return seq_comm.all_reduce(t) if seq_comm else t
+                for c in token_comms:
+                    t = c.all_reduce(t)
             return t
 
         with torch.no_grad():
             bufs = [t for t in self.buffers() if t.is_floating_point()]
             avgs = comm.fused_all_reduce(
                 bufs, bucket_elems=self._optimizer.buffSize)
-            if seq_comm is not None:
-                avgs = seq_comm.fused_all_reduce(
+            for c in token_comms:
+                avgs = c.fused_all_reduce(
                     avgs, bucket_elems=self._optimizer.buffSize)
             for buf, avg in zip(bufs, avgs):
                 buf.copy_(avg)
@@ -457,13 +496,15 @@ class Model(Layer):
         return aux
 
 
-def _rank_share(args, comm, seq=None) -> list:
+def _rank_share(args, comm, seq=None, ep=None) -> list:
     """This rank's share of a distributed step's batch operands. Operands
     from `distributed.shard_batch` are that share already; plain ones
     are the global batch (the reference's step takes it), of which this
     rank runs rows [rank * b, (rank + 1) * b), and with `seq` = (seq
     world, this rank's seq index, the token argument indices) columns
-    [index * t, (index + 1) * t) of dim 1 of each token argument."""
+    [index * t, (index + 1) * t) of dim 1 of each token argument. With
+    `ep` = (expert world, this rank's expert index) the rows are cut
+    over (data, expert), data major (reference graph.py:455-472)."""
     batch = [a for a in args if isinstance(a, (torch.Tensor, np.ndarray))]
     marked = [is_rank_local(a) for a in batch]
     if batch and all(marked):
@@ -471,12 +512,15 @@ def _rank_share(args, comm, seq=None) -> list:
     if any(marked):
         raise ValueError("a distributed step takes either every batch "
                          "operand from shard_batch or none")
-    _check_batch(args, comm.world_size)
+    ep_world, ep_index = ep if ep is not None else (1, 0)
+    world = comm.world_size * ep_world
+    _check_batch(args, world)
     args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a
             for a in args]
     b = next(a.shape[0] for a in args
-             if isinstance(a, torch.Tensor)) // comm.world_size
-    args = [a.narrow(0, comm.rank * b, b) if isinstance(a, torch.Tensor)
+             if isinstance(a, torch.Tensor)) // world
+    row = comm.rank * ep_world + ep_index
+    args = [a.narrow(0, row * b, b) if isinstance(a, torch.Tensor)
             else a for a in args]
     if seq is not None:
         world, index, cut = seq

@@ -55,8 +55,19 @@ gathers its blocks (when placed on a mesh) and de-interleaves the QKV
 on the host (reference :270-282); that of an unrolled tp GPT raises, as
 the reference's does.
 
-Other constructor options raise `NotImplementedError` naming the ROADMAP
-item that ports them: `moe_*`, `pp_axis` and `zero3_axis` (item 15).
+ZeRO-3 (reference :90-103): `zero3_axis` (with `scan_blocks=True`)
+shards the scanned stack's weights and slots over that axis, each
+block gathered as it runs; `overlap=True` prefetches the next block's
+gather (`layer.ScanTransformerStack`). Cached decoding of a ZeRO-3 stack
+gathers its blocks first. The unrolled decoder refuses both.
+
+The Switch MoE FFN (reference :66-69, :84-86, :191-195): `moe_experts`
+on the unrolled decoder replaces each block's FFN by a `layer.MoEFFN`,
+expert-parallel over `moe_axis`; `train_one_batch` adds `moe_aux_coef`
+times each block's load-balance loss. The scanned decoder refuses
+`moe_experts`, and cached decoding of a MoE GPT raises, as the
+reference's do. `pp_axis` (GPipe) raises `NotImplementedError` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -195,8 +206,8 @@ class GPT(model.Model):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        del moe_aux_coef, moe_capacity_factor, pp_micro
-        refuse_distributed(seq_impl, moe_experts, moe_axis)
+        del pp_micro
+        refuse_distributed(seq_impl)
         if pp_axis is not None:
             raise NotImplementedError(
                 "GPT(pp_axis=) is GPipe: ROADMAP queue 1 item 14's "
@@ -206,6 +217,13 @@ class GPT(model.Model):
                 "GPT(zero3_axis=) and GPT(overlap=) belong to the scanned "
                 "stack; pass scan_blocks=True: the unrolled decoder has no "
                 "stacked (L, ...) weights to shard or loop to pipeline")
+        if scan_blocks and moe_experts is not None:
+            raise NotImplementedError(
+                "GPT(scan_blocks=True) composes with data parallelism "
+                "(ZeRO-1/ZeRO-3), tensor parallelism (tp_axis=) and ring "
+                "sequence parallelism (seq_axis=) on distinct mesh axes; "
+                "moe_experts/pp_axis rewire the block body the scanned "
+                "stack re-implements")
         if scan_blocks and dropout:
             raise NotImplementedError(
                 "GPT(scan_blocks=True) has no per-block dropout; pass "
@@ -214,6 +232,7 @@ class GPT(model.Model):
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.seq_axis, self.tp_axis = seq_axis, tp_axis
+        self.moe_axis, self.moe_aux_coef = moe_axis, moe_aux_coef
         #: the distributed step's token arguments (dim 1 is T): x and y
         #: of train_one_batch, ids of forward
         self.seq_sharded_args = (0, 1)
@@ -232,8 +251,9 @@ class GPT(model.Model):
             self.decoder = TransformerEncoder(
                 num_layers, num_heads, dropout=dropout, causal=True,
                 seq_axis=seq_axis, remat=remat, ring_flash=ring_flash,
-                seq_impl=seq_impl, tp_axis=tp_axis, d_model=d_model,
-                device=dev, generator=gen)
+                seq_impl=seq_impl, tp_axis=tp_axis, moe_experts=moe_experts,
+                moe_axis=moe_axis, moe_capacity_factor=moe_capacity_factor,
+                d_model=d_model, device=dev, generator=gen)
         self.ln_f = layer.LayerNorm(dim=d_model, device=dev)
         self.head = layer.Linear(vocab_size, in_features=d_model,
                                  device=dev, generator=gen)
@@ -265,6 +285,11 @@ class GPT(model.Model):
         flat = logits.reshape(-1, self.vocab_size)
         y = torch.as_tensor(y, device=flat.device).reshape(-1)
         loss = autograd.softmax_cross_entropy(flat, y)
+        if self.moe_aux_coef:
+            from singa_tpu_torch.models.transformer import collect_moe_aux
+
+            for aux in collect_moe_aux(self):
+                loss = loss + aux * self.moe_aux_coef
         self._apply_opt(loss, dist_option, spars)
         return logits, loss
 
@@ -303,6 +328,10 @@ class GPT(model.Model):
             raise NotImplementedError(
                 "cached decoding of a tensor-parallel GPT is not supported; "
                 "generate on the single-device model")
+        elif any(b.moe_experts is not None for b in dec.blocks):
+            raise NotImplementedError(
+                "cached decoding of a MoE GPT is not supported yet; the "
+                "decode functions assume dense FFN blocks")
         else:
             blocks = [{k: blk.get_parameter(_BLOCK_NAMES[n]).detach()
                        for k, n in _DECODE_KEYS.items()}

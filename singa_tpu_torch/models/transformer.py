@@ -51,8 +51,16 @@ tensor-parallel), as the reference does; the same axis for both raises.
 `states_to_tp` / `states_from_tp` convert checkpoints between the fused
 and the split layout.
 
-Not ported in this slice, raising `NotImplementedError` naming its
-ROADMAP item: the Switch MoE FFN (`moe_experts`, `moe_axis`), item 15.
+The Switch MoE FFN (reference :326-425): `moe_experts=N` replaces each
+encoder block's dense FFN by a `layer.MoEFFN` of N experts named `ffn`
+(`encoder.blocks.0.ffn.w1`, ...), expert-parallel over `moe_axis` when
+the distributed step runs over a mesh with that axis (the batch cut over
+(data, expert)); `moe_capacity_factor` is its capacity factor.
+`collect_moe_aux` gathers the blocks' load-balance losses, which
+`BertForClassification` (and `models.gpt.GPT`) add to the loss at
+`moe_aux_coef`. With `tp_axis` on a distinct axis, attention is
+head-parallel over tp and the FFN expert-parallel; the same axis for
+both, or no `moe_axis`, is refused as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -110,24 +118,20 @@ def states_from_tp(states):
     return out
 
 
-def refuse_distributed(seq_impl="ring", moe_experts=None, moe_axis=None):
-    """Raise on the options not ported yet, naming the ROADMAP item that
-    ports them, and on an unknown `seq_impl`."""
+def refuse_distributed(seq_impl="ring"):
+    """Raise on an unknown `seq_impl` (every distributed option of the
+    encoder is ported)."""
     if seq_impl not in ("ring", "ulysses"):
         raise ValueError(f"seq_impl must be 'ring' or 'ulysses', "
                          f"got {seq_impl!r}")
-    for name, val in (("moe_experts", moe_experts), ("moe_axis", moe_axis)):
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}= is the Switch MoE FFN (ROADMAP queue 1 item 15)")
 
 
 def collect_moe_aux(root: nn.Module):
-    """The load-balance auxiliary losses the MoE FFNs under `root`
-    recorded in the last forward. The port has no MoE FFN yet (ROADMAP
-    queue 1 item 15), so a dense model gives []."""
+    """The load-balance auxiliary losses the `layer.MoEFFN`s under `root`
+    recorded in their last forward, in module order (reference :80-90);
+    [] for a dense model."""
     return [m.aux for m in root.modules()
-            if isinstance(getattr(m, "aux", None), torch.Tensor)]
+            if isinstance(m, layer.MoEFFN) and m.aux is not None]
 
 
 class MultiHeadAttention(nn.Module):
@@ -263,7 +267,8 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder block (the BERT convention): MHA + Add&LN, then
-    the dense GELU FFN + Add&LN."""
+    the dense GELU FFN (or, with `moe_experts`, the Switch MoE FFN
+    `ffn`) + Add&LN."""
 
     def __init__(self, num_heads: int, ffn_mult: int = 4,
                  dropout: float = 0.1, causal: bool = False,
@@ -274,13 +279,24 @@ class TransformerEncoderLayer(nn.Module):
                  moe_capacity_factor: float = 1.25, *, d_model: int,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        del moe_capacity_factor
         if tp_axis is not None and tp_axis == seq_axis:
             raise ValueError(
                 "seq_axis and tp_axis must be distinct mesh axes: the FFN "
                 "col->row pair would psum partial contractions of "
                 "DIFFERENT sequence shards over the shared axis")
-        refuse_distributed(seq_impl, moe_experts, moe_axis)
+        if moe_experts is not None and tp_axis is not None and (
+                moe_axis is None or moe_axis == tp_axis):
+            raise NotImplementedError(
+                f"moe_experts with tp_axis needs a DISTINCT moe_axis (got "
+                f"moe_axis={moe_axis!r}, tp_axis={tp_axis!r}): the "
+                f"expert-parallel FFN shards the batch/tokens over its axis "
+                f"for the all-to-all dispatch, while Megatron TP shards "
+                f"weight columns/rows over its axis with replicated "
+                f"activations; a single axis cannot carry both shardings. "
+                f"Pass moe_axis='expert' and tp_axis='model' on a (data, "
+                f"expert, model) mesh for head-parallel attention over TP "
+                f"with expert-parallel FFNs")
+        refuse_distributed(seq_impl)
         dev, gen = layer._setup(device, generator)
         # with seq_axis the ring owns attention and only the FFN is
         # tensor-parallel (reference :379-388)
@@ -294,6 +310,13 @@ class TransformerEncoderLayer(nn.Module):
         self.ln2 = layer.LayerNorm(dim=d_model, device=dev)
         self.drop1 = layer.Dropout(dropout)
         self.drop2 = layer.Dropout(dropout)
+        self.moe_experts, self.moe_axis = moe_experts, moe_axis
+        if moe_experts is not None:
+            self.ffn = layer.MoEFFN(
+                moe_experts, ffn_mult=ffn_mult, moe_axis=moe_axis,
+                capacity_factor=moe_capacity_factor, d_model=d_model,
+                device=dev, generator=gen)
+            return
         self.fc1 = layer.Linear(ffn_mult * d_model, tp_axis=tp_axis,
                                 tp_mode="col", in_features=d_model,
                                 device=dev, generator=gen)
@@ -305,7 +328,10 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         a = self.drop1(self.attn(x, mask))
         x = self.ln1(autograd.add(x, a))
-        f = self.drop2(self.fc2(self.gelu(self.fc1(x))))
+        if self.moe_experts is not None:
+            f = self.drop2(self.ffn(x))
+        else:
+            f = self.drop2(self.fc2(self.gelu(self.fc1(x))))
         return self.ln2(autograd.add(x, f))
 
 
@@ -369,6 +395,9 @@ class Bert(model.Model):
                                    device=dev, generator=gen)
         self.pool_act = layer.Tanh()
         self.seq_axis, self.tp_axis = seq_axis, tp_axis
+        #: the expert axis: the distributed step cuts the batch over
+        #: (data, moe_axis) and DistOpt reduces over it
+        self.moe_axis = moe_axis
         #: the distributed step's token arguments (dim 1 is T): ids and
         #: seg_ids
         self.seq_sharded_args = (0, 1)
@@ -418,6 +447,7 @@ class BertForClassification(model.Model):
                                  device=dev, generator=gen)
         self.moe_aux_coef = moe_aux_coef
         self.seq_axis, self.tp_axis = self.bert.seq_axis, self.bert.tp_axis
+        self.moe_axis = self.bert.moe_axis
         #: per method: train_one_batch(ids, y) has per-example labels at
         #: arg 1 (data axis only), eval forward(ids, seg_ids) token
         #: arguments at both

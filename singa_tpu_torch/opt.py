@@ -156,18 +156,37 @@ class Optimizer:
 
     # -- clipping ------------------------------------------------------------
     @staticmethod
-    def _grad_square_sum(grads) -> torch.Tensor:
-        """fp32 square-sum of the whole gradient set."""
-        return sum(g.float().square().sum() for g in grads)
+    def _grad_square_sum(grads, params=None) -> torch.Tensor:
+        """fp32 square-sum of the whole gradient set, pspec-aware with
+        `params` (reference :174-206): the square sum of a gradient
+        whose parameter is sharded over live mesh axes (a tensor-parallel
+        block, a ZeRO-3 stack, an expert shard) is only its shard's, so
+        it is summed over those axes (in sorted order) before it enters
+        the total, and every rank clips by the same global norm. The
+        gradients are grouped by axis set: one all-reduce a set."""
+        from singa_tpu_torch.communicator import pspec_axis_names, psum_over
+        from singa_tpu_torch.parallel import mesh as mesh_module
 
-    def clip_gradients(self, grads):
+        groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for i, g in enumerate(grads):
+            p = params[i] if params is not None else None
+            axes = tuple(sorted(ax for ax in pspec_axis_names(p)
+                                if mesh_module.in_axis(ax)))
+            s = g.float().square().sum()
+            groups[axes] = groups[axes] + s if axes in groups else s
+        return sum(psum_over(groups[axes], axes) if axes else groups[axes]
+                   for axes in sorted(groups))
+
+    def clip_gradients(self, grads, params=None):
         """clip_value (elementwise), then clip_norm (global-norm
-        rescale), on a list of gradient tensors."""
+        rescale), on a list of gradient tensors; `params` (the
+        gradients' parameters) makes the norm pspec-aware
+        (`_grad_square_sum`)."""
         if self.clip_value is not None:
             cv = float(self.clip_value)
             grads = [g.clamp(-cv, cv) for g in grads]
         if self.clip_norm is not None and grads:
-            norm = self._grad_square_sum(grads).sqrt()
+            norm = self._grad_square_sum(grads, params).sqrt()
             scale = torch.clamp(
                 self.clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
             grads = [g * scale.to(g.dtype) for g in grads]
@@ -178,7 +197,8 @@ class Optimizer:
         pairs = list(pairs)
         if pairs:
             self._place_step(pairs[0][0].device)
-        grads = self.clip_gradients([g for _, g in pairs])
+        grads = self.clip_gradients([g for _, g in pairs],
+                                    params=[p for p, _ in pairs])
         with torch.no_grad():
             for (p, _), g in zip(pairs, grads):
                 self.update(p, g)

@@ -46,9 +46,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch.distributed as dist
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
-           "PIPE_AXIS", "Mesh", "get_mesh", "axis_entry", "axis_size",
+           "PIPE_AXIS", "COMPATIBLE_ROLE_PAIRS", "Mesh", "get_mesh", "axis_entry", "axis_size",
            "axis_index", "axis_group", "axis_context", "axes_context",
-           "in_axis", "local_world_size", "batch_axis_context",
+           "in_axis", "live_axes", "restore_axes", "local_world_size", "batch_axis_context",
            "current_batch_axis", "current_batch_axis_size",
            "current_batch_group", "get_mesh_3d", "discovery_context",
            "in_discovery"]
@@ -65,6 +65,14 @@ SEQ_AXIS = "sp"
 EXPERT_AXIS = "expert"
 #: pipeline parallelism: GPipe stage shards
 PIPE_AXIS = "pipe"
+
+#: the parallelism roles that may share one mesh axis (reference :44-51):
+#: ZeRO-3 rides the data axis (weight shards gathered per block, batch
+#: shards for the loss); any other pair on one axis would mix the shards
+#: of two schemes in its collectives. The roles are "data", "tp",
+#: "zero3", "seq", "expert" and "pipe"; `ScanTransformerStack` refuses
+#: an axis kwarg pair on one axis unless its roles are listed here
+COMPATIBLE_ROLE_PAIRS = frozenset({frozenset({"data", "zero3"})})
 
 
 def _live() -> bool:
@@ -287,6 +295,26 @@ def axes_context(*axis_names: str, mesh: Optional[Mesh] = None):
         yield
     finally:
         del s[len(s) - len(axis_names):]
+
+
+def live_axes() -> Tuple:
+    """A snapshot of this thread's live axes (names and meshes)."""
+    return tuple(_stack())
+
+
+@contextmanager
+def restore_axes(snapshot):
+    """Run the block with exactly `snapshot`'s axes live on this thread.
+    The autograd engine runs a CUDA backward on a thread of its own, so a
+    forward recomputed there (a checkpointed or prefetched block) must
+    bring the axes its first run saw."""
+    s = _stack()
+    saved = list(s)
+    s[:] = list(snapshot)
+    try:
+        yield
+    finally:
+        s[:] = saved
 
 
 def in_axis(axis_name: str) -> bool:

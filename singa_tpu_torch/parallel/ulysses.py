@@ -12,6 +12,9 @@ backward is the inverse exchange. At an axis of one rank nothing moves.
 The head count must divide by the axis size.
 
 Layout, as `ring_attention`: (B, H_total, T_local, D) in and out.
+
+`all_to_all` is the same exchange on a leading (world, ...) dim, the
+MoE FFN's dispatch and return (`parallel/moe.py`).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch.distributed as dist
 
 from singa_tpu_torch.parallel import mesh as mesh_module
 
-__all__ = ["ulysses_attention"]
+__all__ = ["ulysses_attention", "all_to_all"]
 
 
 def _exchange(x: torch.Tensor, group, world: int,
@@ -57,6 +60,42 @@ class _SeqHeads(torch.autograd.Function):
     def backward(ctx, g):
         group, world, to_heads = ctx.cfg
         return _exchange(g, group, world, not to_heads), None, None, None
+
+
+def _swap(x: torch.Tensor, group) -> torch.Tensor:
+    send = x.contiguous()
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    return got
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange of leading-dim chunks: chunk j goes to rank j, and
+    row i of the result is rank i's chunk for this rank. The exchange
+    is its own transpose, so the backward runs it on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _swap(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _swap(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """The all-to-all of `x` (world, ...) over a live mesh axis
+    (`lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`):
+    differentiable; at an axis of one rank nothing moves. The MoE FFN's
+    dispatch and its return (`parallel/moe.py`)."""
+    world = mesh_module.axis_size(axis_name)
+    if x.shape[0] != world:
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not "
+                         f"the {world} ranks of axis {axis_name!r}")
+    if world == 1:
+        return x
+    return _AllToAll.apply(x, mesh_module.axis_group(axis_name))
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -390,6 +390,19 @@ def run_reference(module, name, tmp_path, timeout=SPAWN_DEADLINE_S,
     return got["result"]
 
 
+def run_both(reference, ranks):
+    """(`run_reference(*reference)`, `run_ranks(*ranks[:-1], **ranks[-1])`)
+    spawned at once, each waited on by a thread of its own: a file whose
+    ranks do not need the reference's results pays the longer of the two
+    spawns, not their sum."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as ex:
+        ref = ex.submit(run_reference, *reference[:-1], **reference[-1])
+        got = ex.submit(run_ranks, *ranks[:-1], **ranks[-1])
+        return ref.result(), got.result()
+
+
 def _reference_main(module, name, kwargs, out, log, deadline_s):
     import traceback
 
@@ -1183,6 +1196,31 @@ def _rank_tp_model(rank, world, mlp, bert, steps):
     return out
 
 
+def _rank_clip_sharded(rank, world, states, x, y, steps, lr, clip):
+    """F10: the TpMLP on a (data 1, model 2) mesh with
+    DistOpt(SGD(lr, clip_norm=clip)), and rank 0's dense twin with
+    SGD(lr, clip_norm=clip), from the same full states: each run's
+    losses and gathered states after."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    def run(m, optimizer):
+        tx, ty = torch.from_numpy(x), torch.from_numpy(y).long()
+        m.set_optimizer(optimizer)
+        m.compile([tx], is_train=True, use_graph=True)
+        m.set_states(states)
+        losses = [m.train_one_batch(tx, ty)[1].item() for _ in range(steps)]
+        return dict(losses=np.asarray(losses), after={
+            k: _np(v) for k, v in m.get_states().items()})
+
+    mesh = mesh_module.get_mesh((1, 2), ("data", "model"))
+    out = dict(tp=run(port_tp_mlp(tp_axis="model"), opt.DistOpt(
+        opt.SGD(lr=lr, clip_norm=clip), mesh=mesh, axis_name="data")))
+    if rank == 0:
+        out["dense"] = run(port_tp_mlp(), opt.SGD(lr=lr, clip_norm=clip))
+    return out
+
+
 def _rank_scan_tp(rank, world, kw, states, dense_params, x, y, steps, lr,
                   prompt, n_new, window):
     """The scanned GPT with `tp_axis` trained by DistOpt(SGD) on a (data
@@ -1237,6 +1275,216 @@ def _rank_scan_tp(rank, world, kw, states, dense_params, x, y, steps, lr,
             losses=np.asarray([d.train_one_batch(tx, ty)[1].item()
                                for _ in range(steps)]),
             tokens=d.generate(prompt, n_new, window=window))
+    return out
+
+
+# -- ZeRO-3 on the scanned stack ---------------------------------------------------
+
+#: the meshes of `_rank_zero3`, built on every rank in this order
+Z3_MESHES = {"data": ((4,), ("data",)), "dp_tp": ((2, 2), ("data", "model")),
+             "dp_sp": ((2, 2), ("data", "sp")),
+             "tp4": ((1, 4), ("data", "model"))}
+
+
+def _rank_zero3(rank, world, kw, states, x, y, steps, lr, cases, prompt,
+                n_new):
+    """The scanned GPT with `zero3_axis="data"` (alone, beside `tp_axis`
+    or `seq_axis`, serial or `overlap`) trained by DistOpt(SGD) on the
+    meshes of `Z3_MESHES`, one run a case (`cases`: name -> dict(mesh,
+    gpt, remat, clip, mutate, kw), or with `expect` the ValueError of
+    its first step), each from the full init states of
+    its layout (`states["plain"]` or `states["tp"]`): losses, gathered
+    states after, the local shapes of the stack, its declared schedule
+    and `step_memory_analysis`'s parameter and gathered bytes; and for
+    the serial zero3 case the greedy decode of the trained model, the
+    momentum slot's local shape, and a dense scanned twin's decode from
+    the gathered states (rank 0)."""
+    from singa_tpu_torch import graph, layer, opt
+    from singa_tpu_torch.models.gpt import GPT
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    meshes = {k: mesh_module.get_mesh(*v) for k, v in Z3_MESHES.items()}
+    tx, ty = torch.from_numpy(x).long(), torch.from_numpy(y).long()
+    out = {}
+    for name, c in cases.items():
+        mesh = meshes[c["mesh"]]
+        m = GPT(**{**kw, **c.get("kw", {})}, scan_blocks=True,
+                remat_policy=c.get("remat", "none"), device="cpu",
+                **c["gpt"])
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr, clip_norm=c.get("clip")),
+                                    mesh=mesh, axis_name="data"))
+        if "expect" in c:
+            try:
+                m.compile([tx], is_train=True, use_graph=True)
+                m.train_one_batch(tx, ty)
+            except ValueError as e:
+                out[name] = {"error": str(e)}
+                continue
+            raise AssertionError(f"{name}: no ValueError")
+        m.compile([tx], is_train=True, use_graph=True)
+        m.set_states(states["tp" if "tp_axis" in c["gpt"] else "plain"])
+        layer._MUTATE_CONSUME_CURRENT_GATHER = bool(c.get("mutate"))
+        try:
+            losses = [m.train_one_batch(tx, ty)[1].item()
+                      for _ in range(steps)]
+        finally:
+            layer._MUTATE_CONSUME_CURRENT_GATHER = False
+        mem = graph.step_memory_analysis(m, tx, ty)
+        dec = m.decoder
+        got = dict(
+            losses=np.asarray(losses),
+            after={k: _np(v) for k, v in m.get_states().items()},
+            shapes={n: tuple(getattr(dec, n).shape) for n in dec.STACKED},
+            schedule=dec.declared_schedule(mesh),
+            parameter_bytes=mem["parameter_bytes"],
+            gathered_block_bytes=mem["gathered_block_bytes"])
+        if name == "z3":
+            got["tokens"] = m.generate(prompt, n_new, window=32)
+            if rank == 0:
+                twin = GPT(**kw, scan_blocks=True, device="cpu")
+                twin.set_states(got["after"])
+                got["twin_tokens"] = twin.generate(prompt, n_new, window=32)
+            mom = GPT(**kw, scan_blocks=True, zero3_axis="data",
+                      device="cpu")
+            sgd = opt.SGD(lr=lr, momentum=0.9)
+            mom.set_optimizer(opt.DistOpt(sgd, mesh=mesh, axis_name="data"))
+            got["slot_shape"] = tuple(
+                sgd._slots[id(mom.decoder.w1)]["momentum"].shape)
+        out[name] = got
+    return out
+
+
+# -- the Switch MoE FFN and expert parallelism -------------------------------------
+
+
+def _rank_moe_ffn(rank, world, cases):
+    """`parallel.moe.moe_ffn` over an expert axis of the 4 ranks, each
+    rank on its rows of x and its expert of the stacked weights (name ->
+    dict(x, w_gate, w1, b1, w2, b2, r)): this rank's output, aux, and
+    the gradients of sum(y * r) for x and its expert's weights."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel.moe import moe_ffn
+
+    mesh = mesh_module.get_mesh((world,), ("expert",))
+    out = {}
+    for name, c in cases.items():
+        n = c["x"].shape[0] // world
+        t = {k: torch.from_numpy(np.ascontiguousarray(
+            c[k][rank * n:(rank + 1) * n] if k in ("x", "r") else
+            c[k] if k == "w_gate" else c[k][rank])).requires_grad_(True)
+            for k in ("x", "w_gate", "w1", "b1", "w2", "b2", "r")}
+        with mesh_module.axes_context("expert", mesh=mesh):
+            y, aux = moe_ffn(t["x"], t["w_gate"], t["w1"], t["b1"], t["w2"],
+                             t["b2"], "expert")
+            (y * t["r"]).sum().backward()
+        out[name] = dict(y=_np(y), aux=float(aux), grads={
+            k: _np(t[k].grad) for k in ("x", "w1", "b1", "w2", "b2")})
+    return out
+
+
+def port_moe_net(num_classes=4, n_experts=4, moe_axis=None, cf=8.0,
+                 aux_coef=0.0):
+    """The port's counterpart of tests/test_moe_model.py's MoeNet:
+    Linear(16) -> MoEFFN(ffn_mult 2) -> Linear(classes), the aux loss at
+    `aux_coef`; `train_one_batch(x, y, dist_option)` takes the plain or
+    the bf16-wire sync."""
+    from singa_tpu_torch import autograd, layer, model
+
+    class MoeNet(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc0 = layer.Linear(16, device="cpu")
+            self.moe = layer.MoEFFN(n_experts, ffn_mult=2, moe_axis=moe_axis,
+                                    capacity_factor=cf, device="cpu")
+            self.fc1 = layer.Linear(num_classes, device="cpu")
+            self.moe_axis = moe_axis
+
+        def forward(self, x):
+            return self.fc1(self.moe(self.fc0(x)))
+
+        def train_one_batch(self, x, y, dist_option="plain"):
+            out = self.forward(x)
+            loss = autograd.softmax_cross_entropy(out, y)
+            if aux_coef:
+                loss = loss + self.moe.aux * aux_coef
+            self._apply_opt(loss, dist_option)
+            return out, loss
+
+    return MoeNet()
+
+
+def port_moe_model(kind, moe_axis, **kw):
+    """The port's MoE model of a tests/test_moe_model.py or
+    tests/test_hybrid_3axis.py case: "net" (`port_moe_net(**kw)`),
+    "bert" (one block, d 16, 4 heads, 4 experts), "gpt" (2 blocks, d 16,
+    4 heads; `kw` its experts, capacity, tp and seq axes)."""
+    from singa_tpu_torch.models.gpt import GPT
+    from singa_tpu_torch.models.transformer import BertForClassification
+
+    if kind == "net":
+        return port_moe_net(moe_axis=moe_axis, **kw)
+    if kind == "bert":
+        return BertForClassification(
+            num_classes=4, num_layers=1, d_model=16, num_heads=4,
+            vocab_size=50, max_len=8, dropout=0.0, moe_experts=4,
+            moe_axis=moe_axis, moe_aux_coef=0.0, moe_capacity_factor=8.0,
+            device="cpu")
+    return GPT(vocab_size=64, d_model=16, num_layers=2, num_heads=4,
+               dropout=0.0, moe_axis=moe_axis, moe_aux_coef=0.0,
+               device="cpu", **kw)
+
+
+#: the meshes of `_rank_moe`, built on every rank in this order
+MOE_MESHES = {"dp_ep": ((2, 2), ("data", "expert")),
+              "ep": ((1, 4), ("data", "expert")),
+              "dp_ep_tp": ((1, 2, 2), ("data", "expert", "model")),
+              "dp_sp_ep": ((1, 2, 2), ("data", "sp", "expert")),
+              "dp_sp_tp": ((1, 2, 2), ("data", "sp", "model"))}
+
+
+def _rank_moe(rank, world, cases, steps, lr):
+    """The MoE cases over the meshes of `MOE_MESHES`: each case (name ->
+    dict(kind, kw, mesh, states, x, y, momentum, dist_option, expect))
+    builds `port_moe_model(kind, moe_axis, **kw)`, trains it `steps`
+    times by DistOpt(SGD) on the global batch from the full `states`, and
+    gives the losses, the gathered states after, the gate's motion and
+    the expert shards' local shapes; a case with `expect` (an exception
+    type's name) gives the message it raised."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    meshes = {k: mesh_module.get_mesh(*v) for k, v in MOE_MESHES.items()}
+    out = {}
+    for name, c in cases.items():
+        ax = "expert" if "expert" in MOE_MESHES[c["mesh"]][1] else None
+        m = port_moe_model(c["kind"], c.get("moe_axis", ax), **c["kw"])
+        for attr, v in c.get("model_attrs", {}).items():
+            setattr(m, attr, v)
+        sgd = opt.SGD(lr=lr, momentum=c.get("momentum", 0.0))
+        tx = torch.from_numpy(c["x"])
+        tx = tx.long() if tx.dtype == torch.int32 else tx
+        ty = torch.from_numpy(c["y"]).long()
+        try:
+            m.set_optimizer(opt.DistOpt(sgd, mesh=meshes[c["mesh"]],
+                                        axis_name="data",
+                                        **c.get("distkw", {})))
+            m.compile([tx], is_train=True, use_graph=True)
+            m.set_states(c["states"])
+            gate = _np(m.moe.w_gate) if c["kind"] == "net" else None
+            args = (c["dist_option"],) if "dist_option" in c else ()
+            losses = [m.train_one_batch(tx, ty, *args)[1].item()
+                      for _ in range(steps[c["kind"]])]
+        except Exception as e:  # noqa: BLE001 - reported, the test checks
+            if c.get("expect") != type(e).__name__:
+                raise
+            out[name] = {"error": str(e)}
+            continue
+        got = dict(losses=np.asarray(losses), after={
+            k: _np(v) for k, v in m.get_states().items()})
+        if gate is not None:
+            got["gate_moved"] = not np.allclose(_np(m.moe.w_gate), gate)
+            got["w1_shape"] = tuple(m.moe.w1.shape)
+        out[name] = got
     return out
 
 

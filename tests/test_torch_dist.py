@@ -347,8 +347,9 @@ def test_distopt_refuses_what_the_reference_refuses():
         assert getattr(DistOpt(sgd, **{kw: True}, **extra), kw) is True
     with pytest.raises(NotImplementedError, match="item 17"):
         DistOpt(sgd).set_sentinel(object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        DistOpt(sgd, grad_axes=("data", "expert"))
+    # the expert axis is a grad axis like the seq axis (the MoE FFN)
+    assert DistOpt(sgd, grad_axes=("data", "expert")).grad_axes == (
+        "data", "expert")
     assert DistOpt(sgd).grad_axes == ("data",)
     assert DistOpt(sgd, grad_axes=("data", "seq")).grad_axes == ("data",
                                                                  "seq")

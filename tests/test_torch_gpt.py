@@ -111,19 +111,23 @@ def test_carry_over_refuses_mismatched_names(pair, fault):
         load_singa_tpu_params(GPT(**KW, device="cpu"), params)
 
 
-@pytest.mark.parametrize("kw", [{"scan_blocks": False, "moe_experts": 2},
+@pytest.mark.parametrize("kw", [{"scan_blocks": False, "zero3_axis": "data"},
                                 {"dropout": 0.1},
                                 {"tp_axis": "model", "pp_axis": "pipe"},
-                                {"zero3_axis": "data"},
+                                {"scan_blocks": False, "overlap": True},
                                 {"moe_experts": 2}, {"pp_axis": "pipe"}])
 def test_unported_options_raise(kw):
-    """ZeRO-3, MoE and GPipe stay refused, beside tensor parallelism too;
-    the sequence and model axes are ported (tests/test_torch_sp_model.py,
-    tests/test_torch_scan_tp.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP|dropout"):
+    """GPipe stays refused, beside tensor parallelism too; the scanned
+    decoder refuses dropout and the MoE FFN, the unrolled one ZeRO-3 and
+    overlap, as the reference's do. ZeRO-3 and the MoE FFN are ported
+    (tests/test_torch_zero3.py, tests/test_torch_moe_model.py)."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP|dropout|scan_blocks"):
         GPT(**{**KW, **kw}, device="cpu")
     assert GPT(**KW, seq_axis="sp", overlap=True,
                device="cpu").decoder.overlap
+    z3 = GPT(**KW, zero3_axis="data", overlap=True, device="cpu").decoder
+    assert (z3.zero3_axis, z3.overlap) == ("data", True)
 
 
 def test_gpt_medium_has_the_reference_defaults(monkeypatch):

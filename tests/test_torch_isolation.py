@@ -11,7 +11,9 @@
   draws) over a gloo group of one; MobileNetV1 and Xception each take
   a graph-mode step; the spool server's process entry runs with both
   blocked; the Device classes, RunConfig, ring and Ulysses attention
-  and the long-context trainer's steps over a group of one);
+  and the long-context trainer's steps over a group of one; a ZeRO-3
+  GPT with the prefetch and a MoE GPT, a step each over a group of
+  one);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -262,6 +264,42 @@ def test_tensor_parallelism_runs_with_jax_and_reference_blocked():
     # under the mesh's axes once the model is placed) and in the step's
     assert lines[0] == "(None, None, 'model') True 8"
     assert "served 2/2 requests" in out.stdout
+
+
+def test_zero3_and_moe_run_with_jax_and_reference_blocked():
+    """ZeRO-3 (`communicator.all_gather_tiled`, the prefetched stack) and
+    the Switch MoE FFN (`parallel.moe`, `layer.MoEFFN`) import and run
+    with JAX and the reference blocked: a scanned GPT with
+    `zero3_axis="data", overlap=True` and an unrolled MoE GPT with
+    `moe_axis="expert"` each train a step over a gloo group of one."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import distributed, layer, opt\n"
+        "from singa_tpu_torch.communicator import all_gather_tiled\n"
+        "from singa_tpu_torch.parallel import mesh, moe\n"
+        "from singa_tpu_torch.models.gpt import GPT\n"
+        "distributed.init(device='cpu')\n"
+        "kw = dict(vocab_size=16, d_model=32, num_layers=2, num_heads=2,\n"
+        "          max_len=16, dropout=0.0)\n"
+        "x = torch.randint(0, 16, (2, 16))\n"
+        "for extra, shape, names in (\n"
+        "        (dict(scan_blocks=True, zero3_axis='data', overlap=True),\n"
+        "         (1,), ('data',)),\n"
+        "        (dict(moe_experts=2, moe_axis='expert'), (1, 1),\n"
+        "         ('data', 'expert'))):\n"
+        "    g = GPT(**kw, **extra, device='cpu')\n"
+        "    g.set_optimizer(opt.DistOpt(opt.SGD(lr=0.1),\n"
+        "                                mesh=mesh.get_mesh(shape, names)))\n"
+        "    g.compile([x], is_train=True, use_graph=True)\n"
+        "    print(g.train_one_batch(x, x)[1].item() > 0)\n"
+        "distributed.shutdown()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["True", "True"]
 
 
 def test_spool_server_entry_runs_with_jax_and_reference_blocked(tmp_path):

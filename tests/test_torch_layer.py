@@ -98,16 +98,20 @@ def test_scan_stack_under_autocast_keeps_bf16_activations():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=0.1)
 
 
-@pytest.mark.parametrize("kw", [{"tp_axis": "model", "zero3_axis": "data"},
-                                {"zero3_axis": "data"},
-                                {"zero3_axis": "data", "seq_axis": "sp"},
-                                {"zero3_axis": "data", "overlap": True},
-                                {"remat": "per_block", "zero3_axis": "data"}])
+@pytest.mark.parametrize("kw", [{"tp_axis": "model", "zero3_axis": "model"},
+                                {"zero3_axis": "sp", "seq_axis": "sp"},
+                                {"zero3_axis": "data", "seq_axis": "data"},
+                                {"zero3_axis": "data", "remat": "all"},
+                                {"tp_axis": "data", "zero3_axis": "data"}])
 def test_scan_stack_refuses_what_belongs_to_later_slices(kw):
-    """The remat policies, seq_axis, overlap and tp_axis are ported;
-    ZeRO-3 stays refused under any of them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+    """Every axis of the stack is ported (ZeRO-3 in
+    tests/test_torch_zero3.py); what the reference refuses still raises:
+    two shard roles on one axis, an unknown remat policy."""
+    with pytest.raises(ValueError, match="DISTINCT|remat"):
         layer.ScanTransformerStack(1, 4, d_model=128, device="cpu", **kw)
     stack = layer.ScanTransformerStack(1, 4, d_model=128, device="cpu",
-                                       seq_axis="sp", overlap=True)
-    assert (stack.seq_axis, stack.overlap) == ("sp", True)
+                                       seq_axis="sp", overlap=True,
+                                       zero3_axis="data")
+    assert (stack.seq_axis, stack.zero3_axis, stack.overlap) == (
+        "sp", "data", True)
+    assert stack.w_qkv.pspec == (None, "data", None)

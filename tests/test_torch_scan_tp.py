@@ -139,9 +139,15 @@ def test_decode_of_the_trained_stack_matches_the_reference(
 
 
 def test_the_stack_refuses_a_shared_axis_and_zero3():
+    """tp and seq, or tp and ZeRO-3, on one axis raise; ZeRO-3 on a
+    distinct axis composes with tp (tests/test_torch_zero3.py)."""
     with pytest.raises(ValueError, match="DISTINCT"):
         layer.ScanTransformerStack(1, 4, d_model=32, device="cpu",
                                    tp_axis="model", seq_axis="model")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="DISTINCT"):
         layer.ScanTransformerStack(1, 4, d_model=32, device="cpu",
-                                   tp_axis="model", zero3_axis="data")
+                                   tp_axis="model", zero3_axis="model")
+    stack = layer.ScanTransformerStack(1, 4, d_model=32, device="cpu",
+                                       tp_axis="model", zero3_axis="data")
+    assert stack.w_o.pspec == (None, "model", "data")
+    assert stack.b_qkv.pspec == (None, ("model", "data"))

@@ -313,17 +313,23 @@ def test_bert_presets_have_the_reference_widths(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [{"tp_axis": "model", "moe_experts": 4},
-                                {"tp_axis": "model", "moe_axis": "expert"},
-                                {"moe_axis": "expert"},
-                                {"moe_experts": 4, "ring_flash": True},
-                                {"moe_experts": 4}])
+                                {"tp_axis": "model", "moe_experts": 4,
+                                 "moe_axis": "model"},
+                                {"seq_axis": "sp", "tp_axis": "sp"},
+                                {"seq_impl": "allgather"},
+                                {"tp_axis": "model", "moe_experts": 2,
+                                 "moe_axis": None}])
 def test_distributed_options_raise_naming_the_roadmap(kw):
-    """MoE (item 15) stays refused, beside tensor parallelism too; the
-    sequence and model axes are ported (tests/test_torch_sp_model.py,
-    tests/test_torch_tp_model.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    """Every distributed option of the encoder is ported (MoE in
+    tests/test_torch_moe_model.py); what the reference refuses still
+    raises: MoE beside tp without a distinct moe_axis, tp and seq on
+    one axis, an unknown seq_impl. A dense model records no MoE aux."""
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="DISTINCT|distinct|seq_impl"):
         tf.Bert(**BERT, **kw, device="cpu")
     assert tf.collect_moe_aux(tf.bert_small(device="cpu")) == []
+    moe = tf.Bert(**BERT, moe_experts=4, moe_axis="expert", device="cpu")
+    assert moe.encoder.blocks[0].ffn.w1.pspec == ("expert", None, None)
     bert = tf.Bert(**BERT, seq_axis="sp", ring_flash=True,
                    seq_impl="ulysses", device="cpu")
     attn = bert.encoder.blocks[0].attn
