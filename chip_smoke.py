@@ -328,13 +328,25 @@ Phases, in the order they run (any failure raises and exits non-zero):
    moe.py) within 1e-4 of each tensor's largest entry; then the device
    ms of the MoE step's families (gate, dispatch and combine, expert
    products, attention) at its shapes;
+9l. GPipe over a world-1 NCCL group (`pp_path`): gpt_medium's widths
+   with `pp_axis="pipe"` and `pp_micro=4` (a `PipelineTransformerStack`
+   decoder, dropout 0) at 4 x 1024 fp32 with DistOpt(SGD) on (data 1,
+   pipe 1), every step captured, within 1e-6 of its twin on a (data 1)
+   mesh (the stack's loop over the whole batch); 48 launches of each
+   head-split kernel a step (12 blocks x 4 microbatches), the twin 12;
+   device ms and peak memory of both; then every entry of
+   `examples.parallel_strategies` a world of one admits, uncaptured,
+   each line with its wall time. The head-split kernels are held to
+   their plain versions at the microbatch's shape in phases 3-4
+   (`pp_gpt_medium_microbatch_t1024`);
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
    its capture recorded, which every replay runs again; the ZeRO-1
    step's beside the others; K2a's at Xception's four pool shapes and
-   its 4 launches a step; the sequence-, tensor-parallel, ZeRO-3 and
-   MoE steps' launches and the head-split figures at their shapes),
+   its 4 launches a step; the sequence-, tensor-parallel, ZeRO-3, MoE
+   and pipelined steps' launches and the head-split figures at their
+   shapes),
    then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
@@ -427,6 +439,10 @@ CASES = [
      128, True, "float32", False, 1e-4),
     ("tp_gpt_medium_projections_t1024", "tp_projections", 4, 8, 1024, 1024,
      128, True, "float32", False, 1e-4),
+    # the pipelined GPT (phase 9l): one microbatch of gpt_medium's 4 x
+    # 1024 step, head-split views of its [q | k | v] projection
+    ("pp_gpt_medium_microbatch_t1024", "sp", 1, 8, 1024, 1024, 128, True,
+     "float32", False, 1e-4),
 ]
 # Tolerances: fp32 kernel and plain version differ only in summation
 # order (1e-4 on values of order 1); where operands or O are bf16, one
@@ -584,6 +600,8 @@ BWD_CASES = [
      128, True, "float32", False, False, 1e-4),
     ("tp_gpt_medium_projections_t1024", "tp_projections", 4, 8, 1024, 1024,
      128, True, "float32", False, False, 1e-4),
+    ("pp_gpt_medium_microbatch_t1024", "sp", 1, 8, 1024, 1024, 128, True,
+     "float32", False, False, 1e-4),
 ]
 # Tolerances are on max|d| / max(1, max|plain|) per gradient. fp32: the
 # kernel and the plain version differ only in summation order (1e-4).
@@ -5283,6 +5301,155 @@ def zero3_path(torch, fa, mp, card):
     return launches, out
 
 
+PP_BATCH, PP_SEQ, PP_MICRO, PP_STEPS, PP_LR, PP_TWIN_TOL = (
+    4, 1024, 4, 4, SP_LR, 1e-6)
+
+
+class _Stamped:
+    """A stdout that prints each line with the seconds since the line
+    before it (an entry of the strategies runner: its wall time)."""
+
+    def __init__(self, out):
+        self.out, self.buf, self.last = out, "", time.perf_counter()
+        self.lines = []
+
+    def write(self, text):
+        self.buf += text
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            now = time.perf_counter()
+            self.lines.append((line, now - self.last))
+            self.out.write(f"{line}  [{now - self.last:.2f} s]\n")
+            self.last = now
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def pp_path(torch, fa, mp, card):
+    """GPipe over a world-1 NCCL group (`pp_path`): gpt_medium's widths
+    with `pp_axis="pipe"`, `pp_micro=4` (the unrolled-width decoder as a
+    `PipelineTransformerStack`, dropout 0) at 4 x 1024 fp32 with
+    DistOpt(SGD) on a (data 1, pipe 1) mesh, every step captured,
+    against its twin: the same model and states trained on a (data 1)
+    mesh, where the pipe axis is not live and the stack loops over its
+    blocks on the whole batch. Each block of each microbatch runs the
+    head-split flash kernels: 48 launches of each a step, the twin 12.
+    Then every entry of `examples.parallel_strategies` that a world of
+    one admits, uncaptured, each line with its wall time. Returns the
+    pp step's and the twin's launches by layout and the numbers."""
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.examples import parallel_strategies
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    split_48 = {"flash_fwd": 48, "flash_bwd_dq": 48, "flash_bwd_dkv": 48}
+    zero = {k: 0 for k in split_48}
+    launches, out = {}, {"card": card}
+    distributed.init(device="cuda")
+    try:
+        pp_mesh = mesh_module.get_mesh((1, 1), ("data", "pipe"))
+        dp_mesh = mesh_module.get_mesh((1,), ("data",))
+
+        def make():
+            return gpt_medium(device="cuda", scan_blocks=False,
+                              pp_axis="pipe", pp_micro=PP_MICRO)
+
+        probe = make()
+        load_singa_tpu_params(probe, seeded_params(probe, SEED))
+        states = {k: v.detach().clone() for k, v in probe.get_states().items()}
+        n_params = sum(p.numel() for p in probe.parameters())
+        vocab = probe.vocab_size
+        del probe
+        drop_graphs(torch)
+        rng = np.random.default_rng(SEED)
+        seq = torch.from_numpy(rng.integers(
+            0, vocab, (PP_BATCH, PP_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+
+        def train(mesh, per_block, what):
+            m = make()
+            m.set_optimizer(opt.DistOpt(opt.SGD(lr=PP_LR), mesh=mesh,
+                                        axis_name="data"))
+            m.compile([x], is_train=True, use_graph=True)
+            m.set_states(states)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            layout = {"head_split": per_block, "fused": zero}
+            got = {}
+            losses, first_s, ms = captured_steps(
+                torch, fa, mp, m, x, y, dict(NO_LAUNCH, **per_block), what,
+                steps=PP_STEPS, layouts=got)
+            peak = torch.cuda.max_memory_allocated()
+            check(got["first"] == layout and got["capture"] == layout,
+                  f"{what}: flash launches by layout {got}, not {layout} "
+                  f"in the first step and in the capture")
+            check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+            device_ms = cuda_ms(torch, lambda: m(x, y), iters=5, warmup=1)
+            placed = tuple(m.decoder.w_qkv.placed[1])
+            m.graph(False)
+            del m
+            drop_graphs(torch)
+            return dict(losses=losses, first_step_s=first_s,
+                        step_ms=ms, device_ms=device_ms, peak_bytes=peak,
+                        layouts=got, w_qkv_spec=placed,
+                        tokens_per_s=x.numel() / (device_ms / 1e3))
+
+        t = time.perf_counter()
+        twin = train(dp_mesh, {k: 12 for k in split_48}, "pp twin")
+        pp = train(pp_mesh, split_48, "pp")
+        check(pp["w_qkv_spec"] == ("pipe", None, None)
+              and twin["w_qkv_spec"] == (None, None, None),
+              f"pipe specs {pp['w_qkv_spec']}, {twin['w_qkv_spec']}")
+        gap = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(pp["losses"], twin["losses"]))
+        print(f"pp ({card}): gpt_medium widths, pp_micro {PP_MICRO}, "
+              f"{n_params} parameters; losses {pp['losses']} vs the twin "
+              f"{twin['losses']}: max rel {gap:.3e} (tol {PP_TWIN_TOL}); "
+              f"{pp['device_ms']:.2f} device ms a captured step, the twin "
+              f"{twin['device_ms']:.2f} "
+              f"({100 * (pp['device_ms'] / twin['device_ms'] - 1):+.1f}%); "
+              f"peak {pp['peak_bytes'] / 2**30:.2f} GiB (twin "
+              f"{twin['peak_bytes'] / 2**30:.2f}); "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        check(gap <= PP_TWIN_TOL, "pp: the losses differ from the twin")
+        out["pp_gpt_medium"] = dict(
+            pp, twin_losses=twin["losses"], twin_step_ms=twin["step_ms"],
+            twin_device_ms=twin["device_ms"],
+            twin_peak_bytes=twin["peak_bytes"], loss_max_rel=gap,
+            tolerance=PP_TWIN_TOL, n_params=n_params, n_micro=PP_MICRO,
+            bubble=0.0)
+        launches["pp"] = pp["layouts"]["first"]
+        launches["pp_twin"] = twin["layouts"]["first"]
+        del seq, x, y, states
+        drop_graphs(torch)
+
+        # every strategy a world of one admits, uncaptured
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        stamped = _Stamped(sys.stdout)
+        real, sys.stdout = sys.stdout, stamped
+        try:
+            parallel_strategies.run([0])
+        finally:
+            sys.stdout = real
+        lines = stamped.lines
+        check(lines and lines[-1][0].endswith(": OK"),
+              "parallel_strategies did not print its closing line")
+        out["strategies"] = dict(
+            seconds=time.perf_counter() - t, launches=counts(fa, mp),
+            entries=[dict(line=ln, s=s) for ln, s in lines])
+        print(f"parallel_strategies ({card}): {len(lines)} lines in "
+              f"{out['strategies']['seconds']:.1f} s; launches "
+              f"{out['strategies']['launches']}", flush=True)
+    finally:
+        distributed.shutdown()
+        drop_graphs(torch)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -5564,6 +5731,15 @@ def main() -> int:
     print(f"zero3: {time.perf_counter() - t:.1f} s ({card}); each phase's "
           f"counted step's launches by layout {z3_launches}", flush=True)
 
+    # 9l. GPipe over a world-1 NCCL group: the pipelined gpt_medium
+    # launches each head-split kernel 48 times a step; then the
+    # strategies runner at world 1
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    pp_launches, pp_out = pp_path(torch, fa, mp, card)
+    print(f"pp: {time.perf_counter() - t:.1f} s ({card}); the counted "
+          f"steps' launches by layout {pp_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -5595,6 +5771,7 @@ def main() -> int:
     sp_cases = ("sp_gpt_medium_causal_t8192", "sp_bert_base_bidir_t512")
     tp_cases = ("tp_gpt_medium_interleaved_t1024",
                 "tp_gpt_medium_projections_t1024")
+    pp_cases = ("pp_gpt_medium_microbatch_t1024",)
 
     def at_cases(key, grads, cases):
         """A flash kernel's figures at a parallel path's head-split shapes
@@ -5627,6 +5804,10 @@ def main() -> int:
                 **{f"{k}_step_{layout}": z3_launches[k][layout][name]
                    for k in ("zero3", "zero3_overlap", "tp_zero3",
                              "recipe_3d", "moe")
+                   for layout in ("head_split", "fused")},
+                **{f"{k}_gpt_medium_step_{layout}":
+                   pp_launches[k][layout][name]
+                   for k in ("pp", "pp_twin")
                    for layout in ("head_split", "fused")}}
 
     def sass_of(kernel):
@@ -5651,6 +5832,7 @@ def main() -> int:
              bert_base=at_bert("flash_fwd", None, ()),
              head_split_sp=at_cases(None, (), sp_cases),
              head_split_tp=at_cases(None, (), tp_cases),
+             head_split_pp=at_cases(None, (), pp_cases),
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_fma_ms=fwd["bound_fma_ms"],
@@ -5679,6 +5861,7 @@ def main() -> int:
             bert_base=at_bert(name, key, grads),
             head_split_sp=at_cases(key, grads, sp_cases),
             head_split_tp=at_cases(key, grads, tp_cases),
+            head_split_pp=at_cases(key, grads, pp_cases),
             max_abs_err=max(bwd["max_abs_err"][g] for g in grads),
             ms=bwd[f"ms_{key}"], plain_ms=bwd["plain_ms"],
             bound_ms=bwd["bound_ms"][key], bound_by=bwd["bound_by"][key],
@@ -5738,6 +5921,7 @@ def main() -> int:
     print("sp " + json.dumps(sp_out), flush=True)
     print("tp " + json.dumps(tp_out), flush=True)
     print("zero3 " + json.dumps(z3_out), flush=True)
+    print("pp " + json.dumps(pp_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,7 +107,8 @@ from singa_tpu_torch.ops import max_pool
 
 __all__ = ["GraphStep", "CAPTURE_LOCK", "private_stream", "plan_from_ops",
            "step_memory_analysis", "tape_memory_plan",
-           "check_param_shard_divisibility", "check_sharded_layers"]
+           "check_param_shard_divisibility", "check_sharded_layers",
+           "check_pipelined_stacks"]
 
 _log = logging.getLogger("singa_tpu_torch.graph")
 
@@ -612,6 +613,23 @@ def check_param_shard_divisibility(named_params, mesh) -> None:
                     f"pick the model dims as multiples of the axis size")
 
 
+def check_pipelined_stacks(model, mesh) -> None:
+    """A pipelined stack's blocks must divide over its pipe axis
+    (reference :400-411); checked before the stack is placed, where the
+    generic check of its stacked dims would raise first."""
+    for lyr in model.modules():
+        if isinstance(lyr, (layer_module.PipelineStack,
+                            layer_module.PipelineTransformerStack)):
+            pax = lyr.pipe_axis
+            if pax in mesh.axis_names and (
+                    lyr.n_blocks % mesh.axis_size(pax)):
+                raise ValueError(
+                    f"{type(lyr).__name__}(n_blocks={lyr.n_blocks}) does "
+                    f"not divide evenly over the '{pax}' mesh axis (size "
+                    f"{mesh.axis_size(pax)}); pick n_blocks as a multiple "
+                    f"of the axis size")
+
+
 def check_sharded_layers(model, mesh, model_moe_axis, ep_world: int
                          ) -> None:
     """The layer <-> model couplings of a distributed step (reference
@@ -621,7 +639,9 @@ def check_sharded_layers(model, mesh, model_moe_axis, ep_world: int
     over replicated tokens); a `MoEFFN(moe_axis=)` needs the model to
     declare the same `moe_axis` (else the batch is replicated over the
     axis and expert gradients come out ep-fold), and its experts must
-    divide over the axis."""
+    divide over the axis; a pipelined stack's blocks must divide over its
+    pipe axis (`check_pipelined_stacks`)."""
+    check_pipelined_stacks(model, mesh)
     for lyr in model.modules():
         if isinstance(lyr, layer_module.ScanTransformerStack):
             tp_ax = lyr.tp_axis

@@ -87,7 +87,8 @@ __all__ = ["Layer", "Linear", "Embedding", "LayerNorm", "Dropout", "Gelu",
            "Sequential", "Cat", "Add", "RNN", "LSTM", "GRU", "CudnnRNN",
            "paged_kv_gather", "paged_kv_token_write",
            "paged_kv_window_write", "paged_kv_pages_write",
-           "mutation_stamp", "MoEFFN"]
+           "mutation_stamp", "MoEFFN", "PipelineStack",
+           "PipelineTransformerStack"]
 
 
 def _fill(t: torch.Tensor, gen, init: str, a: float = 0.0) -> torch.Tensor:
@@ -362,6 +363,49 @@ class Tanh(Layer):
         return autograd.tanh(x)
 
 
+#: the stacked transformer blocks' parameter names, in the reference's
+#: order (`ScanTransformerStack`, `PipelineTransformerStack`)
+STACKED_BLOCK = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o", "ln2_s",
+                 "ln2_o", "w1", "b1", "w2", "b2")
+
+
+def _make_stacked_blocks(lyr: Layer, d: int) -> None:
+    """Materialise a stack's (L, ...) block weights at width d, with the
+    reference's draws: the attention's uniform(+-1/sqrt(d)), LN ones and
+    zeros, the FFN's xavier and zero biases."""
+    if d % lyr.num_heads:
+        raise ValueError(
+            f"d_model {d} not divisible by {lyr.num_heads} heads")
+    L, ff = lyr.n_blocks, lyr.ffn_mult * d
+    k, xavier = 1.0 / math.sqrt(d), math.sqrt(6.0 / (d + ff))
+    for name, shape, init, a in (
+            ("w_qkv", (L, d, 3 * d), "uniform", k),
+            ("b_qkv", (L, 3 * d), "uniform", k),
+            ("w_o", (L, d, d), "uniform", k),
+            ("b_o", (L, d), "uniform", k),
+            ("ln1_s", (L, d), "ones", 0.0),
+            ("ln1_o", (L, d), "zeros", 0.0),
+            ("ln2_s", (L, d), "ones", 0.0),
+            ("ln2_o", (L, d), "zeros", 0.0),
+            ("w1", (L, d, ff), "uniform", xavier),
+            ("b1", (L, ff), "zeros", 0.0),
+            ("w2", (L, ff, d), "uniform", xavier),
+            ("b2", (L, d), "zeros", 0.0)):
+        lyr._materialize(getattr(lyr, name), shape, init, a)
+
+
+def _post_ln_block(h: torch.Tensor, attend, wqkv, bqkv, wo, bo, l1s, l1o,
+                   l2s, l2o, w1, b1, w2, b2) -> torch.Tensor:
+    """One post-LN transformer block: the fused QKV projection,
+    `attend` (B, T, 3d) -> (B, T, d), the output projection, LN, the
+    tanh-GELU FFN, LN."""
+    qkv = autograd.linear(h, wqkv, bqkv)
+    o = attend(qkv)
+    h = autograd._layer_norm(h + autograd.linear(o, wo, bo), l1s, l1o)
+    f = autograd.gelu(autograd.linear(h, w1, b1))
+    return autograd._layer_norm(h + autograd.linear(f, w2, b2), l2s, l2o)
+
+
 class ScanTransformerStack(Layer):
     """N identical post-LN transformer blocks over stacked (L, ...)
     weights, looped in Python (the reference rolls them into one
@@ -415,8 +459,7 @@ class ScanTransformerStack(Layer):
     nothing."""
 
     #: the stacked parameter names, in the reference's order
-    STACKED = ("w_qkv", "b_qkv", "w_o", "b_o", "ln1_s", "ln1_o",
-               "ln2_s", "ln2_o", "w1", "b1", "w2", "b2")
+    STACKED = STACKED_BLOCK
 
     #: each sharding-axis kwarg's role (of `mesh.COMPATIBLE_ROLE_PAIRS`'s
     #: vocabulary) and the scheme it implements (the distinct-axes
@@ -481,25 +524,7 @@ class ScanTransformerStack(Layer):
         self._settle(d_model)
 
     def _make(self, d):
-        if d % self.num_heads:
-            raise ValueError(
-                f"d_model {d} not divisible by {self.num_heads} heads")
-        L, ff = self.n_blocks, self.ffn_mult * d
-        k, xavier = 1.0 / math.sqrt(d), math.sqrt(6.0 / (d + ff))
-        for name, shape, init, a in (
-                ("w_qkv", (L, d, 3 * d), "uniform", k),
-                ("b_qkv", (L, 3 * d), "uniform", k),
-                ("w_o", (L, d, d), "uniform", k),
-                ("b_o", (L, d), "uniform", k),
-                ("ln1_s", (L, d), "ones", 0.0),
-                ("ln1_o", (L, d), "zeros", 0.0),
-                ("ln2_s", (L, d), "ones", 0.0),
-                ("ln2_o", (L, d), "zeros", 0.0),
-                ("w1", (L, d, ff), "uniform", xavier),
-                ("b1", (L, ff), "zeros", 0.0),
-                ("w2", (L, ff, d), "uniform", xavier),
-                ("b2", (L, d), "zeros", 0.0)):
-            self._materialize(getattr(self, name), shape, init, a)
+        _make_stacked_blocks(self, d)
         ax, z3 = self.tp_axis, self.zero3_axis
         if ax is not None:
             with torch.no_grad():
@@ -592,14 +617,8 @@ class ScanTransformerStack(Layer):
         f2 = g_op(autograd.linear(f, w2))
         return autograd._layer_norm(h + (f2 + b2.to(f2.dtype)), l2s, l2o)
 
-    def _block(self, h: torch.Tensor, wqkv, bqkv, wo, bo, l1s, l1o, l2s,
-               l2o, w1, b1, w2, b2) -> torch.Tensor:
-        qkv = autograd.linear(h, wqkv, bqkv)
-        o = self._attend(qkv)
-        h = autograd._layer_norm(h + autograd.linear(o, wo, bo), l1s, l1o)
-        f = autograd.gelu(autograd.linear(h, w1, b1))
-        return autograd._layer_norm(h + autograd.linear(f, w2, b2), l2s,
-                                    l2o)
+    def _block(self, h: torch.Tensor, *params) -> torch.Tensor:
+        return _post_ln_block(h, self._attend, *params)
 
     def _body(self, h: torch.Tensor, *params) -> torch.Tensor:
         return (self._block if self.tp_axis is None else self._tp_block)(
@@ -722,6 +741,146 @@ class _PrefetchedBlock(torch.autograd.Function):
                 dshards.append(_scatter_dim(
                     g, group, world, stack._z3_gather_axes.get(name, 0)))
         return (grads[0], None, None, *dshards)
+
+
+def _pipelined(lyr: Layer, x: torch.Tensor, weights) -> torch.Tensor:
+    """A pipelined stack's forward (reference :771-813, :918-945): outside
+    its pipe axis, `lyr._stage` over all the blocks; inside it, the
+    blocks of this rank's stage through `parallel.pipeline_apply`, with
+    Megatron's "f" before it (only pipe rank 0 reads x, so the input's
+    gradient is summed over the axis) and "g" after it (the last stage's
+    output broadcast, identity backward: a bare all-reduce would scale
+    the cotangents by the world)."""
+    from singa_tpu_torch.parallel.pipeline import pipeline_apply
+
+    # one unbind per stacked weight, as in ScanTransformerStack.forward
+    blocks = list(zip(*(w.unbind(0) for w in weights)))
+    axis = lyr.pipe_axis
+    if axis is None or not mesh_module.in_axis(axis):
+        return lyr._stage(blocks, x)
+    world = mesh_module.axis_size(axis)
+    if len(blocks) * world != lyr.n_blocks:
+        raise ValueError(
+            f"{type(lyr).__name__}: n_blocks {lyr.n_blocks} must divide "
+            f"evenly over the '{axis}' axis (size {world})")
+    x = tp_module.identity_psum_bwd(axis)(x)
+    y, valid = pipeline_apply(lyr._stage, blocks, x, axis, lyr.n_micro)
+    return tp_module.psum_identity_bwd(axis)(y * valid)
+
+
+class PipelineStack(Layer):
+    """A stack of dense residual blocks, pipeline-parallel (GPipe) over
+    a mesh axis (reference :724-813). `PipelineStack(n_blocks,
+    pipe_axis=None, n_micro=4, activation="relu", residual=True)`;
+    `d_model=` makes the weights at once.
+
+    The blocks' weights are stacked: W (n_blocks, d, d) xavier, b
+    (n_blocks, d) zeros, with pspec (pipe_axis, ...) on the block dim,
+    so a rank placed on a mesh (`distributed.place_model_states`) holds
+    its n_blocks/world blocks and their optimizer slots. Each block is
+    act(h W_i + b_i), added to h when `residual`; the activations are
+    "relu", "gelu" (tanh-approximate), "tanh" and "identity". Outside
+    the pipe axis the blocks run in a loop; inside it each rank runs its
+    stage and microbatches stream between the ranks (`_pipelined`), so
+    a pipelined model's loss equals the single-device run step for
+    step."""
+
+    _ACTS = {"relu": autograd.relu, "gelu": autograd.gelu,
+             "tanh": autograd.tanh, "identity": lambda v: v}
+
+    def __init__(self, n_blocks: int, pipe_axis=None, n_micro: int = 4,
+                 activation: str = "relu", residual: bool = True, *,
+                 d_model: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        if n_blocks < 1:
+            raise ValueError("n_blocks must be >= 1")
+        if activation not in self._ACTS:
+            raise ValueError(f"unknown activation {activation!r}; pick one "
+                             f"of {sorted(self._ACTS)}")
+        super().__init__()
+        self._dev, self._gen = _setup(device, generator)
+        self.n_blocks, self.n_micro = n_blocks, n_micro
+        self.pipe_axis, self.activation = pipe_axis, activation
+        self.residual = residual
+        self.W, self.b = self._lazy_param(), self._lazy_param()
+        self._settle(d_model)
+
+    def _make(self, d):
+        self._materialize(self.W, (self.n_blocks, d, d), "uniform",
+                          math.sqrt(6.0 / (2 * d)))
+        self._materialize(self.b, (self.n_blocks, d), "zeros")
+        if self.pipe_axis is not None:
+            self.W.pspec = (self.pipe_axis, None, None)
+            self.b.pspec = (self.pipe_axis, None)
+
+    def _stage(self, blocks, h: torch.Tensor) -> torch.Tensor:
+        act = self._ACTS[self.activation]
+        for w, b in blocks:
+            o = act(autograd.linear(h, w, b))
+            h = h + o if self.residual else o
+        return h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
+        return _pipelined(self, x, (self.W, self.b))
+
+
+class PipelineTransformerStack(Layer):
+    """A stack of post-LN transformer blocks (fused QKV, head-split
+    attention, tanh-GELU FFN), pipeline-parallel (GPipe) over a mesh
+    axis (reference :816-945). `PipelineTransformerStack(n_blocks,
+    num_heads, ffn_mult=4, causal=False, pipe_axis=None, n_micro=4)`;
+    `d_model=` makes the weights at once.
+
+    The twelve per-block parameters of `STACKED_BLOCK` are stacked on a
+    leading (n_blocks, ...) dim with the reference's draws and pspec
+    (pipe_axis, None...), as `PipelineStack`'s. The block is
+    `ScanTransformerStack`'s, with the heads split out of the
+    projection and attended through `ops.flash_attention.attention`
+    (the head-split flash kernels once a causal T reaches its
+    threshold). GPipe splits the batch, so attention always sees the
+    whole sequence. Dropout is deliberately absent, so the pipelined and
+    the single-device runs stay step for step equal."""
+
+    STACKED = STACKED_BLOCK
+
+    def __init__(self, n_blocks: int, num_heads: int, ffn_mult: int = 4,
+                 causal: bool = False, pipe_axis=None, n_micro: int = 4, *,
+                 d_model: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        if n_blocks < 1:
+            raise ValueError("n_blocks must be >= 1")
+        super().__init__()
+        self._dev, self._gen = _setup(device, generator)
+        self.n_blocks, self.num_heads = n_blocks, num_heads
+        self.ffn_mult, self.causal = ffn_mult, causal
+        self.pipe_axis, self.n_micro = pipe_axis, n_micro
+        for n in self.STACKED:
+            setattr(self, n, self._lazy_param())
+        self._settle(d_model)
+
+    def _make(self, d):
+        _make_stacked_blocks(self, d)
+        if self.pipe_axis is not None:
+            for name in self.STACKED:
+                t = getattr(self, name)
+                t.pspec = (self.pipe_axis,) + (None,) * (t.dim() - 1)
+
+    def _attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        b, t, d3 = qkv.shape
+        q, k, v = fa._split_qkv(qkv, self.num_heads)
+        o = fa.attention(q, k, v, causal=self.causal)
+        return o.permute(0, 2, 1, 3).reshape(b, t, d3 // 3)
+
+    def _stage(self, blocks, h: torch.Tensor) -> torch.Tensor:
+        for params in blocks:
+            h = _post_ln_block(h, self._attend, *params)
+        return h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._ready(x)
+        return _pipelined(self, x, tuple(getattr(self, n)
+                                         for n in self.STACKED))
 
 
 class MoEFFN(Layer):

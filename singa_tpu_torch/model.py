@@ -79,6 +79,7 @@ from singa_tpu_torch.communicator import Communicator
 from singa_tpu_torch.distributed import (gather_full, is_rank_local,
                                          place_model_states)
 from singa_tpu_torch.graph import (GraphStep, check_param_shard_divisibility,
+                                   check_pipelined_stacks,
                                    check_sharded_layers)
 from singa_tpu_torch.layer import (Layer, _accepted_shapes, _copy_into,
                                    block_source)
@@ -190,6 +191,9 @@ class Model(Layer):
             comm = getattr(self._optimizer, "comm", None)
             if comm is not None and comm._active() and any(
                     getattr(p, "pspec", None) for p in params.values()):
+                # a pipelined stack's own refusal before the generic one
+                # of its stacked dims, as the reference's order gives it
+                check_pipelined_stacks(self, comm.mesh)
                 check_param_shard_divisibility(params, comm.mesh)
                 place_model_states(comm.mesh, self)
             self._optimizer.prepare(params)
@@ -214,13 +218,16 @@ class Model(Layer):
         return tuple(axes)
 
     def _placed_axes(self):
-        """A context with the mesh's axes live when the parameters are
-        placed (their blocks compute only with the collectives), else a
-        no-op."""
+        """A context with the axes the placed parameters are split over
+        live (their blocks compute only with the collectives), else a
+        no-op. The other axes of the mesh stay off: a forward outside
+        the distributed step (`compile`'s, the eval step's) has its
+        whole batch and sequence, as the reference's runs outside its
+        SPMD step, so a sequence axis must not cut or offset it."""
         mesh = self._placed_mesh()
         if mesh is None:
             return contextlib.nullcontext()
-        return mesh_module.axes_context(*mesh.axis_names, mesh=mesh)
+        return mesh_module.axes_context(*self._tp_axes(), mesh=mesh)
 
     def compile(self, inputs: Sequence, is_train: bool = True,
                 use_graph: bool = False, sequential: bool = False,

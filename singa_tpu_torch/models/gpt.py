@@ -66,8 +66,17 @@ on the unrolled decoder replaces each block's FFN by a `layer.MoEFFN`,
 expert-parallel over `moe_axis`; `train_one_batch` adds `moe_aux_coef`
 times each block's load-balance loss. The scanned decoder refuses
 `moe_experts`, and cached decoding of a MoE GPT raises, as the
-reference's do. `pp_axis` (GPipe) raises `NotImplementedError` naming
-its ROADMAP item.
+reference's do.
+
+Pipeline parallelism (reference :118-159): `pp_axis` makes the decoder
+a `layer.PipelineTransformerStack` whose stacked blocks shard over that
+axis, `pp_micro` microbatches streaming through the stages in a
+distributed step over a (data, pipe) mesh (GPipe); outside the axis the
+same blocks run in a loop. It composes with plain data parallelism only:
+with `scan_blocks=True` it raises the scanned stack's refusal, with
+`seq_axis`, `tp_axis` or `moe_experts` it raises, and so does dropout,
+as the reference's do. Cached decoding of a pipelined GPT raises,
+pointing at the serving path.
 """
 
 from __future__ import annotations
@@ -206,18 +215,13 @@ class GPT(model.Model):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        del pp_micro
         refuse_distributed(seq_impl)
-        if pp_axis is not None:
-            raise NotImplementedError(
-                "GPT(pp_axis=) is GPipe: ROADMAP queue 1 item 14's "
-                "parallel/pipeline.py under item 15's pipelined stack")
         if not scan_blocks and (zero3_axis is not None or overlap):
             raise NotImplementedError(
                 "GPT(zero3_axis=) and GPT(overlap=) belong to the scanned "
                 "stack; pass scan_blocks=True: the unrolled decoder has no "
                 "stacked (L, ...) weights to shard or loop to pipeline")
-        if scan_blocks and moe_experts is not None:
+        if scan_blocks and (moe_experts is not None or pp_axis is not None):
             raise NotImplementedError(
                 "GPT(scan_blocks=True) composes with data parallelism "
                 "(ZeRO-1/ZeRO-3), tensor parallelism (tp_axis=) and ring "
@@ -228,6 +232,17 @@ class GPT(model.Model):
             raise NotImplementedError(
                 "GPT(scan_blocks=True) has no per-block dropout; pass "
                 "dropout=0.0 (as the reference requires)")
+        if pp_axis is not None and not scan_blocks:
+            if any(v is not None for v in (seq_axis, tp_axis, moe_experts)):
+                raise NotImplementedError(
+                    "GPT(pp_axis=) composes with plain data parallelism "
+                    "only for now; seq_axis/tp_axis/moe_experts rewire the "
+                    "block body the pipelined stack re-implements")
+            if dropout:
+                raise NotImplementedError(
+                    "GPT(pp_axis=) has no per-block dropout (the pipelined "
+                    "stack keeps its blocks deterministic so pipelined == "
+                    "single-device holds step for step); pass dropout=0.0")
         dev, gen = layer._setup(device, generator)
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -247,6 +262,11 @@ class GPT(model.Model):
                 tp_axis=tp_axis, zero3_axis=zero3_axis, seq_axis=seq_axis,
                 overlap=overlap, d_model=d_model,
                 device=dev, generator=gen)
+        elif pp_axis is not None:
+            self.decoder = layer.PipelineTransformerStack(
+                num_layers, num_heads, causal=True, pipe_axis=pp_axis,
+                n_micro=pp_micro, d_model=d_model, device=dev,
+                generator=gen)
         else:
             self.decoder = TransformerEncoder(
                 num_layers, num_heads, dropout=dropout, causal=True,
@@ -299,8 +319,17 @@ class GPT(model.Model):
         """The reference materializes its lazy layers here with one
         forward before decoding. The port builds every parameter in the
         constructor, so there is nothing to materialize; the serving
-        engine calls this as it calls the reference's."""
+        engine calls this as it calls the reference's. A pipelined GPT
+        refuses, as the reference's does (reference :226-233)."""
         del window
+        if isinstance(self.decoder, layer.PipelineTransformerStack):
+            raise NotImplementedError(
+                "cached decoding needs per-block parameter handles; "
+                "pipeline-parallel GPTs are not supported — generate (or "
+                "build a serving.ServingEngine) on an unrolled (default) or "
+                "scan_blocks=True model; a pp-trained model's states load "
+                "into either (the stacked weights under "
+                "models.gpt.unstack_params' names for the unrolled one)")
 
     def _functional_params(self):
         """The decode functions' parameters: full arrays (a placed
@@ -470,6 +499,7 @@ class GPT(model.Model):
         if not use_cache:
             return self._generate_eager(toks.astype(np.int32), n_new, window,
                                         temperature, pad_id, seed)
+        self._ensure_initialized(window)
         dev = self.device
         decode_loop = self._decode_fns(window)[3]
         t0 = toks.shape[1]

@@ -5,8 +5,9 @@ meshes of process groups, the batch-axis context DistOpt's BatchNorm
 sync reads), and sequence parallelism (`ring`: ring attention, plain
 and with flash blocks, and the single-device `full_attention`;
 `ulysses`: all-to-all head re-sharding), and tensor parallelism (`tp`:
-Megatron's column and row products, the interleaved QKV helpers). MoE,
-GPipe and `raw_steps` come with ROADMAP queue 1 items 14-15.
+Megatron's column and row products, the interleaved QKV helpers),
+expert parallelism (`moe`), pipeline parallelism (`pipeline`: GPipe's
+`pipeline_apply`) and the hand-written strategy steps (`raw_steps`).
 """
 
 from singa_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -15,5 +16,7 @@ from singa_tpu_torch.parallel.mesh import (  # noqa: F401
     in_axis,
     local_world_size,
 )
+from singa_tpu_torch.parallel.pipeline import pipeline_apply  # noqa: F401
 
-__all__ = ["get_mesh", "axis_context", "in_axis", "local_world_size"]
+__all__ = ["get_mesh", "axis_context", "in_axis", "local_world_size",
+           "pipeline_apply"]

@@ -155,19 +155,20 @@ def _wait(pending) -> None:
 
 
 class _Rotate(torch.autograd.Function):
-    """(K, V) of rank s-1 on rank s; the backward sends the cotangents
-    back (ppermute's adjoint)."""
+    """The tensors of rank s-1 on rank s ((K, V) here, an activation in
+    `pipeline.py`); the backward sends the cotangents back (ppermute's
+    adjoint)."""
 
     @staticmethod
-    def forward(ctx, ring, k, v):
+    def forward(ctx, ring, *tensors):
         ctx.ring = ring
-        got, pending = ring.post((k, v), forward=True)
+        got, pending = ring.post(tensors, forward=True)
         _wait(pending)
         return tuple(got)
 
     @staticmethod
-    def backward(ctx, gk, gv):
-        got, pending = ctx.ring.post((gk, gv), forward=False)
+    def backward(ctx, *grads):
+        got, pending = ctx.ring.post(grads, forward=False)
         _wait(pending)
         return (None, *got)
 

@@ -1632,3 +1632,142 @@ def _rank_serving_tp(rank, world, kw, params, window, prompts, max_new,
                 temp: [solo(np.concatenate([shared, t]), 8, temp, 3)
                        for t in tails] for temp in (0.0, 0.9)}
     return out
+
+
+# -- GPipe, the raw strategy steps and the strategies runner -------------------
+
+
+#: the meshes of `_rank_pipeline`, built on every rank in this order
+PP_MESHES = {"dp_pp": ((2, 2), ("data", "pipe")),
+             "pp": ((1, 4), ("data", "pipe"))}
+
+
+def port_pp_model(kind, pipe_axis, n_blocks, n_micro):
+    """The port's model of a tests/test_pp_model.py case: "mlp" (the
+    PipeMLP: Linear(16), a PipelineStack, Linear(4)) or "gpt" (vocab 64,
+    d 16, 4 heads, max_len 16, dropout 0, `pp_axis`)."""
+    from singa_tpu_torch.examples.parallel_strategies import build_pipe_mlp
+    from singa_tpu_torch.models.gpt import GPT
+
+    if kind == "mlp":
+        return build_pipe_mlp(n_blocks, n_micro=n_micro, pipe_axis=pipe_axis,
+                              device="cpu")
+    return GPT(vocab_size=64, d_model=16, num_layers=n_blocks, num_heads=4,
+               max_len=16, dropout=0.0, pp_axis=pipe_axis, pp_micro=n_micro,
+               device="cpu")
+
+
+def _rank_pipeline(rank, world, arrays, cases):
+    """`pipeline_apply` and the pipelined models over the meshes of
+    `PP_MESHES`. `arrays`: the pipe-4 values case (x, w) at n_micro 2 and
+    4, whose psum'd output this rank gives, and the pipe-2 gradient case
+    (gx, gw) on the (2, 2) mesh, whose stage gradient it gives. `cases`
+    (name -> dict(kind, mesh, n_blocks, n_micro, states, x, y, steps,
+    sgd, expect)): each builds `port_pp_model`, trains it by
+    DistOpt(SGD(**sgd)) over the data axis from the full states, and
+    gives the losses, the gathered states after, this rank's stacked
+    weight and slot shapes and `step_memory_analysis`'s parameter bytes;
+    a case with `expect` gives the message it raised."""
+    from singa_tpu_torch import graph, opt
+    from singa_tpu_torch.communicator import psum_over
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel.pipeline import pipeline_apply
+    from singa_tpu_torch.parallel.tp import psum_identity_bwd
+
+    meshes = {k: mesh_module.get_mesh(*v) for k, v in PP_MESHES.items()}
+
+    def stage(p, h):
+        return torch.tanh(h @ p[0])
+
+    out = {"values": {}}
+    pp, dp_pp = meshes["pp"], meshes["dp_pp"]
+    me = pp.axis_index("pipe")
+    x = torch.from_numpy(arrays["x"])
+    w = torch.from_numpy(arrays["w"][me:me + 1])
+    with mesh_module.axes_context("data", "pipe", mesh=pp):
+        for n_micro in (2, 4):
+            y, valid = pipeline_apply(stage, w, x, "pipe", n_micro)
+            out["values"][n_micro] = _np(psum_over(y * valid, "pipe"))
+    me = dp_pp.axis_index("pipe")
+    gw = torch.from_numpy(arrays["gw"][me:me + 1]).requires_grad_(True)
+    with mesh_module.axes_context("data", "pipe", mesh=dp_pp):
+        y, valid = pipeline_apply(stage, gw, torch.from_numpy(arrays["gx"]),
+                                  "pipe", 2)
+        (psum_identity_bwd("pipe")(y * valid) ** 2).sum().backward()
+    out["grad"] = (me, _np(gw.grad))
+    for name, c in cases.items():
+        m = port_pp_model(c["kind"], "pipe", c["n_blocks"], c["n_micro"])
+        tx = torch.from_numpy(c["x"])
+        tx = tx.long() if c["kind"] == "gpt" else tx
+        ty = torch.from_numpy(c["y"]).long()
+        try:
+            m.set_optimizer(opt.DistOpt(opt.SGD(**c["sgd"]),
+                                        mesh=meshes[c["mesh"]],
+                                        axis_name="data"))
+            m.compile([tx], is_train=True, use_graph=True)
+            m.set_states(c["states"])
+            losses = [m.train_one_batch(tx, ty)[1].item()
+                      for _ in range(c["steps"])]
+        except Exception as e:  # noqa: BLE001 - reported, the test checks
+            if c.get("expect") != type(e).__name__:
+                raise
+            out[name] = {"error": str(e)}
+            continue
+        stack = m.stack if c["kind"] == "mlp" else m.decoder
+        first = stack.W if c["kind"] == "mlp" else stack.w_qkv
+        slots = {k: tuple(v.shape) for k, v in
+                 m.optimizer.dump_states().items() if k.count("//")}
+        out[name] = dict(
+            losses=np.asarray(losses),
+            after={k: _np(v) for k, v in m.get_states().items()},
+            local_shape=tuple(first.shape),
+            pspecs={n: p.pspec for n, p in stack.named_parameters()},
+            slots=slots,
+            parameter_bytes=graph.step_memory_analysis(
+                m, tx, ty)["parameter_bytes"],
+            local_bytes=sum(p.numel() * 4 for p in m.parameters()))
+    return out
+
+
+def _rank_raw_steps(rank, world, bert_params):
+    """Each step of `parallel.raw_steps` at this world: this rank's
+    operands and its step's new operands (numpy) and loss; the BERT
+    steps start from the reference's parameters (`bert_params`: name ->
+    {parameter: array})."""
+    from singa_tpu_torch.parallel.raw_steps import RAW_STEP_BUILDERS
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: _np(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(host(v) for v in tree)
+        return _np(tree)
+
+    out = {}
+    for name, build in RAW_STEP_BUILDERS.items():
+        step, ops, _ = build(world, list(range(world)))
+        if name in bert_params:
+            pv = ops[0]
+            if set(pv) != set(bert_params[name]):
+                raise KeyError(f"{name}: parameter names differ: "
+                               f"{sorted(set(pv) ^ set(bert_params[name]))}")
+            ops = ({k: torch.from_numpy(v) for k, v in
+                    bert_params[name].items()}, ops[1])
+        new, loss = step(*ops)
+        out[name] = dict(ops=host(ops), new=host(new), loss=float(loss))
+    return out
+
+
+def _rank_strategies(rank, world):
+    """The strategies runner on the group's ranks: every line it printed
+    (rank 0's stdout is what a user reads; every rank prints the
+    same)."""
+    import contextlib
+    import io
+
+    from singa_tpu_torch.examples import parallel_strategies
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        parallel_strategies.run(list(range(world)))
+    return buf.getvalue().splitlines()

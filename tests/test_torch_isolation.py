@@ -373,3 +373,29 @@ def test_a_header_edit_renames_every_library(monkeypatch, tmp_path):
         f.write("\n// edited\n")
     after = {n: _build._target(n) for n in _build.sources()}
     assert all(before[n] != after[n] for n in before)
+
+
+def test_pipeline_and_the_strategies_run_with_jax_and_reference_blocked():
+    """parallel.pipeline, parallel.raw_steps and the strategies runner
+    import and run with JAX and the reference blocked: the raw GPipe
+    step and the pipelined GPT's case, two steps, over a gloo group of
+    one (tests/test_torch_parallel_strategies.py runs every entry)."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from singa_tpu_torch import distributed\n"
+        "from singa_tpu_torch.parallel import pipeline_apply, raw_steps\n"
+        "from singa_tpu_torch.examples import parallel_strategies as ps\n"
+        "distributed.init(device='cpu')\n"
+        "step, ops, _ = raw_steps.RAW_STEP_BUILDERS['raw_pipe'](1)\n"
+        "print(tuple(step(*ops)[0].shape))\n"
+        "m, args = ps.build_case('pp_transformer', [0])\n"
+        "print([m.train_one_batch(*args)[1].item() > 0 for _ in 'ab'],\n"
+        "      m.decoder.w_qkv.placed[1])\n"
+        "distributed.shutdown()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == [
+        "(1, 8, 8)", "[True, True] ('pipe', None, None)"]
