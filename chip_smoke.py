@@ -339,6 +339,20 @@ Phases, in the order they run (any failure raises and exits non-zero):
    each line with its wall time. The head-split kernels are held to
    their plain versions at the microbatch's shape in phases 3-4
    (`pp_gpt_medium_microbatch_t1024`);
+9m. the rest of the serving stack over a world-1 NCCL group
+   (`disagg_path`), gpt_medium at window 1024 with 8 slots: the engine
+   with `prefill_mesh` on a (data 1) mesh, with a single-device decode
+   and with a (model 1) tp decode, in turns with the plain engine on the
+   serve mix (equal streams, no point-to-point call, one capture, prefill
+   ms a batch of 2 and the decode step's device ms); the sharded
+   speculative round (`mesh=(model 1)`, spec_k 4) with the self and the
+   tiny draft in turns with the single-device one on the spec mix (equal
+   streams, one capture each of propose and verify, self acceptance at
+   least 0.9, propose and verify ms); `serve_gpt --gpt-medium --tp 1
+   --draft tiny` against `--draft tiny`; `serve_gpt --gpt-medium
+   --metrics-port 0` scraped during the serve (the serving gauges and
+   `serve_token_ms` on `/metrics`, `/healthz` 200). No flash or K2a
+   launch in any part;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -5450,6 +5464,351 @@ def pp_path(torch, fa, mp, card):
     return launches, out
 
 
+# -- phase 9m: the disaggregated prefill, the sharded speculative round, the
+# metrics endpoint -------------------------------------------------------------
+
+#: serve_gpt with the tiny draft, with and without --tp 1, and with the
+#: metrics endpoint: gpt_medium, window 1024, 8 slots
+DISAGG_SPEC_ARGV = ["--gpt-medium", "--window", "1024", "--slots", "8",
+                    "--requests", "8", "--max-new", "64", "--draft", "tiny"]
+DISAGG_METRICS_ARGV = ["--gpt-medium", "--window", "1024", "--slots", "8",
+                       "--requests", "16", "--max-new", "64",
+                       "--metrics-port", "0"]
+#: the serving gauges and histogram the metrics page must carry
+SERVE_PAGE_NAMES = ("serve_queue_depth", "serve_slot_occupancy",
+                    "serve_kv_utilization", "serve_kv_blocks_used",
+                    "serve_token_ms_bucket", "serve_token_ms_count",
+                    "serve_tokens")
+
+
+def admit_ms(torch, eng, reqs, reps=5):
+    """Host ms of admitting `reqs` (one prefill batch) on an idle engine,
+    synchronized before and after: the prefill, its K/V's way into the
+    pools and the first-token pick; the slots are evicted after each."""
+    out = []
+    for _ in range(reps):
+        batch = fresh(reqs)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slots = eng.admit_many(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+        for slot in slots:
+            eng.evict(slot)
+    return out
+
+
+def step_ms_live(torch, eng, reqs):
+    """Device ms of the captured decode step (a graph replay) with
+    `reqs` admitted; they are evicted after (the replays' writes land
+    in rows the next admission rewrites first)."""
+    slots = eng.admit_many(fresh(reqs))
+    with torch.inference_mode():
+        eng._upload()
+        ms = cuda_ms(torch, eng._run_step, iters=20, warmup=3)
+    for slot in slots:
+        eng.evict(slot)
+    return ms
+
+
+class _P2PCount:
+    """Counts the point-to-point calls of torch.distributed while
+    entered (the disaggregated prefill at world 1 must issue none)."""
+
+    NAMES = ("send", "recv", "isend", "irecv", "batch_isend_irecv")
+
+    def __init__(self, dist):
+        self.dist, self.calls, self.saved = dist, 0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.dist, name)
+
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _serve_lines(torch, serve_gpt, argv, card, what):
+    """serve_gpt.main(argv) with its output captured: (handles, text,
+    the "served" line's tokens/s)."""
+    import contextlib
+    import io
+    import re
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        handles = serve_gpt.main(argv)
+    text = buf.getvalue()
+    line = next(ln for ln in text.splitlines() if ln.startswith("served "))
+    num = re.search(r"(\d+) tokens in ([\d.]+) s", line)
+    print(f"disagg {what} ({card}): {line}", flush=True)
+    drop_graphs(torch)
+    return handles, text, int(num.group(1)) / float(num.group(2))
+
+
+def disagg_path(torch, fa, mp, card):
+    """Phase 9m over a world-1 NCCL group, gpt_medium at full width with
+    seeded weights, window 1024, 8 slots:
+
+    1. the engine with `prefill_mesh` on a (data 1) mesh, with a
+       single-device decode and with a (model 1) tp decode, in turns
+       with the plain engine, twice each, on the serve mix (prefill
+       batch 2): equal streams, no point-to-point call (both meshes are
+       the one rank), one decode capture; prefill ms a batch of 2 and
+       the decode step's device ms;
+    2. `SpeculativeEngine(mesh=(model 1), tp_axis="model", spec_k=4)` on
+       the spec mix, with the target as its own draft and with
+       `gpt_draft(target)`, in turns with the single-device speculative
+       engine: equal streams, one capture each of propose and verify,
+       the self draft accepting at least 0.9; propose and verify ms,
+       tokens a round, decode tokens/s;
+    3. `serve_gpt --gpt-medium --tp 1 --draft tiny` against `--draft
+       tiny` without `--tp`: equal streams;
+    4. `serve_gpt --gpt-medium --metrics-port 0`, a thread scraping
+       `/metrics` and `/healthz` during the serve.
+
+    Each part is counted alone and launches no flash or K2a kernel.
+    Returns the numbers."""
+    import re
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import distributed
+    from singa_tpu_torch.examples import serve_gpt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_draft, gpt_medium
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.serving import ServingEngine, SpeculativeEngine
+
+    W = SERVE_WINDOW
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    model = gpt_medium(device="cuda")
+    load_singa_tpu_params(model, seeded_params(model, SEED))
+    model.eval()
+    tiny = gpt_draft(model)
+    load_singa_tpu_params(tiny, seeded_params(tiny, SEED + 1))
+    tiny.eval()
+    vocab = model.vocab_size
+    mix = serve_requests(np.random.default_rng(SEED), vocab, 16, 64, 768,
+                         32, 128, W)
+    spec_mix = serve_requests(np.random.default_rng(SEED + 7), vocab, 8,
+                              64, 512, 32, 64, W)
+    long2 = serve_requests(np.random.default_rng(SEED + 9), vocab, 2, 512,
+                           512, 64, 64, W)
+
+    distributed.init(device="cuda")
+    try:
+        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+              f"the group is {tdist.get_backend()} at world "
+              f"{tdist.get_world_size()}, not NCCL at 1")
+        pmesh = mesh_module.get_mesh((1,), ("data",))
+        dmesh = mesh_module.get_mesh((1,), ("model",))
+
+        # 1. the disaggregated prefill against the plain engine
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        runs = {}
+        for which in ("plain", "single", "tp", "tp", "single", "plain"):
+            kw = dict(slots=8, block_size=16, window=W, prefill_batch=2)
+            if which != "plain":
+                kw["prefill_mesh"] = pmesh
+            if which == "tp":
+                kw.update(mesh=dmesh, tp_axis="model")
+            eng = ServingEngine(model, **kw)
+            check(eng._graph is not None and eng.decode_compiles == 1,
+                  f"{which}: the decode step was not captured")
+            if which != "plain":
+                check(eng._plan.decode == (0,) and eng._plan.owners == (0,),
+                      f"{which}: the plan is {eng._plan.decode} <- "
+                      f"{eng._plan.owners}, not rank 0 <- rank 0")
+            reqs = fresh(mix)
+            with _P2PCount(tdist) as p2p:
+                n_dec, wall, _ = drive(eng, reqs)
+                prefill = admit_ms(torch, eng, long2)
+                step = step_ms_live(torch, eng, mix[:8])
+                eng.close()
+            check(p2p.calls == 0, f"{which}: {p2p.calls} point-to-point "
+                                  f"calls at world 1")
+            check(all(r.done and len(r.tokens) == r.max_new for r in reqs),
+                  f"{which}: a request did not end with max_new tokens")
+            check(eng.allocator.used_blocks == 0 and not eng.allocator._ref,
+                  f"{which}: the allocator did not drain")
+            check(eng.decode_compiles == 1, f"{which}: decode recaptured")
+            row = dict(decode_tokens_per_s=n_dec / wall,
+                       decode_tokens=n_dec, steps=eng.steps,
+                       prefill_batch2_ms=float(np.median(prefill)),
+                       prefill_batch2_ms_min=min(prefill),
+                       decode_step_ms=step,
+                       decode_compiles=eng.decode_compiles)
+            runs.setdefault(which, []).append(([r.tokens for r in reqs],
+                                               row))
+            print(f"disagg [{which}]: " + ", ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items()) + f" ({card})", flush=True)
+            del eng
+            torch.cuda.empty_cache()
+        for which in ("plain", "single", "tp"):
+            for toks, _ in runs[which]:
+                check(toks == runs["plain"][0][0],
+                      f"disagg {which}: streams differ from the plain "
+                      f"engine's")
+        out["disaggregated"] = {w: [row for _, row in runs[w]]
+                                for w in runs}
+        launched = counts(fa, mp)
+        check(launched == NO_LAUNCH,
+              f"the disaggregated prefill launched {launched}")
+        out["disaggregated_s"] = time.perf_counter() - t
+
+        # 2. the sharded speculative round against the single-device one
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        spec = {}
+        for which, dname in (("single", "self"), ("tp", "self"),
+                             ("tp", "tiny"), ("single", "tiny")):
+            kw = dict(slots=8, block_size=16, window=W)
+            if which == "tp":
+                kw.update(mesh=dmesh, tp_axis="model")
+            eng = SpeculativeEngine(model, model if dname == "self"
+                                    else tiny, spec_k=SPEC_K, **kw)
+            check(eng._propose_graph is not None
+                  and eng._verify_graph is not None,
+                  f"{which} {dname}: propose or verify not captured")
+            reqs = fresh(spec_mix)
+            eng.admit_many(reqs)
+            with torch.inference_mode():
+                eng._upload()
+                proposed = eng._run_propose()
+                prop_ms = cuda_ms(torch, eng._run_propose, iters=10)
+                ver_ms = cuda_ms(torch, lambda: eng._run_verify(proposed),
+                                 iters=10)
+            n_dec, wall, streams = drive(eng, reqs)
+            check(all(r.done and len(r.tokens) == r.max_new for r in reqs),
+                  f"{which} {dname}: a request did not end with max_new")
+            check(eng.decode_compiles == 1 and eng.verify_compiles == 1,
+                  f"{which} {dname}: propose {eng.decode_compiles}, verify "
+                  f"{eng.verify_compiles} captures")
+            row = dict(propose_ms=prop_ms, verify_ms=ver_ms,
+                       tokens_per_round=n_dec / streams, rounds=eng.steps,
+                       decode_tokens_per_s=n_dec / wall,
+                       acceptance=eng.acceptance_rate,
+                       captures=(eng.decode_compiles, eng.verify_compiles))
+            spec[f"{which}_{dname}"] = ([r.tokens for r in reqs], row)
+            print(f"disagg spec [{which} {dname}]: " + ", ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items()) + f" ({card})", flush=True)
+            del eng
+            torch.cuda.empty_cache()
+        for dname in ("self", "tiny"):
+            check(spec[f"tp_{dname}"][0] == spec[f"single_{dname}"][0],
+                  f"the sharded round with the {dname} draft streams other "
+                  f"tokens than the single-device one")
+        for which in ("single", "tp"):
+            acc = spec[f"{which}_self"][1]["acceptance"]
+            check(acc >= 0.9, f"{which} self draft acceptance {acc:.3f}")
+        out["speculative"] = {k: row for k, (_, row) in spec.items()}
+        launched = counts(fa, mp)
+        check(launched == NO_LAUNCH,
+              f"the sharded speculative round launched {launched}")
+        out["speculative_s"] = time.perf_counter() - t
+    finally:
+        distributed.shutdown()
+        del model, tiny
+        drop_graphs(torch)
+
+    # 3. serve_gpt --tp 1 --draft tiny against --draft tiny
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    plain, _, plain_tps = _serve_lines(torch, serve_gpt, DISAGG_SPEC_ARGV,
+                                       card, "draft tiny")
+    sharded, text, tp_tps = _serve_lines(
+        torch, serve_gpt, DISAGG_SPEC_ARGV + ["--tp", "1"], card,
+        "draft tiny --tp 1")
+    check([list(h.tokens) for h in sharded]
+          == [list(h.tokens) for h in plain],
+          "serve_gpt --tp 1 --draft tiny streams differ from --draft tiny")
+    check("verify executables: 1" in text, "--tp 1 --draft: verify "
+                                           "recaptured")
+    launched = counts(fa, mp)
+    check(launched == NO_LAUNCH, f"serve_gpt --draft launched {launched}")
+    out["serve_gpt_draft"] = dict(tokens_per_s=plain_tps,
+                                  tp1_tokens_per_s=tp_tps,
+                                  streams=len(plain), s=time.perf_counter()
+                                  - t)
+
+    # 4. serve_gpt --metrics-port 0, scraped during the serve
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    seen = {"scrapes": 0, "page": None, "healthz": None}
+    stop = threading.Event()
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def scrape():
+        url = None
+        while not stop.is_set():
+            if url is None:
+                m = re.search(r"metrics: (http://\S+)", buf.getvalue())
+                url = m.group(1) if m else None
+            else:
+                try:
+                    page, hz = get(url + "/metrics"), get(url + "/healthz")
+                except (urllib.error.URLError, ConnectionError):
+                    break   # the serve ended and stopped its server
+                seen["scrapes"] += 1
+                if "serve_token_ms_count" in page[1]:
+                    seen["page"], seen["healthz"] = page, hz
+            stop.wait(0.05)
+
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    with contextlib.redirect_stdout(buf):
+        handles = serve_gpt.main(DISAGG_METRICS_ARGV)
+    stop.set()
+    th.join(10)
+    drop_graphs(torch)
+    check(all(len(h.tokens) == 64 for h in handles),
+          "the metrics serve did not serve every request")
+    check(seen["page"] is not None, f"no /metrics page with the serving "
+                                    f"histogram in {seen['scrapes']} "
+                                    f"scrapes during the serve")
+    code, page = seen["page"]
+    missing = [n for n in SERVE_PAGE_NAMES if n not in page]
+    check(code == 200 and not missing, f"/metrics {code}, missing {missing}")
+    check(seen["healthz"][0] == 200, f"/healthz {seen['healthz']}")
+    launched = counts(fa, mp)
+    check(launched == NO_LAUNCH, f"the metrics serve launched {launched}")
+    out["metrics_serve"] = dict(scrapes=seen["scrapes"],
+                                page_lines=page.count("\n"),
+                                healthz=json.loads(seen["healthz"][1]),
+                                s=time.perf_counter() - t)
+    print(f"disagg metrics ({card}): {seen['scrapes']} scrapes during the "
+          f"serve, /metrics 200 with {page.count(chr(10))} lines, /healthz "
+          f"{seen['healthz'][0]}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5740,6 +6099,14 @@ def main() -> int:
     print(f"pp: {time.perf_counter() - t:.1f} s ({card}); the counted "
           f"steps' launches by layout {pp_launches}", flush=True)
 
+    # 9m. the disaggregated prefill, the sharded speculative round and
+    # serve_gpt's --tp --draft and --metrics-port over a world-1 NCCL
+    # group: none reaches a kernel
+    t = time.perf_counter()
+    disagg_out = disagg_path(torch, fa, mp, card)
+    print(f"disagg: {time.perf_counter() - t:.1f} s ({card}); each part "
+          f"launched no kernel", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -5922,6 +6289,7 @@ def main() -> int:
     print("tp " + json.dumps(tp_out), flush=True)
     print("zero3 " + json.dumps(z3_out), flush=True)
     print("pp " + json.dumps(pp_out), flush=True)
+    print("disagg " + json.dumps(disagg_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,15 @@ directory), every rank running the same serve in lockstep with its
 heads' KV pools and its blocks of the weights; rank 0 prints. With
 --steps, rank 0 alone pretrains and broadcasts the weights, so every
 rank shards the same model. Its streams equal those without --tp.
---tp with --draft (the sharded speculative round, ROADMAP queue 1 item
-11), with --replicas, and with --metrics-port (item 18) raise.
+With --draft it is the sharded speculative round: the draft's heads and
+weights shard over the same axis. --tp with --replicas raises.
+
+--metrics-port PORT mounts the live observability endpoint on
+127.0.0.1:PORT (0: any free port) for the serve: /metrics (Prometheus
+text: queue depth, slot occupancy, KV-pool utilization, the per-token
+latency histogram, the acceptance rate under --draft), /healthz (200
+"ok", 503 "draining" once a SIGTERM drain begins) and /snapshot; the
+URL is printed before the first request is served.
 
 --tp differs from the reference's here: the reference's default is 1,
 and its --tp 1 is the single-device serve (it takes --draft and
@@ -59,7 +66,7 @@ from singa_tpu_torch import device as device_module
 from singa_tpu_torch import distributed, opt
 from singa_tpu_torch.model import load_singa_tpu_params
 from singa_tpu_torch.models.gpt import GPT, gpt_draft, gpt_medium
-from singa_tpu_torch.observability import metrics
+from singa_tpu_torch.observability import export, metrics
 from singa_tpu_torch.parallel import mesh as mesh_module
 from singa_tpu_torch.serving import (
     ChunkedScheduler, Frontend, ReplicaRouter, ServingEngine,
@@ -113,14 +120,6 @@ def pretrain(m, ids, args, dev):
 
 
 def run(args):
-    if args.metrics_port is not None:
-        raise NotImplementedError(
-            "--metrics-port is not ported yet (ROADMAP queue 1 item 18 "
-            "(the exporters))")
-    if args.tp and args.draft != "none":
-        raise NotImplementedError(
-            "--tp with --draft is the sharded speculative round (ROADMAP "
-            "queue 1 item 11)")
     if args.tp and args.replicas > 1:
         raise ValueError("--tp serves one engine per rank; drop --replicas")
     if args.tp > 1 and not distributed.is_initialized():
@@ -305,6 +304,16 @@ def _serve(args):
             priority=prios[r % len(prios)],
             tenant=tenants[r % len(tenants)]))
 
+    srv = None
+    if args.metrics_port is not None and (
+            not args.tp or distributed.process_index() == 0):
+        # rank 0 alone mounts it; /healthz flips to 503 "draining" the
+        # moment a SIGTERM drain begins, and the hot-path gauges record
+        # while the serve runs
+        srv = export.MetricsServer(healthz=fe.healthz,
+                                   port=args.metrics_port)
+        print(f"metrics: http://127.0.0.1:{srv.start()} "
+              f"(/metrics, /healthz, /snapshot)")
     metrics.reset()
     metrics.enable()
     t = time.perf_counter()
@@ -322,6 +331,8 @@ def _serve(args):
         metrics.disable()
         if router is not None:
             router.close()
+        if srv is not None:
+            srv.stop()
     wall = time.perf_counter() - t
     hist = metrics.histogram("serve_token_ms")
 
@@ -463,7 +474,9 @@ def main(argv=None):
                    help="serve through the tensor-parallel decode over N "
                         "ranks (0: the single-device engine)")
     p.add_argument("--metrics-port", type=int, default=None,
-                   help="not ported (ROADMAP queue 1 item 18)")
+                   metavar="PORT",
+                   help="mount /metrics, /healthz and /snapshot on "
+                        "127.0.0.1:PORT for the serve (0: any free port)")
     return run(p.parse_args(argv))
 
 

@@ -20,11 +20,13 @@ Two cost tiers, by contract:
   turns them on), and the instrumented call sites cache their metric
   handles, so the disabled path is one boolean read.
 
-Every metric name the port emits is declared in the `HELP` inventory
-below with a help string; the names and their meaning are the
-reference's. The metric-name lint, the exporters and the names of the
-unported subsystems (the rest of resilience) come with those modules
-(ROADMAP queue 1 items 17, 18).
+Every metric name the port emits, and every key of
+`resilience.counters.SUPERVISOR_KEYS`, is declared in the `HELP`
+inventory below with a help string; the names and their meaning are the
+reference's, and the inventory holds every name the reference declares.
+`singa_tpu_torch.observability.lint` fails on an emitted name missing
+here; `observability.export` renders the help text on the Prometheus
+page.
 
 Stdlib-only and thread-safe (one registry lock).
 """
@@ -328,9 +330,41 @@ def disable() -> None:
 # -- the declared metric inventory --------------------------------------------
 #
 # Name -> help string for every metric singa_tpu_torch/ emits (the
-# training step's and the serving stack's, as the reference names them).
+# training step's and the serving stack's, as the reference names them),
+# and for the fault counters the resilience layer declares: the
+# metric-name lint (observability/lint.py) fails on any emitted literal
+# or counters.SUPERVISOR_KEYS entry missing here.
 
 HELP: Dict[str, str] = {
+    # -- fault counters (the counters.py registry) ----------------------
+    "retries": "transient errors absorbed by the bounded retry policy",
+    "restores": "checkpoint restores performed",
+    "saves": "checkpoints committed",
+    "restarts": "supervised in-process restarts after a crash/hang",
+    "rollbacks": "loss-spike rollbacks to the last good checkpoint",
+    "hangs": "watchdog-detected step deadline expiries",
+    "reshapes": "supervisor mesh reshapes after fleet probes",
+    "babysit": "1 when the process runs under the resilience "
+               "babysitter",
+    "restarts_external": "hard-kill respawns by the out-of-process "
+                         "babysitter",
+    "stale_kills": "process trees SIGKILLed on a stale heartbeat",
+    "fleet": "1 when the process runs under a babysitter-fleet agent",
+    "fleet_epochs": "job-level epoch-bump restarts the fleet leader "
+                    "ordered",
+    "elections": "fleet lease elections held (>1 means leader "
+                 "failover)",
+    # -- storage / async checkpointing / re-grow ------------------------
+    "ckpt_async_saves": "background checkpoint commits completed by "
+                        "save(async_=True) (the snapshot never "
+                        "stalls the step path)",
+    "ckpt_async_failures": "background checkpoint commits that "
+                           "raised — the previous checkpoint stays "
+                           "committed; surfaced via "
+                           "AsyncSaveHandle.result()",
+    "fleet_readmit": "returned hosts the fleet leader re-admitted "
+                     "into the roster (epoch bump at the grown "
+                     "world)",
     # -- the training step (graph.GraphStep) ----------------------------
     "graph_compiles": "GraphStep builds: CUDA Graph captures of the "
                       "training step on the card, new input signatures "

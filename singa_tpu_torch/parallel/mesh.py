@@ -29,7 +29,11 @@ group (cross-replica BN, reference :167-180).
 `get_mesh_3d(dp, tp, sp)` is the (data, model, sp) mesh of the 3-D
 recipe, in the reference's axis order. `get_mesh(devices=)` lays the
 mesh over a subset of the group's ranks (a list of ranks, or of devices
-each naming its rank by index). `discovery_context` / `in_discovery`
+each naming its rank by index). A rank outside the subset gets a
+ValueError, or with `allow_outside=True` the mesh's LAYOUT: a `Mesh`
+with `member` False that knows its `ranks` and `dims` and holds no
+group (the disaggregated serving engine's prefill and decode meshes
+each name the other's ranks this way). `discovery_context` / `in_discovery`
 mark a shape-discovery pass, as the reference's do (reference
 :216-225); they are surface only: the port runs no discovery pass
 (a rank's first eager call gives the shapes), so nothing in it enters
@@ -90,7 +94,9 @@ class Mesh:
     `size` and `rank` are the whole mesh's."""
 
     def __init__(self, group=None, axis_names: Tuple[str, ...] = (
-            DATA_AXIS,), *, axis_groups: Optional[Dict] = None):
+            DATA_AXIS,), *, axis_groups: Optional[Dict] = None,
+            ranks: Optional[Sequence[int]] = None,
+            dims: Optional[Sequence[int]] = None, member: bool = True):
         self.group = group
         self.axis_names = tuple(axis_names)
         if axis_groups is None:
@@ -100,15 +106,45 @@ class Mesh:
                     f"mesh; build N-D meshes with get_mesh(shape, names)")
             axis_groups = {self.axis_names[0]: group}
         self._groups = dict(axis_groups)
+        self._ranks = None if ranks is None else tuple(int(r) for r in ranks)
+        self._dims = None if dims is None else tuple(int(d) for d in dims)
+        #: whether this rank is one of the mesh's (False: a layout only)
+        self.member = bool(member)
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The global ranks of the mesh's positions, row-major."""
+        if self._ranks is None:
+            if self.group is None or not _live():
+                self._ranks = (dist.get_rank() if _live() else 0,)
+            else:
+                self._ranks = tuple(dist.get_process_group_ranks(
+                    self.group))
+        return self._ranks
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        """The extent of each axis, in `axis_names` order."""
+        if self._dims is None:
+            self._dims = tuple(self.axis_size(n) for n in self.axis_names)
+        return self._dims
 
     def axis_group(self, name: str):
         """This rank's process group along axis `name` (None: a world of
         one)."""
         if name not in self._groups:
             raise ValueError(f"mesh {self.axis_names} has no axis {name!r}")
+        if not self.member:
+            raise ValueError(f"this rank is outside the mesh {self.ranks}: "
+                             f"it holds the layout, not the groups")
         return self._groups[name]
 
     def axis_size(self, name: str) -> int:
+        if not self.member:
+            if name not in self.axis_names:
+                raise ValueError(
+                    f"mesh {self.axis_names} has no axis {name!r}")
+            return self._dims[self.axis_names.index(name)]
         g = self.axis_group(name)
         if g is None or not _live():
             return 1
@@ -126,6 +162,8 @@ class Mesh:
 
     @property
     def size(self) -> int:
+        if not self.member:
+            return math.prod(self.dims)
         if self.group is None or not _live():
             return 1
         return dist.get_world_size(self.group)
@@ -153,7 +191,7 @@ class Mesh:
 
 def get_mesh(shape: Optional[Sequence[int]] = None,
              axis_names: Tuple[str, ...] = (DATA_AXIS,),
-             devices=None) -> Mesh:
+             devices=None, allow_outside: bool = False) -> Mesh:
     """The mesh of `shape` over `axis_names` across every process of the
     initialised group (one process with no group when none is), ranks
     laid out row-major. `shape` None is the 1-D mesh over the ranks.
@@ -161,8 +199,10 @@ def get_mesh(shape: Optional[Sequence[int]] = None,
     ranks, or of devices that map one to one onto ranks (a device's
     `index`, or a port `Device`'s `id`), in mesh order; every rank of
     the group must still call this (group creation is collective), and
-    a rank outside the subset gets a ValueError. The product of `shape`
-    must be the number of ranks the mesh spans."""
+    a rank outside the subset gets a ValueError, or with
+    `allow_outside=True` the mesh's layout (`member` False: `ranks`,
+    `dims` and `axis_size` answer, no group is held). The product of
+    `shape` must be the number of ranks the mesh spans."""
     axis_names = tuple(axis_names)
     world = dist.get_world_size() if _live() else 1
     ranks = list(range(world)) if devices is None else [
@@ -186,7 +226,8 @@ def get_mesh(shape: Optional[Sequence[int]] = None,
             f"of the " + ("group" if devices is None else "devices"))
     if not _live():
         return Mesh(None, axis_names, axis_groups={n: None
-                                                   for n in axis_names})
+                                                   for n in axis_names},
+                    ranks=ranks, dims=shape)
     rank = dist.get_rank()
     whole = ranks == list(range(world))
     mesh_group = dist.group.WORLD if whole else dist.new_group(ranks)
@@ -202,9 +243,14 @@ def get_mesh(shape: Optional[Sequence[int]] = None,
             if rank in members:
                 groups[name] = g
     if rank not in ranks:
+        if allow_outside:
+            return Mesh(None, axis_names,
+                        axis_groups={n: None for n in axis_names},
+                        ranks=ranks, dims=shape, member=False)
         raise ValueError(f"rank {rank} is not among the mesh's devices "
                          f"{ranks}")
-    return Mesh(mesh_group, axis_names, axis_groups=groups)
+    return Mesh(mesh_group, axis_names, axis_groups=groups, ranks=ranks,
+                dims=shape)
 
 
 def _rank_of(device) -> int:

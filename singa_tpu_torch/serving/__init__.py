@@ -1,4 +1,4 @@
-"""Inference serving (counterpart of singa_tpu/serving), single device.
+"""Inference serving (counterpart of singa_tpu/serving).
 
 - ``engine.ServingEngine``: continuous-batching decode over a paged KV
   pool; one decode step, captured once as a CUDA Graph on the card,
@@ -6,13 +6,17 @@
   rebuild it. fp32, bf16 and int8 pools; the prefix cache
   (copy-on-write block sharing, suffix-only prefill); the asynchronous
   prefill split (`begin_prefill_async` / `advance_prefill` /
-  `finish_prefill` / `abort_prefill`).
+  `finish_prefill` / `abort_prefill`); the tensor-parallel decode
+  (`mesh=`, `tp_axis=`) and the disaggregated prefill mesh
+  (`prefill_mesh=`, `prefill_axis=`: prefill on other ranks, its K/V
+  sent to the decode ranks).
 - ``blocks.BlockAllocator`` / ``PrefixIndex``: the paged cache's host
   side (refcounts, LRU, copy-on-write; refusals name the capacity math).
 - ``speculative.SpeculativeEngine``: draft-model speculative decoding
   through the same paged cache; propose and verify are each one
   captured graph, greedy streams stay token-identical, sampled streams
-  are residual-rejection distribution-preserving.
+  are residual-rejection distribution-preserving; on a tp mesh the
+  draft shards over the target's axis.
 - ``frontend.Frontend``: the streaming front end (queue in, per-token
   callbacks out), overlapped or chunk-scheduled prefill, and a SIGTERM
   drain through `resilience.PreemptionGuard`.
@@ -26,10 +30,8 @@
 Correctness contract: token identity. Every greedy stream equals the
 solo `GPT.generate(use_cache=True)` for the same prompt under any
 admit/evict interleaving and block-table fragmentation, speculative or
-not, routed or not; plain-engine sampled streams equal it too.
-
-Not ported yet: the tensor-parallel engine and the prefill mesh
-(ROADMAP queue 1 item 10's tp decode, items 13-15).
+not, routed or not, sharded or not; plain-engine sampled streams
+equal it too.
 """
 
 from singa_tpu_torch.serving.blocks import (          # noqa: F401

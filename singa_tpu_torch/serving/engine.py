@@ -63,13 +63,39 @@ prefill (the weights gathered when the model is placed on a mesh); each
 rank writes its heads' K/V. So every rank keeps the full weights for
 that prefill beside its decode shards: a rank's weight memory is
 (1 + 1/tp) times the single-device engine's at any tp, and what tp
-divides is the KV pools and the decode step's products (a prefill
-through the sharded window forward, which would drop the full weights,
-comes with ROADMAP queue 1 item 10's prefill half). The prefix cache composes: a suffix chunk
-runs the sharded window forward over the local pools. Not ported here:
-the disaggregated prefill mesh (`prefill_mesh=`, `prefill_axis=`
-raise, naming ROADMAP queue 1 item 10), the sharded speculative round
-(item 11) and the shardlint surface.
+divides is the KV pools and the decode step's products. The prefix
+cache composes: a suffix chunk runs the sharded window forward over the
+local pools.
+
+The disaggregated prefill (`prefill_mesh=`, `prefill_axis=`; reference
+:370-385, :1117-1162): a cold chunk's full-window prefill runs on the
+prefill mesh, batch-sharded over `prefill_axis` (default the mesh's
+first axis; `prefill_batch` must divide over it). Rows are independent,
+so no collective runs inside it. A rank is a process, so the K/V cross
+from prefill to decode as point-to-point messages over the world group
+(`_PrefillPlan`): each shard's owner sends every decode rank that
+rank's heads of its rows' caches (the draft's too, for the speculative
+engine), and the logits of each row's last prompt position, which land
+whole on every decode rank for the first-token pick. The decode ranks
+are the decode mesh's (`mesh.ranks`, in tp order) or rank 0 for a
+single-device decode. Each side names the other's ranks through a mesh
+layout (`get_mesh(devices=, allow_outside=True)`). Roles:
+
+- a decode rank runs the engine as usual; the decode leader (the first)
+  sends a prefill-only owner its rows' context. Every decode rank posts
+  its receives when a chunk is dispatched and completes them at the
+  chunk's finish, where the pages are written and the first tokens
+  picked; a reserved slot's page row stays at trash until then;
+- a rank outside the decode ranks that owns a prefill shard is
+  PREFILL-ONLY: its engine holds the model's prefill and no pool, it
+  never enters the decode step's all-reduces, and `serve_prefill()` is
+  its loop, until the leader's `close()`;
+- a rank that is both (at world 1 the one rank is both meshes) computes
+  its shard where it stands: the transfer is a local copy, no message
+  is posted, and the captured decode step is unchanged.
+
+Every pair of ranks posts its messages in the same order, one tag per
+kind. Not ported here: the shardlint surface.
 """
 
 from __future__ import annotations
@@ -224,6 +250,191 @@ class PrefillTicket:
                    for chunk, _ in self.chunks)
 
 
+def _live_rank() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_rank()
+            if dist.is_available() and dist.is_initialized() else 0)
+
+
+class _PrefillPlan:
+    """Who prefills which rows of a cold chunk, and where they go.
+
+    `decode` are the decode ranks in tp order (the decode mesh's ranks,
+    or rank 0 for a single-device decode); `owners[i]` is the prefill
+    mesh's rank that computes shard i (rows [i * rows, (i + 1) * rows)):
+    the one at index i along the prefill axis and 0 along any other. A
+    rank is a decode rank, a prefill-only owner, or both (at world 1 the
+    one rank is both, and nothing is sent). Messages are point-to-point
+    over the world group: the decode leader (`decode[0]`) sends a
+    prefill-only owner its rows' context, and every owner sends each
+    decode rank that rank's heads of its rows' caches and the logits of
+    each row's last prompt position. Every message between a pair is
+    posted by both sides in the same order, under a tag per kind."""
+
+    def __init__(self, mesh, tp_axis, pmesh, paxis, batch):
+        if mesh is None:
+            self.decode = (0,)
+        else:
+            others = [n for n in mesh.axis_names
+                      if n != tp_axis and mesh.axis_size(n) > 1]
+            if others:
+                raise ValueError(
+                    f"a prefill mesh feeds one tensor-parallel decode "
+                    f"group: the decode mesh's axes {others} must have "
+                    f"extent 1")
+            self.decode = tuple(mesh.ranks)
+        self.tp = len(self.decode)
+        names, dims, ranks = pmesh.axis_names, pmesh.dims, pmesh.ranks
+        a = names.index(paxis)
+        stride = int(np.prod(dims[a + 1:], dtype=np.int64))
+        self.owners = tuple(ranks[i * stride] for i in range(dims[a]))
+        self.rows = batch // dims[a]
+        self.me = _live_rank()
+        self.decodes = self.me in self.decode
+        if not self.decodes and self.me not in self.owners:
+            raise ValueError(
+                f"rank {self.me} has no role in this engine: it is neither "
+                f"a decode rank {self.decode} nor a prefill shard's owner "
+                f"{self.owners}")
+        self.leader = self.decode[0]
+        self._stopped = False
+
+    # message tags: the header, then each part of a shard in order
+    _HEADER, _PARTS = 1, 2
+
+    def _header(self, engine, op: int, ctx=None, t0m1=None):
+        h = torch.zeros(1 + self.rows * (engine.window + 1),
+                        dtype=torch.long, device=engine.device)
+        h[0] = op
+        if ctx is not None:
+            body = np.concatenate([ctx, t0m1[:, None]], axis=1)
+            h[1:] = torch.from_numpy(body.reshape(-1)).to(engine.device)
+        return h
+
+    def _parts(self, engine, ctx_np, t0m1_np):
+        """This owner's shard: [[logits, K_j, V_j, ...] for each decode
+        rank j], each part contiguous."""
+        lg, kvs = engine._prefill_outputs(engine._dev(ctx_np),
+                                          engine._dev(t0m1_np))
+        out = []
+        for j in range(self.tp):
+            parts = [lg]
+            for t in kvs:
+                h = t.shape[2] // self.tp
+                parts.append(t[:, :, j * h:(j + 1) * h].contiguous())
+            out.append(parts)
+        return out
+
+    def start(self, engine, ctx, t0m1) -> "_PrefillTransfer":
+        """Post this decode rank's side of one cold chunk: the leader's
+        headers, the receives of its heads, its own shards (computed now)
+        and their sends. Returns the transfer to `wait` on."""
+        import torch.distributed as dist
+
+        if self._stopped:
+            raise RuntimeError(
+                "the engine was closed: its prefill-only ranks have left "
+                "serve_prefill, so it takes no cold admission")
+        me, r = self.me, self.rows
+        works, keep = [], []
+        for i, o in enumerate(self.owners):
+            if o not in self.decode and me == self.leader:
+                h = self._header(engine, 1, ctx[i * r:(i + 1) * r],
+                                 t0m1[i * r:(i + 1) * r])
+                keep.append(h)
+                works.append(dist.isend(h, o, tag=self._HEADER))
+        mine = self.decode.index(me)
+        shards = []
+        for i, o in enumerate(self.owners):
+            if o == me:
+                parts = self._parts(engine, ctx[i * r:(i + 1) * r],
+                                    t0m1[i * r:(i + 1) * r])
+                for j, d in enumerate(self.decode):
+                    if d != me:
+                        keep.extend(parts[j])
+                        works.extend(
+                            dist.isend(t, d, tag=self._PARTS + k)
+                            for k, t in enumerate(parts[j]))
+                shards.append(parts[mine])
+                continue
+            bufs = [torch.empty(shape, dtype=dt, device=engine.device)
+                    for shape, dt in engine._part_shapes(r)]
+            works.extend(dist.irecv(t, o, tag=self._PARTS + k)
+                         for k, t in enumerate(bufs))
+            shards.append(bufs)
+        return _PrefillTransfer(works, keep, shards, engine._event(),
+                                lockstep=self.tp > 1)
+
+    def serve(self, engine) -> int:
+        """The prefill-only owner's loop (`ServingEngine.serve_prefill`)."""
+        import torch.distributed as dist
+
+        w = engine.window
+        served = 0
+        while True:
+            h = self._header(engine, 0)
+            dist.recv(h, self.leader, tag=self._HEADER)
+            if int(h[0]) == 0:
+                return served
+            body = h[1:].view(self.rows, w + 1).cpu().numpy()
+            with torch.inference_mode():
+                parts = self._parts(engine, body[:, :w], body[:, w])
+            works = [dist.isend(t, d, tag=self._PARTS + k)
+                     for j, d in enumerate(self.decode)
+                     for k, t in enumerate(parts[j])]
+            for wk in works:
+                wk.wait()
+            served += 1
+
+    def stop(self, engine) -> None:
+        """The leader tells every prefill-only owner to leave its loop."""
+        import torch.distributed as dist
+
+        if self._stopped:
+            return
+        self._stopped = True
+        if self.me != self.leader:
+            return
+        for o in self.owners:
+            if o not in self.decode:
+                dist.send(self._header(engine, 0), o, tag=self._HEADER)
+
+
+class _PrefillTransfer:
+    """One cold chunk's disaggregated prefill in flight on a decode rank:
+    the posted messages, the tensors they read or fill, and this rank's
+    part of every shard (its own computed, the rest arriving)."""
+
+    __slots__ = ("works", "keep", "shards", "event", "lockstep")
+
+    def __init__(self, works, keep, shards, event, lockstep):
+        self.works, self.keep, self.shards = works, keep, shards
+        self.event, self.lockstep = event, lockstep
+
+    def query(self) -> bool:
+        """Whether `wait` would not block. On a decode mesh of several
+        ranks this is True: every rank must take the same step boundary,
+        and a local probe could differ between them."""
+        if self.lockstep:
+            return True
+        return (all(w.is_completed() for w in self.works)
+                and (self.event is None or self.event.query()))
+
+    def wait(self):
+        """Complete every message; (logits (B, V), [caches at this rank's
+        heads, each (L, B, h, W, hd)]) over the chunk's rows in order."""
+        for w in self.works:
+            w.wait()
+        self.works, self.keep = [], []
+        if len(self.shards) == 1:
+            got = self.shards[0]
+        else:
+            got = [torch.cat(ts, dim=0 if k == 0 else 1)
+                   for k, ts in enumerate(zip(*self.shards))]
+        return got[0], got[1:]
+
+
 class OutOfSlotsError(RuntimeError):
     """Admission refused: every decode slot is occupied. A
     queue-and-retry condition, like OutOfBlocksError."""
@@ -246,8 +457,8 @@ class Request:
     #: prompt tokens served from the prefix cache at admission (a
     #: multiple of block_size; 0 = cold). Set by the engine's reserve.
     cached_tokens: int = 0
-    #: scheduler lane and fairness key, carried for the scheduler that
-    #: comes with the frontend (ROADMAP queue 1 item 11)
+    #: scheduler lane and fairness key, read by the chunked scheduler
+    #: (`sched.ChunkedScheduler`)
     priority: str = "normal"
     tenant: Optional[str] = None
 
@@ -278,12 +489,6 @@ class ServingEngine:
                  tp_axis: Optional[str] = None, prefill_mesh=None,
                  prefill_axis: Optional[str] = None,
                  prefix_cache: bool = False):
-        for name, val in (("prefill_mesh", prefill_mesh),
-                          ("prefill_axis", prefill_axis)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=) is the disaggregated prefill "
-                    f"mesh (ROADMAP queue 1 item 10, its prefill half)")
         if window % block_size:
             raise ValueError(
                 f"window {window} must be a multiple of block_size "
@@ -294,11 +499,6 @@ class ServingEngine:
                 f"{model.pos.table.shape[0]}")
         self.model = model
         self.device = model.device
-        #: the stream this engine captures its graphs on (the card only);
-        #: a caller stepping several engines at once (the router's
-        #: parallel pump) steps each on its own
-        self.stream = (private_stream(self, self.device)
-                       if self.device.type == "cuda" else None)
         self.slots = int(slots)
         self.block_size = int(block_size)
         self.window = int(window)
@@ -329,15 +529,47 @@ class ServingEngine:
                 raise ValueError(f"tp_axis {tp_axis!r} is not on the mesh "
                                  f"{tuple(mesh.axis_names)}")
             self.tp = mesh.axis_size(tp_axis)
-            self._tp_rank = mesh.axis_index(tp_axis)
-            self._tp_group = mesh.axis_group(tp_axis)
             if self.heads % self.tp:
                 raise ValueError(
                     f"ServingEngine: {self.heads} heads do not divide over "
                     f"tp={self.tp} — the pool shards whole heads per rank "
                     f"(pad num_heads or shrink the tp axis)")
-        #: this rank's heads, and the parameters its step runs
+        self._check_tp()
+        #: this rank's heads
         self._hl = self.heads // self.tp
+
+        # -- the prefill mesh: disaggregated prefill ------------------------
+        self._prefill_mesh = prefill_mesh
+        self._plan: Optional[_PrefillPlan] = None
+        if prefill_mesh is not None:
+            if prefill_axis is None:
+                prefill_axis = prefill_mesh.axis_names[0]
+            if prefill_axis not in prefill_mesh.axis_names:
+                raise ValueError(
+                    f"prefill_axis {prefill_axis!r} is not on the prefill "
+                    f"mesh {tuple(prefill_mesh.axis_names)}")
+            pw = prefill_mesh.axis_size(prefill_axis)
+            if self.prefill_batch % pw:
+                raise ValueError(
+                    f"prefill_batch {self.prefill_batch} does not "
+                    f"divide over the prefill mesh axis "
+                    f"{prefill_axis!r} (extent {pw})")
+            self._plan = _PrefillPlan(mesh, tp_axis, prefill_mesh,
+                                      prefill_axis, self.prefill_batch)
+        self._prefill_axis = prefill_axis
+        if self._plan is not None and not self._plan.decodes:
+            self._init_prefill_role()
+            return
+
+        #: the stream this engine captures its graphs on (the card only);
+        #: a caller stepping several engines at once (the router's
+        #: parallel pump) steps each on its own
+        self.stream = (private_stream(self, self.device)
+                       if self.device.type == "cuda" else None)
+        if mesh is not None:
+            self._tp_rank = mesh.axis_index(tp_axis)
+            self._tp_group = mesh.axis_group(tp_axis)
+        #: the parameters this rank's step runs
         self._step_pv = (self.pv if mesh is None
                          else self._shard_params(self.pv))
 
@@ -434,6 +666,80 @@ class ServingEngine:
         share so `pool_bytes=` budgets the whole allocation)."""
         return 0
 
+    def _check_tp(self) -> None:
+        """Refusals that depend on the tp extent, once it is known (none
+        here; the speculative engine checks its draft's heads)."""
+
+    # -- the disaggregated prefill -------------------------------------------
+
+    def _init_prefill_role(self) -> None:
+        """A rank outside the decode ranks serves prefill only: it keeps
+        the model's prefill and the transfer plan, and allocates no pool
+        and builds no decode step. `serve_prefill` is its loop."""
+        self._decode_builds = 0
+
+    def _prefill_outputs(self, ctx: torch.Tensor, t0m1: torch.Tensor):
+        """The prefill of context rows `ctx` (B, W): (the logits of row
+        t0m1 (B, V), [K, V, ...] caches (L, B, H, W, hd) with every head,
+        in the order `_write_received` takes them)."""
+        logits, kc, vc = self._prefill(self.pv, ctx)
+        lg = logits[torch.arange(ctx.shape[0], device=ctx.device), t0m1]
+        return lg, [kc, vc]
+
+    def _part_shapes(self, rows: int):
+        """One decode rank's share of `_prefill_outputs` for `rows` rows:
+        [(shape, dtype)], the logits first, then each cache at its heads
+        over the decode ranks."""
+        dt = self.pv["tok"].dtype
+        kv = ((self._n_layers, rows, self.heads // self._plan.tp,
+               self.window, self.hd), dt)
+        return [((rows, self.model.vocab_size), dt), kv, kv]
+
+    def _write_received(self, kvs, rows_d: torch.Tensor) -> None:
+        """Write this rank's heads of a cold chunk's caches, carried from
+        the prefill mesh, at page-table rows `rows_d`."""
+        self._write_prefill(self.kpools, self.vpools, kvs[0], kvs[1],
+                            rows_d)
+
+    def serve_prefill(self) -> int:
+        """The loop of a rank outside the decode ranks: take each chunk's
+        context rows from the decode leader, prefill them, send every
+        decode rank its heads of the caches and the logits rows, until the
+        leader's `close()`. Returns the chunks served."""
+        plan = self._plan
+        if plan is None or plan.decodes:
+            raise RuntimeError(
+                "serve_prefill is the loop of a prefill-only rank (one in "
+                "the prefill mesh and outside the decode ranks)")
+        return plan.serve(self)
+
+    def close(self) -> None:
+        """End the prefill-only ranks' `serve_prefill` loops (the decode
+        leader tells each; the other decode ranks call it too, in
+        lockstep, and send nothing). Idempotent; a no-op without a
+        prefill mesh."""
+        if self._plan is not None and self._plan.decodes:
+            self._plan.stop(self)
+
+    def _dispatch_disaggregated(self, ctx, t0m1, rows_d, seeds, temps,
+                                sample) -> Tuple:
+        """A cold chunk through the prefill mesh: start the transfer
+        (this rank's own shards computed now), and defer the page writes
+        and the first-token pick to `_finish_chunk`, after the transfer
+        completes."""
+        xfer = self._plan.start(self, ctx, t0m1)
+
+        def first():
+            lg, kvs = xfer.wait()
+            self._write_received(kvs, rows_d)
+            b = lg.shape[0]
+            return pick_rows(lg, self._dev(seeds),
+                             torch.zeros(b, dtype=torch.long,
+                                         device=self.device),
+                             self._dev(temps), self._dev(sample))
+
+        return (first, seeds, temps, sample, xfer)
+
     def _prefix_fingerprint(self) -> str:
         """Every knob that shapes a KV block's content for a given token
         prefix: two engines with equal fingerprints make comparable
@@ -493,9 +799,10 @@ class ServingEngine:
         return reduce, gather
 
     def _local_heads(self, kv: torch.Tensor) -> torch.Tensor:
-        """This rank's heads of a dense (L, B, H, W, hd) prefill cache."""
-        return kv[:, :, self._tp_rank * self._hl:(self._tp_rank + 1)
-                  * self._hl]
+        """This rank's heads of a dense (L, B, H, W, hd) prefill cache
+        (the target's or the draft's)."""
+        h = kv.shape[2] // self.tp
+        return kv[:, :, self._tp_rank * h:(self._tp_rank + 1) * h]
 
     def _fingerprint_extra(self) -> str:
         """Extra fingerprint material from subclasses whose sibling
@@ -850,6 +1157,7 @@ class ServingEngine:
         blocks allow, prefill it in `prefill_batch` chunks, and return
         (admitted slot ids, first refusal or None): the refusal is
         returned, not raised."""
+        self._decode_rank_only()
         pending: List[Tuple[int, Request]] = []
         err: Optional[Exception] = None
         for req in reqs:
@@ -861,6 +1169,13 @@ class ServingEngine:
         for group in self._chunk_items(pending):
             self._prefill_chunk(group)
         return [s for s, _ in pending], err
+
+    def _decode_rank_only(self) -> None:
+        if self._plan is not None and not self._plan.decodes:
+            raise RuntimeError(
+                f"rank {self._plan.me} serves prefill only (it is outside "
+                f"the decode ranks {self._plan.decode}): call "
+                f"serve_prefill() on it, and admit on the decode ranks")
 
     def _chunk_items(self, pending):
         """Split reserved items into prefill_batch-sized chunks; with the
@@ -1026,6 +1341,9 @@ class ServingEngine:
             rows[j] = row
             t0m1[j] = t0 - 1
         seeds, temps, sample = self._row_sampling(items, bp)
+        if self._plan is not None:
+            return self._dispatch_disaggregated(
+                ctx, t0m1, self._dev(rows), seeds, temps, sample)
         ctx_d, rows_d = self._dev(ctx), self._dev(rows)
         logits, kc, vc = self._prefill(self.pv, ctx_d)
         if self.tp_axis is not None:
@@ -1117,6 +1435,9 @@ class ServingEngine:
         cursors, emit. A deferred eviction (a cancel that raced the
         prefill) lands here, after the page writes."""
         first, seeds, temps, sample, _ = chunk
+        if callable(first):   # a disaggregated chunk: complete it now
+            with torch.inference_mode():
+                first = first()
         first = first.cpu().numpy()
         for j, (slot, req, row) in enumerate(items):
             self._pending.discard(slot)
@@ -1161,6 +1482,7 @@ class ServingEngine:
         With ``chunked=True`` nothing is dispatched: the prefill is
         STAGED as resumable `_ChunkWork` groups on the ticket, and
         `advance_prefill` runs it one block_size-wide pass at a time."""
+        self._decode_rank_only()
         pending: List[Tuple[int, Request, np.ndarray]] = []
         err: Optional[Exception] = None
         for req in reqs:
@@ -1230,6 +1552,9 @@ class ServingEngine:
         prefill overwrites them first (stream order). Returns the
         requests."""
         back = []
+        for chunk, _ in ticket.chunks:
+            if isinstance(chunk[-1], _PrefillTransfer):
+                chunk[-1].wait()   # every posted message is matched
         groups = [items for _, items in ticket.chunks]
         groups.extend(w.items for w in ticket.work)
         for items in groups:

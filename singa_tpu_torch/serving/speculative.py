@@ -1,5 +1,5 @@
 """Draft-model speculative decoding through the paged KV cache
-(counterpart of singa_tpu/serving/speculative.py, single device).
+(counterpart of singa_tpu/serving/speculative.py).
 
 Each engine round runs
 
@@ -46,6 +46,19 @@ stream, and cannot equal the reference's, whose PRNG differs).
 Rejected rows need no rollback: every future query masks to its own
 horizon, and every round writes the range it attends before gathering.
 
+On a tensor-parallel mesh (`mesh=`, `tp_axis=`; reference :132-199,
+:457-680) the draft's pools and weights shard over the target's axis:
+each rank's draft pools hold its d_heads/tp heads (a draft whose heads
+the axis does not divide is refused), each propose micro-step runs the
+draft's Megatron blocks with their two all-reduces a block and one
+logits all-gather, and verify is the target's sharded window pass with
+its own gather. A round is 2 x (L_target + L_draft x (K+1)) all-reduces
+and K+2 gathers (the reference's `declared_schedule` census), still one
+capture each of propose and verify; the picks and the acceptance run
+on whole logits rows, the same on every rank. With a prefill mesh the
+draft's full-window prefill runs beside the target's on the prefill
+ranks and its caches travel with the target's.
+
 Counters: ``spec_accepts`` / ``spec_rejects`` ride the process counter
 registry; `acceptance_rate` is the engine's lifetime ratio, also the
 ``serve_acceptance_rate`` gauge when metrics are on.
@@ -89,10 +102,6 @@ class SpeculativeEngine(ServingEngine):
     """
 
     def __init__(self, model, draft_model, *, spec_k: int = 4, **kw):
-        if kw.get("mesh") is not None or kw.get("tp_axis") is not None:
-            raise NotImplementedError(
-                "SpeculativeEngine(mesh=, tp_axis=) is the sharded "
-                "speculative round (ROADMAP queue 1 item 11)")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if draft_model.vocab_size != model.vocab_size:
@@ -119,9 +128,50 @@ class SpeculativeEngine(ServingEngine):
     def _extra_kv_block_bytes(self) -> int:
         """The draft pools' per-block bytes: they ride the same page
         table, so `pool_bytes=` sizing and the allocator's refusal math
-        charge each block for both caches."""
+        charge each block for both caches (per rank, like the target's,
+        when the pools shard over a tp axis)."""
         return kv_block_bytes(self._d_layers, self.d_heads, self.d_hd,
-                              self.block_size, self.kv_dtype)
+                              self.block_size, self.kv_dtype, tp=self.tp)
+
+    def _check_tp(self) -> None:
+        if self.d_heads % self.tp:
+            raise ValueError(
+                f"SpeculativeEngine: draft has {self.d_heads} heads, not "
+                f"divisible over tp={self.tp} — the draft pools shard on "
+                f"the SAME axis as the target's (pick a draft head count "
+                f"the mesh divides)")
+
+    # -- the disaggregated prefill: the draft's caches travel too -----------
+
+    def _init_draft(self) -> None:
+        dm = self.draft_model
+        if self.window > dm.pos.table.shape[0]:
+            raise ValueError(
+                f"window {self.window} exceeds the draft model's "
+                f"max_len {dm.pos.table.shape[0]}")
+        dm._ensure_initialized(self.window)
+        self.dpv = dm._functional_params()
+        self._draft_prefill = dm._decode_fns(self.window)[0]
+
+    def _init_prefill_role(self) -> None:
+        super()._init_prefill_role()
+        self._init_draft()
+        self._verify_builds = 0
+
+    def _prefill_outputs(self, ctx, t0m1):
+        lg, kvs = super()._prefill_outputs(ctx, t0m1)
+        _, dkc, dvc = self._draft_prefill(self.dpv, ctx)
+        return lg, kvs + [dkc, dvc]
+
+    def _part_shapes(self, rows: int):
+        dkv = ((self._d_layers, rows, self.d_heads // self._plan.tp,
+                self.window, self.d_hd), self.dpv["tok"].dtype)
+        return super()._part_shapes(rows) + [dkv, dkv]
+
+    def _write_received(self, kvs, rows_d) -> None:
+        super()._write_received(kvs, rows_d)
+        self._draft_write_prefill(self.dkpools, self.dvpools, kvs[2],
+                                  kvs[3], rows_d)
 
     def _fingerprint_extra(self) -> str:
         """A shared block carries DRAFT rows beside the target's, so the
@@ -157,25 +207,23 @@ class SpeculativeEngine(ServingEngine):
         propose + verify round: allocate the draft pools on the same
         blocks, then build (on the card: capture) propose and verify
         once each over the base engine's static inputs."""
-        dm = self.draft_model
-        if self.window > dm.pos.table.shape[0]:
-            raise ValueError(
-                f"window {self.window} exceeds the draft model's "
-                f"max_len {dm.pos.table.shape[0]}")
-        dm._ensure_initialized(self.window)
-        self.dpv = dm._functional_params()
-        self._draft_prefill = dm._decode_fns(self.window)[0]
+        self._init_draft()
+        #: the draft's heads on this rank, and the parameters its
+        #: micro-steps run (its blocks of the weights on a tp mesh)
+        self._dhl = self.d_heads // self.tp
+        self._d_step_pv = (self.dpv if self.mesh is None
+                           else self._shard_params(self.dpv))
         nb = self.allocator.num_blocks
-        args = (self._d_layers, nb, self.block_size, self.d_heads,
+        args = (self._d_layers, nb, self.block_size, self._dhl,
                 self.d_hd, self.device)
         self._dkdata, self._dkscale, self.dkpools = self._kv.make_pools(*args)
         self._dvdata, self._dvscale, self.dvpools = self._kv.make_pools(*args)
         # the allocator's informational bytes/block states the true cost
         self.allocator.bytes_per_block += self._extra_kv_block_bytes()
         self._draft_write_prefill = self._build_write_prefill(
-            self.d_heads, self.d_hd)
+            self._dhl, self.d_hd)
         self._propose = self._build_propose(self._build_decode_forward(
-            self.d_heads, self.d_hd))
+            self._dhl, self.d_hd))
         self._verify = self._build_verify()
 
         self._decode_builds = self._verify_builds = 1
@@ -194,15 +242,15 @@ class SpeculativeEngine(ServingEngine):
         """Propose over the static inputs: (dtoks (S, K), dlogits
         (S, K, V))."""
         pt, tok, pos, seeds, _, sample, temps = self._step_inputs()
-        return self._propose(self.dpv, self.dkpools, self.dvpools, pt,
-                             tok, pos, seeds, temps, sample)
+        return self._propose(self._d_step_pv, self.dkpools, self.dvpools,
+                             pt, tok, pos, seeds, temps, sample)
 
     def _verify_fn(self, dtoks, dlogits):
         """Verify over the static inputs and propose's output: one
         (S, K+2) block, the emitted row then n_acc."""
         pt, tok, pos, seeds, _, sample, temps = self._step_inputs()
-        return self._verify(self.pv, self.kpools, self.vpools, pt, tok,
-                            dtoks, dlogits, pos, seeds, temps, sample)
+        return self._verify(self._step_pv, self.kpools, self.vpools, pt,
+                            tok, dtoks, dlogits, pos, seeds, temps, sample)
 
     def _run_propose(self):
         if self._propose_graph is None:
@@ -268,10 +316,12 @@ class SpeculativeEngine(ServingEngine):
         super()._ensure_suffix()
         if self._draft_suffix is None:
             self._draft_suffix = self._build_suffix_prefill(
-                with_logits=False, heads=self.d_heads, hd=self.d_hd)
+                with_logits=False, heads=self._dhl, hd=self.d_hd)
 
     def _prefill_extra(self, ctx, rows) -> None:
         _, kc, vc = self._draft_prefill(self.dpv, ctx)
+        if self.tp_axis is not None:
+            kc, vc = self._local_heads(kc), self._local_heads(vc)
         self._draft_write_prefill(self.dkpools, self.dvpools, kc, vc, rows)
 
     def _suffix_extra(self, toks, start, rows) -> None:
@@ -281,7 +331,7 @@ class SpeculativeEngine(ServingEngine):
         draft prefill would have written for the same rows."""
         self._replay(("draft_suffix", toks.shape[0]),
                      lambda *a: self._draft_suffix(
-                         self.dpv, self.dkpools, self.dvpools, *a),
+                         self._d_step_pv, self.dkpools, self.dvpools, *a),
                      (rows, toks, start))
 
     # -- the speculative decode round --------------------------------------

@@ -1611,9 +1611,11 @@ def _rank_serving_tp(rank, world, kw, params, window, prompts, max_new,
                     prefill_mesh=mesh)),
                 ("prefill_axis", lambda: ServingEngine(
                     m, window=window, mesh=mesh, tp_axis="model",
+                    prefill_batch=2, prefill_mesh=mesh,
                     prefill_axis="data")),
                 ("speculative", lambda: SpeculativeEngine(
-                    m, m, window=window, mesh=mesh, tp_axis="model"))):
+                    m, gpt(odd_kw), window=window, mesh=mesh,
+                    tp_axis="model"))):
             try:
                 fn()
                 refusals[key] = "no error"
@@ -1631,6 +1633,212 @@ def _rank_serving_tp(rank, world, kw, params, window, prompts, max_new,
             out["solo_prefix"] = {
                 temp: [solo(np.concatenate([shared, t]), 8, temp, 3)
                        for t in tails] for temp in (0.0, 0.9)}
+    return out
+
+
+def serving_params(kw, seed=0):
+    """Seeded random weights for a serving test's GPT, as the numpy dict
+    both packages load (the reference by `set_params`, the port by
+    `load_singa_tpu_params`): `randomize_params`'s scales, drawn in
+    name order over the port GPT's parameters, whose names and shapes are
+    the reference's. Made without the reference, so its process and the
+    ranks can start together (`run_both`)."""
+    from singa_tpu_torch.models.gpt import GPT
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, p in sorted(GPT(**kw, device="cpu").named_parameters()):
+        shape = tuple(p.shape)
+        if name.endswith(("scale", "ln1_s", "ln2_s")):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif len(shape) >= 2 and not name.endswith(".table"):
+            a = rng.standard_normal(shape) / np.sqrt(shape[-2])
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        params[name] = a.astype(np.float32)
+    return params
+
+
+def serving_draft(target, seed=1):
+    """The untrained draft of the serving tests: the port's `gpt_draft`
+    at d_model 32, 1 block, 4 heads (the reference test's), with seeded
+    numpy weights, the same on every rank."""
+    from singa_tpu_torch.examples.serve_gpt import seeded_weights
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_draft
+
+    d = gpt_draft(target, d_model=32, num_layers=1, num_heads=4)
+    load_singa_tpu_params(d, seeded_weights(d, seed))
+    d.eval()
+    return d
+
+
+def _serving_gpt(kw, params):
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import GPT
+
+    m = GPT(**kw, device="cpu")
+    load_singa_tpu_params(m, params)
+    m.eval()
+    return m
+
+
+def _rank_serving_disagg(rank, world, kw, params, window, prompts, max_new):
+    """The disaggregated prefill over 4 ranks: decode on a (2,) "model"
+    mesh of ranks 0-1, prefill on a (2,) "data" mesh of ranks 2-3, each
+    mesh's layout known to the ranks outside it. Every case builds its
+    engine on the ranks it names; a decode rank serves the requests and
+    `close()`s, a prefill-only rank runs `serve_prefill()`. Requests a, b
+    are admitted as one 2-wide prefill; in the single-device case c, d
+    join through `begin_prefill_async` after three decode steps."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.serving import (Frontend, Request, ServingEngine,
+                                         SpeculativeEngine)
+
+    m = _serving_gpt(kw, params)
+    draft = serving_draft(m)
+    dmesh = mesh_module.get_mesh((2,), ("model",), devices=[0, 1],
+                                 allow_outside=True)
+    pmesh = mesh_module.get_mesh((2,), ("data",), devices=[2, 3],
+                                 allow_outside=True)
+    tp = dict(mesh=dmesh, tp_axis="model")
+    ekw = dict(slots=2, block_size=16, window=window, prefill_batch=2,
+               prefill_mesh=pmesh)
+    out = {"layouts": (dmesh.member, pmesh.member, dmesh.ranks,
+                       pmesh.ranks)}
+
+    def reqs(keys, temp=0.0):
+        return [Request(k, prompts[k], max_new[k], temperature=temp,
+                        seed=5) for k in keys]
+
+    def serve(name, make, ranks, drive):
+        if rank not in ranks:
+            return
+        eng = make()
+        if eng._plan.decodes:
+            got = drive(eng)
+            eng.close()
+            out[name] = {r.rid: np.asarray(r.tokens, np.int32)
+                         for r in got}
+            out[f"{name}_compiles"] = (
+                eng.decode_compiles, getattr(eng, "verify_compiles", 0))
+            out[f"{name}_accept"] = getattr(eng, "acceptance_rate", None)
+        else:
+            out[f"{name}_served"] = eng.serve_prefill()
+
+    def together(eng):
+        got = reqs("ab")
+        eng.admit_many(got)
+        while eng.n_active:
+            eng.step()
+        return got
+
+    def staggered(eng):
+        got = reqs("abcd")
+        eng.admit_many(got[:2])
+        for _ in range(3):
+            eng.step()
+        # a reserved slot's page row stays trash until finish_prefill
+        ticket, err = eng.begin_prefill_async(got[2:])
+        slots = list(eng._pending)
+        out["async_rows"] = (err, [int(eng.page_table[s].sum())
+                                   for s in slots])
+        eng.finish_prefill(ticket)
+        out["async_rows_after"] = [int(eng.page_table[s].sum())
+                                   for s in slots]
+        while eng.n_active:
+            eng.step()
+        return got
+
+    def frontend(overlap):
+        def drive(eng):
+            fe = Frontend(eng, overlap_prefill=overlap)
+            hs = [fe.submit(prompts[k], max_new[k]) for k in "abcd"]
+            fe.run()
+            return [Request(k, prompts[k], max_new[k], tokens=list(
+                h.tokens)) for k, h in zip("abcd", hs)]
+        return drive
+
+    all4, dec0 = (0, 1, 2, 3), (0, 2, 3)
+    serve("tp", lambda: ServingEngine(m, **tp, **ekw), all4, together)
+    serve("single", lambda: ServingEngine(m, **dict(ekw, slots=4)), dec0,
+          staggered)
+    serve("spec_tiny", lambda: SpeculativeEngine(
+        m, draft, spec_k=3, **tp, **ekw), all4, together)
+    serve("spec_self", lambda: SpeculativeEngine(
+        m, m, spec_k=3, **tp, **ekw), all4, together)
+    serve("fifo", lambda: ServingEngine(m, **tp, **ekw), all4,
+          frontend(False))
+    serve("overlap", lambda: ServingEngine(m, **tp, **ekw), all4,
+          frontend(True))
+    refusals = {}
+    for key, fn in (
+            ("prefill_batch", lambda: ServingEngine(
+                m, **tp, **dict(ekw, prefill_batch=3))),
+            ("no_role", lambda: ServingEngine(m, **ekw))):
+        try:
+            fn()
+            refusals[key] = "no error"
+        except ValueError as e:
+            refusals[key] = str(e)
+    out["refusals"] = refusals
+    return out
+
+
+def _rank_serving_tp_spec(rank, world, kw, params, window, prompts,
+                          max_new, shared, tails, odd_kw):
+    """The sharded speculative round over the group's (2,) "model" mesh:
+    the staggered workload greedy (an untrained draft), int8 and sampled
+    (against the single-device speculative engine on the same seeds),
+    the model as its own draft, the prefix cache's warm streams, one
+    round's collectives, the draft-heads refusal."""
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp
+    from singa_tpu_torch.serving import Request, SpeculativeEngine
+
+    m = _serving_gpt(kw, params)
+    draft = serving_draft(m)
+    mesh = mesh_module.get_mesh((world,), ("model",))
+    ekw = dict(spec_k=3, slots=3, block_size=16, window=window)
+    tkw = dict(ekw, mesh=mesh, tp_axis="model")
+    out = {}
+    for name, dm, extra, temp in (
+            ("greedy", draft, {}, 0.0), ("int8", draft,
+                                         {"kv_dtype": "int8"}, 0.0),
+            ("sampled", draft, {}, 0.8)):
+        eng = SpeculativeEngine(m, dm, **tkw, **extra)
+        out[name] = staggered_workload(eng, prompts, max_new, temp, seed=5)
+        out[f"{name}_compiles"] = (eng.decode_compiles,
+                                   eng.verify_compiles)
+    if rank == 0:
+        solo = SpeculativeEngine(m, draft, **ekw)
+        out["solo_sampled"] = staggered_workload(solo, prompts, max_new,
+                                                 0.8, seed=5)
+    eng = SpeculativeEngine(m, m, **tkw)
+    r = Request("s", prompts["d"], max_new["d"])
+    eng.admit(r)
+    while eng.n_active:
+        eng.step()
+    out["self"] = (np.asarray(r.tokens, np.int32), eng.acceptance_rate)
+    eng = SpeculativeEngine(m, draft, **tkw)
+    eng.admit(Request("s", prompts["a"], 12))
+    before = dict(tp.COUNTS)
+    eng.step()
+    out["round_counts"] = {f"{k[0]}:{k[1]}": v - before.get(k, 0)
+                           for k, v in tp.COUNTS.items()
+                           if v != before.get(k, 0)}
+    out["draft_pool"] = tuple(eng._dkdata.shape)
+    eng = SpeculativeEngine(m, draft, **tkw, prefix_cache=True)
+    out["prefix"] = shared_workload(eng, shared, tails, 8)
+    out["prefix_stats"] = (eng.prefix_stats["hits"], eng.decode_compiles,
+                           eng.verify_compiles)
+    from singa_tpu_torch.models.gpt import GPT
+
+    try:
+        SpeculativeEngine(m, GPT(**odd_kw, device="cpu"), **tkw)
+        out["refusal"] = "no error"
+    except ValueError as e:
+        out["refusal"] = str(e)
     return out
 
 

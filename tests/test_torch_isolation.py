@@ -13,7 +13,7 @@
   blocked; the Device classes, RunConfig, ring and Ulysses attention
   and the long-context trainer's steps over a group of one; a ZeRO-3
   GPT with the prefetch and a MoE GPT, a step each over a group of
-  one);
+  one; the metric exporters and the metric-name lint);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -145,6 +145,28 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert lines[3] == "(2, 3) 0.0"
     assert lines[4] == "1 1 gloo"
     assert lines[5] == "True 1 __step__"
+
+
+def test_exporters_and_lint_run_with_jax_and_reference_blocked():
+    """observability.export and observability.lint import and run with
+    JAX and the reference blocked: the lint is clean over the port, and
+    the exporters render a counter and a histogram."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from singa_tpu_torch.observability import export, lint, metrics\n"
+        "reg = metrics.Registry()\n"
+        "reg.counter('restores').inc(2)\n"
+        "reg.histogram('serve_token_ms').observe(3.0)\n"
+        "text = export.prometheus_text(reg)\n"
+        "print(lint.check(), 'restores 2' in text,\n"
+        "      export.json_snapshot(reg)['histograms']['serve_token_ms']\n"
+        "      ['p50'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "[] True 3.0"
 
 
 def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():

@@ -235,13 +235,32 @@ def test_window_must_divide_into_blocks(model):
         ServingEngine(model, slots=1, block_size=24, window=_W)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object(), "prefill_axis": "data"},
-                                {"tp_axis": "model",
-                                 "prefill_mesh": object()},
-                                {"prefill_mesh": object()},
-                                {"prefill_axis": "data"}])
-def test_mesh_options_raise_naming_the_roadmap(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+def _mesh_refusals():
+    from singa_tpu_torch.parallel.mesh import Mesh, get_mesh
+
+    model1 = get_mesh((1,), ("model",))
+    data1 = get_mesh((1,), ("data",))
+    # the layout of a 2-rank prefill mesh, as a rank outside it holds it
+    data2 = Mesh(None, ("data",), axis_groups={"data": None}, ranks=(0, 1),
+                 dims=(2,), member=False)
+    return [
+        (dict(mesh=model1), "needs tp_axis"),
+        (dict(mesh=model1, tp_axis="nope"), "not on the mesh"),
+        (dict(prefill_mesh=data1, prefill_axis="nope"),
+         "not on the prefill mesh"),
+        (dict(prefill_mesh=data2), "does not divide over the prefill mesh "
+                                   "axis 'data' \\(extent 2\\)"),
+    ]
+
+
+@pytest.mark.parametrize("case", _mesh_refusals(),
+                         ids=[f"kw{i}" for i in range(4)])
+def test_mesh_options_raise_naming_the_roadmap(model, case):
+    """The decode and prefill mesh options refuse what they cannot
+    serve, naming the cause with the reference's words (they raised
+    naming ROADMAP items before the prefill mesh was ported)."""
+    kw, match = case
+    with pytest.raises(ValueError, match=match):
         ServingEngine(model, slots=1, window=_W, **kw)
 
 
@@ -262,11 +281,16 @@ def test_allocator_math_and_fragmented_reuse():
     assert alloc.free("unknown") == 0  # idempotent eviction
 
 
-def test_serve_example_streams_every_request(capsys):
+def test_serve_example_streams_every_request(capsys, monkeypatch):
     """The example server on the CPU: every request is served to
     max_new through on_token (the Frontend's handles), one decode
-    build; the reference's still unported flags raise naming the
-    ROADMAP."""
+    build; `--metrics-port 0` prints its URL and a scrape after the
+    serve answers 200 with the serving gauges; `--tp 2 --draft tiny`
+    (the sharded speculative round, rank 1 spawned over gloo) streams
+    what `--draft tiny` alone does."""
+    import re
+    import urllib.request
+
     from singa_tpu_torch.examples import serve_gpt
 
     handles = serve_gpt.main(["--device", "cpu", "--requests", "5",
@@ -280,7 +304,31 @@ def test_serve_example_streams_every_request(capsys):
     assert all(len(h.tokens) == 8 and h.done for h in handles)
     # the first two admit together, before either registers its blocks
     assert sum(h.request.cached_tokens > 0 for h in handles) == 3
-    with pytest.raises(NotImplementedError, match="item 18"):
-        serve_gpt.main(["--device", "cpu", "--metrics-port", "0"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve_gpt.main(["--device", "cpu", "--tp", "2", "--draft", "tiny"])
+
+    scraped = {}
+
+    class Scraping(serve_gpt.Frontend):
+        def run(self, *a, **k):
+            report = super().run(*a, **k)
+            url = re.search(r"metrics: (http://\S+)",
+                            capsys.readouterr().out).group(1)
+            for path in ("/metrics", "/healthz"):
+                with urllib.request.urlopen(url + path, timeout=5) as r:
+                    scraped[path] = (r.status, r.read().decode())
+            return report
+
+    monkeypatch.setattr(serve_gpt, "Frontend", Scraping)
+    small = ["--device", "cpu", "--requests", "3", "--slots", "2",
+             "--max-new", "6", "--d-model", "32", "--heads", "2"]
+    serve_gpt.main(small + ["--metrics-port", "0"])
+    code, page = scraped["/metrics"]
+    assert code == 200 and scraped["/healthz"][0] == 200
+    for name in ("serve_slot_occupancy", "serve_kv_utilization",
+                 "serve_token_ms_count"):
+        assert name in page, name
+    monkeypatch.undo()
+    plain = serve_gpt.main(small + ["--draft", "tiny"])
+    sharded = serve_gpt.main(small + ["--draft", "tiny", "--tp", "2"])
+    assert [list(h.tokens) for h in sharded] == [
+        list(h.tokens) for h in plain]
+    assert capsys.readouterr().out.count("verify executables: 1") == 2

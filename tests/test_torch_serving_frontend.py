@@ -527,7 +527,8 @@ def test_drain_span_counts_and_healthz_flip(model, tmp_path):
     """SIGTERM mid-serve: the serve.preempt_drain span's in-flight,
     queued and drain_tokens counts are the drain report's, and
     `healthz()` says "draining" while the streams in flight finish
-    ("ok" before the signal). The HTTP endpoint is ROADMAP item 18."""
+    ("ok" before the signal). Its flip over HTTP is held in
+    tests/test_torch_observability_export.py."""
     trace.enable(str(tmp_path / "trace.jsonl"))
     eng = ServingEngine(model, slots=2, block_size=16, window=_W)
     fe = Frontend(eng)

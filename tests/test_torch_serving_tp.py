@@ -20,8 +20,10 @@ sampled, equal the solo generate with two hits; one step runs
 2 all-reduces a block and one logits gather; a rank's block bytes are
 half the single-device engine's; an engine on a (1,) mesh of one rank
 gives the single-device engine's logits bitwise; the refusals name
-their cause, and the prefill mesh (item 10) and the sharded speculative
-round (item 11) their ROADMAP items.
+their cause: no tp_axis, an axis not on the mesh, heads the axis does
+not divide, a prefill batch the prefill mesh does not divide, a prefill
+axis not on the prefill mesh, and a draft whose heads the axis does not
+divide.
 """
 
 import numpy as np
@@ -158,11 +160,14 @@ def test_the_refusals_name_the_problem(ranks):
     assert "needs tp_axis" in got["needs_tp_axis"]
     assert "not on the mesh" in got["not_on_mesh"]
     assert "heads do not divide" in got["heads"]
-    for key in ("prefill_mesh", "prefill_axis"):
-        assert got[key].startswith("NotImplementedError") and (
-            "item 10" in got[key]), got[key]
-    assert got["speculative"].startswith("NotImplementedError") and (
-        "item 11" in got["speculative"])
+    assert got["prefill_mesh"].startswith("ValueError") and (
+        "does not divide over the prefill mesh axis 'model' (extent 2)"
+        in got["prefill_mesh"]), got["prefill_mesh"]
+    assert got["prefill_axis"].startswith("ValueError") and (
+        "'data' is not on the prefill mesh" in got["prefill_axis"])
+    assert got["speculative"].startswith("ValueError") and (
+        "draft has 3 heads, not divisible over tp=2"
+        in got["speculative"]), got["speculative"]
 
 
 def test_a_mesh_without_a_group_serves_as_the_single_device_engine(
