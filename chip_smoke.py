@@ -353,6 +353,25 @@ Phases, in the order they run (any failure raises and exits non-zero):
    --metrics-port 0` scraped during the serve (the serving gauges and
    `serve_token_ms` on `/metrics`, `/healthz` 200). No flash or K2a
    launch in any part;
+9n. the checkpoint (`ckpt_path`): `gpt_lm` as a child at gpt_medium's
+   widths (scanned, 4 x 1024, fp32) 6 steps unbroken (A), 4 steps with
+   `--checkpoint build/chip_smoke_ckpt/... --save-every 2` (B) and B's
+   command with `--steps 6` (C), which says it resumed at step 4 and
+   whose losses are bitwise A's steps 4-5 (12 launches of each fused
+   kernel a step), and the same with `--shard-states` (the four A and B
+   children at once, then the two C); the
+   API in one process on the captured fp32 gpt_medium step with AdamW:
+   a sync save at step 3 and an async save of the same step followed at
+   once by 3 replays, their shard files and crcs identical; a fresh
+   model whose step is captured takes the restore in place and its
+   next 3 replays are bitwise the unbroken run's, no new capture;
+   the state bytes, the save, snapshot and restore seconds; a flipped
+   byte refused (`CorruptCheckpointError`); phase 9k's world-1 tp x
+   zero3 stack saved and restored into the unplaced stack, parameters
+   equal and the next loss bitwise; the bf16 captured step with a
+   `GradSentinel` and `nonfinite_grad_at(2)`: step 2 leaves the state
+   bitwise and halves the scale, one capture. The directories are
+   deleted at the end;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -5809,6 +5828,403 @@ def disagg_path(torch, fa, mp, card):
     return out
 
 
+# -- phase 9n: the checkpointed trainer, the API, elastic, the sentinel --------
+
+#: where phase 9n writes its checkpoints (deleted at the phase's end)
+CKPT_ROOT = "build/chip_smoke_ckpt"
+#: gpt_lm at gpt_medium's widths, as phase 9f's `--shard-states` runs
+CKPT_TRAINER = ["--d-model", "1024", "--layers", "12", "--heads", "8",
+                "--seq", "1024", "--batch", "4", "--scan-blocks",
+                "--lr", "3e-4", "--sample-chars", "0"]
+#: the trainer child: gpt_lm's own `run`, its losses in full and the
+#: flash launches it made, as JSON on its last line
+CKPT_CHILD = (
+    "import json, sys\n"
+    "from singa_tpu_torch import distributed\n"
+    "from singa_tpu_torch.examples import gpt_lm\n"
+    "from singa_tpu_torch.ops import flash_attention as fa\n"
+    "try:\n"
+    "    r = gpt_lm.run(gpt_lm.parser().parse_args(sys.argv[1:]))\n"
+    "    gs = r['model']._train_step\n"
+    "    out = dict(losses=r['losses'], start=r['start'],\n"
+    "               launches=dict(flash_fwd=fa.FLASH_FWD_LAUNCHES,\n"
+    "                             flash_bwd_dq=fa.FLASH_BWD_DQ_LAUNCHES,\n"
+    "                             flash_bwd_dkv=fa.FLASH_BWD_DKV_LAUNCHES,\n"
+    "                             fused=dict(fa.FUSED_LAUNCHES)),\n"
+    "               captures=gs.captures, replays=gs.replays)\n"
+    "finally:\n"
+    "    distributed.shutdown()\n"
+    "print('CKPT_CHILD ' + json.dumps(out), flush=True)\n")
+#: the API part's steps before the save and after it
+CKPT_STEPS = 3
+#: the sentinel's injected step (0-based: the second replay)
+SENTINEL_AT = 2
+
+
+def trainer_runs(runs):
+    """Run each (label, argv) as a gpt_lm child, all at once on the card
+    (each holds one gpt_medium step's memory); returns {label:
+    (result, stdout, seconds)} and fails on any child's failure."""
+    procs = {}
+    for label, argv in runs:
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-c", CKPT_CHILD, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+    out = {}
+    for label, (p, t) in procs.items():
+        so, se = p.communicate(timeout=600)
+        wall = time.perf_counter() - t
+        check(p.returncode == 0,
+              f"gpt_lm {label} failed: {se[-3000:]}")
+        line = [ln for ln in so.splitlines() if ln.startswith("CKPT_CHILD ")]
+        check(len(line) == 1, f"gpt_lm {label}: no result line")
+        out[label] = (json.loads(line[0][len("CKPT_CHILD "):]), so, wall)
+    return out
+
+
+def resumed_trainers(card):
+    """For the plain AdamW and `--shard-states` (ZeRO-1) each: run A (6
+    steps, no checkpoint), B (4 steps, --save-every 2) and C (B's
+    command with --steps 6): C resumes at step 4, its losses are bitwise
+    A's steps 4-5 (B's, A's steps 0-3), and it launches 12 of each fused
+    kernel a step. The four A and B runs go at once, then the two C."""
+    import shutil
+
+    tags = {"plain": [], "zero1": ["--shard-states"]}
+    dirs = {tag: f"{CKPT_ROOT}/trainer_{tag}" for tag in tags}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    t = time.perf_counter()
+    first = trainer_runs(
+        [(f"A {tag}", CKPT_TRAINER + extra + ["--steps", "6"])
+         for tag, extra in tags.items()]
+        + [(f"B {tag}", CKPT_TRAINER + extra + [
+            "--steps", "4", "--checkpoint", dirs[tag], "--save-every", "2"])
+           for tag, extra in tags.items()])
+    first_s = time.perf_counter() - t
+    second = trainer_runs(
+        [(f"C {tag}", CKPT_TRAINER + extra + [
+            "--steps", "6", "--checkpoint", dirs[tag], "--save-every", "2"])
+         for tag, extra in tags.items()])
+    wall = time.perf_counter() - t
+    # C's launches: compile's forward (12 forward), step 4 uncaptured (12
+    # of each) and step 5 captured (12 of each recorded)
+    want = {"flash_fwd": 36, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+    per_step = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    out = {"wall_s": wall, "first_round_s": first_s,
+           "second_round_s": wall - first_s,
+           "launches_per_step": per_step}
+    for tag in tags:
+        (a, _, _), (b, _, _) = first[f"A {tag}"], first[f"B {tag}"]
+        c, c_out, c_s = second[f"C {tag}"]
+        check(f"resumed from {dirs[tag]} at step 4" in c_out
+              and c["start"] == 4,
+              f"gpt_lm {tag}: run C did not say it resumed at step 4")
+        check(len(a["losses"]) == 6 and b["losses"] == a["losses"][:4],
+              f"gpt_lm {tag}: run B's losses {b['losses']} are not A's "
+              f"{a['losses'][:4]}")
+        check(c["losses"] == a["losses"][4:],
+              f"gpt_lm {tag}: the resumed losses {c['losses']} are not "
+              f"bitwise the unbroken run's {a['losses'][4:]}")
+        check({k: c["launches"][k] for k in want} == want
+              and c["launches"]["fused"] == want
+              and (c["captures"], c["replays"]) == (1, 1),
+              f"gpt_lm {tag}: the resumed run's launches {c['launches']}, "
+              f"captures {c['captures']}, replays {c['replays']}")
+        print(f"gpt_lm {tag} resumed ({card}): A {a['losses']}; B "
+              f"{b['losses']}; C from step {c['start']} {c['losses']}: "
+              f"bitwise A's steps 4-5; C's flash launches a step "
+              f"{per_step} (fused layout), C alone {c_s:.1f} s", flush=True)
+        out[tag] = dict(losses_a=a["losses"], losses_b=b["losses"],
+                        losses_c=c["losses"], start_c=c["start"],
+                        launches_c=c["launches"], wall_c_s=c_s)
+        shutil.rmtree(dirs[tag], ignore_errors=True)
+    print(f"gpt_lm resumed ({card}): the four A and B runs at once "
+          f"{first_s:.1f} s, the two C {wall - first_s:.1f} s", flush=True)
+    return out
+
+
+def manifest_shards(ckpt, step_dir):
+    """{leaf name: [(file, nbytes, crc32s)]} of a committed step dir."""
+    from singa_tpu_torch import storage
+
+    man = json.loads(storage.get_driver(step_dir).read(
+        storage.join(step_dir, ckpt.MANIFEST)).decode())
+    return {lf["name"]: [(s["file"], s["nbytes"], s["crc32"])
+                         for s in lf["shards"]] for lf in man["leaves"]}
+
+
+def ckpt_api(torch, fa, mp, card):
+    """The API in one process, the captured fp32 gpt_medium step (scanned,
+    AdamW, 4 x 1024): 3 steps, a sync save, an async save of the same
+    step followed at once by 3 more replays (the snapshot must not see
+    them), the two step dirs' shard files and crcs identical; a fresh
+    model whose step is already captured takes the restore in place,
+    and its next 3 replays are bitwise the unbroken run's, with no new
+    capture; the launches across the restore; a flipped byte refused."""
+    import shutil
+
+    from singa_tpu_torch import opt, resilience
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.resilience import checkpoint as ckpt
+    from singa_tpu_torch.resilience import faults
+
+    sync_dir, async_dir = f"{CKPT_ROOT}/api_sync", f"{CKPT_ROOT}/api_async"
+    for d in (sync_dir, async_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    rng = np.random.default_rng(SEED)
+
+    def build():
+        m = gpt_medium(device="cuda")
+        load_singa_tpu_params(m, seeded_params(m, SEED))
+        m.set_optimizer(opt.AdamW(lr=3e-4))
+        return m
+
+    m = build()
+    vocab = m.vocab_size
+    seq = torch.from_numpy(rng.integers(
+        0, vocab, (2 * CKPT_STEPS, 4, 1025))).cuda()
+    batches = [(s[:, :-1].contiguous(), s[:, 1:].contiguous()) for s in seq]
+    m.compile([batches[0][0]], is_train=True, use_graph=True)
+    losses = [m(x, y)[1].item() for x, y in batches[:CKPT_STEPS]]
+    gs = m._train_step
+    check((gs.captures, gs.replays) == (1, CKPT_STEPS - 1),
+          f"api: {gs.captures} captures, {gs.replays} replays")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sync_step = resilience.save(sync_dir, m, m.optimizer, step=CKPT_STEPS)
+    save_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    handle = resilience.save(async_dir, m, m.optimizer, step=CKPT_STEPS,
+                             async_=True)
+    snapshot_s = time.perf_counter() - t
+    # the replays start at once and update the states in place
+    after = [m(x, y)[1].item() for x, y in batches[CKPT_STEPS:]]
+    t = time.perf_counter()
+    async_step = handle.result(timeout=600)
+    commit_wait_s = time.perf_counter() - t
+    check(gs.captures == 1, "api: the saves made the step recapture")
+    a, b = manifest_shards(ckpt, sync_step), manifest_shards(ckpt, async_step)
+    check(a == b, "api: the async save's shard files or crcs differ from "
+                  "the sync save's of the same step")
+    state_bytes = sum(n for shards in a.values() for _, n, _ in shards)
+
+    # a fresh model whose step is captured takes the restore in place
+    m2 = build()
+    m2.compile([batches[0][0]], is_train=True, use_graph=True)
+    reset_counts(fa, mp)
+    for x, y in batches[:2]:
+        m2(x, y)
+    before = counts(fa, mp)
+    gs2 = m2._train_step
+    check(before == dict(NO_LAUNCH, flash_fwd=24, flash_bwd_dq=24,
+                         flash_bwd_dkv=24) and gs2.captures == 1,
+          f"api: the fresh model's first and captured steps launched "
+          f"{before}, captures {gs2.captures}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    meta = resilience.restore(sync_dir, m2, m2.optimizer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    check(meta["step"] == CKPT_STEPS and m2.optimizer.step_counter
+          == CKPT_STEPS, f"api: restored step {meta['step']}")
+    reset_counts(fa, mp)
+    resumed = [m2(x, y)[1].item() for x, y in batches[CKPT_STEPS:]]
+    check(counts(fa, mp) == NO_LAUNCH and gs2.captures == 1
+          and gs2.replays == 1 + CKPT_STEPS,
+          f"api: after the restore {counts(fa, mp)} launches from Python, "
+          f"{gs2.captures} captures, {gs2.replays} replays: the capture "
+          f"was not kept")
+    check(resumed == after, f"api: the replays after the restore "
+                            f"{resumed} are not bitwise the unbroken "
+                            f"run's {after}")
+
+    # a flipped byte in a committed shard is refused
+    path, off = faults.flip_checkpoint_byte(sync_dir, byte_offset=4096)
+    try:
+        resilience.restore(sync_dir, m2, m2.optimizer)
+        refused = None
+    except resilience.CorruptCheckpointError as e:
+        refused = str(e)
+    check(refused is not None and path in refused,
+          "api: a flipped checkpoint byte was not refused")
+    print(f"ckpt api ({card}): {state_bytes} state bytes a save "
+          f"({state_bytes / 2**30:.3f} GiB, {len(a)} leaves); sync save "
+          f"{save_s:.3f} s, async snapshot {snapshot_s:.3f} s (the step's "
+          f"stall) + commit waited {commit_wait_s:.3f} s after 3 replays; "
+          f"restore {restore_s:.3f} s; async files == sync files; the "
+          f"restored captured step's replays {resumed} bitwise the "
+          f"unbroken {after}; flipped byte refused: {refused[:90]}",
+          flush=True)
+    del m, m2, gs, gs2
+    drop_graphs(torch)
+    for d in (sync_dir, async_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(losses=losses + after, resumed=resumed,
+                state_bytes=state_bytes, leaves=len(a), save_s=save_s,
+                snapshot_s=snapshot_s, commit_wait_s=commit_wait_s,
+                restore_s=restore_s,
+                launches_before_restore=before, refused=refused)
+
+
+def ckpt_elastic(torch, fa, mp, card):
+    """Elastic at world 1: the tp x zero3 stack of phase 9k (a world-1
+    NCCL group, a (1, 1, 1) mesh, DistOpt(AdamW)), 2 steps, saved; then
+    the scanned gpt_medium with the same axes declared but no mesh (the
+    dense path reads the head-interleaved QKV) and a plain AdamW takes
+    the restore: its parameters equal the saved ones, and its next step's
+    loss is bitwise the tp x zero3 model's."""
+    import shutil
+
+    from singa_tpu_torch import distributed, opt, resilience
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    from singa_tpu_torch.parallel import tp as tp_module
+
+    d = f"{CKPT_ROOT}/elastic"
+    shutil.rmtree(d, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 1)
+    distributed.init(device="cuda")
+    try:
+        mesh = mesh_module.get_mesh_3d(1, 1, 1)
+        probe = gpt_medium(device="cuda")
+        load_singa_tpu_params(probe, seeded_params(probe, SEED))
+        heads = probe.decoder.num_heads
+        states = {k: v.detach().clone() for k, v in
+                  probe.get_states().items()}
+        for k in ("decoder.w_qkv", "decoder.b_qkv"):
+            states[k] = tp_module.interleave_qkv_shards(states[k], heads)
+        seq = torch.from_numpy(rng.integers(
+            0, probe.vocab_size, (3, 4, 1025))).cuda()
+        del probe
+        batches = [(s[:, :-1].contiguous(), s[:, 1:].contiguous())
+                   for s in seq]
+        src = gpt_medium(device="cuda", tp_axis="model", zero3_axis="data")
+        src.set_optimizer(opt.DistOpt(opt.AdamW(lr=3e-4), mesh=mesh,
+                                      axis_name="data"))
+        src.compile([batches[0][0]], is_train=True, use_graph=True)
+        src.set_states(states)
+        for x, y in batches[:2]:
+            src(x, y)
+        t = time.perf_counter()
+        resilience.save(d, src, src.optimizer, step=2)
+        save_s = time.perf_counter() - t
+        saved = {k: v.detach().clone() for k, v in src.get_states().items()}
+        src_next = src(*batches[2])[1].item()
+
+        dst = gpt_medium(device="cuda", tp_axis="model", zero3_axis="data")
+        dst.set_optimizer(opt.AdamW(lr=3e-4))
+        dst.compile([batches[0][0]], is_train=True, use_graph=True)
+        t = time.perf_counter()
+        resilience.restore(d, dst, dst.optimizer)
+        restore_s = time.perf_counter() - t
+        got = dst.get_states()
+        equal = all(torch.equal(got[k], saved[k]) for k in saved)
+        check(sorted(got) == sorted(saved) and equal,
+              "elastic: the restored parameters differ from the saved ones")
+        reset_counts(fa, mp)
+        dst_next = dst(*batches[2])[1].item()
+        layouts = split_counts(fa, mp)
+        print(f"ckpt elastic ({card}): tp x zero3 on (1, 1, 1) saved in "
+              f"{save_s:.3f} s, restored into the unplaced stack in "
+              f"{restore_s:.3f} s, parameters equal; next loss {dst_next!r}"
+              f" vs the source's {src_next!r} (bitwise: "
+              f"{dst_next == src_next}); the target's flash launches by "
+              f"layout {layouts}", flush=True)
+        check(dst_next == src_next, "elastic: the next step's loss is not "
+                                    "bitwise the source model's")
+        del src, dst
+    finally:
+        distributed.shutdown()
+        drop_graphs(torch)
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(save_s=save_s, restore_s=restore_s, next_loss=dst_next,
+                source_next_loss=src_next, layouts=layouts)
+
+
+def ckpt_sentinel(torch, fa, mp, card):
+    """The sentinel on the card: the bf16 captured gpt_medium step with a
+    `GradSentinel` and `nonfinite_grad_at(SENTINEL_AT)`; the injected
+    step leaves every parameter, slot and the step counter bitwise and
+    halves the scale, the graph is captured once (a capture refuses a
+    host read, so the replay reads none), and the next step trains."""
+    from singa_tpu_torch import autograd, opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.resilience import GradSentinel, faults
+
+    rng = np.random.default_rng(SEED + 2)
+    m = gpt_medium(device="cuda")
+    load_singa_tpu_params(m, seeded_params(m, SEED))
+    base = opt.AdamW(lr=3e-4)
+    base.set_sentinel(GradSentinel(
+        init_scale=2.0 ** 15, fault_plan=faults.nonfinite_grad_at(
+            SENTINEL_AT)))
+    m.set_optimizer(base)
+    seq = torch.from_numpy(rng.integers(0, m.vocab_size, (4, 1025))).cuda()
+    x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+    try:
+        m.compile([x], is_train=True, use_graph=True, precision="bf16")
+        losses, scales = [], []
+        for i in range(SENTINEL_AT + 2):
+            if i == SENTINEL_AT:
+                before = {k: v.clone() for k, v in
+                          m.optimizer.dump_states().items()
+                          if not k.startswith("//")}
+                before.update(state_of(m))
+            losses.append(m(x, y)[1].item())
+            scales.append(m.fault_counters["loss_scale"])
+            if i == SENTINEL_AT:
+                now = dict(state_of(m))
+                now.update({k: v for k, v in
+                            m.optimizer.dump_states().items()
+                            if not k.startswith("//")})
+                unmoved = all(torch.equal(now[k], before[k]) for k in before)
+        fc = m.fault_counters
+        gs = m._train_step
+    finally:
+        autograd.set_autocast(False)
+    print(f"sentinel bf16 ({card}): losses {losses}, scales {scales}; the "
+          f"injected step {SENTINEL_AT} left {len(before)} parameters, "
+          f"slots and the step counter bitwise: {unmoved}; counters {fc}; "
+          f"{gs.captures} capture, {gs.replays} replays", flush=True)
+    check(unmoved, "sentinel: the skipped step moved the state")
+    check(scales[SENTINEL_AT] == scales[SENTINEL_AT - 1] / 2
+          and fc["nonfinite_skips"] == 1
+          and fc["steps_seen"] == SENTINEL_AT + 2,
+          f"sentinel: scales {scales}, counters {fc}")
+    check(gs.captures == 1 and gs.replays == SENTINEL_AT + 1,
+          f"sentinel: {gs.captures} captures, {gs.replays} replays")
+    check(all(np.isfinite(losses)), f"sentinel: losses {losses}")
+    del m, gs
+    drop_graphs(torch)
+    return dict(losses=losses, scales=scales, counters=fc)
+
+
+def ckpt_path(torch, fa, mp, card):
+    """Phase 9n: the trainer resumed (plain and --shard-states), the API
+    in one process, elastic at world 1, the sentinel, each timed; the
+    checkpoint directories are deleted at the end."""
+    import shutil
+
+    out = {"card": card}
+    try:
+        out["trainer"] = resumed_trainers(card)
+        for key, part in (("api", ckpt_api), ("elastic", ckpt_elastic),
+                          ("sentinel", ckpt_sentinel)):
+            t = time.perf_counter()
+            out[key] = part(torch, fa, mp, card)
+            out[key]["wall_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    return out["trainer"]["launches_per_step"], out
+
+
 def main() -> int:
     import torch
 
@@ -6107,6 +6523,16 @@ def main() -> int:
     print(f"disagg: {time.perf_counter() - t:.1f} s ({card}); each part "
           f"launched no kernel", flush=True)
 
+    # 9n. the checkpointed gpt_lm resumed bitwise (plain and ZeRO-1), the
+    # async save against the sync one under replays, a restore that keeps
+    # the capture, elastic at world 1, the bf16 sentinel, a flipped byte
+    reset_counts(fa, mp)
+    t = time.perf_counter()
+    ckpt_launches, ckpt_out = ckpt_path(torch, fa, mp, card)
+    ckpt_out["wall_s"] = time.perf_counter() - t
+    print(f"ckpt: {ckpt_out['wall_s']:.1f} s ({card}); the resumed "
+          f"trainer's launches a step {ckpt_launches}", flush=True)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -6195,6 +6621,8 @@ def main() -> int:
                  "sonnx_bert_export": sonnx_export_launches["flash_fwd"],
                  "zero1_gpt_medium_step": zero1_launches["flash_fwd"],
                  "eval_step": eval_launches["flash_fwd"],
+                 "ckpt_gpt_lm_step_across_restore":
+                     ckpt_launches["flash_fwd"],
                  **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
              head_split_sp=at_cases(None, (), sp_cases),
@@ -6224,6 +6652,7 @@ def main() -> int:
                 "unrolled_train_step": unrolled_launches["train_step"][name],
                 "bert_step": bert_launches[name],
                 "zero1_gpt_medium_step": zero1_launches[name],
+                "ckpt_gpt_lm_step_across_restore": ckpt_launches[name],
                 **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
             head_split_sp=at_cases(key, grads, sp_cases),
@@ -6290,6 +6719,7 @@ def main() -> int:
     print("zero3 " + json.dumps(z3_out), flush=True)
     print("pp " + json.dumps(pp_out), flush=True)
     print("disagg " + json.dumps(disagg_out), flush=True)
+    print("ckpt " + json.dumps(ckpt_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

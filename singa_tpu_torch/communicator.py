@@ -38,8 +38,17 @@ over the data axis as above. The sync is pspec-aware
 (`_grad_axes_for`): a parameter sharded over a grad axis (a ZeRO-3
 stack over the data axis, an expert shard over the expert axis) skips
 that axis and is divided by its size, and one set of fused buckets is
-made for each distinct axis set. `set_sentinel` is item 17 (so are the
-reference ZeRO-1 step's sentinel branches).
+made for each distinct axis set. `set_sentinel` attaches a
+`resilience.GradSentinel` to the wrapped optimizer (reference :561-572):
+the loss is scaled before the backward in the plain, half and ZeRO-1
+syncs, and the ZeRO-1 step keeps the reference's sentinel branches (the
+shard unscaled and checked over the group's square sum, a skipped step's
+shard, slots and step counter put back, branch-free); the sparse and
+partial-update modes refuse it.
+
+`is_per_chip_state_key` and `opt_state_pspec` (reference :91-116) say
+how an optimizer state lies over the ranks: the checkpoint's manifest
+and its elastic restore read them.
 
 `all_gather_tiled` is ZeRO-3's per-block weight gather (its backward a
 reduce-scatter); `pspec_axis_names` gives the axes a parameter is
@@ -68,7 +77,30 @@ from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["Communicator", "DistOpt", "plan_buckets", "pmean_over",
            "psum_over", "broadcast_from", "all_gather_tiled",
-           "pspec_axis_names"]
+           "pspec_axis_names", "is_per_chip_state_key", "opt_state_pspec"]
+
+
+def is_per_chip_state_key(k: str) -> bool:
+    """True for optimizer-state keys holding PER-RANK data (reference
+    :91-96): sparse error-feedback residuals and ZeRO-1 shards. The
+    reference stacks them `(world, ...)` over its data axis; a rank here
+    holds its own row."""
+    return k.endswith("//__residual__") or "//__zshard__" in k
+
+
+def opt_state_pspec(key: str, params_pspec: Dict[str, Tuple],
+                    axis_name: Optional[str], ndim: int) -> Tuple:
+    """The pspec of an optimizer-state key (reference :99-116): per-rank
+    entries split their leading world dim over the comm axis, slots take
+    their parameter's pspec, scalars and ownerless keys replicate.
+    `ndim` is the state's rank: a scalar under a parameter's name does
+    not take the parameter's pspec."""
+    if is_per_chip_state_key(key):
+        return (axis_name,) if axis_name else ()
+    spec = tuple(params_pspec.get(key.rpartition("//")[0], ()) or ())
+    if ndim < len(spec):
+        return ()
+    return spec
 
 
 class _GroupMean(torch.autograd.Function):
@@ -646,10 +678,17 @@ class DistOpt:
     def step_counter(self, value: int) -> None:
         self.opt.step_counter = value
 
+    @property
+    def sentinel(self):
+        return getattr(self.opt, "sentinel", None)
+
     def set_sentinel(self, sentinel) -> None:
-        raise NotImplementedError(
-            "DistOpt.set_sentinel (the resilience GradSentinel) is not "
-            "ported yet (ROADMAP queue 1 item 17)")
+        """Attach a `resilience.GradSentinel` to the wrapped optimizer
+        (it owns the update and the state): composes with the plain and
+        half syncs and ZeRO-1; the sparse and partial modes refuse it."""
+        self.opt.set_sentinel(sentinel)
+        if sentinel is not None and self._z_proxy is not None:
+            sentinel.to(self._z_proxy.device)
 
     # -- optimizer protocol ----------------------------------------------------
     def prepare(self, named_params) -> None:
@@ -700,6 +739,8 @@ class DistOpt:
             self._z_chunk = -(-max(1, sum(self._z_sizes)) // world)
         dev = params[0].device if params else torch.device("cpu")
         self._sparse_dropped = self._sparse_dropped.to(dev)
+        if self.sentinel is not None:
+            self.sentinel.to(dev)
         self._z_proxy = torch.zeros((1, self._z_chunk), dtype=torch.float32,
                                     device=dev)
         if self.gather_half:
@@ -989,8 +1030,10 @@ class DistOpt:
     def _stream_or_clip(self, pairs) -> None:
         """Update from (param, synced grad) pairs: one pair at a time
         without clipping; all of them clipped together (the global norm
-        needs every gradient) with clip_norm or clip_value."""
-        if self.opt.clip_norm is None and self.opt.clip_value is None:
+        needs every gradient) with clip_norm or clip_value, or a sentinel
+        (its all-finite check needs every gradient too)."""
+        if self.opt.clip_norm is None and self.opt.clip_value is None \
+                and self.sentinel is None:
             with torch.no_grad():
                 for p, g in pairs:
                     self.opt.update(p, g)
@@ -1071,7 +1114,9 @@ class DistOpt:
                             threshold: Optional[int] = None) -> None:
         """Backward, the fused-bucket all-reduce (`threshold` aliases
         buffSize), then the clip and the update (reference :1028); with
-        shard_states the ZeRO-1 step instead."""
+        shard_states the ZeRO-1 step instead. A sentinel's loss scale
+        multiplies the loss before the backward in both."""
+        loss = self.opt._scaled_loss(loss)
         if self.shard_states:
             return self._backward_and_zero1_update(loss)
         self._stream_or_clip(self._presync(
@@ -1079,17 +1124,21 @@ class DistOpt:
             data=True))
 
     def _backward_and_zero1_update(self, loss: torch.Tensor) -> None:
-        """The ZeRO-1 step (reference :1065-1287, without its sentinel
-        branches, item 17): the gradients flat in prepare() order (zeros
-        for a parameter without one), padded to a world multiple and
-        reduce-scattered (bf16 with half_wire; one collective a bucket
-        with overlap); clip_value, then clip_norm over the group's square
-        sum; the wrapped optimizer's update of this rank's parameter
+        """The ZeRO-1 step (reference :1065-1287): the gradients flat in
+        prepare() order (zeros for a parameter without one), padded to a
+        world multiple and reduce-scattered (bf16 with half_wire; one
+        collective a bucket with overlap); with a sentinel the shard
+        unscaled and its square sum over the group checked for
+        finiteness (the clip reuses that sum); clip_value, then clip_norm
+        over the group's square sum; the wrapped optimizer's update of
+        this rank's parameter
         shard (from the replicated parameters, or the fp32 master with
         gather_half), values and slot coordinates of gradient-less
         parameters rolled back; the all-gather (bf16 with gather_half)
-        and the write-back. Every state is written in place, so a
-        captured step replays against the same tensors."""
+        and the write-back. A non-finite step puts the shard, its slots
+        and the step counter back (`torch.where`), so the all-gather
+        rebroadcasts unchanged parameters. Every state is written in
+        place, so a captured step replays against the same tensors."""
         if self._z_proxy is None:
             raise RuntimeError(
                 "DistOpt(shard_states=True) requires prepare() before "
@@ -1119,11 +1168,23 @@ class DistOpt:
             gsh = _cat(self.comm.reduce_scatter_buckets(
                 segs, average=True, half=self.half_wire) if active
                 else segs)  # no group: the shard is the whole vector
+            sent, ok, sq = opt.sentinel, None, None
+            if sent is not None:
+                # the loss-scaled shard unscaled (the fault plan's factor
+                # multiplies in) and checked: the square sum spans every
+                # shard, so every rank takes the same verdict
+                gsh = sent.unscale(gsh)
+                sq = self.comm.all_reduce(gsh.float().square().sum(),
+                                          average=False)
+                ok = sent.check(sq)
             if opt.clip_value is not None:
                 cv = float(opt.clip_value)
                 gsh = gsh.clamp(-cv, cv)
+                sq = None  # the clamp changed the norm
             if opt.clip_norm is not None:
-                sq = self.comm.all_reduce(gsh.square().sum(), average=False)
+                if sq is None:
+                    sq = self.comm.all_reduce(gsh.square().sum(),
+                                              average=False)
                 gsh = gsh * torch.clamp(
                     opt.clip_norm / torch.clamp(sq.sqrt(), min=1e-12),
                     max=1.0)
@@ -1140,13 +1201,19 @@ class DistOpt:
             proxy.copy_(psh[None])
             slots = opt._slots.get(id(proxy), {})
             before = ({k: v.clone() for k, v in slots.items()}
-                      if mask is not None else None)
+                      if mask is not None or ok is not None else None)
             opt.update(proxy, gsh[None])
             new_sh = proxy[0]
             if mask is not None:
                 for k, v in slots.items():
                     v.copy_(torch.where(mask[None], v, before[k]))
                 new_sh = torch.where(mask, new_sh, psh)
+            if ok is not None:
+                # a non-finite step: the shard and its slot coordinates
+                # resolve to their pre-step values
+                new_sh = torch.where(ok, new_sh, psh)
+                for k, v in slots.items():
+                    v.copy_(torch.where(ok, v, before[k]))
             if self._z_master is not None:
                 self._z_master.copy_(new_sh[None])
             shards = list(new_sh.split(self._z_bchunks(world))) \
@@ -1163,13 +1230,23 @@ class DistOpt:
                     if has_grad[i]:
                         p.copy_(full[off:off + n].view(p.shape))
                     off += n
+            if ok is not None:
+                # a skipped step does not advance the lr schedule either
+                before_step = opt._step.clone()
         opt.step()
+        if ok is not None:
+            with torch.no_grad():
+                opt._step.copy_(torch.where(ok, opt._step, before_step))
+            sent.advance(ok)
 
     def backward_and_update_half(self, loss: torch.Tensor) -> None:
         """The bf16-wire sync, one all-reduce a gradient (reference
         :1303)."""
         if self.shard_states:
             raise RuntimeError(_DENSE_ONLY)
+        # the scaled gradient rides the bf16 wire (what the loss scale is
+        # for); an overflow on the wire comes back Inf and skips the step
+        loss = self.opt._scaled_loss(loss)
         self._stream_or_clip(
             (p, g if self._skips_data(p) else self.comm.all_reduce_half(g))
             for p, g in self._synced_grad_pairs(loss))
@@ -1181,6 +1258,13 @@ class DistOpt:
         select(g~) on the wire, e' = g~ - select(g~), this rank's own
         untransmitted remainder (never the averaged result; reference
         :1331)."""
+        if self.sentinel is not None:
+            raise RuntimeError(
+                "the resilience sentinel does not compose with the "
+                "sparse sync: error-feedback residuals would accumulate "
+                "gradient mass at WHATEVER loss scale each step ran, "
+                "and a backoff between steps silently mixes scales. "
+                "Use dist_option='plain'/'half' with the sentinel.")
         if self.shard_states:
             raise RuntimeError(_DENSE_ONLY)
         count = (not topK) and self.use_sparse
@@ -1229,6 +1313,13 @@ class DistOpt:
         from their local one. No clipping: the update set mixes synced
         and per-rank gradients, so a global norm would differ by rank
         (reference :1397)."""
+        if self.sentinel is not None:
+            raise RuntimeError(
+                "the resilience sentinel does not compose with the "
+                "partial-update mode: its gradients are replica-VARYING, "
+                "so the all-finite verdict (and therefore the skip) "
+                "would differ per replica and permanently diverge the "
+                "synced parameters. Use dist_option='plain'/'half'.")
         if self.shard_states:
             raise RuntimeError(_DENSE_ONLY)
         w = max(1, self.world_size)

@@ -37,8 +37,11 @@ array (what `Model.get_states` and `save_states` return, so a
 checkpoint does not depend on the layout) and `block_of` slices a full
 array the way `place_model_states` does (what `set_states` and
 `load_singa_tpu_states` copy in). `active_pspec` drops the axes the mesh
-lacks (extent 1, replicated). `shard_owner_map` belongs to the sharded
-checkpoint (ROADMAP queue 1 item 17).
+lacks (extent 1, replicated). `shard_owner_map(tensor)` (reference
+:182-204) gives every distinct shard of a tensor's full array and the
+lowest rank holding it, from its pspec and the mesh's dims alone (no
+collective): the sharded checkpoint writes each shard from that rank
+only.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ __all__ = ["init", "shutdown", "is_initialized", "process_index",
            "process_count", "device", "global_mesh", "shard_batch",
            "is_rank_local", "active_pspec", "infer_state_mesh",
            "place_model_states", "place_opt_states", "gather_full",
-           "block_of"]
+           "block_of", "shard_owner_map", "owner_table", "block_bounds",
+           "mesh_block_bounds"]
 
 _device: Optional[torch.device] = None
 #: the rendezvous and collective timeout
@@ -209,23 +213,12 @@ def block_of(full: torch.Tensor, spec, mesh: mesh_module.Mesh
              ) -> torch.Tensor:
     """This rank's block of `full` under the active `spec` on `mesh`: along
     each dim, part `index` of `n` equal parts, where n is the product of
-    the entry's axis sizes and index their joint index (first major).
-    A view of `full`."""
+    the entry's axis sizes and index their joint index (first major;
+    `mesh_block_bounds`). A view of `full`."""
     out = full
-    for dim, entry in enumerate(spec):
-        axes = _axes_of(entry)
-        if not axes:
-            continue
-        n, idx = 1, 0
-        for a in axes:
-            n *= mesh.axis_size(a)
-            idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
-        size = full.shape[dim]
-        if size % n:
-            raise ValueError(
-                f"dim {dim} of size {size} is not divisible by the "
-                f"{n} shards of {axes} on {mesh}")
-        out = out.narrow(dim, idx * (size // n), size // n)
+    for dim, (a, b) in enumerate(mesh_block_bounds(full.shape, spec, mesh)):
+        if b - a != full.shape[dim]:
+            out = out.narrow(dim, a, b - a)
     return out
 
 
@@ -249,6 +242,94 @@ def gather_full(t: torch.Tensor) -> torch.Tensor:
                 continue
             out = gather_in_group(out, g, world, dim)
     return out
+
+
+def _joint(entry, coords, sizes) -> Tuple[int, int]:
+    """(number of parts, this position's part) of a dim split over the
+    axes of `entry`, the first major."""
+    n, idx = 1, 0
+    for a in _axes_of(entry):
+        n *= sizes[a]
+        idx = idx * sizes[a] + coords[a]
+    return n, idx
+
+
+def _bounds(shape, spec, coords, sizes) -> Tuple[Tuple[int, int], ...]:
+    out = []
+    for dim, size in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        n, idx = _joint(entry, coords, sizes)
+        if size % n:
+            raise ValueError(
+                f"dim {dim} of size {size} is not divisible by the {n} "
+                f"shards of {_axes_of(entry)} on {sizes}")
+        out.append((idx * (size // n), (idx + 1) * (size // n)))
+    return tuple(out)
+
+
+def owner_table(shape, spec, axis_names, dims, ranks=None) -> dict:
+    """{bounds: owner} for every distinct shard of an array of `shape`
+    split by `spec` over a mesh of `dims` along `axis_names` whose
+    positions, row-major, are the global `ranks` (default 0..n-1):
+    `bounds` is one (start, stop) pair a dim, and the owner is the
+    lowest rank holding that shard (reference `shard_owner_map`, where
+    a device's process index plays the rank). Axes of `spec` the mesh
+    lacks are replicated."""
+    shape = tuple(int(d) for d in shape)
+    dims = tuple(int(d) for d in dims)
+    n = int(np.prod(dims)) if dims else 1
+    ranks = tuple(range(n)) if ranks is None else tuple(ranks)
+    names = tuple(axis_names)
+    spec = tuple(spec or ())
+    spec = tuple(tuple(a for a in _axes_of(e) if a in names) or None
+                 for e in spec)
+    sizes = dict(zip(names, dims))
+    owners: dict = {}
+    for pos in range(n):
+        coords = dict(zip(names, np.unravel_index(pos, dims) if dims
+                          else ()))
+        b = _bounds(shape, spec, {a: int(c) for a, c in coords.items()},
+                    sizes)
+        r = int(ranks[pos])
+        owners[b] = r if b not in owners else min(owners[b], r)
+    return owners
+
+
+def mesh_block_bounds(full, spec, mesh: mesh_module.Mesh
+                      ) -> Tuple[Tuple[int, int], ...]:
+    """This rank's (start, stop) pairs, one a dim, of its block of an
+    array of shape `full` split by the active `spec` over `mesh`: the
+    bounds `owner_table` keys this block by. Only the axes `spec` names
+    are read off the mesh."""
+    spec = tuple(spec or ())
+    used = {a for e in spec for a in _axes_of(e)}
+    coords = {a: mesh.axis_index(a) for a in used}
+    sizes = {a: mesh.axis_size(a) for a in used}
+    return _bounds(tuple(int(d) for d in full), spec, coords, sizes)
+
+
+def block_bounds(t: torch.Tensor) -> Tuple[Tuple[int, int], ...]:
+    """This rank's (start, stop) pairs, one a dim, of a placed tensor's
+    block within its full array (`place_model_states`); the whole extent
+    for an unplaced one."""
+    placed = getattr(t, "placed", None)
+    if placed is None:
+        return tuple((0, int(d)) for d in t.shape)
+    return mesh_block_bounds(*placed)
+
+
+def shard_owner_map(t) -> dict:
+    """{bounds: owner rank} for every distinct shard of a tensor's full
+    array (reference :182-204): a placed block's table follows from its
+    pspec and its mesh's dims and ranks (`owner_table`), the lowest rank
+    holding a shard owning it; a tensor with no placement (no pspec, or
+    a world of one) maps its whole extent to rank 0. Every rank computes
+    the same table from this metadata alone: no collective runs."""
+    placed = getattr(t, "placed", None)
+    if placed is None:
+        return {tuple((0, int(d)) for d in getattr(t, "shape", ())): 0}
+    full, spec, mesh = placed
+    return owner_table(full, spec, mesh.axis_names, mesh.dims, mesh.ranks)
 
 
 def infer_state_mesh(model, optimizer=None

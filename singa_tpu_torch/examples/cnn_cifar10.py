@@ -22,7 +22,9 @@ epoch's mean loss is not below the first's. Runs on the card unless
 no max-pool) and `--model xception` is `xception_cifar` (four max-pools
 a step). Under `--layout NHWC` (the default) every max-pool runs through
 `ops.max_pool.maxpool2d_nhwc`, whose CUDA backward is off by default, as
-in the reference (`set_pool_kernel_enabled`). `--checkpoint`,
+in the reference (`set_pool_kernel_enabled`). `--checkpoint DIR`
+saves a resilience checkpoint after every epoch and resumes from DIR
+when it holds one (its step field counts finished epochs).
 `--virtual-devices` and `--loader prefetch` raise, naming the ROADMAP
 item that ports them.
 """
@@ -54,7 +56,6 @@ DEFAULT_LR = {"alexnet": 0.005, "vgg": 0.05, "resnet": 0.05,
 
 def _refuse_unported(args):
     for flag, val, item in (
-            ("--checkpoint", args.checkpoint, "17 (checkpointing)"),
             ("--virtual-devices", args.virtual_devices,
              "20 (utils/virtual.py)"),
             ("--loader prefetch", args.loader == "prefetch",
@@ -91,8 +92,13 @@ def run(args) -> int:
     model.compile([on_dev(xt[:args.batch])], is_train=True,
                   use_graph=not args.no_graph)
 
+    # epoch-granular checkpoint and resume: the step field stores
+    # finished EPOCHS for this trainer
+    from singa_tpu_torch.utils import checkpoint as ckpt
+
+    start_epoch = ckpt.maybe_resume(model, optimizer, args.checkpoint)
     epoch_losses = []
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         tot_loss = n = seen = 0
         for bx, by in data.batches(xt, yt, args.batch, seed=epoch):
@@ -113,6 +119,8 @@ def run(args) -> int:
         print(f"epoch {epoch}: loss {epoch_losses[-1]:.4f} "
               f"val_acc {correct / max(1, total):.4f} "
               f"{seen / dt:.1f} img/s ({dt:.1f}s)")
+        if args.checkpoint:
+            ckpt.save_checkpoint(model, optimizer, args.checkpoint, epoch)
     if len(epoch_losses) > 1:
         ok = epoch_losses[-1] < epoch_losses[0]
         print(f"loss sanity: {epoch_losses[0]:.4f} -> {epoch_losses[-1]:.4f} "
@@ -153,7 +161,8 @@ def main(argv=None) -> int:
                         "default here) or the native threaded prefetcher "
                         "(not ported)")
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint archive path (not ported)")
+                   help="checkpoint directory: auto-resume if it holds "
+                        "one, save after every epoch")
     p.add_argument("--virtual-devices", type=int, default=0,
                    help="virtual multi-device run (not ported)")
     args = p.parse_args(argv)

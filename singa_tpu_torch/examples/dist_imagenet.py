@@ -20,9 +20,12 @@ divergence). Runs on the card unless `--device cpu`:
         --steps 3 --batch-per-chip 2 --image-size 32 --classes 10
 
 The data is `utils.data.synthetic_imagenet` (nothing is downloaded).
-`--checkpoint` and `--save-every` raise (ROADMAP queue 1 item 17);
-`--loader prefetch` and `--virtual-devices` raise (item 20), and
-`--loader sync` is the default here.
+`--checkpoint DIR --save-every N` saves a resilience checkpoint every N
+steps (every rank joins the sharded commit; DistOpt's per-rank states
+in canonical form) and resumes from DIR when it holds one; a resumed
+run takes `--steps` further steps, its batches continuing the stream at
+the resumed step. `--loader prefetch` and `--virtual-devices` raise
+(ROADMAP queue 1 item 20), and `--loader sync` is the default here.
 """
 
 from __future__ import annotations
@@ -43,8 +46,6 @@ from singa_tpu_torch.utils import data
 
 def _refuse_unported(args):
     for flag, val, item in (
-            ("--checkpoint", args.checkpoint, "17 (checkpointing)"),
-            ("--save-every", args.save_every, "17 (checkpointing)"),
             ("--loader prefetch", args.loader == "prefetch",
              "20 (the native prefetch loader)"),
             ("--virtual-devices", args.virtual_devices,
@@ -93,6 +94,10 @@ def run(args) -> dict:
                                    size=args.image_size)
     model.compile([torch.from_numpy(x[:batch]).to(dev)], is_train=True,
                   use_graph=True, precision=args.precision)
+
+    from singa_tpu_torch.utils import checkpoint as ckpt
+
+    start_step = ckpt.maybe_resume(model, dist_opt, args.checkpoint)
     n_grad_bytes = builtins_sum_bytes(model)
     print(f"model gradient payload: {n_grad_bytes / 1e6:.1f} MB/step")
 
@@ -107,7 +112,8 @@ def run(args) -> dict:
                                            by[lo:lo + per].astype(np.int64)))
 
     times, losses = [], []
-    for step in range(args.steps):
+    for rel_step in range(args.steps):
+        step = start_step + rel_step
         lo = (step * batch) % (len(x) - batch)
         t0 = time.time()
         tbx, tby = make_batch(x[lo:lo + batch], y[lo:lo + batch])
@@ -115,8 +121,11 @@ def run(args) -> dict:
         losses.append(loss.item())
         dt = time.time() - t0
         times.append(dt)
-        if step == 0:
-            print(f"step 0 (first, uncaptured): {dt:.1f}s  "
+        if args.checkpoint and args.save_every and \
+                (step + 1) % args.save_every == 0:
+            ckpt.save_checkpoint(model, dist_opt, args.checkpoint, step)
+        if rel_step == 0:
+            print(f"step {step} (first, uncaptured): {dt:.1f}s  "
                   f"loss {losses[0]:.4f}")
         else:
             # a ring all-reduce moves 2 (W - 1) / W of the payload a chip
@@ -126,7 +135,7 @@ def run(args) -> dict:
                   f"allreduce ~{ring / dt / 1e9:.2f} GB/s/chip "
                   f"({dt * 1e3:.0f} ms)")
     out = {"losses": losses, "img_s_chip": None, "ok": None,
-           "world": world}
+           "world": world, "start": start_step}
     if len(times) > 2:
         # the first two calls run uncaptured and capture the graph
         steady = sum(times[2:]) / len(times[2:])
@@ -164,9 +173,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=10,
                    help="linear lr warmup steps")
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint archive path (not ported)")
+                   help="checkpoint directory: auto-resume if it holds "
+                        "one, save every --save-every steps")
     p.add_argument("--save-every", type=int, default=0,
-                   help="checkpoint cadence in steps (not ported)")
+                   help="checkpoint cadence in steps (0 = never)")
     p.add_argument("--loader", choices=["prefetch", "sync"], default="sync",
                    help="host input pipeline: synchronous slicing (the "
                         "default here) or the native threaded prefetcher "

@@ -19,8 +19,18 @@ over the process group, a world-1 group (NCCL on the card, gloo on the
 CPU) when none is live. `run` called inside a live group of more than
 one process wraps DistOpt whatever the flag, and the global batch is
 `--batch` times the world (the reference's `len(jax.devices())`); each
-rank runs its share. --virtual-devices, --checkpoint and --save-every
-raise, naming the ROADMAP item that ports them.
+rank runs its share. `--checkpoint DIR --save-every N` saves a
+resilience checkpoint every N steps (`utils.checkpoint`: the sharded
+commit, canonical optimizer states, the newest two kept) and, when DIR
+holds one, resumes from it first; each step's batch is seeded by (seed,
+step), so a resumed run continues the batch stream, and its losses are
+bitwise those of a run that was never stopped:
+
+    python -m singa_tpu_torch.examples.gpt_lm --device cpu --steps 4 \
+        --batch 2 --seq 32 --d-model 32 --heads 2 --checkpoint /tmp/ck \
+        --save-every 2
+
+--virtual-devices raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -53,17 +63,15 @@ def load_corpus(path):
 def _refuse_unported(args):
     for flag, val, item in (
             ("--virtual-devices", args.virtual_devices,
-             "20 (utils/virtual.py)"),
-            ("--checkpoint", args.checkpoint, "17 (checkpointing)"),
-            ("--save-every", args.save_every, "17 (checkpointing)")):
+             "20 (utils/virtual.py)"),):
         if val:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 def run(args) -> dict:
-    """Train and sample; returns the losses of every step, the world and
-    the model."""
+    """Train and sample; returns the losses of the steps this run took,
+    the step it started at (after a resume), the world and the model."""
     _refuse_unported(args)
     text = load_corpus(args.data)
     chars = sorted(set(text))
@@ -109,6 +117,7 @@ def run(args) -> dict:
     batch = args.batch * world
 
     def make_batch(step):
+        # per-step seeding: a resumed run continues the batch stream
         rng = np.random.default_rng((args.seed, step))
         starts = rng.integers(0, n_win, size=batch)
         xs = np.stack([ids[s:s + args.seq] for s in starts])
@@ -119,17 +128,26 @@ def run(args) -> dict:
     bx, _ = make_batch(0)
     m.compile([bx], is_train=True, use_graph=True, precision=args.precision)
 
+    # parameters, buffers and every optimizer state (ZeRO-1's shards in
+    # canonical form), the generators and the step
+    from singa_tpu_torch.utils import checkpoint as ckpt
+
+    start_step = ckpt.maybe_resume(m, m.optimizer, args.checkpoint)
     t0 = time.time()
     losses = []
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         bx, by = make_batch(step)
         _, loss = m(bx, by)
         losses.append(loss)
         if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
             dt = time.time() - t0
-            tok_s = batch * args.seq * (step + 1) / max(dt, 1e-9)
+            tok_s = (batch * args.seq * (step - start_step + 1)
+                     / max(dt, 1e-9))
             print(f"step {step}: loss {float(loss.item()):.4f} "
                   f"({tok_s:.0f} tok/s)")
+        if args.checkpoint and args.save_every and \
+                (step + 1) % args.save_every == 0:
+            ckpt.save_checkpoint(m, m.optimizer, args.checkpoint, step)
 
     if args.sample_chars > 0:
         m.eval()
@@ -138,8 +156,8 @@ def run(args) -> dict:
                          seed=args.seed)
         print("--- sample ---")
         print("".join(chars[i] for i in out[0]))
-    return {"losses": [float(v) for v in losses], "world": world,
-            "model": m}
+    return {"losses": [float(v) for v in losses], "start": start_step,
+            "world": world, "model": m}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -174,9 +192,10 @@ def parser() -> argparse.ArgumentParser:
                    help="rematerialization policy of the scanned decoder "
                         "(implies --scan-blocks)")
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint archive path (not ported)")
+                   help="checkpoint directory: auto-resume if it holds "
+                        "one, save every --save-every steps")
     p.add_argument("--save-every", type=int, default=0,
-                   help="checkpoint cadence in steps (not ported)")
+                   help="checkpoint cadence in steps (0 = never)")
     return p
 
 

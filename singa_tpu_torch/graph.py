@@ -61,7 +61,12 @@ Counted (the reference's names): `graph_compiles` per capture (per new
 key on the CPU) with the `graph.compile` span around it; `train_steps`
 and `train_step_ms` (host wall of a training step's call) while the
 hot-path metrics are on. `captures` and `replays` count the same on the
-instance.
+instance. With a trace file configured a training step whose
+optimizer's `GradSentinel` skipped emits a `sentinel.skip` event
+(reading the sentinel's scalars waits for the step, which is why only
+tracing does it; reference :772, :788-805), and `fault_counters()` reads
+the sentinel's scalars after the step, merged with the supervisor
+counters (reference :807-830).
 
 The memory plan. A key's first call also hands the step's op graph to
 the native planner (`native.GraphPlanner`, g++'s build of
@@ -106,7 +111,7 @@ from singa_tpu_torch.ops import flash_attention as fa
 from singa_tpu_torch.ops import max_pool
 
 __all__ = ["GraphStep", "CAPTURE_LOCK", "private_stream", "plan_from_ops",
-           "step_memory_analysis", "tape_memory_plan",
+           "fault_counters", "step_memory_analysis", "tape_memory_plan",
            "check_param_shard_divisibility", "check_sharded_layers",
            "check_pipelined_stacks"]
 
@@ -242,6 +247,20 @@ def _no_unpack(_):
     raise RuntimeError("the eval step's planning tape keeps no tensor")
 
 
+def fault_counters(optimizer) -> Optional[Dict[str, float]]:
+    """The optimizer's sentinel's {"nonfinite_skips", "loss_scale",
+    "good_steps", "steps_seen"}, read after the step, merged with the
+    process-wide supervisor counters {"restarts", "rollbacks", "hangs",
+    ...}; None without a sentinel when no supervisor event has fired."""
+    from singa_tpu_torch.resilience import counters as _counters
+
+    sent = getattr(optimizer, "sentinel", None)
+    sup = _counters.supervisor_snapshot()
+    if sent is None:
+        return dict(sup) if any(sup.values()) else None
+    return {**sent.counters(), **sup}
+
+
 class _Captured:
     __slots__ = ("graph", "static", "out", "opt_steps")
 
@@ -273,6 +292,7 @@ class GraphStep:
         #: captures made (builds, on the CPU) and replays run
         self.captures = 0
         self.replays = 0
+        self._last_skips = 0
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -343,6 +363,8 @@ class GraphStep:
             out = self._replay(dev, entry, tensors)
         if t0 is not None and self.train_step:
             self._record_step(time.perf_counter() - t0)
+        if self.train_step and obs_trace.enabled():
+            self._emit_sentinel_events(self.model.optimizer)
         return _map(out, torch.Tensor.detach)
 
     def _run(self, args, kwargs):
@@ -454,6 +476,28 @@ class GraphStep:
                 obs_metrics.counter("train_steps"))
         h[0].observe(dt_s * 1000.0)
         h[1].inc()
+
+    def _emit_sentinel_events(self, opt) -> None:
+        """A `sentinel.skip` event with the loss scale when the skip count
+        advanced since the last step (tracing only: the read waits for
+        the step)."""
+        sent = getattr(opt, "sentinel", None)
+        if sent is None:
+            return
+        c = sent.counters()
+        skips = int(c.get("nonfinite_skips", 0))
+        if skips > self._last_skips:
+            obs_trace.event(
+                "sentinel.skip", skips=skips - self._last_skips,
+                nonfinite_skips=skips,
+                loss_scale=float(c.get("loss_scale", 0.0)))
+        self._last_skips = skips
+
+    def fault_counters(self) -> Optional[Dict[str, float]]:
+        """`fault_counters(optimizer)` of a training step; an eval step
+        has no optimizer."""
+        return fault_counters(self.model.optimizer if self.train_step
+                              else None)
 
     # ------------------------------------------------------------------
     def memory_analysis(self, *args, **kwargs) -> Dict[str, int]:

@@ -80,7 +80,7 @@ from singa_tpu_torch.distributed import (gather_full, is_rank_local,
                                          place_model_states)
 from singa_tpu_torch.graph import (GraphStep, check_param_shard_divisibility,
                                    check_pipelined_stacks,
-                                   check_sharded_layers)
+                                   check_sharded_layers, fault_counters)
 from singa_tpu_torch.layer import (Layer, _accepted_shapes, _copy_into,
                                    block_source)
 from singa_tpu_torch.parallel import mesh as mesh_module
@@ -173,6 +173,14 @@ class Model(Layer):
     @property
     def optimizer(self):
         return self._optimizer
+
+    @property
+    def fault_counters(self) -> Optional[Dict]:
+        """The resilience sentinel's skip and loss-scale counters of this
+        model's optimizer, merged with the supervisor counters
+        (`graph.fault_counters`, reference :265-282); None without a
+        sentinel when no supervisor event has fired."""
+        return fault_counters(self._optimizer)
 
     def set_optimizer(self, opt) -> None:
         """Use `opt` for the training step; its slots take this model's

@@ -20,9 +20,18 @@ Every update is capturable as part of one CUDA Graph (`graph.GraphStep`):
 - every slot is written in place, so a replay updates the tensors the
   next replay reads.
 
+`set_sentinel(resilience.GradSentinel(...))` guards the update (reference
+:136-149, :230-320): the loss is scaled before the backward, the
+gradients are unscaled and their global-norm square sum checked for
+finiteness (`clip_gradients(square_sum=)` shares that reduction), and a
+non-finite step puts the parameters, the slots and the step counter back
+to their pre-step values with `torch.where`, on the device, so the
+guarded step stays one CUDA Graph. With a sentinel `step_counter`, the
+host mirror, counts update attempts; the device counter `_step` (in
+`dump_states`) does not advance on a skipped step.
+
 `DistOpt` (data-parallel sync over `torch.distributed`) is
-`communicator.DistOpt`. Not ported: `set_sentinel` (resilience) raises
-`NotImplementedError` naming its ROADMAP item.
+`communicator.DistOpt`.
 """
 
 from __future__ import annotations
@@ -140,19 +149,32 @@ class Optimizer:
         #: placed parameter's block layout)
         self._params: Dict[int, torch.Tensor] = {}
         self._anon = 0
+        #: the resilience GradSentinel (`set_sentinel`), or None
+        self.sentinel = None
 
+    # -- the resilience sentinel ---------------------------------------------
     def set_sentinel(self, sentinel) -> None:
-        raise NotImplementedError(
-            "Optimizer.set_sentinel (the resilience GradSentinel) is not "
-            "ported yet (ROADMAP queue 1 item 17)")
+        """Attach a `resilience.GradSentinel` (module docstring): the loss
+        is scaled before the backward, the gradients unscaled and checked,
+        and a non-finite step leaves the parameters, slots and step
+        counter bitwise as they were while the scale backs off. Attach
+        before the first captured step."""
+        self.sentinel = sentinel
+        if sentinel is not None:
+            sentinel.to(self._step.device)
+
+    def _scaled_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss if self.sentinel is None else (
+            self.sentinel.scale_loss(loss))
 
     # -- reference call style: opt(loss) ------------------------------------
     def __call__(self, loss: torch.Tensor):
         return self.backward_and_update(loss)
 
     def backward_and_update(self, loss: torch.Tensor) -> None:
-        """Gradients of every parameter `loss` reaches, then the update."""
-        self.apply_updates(autograd.grad_pairs(loss))
+        """Gradients of every parameter `loss` reaches (of the scaled loss
+        with a sentinel), then the update."""
+        self.apply_updates(autograd.grad_pairs(self._scaled_loss(loss)))
 
     # -- clipping ------------------------------------------------------------
     @staticmethod
@@ -177,32 +199,70 @@ class Optimizer:
         return sum(psum_over(groups[axes], axes) if axes else groups[axes]
                    for axes in sorted(groups))
 
-    def clip_gradients(self, grads, params=None):
+    def clip_gradients(self, grads, params=None, square_sum=None):
         """clip_value (elementwise), then clip_norm (global-norm
         rescale), on a list of gradient tensors; `params` (the
         gradients' parameters) makes the norm pspec-aware
-        (`_grad_square_sum`)."""
+        (`_grad_square_sum`). `square_sum`, when given, is taken as the
+        square sum of `grads` as passed (the sentinel's, shared so the
+        reduction runs once); clip_value changes the norm, so it is
+        ignored then."""
         if self.clip_value is not None:
             cv = float(self.clip_value)
             grads = [g.clamp(-cv, cv) for g in grads]
+            square_sum = None  # the clamp changed the norm
         if self.clip_norm is not None and grads:
-            norm = self._grad_square_sum(grads, params).sqrt()
+            sq = square_sum if square_sum is not None else (
+                self._grad_square_sum(grads, params))
+            norm = sq.sqrt()
             scale = torch.clamp(
                 self.clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
             grads = [g * scale.to(g.dtype) for g in grads]
         return grads
 
     def apply_updates(self, pairs) -> None:
-        """Clip the whole gradient set, run the per-param updates, step."""
+        """Clip the whole gradient set, run the per-param updates, step.
+        With a sentinel the gradients are first unscaled, the all-finite
+        check rides the clip's square sum, and the update is guarded
+        (`_guarded_apply`)."""
         pairs = list(pairs)
         if pairs:
             self._place_step(pairs[0][0].device)
-        grads = self.clip_gradients([g for _, g in pairs],
-                                    params=[p for p, _ in pairs])
-        with torch.no_grad():
-            for (p, _), g in zip(pairs, grads):
-                self.update(p, g)
+        grads = [g for _, g in pairs]
+        params = [p for p, _ in pairs]
+        sent = self.sentinel
+        if sent is None:
+            grads = self.clip_gradients(grads, params=params)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    self.update(p, g)
+            self.step()
+            return
+        grads = [sent.unscale(g) for g in grads]
+        sq = self._grad_square_sum(grads, params)
+        ok = sent.check(sq)
+        grads = self.clip_gradients(
+            grads, params=params,
+            square_sum=sq if self.clip_value is None else None)
+        self._guarded_apply(params, grads, ok)
+
+    @torch.no_grad()
+    def _guarded_apply(self, params, grads, ok: torch.Tensor) -> None:
+        """The updates, then every parameter, slot and the step counter
+        put back to its pre-step value where `ok` is false (reference
+        :264-300, one `lax.cond` there): `torch.where` against copies
+        taken before the update, written in place."""
+        for p in params:
+            self._slot(p)  # every slot exists before the snapshot
+        slots = [t for p in params for t in self._slots[id(p)].values()]
+        state = list(params) + slots + [self._step]
+        old = [t.clone() for t in state]
+        for p, g in zip(params, grads):
+            self.update(p, g)
         self.step()
+        for t, o in zip(state, old):
+            t.copy_(torch.where(ok, t, o))
+        self.sentinel.advance(ok)
 
     # -- slots ---------------------------------------------------------------
     def _slot(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -217,9 +277,12 @@ class Optimizer:
         return s
 
     def _place_step(self, dev: torch.device) -> None:
-        """Keep the step counter on the parameters' device."""
+        """Keep the step counter (and the sentinel's scalars) on the
+        parameters' device."""
         if self._step.device != dev:
             self._step = self._step.to(dev)
+        if self.sentinel is not None:
+            self.sentinel.to(dev)
 
     def prepare(self, named_params: Dict[str, torch.Tensor]) -> None:
         """Name every parameter's slots (for dump/load) and make them,
@@ -236,14 +299,20 @@ class Optimizer:
             pname = self._names[pid]
             for sname, arr in slots.items():
                 out[f"{pname}//{sname}"] = arr
+        if self.sentinel is not None:
+            # the loss-scale and skip scalars ride checkpoints like slots
+            out.update(self.sentinel.dump_states())
         return out
 
     def load_states(self, states: Dict[str, torch.Tensor],
                     strict: bool = False) -> None:
-        """Load a `dump_states`-shaped dict back into the slots.
-        ``strict=True`` refuses entries that match no registered
+        """Load a `dump_states`-shaped dict back into the slots, in
+        place. ``strict=True`` refuses entries that match no registered
         parameter by name (call `prepare` with the named parameters
-        first)."""
+        first); ownerless `//`-prefixed scalars (the sentinel's) are
+        exempt both ways."""
+        if self.sentinel is not None:
+            states = self.sentinel.absorb_states(states)
         if "__step__" in states:
             self.step_counter = int(states["__step__"])
             self._step.fill_(self.step_counter)

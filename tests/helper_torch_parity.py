@@ -1979,3 +1979,187 @@ def _rank_strategies(rank, world):
     with contextlib.redirect_stdout(buf):
         parallel_strategies.run(list(range(world)))
     return buf.getvalue().splitlines()
+
+
+# -- the sharded checkpoint ---------------------------------------------------
+
+
+def ckpt_net(seed=0, optimizer="adam", sentinel=None, hidden=16):
+    """A small port model for the checkpoint tests (a Linear 12 ->
+    `hidden`, ReLU, a Linear -> 4, softmax cross-entropy) from seed
+    `seed`, with Adam(0.01) or SGD(0.1, momentum 0.9) and an optional
+    sentinel, compiled for graph mode on its batch: (model, optimizer,
+    x, y)."""
+    from singa_tpu_torch import autograd, layer, model, opt
+
+    class Net(model.Model):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            self.fc1 = layer.Linear(hidden, in_features=12, device="cpu",
+                                    generator=gen)
+            self.act = layer.ReLU()
+            self.fc2 = layer.Linear(4, in_features=hidden, device="cpu",
+                                    generator=gen)
+
+        def forward(self, x):
+            return self.fc2(self.act(self.fc1(x)))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = autograd.softmax_cross_entropy(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    m = Net()
+    o = opt.Adam(lr=0.01) if optimizer == "adam" else opt.SGD(
+        lr=0.1, momentum=0.9)
+    if sentinel is not None:
+        o.set_sentinel(sentinel)
+    m.set_optimizer(o)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((8, 12)).astype(np.float32))
+    y = torch.from_numpy((np.arange(8) % 4).astype(np.int64))
+    m.compile([x], is_train=True, use_graph=True)
+    return m, o, x, y
+
+
+def ckpt_state(m, o):
+    """Every parameter, buffer and optimizer state, as numpy."""
+    out = {f"param/{k}": _np(v) for k, v in m.get_states().items()}
+    out.update({f"opt/{k}": _np(torch.as_tensor(v))
+                for k, v in o.dump_states().items()})
+    return out
+
+
+def _ckpt_kill_child(directory, phase, async_=False):
+    """A doomed process: save step 1 of `ckpt_net`, then die
+    (`faults.kill_at_phase`, exit 42) at `phase` of the save of step 2:
+    "snapshot", "shard_writes" and "manifest" in the model's own save
+    (sync, or with `async_` on its background commit), "receipts" in a
+    two-phase commit of two thread-hosted ranks over the same directory.
+    Exits 0 only if the kill did not fire."""
+    import threading
+
+    from singa_tpu_torch import resilience
+    from singa_tpu_torch.resilience import checkpoint as ckpt
+    from singa_tpu_torch.resilience import faults
+
+    m, o, x, y = ckpt_net()
+    m.train_one_batch(x, y)
+    resilience.save(directory, m, o, step=1)
+    m.train_one_batch(x, y)
+    ckpt._phase_hook = faults.kill_at_phase(phase)
+    if phase != "receipts":
+        got = resilience.save(directory, m, o, step=2, async_=async_)
+        if async_:
+            got.result(timeout=60)
+        return
+    step_dir, step_name = ckpt._probe_step_dir(directory, 2)
+    snap = list(ckpt._snapshot_owned(m, o, None, 0))
+
+    def rank(pidx):
+        # rank 0 writes every shard; rank 1 only its receipt
+        ckpt._save_two_phase(
+            directory, step_dir, step_name,
+            lambda: snap if pidx == 0 else [dict(leaf, owned=[])
+                                            for leaf in snap],
+            pidx=pidx, pcount=2, step=2, data_cursor=None,
+            rng_state=[0], meta=None, timeout_s=30)
+
+    threads = [threading.Thread(target=rank, args=(i,), daemon=True)
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+
+
+def ckpt_tp_states(seed=0):
+    """The TpMLP's (`port_tp_mlp`) full states from a seeded dense build,
+    with its batch (8 x 12, labels 0..3)."""
+    torch.manual_seed(seed)
+    m = port_tp_mlp()
+    m.compile([torch.zeros(8, 12)], is_train=False)
+    states = {k: _np(v) for k, v in m.get_states().items()}
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((8, 12)).astype(np.float32)
+    y = (np.arange(8) % 4).astype(np.int32)
+    return states, x, y
+
+
+#: the elastic tests' scanned GPT (ZeRO-3 over a data axis of 2)
+CKPT_GPT = dict(vocab_size=64, d_model=32, num_layers=2, num_heads=4,
+                max_len=16, dropout=0.0)
+
+
+def _ckpt_train(m, states, x, y, steps, mesh, lr=0.1, momentum=0.9):
+    """`steps` graph-mode SGD steps of `m` from full `states` (DistOpt
+    over `mesh` when given): the losses."""
+    from singa_tpu_torch import opt
+
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y).long()
+    sgd = opt.SGD(lr=lr, momentum=momentum)
+    m.set_optimizer(sgd if mesh is None else opt.DistOpt(
+        sgd, mesh=mesh, axis_name="data"))
+    m.compile([tx], is_train=True, use_graph=True)
+    m.set_states(states)
+    return [m.train_one_batch(tx, ty)[1].item() for _ in range(steps)]
+
+
+def _rank_ckpt_elastic(rank, world, tp, gpt, steps, dirs):
+    """The sharded checkpoint over 2 gloo ranks:
+
+    - the TpMLP on a (data 1, model 2) mesh and the scanned GPT with
+      `zero3_axis="data"` on a data axis of 2, `steps` steps each
+      (DistOpt(SGD(0.1, momentum 0.9))), then a save (each rank writes
+      the shards it owns; the two-phase commit) under dirs["tp"] /
+      dirs["z3"]: the losses, the gathered states and optimizer states
+      after, each rank's block shapes;
+    - a fresh TpMLP on the same mesh restored from dirs["w1"], a
+      checkpoint of one process: its gathered states and its blocks;
+    - a save only rank 0 joins (rank 1 writes no receipt) under
+      dirs["torn"], which must raise `TornSaveError` naming rank 1 on
+      rank 0 after its deadline."""
+    import torch.distributed as dist
+
+    from singa_tpu_torch import resilience
+    from singa_tpu_torch.models.gpt import GPT
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    out = {}
+    tp_mesh = mesh_module.get_mesh((1, 2), ("data", "model"))
+    z3_mesh = mesh_module.get_mesh((2,), ("data",))
+    cases = (("tp", lambda: port_tp_mlp(tp_axis="model"), tp, tp_mesh),
+             ("z3", lambda: GPT(**CKPT_GPT, scan_blocks=True,
+                                zero3_axis="data", device="cpu"), gpt,
+              z3_mesh))
+    for name, make, d, mesh in cases:
+        m = make()
+        losses = _ckpt_train(m, d["states"], d["x"], d["y"], steps, mesh)
+        step_dir = resilience.save(dirs[name], m, m.optimizer, step=steps,
+                                   data_cursor=steps)
+        out[name] = dict(
+            losses=losses, step_dir=step_dir,
+            after={k: _np(v) for k, v in m.get_states().items()},
+            opt={k: _np(v) for k, v in m.optimizer.dump_states().items()},
+            blocks={n: tuple(p.shape) for n, p in m.named_parameters()
+                    if getattr(p, "placed", None)})
+    m = port_tp_mlp(tp_axis="model")
+    _ckpt_train(m, tp["states"], tp["x"], tp["y"], 0, tp_mesh)
+    meta = resilience.restore(dirs["w1"], m, m.optimizer)
+    out["from_w1"] = dict(
+        step=meta["step"],
+        after={k: _np(v) for k, v in m.get_states().items()},
+        blocks={n: (tuple(p.shape), _np(p)) for n, p in m.named_parameters()
+                if getattr(p, "placed", None)},
+        opt={k: _np(v) for k, v in m.optimizer.dump_states().items()})
+    if rank == 0:
+        try:
+            resilience.save(dirs["torn"], m, m.optimizer, step=9,
+                            receipt_timeout_s=3)
+            out["torn"] = None
+        except resilience.TornSaveError as e:
+            out["torn"] = str(e)
+    dist.barrier()
+    return out

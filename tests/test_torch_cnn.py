@@ -266,13 +266,32 @@ def test_cifar_trainer_lowers_the_loss(capsys):
     ["--spars", "0.1", "--loader", "prefetch"],
     ["--checkpoint", "ckpt.zip"], ["--virtual-devices", "8"],
     ["--loader", "prefetch"]])
-def test_cifar_trainer_refuses_unported_options(flag):
+def test_cifar_trainer_refuses_unported_options(flag, tmp_path, monkeypatch,
+                                               capsys):
     """--dist, --dist-option and --spars run (tests/test_torch_dist_train.py);
-    beside them, as alone, the unported options raise."""
+    beside them, as alone, the unported options raise. `--checkpoint` is
+    ported: an epoch of AlexNet commits a checkpoint of epoch 1 (with
+    --dist, DistOpt's states in canonical form), and the same command
+    again resumes from it with nothing left to train."""
+    from singa_tpu_torch import resilience
     from singa_tpu_torch.examples import cnn_cifar10
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cnn_cifar10.main(["--device", "cpu", "--epochs", "1", *flag])
+    argv = ["--device", "cpu", "--epochs", "1", *flag]
+    if "--checkpoint" not in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cnn_cifar10.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)
+    argv += ["--model", "alexnet", "--batch", "256"]
+    assert cnn_cifar10.main(argv) == 0
+    manifest, step_dir = resilience.read_manifest("ckpt.zip")
+    assert step_dir.endswith("step-00000001") and manifest["step"] == 1
+    assert manifest["meta"] == ({"opt_canonical": True} if "--dist" in flag
+                                else None)
+    capsys.readouterr()
+    assert cnn_cifar10.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "resumed from ckpt.zip at step 1" in out and "epoch 0" not in out
 
 
 @pytest.mark.parametrize("k2a", [False, True])

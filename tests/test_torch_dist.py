@@ -345,8 +345,13 @@ def test_distopt_refuses_what_the_reference_refuses():
     for kw in ("shard_states", "overlap", "half_wire", "gather_half"):
         extra = {"shard_states": True} if kw != "shard_states" else {}
         assert getattr(DistOpt(sgd, **{kw: True}, **extra), kw) is True
-    with pytest.raises(NotImplementedError, match="item 17"):
-        DistOpt(sgd).set_sentinel(object())
+    # the sentinel is ported: DistOpt hands it to the wrapped optimizer
+    from singa_tpu_torch.resilience import GradSentinel
+
+    guarded, sentinel = SGD(lr=0.1), GradSentinel()
+    d = DistOpt(guarded)
+    d.set_sentinel(sentinel)
+    assert d.sentinel is sentinel and guarded.sentinel is sentinel
     # the expert axis is a grad axis like the seq axis (the MoE FFN)
     assert DistOpt(sgd, grad_axes=("data", "expert")).grad_axes == (
         "data", "expert")

@@ -305,9 +305,38 @@ def test_dist_imagenet_over_two_ranks_equals_one_rank_of_the_global_batch(
     (["--save-every", "5"], "item 17"),
     (["--loader", "prefetch"], "item 20"),
     (["--virtual-devices", "8"], "item 20")])
-def test_dist_imagenet_refuses_the_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        dist_imagenet.main(["--device", "cpu", *flag])
+def test_dist_imagenet_refuses_the_unported_flags(flag, item, tmp_path,
+                                                  monkeypatch):
+    """Item 20's flags raise. Item 17's are ported: `--save-every 5`
+    beside `--checkpoint` commits step 5 (DistOpt's states in canonical
+    form), and `--checkpoint ck.zip` resumes a run that saved at step 2,
+    its batches continuing the stream."""
+    from singa_tpu_torch import resilience
+
+    if item != "item 17":
+        with pytest.raises(NotImplementedError, match=item):
+            dist_imagenet.main(["--device", "cpu", *flag])
+        assert not distributed.is_initialized()
+        return
+    monkeypatch.chdir(tmp_path)
+    small = ["--device", "cpu", "--batch-per-chip", "2", "--image-size",
+             "32", "--classes", "10"]
+    if flag[0] == "--save-every":
+        code, out = _run(dist_imagenet.main, small + [
+            "--steps", "5", "--checkpoint", "ck", *flag])
+        assert code == 0, out
+        manifest, step_dir = resilience.read_manifest("ck")
+        assert step_dir.endswith("step-00000005")
+        assert manifest["meta"] == {"opt_canonical": True}
+    else:
+        code, out = _run(dist_imagenet.main, small + [
+            "--steps", "2", "--save-every", "2", *flag])
+        assert code == 0, out
+        code, out = _run(dist_imagenet.main, small + ["--steps", "1",
+                                                      *flag])
+        assert code == 0, out
+        assert "resumed from ck.zip at step 2" in out
+        assert "step 2 (first, uncaptured)" in out
     assert not distributed.is_initialized()
 
 

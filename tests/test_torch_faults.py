@@ -11,7 +11,8 @@ own construction, arguments or input, run on both packages.
   `Model.save_states` file crossed between the packages both ways.
 - F4: the reference CLI test's `serve_gpt` argument lists
   (`tests/test_examples_cli.py:58, 70, 86, 108`) run on the port;
-  `gpt_lm --save-every` raises beside `--checkpoint`.
+  `gpt_lm --save-every` beside `--checkpoint` commits a checkpoint at
+  the cadence.
 - F5: a label outside [0, C) adds 0 to the cross-entropy's sum and
   still counts in its mean (0.77304 on the re-anchor's input, 1e-6).
 """
@@ -282,9 +283,22 @@ def test_serve_gpt_pretrains_on_a_corpus_then_serves(tmp_path):
     assert "served 1/1 requests" in out
 
 
-def test_gpt_lm_save_every_raises_naming_item_17():
-    with pytest.raises(NotImplementedError, match="--save-every.*item 17"):
-        gpt_lm.main(["--device", "cpu", "--save-every", "5"])
+def test_gpt_lm_save_every_raises_naming_item_17(tmp_path):
+    """`--save-every` is ported (ROADMAP item 17): beside `--checkpoint`
+    it commits a checkpoint every N steps, the newest two kept; alone it
+    writes nothing, as the reference's."""
+    from singa_tpu_torch import resilience, storage
+
+    d = str(tmp_path / "ck")
+    small = ["--device", "cpu", "--batch", "2", "--seq", "16", "--d-model",
+             "16", "--heads", "2", "--sample-chars", "0", "--steps", "6"]
+    gpt_lm.main(small + ["--save-every", "2", "--checkpoint", d])
+    assert storage.get_driver(d).list(d) == [
+        "LATEST", "step-00000004", "step-00000006"]
+    manifest, _ = resilience.read_manifest(d)
+    assert manifest["step"] == 6 and manifest["meta"] is None
+    gpt_lm.main(small[:-1] + ["1", "--save-every", "1"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ck"]
 
 
 def test_cross_entropy_ignores_labels_outside_the_classes():

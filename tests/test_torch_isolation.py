@@ -13,7 +13,9 @@
   blocked; the Device classes, RunConfig, ring and Ulysses attention
   and the long-context trainer's steps over a group of one; a ZeRO-3
   GPT with the prefetch and a MoE GPT, a step each over a group of
-  one; the metric exporters and the metric-name lint);
+  one; the metric exporters and the metric-name lint; the storage
+  drivers, the sharded checkpoint on both drivers, the sentinel and
+  `gpt_lm`'s resume);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -167,6 +169,48 @@ def test_exporters_and_lint_run_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[0] == "[] True 3.0"
+
+
+def test_checkpoint_and_sentinel_run_with_jax_and_reference_blocked(
+        tmp_path):
+    """storage/, resilience.checkpoint, faults, sentinel,
+    utils.checkpoint and distributed.shard_owner_map import and run with
+    JAX and the reference blocked: a guarded step skips an injected
+    non-finite gradient, a save on each driver restores bitwise, and
+    gpt_lm resumes from its checkpoint."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import distributed, opt, resilience, storage\n"
+        "from singa_tpu_torch.models import MLP\n"
+        "from singa_tpu_torch.resilience import GradSentinel, faults\n"
+        "from singa_tpu_torch.utils import checkpoint\n"
+        "from singa_tpu_torch.examples import gpt_lm\n"
+        "m = MLP(8, 3, in_features=5, device='cpu')\n"
+        "o = opt.Adam(1e-2)\n"
+        "o.set_sentinel(GradSentinel(fault_plan=faults.nonfinite_grad_at(0)))\n"
+        "m.set_optimizer(o)\n"
+        "x, y = torch.ones(2, 5), torch.zeros(2).long()\n"
+        "m.compile([x], is_train=True, use_graph=True)\n"
+        "m.train_one_batch(x, y)\n"
+        "print(m.fault_counters['nonfinite_skips'])\n"
+        f"for d in ({str(tmp_path / 'ck')!r}, 'mem://iso/ck'):\n"
+        "    resilience.save(d, m, o, step=1)\n"
+        "    print(resilience.restore(d, m, o)['step'])\n"
+        "print(distributed.shard_owner_map(torch.zeros(2, 3)))\n"
+        f"a = [{str(tmp_path / 'lm')!r}, '--device', 'cpu', '--batch', '2',\n"
+        "     '--seq', '16', '--d-model', '16', '--heads', '2',\n"
+        "     '--sample-chars', '0', '--save-every', '1', '--steps']\n"
+        "gpt_lm.main(['--checkpoint'] + a + ['1'])\n"
+        "gpt_lm.main(['--checkpoint'] + a + ['2'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[:4] == ["1", "1", "1", "{((0, 2), (0, 3)): 0}"]
+    assert f"resumed from {tmp_path / 'lm'} at step 1" in out.stdout
 
 
 def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():

@@ -161,8 +161,14 @@ def test_dump_names_and_load_round_trip():
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.SGD().set_sentinel(object())
+    # set_sentinel is ported: the sentinel's scalars join the states
+    from singa_tpu_torch.resilience import GradSentinel
+    from singa_tpu_torch.resilience.sentinel import STATE_KEYS
+
+    sgd, sentinel = opt.SGD(), GradSentinel()
+    sgd.set_sentinel(sentinel)
+    assert sgd.sentinel is sentinel
+    assert set(STATE_KEYS) <= set(sgd.dump_states())
     # the expert axis is a grad axis like the seq axis (the MoE FFN)
     assert opt.DistOpt(opt.SGD(), grad_axes=("data", "expert")).grad_axes \
         == ("data", "expert")

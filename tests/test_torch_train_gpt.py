@@ -248,11 +248,34 @@ def test_example_trainer_lowers_the_loss():
                                   ["--save-every", "5"],
                                   ["--virtual-devices", "8"],
                                   ["--checkpoint", "ckpt.zip"]])
-def test_example_trainer_refuses_unported_options(flag):
-    """On either decoder (the unrolled default, or --scan-blocks).
-    `--shard-states` is ported (tests/test_torch_zero1.py)."""
+def test_example_trainer_refuses_unported_options(flag, tmp_path,
+                                                 monkeypatch, capsys):
+    """On either decoder (the unrolled default, or --scan-blocks),
+    --virtual-devices raises naming its ROADMAP item. `--shard-states`
+    is ported (tests/test_torch_zero1.py), and so are `--save-every` and
+    `--checkpoint`: with them the trainer writes a checkpoint at the
+    cadence (`--save-every 5` over 5 steps: step 5 committed) and resumes
+    from the one it finds (`--checkpoint ckpt.zip` after a 2-step run
+    that saved: it resumes at step 2 and trains only step 2)."""
+    from singa_tpu_torch import resilience
     from singa_tpu_torch.examples import gpt_lm
 
     argv = ["--device", "cpu", "--steps", "1", *flag]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gpt_lm.main(argv)
+    if "--virtual-devices" in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            gpt_lm.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)
+    small = ["--device", "cpu", "--batch", "2", "--seq", "16", "--d-model",
+             "16", "--heads", "2", "--sample-chars", "0"]
+    if flag[0] == "--save-every":
+        gpt_lm.main(small + ["--steps", "5", "--checkpoint", "ck", *flag])
+        assert resilience.latest_step_dir("ck").endswith("step-00000005")
+        return
+    gpt_lm.main(small + ["--steps", "2", "--save-every", "2", *flag])
+    capsys.readouterr()
+    gpt_lm.main(small + ["--steps", "3", *flag])
+    out = capsys.readouterr().out
+    assert "resumed from ckpt.zip at step 2" in out
+    assert [line.split(":")[0] for line in out.splitlines()
+            if line.startswith("step ")] == ["step 2"]
