@@ -35,7 +35,8 @@ Phases, in the order they run (any failure raises and exits non-zero):
    the ResNet-50 stem shape in fp32 and bf16, and in fp32 at the
    DistOpt phase's 32 images (which must take the kernel's 16-byte
    vector route), the pools of vgg16_cifar,
-   alexnet_cifar and the ImageNet AlexNet at batch 128, a plateau of
+   alexnet_cifar and the ImageNet AlexNet's first pool at batch 128,
+   its other two k3 s2 pools ((27, 27, 192), (13, 13, 256)), a plateau of
    tied values (x rounded to a few levels) under overlapping k3 s1 p1
    windows at batch 128, x in channels-first memory (which must take
    the kernel's one-channel route, in fp32 and bf16), k7 s1 windows
@@ -372,6 +373,33 @@ Phases, in the order they run (any failure raises and exits non-zero):
    `GradSentinel` and `nonfinite_grad_at(2)`: step 2 leaves the state
    bitwise and halves the scale, one capture. The directories are
    deleted at the end;
+9o. the self-healing layer (`heal_path`): phase 9n's gpt_medium
+   (scanned, 4 x 1024, fp32, AdamW, captured) through `Supervisor.run`
+   at checkpoint_every 2 and keep_checkpoints 2: 6 steps unbroken give
+   U, bitwise a plain loop's 6 (ms a step supervised, with its
+   `float(loss)` read, and plain); `stall_at(3)` under a watchdog
+   deadline of max(15 s, 3x the first steps), alone on the card: one
+   hang and one restart, the `StepHangError` naming step 3, losses
+   bitwise U, the seconds from the expiry to the next step;
+   `crash_at(3)`: one restart, losses bitwise U, one capture after the
+   rebuild, 12 launches of each fused kernel an uncaptured or capturing
+   step, the memory allocated after the rebuild within 2% of the first
+   build's; the ImageNet AlexNet (batch 128, SGD, NHWC: no batch norm,
+   so a scaled image spikes the loss) with `poison_batch_at(3, 1e4)`
+   (or the largest power of ten below with a finite loss) and
+   `SpikeDetector(8, 6, 2)`: one rollback, skipped [[2, 3]], finite
+   losses, K2a 3 times a step (its three pool shapes are K2a cases of
+   step 5); and, beside the last two, `python -m
+   singa_tpu_torch.resilience.babysit --stale-after 60 --max-restarts 2
+   -- python -c <child>` over the gpt_medium child (`babysat_child`: a
+   Watchdog and a save each step, SIGSTOP at step 1 on its first
+   incarnation) with the same child run unbroken without it: healed
+   with one restart and one stale kill, the final checkpoints
+   sha256-identical file by file, the killed incarnation gone (its
+   /proc entry, and nvidia-smi's compute pids where they are of this
+   namespace), the babysitter never with a /dev/nvidia* file open (read
+   every 2 s of its life), the seconds from the kill to the respawn's
+   first step. The directories are deleted at the end;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -387,6 +415,8 @@ fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
 
 import gc
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -799,6 +829,11 @@ POOL_CASES = [
     ("alexnet_cifar_first_pool", (128, 16, 16, 64), (2, 2), (2, 2), (0, 0),
      "float32", {}),
     ("alexnet_first_pool", (128, 55, 55, 64), (3, 3), (2, 2), (0, 0),
+     "float32", {}),
+    # phase 9o's: the ImageNet AlexNet's other two pools at batch 128
+    ("alexnet_pool2", (128, 27, 27, 192), (3, 3), (2, 2), (0, 0),
+     "float32", {}),
+    ("alexnet_pool3", (128, 13, 13, 256), (3, 3), (2, 2), (0, 0),
      "float32", {}),
     # first-match ties at size: x in {0, 0.5, 1, ...}, overlapping windows
     ("plateau_k3s1p1", (128, 56, 56, 64), (3, 3), (1, 1), (1, 1),
@@ -6225,6 +6260,581 @@ def ckpt_path(torch, fa, mp, card):
     return out["trainer"]["launches_per_step"], out
 
 
+# -- phase 9o: the self-healing layer ------------------------------------------
+
+#: where phase 9o writes its checkpoints (deleted at the phase's end)
+HEAL_ROOT = "build/chip_smoke_heal"
+#: the supervised gpt_medium's steps (Supervisor.run over 6 batches)
+HEAL_STEPS = 6
+#: the supervised AlexNet's batch (ImageNet 224 x 224) and SGD step
+HEAL_ALEXNET_BATCH = 128
+HEAL_ALEXNET_LR = 1e-3
+#: the babysat child's steps and the babysitter's staleness window: it
+#: covers the child's import, build and a save between two beats
+BABYSAT_STEPS = 3
+BABYSAT_STALE_S = 60.0
+#: gpt_medium's vocabulary (the batches are made before the model)
+GPT_MEDIUM_VOCAB = 32768
+#: the babysat child: `babysat_child` of this file, run by the babysitter
+#: (and once more without it) as `python -c`
+BABYSAT_CHILD = (
+    "import sys\n"
+    "import chip_smoke\n"
+    "chip_smoke.babysat_child(sys.argv[1], int(sys.argv[2]),\n"
+    "                         '--hang' in sys.argv[3:])\n")
+
+
+def heal_batches(torch, vocab, n):
+    """n seeded (ids, labels) batches of 4 x 1024 on the card."""
+    rng = np.random.default_rng(SEED + 9)
+    seq = torch.from_numpy(rng.integers(0, vocab, (n, 4, 1025))).cuda()
+    return [(s[:, :-1].contiguous(), s[:, 1:].contiguous()) for s in seq]
+
+
+def heal_gpt(x0):
+    """Phase 9n's gpt_medium (scanned, d 1024, 12 layers, 8 heads, fp32)
+    from the seeded weights, AdamW(3e-4), compiled for captured steps on
+    a batch like `x0`: every build the same."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+
+    m = gpt_medium(device="cuda")
+    load_singa_tpu_params(m, seeded_params(m, SEED))
+    m.set_optimizer(opt.AdamW(lr=3e-4))
+    m.compile([x0], is_train=True, use_graph=True)
+    return m
+
+
+class StepLog:
+    """A supervisor fault hook that records, as each step starts, the
+    step, the host clock and every kernel's launch count (fused-layout
+    share beside), then calls `inner`. `deltas()` pairs each row with
+    the next: what ran between two step starts."""
+
+    def __init__(self, fa, mp, inner=None):
+        self.fa, self.mp, self.inner = fa, mp, inner
+        self.rows = []
+
+    def mark(self, step):
+        self.rows.append((step, time.perf_counter(),
+                          counts(self.fa, self.mp),
+                          dict(self.fa.FUSED_LAUNCHES)))
+
+    def __call__(self, step, batch):
+        self.mark(step)
+        return self.inner(step, batch) if self.inner is not None else None
+
+    def deltas(self):
+        out = []
+        for (s, t, c, f), (_, t2, c2, f2) in zip(self.rows, self.rows[1:]):
+            out.append(dict(step=s, s=t2 - t,
+                            launches={k: c2[k] - c[k] for k in c},
+                            fused={k: f2[k] - f[k] for k in f}))
+        return out
+
+
+def launch_pattern(deltas, per_step):
+    """Each interval as "step" (per_step launches, all fused), "none" or
+    the launches themselves."""
+    out = []
+    for d in deltas:
+        if d["launches"] == per_step and all(
+                d["fused"][k] == per_step[k] for k in d["fused"]):
+            out.append("step")
+        elif all(v == 0 for v in d["launches"].values()):
+            out.append("none")
+        else:
+            out.append({k: v for k, v in d["launches"].items() if v})
+    return out
+
+
+def card_pids():
+    """The pids `nvidia-smi` lists with a context on the card."""
+    got = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return {int(t) for t in got.stdout.split() if t.strip().isdigit()}
+
+
+def holds_card(pid):
+    """True when process `pid` has a /dev/nvidia* device open (a CUDA
+    context does)."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def babysat_child(ckpt_dir, n_steps, hang):
+    """The babysat gpt_medium trainer (`BABYSAT_CHILD`): the generators
+    seeded, `heal_gpt`, a beat after the build, a resume from the latest
+    committed step, a `Watchdog` around each step (its heartbeat from
+    the babysitter's env), a save after each step (the newest two kept);
+    with `hang`, a SIGSTOP at step 1 on the first incarnation only.
+    Prints its pid, each step's wall clock and a JSON summary with the
+    losses."""
+    import torch
+
+    from singa_tpu_torch import resilience
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.ops import max_pool as mp
+    from singa_tpu_torch.resilience import counters, faults
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a trainer seeds its generators at start-up: the manifest carries
+    # their states, so two runs' final checkpoints are comparable
+    torch.manual_seed(SEED)
+    print(f"BABYSAT pid {os.getpid()} restarts_external "
+          f"{counters.snapshot().get('restarts_external', 0)}", flush=True)
+    batches = heal_batches(torch, GPT_MEDIUM_VOCAB, n_steps)
+    m = heal_gpt(batches[0][0])
+    resilience.touch_heartbeat(os.environ.get(resilience.HEARTBEAT_ENV))
+    start = 0
+    try:
+        start = int(resilience.restore(ckpt_dir, m, m.optimizer)["step"])
+    except resilience.CheckpointError:
+        pass  # the first incarnation: nothing committed yet
+    wd = resilience.Watchdog(timeout_s=3600.0)  # heartbeat from the env
+    stop = (faults.hard_hang_at(1)
+            if hang and counters.snapshot().get("restarts_external", 0) == 0
+            else None)
+    reset_counts(fa, mp)
+    losses = []
+    for step in range(start, n_steps):
+        with wd.guard(step):
+            if stop is not None:
+                stop(step, None)
+            losses.append(float(m(*batches[step])[1]))
+        print(f"BABYSAT step {step} t {time.time():.6f}", flush=True)
+        resilience.save(ckpt_dir, m, m.optimizer, step=step + 1,
+                        data_cursor=step + 1)
+        resilience.prune(ckpt_dir, keep=2)
+    gs = m._train_step
+    print("BABYSAT done " + json.dumps(dict(
+        pid=os.getpid(), start=start, losses=losses, captures=gs.captures,
+        replays=gs.replays, launches=counts(fa, mp),
+        fused=dict(fa.FUSED_LAUNCHES))), flush=True)
+
+
+def _sha_step_dir(step_dir):
+    """{file name: sha256} of a committed step dir."""
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(step_dir)):
+        with open(os.path.join(step_dir, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def start_babysat(root):
+    """Start the babysitter over the hanging child and, beside it, the
+    same child unbroken without a babysitter. Returns the two processes,
+    their stdout lines with the host clock (a reader thread each) and
+    the samples of a thread that reads, every 2 s of the babysitter's
+    life, whether it has a /dev/nvidia* device open."""
+    import threading
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    sitter = subprocess.Popen(
+        [sys.executable, "-m", "singa_tpu_torch.resilience.babysit",
+         "--stale-after", str(BABYSAT_STALE_S), "--max-restarts", "2",
+         "--", sys.executable, "-c", BABYSAT_CHILD, f"{root}/babysat",
+         str(BABYSAT_STEPS), "--hang"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env)
+    unbroken = subprocess.Popen(
+        [sys.executable, "-c", BABYSAT_CHILD, f"{root}/unbroken",
+         str(BABYSAT_STEPS)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env)
+    lines = {"sitter": [], "unbroken": [], "samples": []}
+
+    def read(name, proc):
+        for ln in proc.stdout:
+            lines[name].append((time.time(), ln.rstrip("\n")))
+
+    def sample():
+        while sitter.poll() is None:
+            lines["samples"].append(holds_card(sitter.pid))
+            time.sleep(2.0)
+
+    threads = [threading.Thread(target=read, args=(k, p), daemon=True)
+               for k, p in (("sitter", sitter), ("unbroken", unbroken))]
+    threads.append(threading.Thread(target=sample, daemon=True))
+    for th in threads:
+        th.start()
+    return sitter, unbroken, lines, threads
+
+
+def stop_babysat(sitter, unbroken, lines):
+    """SIGKILL the babysitter, the unbroken child and every incarnation
+    the babysitter started (each leads a session of its own), then reap
+    the two."""
+    pids = [int(ln.split()[2]) for _, ln in lines["sitter"]
+            if ln.startswith("BABYSAT pid ")]
+    for pid in pids:
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    for p in (sitter, unbroken):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def finish_babysat(root, sitter, unbroken, lines, threads, card):
+    """Wait for the babysitter and the unbroken child, sampling the
+    babysitter's open devices meanwhile; hold the heal (one restart, one
+    stale kill), the final checkpoints sha256-identical file by file, no
+    process of the killed incarnation left and the babysitter never on
+    the card."""
+    t = time.perf_counter()
+    while sitter.poll() is None or unbroken.poll() is None:
+        check(time.perf_counter() - t < 900, "the babysitter overran")
+        time.sleep(1.0)
+    for th in threads:
+        th.join(30)
+    samples = lines["samples"]
+    text = {k: "\n".join(ln for _, ln in lines[k])
+            for k in ("sitter", "unbroken")}
+    check(sitter.returncode == 0 and unbroken.returncode == 0,
+          f"babysat gpt_medium: babysitter rc {sitter.returncode}, unbroken "
+          f"child rc {unbroken.returncode}:\n{text['sitter'][-3000:]}\n"
+          f"{text['unbroken'][-3000:]}")
+    check("trainer completed (restarts=1, stale_kills=1)" in text["sitter"],
+          f"babysat gpt_medium: not healed with one restart and one stale "
+          f"kill:\n{text['sitter'][-3000:]}")
+    kill = [(ts, ln) for ts, ln in lines["sitter"] if "SIGKILLing" in ln]
+    check(len(kill) == 1, "babysat gpt_medium: no single stale kill line")
+    killed_pid = int(kill[0][1].rsplit("pid ", 1)[1].rstrip(")"))
+    pids = [int(ln.split()[2]) for _, ln in lines["sitter"]
+            if ln.startswith("BABYSAT pid ")]
+    check(len(pids) == 2 and pids[0] == killed_pid,
+          f"babysat gpt_medium: incarnations {pids}, killed {killed_pid}")
+    # the child prints each step's wall clock as it completes
+    after = [float(ln.split()[-1]) for ts, ln in lines["sitter"]
+             if ts > kill[0][0] and ln.startswith("BABYSAT step ")]
+    check(bool(after), "babysat gpt_medium: the respawn took no step")
+    kill_to_step_s = after[0] - kill[0][0]
+    done = [json.loads(ln[len("BABYSAT done "):]) for _, ln in
+            lines["sitter"] if ln.startswith("BABYSAT done ")]
+    ref = [json.loads(ln[len("BABYSAT done "):]) for _, ln in
+           lines["unbroken"] if ln.startswith("BABYSAT done ")]
+    check(len(done) == 1 and len(ref) == 1 and done[0]["start"] == 1
+          and done[0]["losses"] == ref[0]["losses"][1:],
+          f"babysat gpt_medium: the respawn {done} did not resume at step 1 "
+          f"with the unbroken run's losses {ref}")
+    from singa_tpu_torch import resilience
+
+    healed_dir = resilience.latest_step_dir(f"{root}/babysat")
+    ref_dir = resilience.latest_step_dir(f"{root}/unbroken")
+    healed, want = _sha_step_dir(healed_dir), _sha_step_dir(ref_dir)
+    check(os.path.basename(healed_dir) == os.path.basename(ref_dir)
+          == f"step-{BABYSAT_STEPS:08d}" and healed == want,
+          f"babysat gpt_medium: the healed final checkpoint {healed_dir} is "
+          f"not sha256-identical to the unbroken one's {ref_dir}")
+    # no process of the killed incarnation, and never the babysitter:
+    # /proc decides (nvidia-smi may list the pids of another namespace;
+    # where it lists this process, its list must not hold the two)
+    final = card_pids()
+    own = os.getpid() in final
+    check(holds_card(os.getpid()),
+          "/proc shows no /dev/nvidia* open in this process")
+    check(not os.path.exists(f"/proc/{killed_pid}")
+          and not (own and killed_pid in final),
+          f"babysat gpt_medium: the killed incarnation {killed_pid} is "
+          f"still there ({final})")
+    check(bool(samples) and not any(samples)
+          and not (own and sitter.pid in final),
+          f"babysat gpt_medium: the babysitter {sitter.pid} held the card "
+          f"({len(samples)} samples)")
+    print(f"babysat gpt_medium ({card}): healed, restarts 1, stale kills 1 "
+          f"(stale window {BABYSAT_STALE_S:.0f} s); incarnations {pids}, "
+          f"killed {killed_pid}; final {os.path.basename(healed_dir)} "
+          f"sha256-identical to the unbroken run's over {len(healed)} "
+          f"files; kill to the respawn's first step {kill_to_step_s:.1f} s "
+          f"(backoff 5 s included); /proc: the killed pid gone, the "
+          f"babysitter {sitter.pid} with no /dev/nvidia* open in any of "
+          f"{len(samples)} samples, this process with one; nvidia-smi's "
+          f"compute pids {sorted(final)} (this process among them: {own}); "
+          f"respawn "
+          f"launches {done[0]['launches']}, captures "
+          f"{done[0]['captures']}", flush=True)
+    return dict(restarts=1, stale_kills=1, killed_pid=killed_pid,
+                incarnations=pids, files=len(healed),
+                kill_to_first_step_s=kill_to_step_s,
+                losses=ref[0]["losses"], respawn=done[0],
+                card_pids=sorted(final), own_pid_listed=own,
+                samples=len(samples))
+
+
+def supervised(torch, fa, mp, build, batches, what, per_step, **kw):
+    """One `Supervisor.run` at checkpoint_every 2 and keep_checkpoints 2
+    under `HEAL_ROOT/what`, with a `StepLog` around `kw`'s fault hook and
+    `build` wrapped to record the memory allocated after each build.
+    Returns the result (the model dropped), the log, the memories and
+    the watchdog's expiry times."""
+    import shutil
+
+    from singa_tpu_torch.resilience import Supervisor
+
+    d = f"{HEAL_ROOT}/{what}"
+    shutil.rmtree(d, ignore_errors=True)
+    log = StepLog(fa, mp, kw.pop("fault_hook", None))
+    mem = []
+
+    def build_fn():
+        m = build()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        return m
+
+    sup = Supervisor(build_fn, d, checkpoint_every=2, keep_checkpoints=2,
+                     fault_hook=log, restart_backoff_s=0.0, **kw)
+    fired = []  # the host clock at each watchdog expiry
+    if sup.watchdog is not None:
+        sup.watchdog.on_hang = lambda s, e: fired.append(time.perf_counter())
+    t = time.perf_counter()
+    res = sup.run(batches)
+    wall = time.perf_counter() - t
+    log.mark(None)
+    model = res.pop("model")
+    res["captures"] = model._train_step.captures
+    res["replays"] = model._train_step.replays
+    res["history"] = sup.restart_history
+    res["pattern"] = launch_pattern(log.deltas(), per_step)
+    res["wall_s"] = wall
+    del model, sup
+    drop_graphs(torch)
+    shutil.rmtree(d, ignore_errors=True)
+    return res, log, mem, fired
+
+
+def heal_alexnet(torch, fa, mp, card):
+    """The spike case on the ImageNet AlexNet (batch 128, SGD with
+    momentum, NHWC, K2a on; no batch norm and ReLU layers, so a scaled
+    image scales the logits): `poison_batch_at(3, factor)` with factor
+    1e4 or the largest power of ten below it whose loss is finite, under
+    `SpikeDetector(window=8, zmax=6, min_history=2)`. The max-pool
+    kernel is switched on for the case (it is off by default)."""
+    was_on = mp.pool_kernel_enabled()
+    mp.set_pool_kernel_enabled(True)
+    try:
+        return _heal_alexnet(torch, fa, mp, card)
+    finally:
+        mp.set_pool_kernel_enabled(was_on)
+
+
+def _heal_alexnet(torch, fa, mp, card):
+    from singa_tpu_torch import autograd, opt
+    from singa_tpu_torch.model import load_singa_tpu_states
+    from singa_tpu_torch.models.alexnet import alexnet
+    from singa_tpu_torch.resilience import SpikeDetector, faults
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    b = HEAL_ALEXNET_BATCH
+    batches = [(torch.randn((b, 3, 224, 224), generator=gen, device="cuda"),
+                torch.randint(0, 1000, (b,), generator=gen, device="cuda"))
+               for _ in range(HEAL_STEPS)]
+    states = None
+
+    def build():
+        nonlocal states
+        m = alexnet(1000, device="cuda")
+        if states is None:
+            states = cnn_states({n: t.shape for n, t in [
+                *m.named_parameters(), *m.named_buffers()]}, SEED)
+        load_singa_tpu_states(m, states)
+        m.set_image_layout("NHWC")
+        m.set_optimizer(opt.SGD(lr=HEAL_ALEXNET_LR, momentum=0.9))
+        m.compile([batches[0][0]], is_train=True, use_graph=True)
+        return m
+
+    # the factor: the largest power of ten up to 1e4 with a finite loss
+    probe = build()
+    probe.eval()
+    factor = None
+    with torch.no_grad():
+        for f in (1e4, 1e3, 1e2, 1e1):
+            logits = probe.forward(batches[3][0] * f)
+            loss = autograd.softmax_cross_entropy(logits, batches[3][1])
+            if bool(torch.isfinite(loss)):
+                factor = f
+                break
+    check(factor is not None, "alexnet: no poison factor leaves the loss "
+                              "finite")
+    del probe, logits, loss
+    drop_graphs(torch)
+    per_step = dict(NO_LAUNCH, max_pool_bwd=3)
+    res, log, _, _ = supervised(
+        torch, fa, mp, build, batches, "alexnet", per_step,
+        fault_hook=faults.poison_batch_at(3, factor=factor),
+        spike_detector=SpikeDetector(window=8, zmax=6.0, min_history=2))
+    check(res["rollbacks"] == 1 and res["restarts"] == 0
+          and res["skipped"] == [[2, 3]] and res["steps"] == HEAL_STEPS - 2
+          and all(np.isfinite(res["losses"])),
+          f"alexnet spike: rollbacks {res['rollbacks']}, skipped "
+          f"{res['skipped']}, steps {res['steps']}, losses {res['losses']}")
+    # steps 0-1 launch K2a 3 times each (uncaptured, then the capture);
+    # the rest replay, the rollback's restore keeping the capture
+    check(res["pattern"] == ["step", "step"] + ["none"] * 4
+          and res["captures"] == 1,
+          f"alexnet spike: launches by step {res['pattern']}, captures "
+          f"{res['captures']}")
+    print(f"supervised alexnet spike ({card}): factor {factor:g}, "
+          f"rollbacks 1, skipped {res['skipped']}, steps {res['steps']}, "
+          f"losses {res['losses']}; K2a launches a step "
+          f"{per_step['max_pool_bwd']} (steps 0-1: uncaptured, capture; "
+          f"then replays), captures {res['captures']}; {res['wall_s']:.1f} "
+          f"s", flush=True)
+    return dict(factor=factor, rollbacks=1, skipped=res["skipped"],
+                steps=res["steps"], losses=res["losses"],
+                launches_per_step=per_step, pattern=res["pattern"],
+                wall_s=res["wall_s"])
+
+
+def heal_path(torch, fa, mp, card):
+    """Phase 9o: the self-healing layer on the card (module docstring)."""
+    import shutil
+
+    from singa_tpu_torch.resilience import faults
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    shutil.rmtree(HEAL_ROOT, ignore_errors=True)
+    per_step = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                "max_pool_bwd": 0}
+    sitter = None
+    try:
+        batches = heal_batches(torch, GPT_MEDIUM_VOCAB, HEAL_STEPS)
+
+        def build():
+            return heal_gpt(batches[0][0])
+
+        # 1. unbroken: U, and the plain loop's losses bitwise U
+        unbroken, log, _, _ = supervised(torch, fa, mp, build, batches,
+                                         "unbroken", per_step)
+        u = unbroken["losses"]
+        check(unbroken["steps"] == HEAL_STEPS and unbroken["restarts"] == 0
+              and unbroken["pattern"] == ["step", "step"] + ["none"] * 4,
+              f"supervised gpt_medium: steps {unbroken['steps']}, launches "
+              f"by step {unbroken['pattern']}")
+        d = log.deltas()
+        sup_ms = 1e3 * (d[2]["s"] + d[4]["s"]) / 2  # steps without a save
+        first_s = max(d[0]["s"], d[1]["s"])
+        # the plain loop: the same steps, each loss kept and read at the
+        # end; the replays (steps 2-5) timed between two synchronizes
+        m = build()
+        kept = [m(x, y)[1] for x, y in batches[:2]]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kept += [m(x, y)[1] for x, y in batches[2:]]
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t) / (HEAL_STEPS - 2)
+        plain_losses = [float(v) for v in kept]
+        del m, kept
+        drop_graphs(torch)
+        check(plain_losses == u, f"supervised gpt_medium: U {u} is not "
+                                 f"the plain loop's {plain_losses}")
+        print(f"supervised gpt_medium unbroken ({card}): U {u} bitwise the "
+              f"plain loop's; {sup_ms:.2f} ms a supervised step (replay, "
+              f"float(loss) read, no save) vs {plain_ms:.2f} ms a plain "
+              f"replay (no read); steps 0-1 {d[0]['s']:.3f} s, "
+              f"{d[1]['s']:.3f} s (capture and a save)", flush=True)
+        out["unbroken"] = dict(losses=u, supervised_step_ms=sup_ms,
+                               plain_step_ms=plain_ms,
+                               first_steps_s=[d[0]["s"], d[1]["s"]],
+                               wall_s=unbroken["wall_s"],
+                               pattern=unbroken["pattern"])
+
+        # 2. hang at step 3: the watchdog's deadline, then a restart
+        timeout = max(15.0, 3 * first_s)
+        hang, log, _, fired = supervised(
+            torch, fa, mp, build, batches, "hang", per_step,
+            fault_hook=faults.stall_at(3, seconds=3600.0),
+            step_timeout_s=timeout)
+        hist = hang["history"]
+        check(hang["hangs"] == 1 and hang["restarts"] == 1
+              and hang["losses"] == u and len(hist) == 1
+              and "training step 3 hung" in hist[0]["error"]
+              and len(fired) == 1,
+              f"supervised hang: hangs {hang['hangs']}, restarts "
+              f"{hang['restarts']}, losses {hang['losses']}, history {hist}")
+        after = [t for s, t, _, _ in log.rows if t > fired[0]]
+        expiry_to_step_s = after[0] - fired[0]
+        print(f"supervised gpt_medium stall_at(3) ({card}): deadline "
+              f"{timeout:.1f} s, hangs 1, restarts 1, '{hist[0]['error'][:60]}"
+              f"...', losses bitwise U; {expiry_to_step_s:.2f} s from the "
+              f"expiry to the next step (rebuild and restore); "
+              f"{hang['wall_s']:.1f} s (before the babysitter started: "
+              f"the card and host to itself)", flush=True)
+        out["hang"] = dict(timeout_s=timeout, hangs=1, restarts=1,
+                           error=hist[0]["error"],
+                           expiry_to_next_step_s=expiry_to_step_s,
+                           wall_s=hang["wall_s"])
+
+        # the babysitter runs beside cases 3 and 4 from here (their walls
+        # are taken with its two gpt_medium children building and
+        # training on the same card); case 2 ran before it, alone
+        sitter, unbroken_child, lines, threads = start_babysat(HEAL_ROOT)
+
+        # 3. crash at step 3
+        crash, _, mem, _ = supervised(torch, fa, mp, build, batches,
+                                      "crash", per_step,
+                                      fault_hook=faults.crash_at(3))
+        want = ["step", "step", "none", {"flash_fwd": 12}, "step", "step",
+                "none", "none"]
+        check(crash["restarts"] == 1 and crash["steps"] == HEAL_STEPS
+              and crash["losses"] == u and crash["captures"] == 1
+              and crash["pattern"] == want,
+              f"supervised crash: restarts {crash['restarts']}, steps "
+              f"{crash['steps']}, losses {crash['losses']} vs U {u}, "
+              f"captures {crash['captures']}, launches by step "
+              f"{crash['pattern']} (want {want})")
+        check(len(mem) == 2 and mem[1] <= 1.02 * mem[0],
+              f"supervised crash: memory after the rebuild {mem} grew more "
+              f"than 2% over the first build's")
+        print(f"supervised gpt_medium crash_at(3) ({card}): restarts 1, "
+              f"steps 6, losses bitwise U, one capture after the rebuild, "
+              f"launches by step {crash['pattern']}; memory allocated after "
+              f"the first build {mem[0]} B, after the rebuild {mem[1]} B "
+              f"({100 * (mem[1] / mem[0] - 1):+.3f}%); {crash['wall_s']:.1f}"
+              f" s (beside the babysat children)", flush=True)
+        out["crash"] = dict(restarts=1, losses_bitwise_u=True,
+                            memory_first_build=mem[0],
+                            memory_rebuild=mem[1], pattern=crash["pattern"],
+                            wall_s=crash["wall_s"])
+
+        # 4. the spike case on AlexNet
+        out["spike"] = heal_alexnet(torch, fa, mp, card)
+
+        # 5. the babysitter's heal of the SIGSTOPped gpt_medium child
+        out["babysitter"] = finish_babysat(HEAL_ROOT, sitter,
+                                           unbroken_child, lines, threads,
+                                           card)
+        sitter = None
+    finally:
+        if sitter is not None:  # a failure above: stop what was started
+            stop_babysat(sitter, unbroken_child, lines)
+        shutil.rmtree(HEAL_ROOT, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"heal: phase 9o {out['wall_s']:.1f} s ({card})", flush=True)
+    return {"gpt_medium": per_step,
+            "alexnet": out["spike"]["launches_per_step"]}, out
+
+
 def main() -> int:
     import torch
 
@@ -6533,6 +7143,13 @@ def main() -> int:
     print(f"ckpt: {ckpt_out['wall_s']:.1f} s ({card}); the resumed "
           f"trainer's launches a step {ckpt_launches}", flush=True)
 
+    # 9o. the self-healing layer: the supervised gpt_medium unbroken, after
+    # a crash and after a hang (bitwise U, 12 launches of each fused
+    # kernel a step), AlexNet's spike rollback (K2a 3 times a step), and
+    # the babysitter's heal of a SIGSTOPped gpt_medium child
+    reset_counts(fa, mp)
+    heal_launches, heal_out = heal_path(torch, fa, mp, card)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -6623,6 +7240,8 @@ def main() -> int:
                  "eval_step": eval_launches["flash_fwd"],
                  "ckpt_gpt_lm_step_across_restore":
                      ckpt_launches["flash_fwd"],
+                 "heal_supervised_gpt_medium_step":
+                     heal_launches["gpt_medium"]["flash_fwd"],
                  **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
              head_split_sp=at_cases(None, (), sp_cases),
@@ -6653,6 +7272,8 @@ def main() -> int:
                 "bert_step": bert_launches[name],
                 "zero1_gpt_medium_step": zero1_launches[name],
                 "ckpt_gpt_lm_step_across_restore": ckpt_launches[name],
+                "heal_supervised_gpt_medium_step":
+                    heal_launches["gpt_medium"][name],
                 **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
             head_split_sp=at_cases(key, grads, sp_cases),
@@ -6679,7 +7300,9 @@ def main() -> int:
         launches_by_path={
             "resnet50_step": resnet_launches["max_pool_bwd"],
             "dist_resnet50_step": dist_launches["max_pool_bwd"],
-            "xception_step": xception_launches["max_pool_bwd"]},
+            "xception_step": xception_launches["max_pool_bwd"],
+            "heal_supervised_alexnet_step":
+                heal_launches["alexnet"]["max_pool_bwd"]},
         max_abs_err=pool["max_abs_err"], ms=pool["ms"],
         plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
         bound_by=pool["bound_by"], library_ms=pool["library_ms"],
@@ -6720,6 +7343,7 @@ def main() -> int:
     print("pp " + json.dumps(pp_out), flush=True)
     print("disagg " + json.dumps(disagg_out), flush=True)
     print("ckpt " + json.dumps(ckpt_out), flush=True)
+    print("heal " + json.dumps(heal_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,7 +93,8 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "max_pool2d", "avg_pool2d", "global_avg_pool2d", "gelu", "tanh",
            "reshape", "linear", "vanilla_rnn", "lstm", "gru", "embedding",
            "layernorm", "dropout", "rank_draws", "draw_rank",
-           "rank_generators", "reset_rank_draws", "transpose", "cat", "op",
+           "rank_generators", "reset_rank_draws", "rank_generator_states",
+           "set_rank_generator_states", "transpose", "cat", "op",
            "ExportTrace", "clear_op_cache", "set_op_cache_enabled",
            "Operator", "Function", "sub", "mul", "div", "pow", "matmul",
            "squeeze", "unsqueeze", "split", "gather", "stack", "where",
@@ -741,6 +742,11 @@ _RANK_GENERATORS: dict = {}
 _RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 
+#: (device type, rank) -> saved generator state, put in at that
+#: generator's first draw (`set_rank_generator_states`)
+_RANK_RESTORED: dict = {}
+
+
 class rank_draws:
     """`with autograd.rank_draws(r):` dropout inside draws rank r's
     stream. Rank 0 draws from PyTorch's default generator, exactly as
@@ -749,7 +755,10 @@ class rank_draws:
     at its first use from `torch.initial_seed()` and r, and seeded anew
     when `torch.initial_seed()` has changed or after
     `reset_rank_draws()`. A captured step (`graph.GraphStep`) registers
-    these generators with its graph, so every replay draws fresh masks."""
+    these generators with its graph, so every replay draws fresh masks.
+    A checkpoint carries their states (`rank_generator_states`), as the
+    reference's manifest carries the key it folds each rank's index
+    into."""
 
     def __init__(self, rank: int):
         self.rank = int(rank)
@@ -777,13 +786,72 @@ def reset_rank_draws() -> None:
     """Forget every rank generator: the next draw of rank r > 0 starts
     its stream from `torch.initial_seed()` again."""
     _RANK_GENERATORS.clear()
+    _RANK_RESTORED.clear()
+
+
+def _rank_seed(rank: int) -> int:
+    return (torch.initial_seed() + rank * _RANK_SEED_STRIDE) % 2 ** 63
+
+
+def rank_generator_states() -> List[dict]:
+    """The states of this process's rank generators, JSON-able:
+    [{"rank": r, "device": "cuda:0", "state": [uint8, ...]}, ...] by
+    rank, then device. Empty where no rank r > 0 has drawn (a world-1
+    run). A restore matches an entry by its rank and device type, not
+    the device's index: rank r's stream resumes on whichever card the
+    restoring process gives rank r."""
+    return [{"rank": int(rank), "device": str(dev),
+             "state": gen.get_state().tolist()}
+            for (dev, rank), (gen, _) in sorted(
+                _RANK_GENERATORS.items(),
+                key=lambda kv: (kv[0][1], str(kv[0][0])))]
+
+
+def set_rank_generator_states(entries) -> None:
+    """Put the rank generators where `rank_generator_states` found them
+    (a checkpoint's `rng["ranks"]`), after the default generators were
+    restored: a rank with an entry of its device type resumes its
+    stream, whatever the index of the card it is on now, at once where
+    its generator exists (in place: a captured step keeps drawing from
+    it) or else at its first draw. Every other rank generator is seeded
+    anew from `torch.initial_seed()` and its rank, as at a fresh start:
+    a rank the saving world did not have, or any rank after a world-1
+    checkpoint. A rank saved only on another device type (a card's
+    stream restored on the host) starts afresh too, with a warning: the
+    two generators' states do not convert."""
+    _RANK_RESTORED.clear()
+    for e in entries or ():
+        _RANK_RESTORED.setdefault(
+            (torch.device(e["device"]).type, int(e["rank"])), e["state"])
+    for (dev, rank), entry in _RANK_GENERATORS.items():
+        state = _restored_state(dev, rank)
+        seed = _rank_seed(rank)
+        if state is None:
+            entry[0].manual_seed(seed)
+        else:
+            entry[0].set_state(torch.tensor(state, dtype=torch.uint8))
+        entry[1] = seed
+
+
+def _restored_state(device: torch.device, rank: int):
+    """The saved state rank `rank` resumes on `device` (taken out of
+    `_RANK_RESTORED`), or None; warns where rank `rank` was saved only
+    on another device type."""
+    state = _RANK_RESTORED.pop((device.type, rank), None)
+    other = sorted(t for t, r in _RANK_RESTORED if r == rank)
+    if state is None and other:
+        warnings.warn(
+            f"rank {rank}'s dropout stream was saved on {', '.join(other)} "
+            f"and is drawn here on {device.type}: it starts afresh from "
+            f"its seed, so the resume is not bitwise")
+    return state
 
 
 def _rank_generator(device: torch.device) -> Optional[torch.Generator]:
     rank = draw_rank()
     if rank == 0:
         return None
-    seed = (torch.initial_seed() + rank * _RANK_SEED_STRIDE) % 2 ** 63
+    seed = _rank_seed(rank)
     entry = _RANK_GENERATORS.get((device, rank))
     if entry is not None and entry[1] == seed:
         return entry[0]
@@ -797,6 +865,9 @@ def _rank_generator(device: torch.device) -> Optional[torch.Generator]:
             torch.Generator(device=device), seed]
     entry[0].manual_seed(seed)
     entry[1] = seed
+    state = _restored_state(device, rank)
+    if state is not None:
+        entry[0].set_state(torch.tensor(state, dtype=torch.uint8))
     return entry[0]
 
 

@@ -125,19 +125,41 @@ CAPTURE_LOCK = threading.Lock()
 #: workspace of the stream it was captured on, so owners that run at
 #: once must capture, and run, on streams no other owner uses
 _HELD_STREAMS: set = set()
+#: streams whose owner was collected, handed out again before a fresh
+#: pool stream: cuBLAS keeps each stream's workspace for the life of the
+#: process, so a fresh stream for every new owner (a model rebuilt after
+#: a crash) would grow the memory in use by a workspace each time
+_FREE_STREAMS: list = []
+
+
+def _release_stream(st) -> None:
+    _HELD_STREAMS.discard(st.cuda_stream)
+    _FREE_STREAMS.append(st)
+
+
+def _hold_stream(owner, st):
+    _HELD_STREAMS.add(st.cuda_stream)
+    _FREE_STREAMS[:] = [f for f in _FREE_STREAMS
+                        if f.cuda_stream != st.cuda_stream]
+    weakref.finalize(owner, _release_stream, st)
+    return st
 
 
 def private_stream(owner, device) -> torch.cuda.Stream:
-    """A CUDA stream from PyTorch's pool that no other live owner holds,
-    released when `owner` is collected."""
+    """A CUDA stream that no other live owner holds, released when
+    `owner` is collected: a released one on `device` if there is one,
+    else a fresh one from PyTorch's pool."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    for st in _FREE_STREAMS:
+        if st.device == dev and st.cuda_stream not in _HELD_STREAMS:
+            return _hold_stream(owner, st)
     for _retry in range(2):
         for _ in range(64):
-            st = torch.cuda.Stream(device)
+            st = torch.cuda.Stream(dev)
             if st.cuda_stream not in _HELD_STREAMS:
-                _HELD_STREAMS.add(st.cuda_stream)
-                weakref.finalize(owner, _HELD_STREAMS.discard,
-                                 st.cuda_stream)
-                return st
+                return _hold_stream(owner, st)
         gc.collect()  # owners dropped in reference cycles free theirs
     raise RuntimeError(
         f"every pooled CUDA stream is held by one of {len(_HELD_STREAMS)} "

@@ -15,16 +15,29 @@
   supervisor's step hooks);
 - ``counters``: the process fault-counter facade (`bump`, `snapshot`,
   `reset`) over the port's metric registry;
-- ``watchdog.HEARTBEAT_ENV`` / ``touch_heartbeat``: the babysitter
-  liveness file the serve loop touches every scheduler turn.
+- ``retry``: the bounded transient retry (deterministic error classes
+  and out-of-memory errors fail fast) and the exponential restart
+  backoff the supervisor and the babysitter share;
+- ``watchdog``: the per-step deadline (`Watchdog`, `StepHangError`) and
+  the babysitter heartbeat (``HEARTBEAT_ENV``, `touch_heartbeat`);
+- ``anomaly``: `SpikeDetector`, the median/MAD loss-spike detector;
+- ``supervisor``: `Supervisor`, crash and hang restarts and loss-spike
+  rollback around the checkpoint, and the mesh policy (`choose_mesh`,
+  `default_mesh_fn`);
+- ``babysitter``: `Babysitter`, the out-of-process healer of hangs the
+  watchdog cannot unwind (a wait inside one CUDA or NCCL call, a frozen
+  process): a stale heartbeat gets the process tree SIGKILLed and
+  respawned; ``python -m singa_tpu_torch.resilience.babysit --
+  <trainer cmd>``.
 
-Not ported yet (ROADMAP queue 1 item 17): `retry`, the `Watchdog`
-thread, `anomaly`, the `supervisor`, the `babysitter` (`babysit`) and
-the `fleet`.
+Not ported yet (ROADMAP queue 1 item 17): the babysitter `fleet`
+(`FileLease`, `FleetAgent`, ``babysit --fleet``).
 """
 
 from singa_tpu_torch.resilience import counters  # noqa: F401
 from singa_tpu_torch.resilience import faults  # noqa: F401
+from singa_tpu_torch.resilience.anomaly import SpikeDetector  # noqa: F401
+from singa_tpu_torch.resilience.babysitter import Babysitter  # noqa: F401
 from singa_tpu_torch.resilience.checkpoint import (  # noqa: F401
     AsyncSaveHandle,
     CheckpointError,
@@ -38,14 +51,26 @@ from singa_tpu_torch.resilience.checkpoint import (  # noqa: F401
     save,
     wait_pending,
 )
+from singa_tpu_torch.resilience.retry import retry_transient  # noqa: F401
 from singa_tpu_torch.resilience.sentinel import GradSentinel  # noqa: F401
+from singa_tpu_torch.resilience.supervisor import (  # noqa: F401
+    Supervisor,
+    choose_mesh,
+    default_mesh_fn,
+)
 from singa_tpu_torch.resilience.watchdog import (  # noqa: F401
-    HEARTBEAT_ENV, touch_heartbeat)
+    HEARTBEAT_ENV,
+    StepHangError,
+    Watchdog,
+    touch_heartbeat,
+)
 
 __all__ = [
     "save", "restore", "latest_step_dir", "read_manifest", "prune",
     "CheckpointError", "CorruptCheckpointError", "TornSaveError",
     "PreemptionGuard", "AsyncSaveHandle", "wait_pending",
-    "GradSentinel", "counters", "faults", "HEARTBEAT_ENV",
-    "touch_heartbeat",
+    "GradSentinel", "retry_transient", "counters",
+    "faults", "Watchdog", "StepHangError", "SpikeDetector",
+    "Supervisor", "choose_mesh", "default_mesh_fn", "Babysitter",
+    "HEARTBEAT_ENV", "touch_heartbeat",
 ]

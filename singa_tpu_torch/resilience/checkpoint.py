@@ -21,7 +21,11 @@ gathered arrays) cannot give:
   (`CorruptCheckpointError`) naming the file and the chunk's offset.
 - **Bitwise resume.** The manifest records the step, the generators'
   states (`tensor.get_rng_state`: the host's and each card's, whose
-  philox seed and offset a captured step draws from) and an opaque
+  philox seed and offset a captured step draws from, and under
+  ``ranks`` the dropout generator of each rank r > 0 of a distributed
+  step, which every rank puts in its shard index and rank 0 merges;
+  `autograd.set_rank_generator_states` says what a restore into
+  another world does with them) and an opaque
   `data_cursor`; the optimizer's states include the `GradSentinel`'s
   loss-scale scalars. That is what train-k, kill, restore, train-(n-k)
   needs to equal an unbroken n-step run bitwise.
@@ -557,6 +561,34 @@ def _merge_leaf_tables(step_dir: str, nonce: str, own: List[Dict],
     return merged
 
 
+def _rank_rng(rng_state) -> List:
+    return (rng_state.get("ranks", []) if isinstance(rng_state, dict)
+            else [])
+
+
+def _merge_rank_rng(step_dir: str, rng_state, pcount: int):
+    """Rank 0's `rng` with every rank's rank generators
+    (`SHARDS-p{j}.json`'s "rng_ranks"): one entry per rank and device
+    type, the first writer's where two ranks draw one stream
+    (tensor-parallel peers, each on a card of its own)."""
+    if not isinstance(rng_state, dict):
+        return rng_state
+    entries = {}
+    bodies = [{"rng_ranks": _rng_json(_rank_rng(rng_state))}] + [
+        json.loads(_read_text(storage.join(
+            step_dir, f"SHARDS-p{j}.json")) or "{}")
+        for j in range(1, pcount)]
+    for body in bodies:
+        for e in body.get("rng_ranks", ()):
+            entries.setdefault(
+                (int(e["rank"]), torch.device(e["device"]).type), e)
+    merged = dict(rng_state)
+    merged.pop("ranks", None)
+    if entries:
+        merged["ranks"] = [entries[k] for k in sorted(entries)]
+    return merged
+
+
 class AsyncSaveHandle:
     """The in-flight half of a ``save(async_=True)``: the snapshot is
     taken (the step path is free), the commit runs on a background
@@ -841,7 +873,9 @@ def _save_two_phase(directory: str, step_dir: str, step_name: str,
         _write_atomic(
             storage.join(step_dir, f"SHARDS-p{pidx}.json"),
             json.dumps({"process": pidx, "nonce": nonce,
-                        "leaves": leaves_meta}, indent=1).encode())
+                        "leaves": leaves_meta,
+                        "rng_ranks": _rng_json(_rank_rng(rng_state))},
+                       indent=1).encode())
         _write_atomic(storage.join(step_dir, f"COMMIT-p{pidx}"),
                       nonce.encode())
 
@@ -863,8 +897,9 @@ def _save_two_phase(directory: str, step_dir: str, step_name: str,
                                         pcount)
             _commit_manifest(directory, step_dir, step_name, merged,
                              step=step, data_cursor=data_cursor,
-                             rng_state=rng_state, meta=meta,
-                             processes=pcount)
+                             rng_state=_merge_rank_rng(
+                                 step_dir, rng_state, pcount),
+                             meta=meta, processes=pcount)
             # committed: retire the attempt gate
             storage.get_driver(nonce_path).delete(nonce_path)
 
@@ -1091,12 +1126,16 @@ def _expected_shape(t: torch.Tensor) -> Tuple[int, ...]:
 
 def _set_rng(state) -> None:
     """Restore the generators from a manifest's `rng` (the port's dict;
-    each card's state only where that card exists)."""
+    each card's state only where that card exists; the rank generators
+    by `autograd.set_rank_generator_states`)."""
+    from singa_tpu_torch import autograd
+
     torch.set_rng_state(torch.tensor(state["cpu"], dtype=torch.uint8))
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     for i, s in enumerate(state.get("cuda", ())):
         if i < cards:
             torch.cuda.set_rng_state(torch.tensor(s, dtype=torch.uint8), i)
+    autograd.set_rank_generator_states(state.get("ranks", ()))
 
 
 def _restore_impl(directory: str, model, optimizer=None, *, step=None,

@@ -24,8 +24,10 @@ oracle stays exact:
   magnitude, `hard_hang_at(k)` SIGSTOPs the process, and
   `stale_host_at(k, rank=r)` does so only on the host whose
   `SINGA_FLEET_RANK` is r; `lease_clock_skew(offset_s)` is a skewed
-  wall clock. The supervisor, the babysitter and the fleet that drive
-  them are not ported yet (ROADMAP queue 1 item 17).
+  wall clock. `resilience.Supervisor` calls the step hooks and
+  `resilience.Babysitter` heals a `hard_hang_at`; the fleet that
+  `stale_host_at` and `lease_clock_skew` serve is not ported yet
+  (ROADMAP queue 1 item 17).
 - `kill_at_phase(phase)`: hard-exit at a named boundary of the
   checkpoint commit ("snapshot", "shard_writes", "receipts",
   "manifest"), via `checkpoint._phase_hook`.

@@ -104,18 +104,30 @@ def set_seed(seed: int) -> None:
 
 
 def get_rng_state() -> dict:
-    """A host snapshot of the default generators: {"cpu": uint8 array,
-    "cuda": [one per card, when CUDA is initialised]}."""
+    """A host snapshot of the generators: {"cpu": uint8 array, "cuda":
+    [one per card, when CUDA is initialised]}, and "ranks" where a rank
+    r > 0 of a distributed step has drawn dropout masks from its own
+    generator (`autograd.rank_generator_states`)."""
+    from singa_tpu_torch import autograd
+
     cuda = ([s.numpy() for s in torch.cuda.get_rng_state_all()]
             if torch.cuda.is_initialized() else [])
-    return {"cpu": torch.get_rng_state().numpy(), "cuda": cuda}
+    out = {"cpu": torch.get_rng_state().numpy(), "cuda": cuda}
+    ranks = autograd.rank_generator_states()
+    if ranks:
+        out["ranks"] = ranks
+    return out
 
 
 def set_rng_state(state: dict) -> None:
-    """Restore the default generators from a `get_rng_state` snapshot."""
+    """Restore the generators from a `get_rng_state` snapshot (the rank
+    generators by `autograd.set_rank_generator_states`)."""
+    from singa_tpu_torch import autograd
+
     torch.set_rng_state(torch.from_numpy(np.asarray(state["cpu"])))
     for i, s in enumerate(state["cuda"]):
         torch.cuda.set_rng_state(torch.from_numpy(np.asarray(s)), i)
+    autograd.set_rank_generator_states(state.get("ranks", ()))
 
 
 class rng_scope:

@@ -2163,3 +2163,143 @@ def _rank_ckpt_elastic(rank, world, tp, gpt, steps, dirs):
             out["torn"] = str(e)
     dist.barrier()
     return out
+
+
+# -- F12: every rank's dropout stream across a resume --------------------------
+
+#: the resume test's unrolled GPT (tests/test_torch_resume.py), dropout 0.1
+RNG_RESUME_GPT = dict(vocab_size=64, d_model=32, num_layers=2, num_heads=4,
+                      max_len=8, scan_blocks=False, dropout=0.1)
+
+
+def rng_resume_batches(n, b=4, t=8, vocab=64):
+    """n distinct global batches (tests/test_torch_resume.py's)."""
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(100 + i)
+        out.append((rng.integers(0, vocab, (b, t)),
+                    rng.integers(0, vocab, (b, t))))
+    return out
+
+
+def _rng_resume_model():
+    """The GPT under DistOpt(AdamW) over the group, built from seed 18
+    on every rank (what a trainer does at start-up)."""
+    from singa_tpu_torch import autograd, distributed, opt, tensor
+    from singa_tpu_torch.models.gpt import GPT
+
+    autograd.reset_rank_draws()
+    tensor.set_seed(18)
+    m = GPT(**RNG_RESUME_GPT, device="cpu",
+            generator=torch.Generator().manual_seed(18))
+    m.set_optimizer(opt.DistOpt(opt.AdamW(lr=3e-3),
+                                mesh=distributed.global_mesh()))
+    x = torch.from_numpy(rng_resume_batches(1)[0][0])
+    m.compile([x], is_train=True, use_graph=True)
+    return m
+
+
+def _rng_resume_state(m, losses):
+    out = {"losses": np.asarray(losses)}
+    out.update({f"param:{k}": _np(v) for k, v in m.get_params().items()})
+    out.update({f"opt:{k}": torch.as_tensor(v).numpy().copy()
+                for k, v in m.optimizer.dump_states().items()})
+    return out
+
+
+def _rank_rng_resume(rank, world, phase, directory, data):
+    """F12's oracle over the group. phase "ab": run A, 8 unbroken steps,
+    then run B, 4 steps and a save (every rank joins the two-phase
+    commit); phase "c", in fresh processes: a new incarnation's own
+    generator state, `restore`, then the last 4 steps. Each run's
+    losses, parameters and optimizer slots."""
+    from singa_tpu_torch import resilience
+
+    def step(m, i):
+        x, y = data[i]
+        return m(torch.from_numpy(x), torch.from_numpy(y))[1].item()
+
+    if phase == "ab":
+        a = _rng_resume_model()
+        losses = [step(a, i) for i in range(len(data))]
+        out = {"a": _rng_resume_state(a, losses)}
+        b = _rng_resume_model()
+        losses = [step(b, i) for i in range(4)]
+        resilience.save(directory, b, b.optimizer, step=4, data_cursor=4)
+        out["b"] = _rng_resume_state(b, losses)
+        return out
+    c = _rng_resume_model()
+    torch.manual_seed(12345 + rank)  # a new incarnation's own state
+    meta = resilience.restore(directory, c, c.optimizer)
+    start = int(meta["data_cursor"])
+    losses = [step(c, i) for i in range(start, len(data))]
+    return {"c": _rng_resume_state(c, losses), "start": start}
+
+
+# -- the supervisor's mesh hook over a group ----------------------------------
+
+
+def _rank_supervisor_mesh(rank, world, directory, steps):
+    """`Supervisor(mesh_fn=)` over the group (every rank runs the same
+    supervised loop, the checkpoint's two-phase commit under it):
+
+    - "default": `default_mesh_fn(world)` with a crash at step 2, against
+      the same steps unsupervised: (dp world, tp 1, sp 1) on every build,
+      no reshape, the losses and parameters bitwise;
+    - "fold": a probe that folds dp into tp at the rebuild after a crash
+      at step 2: one reshape, the run ends on (1, world, 1), the elastic
+      restore re-placing the data-parallel checkpoint;
+    - "shrink": a probe that picks fewer ranks than the group, which the
+      port refuses (ROADMAP queue 3): the message."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.resilience import Supervisor, counters, faults
+    from singa_tpu_torch.resilience import supervisor as sup_module
+
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (8, 12)).astype(np.float32))
+    y = torch.from_numpy((np.arange(8) % 4).astype(np.int64))
+
+    def build(mesh=None):
+        m = ckpt_net(seed=13, optimizer="sgd")[0]
+        if mesh is not None:
+            m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.1, momentum=0.9),
+                                        mesh=mesh, axis_name="data"))
+            m.compile([x], is_train=True, use_graph=True)
+        return m
+
+    def run(name, mesh_fn, hook):
+        counters.reset()
+        sup = Supervisor(build, f"{directory}/{name}", mesh_fn=mesh_fn,
+                         fault_hook=hook, restart_backoff_s=0.0,
+                         sleep=lambda s: None)
+        res = sup.run([(x, y)] * steps)
+        m = res.pop("model")
+        res["params"] = {k: _np(v) for k, v in m.get_params().items()}
+        res["mesh"] = dict(m.optimizer.comm.mesh.shape)
+        res["fault_counters"] = dict(m.fault_counters or {})
+        return res
+
+    out = {"probe": sup_module.probe_ranks()}
+    from singa_tpu_torch.parallel import mesh as mesh_module
+    plain = build(mesh_module.get_mesh_3d(world, 1, 1))
+    out["plain"] = dict(
+        losses=[plain.train_one_batch(x, y)[1].item()
+                for _ in range(steps)],
+        params={k: _np(v) for k, v in plain.get_params().items()})
+    out["default"] = run("default", sup_module.default_mesh_fn(world),
+                         faults.crash_at(2))
+    probes = []
+
+    def fold(devices):
+        probes.append(len(devices))
+        return (len(devices), 1, 1) if len(probes) == 1 else (
+            1, len(devices), 1)
+
+    out["fold"] = run("fold", fold, faults.crash_at(2))
+    out["fold"]["probes"] = probes
+    try:
+        run("shrink", lambda devices: (1, 1, 1), None)
+        out["shrink"] = None
+    except NotImplementedError as e:
+        out["shrink"] = str(e)
+    return out

@@ -292,3 +292,42 @@ def test_steps_after_a_replacement_match_the_reference():
                                    err_msg=k)
     assert not np.allclose(got["fc2.W"], new_w)  # the new tensor trained
     assert port._train_step.captures == 2
+
+
+def test_a_collected_owners_stream_goes_to_the_next_owner(monkeypatch):
+    """cuBLAS keeps a workspace per stream for the life of the process: a
+    graph owner made after another was collected (a model rebuilt after a
+    crash) takes the collected owner's stream, not a fresh one from the
+    pool, while live owners never share one."""
+    import gc
+
+    from singa_tpu_torch import graph
+
+    made = []
+
+    class FakeStream:
+        def __init__(self, dev):
+            self.device = torch.device(dev)
+            self.cuda_stream = 1000 + len(made)
+            made.append(self)
+
+    class Owner:
+        pass
+
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(graph, "_HELD_STREAMS", set())
+    monkeypatch.setattr(graph, "_FREE_STREAMS", [])
+    a, b = Owner(), Owner()
+    sa = graph.private_stream(a, "cuda:0")
+    sb = graph.private_stream(b, "cuda:0")
+    assert sa is not sb and len(made) == 2
+    del a
+    gc.collect()
+    c, d = Owner(), Owner()
+    assert graph.private_stream(c, "cuda:0") is sa and len(made) == 2
+    assert graph.private_stream(d, "cuda:1").device == torch.device(
+        "cuda:1") and len(made) == 3
+    assert graph._HELD_STREAMS == {1000, 1001, 1002}
+    del b, c, d
+    gc.collect()  # before the patches are undone: the finalizers ran
+    assert not graph._HELD_STREAMS and len(graph._FREE_STREAMS) == 3

@@ -15,7 +15,8 @@
   GPT with the prefetch and a MoE GPT, a step each over a group of
   one; the metric exporters and the metric-name lint; the storage
   drivers, the sharded checkpoint on both drivers, the sentinel and
-  `gpt_lm`'s resume);
+  `gpt_lm`'s resume; retry, the Watchdog, SpikeDetector, a supervised
+  crash heal and the babysitter's module entry);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -211,6 +212,49 @@ def test_checkpoint_and_sentinel_run_with_jax_and_reference_blocked(
     lines = out.stdout.split("\n")
     assert lines[:4] == ["1", "1", "1", "{((0, 2), (0, 3)): 0}"]
     assert f"resumed from {tmp_path / 'lm'} at step 1" in out.stdout
+
+
+def test_self_healing_layer_runs_with_jax_and_reference_blocked(tmp_path):
+    """retry, the Watchdog, SpikeDetector, the Supervisor and the
+    babysitter's module entry import and run with JAX and the reference
+    blocked: a supervised MLP heals a crash under a watchdog and a spike
+    detector, and `python -m singa_tpu_torch.resilience.babysit` heals a
+    child that fails once."""
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import opt, resilience\n"
+        "from singa_tpu_torch.models import MLP\n"
+        "from singa_tpu_torch.resilience import faults, retry\n"
+        "print(retry.retry_transient('t', faults.TransientCalls(\n"
+        "    lambda: 5, fail_calls=(1,)), backoff_s=0))\n"
+        "x, y = torch.ones(2, 5), torch.zeros(2).long()\n"
+        "def build():\n"
+        "    torch.manual_seed(0)\n"
+        "    m = MLP(8, 3, in_features=5, device='cpu')\n"
+        "    m.set_optimizer(opt.SGD(0.1))\n"
+        "    m.compile([x], is_train=True, use_graph=True)\n"
+        "    return m\n"
+        f"res = resilience.Supervisor(build, {str(tmp_path / 'ck')!r},\n"
+        "    step_timeout_s=60, fault_hook=faults.crash_at(1),\n"
+        "    spike_detector=resilience.SpikeDetector(),\n"
+        "    restart_backoff_s=0).run([(x, y)] * 3)\n"
+        "print(res['steps'], res['restarts'])\n"
+        "sys.argv = ['babysit', '--backoff', '0', '--', sys.executable,\n"
+        "            '-c', 'import os, sys; sys.exit(int(os.environ[\"'\n"
+        "            'SINGA_BABYSIT_RESTARTS\"] == \"0\"))']\n"
+        "try:\n"
+        "    runpy.run_module('singa_tpu_torch.resilience.babysit',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit', e.code)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = [ln for ln in out.stdout.split("\n") if not ln.startswith("#")]
+    assert lines[:3] == ["5", "3 1", "exit 0"], out.stdout
 
 
 def test_mobile_nets_and_tensor_run_with_jax_and_reference_blocked():
