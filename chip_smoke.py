@@ -400,6 +400,25 @@ Phases, in the order they run (any failure raises and exits non-zero):
    namespace), the babysitter never with a /dev/nvidia* file open (read
    every 2 s of its life), the seconds from the kill to the respawn's
    first step. The directories are deleted at the end;
+9p. the babysitter fleet (`fleet_path`), started beside 9o's
+   babysitter: `python -m singa_tpu_torch.resilience.babysit --fleet DIR
+   --fleet-rank 0 --fleet-world 1 --stale-after 60 -- python -c <child>`
+   over `fleet_child` (9o's gpt_medium under `DistOpt(AdamW)` over a
+   world-1 NCCL group formed at the agent's brokered coordinator,
+   `Supervisor(mesh_fn=default_mesh_fn(1))`, a save each step,
+   `stale_host_at(1, rank=0)` on epoch 0), with the same child run
+   unbroken with the same topology env and no agent: healed at epoch 1
+   with one election and one stale trainer, DONE written, each epoch's
+   coordinator the one the agent brokered, 12 launches of each fused
+   kernel in every uncaptured or capturing step of each incarnation,
+   the final checkpoints sha256-identical file by file, the killed
+   incarnation gone from /proc, the agent never with a /dev/nvidia*
+   file open; the seconds from the SIGSTOP to the epoch bump and from
+   the bump to the respawn's first step. The native bucket planner
+   (`native/comm_core.cc`) is checked on the DistOpt (9e) and ZeRO-1
+   (9f) paths: called there, its buckets over the model's parameter
+   sizes equal the plain planner's, one plan timed native and in
+   Python. The directories are deleted at the end;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -2786,6 +2805,40 @@ def sync_timings(torch, comm, grads, step_ms, card):
     return out
 
 
+def planner_check(what, sizes, cap, calls_before, card):
+    """The native bucket planner (`native/comm_core.cc`) on a phase's
+    path: the phase called into it since `calls_before`, and its buckets
+    over the model's parameter sizes at `cap` elements equal the plain
+    planner's. Times one plan, native and Python, in turns (host
+    microseconds: the planner runs on the host)."""
+    from singa_tpu_torch import native
+    from singa_tpu_torch.communicator import plan_buckets, plan_buckets_plain
+
+    calls = native.native_call_count() - calls_before
+    buckets = plan_buckets(sizes, cap)
+    check(calls > 0, f"{what}: no call into the native bucket planner")
+    check(buckets == plan_buckets_plain(sizes, cap),
+          f"{what}: the native buckets differ from the plain planner's")
+
+    def us(fn, n=500):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn(sizes, cap)
+        return 1e6 * (time.perf_counter() - t) / n
+
+    turns = [us(plan_buckets), us(plan_buckets_plain),
+             us(plan_buckets_plain), us(plan_buckets)]
+    native_us, plain_us = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"{what}: the native bucket planner ran {calls} time(s) on the "
+          f"phase's path; {len(buckets)} buckets over {len(sizes)} "
+          f"parameters ({sum(sizes)} elements) at {cap} elements, equal to "
+          f"the plain planner's; one plan {native_us:.1f} us native, "
+          f"{plain_us:.1f} us Python (host clock, in turns; {card})",
+          flush=True)
+    return dict(calls=calls, buckets=len(buckets), params=len(sizes),
+                native_us=native_us, plain_us=plain_us)
+
+
 def comm_world1(torch, comm):
     """Every Communicator method over the world-1 NCCL group gives what a
     world of one must: its input (bf16-rounded on the half wire), and
@@ -2830,7 +2883,7 @@ def dist_path(torch, fa, mp, card):
     timed. Returns the counted step's launches and the numbers."""
     import torch.distributed as tdist
 
-    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch import distributed, native, opt
     from singa_tpu_torch.communicator import Communicator
     from singa_tpu_torch.examples import dist_imagenet
     from singa_tpu_torch.model import load_singa_tpu_states
@@ -2842,6 +2895,7 @@ def dist_path(torch, fa, mp, card):
           f"{tdist.get_world_size()}, not NCCL at 1")
     mp.set_pool_kernel_enabled(True)
     out = {"card": card, "trainer": {}}
+    calls0 = native.native_call_count()
     try:
         out["communicator_methods"] = comm_world1(
             torch, Communicator(distributed.global_mesh()))
@@ -2950,6 +3004,9 @@ def dist_path(torch, fa, mp, card):
                  for p in m.parameters()]
         out["sync"] = sync_timings(torch, Communicator(mesh), grads,
                                    step_ms, card)
+        out["planner"] = planner_check(
+            "dist resnet50", [p.numel() for p in m.parameters()], 2 ** 21,
+            calls0, card)
         m.graph(False)
         del m, grads
     finally:
@@ -3082,11 +3139,12 @@ def zero1_path(torch, fa, mp, card):
     the counted step's launches and the numbers."""
     import torch.distributed as tdist
 
-    from singa_tpu_torch import autograd, distributed, opt
+    from singa_tpu_torch import autograd, distributed, native, opt
     from singa_tpu_torch.communicator import Communicator
     from singa_tpu_torch.model import load_singa_tpu_params
     from singa_tpu_torch.models.gpt import gpt_medium
 
+    calls0 = native.native_call_count()
     distributed.init(device="cuda")
     check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
           f"the group is {tdist.get_backend()} at world "
@@ -3238,6 +3296,9 @@ def zero1_path(torch, fa, mp, card):
         drop_graphs(torch)
         out["sync"] = zero1_sync_timings(torch, Communicator(mesh), m,
                                          zero_ms, card)
+        out["planner"] = planner_check(
+            "zero1 gpt_medium", [p.numel() for p in m.parameters()], 2 ** 21,
+            calls0, card)
         m.graph(False)
         del m, start
         drop_graphs(torch)
@@ -6705,8 +6766,10 @@ def _heal_alexnet(torch, fa, mp, card):
                 wall_s=res["wall_s"])
 
 
-def heal_path(torch, fa, mp, card):
-    """Phase 9o: the self-healing layer on the card (module docstring)."""
+def heal_path(torch, fa, mp, card, beside=None):
+    """Phase 9o: the self-healing layer on the card (module docstring).
+    `beside()`, when given, is called as the babysitter starts: what it
+    starts runs beside cases 3 to 5."""
     import shutil
 
     from singa_tpu_torch.resilience import faults
@@ -6789,6 +6852,8 @@ def heal_path(torch, fa, mp, card):
         # are taken with its two gpt_medium children building and
         # training on the same card); case 2 ran before it, alone
         sitter, unbroken_child, lines, threads = start_babysat(HEAL_ROOT)
+        if beside is not None:
+            beside()
 
         # 3. crash at step 3
         crash, _, mem, _ = supervised(torch, fa, mp, build, batches,
@@ -6833,6 +6898,325 @@ def heal_path(torch, fa, mp, card):
     print(f"heal: phase 9o {out['wall_s']:.1f} s ({card})", flush=True)
     return {"gpt_medium": per_step,
             "alexnet": out["spike"]["launches_per_step"]}, out
+
+
+# -- 9p. the babysitter fleet heals gpt_medium ---------------------------------
+
+FLEET_ROOT = "build/chip_smoke_fleet"
+#: the fleet child's steps: step 0, the SIGSTOP at step 1 on epoch 0, then
+#: the respawn's steps 1 and 2 (uncaptured, then the capture)
+FLEET_STEPS = 3
+#: the agent's trainer staleness window (--stale-after): it covers the
+#: child's import, NCCL init, build and capture between two beats
+FLEET_STALE_S = 60.0
+#: the fleet child: `fleet_child` of this file, run by the agent (and once
+#: more without it) as `python -c`
+FLEET_CHILD = (
+    "import sys\n"
+    "import chip_smoke\n"
+    "chip_smoke.fleet_child(sys.argv[1], int(sys.argv[2]),\n"
+    "                       '--stale-at' in sys.argv[3:])\n")
+
+
+def fleet_child(ckpt_dir, n_steps, inject):
+    """The fleet's gpt_medium trainer (`FLEET_CHILD`): it joins a group of
+    ``SINGA_FLEET_WORLD`` NCCL ranks at the agent's brokered
+    ``SINGA_COORDINATOR`` and trains phase 9o's gpt_medium (scanned,
+    4 x 1024, fp32, AdamW under DistOpt over the group's mesh, captured)
+    under `Supervisor(mesh_fn=default_mesh_fn(1))`, a save after each
+    step; with `inject`, `faults.stale_host_at(1, rank=0)` on epoch 0
+    only. Prints its pid, epoch and coordinator, each step's start with
+    the host clock and the launches so far, and a JSON summary."""
+    import torch
+
+    from singa_tpu_torch import distributed, opt, resilience
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.ops import max_pool as mp
+    from singa_tpu_torch.resilience import (Supervisor, counters,
+                                            default_mesh_fn, faults)
+    from singa_tpu_torch.resilience.fleet import (COORD_ENV, RANK_ENV,
+                                                  WORLD_ENV)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED)
+    world = int(os.environ[WORLD_ENV])
+    rank = int(os.environ[RANK_ENV])
+    coord = os.environ.get(COORD_ENV)
+    epoch = counters.snapshot().get("fleet_epochs", 0)
+    print(f"FLEET pid {os.getpid()} epoch {epoch} coord {coord}", flush=True)
+    distributed.init(coordinator_address=coord, num_processes=world,
+                     process_id=rank)
+    batches = heal_batches(torch, GPT_MEDIUM_VOCAB, n_steps)
+
+    def build(mesh):
+        m = gpt_medium(device="cuda")
+        load_singa_tpu_params(m, seeded_params(m, SEED))
+        m.set_optimizer(opt.DistOpt(opt.AdamW(lr=3e-4), mesh=mesh))
+        m.compile([batches[0][0]], is_train=True, use_graph=True)
+        resilience.touch_heartbeat(os.environ.get(resilience.HEARTBEAT_ENV))
+        return m
+
+    stop = (faults.stale_host_at(1, rank=0) if inject and epoch == 0
+            else None)
+    reset_counts(fa, mp)
+    steps = []
+
+    def hook(step, batch):
+        c, f = counts(fa, mp), dict(fa.FUSED_LAUNCHES)
+        steps.append(dict(step=step, launches=c, fused=f))
+        print(f"FLEET step {step} t {time.time():.6f} launches "
+              f"{json.dumps(c)} fused {json.dumps(f)}", flush=True)
+        return stop(step, batch) if stop is not None else None
+
+    sup = Supervisor(build, ckpt_dir, mesh_fn=default_mesh_fn(1),
+                     step_timeout_s=3600.0, fault_hook=hook,
+                     restart_backoff_s=0.0, keep_checkpoints=2)
+    res = sup.run(batches)
+    steps.append(dict(step=None, launches=counts(fa, mp),
+                      fused=dict(fa.FUSED_LAUNCHES)))
+    gs = res["model"]._train_step
+    c = counters.supervisor_snapshot()
+    distributed.shutdown()
+    print(f"fleet trainer done rank={rank} world={world} "
+          f"mesh={res['mesh_extents']} steps={res['steps']} "
+          f"fleet={c['fleet']} fleet_epochs={c['fleet_epochs']} "
+          f"elections={c['elections']} coord={coord or '-'}", flush=True)
+    deltas = [dict(step=a["step"],
+                   launches={k: b["launches"][k] - a["launches"][k]
+                             for k in a["launches"]},
+                   fused={k: b["fused"][k] - a["fused"][k]
+                          for k in a["fused"]})
+              for a, b in zip(steps, steps[1:])]
+    print("FLEET done " + json.dumps(dict(
+        pid=os.getpid(), epoch=epoch, start=steps[0]["step"],
+        losses=res["losses"], captures=gs.captures, replays=gs.replays,
+        deltas=deltas)), flush=True)
+
+
+def start_fleet(root=FLEET_ROOT):
+    """Start phase 9p in a fresh `root`: the fleet agent over the hanging
+    child and, beside it, the same child unbroken with the same topology
+    env and no agent. Returns the run: the two processes, their stdout
+    lines with the host clock, the samples of the agent's open devices
+    (every 2 s of its life), the reader threads and the start time."""
+    import shutil
+    import socket
+    import threading
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    for k in [k for k in env if k.startswith(("SINGA_FLEET", "SINGA_BABY",
+                                              "SINGA_COORD"))]:
+        env.pop(k)
+    agent = subprocess.Popen(
+        [sys.executable, "-m", "singa_tpu_torch.resilience.babysit",
+         "--fleet", f"{root}/rdv", "--fleet-rank", "0", "--fleet-world",
+         "1", "--stale-after", str(FLEET_STALE_S), "--",
+         sys.executable, "-c", FLEET_CHILD, f"{root}/fleet",
+         str(FLEET_STEPS), "--stale-at"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    with socket.socket() as s:
+        s.bind(("", 0))
+        coord = f"{socket.gethostname()}:{s.getsockname()[1]}"
+    twin_env = dict(env, SINGA_FLEET_WORLD="1", SINGA_FLEET_RANK="0",
+                    SINGA_COORDINATOR=coord,
+                    SINGA_HEARTBEAT_FILE=f"{root}/twin_heartbeat")
+    twin = subprocess.Popen(
+        [sys.executable, "-c", FLEET_CHILD, f"{root}/unbroken",
+         str(FLEET_STEPS)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=twin_env)
+    lines = {"agent": [], "twin": [], "samples": []}
+
+    def read(name, proc):
+        for ln in proc.stdout:
+            lines[name].append((time.time(), ln.rstrip("\n")))
+
+    def sample():
+        while agent.poll() is None:
+            lines["samples"].append(holds_card(agent.pid))
+            time.sleep(2.0)
+
+    threads = [threading.Thread(target=read, args=(k, p), daemon=True)
+               for k, p in (("agent", agent), ("twin", twin))]
+    threads.append(threading.Thread(target=sample, daemon=True))
+    for th in threads:
+        th.start()
+    return dict(agent=agent, twin=twin, lines=lines, threads=threads, t0=t0)
+
+
+def stop_fleet(run):
+    """SIGKILL the agent, the twin and every incarnation the agent started
+    (each leads a session of its own), then reap the two."""
+    agent, twin, lines = run["agent"], run["twin"], run["lines"]
+    for _, ln in lines["agent"]:
+        if ln.startswith("FLEET pid "):
+            try:
+                os.killpg(int(ln.split()[2]), signal.SIGKILL)
+            except OSError:
+                pass
+    for p in (agent, twin):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def fleet_path(torch, fa, mp, card, run=None):
+    """Phase 9p: the babysitter fleet on the card (world 1: NCCL takes one
+    rank a card). `python -m singa_tpu_torch.resilience.babysit --fleet`
+    runs `fleet_child`, which SIGSTOPs itself at step 1 on epoch 0; the
+    agent reports the stale trainer, leads the epoch bump, SIGKILLs the
+    tree and respawns it at epoch 1 with a re-brokered coordinator; the
+    respawn resumes from the committed step 1 and finishes. Held: the
+    agent healed with one epoch, one election and one stale trainer and
+    wrote DONE; the child's counters and coordinators; 12 launches of
+    each fused flash kernel in every counted step of each incarnation;
+    the final checkpoint sha256-identical, file by file, to the unbroken
+    twin's; the killed incarnation gone from /proc; the agent never with
+    a /dev/nvidia* file open. `run` is the phase as `start_fleet`
+    started it (`main` starts it beside phase 9o's babysitter); None
+    starts it here. Returns the launches a counted step and the
+    numbers."""
+    import shutil
+
+    from singa_tpu_torch import resilience
+
+    root = FLEET_ROOT
+    per_step = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                "max_pool_bwd": 0}
+    run = start_fleet(root) if run is None else run
+    agent, twin, lines, threads, t0 = (run[k] for k in (
+        "agent", "twin", "lines", "threads", "t0"))
+    try:
+        t = time.perf_counter()
+        while agent.poll() is None or twin.poll() is None:
+            check(time.perf_counter() - t < 600, "the fleet agent overran")
+            time.sleep(1.0)
+        for th in threads:
+            th.join(30)
+        text = {k: "\n".join(ln for _, ln in lines[k])
+                for k in ("agent", "twin")}
+        check(agent.returncode == 0 and twin.returncode == 0,
+              f"fleet gpt_medium: agent rc {agent.returncode}, twin rc "
+              f"{twin.returncode}:\n{text['agent'][-4000:]}\n"
+              f"{text['twin'][-3000:]}")
+        check("# fleet agent: job completed (epochs=1, elections won=1, "
+              "led=True)" in text["agent"]
+              and os.path.exists(f"{root}/rdv/DONE"),
+              f"fleet gpt_medium: not healed at epoch 1 with one election, "
+              f"or no DONE:\n{text['agent'][-3000:]}")
+        stale = [(ts, ln) for ts, ln in lines["agent"]
+                 if "hard hang; reporting to the leader" in ln]
+        bump = [ln for _, ln in lines["agent"] if "epoch 0 -> 1" in ln]
+        check(len(stale) == 1 and len(bump) == 1,
+              f"fleet gpt_medium: stale trainer reports {stale}, bumps "
+              f"{bump}")
+        pids = [int(ln.split()[2]) for _, ln in lines["agent"]
+                if ln.startswith("FLEET pid ")]
+        coords = [ln.split()[-1] for _, ln in lines["agent"]
+                  if ln.startswith("FLEET pid ")]
+        adverts = []
+        for e in (0, 1):
+            with open(f"{root}/rdv/coord/epoch-{e:06d}.json") as f:
+                adverts.append(json.load(f)["address"])
+        check(len(pids) == 2 and coords == adverts
+              and adverts[0] != adverts[1],
+              f"fleet gpt_medium: incarnations {pids}, their coordinators "
+              f"{coords}, the brokered ones {adverts}")
+        done_line = [ln for _, ln in lines["agent"]
+                     if ln.startswith("fleet trainer done")]
+        check(len(done_line) == 1 and "mesh=(1, 1, 1)" in done_line[0]
+              and "fleet=1 fleet_epochs=1 elections=1" in done_line[0]
+              and done_line[0].endswith(f"coord={adverts[1]}"),
+              f"fleet gpt_medium: the respawn's summary {done_line}")
+        done = [json.loads(ln[len("FLEET done "):])
+                for _, ln in lines["agent"] if ln.startswith("FLEET done ")]
+        ref = [json.loads(ln[len("FLEET done "):])
+               for _, ln in lines["twin"] if ln.startswith("FLEET done ")]
+        check(len(done) == 1 and len(ref) == 1 and done[0]["start"] == 1
+              and done[0]["epoch"] == 1
+              and done[0]["losses"] == ref[0]["losses"][1:],
+              f"fleet gpt_medium: the respawn {done} did not resume at step "
+              f"1 with the unbroken twin's losses {ref}")
+        # each incarnation's step starts: (step, host clock, launches so
+        # far, fused so far); the killed one's step 0 ran before step 1's
+        # SIGSTOP
+        rows, inc = [[], []], -1
+        for _, ln in lines["agent"]:
+            if ln.startswith("FLEET pid "):
+                inc += 1
+            elif ln.startswith("FLEET step "):
+                w = ln.split(" ", 6)
+                rest = w[6].split(" fused ")
+                rows[inc].append((int(w[2]), float(w[4]),
+                                  json.loads(rest[0]),
+                                  json.loads(rest[1])))
+        check([r[0] for r in rows[0]] == [0, 1]
+              and [r[0] for r in rows[1]] == [1, 2],
+              f"fleet gpt_medium: steps started by incarnation {rows}")
+        (_, _, c0, f0), (_, stop_t, c1, f1) = rows[0]
+        killed = [dict(launches={k: c1[k] - c0[k] for k in c0},
+                       fused={k: f1[k] - f0[k] for k in f0})]
+        patterns = {"killed": launch_pattern(killed, per_step),
+                    "respawn": launch_pattern(done[0]["deltas"], per_step),
+                    "twin": launch_pattern(ref[0]["deltas"], per_step)}
+        check(patterns["killed"] == ["step"]
+              and patterns["respawn"] == ["step", "step"]
+              and patterns["twin"] == ["step", "step", "none"],
+              f"fleet gpt_medium: launches by step {patterns} (want 12 of "
+              f"each fused kernel in every uncaptured or capturing step, "
+              f"none in a replay)")
+        healed_dir = resilience.latest_step_dir(f"{root}/fleet")
+        ref_dir = resilience.latest_step_dir(f"{root}/unbroken")
+        healed, want = _sha_step_dir(healed_dir), _sha_step_dir(ref_dir)
+        check(os.path.basename(healed_dir) == os.path.basename(ref_dir)
+              == f"step-{FLEET_STEPS:08d}" and healed == want,
+              f"fleet gpt_medium: the healed final checkpoint {healed_dir} "
+              f"is not sha256-identical to the twin's {ref_dir}")
+        samples = lines["samples"]
+        check(not os.path.exists(f"/proc/{pids[0]}"),
+              f"fleet gpt_medium: the killed incarnation {pids[0]} is still "
+              f"there")
+        check(bool(samples) and not any(samples),
+              f"fleet gpt_medium: the agent {agent.pid} held the card "
+              f"({len(samples)} samples)")
+        # the bump's wall clock is the leader's stamp in the EPOCH record
+        # (one host, one clock)
+        with open(f"{root}/rdv/EPOCH") as f:
+            bump_t = float(json.load(f)["time"])
+        stale_to_bump_s = bump_t - stop_t
+        bump_to_step_s = rows[1][0][1] - bump_t
+        out = dict(card=card, healed=True, epochs=1, elections=1,
+                   stale_kills=1, incarnations=pids, coords=adverts,
+                   files=len(healed), losses=ref[0]["losses"],
+                   stale_to_bump_s=stale_to_bump_s,
+                   bump_to_first_step_s=bump_to_step_s,
+                   patterns=patterns, respawn_captures=done[0]["captures"],
+                   respawn_replays=done[0]["replays"],
+                   samples=len(samples))
+        print(f"fleet gpt_medium ({card}): healed at epoch 1, elections 1, "
+              f"one stale trainer (window {FLEET_STALE_S:.0f} s); "
+              f"incarnations {pids}, coordinators {adverts}; final "
+              f"{os.path.basename(healed_dir)} sha256-identical to the "
+              f"twin's over {len(healed)} files; SIGSTOP to the epoch bump "
+              f"{stale_to_bump_s:.1f} s, the bump to the respawn's first "
+              f"step {bump_to_step_s:.1f} s (backoff included); launches "
+              f"by step {patterns}; /proc: the killed pid gone, the agent "
+              f"{agent.pid} with no /dev/nvidia* open in any of "
+              f"{len(samples)} samples", flush=True)
+        run = None
+    finally:
+        if run is not None:  # a failure above: stop what was started
+            stop_fleet(run)
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"fleet: phase 9p {out['wall_s']:.1f} s ({card})", flush=True)
+    return per_step, out
 
 
 def main() -> int:
@@ -7148,7 +7532,23 @@ def main() -> int:
     # kernel a step), AlexNet's spike rollback (K2a 3 times a step), and
     # the babysitter's heal of a SIGSTOPped gpt_medium child
     reset_counts(fa, mp)
-    heal_launches, heal_out = heal_path(torch, fa, mp, card)
+    fleet_run = []
+    try:
+        heal_launches, heal_out = heal_path(
+            torch, fa, mp, card,
+            beside=lambda: fleet_run.append(start_fleet()))
+    except BaseException:
+        for run in fleet_run:
+            stop_fleet(run)
+        raise
+
+    # 9p. the babysitter fleet: `babysit --fleet` heals a SIGSTOPped
+    # gpt_medium child of a world-1 NCCL group by an epoch bump, the final
+    # checkpoint sha256-identical to an unbroken twin's. It starts beside
+    # phase 9o's babysitter (its children count their own launches)
+    fleet_launches, fleet_out = fleet_path(torch, fa, mp, card,
+                                           fleet_run[0] if fleet_run
+                                           else None)
 
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
@@ -7242,6 +7642,7 @@ def main() -> int:
                      ckpt_launches["flash_fwd"],
                  "heal_supervised_gpt_medium_step":
                      heal_launches["gpt_medium"]["flash_fwd"],
+                 "fleet_gpt_medium_step": fleet_launches["flash_fwd"],
                  **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
              head_split_sp=at_cases(None, (), sp_cases),
@@ -7274,6 +7675,7 @@ def main() -> int:
                 "ckpt_gpt_lm_step_across_restore": ckpt_launches[name],
                 "heal_supervised_gpt_medium_step":
                     heal_launches["gpt_medium"][name],
+                "fleet_gpt_medium_step": fleet_launches[name],
                 **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
             head_split_sp=at_cases(key, grads, sp_cases),
@@ -7344,6 +7746,7 @@ def main() -> int:
     print("disagg " + json.dumps(disagg_out), flush=True)
     print("ckpt " + json.dumps(ckpt_out), flush=True)
     print("heal " + json.dumps(heal_out), flush=True)
+    print("fleet " + json.dumps(fleet_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,8 +59,13 @@ functional collectives over mesh axis names (the live axes of
 `parallel.mesh`'s context), differentiable `torch.autograd.Function`s
 over each axis's process group.
 
-`plan_buckets` is the port's own copy of the reference's Python bucket
-planner (the oracle its native planner is held to).
+`plan_buckets` plans through the native library (`native/comm_core.cc`,
+`singa_tpu_torch.native.plan_buckets_native`), as the reference's
+distributed step can: the fused all-reduce and ZeRO-1's overlapped
+buckets ask for it, and a missing or refusing g++ raises
+`native.NativeBuildError` rather than planning in Python.
+`plan_buckets_plain` is the port's own copy of the reference's Python
+planner, the oracle the library is held to.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ import torch.nn.functional as F
 from singa_tpu_torch import autograd
 from singa_tpu_torch.parallel import mesh as mesh_module
 
-__all__ = ["Communicator", "DistOpt", "plan_buckets", "pmean_over",
+__all__ = ["Communicator", "DistOpt", "plan_buckets",
+           "plan_buckets_plain", "pmean_over",
            "psum_over", "broadcast_from", "all_gather_tiled",
            "pspec_axis_names", "is_per_chip_state_key", "opt_state_pspec"]
 
@@ -544,8 +550,18 @@ def _inverse(order: List[int]) -> List[int]:
 
 def plan_buckets(sizes: Sequence[int], bucket_elems: int
                  ) -> List[List[int]]:
-    """Greedy bucket assignment: consecutive sizes packed up to
-    `bucket_elems`; a size over it gets a bucket of its own."""
+    """Greedy bucket assignment in the native library: consecutive sizes
+    packed up to `bucket_elems`; a size over it gets a bucket of its
+    own. Raises `native.NativeBuildError` without the library."""
+    from singa_tpu_torch import native
+
+    return native.plan_buckets_native(sizes, bucket_elems)
+
+
+def plan_buckets_plain(sizes: Sequence[int], bucket_elems: int
+                       ) -> List[List[int]]:
+    """`plan_buckets` in Python: the plain version the library is held
+    to."""
     buckets: List[List[int]] = []
     cur: List[int] = []
     cur_elems = 0

@@ -1,13 +1,15 @@
-"""The native graph planner (counterpart of singa_tpu/native/__init__.py's
-`GraphPlanner`, :261-381).
+"""The native planners (counterpart of singa_tpu/native/__init__.py's
+`GraphPlanner`, :261-381, and its communicator planners, :383-430).
 
-g++ compiles the repository's `native/graph_core.cc`, unedited, with
-`-O2 -shared -fPIC` into `build/torch_native/` at the repository root,
-at first use; the library is named by a hash of the source and the
-flags, so an edited source is rebuilt on its next use. It is bound with
-`ctypes` (the source's C interface: `graph_new`, `graph_add_node`,
+g++ compiles the repository's `native/graph_core.cc` and
+`native/comm_core.cc`, unedited, with `-O2 -shared -fPIC` into
+`build/torch_native/` at the repository root, at first use, one library
+each; a library is named by a hash of its source and the flags, so an
+edited source is rebuilt on its next use. Both are bound with `ctypes`
+(the sources' C interfaces: `graph_new`, `graph_add_node`,
 `graph_add_edge`, `graph_toposort`, `graph_plan_memory`,
-`graph_naive_bytes`, `graph_free`).
+`graph_naive_bytes`, `graph_free`; `comm_plan_buckets`,
+`comm_plan_buckets_balanced`, `comm_ring_schedule`).
 
 `GraphPlanner` keeps the reference's methods: nodes are ops, edges carry
 (buffer id, bytes), `toposort()` is Kahn's algorithm with the lowest id
@@ -20,8 +22,22 @@ with `require_native=False` uses when the build fails. Graph mode asks
 for the library (`require_native=True`): if g++ is missing or refuses
 the source, it raises `NativeBuildError` with the compiler's output.
 
-`native_call_count()` counts the calls into the library (a planner's
-graph and each `plan_memory`), so a caller can tell that the C++ ran.
+The communicator planners keep the reference's return shapes:
+`plan_buckets_native(sizes, bucket_elems)` packs consecutive gradients
+into buckets of at most `bucket_elems` elements (an oversized one alone)
+and returns the buckets' index lists; `plan_buckets_balanced(sizes,
+n_buckets)` assigns them first-fit-decreasing to the least loaded of
+`n_buckets` buckets and returns the non-empty buckets; `ring_schedule(n,
+world)` returns the (world - 1, world, 2) array of (start, len) of rank
+r's chunk at reduce-scatter step s. They always call the library:
+`communicator.plan_buckets` plans every fused all-reduce and ZeRO-1's
+overlapped buckets through it, and a missing or refusing g++ raises
+`NativeBuildError`; `communicator.plan_buckets_plain` is the plain
+version they are held to.
+
+`native_call_count()` counts the calls into the libraries (a planner's
+graph, each `plan_memory`, each communicator planner), so a caller can
+tell that the C++ ran.
 """
 
 from __future__ import annotations
@@ -39,10 +55,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = ["GraphPlanner", "NativeBuildError", "build",
-           "native_call_count", "plan_memory_plain", "toposort_plain"]
+           "native_call_count", "plan_buckets_balanced",
+           "plan_buckets_native", "plan_memory_plain", "ring_schedule",
+           "toposort_plain"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "graph_core.cc"
+COMM_SOURCE = _ROOT / "native" / "comm_core.cc"
 BUILD_DIR = _ROOT / "build" / "torch_native"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 #: the arena's allocation granularity, as graph_core.cc's kAlign
@@ -50,11 +69,12 @@ ALIGN = 256
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_comm_lib: Optional[ctypes.CDLL] = None
 _calls = [0]
 
 
 class NativeBuildError(RuntimeError):
-    """g++ is missing, or it refused `native/graph_core.cc`."""
+    """g++ is missing, or it refused a source under `native/`."""
 
 
 def native_call_count() -> int:
@@ -62,28 +82,28 @@ def native_call_count() -> int:
     return _calls[0]
 
 
-def _target() -> Path:
+def _target(source: Path) -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libgraph_core-{h.hexdigest()[:16]}.so"
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile `native/graph_core.cc` unless it is built; the library's
-    path."""
-    if not SOURCE.is_file():
-        raise NativeBuildError(f"{SOURCE} is missing")
-    out = _target()
+def build(source: Path = SOURCE) -> Path:
+    """Compile `source` (`native/graph_core.cc` by default) unless it is
+    built; the library's path."""
+    if not source.is_file():
+        raise NativeBuildError(f"{source} is missing")
+    out = _target(source)
     if out.exists():
         return out
     gxx = shutil.which("g++")
     if gxx is None:
         raise NativeBuildError(
-            "g++ not found on PATH: the graph planner is built from "
-            f"{SOURCE} on first use")
+            "g++ not found on PATH: the native planners are built from "
+            f"{source} on first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -115,8 +135,80 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def _load_comm() -> ctypes.CDLL:
+    global _comm_lib
+    with _lock:
+        if _comm_lib is None:
+            lib = ctypes.CDLL(str(build(COMM_SOURCE)))
+            i64, p64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+            lib.comm_plan_buckets.restype = i64
+            lib.comm_plan_buckets.argtypes = [p64, i64, i64, p64]
+            lib.comm_plan_buckets_balanced.restype = i64
+            lib.comm_plan_buckets_balanced.argtypes = [p64, i64, i64, p64]
+            lib.comm_ring_schedule.restype = None
+            lib.comm_ring_schedule.argtypes = [i64, i64, p64]
+            _comm_lib = lib
+        return _comm_lib
+
+
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+# -- the communicator planners -----------------------------------------------
+
+
+def _sizes(sizes: Sequence[int]) -> np.ndarray:
+    s = np.ascontiguousarray(list(sizes), np.int64)
+    if s.ndim != 1:
+        raise ValueError(f"sizes must be a flat sequence, got shape {s.shape}")
+    return s
+
+
+def plan_buckets_native(sizes: Sequence[int], bucket_elems: int
+                        ) -> List[List[int]]:
+    """Consecutive bucketing in C++ (module docstring): each bucket's
+    gradient indices."""
+    lib = _load_comm()
+    s = _sizes(sizes)
+    out = np.empty(len(s), np.int64)
+    nb = lib.comm_plan_buckets(_ptr(s), len(s), int(bucket_elems), _ptr(out))
+    _calls[0] += 1
+    buckets: List[List[int]] = [[] for _ in range(int(nb))]
+    for i, b in enumerate(out.tolist()):
+        buckets[b].append(i)
+    return buckets
+
+
+def plan_buckets_balanced(sizes: Sequence[int], n_buckets: int
+                          ) -> List[List[int]]:
+    """First-fit-decreasing bucketing over `n_buckets` in C++ (module
+    docstring): the non-empty buckets' gradient indices."""
+    if int(n_buckets) < 1:
+        raise ValueError(f"n_buckets={n_buckets!r} must be >= 1")
+    lib = _load_comm()
+    s = _sizes(sizes)
+    out = np.empty(len(s), np.int64)
+    lib.comm_plan_buckets_balanced(_ptr(s), len(s), int(n_buckets),
+                                   _ptr(out))
+    _calls[0] += 1
+    buckets: List[List[int]] = [[] for _ in range(int(n_buckets))]
+    for i, b in enumerate(out.tolist()):
+        buckets[b].append(i)
+    return [b for b in buckets if b]
+
+
+def ring_schedule(n: int, world: int) -> np.ndarray:
+    """The (world - 1, world, 2) array of (start, len) reduce-scatter
+    chunks, in C++ (module docstring)."""
+    if int(world) < 1 or int(n) < 0:
+        raise ValueError(f"ring_schedule needs n >= 0 and world >= 1, got "
+                         f"n={n!r}, world={world!r}")
+    lib = _load_comm()
+    out = np.empty((int(world) - 1) * int(world) * 2, np.int64)
+    lib.comm_ring_schedule(int(n), int(world), _ptr(out))
+    _calls[0] += 1
+    return out.reshape(int(world) - 1, int(world), 2)
 
 
 # -- the plain versions ------------------------------------------------------

@@ -29,11 +29,9 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, Optional
+from typing import Callable, Dict, Optional
 
 from singa_tpu_torch.observability import metrics as metrics_module
 from singa_tpu_torch.observability.metrics import (Counter, Gauge, Histogram,
@@ -98,39 +96,14 @@ def json_snapshot(registry: Optional[Registry] = None) -> Dict:
     return out
 
 
-def _fingerprint(path: str):
-    """A file's change token: (mtime_ns, size), None when absent."""
-    try:
-        st = os.stat(path)
-    except OSError:
-        return None
-    return (st.st_mtime_ns, st.st_size)
-
-
-class _ChangeTracker:
-    """Staleness by observed change: `age_s(key, fingerprint)` is how
-    long this process's monotonic clock has watched `key` hold the same
-    fingerprint (0 the moment it changes, first sight and absence
-    included), so a file first observed now gets the full window."""
-
-    def __init__(self, monotonic=time.monotonic):
-        self._mono = monotonic
-        self._seen: Dict[Any, tuple] = {}
-
-    def age_s(self, key, fingerprint) -> float:
-        now = self._mono()
-        got = self._seen.get(key)
-        if got is None or got[0] != fingerprint:
-            self._seen[key] = (fingerprint, now)
-            return 0.0
-        return now - got[1]
-
-
 def heartbeat_healthz(path: str, stale_after_s: float
                       ) -> Callable[[], Dict]:
-    """Health judgment from a heartbeat file: healthy while its
+    """Health judgment from a heartbeat file, by the fleet's freshness
+    rule (resilience/fleet.py `_ChangeTracker`): healthy while its
     fingerprint keeps changing within `stale_after_s` of this process's
-    monotonic clock."""
+    monotonic clock; a file first observed now gets the full window."""
+    from singa_tpu_torch.resilience.fleet import _ChangeTracker, _fingerprint
+
     tracker = _ChangeTracker()
     stale_after_s = float(stale_after_s)
 

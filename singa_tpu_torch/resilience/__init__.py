@@ -28,10 +28,14 @@
   watchdog cannot unwind (a wait inside one CUDA or NCCL call, a frozen
   process): a stale heartbeat gets the process tree SIGKILLed and
   respawned; ``python -m singa_tpu_torch.resilience.babysit --
-  <trainer cmd>``.
-
-Not ported yet (ROADMAP queue 1 item 17): the babysitter `fleet`
-(`FileLease`, `FleetAgent`, ``babysit --fleet``).
+  <trainer cmd>``;
+- ``fleet``: the babysitter fleet, one `FleetAgent` per host over a
+  shared rendezvous directory: a `FileLease`-elected leader turns a lost
+  host or a dead trainer into a job-level epoch bump, shrinks the roster
+  past the grace window, re-admits returned hosts and brokers each
+  epoch's coordinator address; ``python -m
+  singa_tpu_torch.resilience.babysit --fleet DIR --fleet-rank I
+  --fleet-world N -- <trainer cmd>``.
 """
 
 from singa_tpu_torch.resilience import counters  # noqa: F401
@@ -50,6 +54,10 @@ from singa_tpu_torch.resilience.checkpoint import (  # noqa: F401
     restore,
     save,
     wait_pending,
+)
+from singa_tpu_torch.resilience.fleet import (  # noqa: F401
+    FileLease,
+    FleetAgent,
 )
 from singa_tpu_torch.resilience.retry import retry_transient  # noqa: F401
 from singa_tpu_torch.resilience.sentinel import GradSentinel  # noqa: F401
@@ -72,5 +80,5 @@ __all__ = [
     "GradSentinel", "retry_transient", "counters",
     "faults", "Watchdog", "StepHangError", "SpikeDetector",
     "Supervisor", "choose_mesh", "default_mesh_fn", "Babysitter",
-    "HEARTBEAT_ENV", "touch_heartbeat",
+    "FleetAgent", "FileLease", "HEARTBEAT_ENV", "touch_heartbeat",
 ]

@@ -4,14 +4,17 @@ singa_tpu/resilience/babysit.py)::
     python -m singa_tpu_torch.resilience.babysit [--stale-after S]
         [--max-restarts N] [--heartbeat PATH] [--metrics-port PORT]
         -- <trainer cmd...>
+    python -m singa_tpu_torch.resilience.babysit --fleet DIR
+        --fleet-rank I --fleet-world N [fleet options] -- <trainer cmd...>
 
 Spawns the trainer command as a watched subprocess and heals hard hangs
 (a stale heartbeat: SIGKILL the process tree, respawn with bounded
 exponential backoff) and crashes (a nonzero exit: respawn). The
 machinery, and what it can heal that the in-process watchdog and
-supervisor cannot, is `singa_tpu_torch.resilience.babysitter`. Fleet
-mode (``--fleet``) is not ported yet (ROADMAP queue 1 item 17) and
-raises.
+supervisor cannot, is `singa_tpu_torch.resilience.babysitter`. With
+``--fleet`` the process is one host's agent of a babysitter fleet
+(`singa_tpu_torch.resilience.fleet`): job-level epoch-bump restarts
+decided by a lease-elected leader over a shared rendezvous directory.
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
 """Out-of-process babysitter: the healer for hangs no in-process
-mechanism can unwind (counterpart of singa_tpu/resilience/babysitter.py,
-without the fleet).
+mechanism can unwind (counterpart of singa_tpu/resilience/babysitter.py).
 
 The watchdog turns a stalled step into a `StepHangError` only when the
 main thread reaches a bytecode boundary. A hard hang freezes the
@@ -53,9 +52,10 @@ device); the watchdog, a stall that still yields to the interpreter;
 the supervisor, crashes, hangs and spikes a rebuild in the process can
 heal; the babysitter, everything that kills or freezes the interpreter,
 a sticky CUDA error among them. None of them unwinds a wait inside one
-CUDA call: the babysitter kills the process instead. The fleet
-(`--fleet`, one agent per host) is not ported yet: ROADMAP queue 1 item
-17.
+CUDA call: the babysitter kills the process instead. A job of many
+processes runs one agent per host instead (``--fleet``,
+`resilience.fleet.FleetAgent`): the lease-elected leader turns a lost
+host or a dead trainer into a job-level epoch bump.
 """
 
 from __future__ import annotations
@@ -295,25 +295,24 @@ class Babysitter:
             self._sleep(delay)
 
 
-#: the fleet's options, which raise until the fleet is ported
-_FLEET_OPTIONS = ("--fleet", "--fleet-rank", "--fleet-world", "--roster",
-                  "--host-id", "--host-stale-after", "--host-grace",
-                  "--lease-ttl", "--no-rejoin", "--max-readmits",
-                  "--coord-host")
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     """`python -m singa_tpu_torch.resilience.babysit [opts] -- <trainer
     cmd>`; returns the exit code for sys.exit (0 only when the trainer
-    completed). The reference's ``--fleet`` option group is parsed and
-    refused: the fleet is ROADMAP queue 1 item 17."""
+    completed). With ``--fleet <rendezvous_dir> --fleet-rank I
+    --fleet-world N`` the process runs one host's agent of a fleet
+    instead (`resilience.fleet.FleetAgent`): host heartbeats into the
+    shared rendezvous, a lease-elected leader, epoch-bump job
+    restarts."""
     import argparse
 
     parser = argparse.ArgumentParser(
         prog="python -m singa_tpu_torch.resilience.babysit",
         description="Spawn a trainer subprocess, watch its heartbeat "
                     "file, SIGKILL+respawn it on hard hangs or "
-                    "crashes (singa_tpu_torch/resilience/babysitter.py).")
+                    "crashes (singa_tpu_torch/resilience/babysitter.py); "
+                    "with --fleet, run as one host's agent of a "
+                    "babysitter fleet (singa_tpu_torch/resilience/"
+                    "fleet.py).")
     parser.add_argument("--stale-after", type=float, default=300.0,
                         metavar="S",
                         help="heartbeat staleness deadline in seconds "
@@ -323,7 +322,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="heartbeat poll interval (default 0.5)")
     parser.add_argument("--max-restarts", type=int,
                         default=retry.RETRY_ATTEMPTS, metavar="N",
-                        help="respawn budget before giving up "
+                        help="respawn budget before giving up; in "
+                             "fleet mode, the job-level EPOCH budget "
                              f"(default {retry.RETRY_ATTEMPTS})")
     parser.add_argument("--backoff", type=float,
                         default=retry.RETRY_BACKOFF_S, metavar="S",
@@ -334,47 +334,97 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="mount the observability endpoint on "
                              "127.0.0.1:PORT (0 = any free port): "
                              "/metrics serves the process registry, "
-                             "/healthz judges the trainer heartbeat")
+                             "/healthz judges the trainer heartbeat "
+                             "by the fleet freshness rule (plain "
+                             "babysit mode)")
     parser.add_argument("--heartbeat", default=None, metavar="PATH",
                         help="heartbeat file (default: a fresh "
                              "tempdir; exported to the trainer as "
                              f"${HEARTBEAT_ENV})")
     fleet = parser.add_argument_group(
-        "fleet mode (not ported yet: ROADMAP queue 1 item 17)")
-    fleet.add_argument("--fleet", default=None, metavar="DIR")
-    fleet.add_argument("--fleet-rank", type=int, default=None,
-                       metavar="I")
-    fleet.add_argument("--fleet-world", type=int, default=None,
-                       metavar="N")
-    fleet.add_argument("--roster", default=None, metavar="IDS")
-    fleet.add_argument("--host-id", default=None, metavar="ID")
-    fleet.add_argument("--host-stale-after", type=float, default=None,
-                       metavar="S")
-    fleet.add_argument("--host-grace", type=float, default=None,
-                       metavar="S")
-    fleet.add_argument("--lease-ttl", type=float, default=None,
-                       metavar="S")
-    fleet.add_argument("--no-rejoin", action="store_true")
-    fleet.add_argument("--max-readmits", type=int, default=None,
-                       metavar="N")
-    fleet.add_argument("--coord-host", default=None, metavar="HOST")
+        "fleet mode (one agent per host; see resilience/fleet.py)")
+    fleet.add_argument("--fleet", default=None, metavar="DIR",
+                       help="shared rendezvous directory — presence "
+                            "selects fleet mode")
+    fleet.add_argument("--fleet-rank", type=int, default=0,
+                       metavar="I", help="this host's launch rank")
+    fleet.add_argument("--fleet-world", type=int, default=1,
+                       metavar="N", help="launch host count")
+    fleet.add_argument("--roster", default=None, metavar="IDS",
+                       help="comma-separated host ids of the launch "
+                            "roster, identical on every agent "
+                            "(default host0..host<N-1> from "
+                            "--fleet-world)")
+    fleet.add_argument("--host-id", default=None, metavar="ID",
+                       help="this host's id — must name a --roster "
+                            "entry (default: the roster entry at "
+                            "--fleet-rank)")
+    fleet.add_argument("--host-stale-after", type=float, default=15.0,
+                       metavar="S",
+                       help="window after which a host whose AGENT "
+                            "heartbeat stopped changing counts as "
+                            "lost (default 15)")
+    fleet.add_argument("--host-grace", type=float, default=30.0,
+                       metavar="S",
+                       help="window after which a continuously-"
+                            "problematic host is dropped from the "
+                            "roster (default 30)")
+    fleet.add_argument("--lease-ttl", type=float, default=10.0,
+                       metavar="S",
+                       help="leader lease ttl; failover latency on "
+                            "leader loss (default 10)")
+    fleet.add_argument("--no-rejoin", action="store_true",
+                       help="a returned host (agent launched outside "
+                            "the current roster) exits instead of "
+                            "requesting re-admission (default: "
+                            "request it)")
+    fleet.add_argument("--max-readmits", type=int, default=3,
+                       metavar="N",
+                       help="per-host re-admission budget: past it "
+                            "the leader denies the join request, so "
+                            "a reboot-looping machine cannot "
+                            "evict/rejoin forever (default 3)")
+    fleet.add_argument("--coord-host", default=None,
+                       metavar="HOST",
+                       help="address this host advertises when it is "
+                            "rank 0 of an epoch — the brokered "
+                            "coordinator exchange exports "
+                            "SINGA_COORDINATOR=<host:port> to every "
+                            "trainer (default: this machine's "
+                            "hostname; never loopback, which remote "
+                            "trainers would resolve to themselves)")
     parser.add_argument("cmd", nargs=argparse.REMAINDER,
                         help="-- <trainer command>")
     args = parser.parse_args(argv)
-    given = [opt for opt in _FLEET_OPTIONS
-             if getattr(args, opt[2:].replace("-", "_")) not in
-             (None, False)]
-    if given:
-        raise NotImplementedError(
-            f"babysit {' '.join(given)}: the babysitter fleet "
-            f"(resilience/fleet.py: FileLease, FleetAgent) is not "
-            f"ported yet (ROADMAP queue 1 item 17); run one babysitter "
-            f"per trainer without --fleet")
     cmd = args.cmd
     if cmd and cmd[0] == "--":
         cmd = cmd[1:]
     if not cmd:
         parser.error("no trainer command (pass it after `--`)")
+    if args.fleet is not None:
+        from singa_tpu_torch.resilience.fleet import FleetAgent
+
+        result = FleetAgent(
+            cmd, args.fleet, rank=args.fleet_rank,
+            world=args.fleet_world, host_id=args.host_id,
+            roster=(args.roster.split(",") if args.roster else None),
+            heartbeat_path=args.heartbeat,
+            trainer_stale_after_s=args.stale_after,
+            host_stale_after_s=args.host_stale_after,
+            host_grace_s=args.host_grace,
+            lease_ttl_s=args.lease_ttl, poll_s=args.poll,
+            max_epochs=args.max_restarts,
+            rejoin=not args.no_rejoin,
+            max_readmits=args.max_readmits,
+            coord_host=args.coord_host,
+            backoff_s=args.backoff).run()
+        if result["healed"]:
+            print(f"# fleet agent: job completed (epochs="
+                  f"{result['epochs']}, elections won="
+                  f"{result['elections']}, led={result['led']})",
+                  flush=True)
+            return 0
+        return 1
     result = Babysitter(cmd, heartbeat_path=args.heartbeat,
                         stale_after_s=args.stale_after,
                         poll_s=args.poll,

@@ -103,7 +103,7 @@ def supervisor_snapshot() -> Dict[str, int]:
 def absorb_babysitter_env() -> None:
     """Seed the out-of-process counters from the babysitter's env vars
     (idempotent: SET, not bumped — re-imports must not double-count).
-    A trainer spawned by ``python -m singa_tpu.resilience.babysit``
+    A trainer spawned by ``python -m singa_tpu_torch.resilience.babysit``
     carries ``SINGA_BABYSIT=1`` and ``SINGA_BABYSIT_RESTARTS=<n>``; a
     run that was never babysat keeps both counters absent (== 0)."""
     if os.environ.get(BABYSIT_ENV):

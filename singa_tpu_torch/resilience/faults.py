@@ -25,9 +25,9 @@ oracle stays exact:
   `stale_host_at(k, rank=r)` does so only on the host whose
   `SINGA_FLEET_RANK` is r; `lease_clock_skew(offset_s)` is a skewed
   wall clock. `resilience.Supervisor` calls the step hooks and
-  `resilience.Babysitter` heals a `hard_hang_at`; the fleet that
-  `stale_host_at` and `lease_clock_skew` serve is not ported yet
-  (ROADMAP queue 1 item 17).
+  `resilience.Babysitter` heals a `hard_hang_at`; `resilience.fleet`
+  heals a `stale_host_at` by an epoch bump, and its elections are
+  immune to a `lease_clock_skew`.
 - `kill_at_phase(phase)`: hard-exit at a named boundary of the
   checkpoint commit ("snapshot", "shard_writes", "receipts",
   "manifest"), via `checkpoint._phase_hook`.
@@ -47,11 +47,6 @@ __all__ = ["nonfinite_grad_at", "NonFiniteGradAt", "flip_byte",
            "hard_hang_at", "HardHangAt", "kill_at_phase",
            "KillAtPhase", "stale_host_at", "StaleHostAt",
            "lease_clock_skew"]
-
-#: the fleet agent's environment variable naming a trainer's host rank
-#: (the reference's `resilience.fleet.RANK_ENV`)
-RANK_ENV = "SINGA_FLEET_RANK"
-
 
 class NonFiniteGradAt:
     """GradSentinel fault plan: multiply every gradient by `value`
@@ -268,6 +263,8 @@ class StaleHostAt(HardHangAt):
         self.rank = int(rank)
 
     def __call__(self, step: int, batch):
+        from singa_tpu_torch.resilience.fleet import RANK_ENV
+
         if int(os.environ.get(RANK_ENV, "-1")) != self.rank:
             return None
         return super().__call__(step, batch)

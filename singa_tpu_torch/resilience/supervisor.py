@@ -29,9 +29,10 @@ singa_tpu/resilience/supervisor.py).
   torch process group has a fixed world, and a rank left out of a
   smaller mesh would still have to join every save and restore, so a
   mesh over fewer ranks than the group raises `NotImplementedError`
-  here (a deterministic class: no restart is spent on it). A shrink re-forms
-  the group across processes, which is the fleet's (ROADMAP queue 1
-  item 17).
+  here (a deterministic class: no restart is spent on it). The port
+  shrinks across processes instead: a fleet epoch (`resilience.fleet`)
+  respawns the trainers at a smaller ``SINGA_FLEET_WORLD``, they form a
+  smaller group, and this probe folds dp onto it.
 - **Rebuilds on the card.** A captured step owns a CUDA Graph and its
   private memory pool. The supervisor drops every reference it holds to
   the failed model (the model, the exception and its traceback's frames)
@@ -228,8 +229,9 @@ class Supervisor:
                 f"the port does not shrink a process group in place "
                 f"(a rank outside the mesh would still join every save "
                 f"and restore); a shrink re-forms the group across "
-                f"processes, the fleet's work (ROADMAP queue 1 item 17; "
-                f"queue 3 records the difference)")
+                f"processes: a fleet epoch (resilience.fleet) respawns "
+                f"the trainers at a smaller SINGA_FLEET_WORLD and they "
+                f"form a smaller group")
         if self.mesh_extents is not None and \
                 (dp, tp, sp) != self.mesh_extents:
             counters.bump("reshapes")

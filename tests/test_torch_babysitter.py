@@ -12,8 +12,9 @@ The unit cases drive the spawn, watch and respawn loop with tiny
 exit with the restart count in the child's env, the bounded budget with
 its history, the heartbeat primed at spawn, the grace window measured
 from spawn, the stale kill of the process tree, the env counters, the
-``--metrics-port`` endpoint, and the CLI (``--fleet`` refused, naming
-ROADMAP queue 1 item 17).
+``--metrics-port`` endpoint, and the CLI (its ``--fleet`` option group
+reaches `FleetAgent`: a rank outside the roster is refused with the
+reference's error, ``--no-rejoin`` arrives as ``rejoin=False``).
 
 The oracle end to end: `tests/helper_torch_babysat.py`'s trainer
 SIGSTOPs itself at step 1 on its first incarnation; the babysitter
@@ -210,7 +211,8 @@ def test_metrics_port_serves_the_registry_and_the_heartbeat(tmp_path):
                                timeout=2)
 
 
-def test_cli_runs_a_trainer_and_refuses_the_fleet(tmp_path, capsys):
+def test_cli_runs_a_trainer_and_refuses_the_fleet(tmp_path, capsys,
+                                                  monkeypatch):
     code = babysitter.main(["--stale-after", "30", "--poll", "0.05",
                             "--heartbeat", str(tmp_path / "hb"), "--",
                             sys.executable, "-c", "pass"])
@@ -220,11 +222,30 @@ def test_cli_runs_a_trainer_and_refuses_the_fleet(tmp_path, capsys):
     assert babysitter.main(["--max-restarts", "0", "--heartbeat",
                             str(tmp_path / "hb"), "--", sys.executable,
                             "-c", "import sys; sys.exit(7)"]) == 7
-    for flags in (["--fleet", str(tmp_path)], ["--fleet-world", "2"],
-                  ["--no-rejoin"]):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 17"):
-            babysitter.main(flags + ["--", sys.executable, "-c", "pass"])
+    # the fleet option group reaches FleetAgent: a rank outside the
+    # roster is the reference's ValueError, --no-rejoin is rejoin=False
+    from singa_tpu_torch.resilience import fleet
+
+    with pytest.raises(ValueError, match="outside the launch roster"):
+        babysitter.main(["--fleet", str(tmp_path / "rdv"), "--fleet-rank",
+                         "2", "--fleet-world", "2", "--", sys.executable,
+                         "-c", "pass"])
+    agents = []
+
+    class Recorded(fleet.FleetAgent):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            agents.append(self)
+
+    monkeypatch.setattr(fleet, "FleetAgent", Recorded)
+    assert babysitter.main(["--fleet", str(tmp_path / "rdv"), "--no-rejoin",
+                            "--poll", "0.05", "--heartbeat",
+                            str(tmp_path / "hb"), "--", sys.executable,
+                            "-c", "pass"]) == 0
+    assert [a.rejoin for a in agents] == [False]
+    assert agents[0].launch_roster == ["host0"]
+    assert "job completed (epochs=0, elections won=1, led=True)" in \
+        capsys.readouterr().out
     with pytest.raises(SystemExit):
         babysitter.main(["--stale-after", "5"])  # no trainer command
     # the watcher never takes a context on the card it polices

@@ -16,7 +16,9 @@
   one; the metric exporters and the metric-name lint; the storage
   drivers, the sharded checkpoint on both drivers, the sentinel and
   `gpt_lm`'s resume; retry, the Watchdog, SpikeDetector, a supervised
-  crash heal and the babysitter's module entry);
+  crash heal and the babysitter's module entry; a fleet agent of one
+  host through ``babysit --fleet``, which never initialises CUDA, and
+  the native bucket planner);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -39,7 +41,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "singa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_gpt.py",
     ROOT / "scripts" / "ab_torch_kernels.py",
-    ROOT / "scripts" / "profile_torch_serve.py"]
+    ROOT / "scripts" / "profile_torch_serve.py",
+    ROOT / "tests" / "helper_torch_fleet.py",
+    ROOT / "tests" / "helper_torch_babysat_server.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -509,3 +513,38 @@ def test_pipeline_and_the_strategies_run_with_jax_and_reference_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == [
         "(1, 8, 8)", "[True, True] ('pipe', None, None)"]
+
+
+def test_fleet_agent_and_native_planner_run_with_jax_and_reference_blocked(
+        tmp_path):
+    """`babysit --fleet` at world 1 over a trainer that imports nothing:
+    the agent elects itself, brokers a coordinator, runs the trainer and
+    writes DONE without importing JAX or the reference and without
+    initialising CUDA; the native bucket planner, the native graph
+    planner's library beside it, plans with both blocked."""
+    rdv = tmp_path / "rdv"
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import communicator, native\n"
+        "from singa_tpu_torch.resilience import babysitter\n"
+        "trainer = ('import os; hb = os.environ[\"SINGA_HEARTBEAT_FILE\"];'\n"
+        "           ' open(hb, \"a\").close();'\n"
+        "           ' print(os.environ[\"SINGA_FLEET_WORLD\"],'\n"
+        "           ' os.environ[\"SINGA_COORDINATOR\"] != \"\")')\n"
+        f"rc = babysitter.main(['--fleet', {str(rdv)!r}, '--fleet-rank',\n"
+        "                      '0', '--fleet-world', '1', '--poll', '0.05',\n"
+        "                      '--', sys.executable, '-c', trainer])\n"
+        "print('rc', rc, 'cuda', torch.cuda.is_initialized())\n"
+        "print(communicator.plan_buckets([3, 2, 4], 5),\n"
+        "      native.native_call_count())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert "1 True" in lines, out.stdout
+    assert "rc 0 cuda False" in lines, out.stdout
+    assert "[[0, 1], [2]] 1" in lines, out.stdout
+    assert (rdv / "DONE").exists()

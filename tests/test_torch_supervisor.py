@@ -32,7 +32,8 @@ tests/test_observability_trace.py.
   (`helper_torch_parity._rank_supervisor_mesh`) the default policy heals
   a crash bitwise the unsupervised steps, a probe folding dp into tp at
   the rebuild reshapes once, and a probe over fewer ranks than the group
-  is refused (ROADMAP queue 3: the in-process shrink is the fleet's).
+  is refused (the shrink re-forms the group across processes: a fleet
+  epoch, tests/test_torch_fleet_leader_loss.py).
 """
 
 import json
@@ -680,4 +681,4 @@ def test_supervisor_mesh_fn_over_two_ranks(world2_and_reference):
         assert f["fault_counters"]["reshapes"] == 1
         assert f["losses"][:2] == got["plain"]["losses"][:2]
         assert all(np.isfinite(f["losses"]))
-        assert "ROADMAP queue 1 item 17" in got["shrink"], got["shrink"]
+        assert "smaller SINGA_FLEET_WORLD" in got["shrink"], got["shrink"]
