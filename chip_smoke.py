@@ -194,8 +194,9 @@ Phases, in the order they run (any failure raises and exits non-zero):
    group (`distributed.init`), with the max-pool kernel on: every
    `Communicator` method at world 1 (its input back, bf16-rounded on the
    half wire); `python -m singa_tpu_torch.examples.dist_imagenet` at its
-   defaults (resnet50, batch 32 at 224 x 224, NHWC, SGD with warmup and
-   clip 10, buffSize 2**21, the step captured) through `run`, 6 steps
+   defaults with `--loader sync` (resnet50, batch 32 at 224 x 224, NHWC,
+   SGD with warmup and clip 10, buffSize 2**21, the step captured)
+   through `run`, 6 steps
    under each --dist-option (plain, half, sparse-topk, sparse-thresh):
    each passes the loss-sanity check, launches K2a once uncaptured and
    once in its capture, then replays 5 times; prints losses and
@@ -260,7 +261,8 @@ Phases, in the order they run (any failure raises and exits non-zero):
    with shapes: depthwise forward, backward-data and backward-weight,
    dense and 1x1 convs and fc, batch norm and elementwise, layout
    copies, K2a; idle); `python -m singa_tpu_torch.examples.cnn_cifar10
-   --model mobilenet|xception --epochs 2` as child processes, each of
+   --model mobilenet|xception --epochs 2 --loader sync` as child
+   processes, each of
    which must print "loss sanity: ... ok"; and `mobilenet_v1(1000)`
    NHWC at batch 8 in eval mode (calibrated BatchNorm statistics)
    exported and imported on the card, its logits within 1e-3 of
@@ -277,7 +279,8 @@ Phases, in the order they run (any failure raises and exits non-zero):
    (`torch.profiler`). ResNet-50 and MobileNetV1 at (128, 3, 224, 224)
    NHWC fp32 the same way (no kernel), with images/s of eval-step calls
    and of the uncaptured forward in turns, and the training step's
-   memory plan; `cnn_cifar10 --model resnet --epochs 1` in this process,
+   memory plan; `cnn_cifar10 --model resnet --epochs 1 --loader sync` in
+   this process,
    whose validation loop must replay the eval step; gpt_medium's
    training step's plan, and `step_memory_analysis` under remat "none"
    and "per_block" (per_block's `temp_bytes` below none's); a user
@@ -419,6 +422,24 @@ Phases, in the order they run (any failure raises and exits non-zero):
    (9f) paths: called there, its buckets over the model's parameter
    sizes equal the plain planner's, one plan timed native and in
    Python. The directories are deleted at the end;
+9q. item 20's utils and item 13's mesh (`utils_path`): over a world-1
+   NCCL group, `dist_imagenet.run` at its defaults (ResNet-50, 32 images
+   a chip at 224 x 224, the captured step, K2a on) for 6 steps under
+   cuDNN's deterministic algorithms with `--loader sync`, `--loader
+   prefetch` (zero-copy views into the native prefetcher's ring) and
+   `--loader prefetch` fed the loader's owned copies: each passes the
+   loss-sanity check and launches K2a once uncaptured and once in its
+   capture, the views' losses equal the copies' bitwise, the prefetch
+   run makes one C++ loader (`native_call_count`) more than the sync
+   run; the host ms each step waits on the loader and images/s of each;
+   `global_mesh(dcn_mesh_shape=(1,))` equals `global_mesh()`. Then
+   gpt_medium (seeded weights, 4 x 1024, fp32, AdamW, use_graph=True):
+   its uncaptured first step under `profiler.xla_trace` launches 12 of
+   each fused flash kernel and its trace file holds 12 kernel events of
+   each under its symbol; the five device-kernel families with the most
+   time; one captured replay traced (its kernel events printed); one
+   replay timed by `StepTimer(sync=)` and by CUDA events. The trace
+   directory is deleted at the end;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -426,7 +447,7 @@ Phases, in the order they run (any failure raises and exits non-zero):
    step's beside the others; K2a's at Xception's four pool shapes and
    its 4 launches a step; the sequence-, tensor-parallel, ZeRO-3, MoE
    and pipelined steps' launches and the head-split figures at their
-   shapes),
+   shapes; phase 9q's traced step's and prefetched step's launches),
    then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
@@ -2481,13 +2502,14 @@ def layers_path(torch, card):
 
 def cifar_trainer(torch, model, card):
     """`python -m singa_tpu_torch.examples.cnn_cifar10 --model <model>
-    --epochs 2` at its defaults (NHWC, batch 128, the synthetic CIFAR
-    set of 2048 images when none is on disk): exit 0 and "loss sanity:
-    ... ok"."""
+    --epochs 2 --loader sync` at its defaults (NHWC, batch 128, the
+    synthetic CIFAR set of 2048 images when none is on disk; the sync
+    loader's order, as before the prefetcher became the default): exit 0
+    and "loss sanity: ... ok"."""
     t = time.perf_counter()
     run = subprocess.run(
         [sys.executable, "-m", "singa_tpu_torch.examples.cnn_cifar10",
-         "--model", model, "--epochs", "2"],
+         "--model", model, "--epochs", "2", "--loader", "sync"],
         capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t
     print(run.stdout, flush=True)
@@ -2908,7 +2930,7 @@ def dist_path(torch, fa, mp, card):
             t = time.perf_counter()
             res = dist_imagenet.run(dist_imagenet.parser().parse_args(
                 ["--steps", "6", "--dist-option", option,
-                 "--device", "cuda"]))
+                 "--loader", "sync", "--device", "cuda"]))
             launched = counts(fa, mp)
             gs = res["model"]._train_step
             print(f"dist_imagenet --dist-option {option}: losses "
@@ -4368,7 +4390,8 @@ def cifar_eval_trainer(torch, card):
     cnn_cifar10.MODELS["resnet"] = keep
     t = time.perf_counter()
     try:
-        rc = cnn_cifar10.main(["--model", "resnet", "--epochs", "1"])
+        rc = cnn_cifar10.main(["--model", "resnet", "--epochs", "1",
+                               "--loader", "sync"])
     finally:
         cnn_cifar10.MODELS["resnet"] = ctor
     step = built[0]._eval_step
@@ -7219,6 +7242,276 @@ def fleet_path(torch, fa, mp, card, run=None):
     return per_step, out
 
 
+# -- 9q. item 20's utils (the prefetch loader, the profiler), item 13's mesh ---
+
+PREFETCH_STEPS = 6
+TRACE_ROOT = "build/chip_smoke_trace"
+#: each fused flash kernel's symbol, as the trace names its launches
+FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def trace_kernels(path):
+    """The device-kernel events of a Chrome trace `profiler.xla_trace`
+    wrote, its pre-roll left out: (name, microseconds)."""
+    from singa_tpu_torch.utils.profiler import PREROLL_KERNEL
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e.get("dur", 0.0))) for e in events
+            if e.get("cat") == "kernel" and PREROLL_KERNEL not in e["name"]]
+
+
+def kernel_family(name):
+    """A kernel's family: its symbol without `void `, anonymous
+    namespaces, template arguments or parameters (a CUTLASS wrapper's
+    first template argument kept: it names the kernel)."""
+    import re
+
+    base = name[5:] if name.startswith("void ") else name
+    base = base.replace("(anonymous namespace)::", "")
+    head = re.split(r"[<(]", base, maxsplit=1)[0].strip()
+    if head.startswith("cutlass::Kernel") and "<" in base:
+        inner = re.split(r"[<>(,]", base.split("<", 1)[1], maxsplit=1)[0]
+        head = f"{head}<{inner.strip()}>"
+    return head[:80] or base[:80]
+
+
+def loader_runs(torch, fa, mp, card):
+    """dist_imagenet at its defaults through `run` (ResNet-50, 32 images
+    a chip at 224 x 224, the captured step, K2a on, cuDNN's deterministic
+    algorithms), PREFETCH_STEPS steps each: `--loader sync`, `--loader
+    prefetch` (views into the C++ ring) and `--loader prefetch` fed the
+    loader's owned copies. Each passes the loss-sanity check and launches
+    K2a once uncaptured and once in its capture: a prefetch run's counts
+    are read each time the trainer asks for a batch, so each step's
+    launches are held apart. The views' losses equal the copies'
+    bitwise; the prefetch run makes one C++ loader more than the sync
+    run's native calls. Then `global_mesh(dcn_mesh_shape=(1,))` on the
+    world-1 NCCL group against `global_mesh()`. Returns the views' run's
+    launches in its uncaptured step and the numbers."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import distributed, native
+    from singa_tpu_torch.examples import dist_imagenet
+
+    real = dist_imagenet.data.prefetch_batches
+    snaps = []
+
+    def counted(copy):
+        """The loader, with every kernel's count read each time the
+        trainer asks for a batch (its last step done) and at the end."""
+        def feed(*args, **kwargs):
+            if copy:
+                kwargs = dict(kwargs, copy=True)
+            for batch in real(*args, **kwargs):
+                snaps.append(counts(fa, mp))
+                yield batch
+            snaps.append(counts(fa, mp))
+        return feed
+
+    distributed.init(device="cuda")
+    check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+          f"the group is {tdist.get_backend()} at world "
+          f"{tdist.get_world_size()}, not NCCL at 1")
+    mp.set_pool_kernel_enabled(True)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, loader, feed in (
+                ("sync", "sync", real),
+                ("prefetch", "prefetch", counted(copy=False)),
+                ("prefetch_copies", "prefetch", counted(copy=True))):
+            dist_imagenet.data.prefetch_batches = feed
+            snaps.clear()
+            reset_counts(fa, mp)
+            calls0 = native.native_call_count()
+            t = time.perf_counter()
+            res = dist_imagenet.run(dist_imagenet.parser().parse_args(
+                ["--steps", str(PREFETCH_STEPS), "--loader", loader,
+                 "--device", "cuda"]))
+            wall = time.perf_counter() - t
+            launched = counts(fa, mp)
+            gs = res["model"]._train_step
+            waits = [1e3 * w for w in res["loader_wait_s"]]
+            runs[name] = dict(
+                losses=res["losses"], images_per_s_chip=res["img_s_chip"],
+                loader_wait_ms=waits,
+                loader_wait_ms_steady=float(np.mean(waits[2:])),
+                launches=launched, wall_s=wall,
+                native_calls=native.native_call_count() - calls0)
+            print(f"dist_imagenet --loader {loader} ({name}, {card}, "
+                  f"deterministic cuDNN): losses {res['losses']}, "
+                  f"{res['img_s_chip']:.1f} images/s/chip, host ms waiting "
+                  f"on the loader a step {[round(w, 3) for w in waits]} "
+                  f"(steps 3-{PREFETCH_STEPS}: "
+                  f"{runs[name]['loader_wait_ms_steady']:.3f}), native calls "
+                  f"{runs[name]['native_calls']}, {wall:.1f} s; launches "
+                  f"{launched}, captures {gs.captures}, replays {gs.replays}",
+                  flush=True)
+            check(res["ok"] is True,
+                  f"dist_imagenet --loader {loader}: the loss sanity check "
+                  f"failed")
+            check(launched == dict(NO_LAUNCH, max_pool_bwd=2)
+                  and (gs.captures, gs.replays) == (1, PREFETCH_STEPS - 1),
+                  f"dist_imagenet --loader {loader}: K2a was not launched "
+                  f"once in the uncaptured step and once in the capture, or "
+                  f"the step was not captured once and replayed "
+                  f"{PREFETCH_STEPS - 1} times")
+            if loader == "prefetch":
+                steps = [{k: b[k] - a[k] for k in b}
+                         for a, b in zip(snaps, snaps[1:])]
+                runs[name]["launches_by_step"] = steps
+                print(f"dist_imagenet --loader prefetch ({name}): launches "
+                      f"by step {[s['max_pool_bwd'] for s in steps]} (K2a)",
+                      flush=True)
+                check(len(steps) == PREFETCH_STEPS
+                      and steps[0] == steps[1] == dict(NO_LAUNCH,
+                                                       max_pool_bwd=1)
+                      and all(s == NO_LAUNCH for s in steps[2:]),
+                      f"dist_imagenet --loader prefetch ({name}): K2a's "
+                      f"launches by step are {steps}, not 1 uncaptured, 1 "
+                      f"in the capture and none in the replays")
+            del res, gs
+            drop_graphs(torch)
+        one = distributed.global_mesh(dcn_mesh_shape=(1,))
+        flat = distributed.global_mesh()
+        mesh = dict(ranks=list(one.ranks), dims=list(one.dims),
+                    axis_names=list(one.axis_names))
+        print(f"global_mesh(dcn_mesh_shape=(1,)) on the world-1 NCCL group: "
+              f"{mesh}, global_mesh(): ranks {list(flat.ranks)}, dims "
+              f"{list(flat.dims)}", flush=True)
+        check((one.ranks, one.dims, one.axis_names, one.axis_index("data"))
+              == (flat.ranks, flat.dims, flat.axis_names,
+                  flat.axis_index("data")),
+              "global_mesh(dcn_mesh_shape=(1,)) differs from global_mesh()")
+    finally:
+        dist_imagenet.data.prefetch_batches = real
+        torch.backends.cudnn.deterministic = False
+        mp.set_pool_kernel_enabled(False)
+        distributed.shutdown()
+        drop_graphs(torch)
+    loaders = runs["prefetch"]["native_calls"] - runs["sync"]["native_calls"]
+    bitwise = runs["prefetch"]["losses"] == runs["prefetch_copies"]["losses"]
+    print(f"prefetch ({card}): the views' losses bitwise the owned copies' "
+          f"{bitwise}; C++ loaders made {loaders}; images/s/chip sync "
+          f"{runs['sync']['images_per_s_chip']:.1f}, prefetch "
+          f"{runs['prefetch']['images_per_s_chip']:.1f}", flush=True)
+    check(bitwise, "the prefetch run fed views did not give the losses of "
+                   "the run fed owned copies, bitwise")
+    check(loaders == 1, f"the prefetch run made {loaders} C++ loaders "
+                        f"beyond the sync run's native calls, not 1")
+    return runs["prefetch"]["launches_by_step"][0], dict(runs=runs,
+                                                         mesh=mesh)
+
+
+def trace_path(torch, fa, mp, card):
+    """gpt_medium (seeded weights, 4 x 1024, fp32, AdamW, compile(...,
+    use_graph=True)): the uncaptured first step under
+    `profiler.xla_trace` (12 events of each fused flash kernel in the
+    trace file, 12 launches of each counted), the top five device-kernel
+    families; the capture, then one replay traced (its kernel events
+    printed, unchecked); one replay timed by `StepTimer(sync=)` and one
+    by CUDA events. Returns the traced step's launches and the
+    numbers."""
+    import shutil
+
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.utils import profiler
+
+    m = gpt_medium(device="cuda")
+    load_singa_tpu_params(m, seeded_params(m, SEED))
+    seq = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, m.vocab_size, (4, 1025))).cuda()
+    x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+    m.set_optimizer(opt.AdamW(lr=3e-4))
+    m.compile([x], is_train=True, use_graph=True)
+    torch.cuda.synchronize()
+    out = {"card": card}
+    try:
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        with profiler.xla_trace(TRACE_ROOT) as tr:
+            _, loss = m(x, y)
+        traced_s = time.perf_counter() - t
+        launched = counts(fa, mp)
+        fused = dict(fa.FUSED_LAUNCHES)
+        gs = m._train_step
+        check((gs.captures, gs.replays) == (0, 0),
+              "the traced step was not the uncaptured first call")
+        check(launched == dict(NO_LAUNCH, flash_fwd=12, flash_bwd_dq=12,
+                               flash_bwd_dkv=12)
+              and fused == {k: 12 for k in FLASH_SYMBOLS},
+              f"the traced gpt_medium step launched {launched} (fused "
+              f"{fused}), not 12 of each fused flash kernel")
+        kernels = trace_kernels(tr.path)
+        events = {k: sum(1 for n, _ in kernels if sym in n)
+                  for k, sym in FLASH_SYMBOLS.items()}
+        fams = {}
+        for n, us in kernels:
+            f = kernel_family(n)
+            fams[f] = fams.get(f, 0.0) + us / 1e3
+        top = sorted(fams.items(), key=lambda kv: -kv[1])[:5]
+        busy = sum(us for _, us in kernels) / 1e3
+        out.update(trace_file_bytes=os.path.getsize(tr.path),
+                   traced_step_s=traced_s, kernel_events=len(kernels),
+                   flash_events=events, busy_ms=busy,
+                   top_families=[dict(family=f, ms=ms) for f, ms in top])
+        print(f"trace ({card}): uncaptured gpt_medium step under xla_trace "
+              f"{traced_s:.2f} s, {os.path.getsize(tr.path)} bytes, "
+              f"{len(kernels)} kernel events, {busy:.2f} busy ms; flash "
+              f"events {events}; top families "
+              + "; ".join(f"{f} {ms:.2f} ms" for f, ms in top), flush=True)
+        check(events == {k: 12 for k in FLASH_SYMBOLS},
+              f"the trace shows flash kernel events {events}, not 12 of "
+              f"each")
+        m(x, y)  # the capture, and its first replay
+        check((gs.captures, gs.replays) == (1, 1), "the step did not capture")
+        with profiler.xla_trace(TRACE_ROOT) as tr:
+            m(x, y)
+        replay = trace_kernels(tr.path)
+        out.update(replay_kernel_events=len(replay),
+                   replay_busy_ms=sum(us for _, us in replay) / 1e3)
+        print(f"trace ({card}): one captured replay, {len(replay)} kernel "
+              f"events, {out['replay_busy_ms']:.2f} busy ms", flush=True)
+        timer = profiler.StepTimer()
+        for _ in range(2):
+            with timer.step(sync=x):
+                m(x, y)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m(x, y)
+        end.record()
+        end.synchronize()
+        out.update(step_timer_ms=1e3 * timer.times[-1],
+                   cuda_event_ms=start.elapsed_time(end))
+        print(f"trace ({card}): one replay, StepTimer(sync=) "
+              f"{out['step_timer_ms']:.2f} ms, CUDA events "
+              f"{out['cuda_event_ms']:.2f} ms", flush=True)
+    finally:
+        shutil.rmtree(TRACE_ROOT, ignore_errors=True)
+        del m
+        drop_graphs(torch)
+    return launched, out
+
+
+def utils_path(torch, fa, mp, card):
+    """Phase 9q: `loader_runs` (the prefetch loader feeding K2a's step,
+    the one-slice mesh), then `trace_path` (the profiler over the flash
+    kernels). Returns each part's launches and the numbers."""
+    t0 = time.perf_counter()
+    k2a, loader_out = loader_runs(torch, fa, mp, card)
+    flash, trace_out = trace_path(torch, fa, mp, card)
+    out = dict(loader=loader_out, trace=trace_out,
+               wall_s=time.perf_counter() - t0)
+    print(f"utils: phase 9q {out['wall_s']:.1f} s ({card})", flush=True)
+    return dict(prefetch=k2a, trace=flash), out
+
+
 def main() -> int:
     import torch
 
@@ -7550,6 +7843,14 @@ def main() -> int:
                                            fleet_run[0] if fleet_run
                                            else None)
 
+    # 9q. item 20's utils and item 13's mesh: dist_imagenet fed by the
+    # native prefetcher (K2a once uncaptured and once in the capture, the
+    # views' losses bitwise the copies'), gpt_medium's step under
+    # profiler.xla_trace (12 trace events of each fused flash kernel),
+    # the one-slice mesh
+    reset_counts(fa, mp)
+    utils_launches, utils_out = utils_path(torch, fa, mp, card)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -7643,6 +7944,8 @@ def main() -> int:
                  "heal_supervised_gpt_medium_step":
                      heal_launches["gpt_medium"]["flash_fwd"],
                  "fleet_gpt_medium_step": fleet_launches["flash_fwd"],
+                 "traced_gpt_medium_step":
+                     utils_launches["trace"]["flash_fwd"],
                  **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
              head_split_sp=at_cases(None, (), sp_cases),
@@ -7676,6 +7979,7 @@ def main() -> int:
                 "heal_supervised_gpt_medium_step":
                     heal_launches["gpt_medium"][name],
                 "fleet_gpt_medium_step": fleet_launches[name],
+                "traced_gpt_medium_step": utils_launches["trace"][name],
                 **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
             head_split_sp=at_cases(key, grads, sp_cases),
@@ -7704,7 +8008,9 @@ def main() -> int:
             "dist_resnet50_step": dist_launches["max_pool_bwd"],
             "xception_step": xception_launches["max_pool_bwd"],
             "heal_supervised_alexnet_step":
-                heal_launches["alexnet"]["max_pool_bwd"]},
+                heal_launches["alexnet"]["max_pool_bwd"],
+            "prefetch_dist_resnet50_step":
+                utils_launches["prefetch"]["max_pool_bwd"]},
         max_abs_err=pool["max_abs_err"], ms=pool["ms"],
         plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
         bound_by=pool["bound_by"], library_ms=pool["library_ms"],
@@ -7747,6 +8053,7 @@ def main() -> int:
     print("ckpt " + json.dumps(ckpt_out), flush=True)
     print("heal " + json.dumps(heal_out), flush=True)
     print("fleet " + json.dumps(fleet_out), flush=True)
+    print("utils " + json.dumps(utils_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

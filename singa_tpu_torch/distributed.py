@@ -11,6 +11,7 @@ a CUDA device, gloo for `device="cpu"`; there is no switch between them.
     dist.init("host:port", num_processes=4, process_id=rank)
     mesh = dist.global_mesh()                    # the 1-D data group
     # or dist.global_mesh((2, 2), ("data", "sp")): data x sequence
+    # or dist.global_mesh(dcn_mesh_shape=(n_hosts,)): a slice per host
     opt_ = opt.DistOpt(opt.SGD(lr), mesh=mesh)
     out, loss = model(tx, ty)                    # the global batch
 
@@ -46,6 +47,7 @@ only.
 
 from __future__ import annotations
 
+import os
 from datetime import timedelta
 from typing import Optional, Sequence, Tuple
 
@@ -57,11 +59,11 @@ from singa_tpu_torch import device as device_module
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["init", "shutdown", "is_initialized", "process_index",
-           "process_count", "device", "global_mesh", "shard_batch",
-           "is_rank_local", "active_pspec", "infer_state_mesh",
-           "place_model_states", "place_opt_states", "gather_full",
-           "block_of", "shard_owner_map", "owner_table", "block_bounds",
-           "mesh_block_bounds"]
+           "process_count", "device", "global_mesh", "host_slices",
+           "hybrid_layout", "shard_batch", "is_rank_local", "active_pspec",
+           "infer_state_mesh", "place_model_states", "place_opt_states",
+           "gather_full", "block_of", "shard_owner_map", "owner_table",
+           "block_bounds", "mesh_block_bounds"]
 
 _device: Optional[torch.device] = None
 #: the rendezvous and collective timeout
@@ -140,17 +142,104 @@ def device() -> Optional[torch.device]:
 
 def global_mesh(shape: Optional[Sequence[int]] = None,
                 axis_names: Tuple[str, ...] = (mesh_module.DATA_AXIS,),
-                dcn_mesh_shape=None) -> mesh_module.Mesh:
+                dcn_mesh_shape: Optional[Sequence[int]] = None
+                ) -> mesh_module.Mesh:
     """The mesh of `shape` over `axis_names` across every rank of the
     group, ranks laid out row-major (`parallel.mesh.get_mesh`): by
     default the 1-D data mesh, e.g. `global_mesh((2, 4), ("data",
-    "sp"))` for data x sequence parallelism."""
-    if dcn_mesh_shape is not None:
-        raise NotImplementedError(
-            "global_mesh(dcn_mesh_shape=): multi-slice (multi-host ICI x "
-            "DCN) meshes are not ported (ROADMAP queue 1 item 13): one "
-            "host's ranks make one mesh")
-    return mesh_module.get_mesh(shape, axis_names)
+    "sp"))` for data x sequence parallelism.
+
+    Multi-slice (reference :100-157): with `dcn_mesh_shape`, one entry
+    per axis whose product is the number of slices, `shape` is the
+    per-slice mesh (by default all of a slice's ranks on the last axis).
+    A slice is a host (`host_slices`), and each axis's groups are the
+    lines of `hybrid_layout`, the reference's
+    `create_hybrid_device_mesh` layout. A process group orders its
+    members by rank, so a rank's index along an axis is its order within
+    its line: where the reference's layout orders a line otherwise (hosts
+    holding interleaved ranks), the mesh keeps the line's members in rank
+    order; a layout whose lines cannot all be so ordered raises."""
+    if dcn_mesh_shape is None:
+        return mesh_module.get_mesh(shape, axis_names)
+    axis_names = tuple(axis_names)
+    dcn = tuple(int(d) for d in dcn_mesh_shape)
+    if len(dcn) != len(axis_names):
+        raise ValueError(f"dcn_mesh_shape {dcn} must have one entry per "
+                         f"mesh axis {axis_names}")
+    world = process_count()
+    n_slices = int(np.prod(dcn))
+    if world % n_slices:
+        raise ValueError(f"{world} devices do not split into "
+                         f"prod(dcn_mesh_shape)={n_slices} slices")
+    if shape is None:
+        shape = (1,) * (len(dcn) - 1) + (world // n_slices,)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"per-slice shape {tuple(shape)} does not match "
+                         f"axis names {axis_names}")
+    layout = _rank_ordered(hybrid_layout(host_slices(), shape, dcn),
+                           axis_names)
+    return mesh_module.get_mesh(layout.shape, axis_names,
+                                devices=layout.reshape(-1).tolist())
+
+
+def hybrid_layout(slices: Sequence[Sequence[int]], shape: Sequence[int],
+                  dcn_mesh_shape: Sequence[int]) -> np.ndarray:
+    """The ranks of `slices` (one list a slice, in slice order) laid out
+    as `create_hybrid_device_mesh` lays devices out: the index along axis
+    i is d_i * shape_i + s_i, d the slice's position in `dcn_mesh_shape`
+    and s the rank's in its slice's row-major reshape to `shape`
+    (`np.block` of the per-slice meshes)."""
+    shape = tuple(int(s) for s in shape)
+    dcn = tuple(int(d) for d in dcn_mesh_shape)
+    per = int(np.prod(shape))
+    if len(slices) != int(np.prod(dcn)) or any(len(h) != per
+                                               for h in slices):
+        raise ValueError(
+            f"dcn_mesh_shape {dcn} asks for {int(np.prod(dcn))} slices of "
+            f"{per} ranks; the slices hold {[len(h) for h in slices]}")
+    blocks = np.empty(dcn, dtype=object)
+    for d, ranks in enumerate(slices):
+        blocks[np.unravel_index(d, dcn)] = np.asarray(ranks).reshape(shape)
+    return np.block(blocks.tolist())
+
+
+def _lines(a: np.ndarray, axis: int) -> set:
+    return {frozenset(v.tolist())
+            for v in np.moveaxis(a, axis, -1).reshape(-1, a.shape[axis])}
+
+
+def _rank_ordered(layout: np.ndarray, axis_names) -> np.ndarray:
+    """`layout` with every line along every axis in rank order, each
+    line keeping its members; raises when no such layout exists."""
+    out = layout
+    for a in range(out.ndim):
+        out = np.sort(out, axis=a)
+    if any(_lines(out, a) != _lines(layout, a)
+           or (np.diff(out, axis=a) < 0).any() for a in range(out.ndim)):
+        raise ValueError(
+            f"the hybrid layout {layout.tolist()} over {axis_names} has no "
+            f"order in which every axis group's ranks ascend (a process "
+            f"group orders its members by rank)")
+    return out
+
+
+def host_slices() -> list:
+    """The ranks of each host, the hosts ordered by their lowest rank: a
+    rank's host is torchrun's GROUP_RANK where it is set, else its
+    hostname, gathered once over the group (`all_gather_object`: every
+    rank calls this)."""
+    import socket
+
+    me = os.environ.get("GROUP_RANK") or socket.gethostname()
+    if dist.is_initialized():
+        keys = [None] * dist.get_world_size()
+        dist.all_gather_object(keys, me)
+    else:
+        keys = [me]
+    hosts: dict = {}
+    for r, k in enumerate(keys):
+        hosts.setdefault(k, []).append(r)
+    return sorted(hosts.values(), key=min)
 
 
 def shard_batch(mesh: mesh_module.Mesh, arrays,

@@ -25,8 +25,12 @@ a step). Under `--layout NHWC` (the default) every max-pool runs through
 in the reference (`set_pool_kernel_enabled`). `--checkpoint DIR`
 saves a resilience checkpoint after every epoch and resumes from DIR
 when it holds one (its step field counts finished epochs).
-`--virtual-devices` and `--loader prefetch` raise, naming the ROADMAP
-item that ports them.
+`--loader prefetch` (the default, as in the reference) feeds each epoch
+from the native threaded prefetcher (`utils.data.prefetch_batches`,
+seeded by the epoch, zero-copy views); `--loader sync` takes
+`utils.data.batches`' order. `--virtual-devices N` runs the trainer as
+N gloo ranks, one CPU process each (`utils.virtual`); with `--dist`
+DistOpt then spans the N ranks, each running its share of the batch.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from singa_tpu_torch import opt
 from singa_tpu_torch.models import (alexnet_cifar, mobilenet_v1_cifar,
                                     resnet20_cifar, vgg16_cifar,
                                     xception_cifar)
-from singa_tpu_torch.utils import data
+from singa_tpu_torch.utils import data, virtual
 
 MODELS = {"alexnet": alexnet_cifar, "vgg": vgg16_cifar,
           "resnet": resnet20_cifar, "mobilenet": mobilenet_v1_cifar,
@@ -54,20 +58,8 @@ DEFAULT_LR = {"alexnet": 0.005, "vgg": 0.05, "resnet": 0.05,
               "mobilenet": 0.05, "xception": 0.05}
 
 
-def _refuse_unported(args):
-    for flag, val, item in (
-            ("--virtual-devices", args.virtual_devices,
-             "20 (utils/virtual.py)"),
-            ("--loader prefetch", args.loader == "prefetch",
-             "20 (the native prefetch loader)")):
-        if val:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
-
-
 def run(args) -> int:
     """Train; returns the exit code (1 when the loss did not fall)."""
-    _refuse_unported(args)
     if args.lr is None:
         args.lr = DEFAULT_LR[args.model]
     dev = device_module.resolve(args.device)
@@ -79,7 +71,8 @@ def run(args) -> int:
     optimizer = opt.SGD(lr=opt.Warmup(args.lr, args.warmup), momentum=0.9,
                         weight_decay=5e-4)
     if args.dist:
-        dist_mod.init(device=dev)
+        if not dist_mod.is_initialized():
+            dist_mod.init(device=dev)
         optimizer = opt.DistOpt(optimizer, mesh=dist_mod.global_mesh(),
                                 use_sparse=args.dist_option.startswith(
                                     "sparse"))
@@ -87,6 +80,9 @@ def run(args) -> int:
     model.set_optimizer(optimizer)
 
     def on_dev(a):
+        # a blocking copy: a prefetched view is read whole before the
+        # next batch is asked for (on the CPU the step reads the view
+        # itself before it returns its loss)
         return torch.from_numpy(a).to(dev)
 
     model.compile([on_dev(xt[:args.batch])], is_train=True,
@@ -101,7 +97,15 @@ def run(args) -> int:
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         tot_loss = n = seen = 0
-        for bx, by in data.batches(xt, yt, args.batch, seed=epoch):
+        if args.loader == "prefetch":
+            # copy=False: each step's loss is read before the next view
+            # is asked for
+            epoch_iter = data.prefetch_batches(
+                xt, yt, args.batch, len(xt) // args.batch, seed=epoch,
+                copy=False)
+        else:
+            epoch_iter = data.batches(xt, yt, args.batch, seed=epoch)
+        for bx, by in epoch_iter:
             _, loss = model(on_dev(bx), on_dev(by), args.dist_option,
                             args.spars)
             tot_loss += loss.item()
@@ -156,20 +160,22 @@ def main(argv=None) -> int:
                    help="gradient sync mode of DistOpt")
     p.add_argument("--spars", type=float, default=None,
                    help="sparsity of the sparse dist options")
-    p.add_argument("--loader", choices=["prefetch", "sync"], default="sync",
-                   help="host input pipeline: synchronous slicing (the "
-                        "default here) or the native threaded prefetcher "
-                        "(not ported)")
+    p.add_argument("--loader", choices=["prefetch", "sync"],
+                   default="prefetch",
+                   help="host input pipeline: the native threaded "
+                        "prefetcher (default) or synchronous slicing")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint directory: auto-resume if it holds "
                         "one, save after every epoch")
-    p.add_argument("--virtual-devices", type=int, default=0,
-                   help="virtual multi-device run (not ported)")
+    virtual.add_cli_arg(p)
     args = p.parse_args(argv)
+    live = dist_mod.is_initialized()
+    virtual.ensure_from_args(args, "singa_tpu_torch.examples.cnn_cifar10",
+                             argv)
     try:
         return run(args)
     finally:
-        if args.dist:
+        if not live:
             dist_mod.shutdown()
 
 

@@ -23,9 +23,20 @@ The data is `utils.data.synthetic_imagenet` (nothing is downloaded).
 `--checkpoint DIR --save-every N` saves a resilience checkpoint every N
 steps (every rank joins the sharded commit; DistOpt's per-rank states
 in canonical form) and resumes from DIR when it holds one; a resumed
-run takes `--steps` further steps, its batches continuing the stream at
-the resumed step. `--loader prefetch` and `--virtual-devices` raise
-(ROADMAP queue 1 item 20), and `--loader sync` is the default here.
+run takes `--steps` further steps; under `--loader sync` its batches
+continue the stream at the resumed step, while the prefetch stream
+starts again from its seed, as the reference's does.
+
+`--loader prefetch` (the default, as in the reference) feeds the steps
+from the native threaded prefetcher (`utils.data.prefetch_batches` over
+native/dataloader_core.cc, zero-copy views); `--loader sync` slices the
+arrays in order. Each rank of a group takes its share of the global
+batch either way. `--virtual-devices N` runs the trainer as N gloo
+ranks, one CPU process each (`utils.virtual`):
+
+    python -m singa_tpu_torch.examples.dist_imagenet --virtual-devices 2 \
+        --device cpu --steps 3 --batch-per-chip 2 --image-size 32 \
+        --classes 10
 """
 
 from __future__ import annotations
@@ -41,18 +52,7 @@ import torch
 from singa_tpu_torch import distributed as dist_mod
 from singa_tpu_torch import opt
 from singa_tpu_torch.models import resnet50
-from singa_tpu_torch.utils import data
-
-
-def _refuse_unported(args):
-    for flag, val, item in (
-            ("--loader prefetch", args.loader == "prefetch",
-             "20 (the native prefetch loader)"),
-            ("--virtual-devices", args.virtual_devices,
-             "20 (utils/virtual.py)")):
-        if val:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
+from singa_tpu_torch.utils import data, virtual
 
 
 def builtins_sum_bytes(model) -> int:
@@ -62,14 +62,16 @@ def builtins_sum_bytes(model) -> int:
 
 
 def run(args) -> dict:
-    """Train; returns the losses, the steady images/s/chip, the
-    loss-sanity verdict ("ok" None when the run was too short to judge)
-    and the model."""
-    _refuse_unported(args)
+    """Train; returns the losses, the steady images/s/chip, the host
+    seconds each step waited on the loader, the loss-sanity verdict
+    ("ok" None when the run was too short to judge) and the model. A
+    live group (a virtual-device child's) is trained over as it is
+    unless --world is given."""
     if args.coordinator and not args.world:
         raise SystemExit("--coordinator requires --world and --rank")
-    dist_mod.init(args.coordinator, num_processes=args.world or 1,
-                  process_id=args.rank, device=args.device)
+    if args.world or not dist_mod.is_initialized():
+        dist_mod.init(args.coordinator, num_processes=args.world or 1,
+                      process_id=args.rank, device=args.device)
     dev = dist_mod.device()
     mesh = dist_mod.global_mesh()
     world, n_proc = mesh.size, dist_mod.process_count()
@@ -102,6 +104,10 @@ def run(args) -> dict:
     print(f"model gradient payload: {n_grad_bytes / 1e6:.1f} MB/step")
 
     def make_batch(bx, by):
+        # `.to(dev)` (and shard_batch's) is a blocking copy: a prefetched
+        # view is read whole before the next batch is asked for. On the
+        # CPU it is the view itself, which the step reads before it
+        # returns its loss.
         if n_proc == 1:
             return (torch.from_numpy(bx).to(dev),
                     torch.from_numpy(by.astype(np.int64)).to(dev))
@@ -111,12 +117,27 @@ def run(args) -> dict:
         return dist_mod.shard_batch(mesh, (bx[lo:lo + per],
                                            by[lo:lo + per].astype(np.int64)))
 
-    times, losses = [], []
-    for rel_step in range(args.steps):
+    if args.loader == "prefetch":
+        # copy=False: each step's loss is read (the step is done with
+        # its batch) before the next view is asked for. As in the
+        # reference, a resumed run's stream starts again from the seed.
+        batch_iter = data.prefetch_batches(x, y, batch, args.steps,
+                                           copy=False)
+    else:
+        def _sync_iter():
+            for rel_step in range(args.steps):
+                lo = ((start_step + rel_step) * batch) % (len(x) - batch)
+                yield x[lo:lo + batch], y[lo:lo + batch]
+
+        batch_iter = _sync_iter()
+
+    times, losses, waits = [], [], []
+    t_ask = time.perf_counter()
+    for rel_step, (bx, by) in enumerate(batch_iter):
+        waits.append(time.perf_counter() - t_ask)
         step = start_step + rel_step
-        lo = (step * batch) % (len(x) - batch)
         t0 = time.time()
-        tbx, tby = make_batch(x[lo:lo + batch], y[lo:lo + batch])
+        tbx, tby = make_batch(bx, by)
         _, loss = model(tbx, tby, args.dist_option, args.spars)
         losses.append(loss.item())
         dt = time.time() - t0
@@ -134,8 +155,9 @@ def run(args) -> dict:
                   f"{batch / dt / world:.1f} img/s/chip "
                   f"allreduce ~{ring / dt / 1e9:.2f} GB/s/chip "
                   f"({dt * 1e3:.0f} ms)")
+        t_ask = time.perf_counter()
     out = {"losses": losses, "img_s_chip": None, "ok": None,
-           "world": world, "start": start_step}
+           "world": world, "start": start_step, "loader_wait_s": waits}
     if len(times) > 2:
         # the first two calls run uncaptured and capture the graph
         steady = sum(times[2:]) / len(times[2:])
@@ -177,10 +199,10 @@ def parser() -> argparse.ArgumentParser:
                         "one, save every --save-every steps")
     p.add_argument("--save-every", type=int, default=0,
                    help="checkpoint cadence in steps (0 = never)")
-    p.add_argument("--loader", choices=["prefetch", "sync"], default="sync",
-                   help="host input pipeline: synchronous slicing (the "
-                        "default here) or the native threaded prefetcher "
-                        "(not ported)")
+    p.add_argument("--loader", choices=["prefetch", "sync"],
+                   default="prefetch",
+                   help="host input pipeline: the native threaded "
+                        "prefetcher (default) or synchronous slicing")
     p.add_argument("--clip-norm", type=float, default=10.0,
                    help="global gradient-norm clip (<=0 disables)")
     p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
@@ -200,8 +222,7 @@ def parser() -> argparse.ArgumentParser:
                    help="number of processes (0: one, no rendezvous)")
     p.add_argument("--rank", type=int, default=0,
                    help="this process's rank")
-    p.add_argument("--virtual-devices", type=int, default=0,
-                   help="virtual multi-device run (not ported)")
+    virtual.add_cli_arg(p)
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:<rank>)")
     return p
@@ -209,6 +230,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    virtual.ensure_from_args(args, "singa_tpu_torch.examples.dist_imagenet",
+                             argv)
     try:
         out = run(args)
     finally:

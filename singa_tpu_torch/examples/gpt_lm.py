@@ -30,7 +30,12 @@ bitwise those of a run that was never stopped:
         --batch 2 --seq 32 --d-model 32 --heads 2 --checkpoint /tmp/ck \
         --save-every 2
 
---virtual-devices raises, naming the ROADMAP item that ports it.
+`--virtual-devices N` runs the trainer as N gloo ranks, one CPU process
+each (`utils.virtual`): DistOpt over the N ranks, the global batch
+`--batch` times N:
+
+    python -m singa_tpu_torch.examples.gpt_lm --virtual-devices 2 \
+        --device cpu --steps 3 --batch 2 --seq 32 --d-model 32 --heads 2
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 from singa_tpu_torch import device as device_module
 from singa_tpu_torch import distributed, opt, tensor
 from singa_tpu_torch.models.gpt import GPT
+from singa_tpu_torch.utils import virtual
 
 _BUILTIN = (
     "in the beginning the framework traced the tape, and the tape was "
@@ -60,19 +66,9 @@ def load_corpus(path):
         return f.read()
 
 
-def _refuse_unported(args):
-    for flag, val, item in (
-            ("--virtual-devices", args.virtual_devices,
-             "20 (utils/virtual.py)"),):
-        if val:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
-
-
 def run(args) -> dict:
     """Train and sample; returns the losses of the steps this run took,
     the step it started at (after a resume), the world and the model."""
-    _refuse_unported(args)
     text = load_corpus(args.data)
     chars = sorted(set(text))
     c2i = {c: i for i, c in enumerate(chars)}
@@ -182,8 +178,7 @@ def parser() -> argparse.ArgumentParser:
                    help="ZeRO-1 optimizer-state sharding: DistOpt("
                         "shard_states=True) over the process group (a "
                         "world of one when none is live)")
-    p.add_argument("--virtual-devices", type=int, default=0,
-                   help="virtual multi-device run (not ported)")
+    virtual.add_cli_arg(p)
     p.add_argument("--scan-blocks", action="store_true",
                    help="scan-over-layers decoder "
                         "(layer.ScanTransformerStack), dropout-free")
@@ -201,8 +196,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     live = distributed.is_initialized()
+    args = parser().parse_args(argv)
+    virtual.ensure_from_args(args, "singa_tpu_torch.examples.gpt_lm", argv)
     try:
-        run(parser().parse_args(argv))
+        run(args)
     finally:
         if not live:
             distributed.shutdown()

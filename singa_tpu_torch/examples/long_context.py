@@ -19,8 +19,13 @@ At world 1 (no live group) `run` makes a group of one in-process: NCCL
 on the card, gloo with `--device cpu`; the mesh is (data 1, sp 1), so
 the ring is one diagonal block. Inside a live group of several
 processes `run(args)` trains over that group (sp = world / dp), as
-`gpt_lm.run` does. `--virtual-devices` raises, naming the ROADMAP item
-that ports it.
+`gpt_lm.run` does. `--virtual-devices N` runs the trainer as N gloo
+ranks, one CPU process each (`utils.virtual`), the reference's
+virtual mesh:
+
+    python -m singa_tpu_torch.examples.long_context --virtual-devices 2 \
+        --device cpu --steps 2 --seq-len 128 --layers 1 --d-model 64 \
+        --heads 2
 """
 
 from __future__ import annotations
@@ -35,15 +40,12 @@ from singa_tpu_torch import device as device_module
 from singa_tpu_torch import distributed, opt, tensor
 from singa_tpu_torch.models.gpt import GPT
 from singa_tpu_torch.parallel import mesh as mesh_module
+from singa_tpu_torch.utils import virtual
 
 
 def run(args) -> dict:
     """Train; returns the losses of every step, the mesh shape and the
     model."""
-    if args.virtual_devices:
-        raise NotImplementedError(
-            "--virtual-devices is not ported yet (ROADMAP queue 1 item 20 "
-            "(utils/virtual.py)); run the ranks as processes of a group")
     dev = device_module.resolve(args.device)
     if not distributed.is_initialized():
         distributed.init(device=dev)
@@ -106,15 +108,17 @@ def parser() -> argparse.ArgumentParser:
                    default="ring")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:0)")
-    p.add_argument("--virtual-devices", type=int, default=0,
-                   help="virtual multi-device run (not ported)")
+    virtual.add_cli_arg(p)
     return p
 
 
 def main(argv=None):
     live = distributed.is_initialized()
+    args = parser().parse_args(argv)
+    virtual.ensure_from_args(args, "singa_tpu_torch.examples.long_context",
+                             argv)
     try:
-        run(parser().parse_args(argv))
+        run(args)
     finally:
         if not live:
             distributed.shutdown()

@@ -22,7 +22,11 @@ needs no address. NCCL on the card, gloo with `--device cpu`:
     python -m singa_tpu_torch.examples.parallel_strategies --device cpu \\
         --world 4 --rank R --coordinator file:///tmp/rdv  # each R of 0-3
 
-`--virtual-devices` raises (ROADMAP queue 1 item 20).
+`--virtual-devices N` runs it as N gloo ranks, one CPU process each
+(`utils.virtual`), the reference's virtual mesh:
+
+    python -m singa_tpu_torch.examples.parallel_strategies \
+        --virtual-devices 4 --device cpu
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 from singa_tpu_torch import distributed as dist_mod
 from singa_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
                                            MODEL_AXIS, PIPE_AXIS, SEQ_AXIS)
+from singa_tpu_torch.utils import virtual
 
 __all__ = ["LintCase", "iter_cases", "build_case", "build_scan_sharded_gpt",
            "build_pipe_mlp", "run_all_strategies", "run", "main"]
@@ -397,6 +402,11 @@ def _memory(name: str, devs):
     return m, graph.step_memory_analysis(m, *args)
 
 
+def _extent(m, axis: str) -> int:
+    """The extent of `axis` on the mesh of a case's DistOpt."""
+    return m.optimizer.comm.mesh.axis_size(axis)
+
+
 def _raw(name: str, devs) -> None:
     from singa_tpu_torch.parallel.raw_steps import RAW_STEP_BUILDERS
 
@@ -462,8 +472,8 @@ def run_all_strategies(devs) -> None:
     _raw("raw_ulysses", devs)
     print("[dryrun] SP ulysses (all-to-all): ok")
     m, _, _ = _two_steps("sp_gpt", devs)
-    if n > 1:  # the axis is live only with more than one rank
-        assert "sp" in m.optimizer.grad_axes
+    if _extent(m, SEQ_AXIS) > 1:  # an axis of one rank reduces nothing
+        assert SEQ_AXIS in m.optimizer.grad_axes
     print("[dryrun] SP model-level (train_one_batch): ok")
     _raw("raw_tp", devs)
     print("[dryrun] TP megatron mlp: ok")
@@ -472,8 +482,8 @@ def run_all_strategies(devs) -> None:
     _raw("raw_ep", devs)
     print("[dryrun] EP moe all_to_all: ok")
     m, _, _ = _two_steps("ep_gpt", devs)
-    if n > 1:
-        assert "expert" in m.optimizer.grad_axes
+    if _extent(m, EXPERT_AXIS) > 1:
+        assert EXPERT_AXIS in m.optimizer.grad_axes
     print("[dryrun] EP model-level (train_one_batch): ok")
     _raw("raw_pipe", devs)
     print("[dryrun] PP gpipe ppermute: ok")
@@ -509,8 +519,7 @@ def parser() -> argparse.ArgumentParser:
                    help="number of processes (0: one, no rendezvous)")
     p.add_argument("--rank", type=int, default=0,
                    help="this process's rank")
-    p.add_argument("--virtual-devices", type=int, default=0,
-                   help="virtual multi-device run (not ported)")
+    virtual.add_cli_arg(p)
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda:<rank>)")
     return p
@@ -518,14 +527,13 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    if args.virtual_devices:
-        raise NotImplementedError(
-            "--virtual-devices is not ported yet (ROADMAP queue 1 item 20 "
-            "(utils/virtual.py)); run the ranks as processes of a group")
+    virtual.ensure_from_args(
+        args, "singa_tpu_torch.examples.parallel_strategies", argv)
     if args.coordinator and not args.world:
         raise SystemExit("--coordinator requires --world and --rank")
-    dist_mod.init(args.coordinator, num_processes=args.world or 1,
-                  process_id=args.rank, device=args.device)
+    if args.world or not dist_mod.is_initialized():
+        dist_mod.init(args.coordinator, num_processes=args.world or 1,
+                      process_id=args.rank, device=args.device)
     try:
         n = dist_mod.process_count()
         print(f"devices: {n} x {dist_mod.device().type}")

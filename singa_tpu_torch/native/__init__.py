@@ -1,15 +1,18 @@
-"""The native planners (counterpart of singa_tpu/native/__init__.py's
-`GraphPlanner`, :261-381, and its communicator planners, :383-430).
+"""The native planners and the prefetch loader (counterpart of
+singa_tpu/native/__init__.py's `GraphPlanner`, :261-381, its
+communicator planners, :383-430, and `NativeLoader`, :432-540).
 
-g++ compiles the repository's `native/graph_core.cc` and
-`native/comm_core.cc`, unedited, with `-O2 -shared -fPIC` into
+g++ compiles the repository's `native/graph_core.cc`,
+`native/comm_core.cc` and `native/dataloader_core.cc`, unedited, with
+`-O2 -shared -fPIC` (the loader also `-lpthread`) into
 `build/torch_native/` at the repository root, at first use, one library
 each; a library is named by a hash of its source and the flags, so an
-edited source is rebuilt on its next use. Both are bound with `ctypes`
+edited source is rebuilt on its next use. All are bound with `ctypes`
 (the sources' C interfaces: `graph_new`, `graph_add_node`,
 `graph_add_edge`, `graph_toposort`, `graph_plan_memory`,
 `graph_naive_bytes`, `graph_free`; `comm_plan_buckets`,
-`comm_plan_buckets_balanced`, `comm_ring_schedule`).
+`comm_plan_buckets_balanced`, `comm_ring_schedule`; `loader_new`,
+`loader_next`, `loader_next_view`, `loader_release`, `loader_free`).
 
 `GraphPlanner` keeps the reference's methods: nodes are ops, edges carry
 (buffer id, bytes), `toposort()` is Kahn's algorithm with the lowest id
@@ -35,9 +38,22 @@ overlapped buckets through it, and a missing or refusing g++ raises
 `NativeBuildError`; `communicator.plan_buckets_plain` is the plain
 version they are held to.
 
+`NativeLoader(x, y, batch, seed=, shuffle=, prefetch=, copy=)` keeps
+the reference's loader: a background thread gathers shuffled batches of
+(float32 x, int32 y) into a ring of `prefetch` host buffers, each epoch
+shuffled by `std::shuffle` under `mt19937_64(seed + epoch)`, the last
+short batch dropped, forever; a batch larger than the data ends the
+iteration at once. `copy=True` yields owned arrays; `copy=False` yields
+views into the ring, valid until the next `__next__` or `close` (see the
+class). It always calls the library: a missing or refusing g++ raises
+`NativeBuildError` (the reference's Python fallback is not kept).
+`plain_loader` is the same contract in Python, the plain version the
+tests hold the library's coverage and shapes to (it cannot reproduce
+libstdc++'s shuffle order).
+
 `native_call_count()` counts the calls into the libraries (a planner's
-graph, each `plan_memory`, each communicator planner), so a caller can
-tell that the C++ ran.
+graph, each `plan_memory`, each communicator planner, each loader made),
+so a caller can tell that the C++ ran.
 """
 
 from __future__ import annotations
@@ -50,26 +66,30 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["GraphPlanner", "NativeBuildError", "build",
-           "native_call_count", "plan_buckets_balanced",
+__all__ = ["GraphPlanner", "NativeBuildError", "NativeLoader", "build",
+           "native_call_count", "plain_loader", "plan_buckets_balanced",
            "plan_buckets_native", "plan_memory_plain", "ring_schedule",
            "toposort_plain"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "graph_core.cc"
 COMM_SOURCE = _ROOT / "native" / "comm_core.cc"
+LOADER_SOURCE = _ROOT / "native" / "dataloader_core.cc"
 BUILD_DIR = _ROOT / "build" / "torch_native"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+#: what a source links beyond GXX_FLAGS (the loader's worker thread)
+LINK_FLAGS = {LOADER_SOURCE.name: ("-lpthread",)}
 #: the arena's allocation granularity, as graph_core.cc's kAlign
 ALIGN = 256
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _comm_lib: Optional[ctypes.CDLL] = None
+_loader_lib: Optional[ctypes.CDLL] = None
 _calls = [0]
 
 
@@ -82,8 +102,12 @@ def native_call_count() -> int:
     return _calls[0]
 
 
+def _flags(source: Path) -> Tuple[str, ...]:
+    return GXX_FLAGS + LINK_FLAGS.get(source.name, ())
+
+
 def _target(source: Path) -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(source)).encode())
     h.update(source.read_bytes())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -103,7 +127,8 @@ def build(source: Path = SOURCE) -> Path:
             f"{source} on first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(source),
+           *LINK_FLAGS.get(source.name, ())]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -149,6 +174,32 @@ def _load_comm() -> ctypes.CDLL:
             lib.comm_ring_schedule.argtypes = [i64, i64, p64]
             _comm_lib = lib
         return _comm_lib
+
+
+def _load_loader() -> ctypes.CDLL:
+    global _loader_lib
+    with _lock:
+        if _loader_lib is None:
+            lib = ctypes.CDLL(str(build(LOADER_SOURCE)))
+            i64, p64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+            pf, pi = (ctypes.POINTER(ctypes.c_float),
+                      ctypes.POINTER(ctypes.c_int32))
+            lib.loader_new.restype = i64
+            lib.loader_new.argtypes = [pf, pi, i64, i64, i64,
+                                       ctypes.c_uint64, ctypes.c_int,
+                                       ctypes.c_int, i64]
+            lib.loader_next.restype = i64
+            lib.loader_next.argtypes = [i64, pf, pi]
+            lib.loader_next_view.restype = i64
+            lib.loader_next_view.argtypes = [i64, p64,
+                                             ctypes.POINTER(pf),
+                                             ctypes.POINTER(pi)]
+            lib.loader_release.restype = None
+            lib.loader_release.argtypes = [i64, i64]
+            lib.loader_free.restype = None
+            lib.loader_free.argtypes = [i64]
+            _loader_lib = lib
+        return _loader_lib
 
 
 def _ptr(a: np.ndarray):
@@ -349,3 +400,115 @@ class GraphPlanner:
     def __del__(self):
         if getattr(self, "_h", None) is not None:
             self._lib.graph_free(self._h)
+
+
+# -- the prefetch loader -----------------------------------------------------
+
+
+class NativeLoader:
+    """Threaded prefetching batcher over (x float32, y int32) arrays in
+    C++ (`native/dataloader_core.cc`): iterates forever, each epoch
+    reshuffled, e.g. ``itertools.islice(NativeLoader(x, y, 64), steps)``.
+
+    `copy=True` (the default) yields owned arrays, copied out of the
+    ring on the consumer's thread. `copy=False` yields zero-copy views
+    into the ring, valid until the next `__next__` or `close`; the
+    library cannot enforce the contract that comes with them: the
+    consumer must be done reading batch k (its host-to-device copy
+    finished) before it asks for batch k + 1, or the producer may refill
+    the slot under it. A blocking `.to(device)` or a `copy_` into a
+    captured step's static input finishes before it returns, as does
+    any read of the step's loss. The ring is `std::vector` memory,
+    pageable, not pinned (despite the source's header), and this class
+    does not register it: a `non_blocking=True` copy from a view is
+    staged through CUDA's own pinned buffer before the call returns, and
+    is only safe because the memory is pageable.
+    """
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch: int,
+                 seed: int = 0, shuffle: bool = True, prefetch: int = 4,
+                 copy: bool = True):
+        self._h = None
+        self._held = None
+        self.copy = bool(copy)
+        self.x = np.ascontiguousarray(x, np.float32)
+        self.y = np.ascontiguousarray(y, np.int32)
+        if self.y.shape != (len(self.x),):
+            raise ValueError(f"y of shape {self.y.shape} does not label "
+                             f"the {len(self.x)} rows of x")
+        self.batch = int(batch)
+        if self.batch < 1:
+            raise ValueError(f"batch={batch!r} must be >= 1")
+        self.item_shape = self.x.shape[1:]
+        self.item = int(np.prod(self.item_shape))
+        self.seed, self.shuffle = int(seed), bool(shuffle)
+        self._lib = _load_loader()
+        self._h = self._lib.loader_new(
+            self.x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            self.y.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(self.x), self.item, self.batch, self.seed,
+            int(self.shuffle), 1, int(prefetch))
+        _calls[0] += 1
+
+    def __iter__(self):
+        return self
+
+    def _release_held(self):
+        if self._held is not None:
+            self._lib.loader_release(self._h, self._held)
+            self._held = None
+
+    def __next__(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._h is None:
+            raise StopIteration
+        if self.copy:
+            bx = np.empty((self.batch, self.item), np.float32)
+            by = np.empty(self.batch, np.int32)
+            n = self._lib.loader_next(
+                self._h, bx.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                by.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            if n <= 0:
+                raise StopIteration
+            return bx.reshape((self.batch,) + self.item_shape), by
+        self._release_held()
+        slot = ctypes.c_int64()
+        px = ctypes.POINTER(ctypes.c_float)()
+        py = ctypes.POINTER(ctypes.c_int32)()
+        n = self._lib.loader_next_view(self._h, ctypes.byref(slot),
+                                       ctypes.byref(px), ctypes.byref(py))
+        if n <= 0:
+            raise StopIteration
+        self._held = slot.value
+        bx = np.ctypeslib.as_array(px, shape=(int(n), self.item))
+        by = np.ctypeslib.as_array(py, shape=(int(n),))
+        return bx.reshape((int(n),) + self.item_shape), by
+
+    def close(self) -> None:
+        """Stop the worker and free the ring (views die with it)."""
+        if self._h is not None:
+            self._release_held()
+            self._lib.loader_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+def plain_loader(x: np.ndarray, y: np.ndarray, batch: int, seed: int = 0,
+                 shuffle: bool = True
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """`NativeLoader`'s contract in Python: endless epochs, epoch e in
+    the order `default_rng(seed + e).permutation(n)` (or as stored), the
+    last short batch dropped, nothing at all when `batch` exceeds the
+    rows; owned (float32, int32) arrays."""
+    x = np.ascontiguousarray(x, np.float32)
+    y = np.ascontiguousarray(y, np.int32)
+    n, batch = len(x), int(batch)
+    epoch = 0
+    while batch <= n:
+        order = (np.random.default_rng(seed + epoch).permutation(n)
+                 if shuffle else np.arange(n))
+        for i in range(0, n - n % batch, batch):
+            idx = order[i:i + batch]
+            yield x[idx], y[idx]
+        epoch += 1

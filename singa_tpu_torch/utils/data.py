@@ -6,7 +6,8 @@ binary layout, under ``SINGA_DATA_DIR`` or ``~/data``) and otherwise
 makes a class-conditional surrogate of the same shapes and dtypes from a
 seed, with the reference's numpy draws, so both packages see the same
 images. Arrays are numpy; `batches` yields numpy batches for the trainer
-to move, `device_batches` slices a split already on the device.
+to move, `prefetch_batches` the same from the native threaded prefetcher,
+`device_batches` slices a split already on the device.
 """
 
 from __future__ import annotations
@@ -14,13 +15,14 @@ from __future__ import annotations
 import gzip
 import os
 import pickle
+import itertools
 from typing import Iterator, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["load_mnist", "load_cifar10", "synthetic_imagenet", "batches",
-           "device_batches"]
+           "prefetch_batches", "device_batches"]
 
 
 def _data_dir() -> str:
@@ -122,6 +124,28 @@ def batches(x: np.ndarray, y: np.ndarray, batch_size: int,
     for i in range(0, end, batch_size):
         j = idx[i:i + batch_size]
         yield x[j], y[j]
+
+
+def prefetch_batches(x: np.ndarray, y: np.ndarray, batch_size: int,
+                     steps: int, seed: int = 0, shuffle: bool = True,
+                     copy: bool = True
+                     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """`steps` batches from the native threaded prefetcher
+    (`native.NativeLoader` over native/dataloader_core.cc): the next
+    batches are gathered on a background thread while the device runs
+    the current step; the loader is closed when the iteration ends or is
+    abandoned. `copy=True` yields owned arrays. `copy=False` yields views
+    into the loader's ring, each valid only until the next batch is
+    asked for: finish its host-to-device copy first (`NativeLoader`
+    says why and how)."""
+    from singa_tpu_torch.native import NativeLoader
+
+    loader = NativeLoader(x, y, batch_size, seed=seed, shuffle=shuffle,
+                          copy=copy)
+    try:
+        yield from itertools.islice(loader, steps)
+    finally:
+        loader.close()
 
 
 def device_batches(tx: torch.Tensor, ty: torch.Tensor, batch_size: int,

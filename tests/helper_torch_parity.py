@@ -591,6 +591,80 @@ def _rank_dist_imagenet(rank, world, argv):
     return {"losses": np.asarray(out["losses"]), "world": out["world"]}
 
 
+#: the hybrid meshes of tests/test_torch_multislice.py: name -> (per-slice
+#: shape or None, axis names, dcn_mesh_shape)
+MULTISLICE_MESHES = {"data": (None, ("data",), (2,)),
+                     "data_model": ((1, 2), ("data", "model"), (2, 1))}
+#: global_mesh arguments the reference refuses, and the one the port adds
+#: (more slices asked for than there are hosts)
+MULTISLICE_REFUSALS = {
+    "axes": (((2,), ("data",)), dict(dcn_mesh_shape=(2, 1))),
+    "split": ((None, ("data",)), dict(dcn_mesh_shape=(3,))),
+    "shape": (((2,), ("data", "model")), dict(dcn_mesh_shape=(2, 1))),
+    "hosts": (((1,), ("data",)), dict(dcn_mesh_shape=(4,))),
+}
+
+
+def _rank_multislice(rank, world, group_ranks, flat_names, X, y, lr):
+    """The multi-slice meshes with this rank's host given by torchrun's
+    GROUP_RANK (`group_ranks[rank]`): each mesh's hybrid layout, ranks,
+    dims, axis indices and axis groups; the refusals' messages; one
+    DistOpt step of an MLP on this rank's two rows of `X` over the data
+    axis of the hybrid (data, model) mesh, over the data axis of the
+    flat 2 x 2 mesh over `flat_names` (`get_mesh`, no slices), and one
+    plain SGD step on the rows of the hybrid data group's ranks (losses
+    and parameters)."""
+    import os
+
+    import torch.distributed as dist
+
+    from singa_tpu_torch import distributed, opt
+    from singa_tpu_torch.models import MLP
+
+    os.environ["GROUP_RANK"] = str(group_ranks[rank])
+    slices = distributed.host_slices()
+    out = {"slices": slices}
+    for key, (shape, names, dcn) in MULTISLICE_MESHES.items():
+        mesh = distributed.global_mesh(shape, names, dcn_mesh_shape=dcn)
+        per = shape or (world // 2,)
+        out[key] = dict(
+            layout=distributed.hybrid_layout(slices, per, dcn),
+            ranks=mesh.ranks, dims=mesh.dims,
+            index={n: mesh.axis_index(n) for n in names},
+            members={n: dist.get_process_group_ranks(mesh.axis_group(n))
+                     for n in names})
+    out["errors"] = {}
+    for key, (args, kw) in MULTISLICE_REFUSALS.items():
+        try:
+            distributed.global_mesh(*args, **kw)
+        except ValueError as e:
+            out["errors"][key] = str(e)
+    hybrid = distributed.global_mesh((1, 2), ("data", "model"),
+                                     dcn_mesh_shape=(2, 1))
+    group = dist.get_process_group_ranks(hybrid.axis_group("data"))
+    rows = [2 * r + i for r in (rank,) for i in range(2)]
+    whole = [2 * r + i for r in group for i in range(2)]
+    flat = distributed.global_mesh((2, 2), flat_names)
+    for key, mesh, idx in (("hybrid", hybrid, rows), ("flat", flat, rows),
+                           ("group", None, whole)):
+        tx = torch.from_numpy(X[idx])
+        ty = torch.from_numpy(y[idx]).long()
+        o = opt.SGD(lr=lr)
+        if mesh is not None:
+            # this rank's own rows, not a share of a global batch
+            tx, ty = distributed.shard_batch(mesh, (tx, ty))
+            o = opt.DistOpt(o, mesh=mesh)
+        m = MLP(16, 3, in_features=X.shape[1], device="cpu",
+                generator=torch.Generator().manual_seed(0))
+        m.dropout.p = 0.0
+        m.set_optimizer(o)
+        m.compile([tx], is_train=True, use_graph=True)
+        m(tx, ty)
+        out[key] = {k: _np(v) for k, v in m.get_params().items()}
+    out["data_group"] = group
+    return out
+
+
 def _rank_many(rank, world, calls):
     """Several scenarios in one spawn: {key: scenario(rank, world,
     **kwargs)} for each (key, scenario name, kwargs) of `calls`."""

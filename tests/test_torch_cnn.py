@@ -14,6 +14,12 @@ beside a relative 1e-5 for the sums of many terms (the gradients of
 `scale`, `offset` and `W`).
 """
 
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +32,8 @@ from singa_tpu_torch import autograd, layer, layout
 from singa_tpu_torch.model import load_singa_tpu_states
 from singa_tpu_torch.ops import max_pool
 from tests.helper_torch_parity import rand, randomize_params
+
+ROOT = Path(__file__).resolve().parents[1]
 
 LAYOUTS = ["NCHW", "NHWC"]
 
@@ -260,26 +268,92 @@ def test_cifar_trainer_lowers_the_loss(capsys):
     assert "loss sanity" in out and "ok" in out.splitlines()[-1], out
 
 
+def tiny_cifar(d, per_batch=64, seed=0):
+    """Five training batches of `per_batch` images and a test batch, as
+    CIFAR-10's python pickles."""
+    rng = np.random.default_rng(seed)
+    d.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(d / name, "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (per_batch, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, per_batch).tolist()},
+                        f)
+
+
+#: the cases that run `--virtual-devices 2` as child processes
+VIRTUAL_FLAGS = (("--dist", "--dist-option", "half", "--virtual-devices",
+                  "2"), ("--virtual-devices", "2"))
+
+
+@pytest.fixture(scope="module")
+def virtual_runs(tmp_path_factory):
+    """`cnn_cifar10 --epochs 1 --model alexnet --batch 64` under each of
+    VIRTUAL_FLAGS, started together, on a small CIFAR-10 on disk in the
+    standard layout (loaded instead of the 2048-image synthetic set)."""
+    tmp = tmp_path_factory.mktemp("virtual")
+    tiny_cifar(tmp / "cifar-10-batches-py")
+    procs = {flag: subprocess.Popen(
+        [sys.executable, "-m", "singa_tpu_torch.examples.cnn_cifar10",
+         "--device", "cpu", "--epochs", "1", *flag, "--model", "alexnet",
+         "--batch", "64"], cwd=ROOT,
+        env=dict(os.environ, SINGA_DATA_DIR=str(tmp)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for flag in VIRTUAL_FLAGS}
+    yield procs
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
 @pytest.mark.parametrize("flag", [
     ["--dist", "--checkpoint", "ckpt.zip"],
-    ["--dist-option", "half", "--virtual-devices", "8"],
+    list(VIRTUAL_FLAGS[0]),
     ["--spars", "0.1", "--loader", "prefetch"],
-    ["--checkpoint", "ckpt.zip"], ["--virtual-devices", "8"],
+    ["--checkpoint", "ckpt.zip"], list(VIRTUAL_FLAGS[1]),
     ["--loader", "prefetch"]])
 def test_cifar_trainer_refuses_unported_options(flag, tmp_path, monkeypatch,
-                                               capsys):
-    """--dist, --dist-option and --spars run (tests/test_torch_dist_train.py);
-    beside them, as alone, the unported options raise. `--checkpoint` is
-    ported: an epoch of AlexNet commits a checkpoint of epoch 1 (with
-    --dist, DistOpt's states in canonical form), and the same command
-    again resumes from it with nothing left to train."""
-    from singa_tpu_torch import resilience
+                                               capsys, virtual_runs):
+    """Every option runs (--dist, --dist-option and --spars also in
+    tests/test_torch_dist_train.py). `--virtual-devices 2` runs AlexNet
+    as two gloo ranks, one process each (with --dist DistOpt over both,
+    the bf16 wire; without it each rank trains alone), rank 0 alone
+    printing its epoch (a small CIFAR-10 of 320 images on disk).
+    `--loader prefetch` feeds the epoch from the
+    native prefetcher (a C++ loader an epoch, seeded by the epoch,
+    zero-copy views). `--checkpoint`: an epoch of AlexNet commits a
+    checkpoint of epoch 1 (with --dist, DistOpt's states in canonical
+    form), and the same command again resumes from it with nothing left
+    to train."""
+    from singa_tpu_torch import native, resilience
     from singa_tpu_torch.examples import cnn_cifar10
 
     argv = ["--device", "cpu", "--epochs", "1", *flag]
-    if "--checkpoint" not in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cnn_cifar10.main(argv)
+    if "--virtual-devices" in flag:
+        run = virtual_runs[tuple(flag)]
+        out, err = run.communicate(timeout=120)
+        assert run.returncode == 0, err
+        assert ("DistOpt over 2 chips" in out) == ("--dist" in flag)
+        (line,) = [ln for ln in out.splitlines()
+                   if ln.startswith("epoch 0: loss")]
+        assert np.isfinite(float(line.split()[3]))
+        return
+    if "--loader" in flag:
+        full = cnn_cifar10.data.load_cifar10
+        monkeypatch.setattr(cnn_cifar10.data, "load_cifar10",
+                            lambda: full(n_train=512, n_val=64))
+        calls, real = [], cnn_cifar10.data.prefetch_batches
+        monkeypatch.setattr(
+            cnn_cifar10.data, "prefetch_batches",
+            lambda *a, **k: calls.append((a[2:], k)) or real(*a, **k))
+        before = native.native_call_count()
+        assert cnn_cifar10.main(argv + ["--model", "alexnet", "--batch",
+                                        "256"]) == 0
+        assert calls == [((256, 2), dict(seed=0, copy=False))]
+        # the loader's C++ ran (beside the step's memory plan)
+        assert native.native_call_count() > before
+        assert "epoch 0: loss" in capsys.readouterr().out
         return
     monkeypatch.chdir(tmp_path)
     argv += ["--model", "alexnet", "--batch", "256"]

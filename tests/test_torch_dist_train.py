@@ -19,6 +19,9 @@ three SGD steps carry that rounding).
 
 import contextlib
 import io
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +39,7 @@ from singa_tpu.models import resnet as ref_resnet  # noqa: E402
 from singa_tpu_torch import distributed, opt  # noqa: E402
 from singa_tpu_torch.examples import cnn_cifar10, dist_imagenet  # noqa: E402
 
+ROOT = Path(__file__).resolve().parents[1]
 WORLD = 2
 STEPS = 3
 #: the dropout runs (F6): the MLP's dropout rate and the torch seed
@@ -100,8 +104,28 @@ def reference_side():
             "bn": ref_bn_dist(*cnn_data())}
 
 
+#: `dist_imagenet --virtual-devices 2` at the harness ranks' flags, its
+#: first 2 of their 3 steps
+VIRTUAL = ["--virtual-devices", "2", *TRAINER, "--batch-per-chip", "2",
+           "--steps", "2"]
+
+
 @pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def virtual_run():
+    """`VIRTUAL` as a child process, started before the file's other
+    spawns so that its two ranks run beside them."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "singa_tpu_torch.examples.dist_imagenet",
+         *VIRTUAL], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory, virtual_run):
     """The reference's side, computed in a process of its own, so no
     process-wide switch an earlier file left set in this worker reaches
     it (F8)."""
@@ -304,20 +328,59 @@ def test_dist_imagenet_over_two_ranks_equals_one_rank_of_the_global_batch(
     (["--checkpoint", "ck.zip"], "item 17"),
     (["--save-every", "5"], "item 17"),
     (["--loader", "prefetch"], "item 20"),
-    (["--virtual-devices", "8"], "item 20")])
+    (["--virtual-devices", "2"], "item 20")])
 def test_dist_imagenet_refuses_the_unported_flags(flag, item, tmp_path,
-                                                  monkeypatch):
-    """Item 20's flags raise. Item 17's are ported: `--save-every 5`
-    beside `--checkpoint` commits step 5 (DistOpt's states in canonical
-    form), and `--checkpoint ck.zip` resumes a run that saved at step 2,
-    its batches continuing the stream."""
+                                                  monkeypatch, runs,
+                                                  virtual_run):
+    """Every flag runs. Item 20's: `--loader prefetch` feeds the steps
+    zero-copy views of the native prefetcher, and its losses equal,
+    bitwise, those of the same run fed the loader's owned copies (the
+    views are read whole before the next is asked for);
+    `--virtual-devices 2` runs the trainer as two gloo ranks, one process
+    each, whose losses equal the harness's two ranks of the same flags
+    (tests/test_torch_virtual.py holds them to the reference's). Item
+    17's: `--save-every 5` beside `--checkpoint` commits step 5
+    (DistOpt's states in canonical form), and `--checkpoint ck.zip`
+    resumes a run that saved at step 2, its batches continuing the
+    stream (`--loader sync`: the prefetch stream starts over on a
+    resume, as the reference's does)."""
     from singa_tpu_torch import resilience
 
-    if item != "item 17":
-        with pytest.raises(NotImplementedError, match=item):
-            dist_imagenet.main(["--device", "cpu", *flag])
-        assert not distributed.is_initialized()
+    if flag[0] == "--virtual-devices":
+        assert VIRTUAL[:2] == flag
+        out, err = virtual_run.communicate(timeout=120)
+        assert virtual_run.returncode == 0, err
+        assert "mesh: 2 chips / 2 processes (gloo)" in out
+        losses = [float(l.split("loss ")[1].split()[0]) for l in
+                  out.splitlines() if l.startswith("step ")]
+        _, port = runs
+        assert len(losses) == 2
+        np.testing.assert_allclose(losses, port[0]["trainer"]["losses"][:2],
+                                   rtol=1e-4, atol=1e-4)
         return
+    if item == "item 20":
+        calls, real = [], dist_imagenet.data.prefetch_batches
+
+        def owned(*a, **k):
+            calls.append(k["copy"])
+            return real(*a, **dict(k, copy=True))
+
+        def train():
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = dist_imagenet.run(dist_imagenet.parser().parse_args(
+                    [*TRAINER, "--batch-per-chip", "2", "--steps", "2",
+                     *flag]))
+            distributed.shutdown()
+            return res
+
+        views = train()
+        monkeypatch.setattr(dist_imagenet.data, "prefetch_batches", owned)
+        copies = train()
+        assert calls == [False]  # the trainer asked for views
+        assert len(views["loader_wait_s"]) == 2
+        assert copies["losses"] == views["losses"]
+        return
+    flag = [*flag, "--loader", "sync"]
     monkeypatch.chdir(tmp_path)
     small = ["--device", "cpu", "--batch-per-chip", "2", "--image-size",
              "32", "--classes", "10"]

@@ -18,7 +18,9 @@
   `gpt_lm`'s resume; retry, the Watchdog, SpikeDetector, a supervised
   crash heal and the babysitter's module entry; a fleet agent of one
   host through ``babysit --fleet``, which never initialises CUDA, and
-  the native bucket planner);
+  the native bucket planner; the native prefetch loader and
+  `prefetch_batches`, the profiler's timers and `xla_trace`,
+  `utils.virtual` and the multi-slice mesh);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -42,6 +44,7 @@ PORT_FILES = sorted((ROOT / "singa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_gpt.py",
     ROOT / "scripts" / "ab_torch_kernels.py",
     ROOT / "scripts" / "profile_torch_serve.py",
+    ROOT / "scripts" / "trace_loss_torch.py",
     ROOT / "tests" / "helper_torch_fleet.py",
     ROOT / "tests" / "helper_torch_babysat_server.py"]
 
@@ -548,3 +551,43 @@ def test_fleet_agent_and_native_planner_run_with_jax_and_reference_blocked(
     assert "rc 0 cuda False" in lines, out.stdout
     assert "[[0, 1], [2]] 1" in lines, out.stdout
     assert (rdv / "DONE").exists()
+
+
+def test_utils_and_loader_run_with_jax_and_reference_blocked(tmp_path):
+    """The native prefetch loader (g++'s build of
+    native/dataloader_core.cc), `utils.data.prefetch_batches`,
+    `utils.profiler` and `utils.virtual` import and run with JAX and the
+    reference blocked: a view and a copy from the loader, a StepTimer, a
+    phase report, a CPU trace, `--virtual-devices 0` as a no-op and the
+    one-slice mesh of a world-1 gloo group."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from singa_tpu_torch import distributed, native\n"
+        "from singa_tpu_torch.utils import data, profiler, virtual\n"
+        "x = np.arange(40, dtype=np.float32).reshape(10, 4)\n"
+        "y = np.arange(10, dtype=np.int32)\n"
+        "loader = native.NativeLoader(x, y, 4, copy=False)\n"
+        "bx, by = next(loader)\n"
+        "print(bx.shape, bx.flags.owndata, native.native_call_count())\n"
+        "loader.close()\n"
+        "print(len(list(data.prefetch_batches(x, y, 4, 5))))\n"
+        "t = profiler.StepTimer()\n"
+        "with t.step(sync=torch.ones(2)):\n"
+        "    with profiler.phase('p'):\n"
+        "        pass\n"
+        f"with profiler.xla_trace({str(tmp_path)!r}) as tr:\n"
+        "    torch.ones(4, 4).sum()\n"
+        "print(t.summary()['steps'], profiler.phase_report()['p']['calls'],\n"
+        "      tr.path.endswith('.json'))\n"
+        "virtual.ensure(0, 'x')\n"
+        "distributed.init(device='cpu')\n"
+        "print(distributed.global_mesh(dcn_mesh_shape=(1,)).ranks)\n"
+        "distributed.shutdown()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:4] == [
+        "(4, 4) False 1", "5", "1 1 True", "(0,)"]

@@ -6,10 +6,16 @@ its `run` inside a 4-rank gloo group with both `--seq-impl` values
 runs), one spawn for the file. A sharded run trains the same global
 batch as the world-1 run, so its losses are held to it at 2e-4 (the
 sequence-parallel models' tolerance, `tests/test_torch_sp_model.py`).
+`--virtual-devices 2` (two gloo ranks, one process each) is held to the
+reference's `--virtual-devices 2` within 1e-4.
 """
 
 import contextlib
 import io
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ from helper_torch_parity import _rank_many, run_ranks
 from singa_tpu_torch import distributed
 from singa_tpu_torch.examples import long_context
 
+ROOT = Path(__file__).resolve().parents[1]
 SMALL = ["--device", "cpu", "--steps", "2", "--seq-len", "128",
          "--layers", "1", "--d-model", "64"]
 RING = SMALL + ["--heads", "2"]
@@ -70,7 +77,34 @@ def test_ulysses_over_two_by_two_matches_world_one(ranks):
                                    rtol=2e-4, atol=2e-4)
 
 
-def test_virtual_devices_raise_naming_the_item():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        long_context.run(long_context.parser().parse_args(
-            SMALL + ["--virtual-devices", "8"]))
+def test_virtual_devices_raise_naming_the_item(tmp_path):
+    """`--virtual-devices 2` runs the trainer as two gloo ranks, one
+    process each (mesh (data 1, sp 2): the ring over both), and its
+    losses equal the reference's `examples/long_context.py
+    --virtual-devices 2` with the same flags, started from the port's
+    initial weights (`tests/helper_torch_virtual.py`: the packages draw
+    their initial weights from different generators), within 1e-4.
+    Step 1 holds the gradient sync over sp: with each rank's own
+    gradient in place of the average, its loss is 6.9232, not 6.9411."""
+    states = tmp_path / "init.zip"
+    out = long_context.run(long_context.parser().parse_args(
+        RING + ["--steps", "0"]))
+    out["model"].save_states(str(states))
+    distributed.shutdown()
+    ref = subprocess.Popen(
+        [sys.executable, "tests/helper_torch_virtual.py",
+         "examples/long_context.py", "--virtual-devices", "2", *RING[2:]],
+        cwd=ROOT, env=dict(os.environ, SINGA_TORCH_INIT_STATES=str(states)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    port = subprocess.run(
+        [sys.executable, "-m", "singa_tpu_torch.examples.long_context",
+         "--virtual-devices", "2", *RING], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    want, err = ref.communicate(timeout=120)
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, err
+    assert "mesh (data=1, sp=2)" in port.stdout
+    assert "mesh (data=1, sp=2)" in want
+    assert len(losses(port.stdout)) == 2
+    np.testing.assert_allclose(losses(port.stdout), losses(want), rtol=1e-4,
+                               atol=1e-4)

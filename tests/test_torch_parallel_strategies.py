@@ -5,15 +5,20 @@ counterpart of examples/parallel_strategies.py and of the reference's
 printing every line. Held: every entry's line in the reference's order
 (each entry trains its steps with finite losses or raises), the skip
 notices of the entries a world of 4 does not factor, the native DP
-entry's line naming its ROADMAP item, and the closing line.
+entry's line naming its ROADMAP item, and the closing line. The runner
+at world 2, through `--virtual-devices 2`, runs to its closing line.
 """
 
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
 from helper_torch_parity import _rank_strategies, run_ranks
 
+ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 
 #: the reference's lines at world 4 (`__graft_entry__.run_all_strategies`
@@ -63,7 +68,22 @@ EXPECTED = [
 
 
 @pytest.fixture(scope="module")
-def lines(tmp_path_factory):
+def world_two():
+    """`python -m singa_tpu_torch.examples.parallel_strategies
+    --virtual-devices 2 --device cpu`, started before the 4-rank spawn
+    so that it runs beside it."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "singa_tpu_torch.examples.parallel_strategies",
+         "--virtual-devices", "2", "--device", "cpu"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def lines(tmp_path_factory, world_two):
     return run_ranks(_rank_strategies, WORLD,
                      tmp_path_factory.mktemp("ranks"))
 
@@ -92,3 +112,18 @@ def test_the_closing_line_is_printed_last(lines):
     for r in range(WORLD):
         assert lines[r][-1].startswith("dp (DistOpt graph step") and \
             lines[r][-1].endswith(": OK")
+
+
+def test_world_two_through_virtual_devices(world_two):
+    """At world 2 (two gloo ranks through `--virtual-devices 2`) the sp
+    and ep cases' meshes are (data 2, sp 1) and (data 2, expert 1): an
+    axis of one rank adds nothing to DistOpt's `grad_axes`, and the
+    runner checks the axis only where it has more than one rank (it
+    checked wherever the world did, and failed here)."""
+    out, err = world_two.communicate(timeout=120)
+    assert world_two.returncode == 0, err
+    got = out.splitlines()
+    assert "[dryrun] SP model-level (train_one_batch): ok" in got
+    assert "[dryrun] EP model-level (train_one_batch): ok" in got
+    assert got[-1].startswith("dp (DistOpt graph step") and \
+        got[-1].endswith(": OK")

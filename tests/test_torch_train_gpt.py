@@ -243,16 +243,19 @@ def test_example_trainer_lowers_the_loss():
     assert "--- sample ---" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--virtual-devices", "8",
+@pytest.mark.parametrize("flag", [["--virtual-devices", "2",
                                    "--scan-blocks"],
                                   ["--save-every", "5"],
-                                  ["--virtual-devices", "8"],
+                                  ["--virtual-devices", "2"],
                                   ["--checkpoint", "ckpt.zip"]])
 def test_example_trainer_refuses_unported_options(flag, tmp_path,
                                                  monkeypatch, capsys):
-    """On either decoder (the unrolled default, or --scan-blocks),
-    --virtual-devices raises naming its ROADMAP item. `--shard-states`
-    is ported (tests/test_torch_zero1.py), and so are `--save-every` and
+    """Every option runs. `--virtual-devices 2` trains either decoder
+    (the unrolled default at dropout 0, or --scan-blocks) as two gloo
+    ranks, one process each, DistOpt over both, and its losses equal one
+    process's on the same global batch (`--batch` twice as large,
+    AdamW alone) within 1e-5. `--shard-states` is ported
+    (tests/test_torch_zero1.py), and so are `--save-every` and
     `--checkpoint`: with them the trainer writes a checkpoint at the
     cadence (`--save-every 5` over 5 steps: step 5 committed) and resumes
     from the one it finds (`--checkpoint ckpt.zip` after a 2-step run
@@ -260,10 +263,22 @@ def test_example_trainer_refuses_unported_options(flag, tmp_path,
     from singa_tpu_torch import resilience
     from singa_tpu_torch.examples import gpt_lm
 
-    argv = ["--device", "cpu", "--steps", "1", *flag]
     if "--virtual-devices" in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gpt_lm.main(argv)
+        small = ["--device", "cpu", "--steps", "3", "--seq", "16",
+                 "--d-model", "16", "--heads", "2", "--sample-chars", "0",
+                 "--dropout", "0"]
+        run = subprocess.run(
+            [sys.executable, "-m", "singa_tpu_torch.examples.gpt_lm",
+             *small, "--batch", "2", *flag], cwd=ROOT, capture_output=True,
+            text=True, timeout=120)
+        assert run.returncode == 0, run.stderr
+        assert "DistOpt over 2 chips (gloo)" in run.stdout
+        got = [float(line.split("loss ")[1].split()[0])
+               for line in run.stdout.splitlines() if line.startswith("step")]
+        one = gpt_lm.run(gpt_lm.parser().parse_args(
+            [*small, "--batch", "4", *flag[2:]]))
+        assert one["world"] == 1 and len(got) == 3
+        np.testing.assert_allclose(got, one["losses"], rtol=1e-5, atol=1e-4)
         return
     monkeypatch.chdir(tmp_path)
     small = ["--device", "cpu", "--batch", "2", "--seq", "16", "--d-model",
