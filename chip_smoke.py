@@ -440,6 +440,18 @@ Phases, in the order they run (any failure raises and exits non-zero):
    time; one captured replay traced (its kernel events printed); one
    replay timed by `StepTimer(sync=)` and by CUDA events. The trace
    directory is deleted at the end;
+9r. item 21's shardlint (`lint_path`): gpt_medium with
+   `zero3_axis="data"` (seeded weights, 4 x 1024, fp32, SGD with
+   momentum, use_graph=True) over a world-1 NCCL group.
+   `analysis.trace_step` records one uncaptured step (12 launches of
+   each fused flash kernel), then captures and replays it (12 recorded
+   in the capture), and puts every state back; R1, R2, R4 and R5 lint
+   it clean: R2 finds `all_gather@data` = 12 (len(STACKED)) in each of
+   the 12 blocks, R5 every state tensor at its address across the
+   capture and the replay. Two captured steps after the lint give the
+   losses of an unlinted twin's two steps bitwise. The twin then takes
+   a planted step that re-binds `decoder.w_o.data` after the update:
+   its lint fails R5, against a real CUDA Graph;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -447,7 +459,8 @@ Phases, in the order they run (any failure raises and exits non-zero):
    step's beside the others; K2a's at Xception's four pool shapes and
    its 4 launches a step; the sequence-, tensor-parallel, ZeRO-3, MoE
    and pipelined steps' launches and the head-split figures at their
-   shapes; phase 9q's traced step's and prefetched step's launches),
+   shapes; phase 9q's traced step's and prefetched step's launches;
+   phase 9r's linted step's, uncaptured and in the capture apart),
    then the result line.
 
 fp32 products run in full fp32: TF32 is off for matmuls and cuDNN.
@@ -7512,6 +7525,137 @@ def utils_path(torch, fa, mp, card):
     return dict(prefetch=k2a, trace=flash), out
 
 
+# -- 9r. item 21's shardlint over the captured ZeRO-3 gpt_medium step --------
+
+#: every per-step launch count of a gpt_medium training step
+FUSED_12 = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+            "max_pool_bwd": 0}
+
+
+def lint_path(torch, fa, mp, card):
+    """Phase 9r (module docstring): shardlint over the captured ZeRO-3
+    gpt_medium step at full width. Returns the linted step's launches
+    ({"uncaptured": ..., "capture": ...}) and the numbers."""
+    from singa_tpu_torch import analysis, distributed, opt
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models.gpt import gpt_medium
+    from singa_tpu_torch.parallel import mesh as mesh_module
+
+    t0 = time.perf_counter()
+    distributed.init(device="cuda")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              "phase 9r: the world-1 group is not NCCL")
+        mesh = mesh_module.get_mesh((1,), ("data",))
+        rng = np.random.default_rng(SEED)
+        seq = torch.from_numpy(rng.integers(
+            0, GPT_MEDIUM_VOCAB, (Z3_BATCH, Z3_SEQ + 1))).cuda()
+        x, y = seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+        states = None
+
+        def build():
+            nonlocal states
+            m = gpt_medium(device="cuda", zero3_axis="data")
+            if states is None:
+                load_singa_tpu_params(m, seeded_params(m, SEED))
+            m.set_optimizer(opt.DistOpt(opt.SGD(lr=Z3_LR, momentum=0.9),
+                                        mesh=mesh, axis_name="data"))
+            m.compile([x], is_train=True, use_graph=True)
+            if states is None:
+                states = {k: v.detach().clone()
+                          for k, v in m.get_states().items()}
+            else:
+                m.set_states(states)
+            return m
+
+        def two_steps(m):
+            losses = []
+            for _ in range(2):
+                losses.append(m(x, y)[1].item())
+            gs = m._train_step
+            check((gs.captures, gs.replays) == (1, 1),
+                  f"phase 9r: {gs.captures} captures and {gs.replays} "
+                  f"replays in two steps, not 1 and 1")
+            return losses
+
+        # 1. the lint: one uncaptured step recorded, a capture, a replay
+        m = build()
+        reset_counts(fa, mp)
+        t = time.perf_counter()
+        tr = analysis.trace_step(m, x, y, target="zero3_gpt_medium")
+        rep = analysis.run_rules(tr, target="zero3_gpt_medium")
+        lint_s = time.perf_counter() - t
+        total = counts(fa, mp)
+        print(rep.summary(), flush=True)
+        launches = {"uncaptured": tr.launches["recorded"],
+                    "capture": tr.launches["again"]}
+        blocks = {}
+        label = tr.scopes.get(id(m.decoder))
+        for r in tr.local_records():
+            if r.phase == "forward" and r.block and r.block[0] == label:
+                key = f"{r.op}@{r.axis}"
+                blocks.setdefault(r.block[1], {}).setdefault(key, 0)
+                blocks[r.block[1]][key] += 1
+        print(f"lint ({card}): {lint_s:.1f} s; found schedule "
+              f"{rep.schedule}; per block {blocks}; across "
+              f"{tr.state['across']}: {len(tr.state['snapshots'][0])} "
+              f"state tensors; launches {launches}; census "
+              f"{rep.collectives}", flush=True)
+        check(rep.ok, f"phase 9r: the ZeRO-3 gpt_medium step does not "
+                      f"lint clean:\n{rep.summary()}")
+        want = {"all_gather@data": len(m.decoder.STACKED)}
+        check(rep.schedule == {"expected": want, "found": want}
+              and sorted(blocks) == list(range(12))
+              and all(b == want for b in blocks.values()),
+              f"phase 9r: R2's schedule {rep.schedule}, blocks {blocks}")
+        check(tr.state["across"] == "the capture and a replay of the step"
+              and tr.state["snapshots"][0] == tr.state["snapshots"][1],
+              "phase 9r: R5 did not read the capture and a replay")
+        check(launches == {"uncaptured": FUSED_12, "capture": FUSED_12}
+              and total == {k: 2 * v for k, v in FUSED_12.items()},
+              f"phase 9r: the linted step launched {launches} (total "
+              f"{total}), not 12 of each fused kernel uncaptured and 12 "
+              f"in the capture")
+
+        # 2. training goes on bitwise where it was
+        linted = two_steps(m)
+        del m, tr
+        drop_graphs(torch)
+        twin = build()
+        unlinted = two_steps(twin)
+        print(f"lint ({card}): two steps after the lint {linted}, an "
+              f"unlinted twin's {unlinted}", flush=True)
+        check(linted == unlinted, "phase 9r: the losses after the lint "
+                                  "differ from the unlinted twin's")
+
+        # 3. the planted re-bind fails R5 against a real CUDA Graph
+        step = twin._user_train_one_batch
+
+        def rebinding(*a, **kw):
+            out = step(*a, **kw)
+            twin.decoder.w_o.data = twin.decoder.w_o.data.clone()
+            return out
+
+        twin._user_train_one_batch = rebinding
+        bad = analysis.lint_step(twin, x, y, target="planted_rebind")
+        print(bad.summary(), flush=True)
+        check([v.rule for v in bad.violations] == ["R5"]
+              and bad.violations[0].subject == "param:decoder.w_o",
+              f"phase 9r: the planted re-bind was not flagged by R5 "
+              f"alone:\n{bad.summary()}")
+        del twin, step, rebinding
+    finally:
+        distributed.shutdown()
+    drop_graphs(torch)
+    out = dict(ok=rep.ok, schedule=rep.schedule, blocks=len(blocks),
+               collectives=rep.collectives, launches=launches,
+               lint_s=lint_s, losses_after_lint=linted,
+               twin_losses=unlinted, planted=bad.summary(), card=card,
+               wall_s=time.perf_counter() - t0)
+    print(f"lint: phase 9r {out['wall_s']:.1f} s ({card})", flush=True)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -7851,6 +7995,12 @@ def main() -> int:
     reset_counts(fa, mp)
     utils_launches, utils_out = utils_path(torch, fa, mp, card)
 
+    # 9r. item 21's shardlint: the captured ZeRO-3 gpt_medium step lints
+    # clean (12 launches of each fused kernel uncaptured, 12 in the
+    # capture), training goes on bitwise, a planted re-bind fails R5
+    reset_counts(fa, mp)
+    lint_launches, lint_out = lint_path(torch, fa, mp, card)
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -7946,6 +8096,8 @@ def main() -> int:
                  "fleet_gpt_medium_step": fleet_launches["flash_fwd"],
                  "traced_gpt_medium_step":
                      utils_launches["trace"]["flash_fwd"],
+                 "lint_zero3_gpt_medium_step": {
+                     k: v["flash_fwd"] for k, v in lint_launches.items()},
                  **sp_counts("flash_fwd")},
              bert_base=at_bert("flash_fwd", None, ()),
              head_split_sp=at_cases(None, (), sp_cases),
@@ -7980,6 +8132,8 @@ def main() -> int:
                     heal_launches["gpt_medium"][name],
                 "fleet_gpt_medium_step": fleet_launches[name],
                 "traced_gpt_medium_step": utils_launches["trace"][name],
+                "lint_zero3_gpt_medium_step": {
+                    k: v[name] for k, v in lint_launches.items()},
                 **sp_counts(name)},
             bert_base=at_bert(name, key, grads),
             head_split_sp=at_cases(key, grads, sp_cases),
@@ -8054,6 +8208,7 @@ def main() -> int:
     print("heal " + json.dumps(heal_out), flush=True)
     print("fleet " + json.dumps(fleet_out), flush=True)
     print("utils " + json.dumps(utils_out), flush=True)
+    print("lint " + json.dumps(lint_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,11 @@ functional collectives over mesh axis names (the live axes of
 `parallel.mesh`'s context), differentiable `torch.autograd.Function`s
 over each axis's process group.
 
+Each collective here first calls `analysis.trace.record` (a no-op
+unless a shardlint recorder is active), naming the mesh axis it serves;
+an axis of one rank that a functional collective skips is recorded as
+not run.
+
 `plan_buckets` plans through the native library (`native/comm_core.cc`,
 `singa_tpu_torch.native.plan_buckets_native`), as the reference's
 distributed step can: the fused all-reduce and ZeRO-1's overlapped
@@ -78,6 +83,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from singa_tpu_torch import autograd
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["Communicator", "DistOpt", "plan_buckets",
@@ -115,16 +121,17 @@ class _GroupMean(torch.autograd.Function):
     reference's `pmean`."""
 
     @staticmethod
-    def forward(ctx, x, group, world):
-        ctx.group, ctx.world = group, world
-        return _mean(x, group, world)
+    def forward(ctx, x, group, world, axis):
+        ctx.group, ctx.world, ctx.axis = group, world, axis
+        return _mean(x, group, world, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _mean(g, ctx.group, ctx.world), None, None
+        return _mean(g, ctx.group, ctx.world, ctx.axis), None, None, None
 
 
-def _mean(x: torch.Tensor, group, world: int) -> torch.Tensor:
+def _mean(x: torch.Tensor, group, world: int, axis) -> torch.Tensor:
+    _trace.record("psum", x, axis=axis, group=group)
     y = x.contiguous().clone()
     dist.all_reduce(y, group=group)
     return y / world
@@ -132,8 +139,9 @@ def _mean(x: torch.Tensor, group, world: int) -> torch.Tensor:
 
 def group_mean(x: torch.Tensor, group, world: int) -> torch.Tensor:
     """The differentiable mean of `x` over a process `group` of `world`
-    ranks (batchnorm's cross-replica moments)."""
-    return _GroupMean.apply(x, group, world)
+    ranks (batchnorm's cross-replica moments, over the batch axis)."""
+    return _GroupMean.apply(x, group, world,
+                            mesh_module.current_batch_axis())
 
 
 # -- the functional collectives over axis names (reference :61-90) --------------
@@ -151,8 +159,19 @@ def _live_axes(axes) -> Tuple[str, ...]:
     return tuple(a for a in axes if mesh_module.axis_size(a) > 1)
 
 
+def _skipped(op: str, x: torch.Tensor, axes, live) -> None:
+    """Record the axes of one rank that a functional collective skips
+    (the reference's program reduces over them all the same)."""
+    if _trace.recording():
+        for a in (axes,) if isinstance(axes, str) else axes:
+            if a not in live:
+                _trace.record(op, x, axis=a, group=mesh_module.axis_group(a),
+                              ran=False)
+
+
 def _reduce_groups(x: torch.Tensor, groups, mean: bool) -> torch.Tensor:
-    for group, size in groups:
+    for group, size, axis in groups:
+        _trace.record("psum", x, axis=axis, group=group)
         y = x.contiguous().clone()
         dist.all_reduce(y, group=group)
         x = y / size if mean else y
@@ -166,8 +185,8 @@ class _AxesReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axes, mean):
-        ctx.groups = [(mesh_module.axis_group(ax), mesh_module.axis_size(ax))
-                      for ax in axes]
+        ctx.groups = [(mesh_module.axis_group(ax), mesh_module.axis_size(ax),
+                       ax) for ax in axes]
         ctx.mean = mean
         return _reduce_groups(x, ctx.groups, mean)
 
@@ -179,6 +198,7 @@ class _AxesReduce(torch.autograd.Function):
 def psum_over(x: torch.Tensor, axes) -> torch.Tensor:
     """The sum of `x` over the named mesh axes (one name or several)."""
     live = _live_axes(axes)
+    _skipped("psum", x, axes, live)
     return _AxesReduce.apply(x, live, False) if live else x
 
 
@@ -186,6 +206,7 @@ def pmean_over(x: torch.Tensor, axes) -> torch.Tensor:
     """The mean of `x` over the named mesh axes (graph.py's merge of the
     loss, the extra gradient axes of DistOpt)."""
     live = _live_axes(axes)
+    _skipped("psum", x, axes, live)
     return _AxesReduce.apply(x, live, True) if live else x
 
 
@@ -196,14 +217,16 @@ class _BroadcastFrom(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis, root):
-        ctx.group = mesh_module.axis_group(axis)
+        ctx.group, ctx.axis = mesh_module.axis_group(axis), axis
         ctx.mine = mesh_module.axis_index(axis) == root
+        _trace.record("psum", x, axis=axis, group=ctx.group)
         y = (x if ctx.mine else torch.zeros_like(x)).contiguous().clone()
         dist.all_reduce(y, group=ctx.group)
         return y
 
     @staticmethod
     def backward(ctx, g):
+        _trace.record("psum", g, axis=ctx.axis, group=ctx.group)
         y = g.contiguous().clone()
         dist.all_reduce(y, group=ctx.group)
         if not ctx.mine:
@@ -216,6 +239,7 @@ def broadcast_from(x: torch.Tensor, axis_name: str, root: int = 0
     """Shard `root`'s value of `x` on every rank of a live axis (Bert's
     CLS row, which lives on sequence shard 0)."""
     if mesh_module.axis_size(axis_name) == 1:
+        _skipped("psum", x, axis_name, ())
         return x
     return _BroadcastFrom.apply(x, axis_name, int(root))
 
@@ -225,22 +249,25 @@ class _GatherTiled(torch.autograd.Function):
     reduce-scatters (sums) the cotangent back to this rank's shard."""
 
     @staticmethod
-    def forward(ctx, x, group, world, dim):
-        ctx.cfg = (group, world, dim)
-        return _gather_dim(x, group, world, dim)
+    def forward(ctx, x, group, world, dim, axis):
+        ctx.cfg = (group, world, dim, axis)
+        return _gather_dim(x, group, world, dim, axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        group, world, dim = ctx.cfg
-        return _scatter_dim(g, group, world, dim), None, None, None
+        group, world, dim, axis = ctx.cfg
+        return (_scatter_dim(g, group, world, dim, axis=axis), None, None,
+                None, None)
 
 
 def _gather_dim(x: torch.Tensor, group, world: int, dim: int,
-                async_op: bool = False):
+                async_op: bool = False, axis: Optional[str] = None):
     """The shards of the group joined along `dim`: gathered into a
     leading world dim (the backends gather along dim 0), then moved.
     With `async_op` returns (work, finish), `finish()` giving the
-    result once the work is waited on."""
+    result once the work is waited on. `axis` names the mesh axis for
+    the shardlint record."""
+    _trace.record("all_gather", x, axis=axis, group=group)
     y = x.contiguous()
     flat = y.new_empty((world * y.shape[0], *y.shape[1:]))
     work = _all_gather_into_tensor(flat, y, group=group, async_op=async_op)
@@ -253,9 +280,10 @@ def _gather_dim(x: torch.Tensor, group, world: int, dim: int,
     return (work, finish) if async_op else finish()
 
 
-def _scatter_dim(g: torch.Tensor, group, world: int,
-                 dim: int) -> torch.Tensor:
+def _scatter_dim(g: torch.Tensor, group, world: int, dim: int,
+                 axis: Optional[str] = None) -> torch.Tensor:
     """This rank's chunk along `dim` of the sum of `g` over the group."""
+    _trace.record("reduce_scatter", g, axis=axis, group=group)
     shape = list(g.shape)
     n = shape[dim] // world
     send = g.reshape(*shape[:dim], world, n, *shape[dim + 1:]).movedim(
@@ -278,9 +306,10 @@ def all_gather_tiled(x: torch.Tensor, axis_name: str,
         return x
     group = mesh_module.axis_group(axis_name)
     if group is None:
+        _trace.record("all_gather", x, axis=axis_name, ran=False)
         return x
     return _GatherTiled.apply(x, group, mesh_module.axis_size(axis_name),
-                              dim)
+                              dim, axis_name)
 
 
 def pspec_axis_names(p) -> frozenset:
@@ -335,6 +364,7 @@ class Communicator:
                 and dist.is_initialized())
 
     def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        _trace.record("psum", x, axis=self.axis_name, group=self.group)
         y = x.contiguous().clone()
         dist.all_reduce(y, group=self.group)
         return y
@@ -342,6 +372,7 @@ class Communicator:
     def _gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """The shards of every rank joined along `axis`, by the backend's
         own all-gather into one tensor."""
+        _trace.record("all_gather", x, axis=self.axis_name, group=self.group)
         y = x.movedim(axis, 0).contiguous()
         out = y.new_empty((self.world_size * y.shape[0], *y.shape[1:]))
         _all_gather_into_tensor(out, y, group=self.group)
@@ -350,6 +381,8 @@ class Communicator:
     def _scatter(self, x: torch.Tensor, axis: int) -> torch.Tensor:
         """This rank's chunk along `axis` of the sum over the group, by
         the backend's own reduce-scatter."""
+        _trace.record("reduce_scatter", x, axis=self.axis_name,
+                      group=self.group)
         y = x.movedim(axis, 0).contiguous()
         if y.shape[0] % self.world_size:
             raise ValueError(
@@ -416,6 +449,7 @@ class Communicator:
         """Rank `root`'s value on every rank."""
         if not self._active():
             return x
+        _trace.record("broadcast", x, axis=self.axis_name, group=self.group)
         y = x.contiguous().clone()
         dist.broadcast(y, dist.get_global_rank(self.group, root)
                        if self.group is not dist.group.WORLD else root,
@@ -444,6 +478,8 @@ class Communicator:
             flat = torch.cat([arrays[i].permute(orders[i]).reshape(-1)
                               for i in bucket])
             if reduce:
+                _trace.record("psum", flat, axis=self.axis_name,
+                              group=self.group)
                 dist.all_reduce(flat, group=self.group)
                 if average:
                     flat = flat / self.world_size

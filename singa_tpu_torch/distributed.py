@@ -329,7 +329,7 @@ def gather_full(t: torch.Tensor) -> torch.Tensor:
             world = mesh.axis_size(a)
             if g is None or world == 1:
                 continue
-            out = gather_in_group(out, g, world, dim)
+            out = gather_in_group(out, g, world, dim, axis=a)
     return out
 
 

@@ -10,8 +10,9 @@ group, and prints the reference's `[dryrun] ...: ok` line; the five
 hand-written steps of `parallel.raw_steps` run one step each, as the
 reference's do. An entry whose mesh the world does not factor prints
 the reference's skip notice. The reference's native DP entry (a
-C++-emitted StableHLO step run through PJRT) is ROADMAP queue 1 item 21
-and prints that it is not ported. The steps run uncaptured.
+C++-emitted StableHLO step run through PJRT, `native/hlo_bridge.py`) is
+ROADMAP queue 1 item 22 and prints that it is not ported. The steps run
+uncaptured.
 
 Every rank runs this module with its `--rank`; `--world` and
 `--coordinator` ("host:port", or an init method such as
@@ -426,7 +427,8 @@ def run_all_strategies(devs) -> None:
     _two_steps("dp_zero1_half", devs)
     print("[dryrun] DP zero-1 half-wire (bf16 rs/ag): ok")
     print("[dryrun] DP native C++ training step: not ported (the "
-          "C++-emitted StableHLO step is ROADMAP queue 1 item 21)")
+          "C++-emitted StableHLO step run through PJRT, "
+          "singa_tpu/native/hlo_bridge.py, ROADMAP queue 1 item 22)")
     _two_steps("scan_tp", devs)
     print("[dryrun] scan x TP GPT (train_one_batch): ok")
     _, stats = _memory("scan_zero3", devs)

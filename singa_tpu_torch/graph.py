@@ -87,6 +87,21 @@ is made under `torch.inference_mode`, where no tape can be recorded.
 `step_memory_analysis(model, *args, train=True)` runs the step once on
 the given inputs and puts the model and optimizer state back; see
 `GraphStep.memory_analysis` for its keys.
+
+Shardlint's artifacts (reference :873-905, :1095-1201).
+`GraphStep.lint_artifacts(*args)` (and `step_lint_artifacts(model,
+*args)`) runs the step under an `analysis.trace.CollectiveRecorder`,
+then again, and snapshots every state tensor's address, dtype and shape
+after each run: on the card the first call runs uncaptured (recorded)
+and the second captures and replays the step, so the snapshots frame
+the capture and a replay; on the CPU they frame two plain calls. Then
+it puts every state back in place (parameters, buffers, the optimizer's
+slots and step counter, the sentinel's scalars, the CPU, CUDA and rank
+generators), so training goes on bitwise where it was, and drops the
+graph it made. `collect_lint_artifacts(run, state, ...)` is the same
+over any step function (the serving engines'). `hlo_text(model,
+*args)` keeps the reference's name for a text dump of the recorded
+collectives, one line a call: a PyTorch step has no HLO.
 """
 
 from __future__ import annotations
@@ -113,7 +128,8 @@ from singa_tpu_torch.ops import max_pool
 __all__ = ["GraphStep", "CAPTURE_LOCK", "private_stream", "plan_from_ops",
            "fault_counters", "step_memory_analysis", "tape_memory_plan",
            "check_param_shard_divisibility", "check_sharded_layers",
-           "check_pipelined_stacks"]
+           "check_pipelined_stacks", "collect_lint_artifacts",
+           "step_lint_artifacts", "hlo_text"]
 
 _log = logging.getLogger("singa_tpu_torch.graph")
 
@@ -523,9 +539,9 @@ class GraphStep:
 
     # ------------------------------------------------------------------
     def memory_analysis(self, *args, **kwargs) -> Dict[str, int]:
-        """Run the step once, uncaptured, on these inputs, put the
-        parameters, buffers, optimizer state and random streams back, and
-        return the reference's keys (singa_tpu/graph.py:910-975):
+        """Run the step once, uncaptured, on these inputs, put its state
+        back (`_TrainingState`), and return the reference's keys
+        (singa_tpu/graph.py:910-975):
 
         - `temp_bytes`: the bytes the step saves for its backward (each
           storage once; parameters and buffers are state, not counted),
@@ -570,14 +586,7 @@ class GraphStep:
                 saved[ptr] = t.untyped_storage().nbytes()
             return t
 
-        with torch.no_grad():
-            keep = ([t.detach().clone() for t in params + bufs],
-                    {k: v.detach().clone() if isinstance(v, torch.Tensor)
-                     else v for k, v in (opt.dump_states().items()
-                                         if opt is not None else ())})
-        rng = torch.get_rng_state()
-        cuda_rng = (torch.cuda.get_rng_state(dev) if dev.type == "cuda"
-                    else None)
+        keep = _TrainingState(model, opt)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
             base = torch.cuda.memory_allocated(dev)
@@ -594,14 +603,7 @@ class GraphStep:
                 temp = max(temp, torch.cuda.max_memory_allocated(dev) - base)
             del out, outs
         finally:
-            with torch.no_grad():
-                for t, v in zip(params + bufs, keep[0]):
-                    t.copy_(v)
-            if opt is not None:
-                opt.load_states(keep[1])
-            torch.set_rng_state(rng)
-            if cuda_rng is not None:
-                torch.cuda.set_rng_state(cuda_rng, dev)
+            keep.restore()
         state = sum(_nbytes(t) for t in params + bufs + slots)
         alias = state if self.train_step else 0
         res = {"temp_bytes": int(temp),
@@ -614,6 +616,42 @@ class GraphStep:
         res["attention_bytes"] = self._attention_bytes(tensors)
         res["gathered_block_bytes"] = self._gathered_block_bytes()
         return res
+
+    # ------------------------------------------------------------------
+    def _state_tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor the step keeps as state, by name: parameters,
+        buffers and, for a training step, the optimizer's slots and
+        scalars and its device step counter."""
+        model = self.model
+        out = {f"param:{n}": t for n, t in model.named_parameters()}
+        out.update((f"buffer:{n}", t) for n, t in model.named_buffers())
+        opt = model.optimizer if self.train_step else None
+        if opt is not None:
+            for k, v in opt.dump_states().items():
+                if isinstance(v, torch.Tensor) and k != "__step__":
+                    out[f"opt:{k}"] = v
+            out["opt:__step__"] = getattr(opt, "opt", opt)._step
+        return out
+
+    def lint_artifacts(self, *args, **kwargs) -> Dict[str, Any]:
+        """Shardlint's artifacts of this step on these inputs (module
+        docstring): {"records", "scopes", "mesh", "comm_axis", "state",
+        "launches"}. The step's state is put back and the graph this
+        made is dropped."""
+        opt = self.model.optimizer if self.train_step else None
+        comm = getattr(opt, "comm", None)
+        keep = _TrainingState(self.model, opt)
+        cuda = any(p.is_cuda for p in self.model.parameters())
+        try:
+            return collect_lint_artifacts(
+                lambda: self(*args, **kwargs), self._state_tensors,
+                mesh=getattr(comm, "mesh", None),
+                comm_axis=getattr(comm, "axis_name", None),
+                across=("the capture and a replay of the step" if cuda
+                        else "two calls of the step"))
+        finally:
+            self._cache.clear()
+            keep.restore()
 
     def _gathered_block_bytes(self) -> int:
         from singa_tpu_torch.communicator import pspec_axis_names
@@ -747,6 +785,95 @@ def check_sharded_layers(model, mesh, model_moe_axis, ep_world: int
                     f"size")
 
 
+class _TrainingState:
+    """A copy of what a step changes, put back in place by `restore`:
+    parameters, buffers, the optimizer's `dump_states` (slots, the step
+    counter, the sentinel's scalars, DistOpt's residuals and master
+    shard) and its master-shard flag, the CPU and CUDA generators and
+    the rank generators (`autograd.rank_draws`; one the step made is
+    forgotten, so the next step makes it again)."""
+
+    def __init__(self, model, opt):
+        self.model, self.opt = model, opt
+        self.tensors = list(model.parameters()) + list(model.buffers())
+        with torch.no_grad():
+            self.values = [t.detach().clone() for t in self.tensors]
+            self.opt_states = None if opt is None else {
+                k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                for k, v in opt.dump_states().items()}
+        self.master_set = getattr(opt, "_z_master_set", None)
+        self.rng = torch.get_rng_state()
+        self.cuda_rng = (torch.cuda.get_rng_state_all()
+                         if torch.cuda.is_initialized() else None)
+        self.rank_gens = {k: (v[0].get_state(), v[1])
+                          for k, v in autograd._RANK_GENERATORS.items()}
+        self.rank_restored = dict(autograd._RANK_RESTORED)
+
+    def restore(self) -> None:
+        with torch.no_grad():
+            for t, v in zip(self.tensors, self.values):
+                t.copy_(v)
+        if self.opt is not None:
+            self.opt.load_states(self.opt_states)
+            if self.master_set is not None:
+                self.opt._z_master_set = self.master_set
+        torch.set_rng_state(self.rng)
+        if self.cuda_rng is not None:
+            torch.cuda.set_rng_state_all(self.cuda_rng)
+        gens = autograd._RANK_GENERATORS
+        for k in list(gens):
+            if k not in self.rank_gens:
+                del gens[k]
+            else:
+                state, seed = self.rank_gens[k]
+                gens[k][0].set_state(state)
+                gens[k][1] = seed
+        autograd._RANK_RESTORED.clear()
+        autograd._RANK_RESTORED.update(self.rank_restored)
+
+
+def _kernel_launches() -> Dict[str, int]:
+    return {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+            "max_pool_bwd": max_pool.MAX_POOL_BWD_LAUNCHES}
+
+
+def _snapshot(state: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    return {n: (t.data_ptr(), str(t.dtype).replace("torch.", ""),
+                tuple(int(s) for s in t.shape)) for n, t in state.items()}
+
+
+def collect_lint_artifacts(run: Callable, state: Callable, mesh=None,
+                           comm_axis: Optional[str] = None,
+                           again: Optional[Callable] = None,
+                           across: str = "two calls of the step"
+                           ) -> Dict[str, Any]:
+    """`run()` once under a collective recorder, then `again()` (default:
+    `run` again) unrecorded; `state()` ({name: tensor}) is snapshotted
+    after each. Returns {"records" (every rank of `mesh`'s group,
+    merged after both runs), "scopes", "mesh", "comm_axis", "state":
+    {"across", "snapshots"}, "launches": the kernels each run launched
+    ({"recorded", "again"})}. The caller puts the state back."""
+    from singa_tpu_torch.analysis.trace import CollectiveRecorder
+
+    start = _kernel_launches()
+    with CollectiveRecorder() as rec:
+        run()
+    first = _kernel_launches()
+    snaps = [_snapshot(state())]
+    (again or run)()
+    second = _kernel_launches()
+    snaps.append(_snapshot(state()))
+    group = getattr(mesh, "group", None)
+    return {"records": rec.merged(group), "scopes": dict(rec.scopes),
+            "mesh": mesh, "comm_axis": comm_axis,
+            "state": {"across": across, "snapshots": snaps},
+            "launches": {
+                "recorded": {k: first[k] - start[k] for k in first},
+                "again": {k: second[k] - first[k] for k in first}}}
+
+
 def _step_for(model, train: bool) -> GraphStep:
     """A fresh GraphStep over the model's training step (or forward)."""
     method = model.forward
@@ -766,3 +893,17 @@ def step_memory_analysis(model, *args, train: bool = True) -> Dict[str, int]:
     forward) on these inputs; the remat policies' memory floors are
     measured with it."""
     return _step_for(model, train).memory_analysis(*args)
+
+
+def step_lint_artifacts(model, *args, train: bool = True) -> Dict[str, Any]:
+    """`GraphStep.lint_artifacts` of a model's training step (or eval
+    forward) on these inputs: what shardlint's rules read."""
+    return _step_for(model, train).lint_artifacts(*args)
+
+
+def hlo_text(model, *args, train: bool = True) -> str:
+    """The recorded collectives of one step on these inputs, one line a
+    call, every rank's (the reference returns the lowered StableHLO; a
+    PyTorch step has none, and this dump is what shardlint reads)."""
+    art = step_lint_artifacts(model, *args, train=train)
+    return "\n".join(r.line() for recs in art["records"] for r in recs)

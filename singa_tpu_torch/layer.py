@@ -76,6 +76,7 @@ from singa_tpu_torch import autograd
 from singa_tpu_torch import device as device_module
 from singa_tpu_torch import layout as layout_module
 from singa_tpu_torch import tensor as tensor_module
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.ops import flash_attention as fa
 from singa_tpu_torch.parallel import mesh as mesh_module
 from singa_tpu_torch.parallel import tp as tp_module
@@ -641,9 +642,13 @@ class ScanTransformerStack(Layer):
         group = mesh_module.axis_group(self.zero3_axis)
         world = mesh_module.axis_size(self.zero3_axis)
         if group is None:
+            for t in shards:
+                _trace.record("all_gather", t, axis=self.zero3_axis,
+                              ran=False)
             got = tuple(t.detach() for t in shards)
             return lambda: got
-        pending = [_gather_dim(t.detach(), group, world, d, async_op=True)
+        pending = [_gather_dim(t.detach(), group, world, d, async_op=True,
+                               axis=self.zero3_axis)
                    for t, d in zip(shards, dims)]
 
         def finish():
@@ -674,8 +679,9 @@ class ScanTransformerStack(Layer):
                                        else params))
 
         block = autograd.remat_wrap(body, self.remat)
-        for params in blocks:
-            x = block(x, *params)
+        for i, params in enumerate(blocks):
+            with _trace.block(i, self):
+                x = block(x, *params)
         return x
 
     def _prefetched(self, x: torch.Tensor, blocks) -> torch.Tensor:
@@ -685,13 +691,15 @@ class ScanTransformerStack(Layer):
         n = len(blocks)
         buf = self._gather_block(blocks[0], async_op=True)()
         for k in range(n):
-            pending = self._gather_block(blocks[(k + 1) % n], async_op=True)
-            broken = _MUTATE_CONSUME_CURRENT_GATHER
-            if broken:  # the mutation test: block k on block k+1's gather
-                buf = pending()
-            x = _PrefetchedBlock.apply(x, self, buf, *blocks[k])
-            if not broken:
-                buf = pending()
+            with _trace.block(k, self):  # block k+1's gather is in k's
+                pending = self._gather_block(blocks[(k + 1) % n],
+                                             async_op=True)
+                broken = _MUTATE_CONSUME_CURRENT_GATHER
+                if broken:  # the mutation test: k on k+1's gather
+                    buf = pending()
+                x = _PrefetchedBlock.apply(x, self, buf, *blocks[k])
+                if not broken:
+                    buf = pending()
         return x
 
 
@@ -739,7 +747,8 @@ class _PrefetchedBlock(torch.autograd.Function):
                 dshards.append(g)
             else:
                 dshards.append(_scatter_dim(
-                    g, group, world, stack._z3_gather_axes.get(name, 0)))
+                    g, group, world, stack._z3_gather_axes.get(name, 0),
+                    axis=stack.zero3_axis))
         return (grads[0], None, None, *dshards)
 
 

@@ -47,6 +47,7 @@ from typing import Callable
 
 import torch
 
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["pipeline_apply"]
@@ -115,6 +116,10 @@ def pipeline_apply(stage_fn: Callable, params_local, x: torch.Tensor,
         if me == last and t >= last:
             outs.append(h_out)
         if t < n_ticks - 1:
+            if ring is None and live:  # one rank: nothing moves
+                _trace.record("ppermute", h_out, axis=axis_name,
+                              group=mesh_module.axis_group(axis_name),
+                              peer=(0, 0), ran=False)
             inbuf = h_out if ring is None else _Rotate.apply(ring,
                                                              h_out)[0]
     if me == last:

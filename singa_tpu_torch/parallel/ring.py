@@ -61,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 from singa_tpu_torch import autograd
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["ring_attention", "full_attention", "ring_permutation",
@@ -125,13 +126,24 @@ class _Ring:
     global ranks, which `dist.P2POp` takes)."""
 
     def __init__(self, axis_name: str):
+        self.axis = axis_name
         self.world = mesh_module.axis_size(axis_name)
         self.index = mesh_module.axis_index(axis_name)
         self.group = mesh_module.axis_group(axis_name)
-        ranks = dist.get_process_group_ranks(self.group) if (
+        self.ranks = dist.get_process_group_ranks(self.group) if (
             self.world > 1) else [0]
-        self.next = ranks[(self.index + 1) % self.world]
-        self.prev = ranks[(self.index - 1) % self.world]
+        self.next = self.ranks[(self.index + 1) % self.world]
+        self.prev = self.ranks[(self.index - 1) % self.world]
+
+    def record(self, tensors, dst: int, ran: bool = True) -> None:
+        """One shardlint ppermute record a tensor sent to global rank
+        `dst` (`ran=False`: a rotation the reference makes and the ring
+        elides)."""
+        if _trace.recording():
+            peer = (self.index, self.ranks.index(dst))
+            for t in tensors:
+                _trace.record("ppermute", t, axis=self.axis,
+                              group=self.group, peer=peer, ran=ran)
 
     def post(self, tensors, forward: bool):
         """Send `tensors` one step round the ring (to the next rank when
@@ -139,6 +151,7 @@ class _Ring:
         other side; returns (received buffers, pending works)."""
         dst, src = (self.next, self.prev) if forward else (self.prev,
                                                            self.next)
+        self.record(tensors, dst)
         sent = [t.contiguous() for t in tensors]
         got = [torch.empty_like(t) for t in sent]
         ops = [dist.P2POp(dist.isend, t, dst, group=self.group)
@@ -242,6 +255,8 @@ def _hops(ring: _Ring, pipelined: bool):
     def start(s, kc, vc):
         state["kv"] = None
         if s == ring.world - 1:
+            # the reference's last ppermute brings the blocks home
+            ring.record((kc, vc), ring.next, ran=False)
             return
         if pipelined:
             hop = _Hop()

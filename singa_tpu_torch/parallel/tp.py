@@ -46,6 +46,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = [
@@ -115,6 +116,8 @@ def psum_identity_bwd(axis_name: str):
     def g(a: torch.Tensor) -> torch.Tensor:
         group = _group(axis_name)
         if group is None:
+            if mesh_module.in_axis(axis_name):  # a live axis, no group
+                _trace.record("psum", a, axis=axis_name, ran=False)
             return a
         return _PsumIdentityBwd.apply(a, axis_name, group)
 
@@ -320,19 +323,23 @@ def psum_in_group(x: torch.Tensor, group, axis_name: str,
     serving step's "g" (on a product's fresh output, which a captured
     decode step records) and the core of the autograd "g" and "f"."""
     COUNTS[kind, axis_name] += 1
+    _trace.record("psum", x, axis=axis_name, group=group)
     y = x.contiguous()
     dist.all_reduce(y, group=group)
     return y
 
 
 def gather_in_group(x: torch.Tensor, group, world: int,
-                    dim: int = -1) -> torch.Tensor:
+                    dim: int = -1, axis: Optional[str] = None
+                    ) -> torch.Tensor:
     """The blocks of `x` on the `world` ranks of `group` joined along
     `dim` in rank order, by one all-gather into one tensor, without
     autograd or a count (`distributed.gather_full` and the counted
-    gathers below)."""
+    gathers below); `axis` names the mesh axis for the shardlint
+    record."""
     from singa_tpu_torch.communicator import _all_gather_into_tensor
 
+    _trace.record("all_gather", x, axis=axis, group=group)
     y = x.contiguous()
     out = y.new_empty((world * y.shape[0],) + tuple(y.shape[1:]))
     _all_gather_into_tensor(out, y, group=group)
@@ -346,4 +353,4 @@ def gather_cols_in_group(x: torch.Tensor, group, axis_name: str,
     autograd: the serving step's logits gather and `gather_cols`'
     forward."""
     COUNTS["gather", axis_name] += 1
-    return gather_in_group(x, group, world, -1)
+    return gather_in_group(x, group, world, -1, axis=axis_name)

@@ -24,15 +24,17 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.parallel import mesh as mesh_module
 
 __all__ = ["ulysses_attention", "all_to_all"]
 
 
-def _exchange(x: torch.Tensor, group, world: int,
-              to_heads: bool) -> torch.Tensor:
+def _exchange(x: torch.Tensor, group, world: int, to_heads: bool,
+              axis: str) -> torch.Tensor:
     """(B, H, T, D) -> (B, H/W, W*T, D) when `to_heads` (scatter the
     heads, gather the sequence in rank order), else the inverse."""
+    _trace.record("all_to_all", x, axis=axis, group=group)
     b, h, t, d = x.shape
     if to_heads:  # chunk j of the heads goes to rank j
         send = x.reshape(b, world, h // world, t, d).movedim(1, 0)
@@ -52,17 +54,19 @@ class _SeqHeads(torch.autograd.Function):
     the inverse exchange."""
 
     @staticmethod
-    def forward(ctx, x, group, world, to_heads):
-        ctx.cfg = (group, world, to_heads)
-        return _exchange(x, group, world, to_heads)
+    def forward(ctx, x, group, world, to_heads, axis):
+        ctx.cfg = (group, world, to_heads, axis)
+        return _exchange(x, group, world, to_heads, axis)
 
     @staticmethod
     def backward(ctx, g):
-        group, world, to_heads = ctx.cfg
-        return _exchange(g, group, world, not to_heads), None, None, None
+        group, world, to_heads, axis = ctx.cfg
+        return (_exchange(g, group, world, not to_heads, axis), None, None,
+                None, None)
 
 
-def _swap(x: torch.Tensor, group) -> torch.Tensor:
+def _swap(x: torch.Tensor, group, axis: str) -> torch.Tensor:
+    _trace.record("all_to_all", x, axis=axis, group=group)
     send = x.contiguous()
     got = torch.empty_like(send)
     dist.all_to_all_single(got, send, group=group)
@@ -75,13 +79,13 @@ class _AllToAll(torch.autograd.Function):
     is its own transpose, so the backward runs it on the cotangent."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _swap(x, group)
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _swap(x, group, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _swap(g, ctx.group), None
+        return _swap(g, ctx.group, ctx.axis), None, None
 
 
 def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
@@ -94,8 +98,10 @@ def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not "
                          f"the {world} ranks of axis {axis_name!r}")
     if world == 1:
+        _trace.record("all_to_all", x, axis=axis_name,
+                      group=mesh_module.axis_group(axis_name), ran=False)
         return x
-    return _AllToAll.apply(x, mesh_module.axis_group(axis_name))
+    return _AllToAll.apply(x, mesh_module.axis_group(axis_name), axis_name)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,10 +126,17 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = mesh_module.axis_group(axis_name)
 
     def seq_to_heads(x):
-        return x if world == 1 else _SeqHeads.apply(x, group, world, True)
+        return _one_rank(x) if world == 1 else _SeqHeads.apply(
+            x, group, world, True, axis_name)
 
     def heads_to_seq(x):
-        return x if world == 1 else _SeqHeads.apply(x, group, world, False)
+        return _one_rank(x) if world == 1 else _SeqHeads.apply(
+            x, group, world, False, axis_name)
+
+    def _one_rank(x):  # nothing moves; the reference's exchange is there
+        _trace.record("all_to_all", x, axis=axis_name, group=group,
+                      ran=False)
+        return x
 
     if use_flash:
         from singa_tpu_torch.ops import flash_attention as fa

@@ -109,6 +109,7 @@ import torch
 import torch.nn.functional as F
 
 from singa_tpu_torch import layer
+from singa_tpu_torch.analysis import trace as _trace
 from singa_tpu_torch.distributed import block_of
 from singa_tpu_torch.graph import CAPTURE_LOCK, private_stream
 from singa_tpu_torch.models.gpt import GPT, pick_rows
@@ -343,6 +344,7 @@ class _PrefillPlan:
                 h = self._header(engine, 1, ctx[i * r:(i + 1) * r],
                                  t0m1[i * r:(i + 1) * r])
                 keep.append(h)
+                _trace.record("send", h, peer=(me, o))
                 works.append(dist.isend(h, o, tag=self._HEADER))
         mine = self.decode.index(me)
         shards = []
@@ -353,15 +355,17 @@ class _PrefillPlan:
                 for j, d in enumerate(self.decode):
                     if d != me:
                         keep.extend(parts[j])
-                        works.extend(
-                            dist.isend(t, d, tag=self._PARTS + k)
-                            for k, t in enumerate(parts[j]))
+                        for k, t in enumerate(parts[j]):
+                            _trace.record("send", t, peer=(me, d))
+                            works.append(dist.isend(t, d,
+                                                    tag=self._PARTS + k))
                 shards.append(parts[mine])
                 continue
             bufs = [torch.empty(shape, dtype=dt, device=engine.device)
                     for shape, dt in engine._part_shapes(r)]
-            works.extend(dist.irecv(t, o, tag=self._PARTS + k)
-                         for k, t in enumerate(bufs))
+            for k, t in enumerate(bufs):
+                _trace.record("recv", t, peer=(o, me))
+                works.append(dist.irecv(t, o, tag=self._PARTS + k))
             shards.append(bufs)
         return _PrefillTransfer(works, keep, shards, engine._event(),
                                 lockstep=self.tp > 1)
@@ -374,15 +378,18 @@ class _PrefillPlan:
         served = 0
         while True:
             h = self._header(engine, 0)
+            _trace.record("recv", h, peer=(self.leader, self.me))
             dist.recv(h, self.leader, tag=self._HEADER)
             if int(h[0]) == 0:
                 return served
             body = h[1:].view(self.rows, w + 1).cpu().numpy()
             with torch.inference_mode():
                 parts = self._parts(engine, body[:, :w], body[:, w])
-            works = [dist.isend(t, d, tag=self._PARTS + k)
-                     for j, d in enumerate(self.decode)
-                     for k, t in enumerate(parts[j])]
+            works = []
+            for j, d in enumerate(self.decode):
+                for k, t in enumerate(parts[j]):
+                    _trace.record("send", t, peer=(self.me, d))
+                    works.append(dist.isend(t, d, tag=self._PARTS + k))
             for wk in works:
                 wk.wait()
             served += 1
@@ -398,7 +405,9 @@ class _PrefillPlan:
             return
         for o in self.owners:
             if o not in self.decode:
-                dist.send(self._header(engine, 0), o, tag=self._HEADER)
+                h = self._header(engine, 0)
+                _trace.record("send", h, peer=(self.me, o))
+                dist.send(h, o, tag=self._HEADER)
 
 
 class _PrefillTransfer:
@@ -890,15 +899,18 @@ class ServingEngine:
         self._graph.replay()
         return self._graph_out
 
-    def _build_decode_forward(self, heads=None, hd=None):
+    def _build_decode_forward(self, heads=None, hd=None, scope=None):
         """The decode forward shared by the step and `peek_logits`:
         every float op mirrors the model's dense `decode_step` (same
         einsums, masking and fp32 LayerNorm), with the dense per-slot
         cache replaced by the paged gather. Dims default to the target's
         (the speculative engine builds its draft micro-step at the
         draft's); on a tp mesh `heads` are this rank's, and the row
-        products' all-reduces and the logits gather close the step."""
+        products' all-reduces and the logits gather close the step.
+        Block i runs in shardlint's block scope (i, `scope`), the engine
+        itself unless given (the draft's micro-step names its own)."""
         heads = self._hl if heads is None else heads
+        scope = self if scope is None else scope
         hd = self.hd if hd is None else hd
         window = self.window
         scale = hd ** -0.5
@@ -910,34 +922,39 @@ class ServingEngine:
             f = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
             return reduce(f @ bp["w2"]) + bp["b2"]
 
+        def block(h, bp, kpool, vpool, page_table, pos, live, s):
+            qkv = h @ bp["wqkv"] + bp["bqkv"]
+            q, k, v = (a.reshape(s, heads, hd)
+                       for a in qkv.chunk(3, dim=-1))
+            kv.token_write(kpool, page_table, pos, k)
+            kv.token_write(vpool, page_table, pos, v)
+            kc = kv.gather(kpool, page_table)
+            vc = kv.gather(vpool, page_table)
+            sc = torch.einsum("bhd,bhwd->bhw", q.float(),
+                              kc.float()) * scale
+            sc = sc.masked_fill(~live, -1e30)
+            p = torch.softmax(sc, dim=-1)
+            o = torch.einsum("bhw,bhwd->bhd", p, vc.float())
+            a = reduce(o.reshape(s, heads * hd) @ bp["wo"]) + bp["bo"]
+            h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
+            return ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
+
         def forward(pv, kpools, vpools, page_table, tok, pos):
             s = tok.shape[0]
             h = pv["tok"][tok] + pv["pos"][pos.clamp(max=window - 1)]
             live = (torch.arange(window, device=tok.device)[None, None, :]
                     <= pos[:, None, None])               # (S, 1, W)
             for i, bp in enumerate(pv["blocks"]):
-                qkv = h @ bp["wqkv"] + bp["bqkv"]
-                q, k, v = (a.reshape(s, heads, hd)
-                           for a in qkv.chunk(3, dim=-1))
-                kv.token_write(kpools[i], page_table, pos, k)
-                kv.token_write(vpools[i], page_table, pos, v)
-                kc = kv.gather(kpools[i], page_table)
-                vc = kv.gather(vpools[i], page_table)
-                sc = torch.einsum("bhd,bhwd->bhw", q.float(),
-                                  kc.float()) * scale
-                sc = sc.masked_fill(~live, -1e30)
-                p = torch.softmax(sc, dim=-1)
-                o = torch.einsum("bhw,bhwd->bhd", p, vc.float())
-                a = reduce(o.reshape(s, heads * hd) @ bp["wo"]) + bp["bo"]
-                h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
-                h = ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
+                with _trace.block(i, scope):
+                    h = block(h, bp, kpools[i], vpools[i], page_table, pos,
+                              live, s)
             hf = ln(h, pv["lnf_s"], pv["lnf_o"])
             return gather(hf @ pv["head_w"] + pv["head_b"])  # (S, V)
 
         return forward
 
     def _build_window_forward(self, width: int, heads=None, hd=None,
-                              with_logits: bool = True):
+                              with_logits: bool = True, scope=None):
         """`width` new tokens per row at positions start + j, j < width:
         each block writes their K/V through the page table
         (`window_write`, never `pages_write`: a warm row maps SHARED
@@ -947,8 +964,9 @@ class ServingEngine:
         chunk and the speculative verify pass. Returns logits
         (B, width, V), or None with `with_logits=False` (the draft
         cache's writer, which needs only the writes). On a tp mesh, as
-        the decode forward."""
+        the decode forward; block scopes as there."""
         heads = self._hl if heads is None else heads
+        scope = self if scope is None else scope
         hd = self.hd if hd is None else hd
         window = self.window
         scale = hd ** -0.5
@@ -960,6 +978,26 @@ class ServingEngine:
             f = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
             return reduce(f @ bp["w2"]) + bp["b2"]
 
+        def block(h, bp, kpool, vpool, page_table, start, live, b):
+            qkv = h @ bp["wqkv"] + bp["bqkv"]
+            q, k, v = qkv.chunk(3, dim=-1)
+            q = q.reshape(b, width, heads, hd).transpose(1, 2)
+            k = k.reshape(b, width, heads, hd)
+            v = v.reshape(b, width, heads, hd)
+            kv.window_write(kpool, page_table, start, k)
+            kv.window_write(vpool, page_table, start, v)
+            kc = kv.gather(kpool, page_table)   # (B, H, W, hd)
+            vc = kv.gather(vpool, page_table)
+            sc = torch.einsum("bhqd,bhwd->bhqw", q.float(),
+                              kc.float()) * scale
+            sc = sc.masked_fill(~live, -1e30)
+            p = torch.softmax(sc, dim=-1)
+            o = torch.einsum("bhqw,bhwd->bhqd", p, vc.float())
+            a = reduce(o.transpose(1, 2).reshape(b, width, heads * hd)
+                       @ bp["wo"]) + bp["bo"]
+            h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
+            return ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
+
         def forward(pv, kpools, vpools, page_table, toks, start):
             b = toks.shape[0]
             steps = torch.arange(width, device=toks.device)
@@ -968,24 +1006,9 @@ class ServingEngine:
             live = (torch.arange(window, device=toks.device)
                     [None, None, None, :] <= qpos[:, None, :, None])
             for i, bp in enumerate(pv["blocks"]):
-                qkv = h @ bp["wqkv"] + bp["bqkv"]
-                q, k, v = qkv.chunk(3, dim=-1)
-                q = q.reshape(b, width, heads, hd).transpose(1, 2)
-                k = k.reshape(b, width, heads, hd)
-                v = v.reshape(b, width, heads, hd)
-                kv.window_write(kpools[i], page_table, start, k)
-                kv.window_write(vpools[i], page_table, start, v)
-                kc = kv.gather(kpools[i], page_table)   # (B, H, W, hd)
-                vc = kv.gather(vpools[i], page_table)
-                sc = torch.einsum("bhqd,bhwd->bhqw", q.float(),
-                                  kc.float()) * scale
-                sc = sc.masked_fill(~live, -1e30)
-                p = torch.softmax(sc, dim=-1)
-                o = torch.einsum("bhqw,bhwd->bhqd", p, vc.float())
-                a = reduce(o.transpose(1, 2).reshape(b, width, heads * hd)
-                           @ bp["wo"]) + bp["bo"]
-                h = ln(h + a, bp["ln1_s"], bp["ln1_o"])
-                h = ln(h + ffn(h, bp), bp["ln2_s"], bp["ln2_o"])
+                with _trace.block(i, scope):
+                    h = block(h, bp, kpools[i], vpools[i], page_table,
+                              start, live, b)
             if not with_logits:
                 return None
             hf = ln(h, pv["lnf_s"], pv["lnf_o"])
@@ -1131,6 +1154,70 @@ class ServingEngine:
             for t, old in zip(pools, saved):
                 t[:, blocks, rows] = old
             return logits.float().cpu().numpy()
+
+    # -- shardlint's surface (reference :1166-1215) ------------------------
+
+    def declared_schedule(self, mesh) -> Dict:
+        """The collectives the sharded decode step declares (shardlint
+        R2's source of truth, as `ScanTransformerStack.declared_schedule`
+        is for training): each block's two Megatron "g" all-reduces, and
+        a whole-step `census` with the ONE logits all-gather
+        (`tp.LOGITS_GATHERS_PER_STEP`), which a dropped gather (each rank
+        picking from its own vocab slice) fails."""
+        from singa_tpu_torch.parallel import tp as tp_module
+
+        ax = self.tp_axis
+        if ax is None or mesh is None or ax not in mesh.shape:
+            return {"n_blocks": self._n_layers, "per_block": {}}
+        L = self._n_layers
+        return {
+            "n_blocks": L,
+            "per_block": {("psum", ax): tp_module.PSUMS_PER_BLOCK},
+            "census": {
+                ("psum", ax): tp_module.PSUMS_PER_BLOCK * L,
+                ("all_gather", ax): tp_module.LOGITS_GATHERS_PER_STEP,
+            },
+        }
+
+    def _lint_step(self):
+        """One uncaptured decode step over the slots as they stand."""
+        return self._step_fn()
+
+    def _lint_replay(self) -> None:
+        """The captured step once (on the card), else another call."""
+        if self._graph is None:
+            self._lint_step()
+        else:
+            self._graph.replay()
+
+    def lint_artifacts(self, *unused) -> Dict:
+        """Shardlint's artifacts of ONE decode step (`analysis.trace_step`
+        dispatches here; the serving twin of `GraphStep.lint_artifacts`):
+        the step recorded uncaptured, then the captured step replayed (a
+        second call on the CPU); the state R5 holds in place is the KV
+        pools. The pools are put back afterwards."""
+        from singa_tpu_torch.graph import collect_lint_artifacts
+
+        if self.mesh is None:
+            raise NotImplementedError(
+                "lint_artifacts is the SHARDED engine's surface: a "
+                "single-device engine has no collectives to audit")
+        pools = self._cow_pools()
+        with torch.inference_mode():
+            self._upload()
+            keep = [t.clone() for t in pools]
+            try:
+                return collect_lint_artifacts(
+                    self._lint_step,
+                    lambda: {f"kv_pool:{i}": t for i, t in enumerate(
+                        self._cow_pools())},
+                    mesh=self.mesh, again=self._lint_replay,
+                    across=("a replay of the captured step"
+                            if self.device.type == "cuda"
+                            else "two calls of the step"))
+            finally:
+                for t, v in zip(pools, keep):
+                    t.copy_(v)
 
     # -- admission / eviction ------------------------------------------------
 

@@ -223,7 +223,7 @@ class SpeculativeEngine(ServingEngine):
         self._draft_write_prefill = self._build_write_prefill(
             self._dhl, self.d_hd)
         self._propose = self._build_propose(self._build_decode_forward(
-            self._dhl, self.d_hd))
+            self._dhl, self.d_hd, scope=self._d_step_pv))
         self._verify = self._build_verify()
 
         self._decode_builds = self._verify_builds = 1
@@ -237,6 +237,41 @@ class SpeculativeEngine(ServingEngine):
         self._propose_graph.replay()
         self._verify_graph, self._verify_out = self._capture(
             lambda: self._verify_fn(*self._propose_out))
+
+    # -- shardlint's surface (reference :268-330) --------------------------
+
+    def declared_schedule(self, mesh) -> Dict:
+        """The round's declared collectives: per block, the verify pass's
+        two Megatron all-reduces (the target's blocks); over the whole
+        round, the draft's two a block in each of its K+1 micro-steps
+        beside them, and one logits all-gather a micro-step plus
+        verify's."""
+        from singa_tpu_torch.parallel import tp as tp_module
+
+        ax = self.tp_axis
+        if ax is None or mesh is None or ax not in mesh.shape:
+            return {"n_blocks": self._n_layers, "per_block": {}}
+        lt, ld, kp1 = self._n_layers, self._d_layers, self.spec_k + 1
+        g = tp_module.LOGITS_GATHERS_PER_STEP
+        return {
+            "n_blocks": lt,
+            "per_block": {("psum", ax): tp_module.PSUMS_PER_BLOCK},
+            "census": {
+                ("psum", ax): tp_module.PSUMS_PER_BLOCK * (lt + ld * kp1),
+                ("all_gather", ax): g * (kp1 + 1),
+            },
+        }
+
+    def _lint_step(self):
+        """One uncaptured propose + verify round."""
+        return self._verify_fn(*self._propose_fn())
+
+    def _lint_replay(self) -> None:
+        if self._verify_graph is None:
+            self._lint_step()
+        else:
+            self._propose_graph.replay()
+            self._verify_graph.replay()
 
     def _propose_fn(self):
         """Propose over the static inputs: (dtoks (S, K), dlogits

@@ -2377,3 +2377,10 @@ def _rank_supervisor_mesh(rank, world, directory, steps):
     except NotImplementedError as e:
         out["shrink"] = str(e)
     return out
+
+
+def _rank_analysis(rank, world):
+    """Shardlint over the port's ranks (tests/helper_torch_analysis.py)."""
+    import helper_torch_analysis
+
+    return helper_torch_analysis.rank_analysis(rank, world)

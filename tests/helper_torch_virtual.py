@@ -25,15 +25,25 @@ HERE = os.path.abspath(__file__)
 
 
 def fail_rank(rank: int) -> None:
+    """Two virtual-device ranks meet in a barrier; then rank `rank`
+    raises, its message stamped with `time.monotonic()` (one clock for
+    every process of the machine) just before, and its peer waits where
+    it cannot see the failure: a gloo collective would notice the closed
+    connection and fail at once, as a rank inside a wait on a card does
+    not. Only the parent's kill after `virtual.GRACE_S` ends the peer."""
+    import time
+
     import torch.distributed as dist
 
     from singa_tpu_torch.utils import virtual
 
     virtual.ensure(2, "tests.helper_torch_virtual",
                    ["--fail-rank", str(rank)])
+    dist.barrier()
     if dist.get_rank() == rank:
-        raise RuntimeError(f"rank {rank} fails on purpose")
-    dist.barrier()  # never returns: its peer is gone
+        raise RuntimeError(
+            f"rank {rank} fails on purpose at {time.monotonic():.6f}")
+    time.sleep(3600)  # never returns on its own
 
 
 def main() -> None:

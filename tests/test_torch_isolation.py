@@ -20,7 +20,8 @@
   host through ``babysit --fleet``, which never initialises CUDA, and
   the native bucket planner; the native prefetch loader and
   `prefetch_batches`, the profiler's timers and `xla_trace`,
-  `utils.virtual` and the multi-slice mesh);
+  `utils.virtual` and the multi-slice mesh; shardlint, its `lint_step`
+  and its command line over a gloo group of one);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -591,3 +592,37 @@ def test_utils_and_loader_run_with_jax_and_reference_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:4] == [
         "(4, 4) False 1", "5", "1 1 True", "(0,)"]
+
+
+def test_shardlint_runs_with_jax_and_reference_blocked():
+    """singa_tpu_torch.analysis (the recorder, the rules, the registry,
+    the command line) imports and runs with JAX and the reference
+    blocked: `lint_step` on a ZeRO-3 scanned GPT over a gloo group of
+    one is clean, and `python -m singa_tpu_torch.analysis --device cpu
+    --case scan_zero3` prints its report."""
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from singa_tpu_torch import analysis, distributed, graph\n"
+        "from singa_tpu_torch.analysis import cases, rules, trace\n"
+        "distributed.init(device='cpu')\n"
+        "m, args = cases.build_case('scan_zero3', [0])\n"
+        "rep = analysis.lint_step(m, *args)\n"
+        "print(rep.ok, rep.schedule['found'])\n"
+        "distributed.shutdown()\n"
+        "sys.argv = ['analysis', '--device', 'cpu', '--case', 'scan_zero3',\n"
+        "            '--out', '']\n"
+        "try:\n"
+        "    runpy.run_module('singa_tpu_torch.analysis',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit', e.code)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[0] == "True {'all_gather@data': 12}"
+    assert "OK   scan_zero3" in lines
+    assert "[shardlint] 1/1 clean" in lines and "exit 0" in lines

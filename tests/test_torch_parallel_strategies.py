@@ -31,7 +31,8 @@ EXPECTED = [
     r"\[dryrun\] DP dist_option=sparse-thresh: ok",
     r"\[dryrun\] DP zero-1 \(shard_states\): ok",
     r"\[dryrun\] DP zero-1 half-wire \(bf16 rs/ag\): ok",
-    r"\[dryrun\] DP native C\+\+ training step: not ported .*item 21\)",
+    r"\[dryrun\] DP native C\+\+ training step: not ported .*"
+    r"native/hlo_bridge\.py, ROADMAP queue 1 item 22\)",
     r"\[dryrun\] scan x TP GPT \(train_one_batch\): ok",
     r"\[dryrun\] DP zero-3 scan stack \(per-block gather\): ok \(per-shard "
     r"parameter bytes \d+\)",

@@ -21,13 +21,20 @@ singa_tpu/utils/virtual.py) on the CPU.
   `--virtual-devices 2` is held to the reference's in
   tests/test_torch_long_context.py.
 - A rank that raises makes the parent exit non-zero: its peer, blocked
-  in a barrier with it, is killed.
+  where it cannot see the failure, is killed after `virtual.GRACE_S`.
+  The test times the parent's own life from the rank's failure (the
+  rank stamps it) to the parent's exit (a thread waiting on the parent
+  stamps it), not from the fixture's start: the parity runs start
+  beside it and take their own time.
 - A CUDA `--device` beside `--virtual-devices` raises; 0 is a no-op.
 """
 
 import os
+import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -79,19 +86,40 @@ def dist_imagenet_runs(tmp_path_factory, failing_run):
     return finish(port, "the port"), finish(ref, "the reference")
 
 
+#: what the failing parent may take past `virtual.GRACE_S`, from the
+#: rank's failure to its own exit: the failed rank's interpreter ending,
+#: the parent's 50 ms poll, the kill and wait of the peer and the
+#: parent's exit, under a loaded machine
+EXIT_MARGIN_S = 10.0
+
+
 @pytest.fixture(scope="module")
 def failing_run():
     """Two virtual-device ranks of which rank 1 raises
     (`tests/helper_torch_virtual.py --fail-rank 1`), started before the
-    parity runs so that it runs beside them: (the parent, its start)."""
+    parity runs so that it runs beside them: {"rc", "err", "exited_at"},
+    filled by a thread that waits on the parent and stamps its exit on
+    `time.monotonic()` ("exited_at" None if it outlived the deadline)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "tests.helper_torch_virtual", "--fail-rank",
          "1"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-    yield proc, time.monotonic()
+        text=True, start_new_session=True)
+    got = {"rc": None, "err": "", "exited_at": None}
+
+    def wait():
+        try:
+            _, got["err"] = proc.communicate(timeout=SPAWN_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            return
+        got["exited_at"] = time.monotonic()
+        got["rc"] = proc.returncode
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    yield got, waiter
     if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+        os.killpg(proc.pid, signal.SIGKILL)  # the parent and its ranks
+    waiter.join()
 
 
 def test_dist_imagenet_over_two_virtual_devices_equals_the_reference(
@@ -107,12 +135,20 @@ def test_dist_imagenet_over_two_virtual_devices_equals_the_reference(
 
 
 def test_a_failing_rank_fails_the_parent(failing_run):
-    proc, start = failing_run
-    _, err = proc.communicate(timeout=SPAWN_DEADLINE_S)
-    assert proc.returncode == 1, err
-    assert "rank 1 fails on purpose" in err
+    got, waiter = failing_run
+    waiter.join(SPAWN_DEADLINE_S + 10)
+    err = got["err"]
+    assert got["exited_at"] is not None, (
+        f"the parent outlived {SPAWN_DEADLINE_S} s: its waiting peer was "
+        f"not killed after the grace")
+    assert got["rc"] == 1, err
+    m = re.search(r"rank 1 fails on purpose at (\d+\.\d+)", err)
+    assert m, err
     # the waiting peer was killed after the grace, not at its timeout
-    assert time.monotonic() - start < 90
+    lived = got["exited_at"] - float(m.group(1))
+    assert virtual.GRACE_S <= lived < virtual.GRACE_S + EXIT_MARGIN_S, (
+        f"the parent exited {lived:.2f} s after the rank failed, not "
+        f"within [{virtual.GRACE_S}, {virtual.GRACE_S + EXIT_MARGIN_S}) s")
 
 
 def test_refusals_and_no_ops(monkeypatch):
