@@ -393,10 +393,12 @@ Phases, in the order they run (any failure raises and exits non-zero):
    `SpikeDetector(8, 6, 2)`: one rollback, skipped [[2, 3]], finite
    losses, K2a 3 times a step (its three pool shapes are K2a cases of
    step 5); and, beside the last two, `python -m
-   singa_tpu_torch.resilience.babysit --stale-after 60 --max-restarts 2
-   -- python -c <child>` over the gpt_medium child (`babysat_child`: a
-   Watchdog and a save each step, SIGSTOP at step 1 on its first
-   incarnation) with the same child run unbroken without it: healed
+   singa_tpu_torch.resilience.babysit --stale-after 30 --max-restarts 2
+   -- python -c <child>` over the gpt_medium child at 6 of its 12 blocks
+   (`babysat_child`: a Watchdog and a save each step, SIGSTOP at step 1
+   on its first incarnation) with the same child run unbroken without
+   it; the longest stretch between two beats of each, outside the
+   SIGSTOP's, under the stale window: healed
    with one restart and one stale kill, the final checkpoints
    sha256-identical file by file, the killed incarnation gone (its
    /proc entry, and nvidia-smi's compute pids where they are of this
@@ -405,15 +407,17 @@ Phases, in the order they run (any failure raises and exits non-zero):
    first step. The directories are deleted at the end;
 9p. the babysitter fleet (`fleet_path`), started beside 9o's
    babysitter: `python -m singa_tpu_torch.resilience.babysit --fleet DIR
-   --fleet-rank 0 --fleet-world 1 --stale-after 60 -- python -c <child>`
-   over `fleet_child` (9o's gpt_medium under `DistOpt(AdamW)` over a
+   --fleet-rank 0 --fleet-world 1 --stale-after 30 -- python -c <child>`
+   over `fleet_child` (9o's child, gpt_medium at 6 of its 12 blocks,
+   under `DistOpt(AdamW)` over a
    world-1 NCCL group formed at the agent's brokered coordinator,
    `Supervisor(mesh_fn=default_mesh_fn(1))`, a save each step,
    `stale_host_at(1, rank=0)` on epoch 0), with the same child run
    unbroken with the same topology env and no agent: healed at epoch 1
    with one election and one stale trainer, DONE written, each epoch's
-   coordinator the one the agent brokered, 12 launches of each fused
-   kernel in every uncaptured or capturing step of each incarnation,
+   coordinator the one the agent brokered, 6 launches of each fused
+   kernel (one a block) in every uncaptured or capturing step of each
+   incarnation, the longest stretch between beats under the window,
    the final checkpoints sha256-identical file by file, the killed
    incarnation gone from /proc, the agent never with a /dev/nvidia*
    file open; the seconds from the SIGSTOP to the epoch bump and from
@@ -452,6 +456,20 @@ Phases, in the order they run (any failure raises and exits non-zero):
    losses of an unlinted twin's two steps bitwise. The twin then takes
    a planted step that re-binds `decoder.w_o.data` after the update:
    its lint fails R5, against a real CUDA Graph;
+9s. item 22's native training step (`native_path`): phase 9c's judged
+   MLP (`MLP(100, 10)`, seeded weights, dropout inactive, batch 64 of the
+   synthetic MNIST set) lowered by `hlo_bridge.lower_train_step` into one
+   StableHLO module of its plain-SGD step (lr 0.05), written by the
+   unedited `native/hlo_core.cc` (6 `dot_general`; census {} against the
+   declared {"all_reduce": 0}, R7 clean); the runtime runs it 200 steps on
+   the card (the first op by op, the second captured as one CUDA Graph,
+   198 replays), its losses and final parameters within rtol 2e-4, atol
+   2e-5 of the port's eager plain-SGD loop on the same weights and
+   batches; the first step's ms, the replays' steps/s and device ms
+   beside phase 9c's eager and captured figures, and the step's bound;
+   then over a world-1 NCCL group `run_replicated` (the bitwise replica
+   check) gives the run's first four losses, and a module of 2 replicas
+   is refused, naming 2 and 1. At most 30 s;
 10. print the `kernels` line (gpt_medium's fused fp32 shape, with the
    bf16 figures, the BERT-base shape's figures and launches per step,
    and the SASS census beside; a training step's launches are the ones
@@ -6366,10 +6384,17 @@ HEAL_STEPS = 6
 #: the supervised AlexNet's batch (ImageNet 224 x 224) and SGD step
 HEAL_ALEXNET_BATCH = 128
 HEAL_ALEXNET_LR = 1e-3
-#: the babysat child's steps and the babysitter's staleness window: it
-#: covers the child's import, build and a save between two beats
+#: the depth of 9o's babysat child and 9p's fleet child: gpt_medium's
+#: widths at half its 12 blocks, which the two phases' wait fits in the
+#: script's time limit (their checkpoints, saves and restores halve)
+CHILD_LAYERS = 6
+#: the babysat child's steps and the babysitter's staleness window: twice
+#: the longest stretch between two beats phase 9o measures (the child's
+#: start: import, CUDA, the model's build; 11.3 s at `CHILD_LAYERS`
+#: blocks, 17.6 s at 12, on an NVIDIA H100 80GB HBM3 at 700 W), and no
+#: less than 30 s
 BABYSAT_STEPS = 3
-BABYSAT_STALE_S = 60.0
+BABYSAT_STALE_S = 30.0
 #: gpt_medium's vocabulary (the batches are made before the model)
 GPT_MEDIUM_VOCAB = 32768
 #: the babysat child: `babysat_child` of this file, run by the babysitter
@@ -6388,15 +6413,16 @@ def heal_batches(torch, vocab, n):
     return [(s[:, :-1].contiguous(), s[:, 1:].contiguous()) for s in seq]
 
 
-def heal_gpt(x0):
-    """Phase 9n's gpt_medium (scanned, d 1024, 12 layers, 8 heads, fp32)
-    from the seeded weights, AdamW(3e-4), compiled for captured steps on
-    a batch like `x0`: every build the same."""
+def heal_gpt(x0, num_layers=12):
+    """Phase 9n's gpt_medium (scanned, d 1024, 8 heads, fp32; 12 layers
+    unless `num_layers` cuts the depth) from the seeded weights,
+    AdamW(3e-4), compiled for captured steps on a batch like `x0`: every
+    build the same."""
     from singa_tpu_torch import opt
     from singa_tpu_torch.model import load_singa_tpu_params
     from singa_tpu_torch.models.gpt import gpt_medium
 
-    m = gpt_medium(device="cuda")
+    m = gpt_medium(device="cuda", num_layers=num_layers)
     load_singa_tpu_params(m, seeded_params(m, SEED))
     m.set_optimizer(opt.AdamW(lr=3e-4))
     m.compile([x0], is_train=True, use_graph=True)
@@ -6471,8 +6497,9 @@ def holds_card(pid):
 
 
 def babysat_child(ckpt_dir, n_steps, hang):
-    """The babysat gpt_medium trainer (`BABYSAT_CHILD`): the generators
-    seeded, `heal_gpt`, a beat after the build, a resume from the latest
+    """The babysat gpt_medium trainer at `CHILD_LAYERS` blocks
+    (`BABYSAT_CHILD`): the generators seeded, `heal_gpt`, a beat after
+    the build, a resume from the latest
     committed step, a `Watchdog` around each step (its heartbeat from
     the babysitter's env), a save after each step (the newest two kept);
     with `hang`, a SIGSTOP at step 1 on the first incarnation only.
@@ -6493,7 +6520,7 @@ def babysat_child(ckpt_dir, n_steps, hang):
     print(f"BABYSAT pid {os.getpid()} restarts_external "
           f"{counters.snapshot().get('restarts_external', 0)}", flush=True)
     batches = heal_batches(torch, GPT_MEDIUM_VOCAB, n_steps)
-    m = heal_gpt(batches[0][0])
+    m = heal_gpt(batches[0][0], CHILD_LAYERS)
     resilience.touch_heartbeat(os.environ.get(resilience.HEARTBEAT_ENV))
     start = 0
     try:
@@ -6533,6 +6560,49 @@ def _sha_step_dir(step_dir):
     return out
 
 
+class BeatWatch:
+    """A thread that reads heartbeat files' mtimes every 0.25 s, each
+    while its process runs. `gaps(holes)`: the longest stretch each file
+    went without a new beat, from its process's spawn (where a
+    babysitter primes its file) to the process's exit, leaving out a
+    stretch that holds a host time of `holes` (a deliberate hang's)."""
+
+    def __init__(self, watched):
+        import threading
+
+        t0 = time.time()
+        self.watched = list(watched)  # (name, path, process)
+        self.seen = {name: [t0] for name, _, _ in self.watched}
+        self.end = {}
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while len(self.end) < len(self.watched):
+            for name, path, proc in self.watched:
+                if name in self.end:
+                    continue
+                try:
+                    m = os.stat(path).st_mtime
+                except OSError:
+                    m = 0.0
+                if m > self.seen[name][-1]:
+                    self.seen[name].append(m)
+                if proc.poll() is not None:
+                    self.end[name] = time.time()
+            time.sleep(0.25)
+
+    def gaps(self, holes=()):
+        self.thread.join(30)
+        out = {}
+        for name, ts in self.seen.items():
+            pts = ts + [self.end.get(name, time.time())]
+            out[name] = max((b - a for a, b in zip(pts, pts[1:])
+                             if not any(a <= h <= b for h in holes)),
+                            default=0.0)
+        return out
+
+
 def start_babysat(root):
     """Start the babysitter over the hanging child and, beside it, the
     same child unbroken without a babysitter. Returns the two processes,
@@ -6541,10 +6611,12 @@ def start_babysat(root):
     life, whether it has a /dev/nvidia* device open."""
     import threading
 
+    os.makedirs(root, exist_ok=True)
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     sitter = subprocess.Popen(
         [sys.executable, "-m", "singa_tpu_torch.resilience.babysit",
          "--stale-after", str(BABYSAT_STALE_S), "--max-restarts", "2",
+         "--heartbeat", f"{root}/heartbeat",
          "--", sys.executable, "-c", BABYSAT_CHILD, f"{root}/babysat",
          str(BABYSAT_STEPS), "--hang"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -6553,8 +6625,11 @@ def start_babysat(root):
         [sys.executable, "-c", BABYSAT_CHILD, f"{root}/unbroken",
          str(BABYSAT_STEPS)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env)
-    lines = {"sitter": [], "unbroken": [], "samples": []}
+        env=dict(env, SINGA_HEARTBEAT_FILE=f"{root}/unbroken_heartbeat"))
+    lines = {"sitter": [], "unbroken": [], "samples": [],
+             "beats": BeatWatch([
+                 ("babysat", f"{root}/heartbeat", sitter),
+                 ("unbroken", f"{root}/unbroken_heartbeat", unbroken)])}
 
     def read(name, proc):
         for ln in proc.stdout:
@@ -6614,6 +6689,12 @@ def finish_babysat(root, sitter, unbroken, lines, threads, card):
           f"kill:\n{text['sitter'][-3000:]}")
     kill = [(ts, ln) for ts, ln in lines["sitter"] if "SIGKILLing" in ln]
     check(len(kill) == 1, "babysat gpt_medium: no single stale kill line")
+    # the longest stretch between beats outside the SIGSTOP's: what the
+    # stale window must cover
+    gaps = lines["beats"].gaps(holes=[kill[0][0]])
+    check(max(gaps.values()) < BABYSAT_STALE_S,
+          f"babysat gpt_medium: a stretch between beats {gaps} reached the "
+          f"{BABYSAT_STALE_S:.0f} s stale window")
     killed_pid = int(kill[0][1].rsplit("pid ", 1)[1].rstrip(")"))
     pids = [int(ln.split()[2]) for _, ln in lines["sitter"]
             if ln.startswith("BABYSAT pid ")]
@@ -6657,7 +6738,8 @@ def finish_babysat(root, sitter, unbroken, lines, threads, card):
           f"babysat gpt_medium: the babysitter {sitter.pid} held the card "
           f"({len(samples)} samples)")
     print(f"babysat gpt_medium ({card}): healed, restarts 1, stale kills 1 "
-          f"(stale window {BABYSAT_STALE_S:.0f} s); incarnations {pids}, "
+          f"(stale window {BABYSAT_STALE_S:.0f} s, the longest stretch "
+          f"between beats {gaps}); incarnations {pids}, "
           f"killed {killed_pid}; final {os.path.basename(healed_dir)} "
           f"sha256-identical to the unbroken run's over {len(healed)} "
           f"files; kill to the respawn's first step {kill_to_step_s:.1f} s "
@@ -6670,6 +6752,7 @@ def finish_babysat(root, sitter, unbroken, lines, threads, card):
           f"{done[0]['captures']}", flush=True)
     return dict(restarts=1, stale_kills=1, killed_pid=killed_pid,
                 incarnations=pids, files=len(healed),
+                stale_window_s=BABYSAT_STALE_S, beat_gaps_s=gaps,
                 kill_to_first_step_s=kill_to_step_s,
                 losses=ref[0]["losses"], respawn=done[0],
                 card_pids=sorted(final), own_pid_listed=own,
@@ -6942,9 +7025,12 @@ FLEET_ROOT = "build/chip_smoke_fleet"
 #: the fleet child's steps: step 0, the SIGSTOP at step 1 on epoch 0, then
 #: the respawn's steps 1 and 2 (uncaptured, then the capture)
 FLEET_STEPS = 3
-#: the agent's trainer staleness window (--stale-after): it covers the
-#: child's import, NCCL init, build and capture between two beats
-FLEET_STALE_S = 60.0
+#: the agent's trainer staleness window (--stale-after): twice the
+#: longest stretch between two beats phase 9p measures (the child's
+#: import, NCCL init, build and capture; 7.8 s at `CHILD_LAYERS` blocks,
+#: 11.5 s at 12, on an NVIDIA H100 80GB HBM3 at 700 W), and no less than
+#: 30 s
+FLEET_STALE_S = 30.0
 #: the fleet child: `fleet_child` of this file, run by the agent (and once
 #: more without it) as `python -c`
 FLEET_CHILD = (
@@ -6957,8 +7043,9 @@ FLEET_CHILD = (
 def fleet_child(ckpt_dir, n_steps, inject):
     """The fleet's gpt_medium trainer (`FLEET_CHILD`): it joins a group of
     ``SINGA_FLEET_WORLD`` NCCL ranks at the agent's brokered
-    ``SINGA_COORDINATOR`` and trains phase 9o's gpt_medium (scanned,
-    4 x 1024, fp32, AdamW under DistOpt over the group's mesh, captured)
+    ``SINGA_COORDINATOR`` and trains phase 9o's gpt_medium at
+    `CHILD_LAYERS` blocks (scanned, 4 x 1024, fp32, AdamW under DistOpt
+    over the group's mesh, captured)
     under `Supervisor(mesh_fn=default_mesh_fn(1))`, a save after each
     step; with `inject`, `faults.stale_host_at(1, rank=0)` on epoch 0
     only. Prints its pid, epoch and coordinator, each step's start with
@@ -6988,7 +7075,7 @@ def fleet_child(ckpt_dir, n_steps, inject):
     batches = heal_batches(torch, GPT_MEDIUM_VOCAB, n_steps)
 
     def build(mesh):
-        m = gpt_medium(device="cuda")
+        m = gpt_medium(device="cuda", num_layers=CHILD_LAYERS)
         load_singa_tpu_params(m, seeded_params(m, SEED))
         m.set_optimizer(opt.DistOpt(opt.AdamW(lr=3e-4), mesh=mesh))
         m.compile([batches[0][0]], is_train=True, use_graph=True)
@@ -7052,7 +7139,8 @@ def start_fleet(root=FLEET_ROOT):
     agent = subprocess.Popen(
         [sys.executable, "-m", "singa_tpu_torch.resilience.babysit",
          "--fleet", f"{root}/rdv", "--fleet-rank", "0", "--fleet-world",
-         "1", "--stale-after", str(FLEET_STALE_S), "--",
+         "1", "--stale-after", str(FLEET_STALE_S), "--heartbeat",
+         f"{root}/heartbeat", "--",
          sys.executable, "-c", FLEET_CHILD, f"{root}/fleet",
          str(FLEET_STEPS), "--stale-at"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
@@ -7067,7 +7155,10 @@ def start_fleet(root=FLEET_ROOT):
          str(FLEET_STEPS)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=twin_env)
-    lines = {"agent": [], "twin": [], "samples": []}
+    lines = {"agent": [], "twin": [], "samples": [],
+             "beats": BeatWatch([
+                 ("agent", f"{root}/heartbeat", agent),
+                 ("twin", f"{root}/twin_heartbeat", twin)])}
 
     def read(name, proc):
         for ln in proc.stdout:
@@ -7110,8 +7201,9 @@ def fleet_path(torch, fa, mp, card, run=None):
     tree and respawns it at epoch 1 with a re-brokered coordinator; the
     respawn resumes from the committed step 1 and finishes. Held: the
     agent healed with one epoch, one election and one stale trainer and
-    wrote DONE; the child's counters and coordinators; 12 launches of
-    each fused flash kernel in every counted step of each incarnation;
+    wrote DONE; the child's counters and coordinators; `CHILD_LAYERS`
+    launches of each fused flash kernel (one a block) in every counted
+    step of each incarnation;
     the final checkpoint sha256-identical, file by file, to the unbroken
     twin's; the killed incarnation gone from /proc; the agent never with
     a /dev/nvidia* file open. `run` is the phase as `start_fleet`
@@ -7123,8 +7215,8 @@ def fleet_path(torch, fa, mp, card, run=None):
     from singa_tpu_torch import resilience
 
     root = FLEET_ROOT
-    per_step = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-                "max_pool_bwd": 0}
+    per_step = {"flash_fwd": CHILD_LAYERS, "flash_bwd_dq": CHILD_LAYERS,
+                "flash_bwd_dkv": CHILD_LAYERS, "max_pool_bwd": 0}
     run = start_fleet(root) if run is None else run
     agent, twin, lines, threads, t0 = (run[k] for k in (
         "agent", "twin", "lines", "threads", "t0"))
@@ -7152,6 +7244,11 @@ def fleet_path(torch, fa, mp, card, run=None):
         check(len(stale) == 1 and len(bump) == 1,
               f"fleet gpt_medium: stale trainer reports {stale}, bumps "
               f"{bump}")
+        # the longest stretch between beats outside the SIGSTOP's
+        gaps = lines["beats"].gaps(holes=[stale[0][0]])
+        check(max(gaps.values()) < FLEET_STALE_S,
+              f"fleet gpt_medium: a stretch between beats {gaps} reached "
+              f"the {FLEET_STALE_S:.0f} s stale window")
         pids = [int(ln.split()[2]) for _, ln in lines["agent"]
                 if ln.startswith("FLEET pid ")]
         coords = [ln.split()[-1] for _, ln in lines["agent"]
@@ -7204,7 +7301,8 @@ def fleet_path(torch, fa, mp, card, run=None):
         check(patterns["killed"] == ["step"]
               and patterns["respawn"] == ["step", "step"]
               and patterns["twin"] == ["step", "step", "none"],
-              f"fleet gpt_medium: launches by step {patterns} (want 12 of "
+              f"fleet gpt_medium: launches by step {patterns} (want "
+              f"{CHILD_LAYERS} of "
               f"each fused kernel in every uncaptured or capturing step, "
               f"none in a replay)")
         healed_dir = resilience.latest_step_dir(f"{root}/fleet")
@@ -7229,6 +7327,7 @@ def fleet_path(torch, fa, mp, card, run=None):
         bump_to_step_s = rows[1][0][1] - bump_t
         out = dict(card=card, healed=True, epochs=1, elections=1,
                    stale_kills=1, incarnations=pids, coords=adverts,
+                   stale_window_s=FLEET_STALE_S, beat_gaps_s=gaps,
                    files=len(healed), losses=ref[0]["losses"],
                    stale_to_bump_s=stale_to_bump_s,
                    bump_to_first_step_s=bump_to_step_s,
@@ -7236,7 +7335,8 @@ def fleet_path(torch, fa, mp, card, run=None):
                    respawn_replays=done[0]["replays"],
                    samples=len(samples))
         print(f"fleet gpt_medium ({card}): healed at epoch 1, elections 1, "
-              f"one stale trainer (window {FLEET_STALE_S:.0f} s); "
+              f"one stale trainer (window {FLEET_STALE_S:.0f} s, the "
+              f"longest stretch between beats {gaps}); "
               f"incarnations {pids}, coordinators {adverts}; final "
               f"{os.path.basename(healed_dir)} sha256-identical to the "
               f"twin's over {len(healed)} files; SIGSTOP to the epoch bump "
@@ -7656,6 +7756,205 @@ def lint_path(torch, fa, mp, card):
     return launches, out
 
 
+# -- 9s. item 22: the native training step -------------------------------------
+
+#: the native step's run: steps, plain SGD's rate, and the tolerance of its
+#: losses and final parameters against the eager loop (the reference's,
+#: tests/test_hlo_native.py:300)
+NATIVE_STEPS, NATIVE_LR = 200, 0.05
+NATIVE_RTOL, NATIVE_ATOL = 2e-4, 2e-5
+#: the phase's budget
+NATIVE_BUDGET_S = 30.0
+
+
+def native_path(torch, fa, mp, card, mlp):
+    """Phase 9s: the judged eager MLP of phase 9c (`MLP(100, 10)`, seeded
+    weights, dropout inactive) on the synthetic MNIST set, batch 64 (an
+    epoch a seed, from 0),
+    lowered by `hlo_bridge.lower_train_step` to one StableHLO module of
+    its plain-SGD step (lr 0.05) that `native/hlo_core.cc` emits, run by
+    `run_steps`' runtime on the card for 200 steps (the first op by op,
+    the second captured as one CUDA Graph, the rest replays) and held to
+    the port's eager plain-SGD loop on the same weights and batches. The
+    module's lines and products, its census against the declared one
+    (R7 clean), the first step's ms, the replays' steps/s and device ms
+    beside `mlp`'s (phase 9c's) eager and captured figures, and the
+    step's bound. Then over a world-1 NCCL group: `run_replicated` on the
+    one-replica module (the bitwise replica check), and a module of 2
+    replicas refused, naming 2 and 1. Reaches no kernel of the port."""
+    import itertools
+
+    from singa_tpu_torch import autograd, distributed, opt, tensor
+    from singa_tpu_torch.analysis import HLO_RULES, hlo, run_rules
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models import MLP
+    from singa_tpu_torch.native import hlo_bridge
+    from singa_tpu_torch.utils import data
+
+    t0 = time.perf_counter()
+    xt, yt, _, _ = data.load_mnist()
+    tx, ty = tensor.from_numpy(xt, "cuda"), tensor.from_numpy(yt, "cuda")
+    epochs = itertools.chain.from_iterable(
+        data.device_batches(tx, ty, MLP_BATCH, seed=e)
+        for e in itertools.count())
+    batches = [(bx, torch.nn.functional.one_hot(by.long(), 10).float())
+               for bx, by in itertools.islice(epochs, NATIVE_STEPS)]
+    check(len(batches) == NATIVE_STEPS, f"phase 9s: {len(batches)} batches")
+    weights = seeded_params(MLP(MLP_HIDDEN, 10, device="cuda"), SEED)
+
+    def mlp_at_weights():
+        m = MLP(MLP_HIDDEN, 10, device="cuda")
+        load_singa_tpu_params(m, weights)
+        m.dropout.training = False
+        return m
+
+    # 1. lower the step, its text linted by R7
+    m = mlp_at_weights()
+    x0, oh0 = batches[0]
+    t = time.perf_counter()
+    with autograd.TapeRecorder():
+        loss = autograd.softmax_cross_entropy(m.forward(x0), oh0)
+    step = hlo_bridge.lower_train_step(loss, list(m.get_params().values()),
+                                       NATIVE_LR, inputs=[x0])
+    lower_ms = (time.perf_counter() - t) * 1e3
+    del m, loss
+    lines = len(step.text.splitlines())
+    dots = step.text.count("stablehlo.dot_general")
+    census = hlo.hlo_census(step.text)
+    rep = run_rules(hlo.trace_native_module(step, "native_mlp"),
+                    rules=HLO_RULES)
+    print(f"native ({card}): lowered in {lower_ms:.1f} ms, {lines} lines, "
+          f"{dots} dot_general, census {census}, declared "
+          f"{step.declared_hlo_census()}, R7 {'clean' if rep.ok else 'FAIL'}"
+          f"; args {[tuple(a.shape) for a in step.args]}", flush=True)
+    check(dots == 6 and census == {}
+          and step.declared_hlo_census() == {"all_reduce": 0} and rep.ok,
+          f"phase 9s: the module has {dots} dot_general, census {census}, "
+          f"declared {step.declared_hlo_census()}:\n{rep.summary()}")
+
+    # 2. the native run: the first step op by op, the capture, replays
+    run = step.runner("cuda")
+    timings = []
+    for i, (bx, oh) in enumerate(batches):
+        if i < 3:
+            torch.cuda.synchronize()
+            timings.append(time.perf_counter())
+        run.step([bx], oh)
+    torch.cuda.synchronize()
+    timings.append(time.perf_counter())
+    first_ms = (timings[1] - timings[0]) * 1e3
+    capture_ms = (timings[2] - timings[1]) * 1e3
+    replay_steps_s = (NATIVE_STEPS - 2) / (timings[3] - timings[2])
+    native_losses = run.losses()
+    exe = run.exe
+    check((exe.runs, exe.captures, exe.replays)
+          == (NATIVE_STEPS, 1, NATIVE_STEPS - 1),
+          f"phase 9s: runs {exe.runs}, captures {exe.captures}, replays "
+          f"{exe.replays}")
+    replay_ms = cuda_ms(torch, lambda: exe._on_stream(exe._graph.replay),
+                        iters=200, warmup=10)
+
+    # 3. the port's eager plain-SGD loop on the same weights and batches
+    m = mlp_at_weights()
+    m.set_optimizer(opt.SGD(lr=NATIVE_LR))
+    m.compile([x0], is_train=True, use_graph=False)
+    m.dropout.training = False  # compile(is_train=True) turns it on
+    eager = torch.stack([m(bx, oh)[1].detach() for bx, oh in batches])
+    eager_losses = eager.tolist()
+    got, want = np.asarray(native_losses), np.asarray(eager_losses)
+    loss_err = float(np.max(np.abs(got - want)))
+    params_ok, param_err = True, 0.0
+    for (name, p), q in zip(m.get_params().items(), run.params()):
+        a, b = p.detach(), q.detach()
+        param_err = max(param_err, float((a - b).abs().max()))
+        params_ok &= bool(torch.allclose(b, a, rtol=NATIVE_RTOL,
+                                         atol=NATIVE_ATOL))
+    print(f"native ({card}): {NATIVE_STEPS} steps, losses "
+          f"{got[0]:.6f} -> {got[-1]:.6f} (eager {want[0]:.6f} -> "
+          f"{want[-1]:.6f}), max|d| losses {loss_err:.3e}, final params "
+          f"{param_err:.3e} (rtol {NATIVE_RTOL}, atol {NATIVE_ATOL})",
+          flush=True)
+    check(bool(np.allclose(got, want, rtol=NATIVE_RTOL, atol=NATIVE_ATOL))
+          and params_ok and bool(np.isfinite(got).all())
+          and got[-1] < got[0],
+          f"phase 9s: the native losses or final parameters differ from "
+          f"the eager loop's (losses max|d| {loss_err}, params max|d| "
+          f"{param_err}), or the loss did not fall")
+    del m
+
+    # the step's bound: its products (2 forward, 4 backward) and its
+    # bytes (the batch, the one-hot and the parameters read, the loss and
+    # the parameters written)
+    n_par = sum(int(np.prod(a.shape)) for i, a in enumerate(step.args)
+                if i in step.param_idx)
+    flops = 6.0 * MLP_BATCH * sum(int(np.prod(step.args[i].shape))
+                                  for i in step.param_idx
+                                  if step.args[i].ndim == 2)
+    nbytes = 4.0 * (MLP_BATCH * (784 + 10) + 2 * n_par + 1)
+    bound_ms = max(flops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES_S) * 1e3
+    print(f"native ({card}): first step {first_ms:.2f} ms (op by op), the "
+          f"capture step {capture_ms:.2f} ms, replays {replay_steps_s:.1f} "
+          f"steps/s, {replay_ms:.4f} device ms a replay, bound "
+          f"{bound_ms:.5f} ms ({flops:.3e} FLOP, {nbytes:.3e} B); phase "
+          f"9c's eager {mlp['eager_steps_s']:.1f} steps/s, captured "
+          f"{mlp['captured_steps_s']:.1f} steps/s, its captured step "
+          f"{mlp['captured_step_device_ms']:.4f} device ms", flush=True)
+
+    # 4. over a world-1 NCCL group: the replica check, and 2 replicas
+    # refused
+    distributed.init(device="cuda")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              "phase 9s: the world-1 group is not NCCL")
+        rows = hlo_bridge.run_replicated(step, [([bx], oh) for bx, oh in
+                                                batches[:4]], device="cuda")
+        check(bool(np.allclose([r[0] for r in rows], native_losses[:4],
+                               rtol=NATIVE_RTOL, atol=NATIVE_ATOL)),
+              f"phase 9s: run_replicated's losses {rows} are not the "
+              f"native run's first four {native_losses[:4]}")
+        m = mlp_at_weights()
+        with autograd.TapeRecorder():
+            loss = autograd.softmax_cross_entropy(m.forward(x0), oh0)
+        two = hlo_bridge.lower_train_step(
+            loss, list(m.get_params().values()), NATIVE_LR, inputs=[x0],
+            n_replicas=2)
+        refused = None
+        try:
+            hlo_bridge.compile_stablehlo(two.text, "cuda")
+        except ValueError as e:
+            refused = str(e)
+        print(f"native ({card}): run_replicated over the world-1 NCCL group "
+              f"{[r[0] for r in rows]} (bitwise the run's: "
+              f"{[r[0] for r in rows] == native_losses[:4]}); 2 replicas: "
+              f"{refused}", flush=True)
+        check(refused is not None and "num_replicas = 2" in refused
+              and "has 1 rank" in refused,
+              f"phase 9s: the 2-replica module was not refused: {refused}")
+    finally:
+        distributed.shutdown()
+    wall = time.perf_counter() - t0
+    out = dict(card=card, lines=lines, dot_general=dots, census=census,
+               declared=step.declared_hlo_census(), r7_ok=rep.ok,
+               steps=NATIVE_STEPS, lr=NATIVE_LR,
+               losses_first_last=[float(got[0]), float(got[-1])],
+               eager_first_last=[float(want[0]), float(want[-1])],
+               loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+               rtol=NATIVE_RTOL, atol=NATIVE_ATOL, runs=exe.runs,
+               captures=exe.captures, replays=exe.replays,
+               lower_ms=lower_ms, first_step_ms=first_ms,
+               capture_step_ms=capture_ms, replay_steps_s=replay_steps_s,
+               replay_device_ms=replay_ms, bound_ms=bound_ms, flops=flops,
+               bytes=nbytes, mlp_eager_steps_s=mlp["eager_steps_s"],
+               mlp_captured_steps_s=mlp["captured_steps_s"],
+               mlp_captured_device_ms=mlp["captured_step_device_ms"],
+               replicated_losses=[r[0] for r in rows],
+               two_replicas_refused=refused, wall_s=wall)
+    print(f"native: phase 9s {wall:.1f} s ({card})", flush=True)
+    check(wall <= NATIVE_BUDGET_S,
+          f"phase 9s took {wall:.1f} s, over its {NATIVE_BUDGET_S:.0f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8001,6 +8300,14 @@ def main() -> int:
     reset_counts(fa, mp)
     lint_launches, lint_out = lint_path(torch, fa, mp, card)
 
+    # 9s. item 22: the judged MLP's SGD step as one C++-emitted StableHLO
+    # module, run by the runtime on the card (captured), held to the eager
+    # loop; it reaches no kernel
+    reset_counts(fa, mp)
+    native_out = native_path(torch, fa, mp, card, mlp)
+    check(counts(fa, mp) == NO_LAUNCH,
+          f"the native phase launched {counts(fa, mp)}")
+
     # 10. report: the fused fp32 shape, with the bf16 figures beside
     fwd, bwd, pool, pool16 = rows[0], bwd_rows[0], *pool_rows[8:10]
     fwd16, bwd16 = rows[2], bwd_rows[2]
@@ -8093,7 +8400,8 @@ def main() -> int:
                      ckpt_launches["flash_fwd"],
                  "heal_supervised_gpt_medium_step":
                      heal_launches["gpt_medium"]["flash_fwd"],
-                 "fleet_gpt_medium_step": fleet_launches["flash_fwd"],
+                 "fleet_gpt_medium_6_block_step":
+                     fleet_launches["flash_fwd"],
                  "traced_gpt_medium_step":
                      utils_launches["trace"]["flash_fwd"],
                  "lint_zero3_gpt_medium_step": {
@@ -8130,7 +8438,7 @@ def main() -> int:
                 "ckpt_gpt_lm_step_across_restore": ckpt_launches[name],
                 "heal_supervised_gpt_medium_step":
                     heal_launches["gpt_medium"][name],
-                "fleet_gpt_medium_step": fleet_launches[name],
+                "fleet_gpt_medium_6_block_step": fleet_launches[name],
                 "traced_gpt_medium_step": utils_launches["trace"][name],
                 "lint_zero3_gpt_medium_step": {
                     k: v[name] for k, v in lint_launches.items()},
@@ -8209,6 +8517,7 @@ def main() -> int:
     print("fleet " + json.dumps(fleet_out), flush=True)
     print("utils " + json.dumps(utils_out), flush=True)
     print("lint " + json.dumps(lint_out), flush=True)
+    print("native " + json.dumps(native_out), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,15 @@ four rules read the records and the state's storage:
 - **R5 in-place state**: every state tensor keeps its storage, dtype
   and shape across the capture and a replay.
 
-R3 (a shard-taint analysis over the jaxpr), R6 and R7 (the StableHLO
-census and replica groups) read objects PyTorch does not make and are
-not ported (`rules._NOT_PORTED`).
+- **R7 raw-HLO surface** (on StableHLO module text, which only the
+  native training step makes: `hlo.trace_native_module`): every
+  collective's replica groups partition the module's device world, and
+  the text's census equals the one its emitter declares.
+
+R3 (a shard-taint analysis over the jaxpr) and R6 (the module's census
+against the jaxpr's) read objects PyTorch does not make and are not
+ported (`rules._NOT_PORTED`); R7 on a PyTorch step, which has no module
+text, raises too.
 
     >>> from singa_tpu_torch import analysis
     >>> report = analysis.lint_step(model, x, y)   # the library call
@@ -26,7 +32,8 @@ not ported (`rules._NOT_PORTED`).
 
 `python -m singa_tpu_torch.analysis` lints the strategies registry
 (`analysis/cases.py`), on the card at world 1 or over N gloo ranks on
-the CPU, and writes the reference's JSON report.
+the CPU, and writes the reference's JSON report; `--hlo` adds the
+native-DP module (`cases.iter_hlo_cases`) under R7.
 """
 
 from __future__ import annotations
@@ -34,12 +41,12 @@ from __future__ import annotations
 from typing import Optional
 
 from singa_tpu_torch.analysis.report import RULES, Report, Violation
-from singa_tpu_torch.analysis.rules import (DEFAULT_RULES, run_rules,
-                                            select_rules)
+from singa_tpu_torch.analysis.rules import (DEFAULT_RULES, HLO_RULES,
+                                            run_rules, select_rules)
 from singa_tpu_torch.analysis.trace import StepTrace, trace_step
 
 __all__ = ["lint_step", "run_rules", "trace_step", "Report",
-           "Violation", "RULES", "DEFAULT_RULES", "StepTrace"]
+           "Violation", "RULES", "DEFAULT_RULES", "HLO_RULES", "StepTrace"]
 
 
 def lint_step(model, *args, train: bool = True, rules=None,

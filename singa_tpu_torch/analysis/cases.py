@@ -12,9 +12,13 @@ whose engines carry their own `declared_schedule` and
 The reference's six `gpt_bench_*` cases are built from `bench.py`'s
 recipe, which the port has not ported (ROADMAP item 9, `bench_torch.py`);
 `NOT_PORTED` names them, and the runner's `--list` prints them as such.
-Its raw-HLO cases (`iter_hlo_cases`: the C++ native-DP module and the
-raw shard_map steps' StableHLO) need a module text a PyTorch step does
-not make.
+
+The raw-HLO registry (`iter_hlo_cases`, linted under R7 by `--hlo`)
+holds `native_dp`, the C++-emitted native DP module of the strategies
+runner's recipe (`parallel_strategies.native_dp_step`). The reference's
+other five raw-HLO cases lint the module text of its raw shard_map
+steps; the port's `parallel.raw_steps` are PyTorch functions that make
+no module text, and `HLO_NOT_PORTED` names them.
 
 `build(devs)` gives (the compiled model or engine, its step arguments)
 on the ranks `devs`, or None on a rank outside the case's mesh (the
@@ -23,12 +27,15 @@ serving cases' mesh is the first two ranks), which then takes no part.
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Callable, List, Optional, Sequence
 
 from singa_tpu_torch.examples.parallel_strategies import LintCase
 from singa_tpu_torch.parallel.mesh import MODEL_AXIS
+from singa_tpu_torch.parallel.raw_steps import RAW_STEP_BUILDERS
 
-__all__ = ["LintCase", "iter_cases", "build_case", "NOT_PORTED"]
+__all__ = ["LintCase", "HloCase", "iter_cases", "iter_hlo_cases",
+           "build_case", "NOT_PORTED", "HLO_NOT_PORTED"]
 
 #: the reference's remat policies of its bench grid
 _REMAT_POLICIES = ("none", "per_block", "dots_saveable")
@@ -41,6 +48,11 @@ NOT_PORTED = {
                             "(ROADMAP item 9, bench_torch.py)"
        for r in _REMAT_POLICIES},
 }
+
+#: the reference's raw-HLO cases the port cannot lint, and why
+HLO_NOT_PORTED = {
+    name: "the port's raw shard_map step is a PyTorch function and makes "
+          "no StableHLO module text" for name in RAW_STEP_BUILDERS}
 
 
 def _resilient_3d(devs):
@@ -194,3 +206,30 @@ def build_case(name: str, devs):
         if c.name == name:
             return c.build(devs)
     raise KeyError(f"no case {name!r} for {len(devs)} devices")
+
+
+# -- the raw-HLO registry ---------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HloCase:
+    """A lint subject that is StableHLO module text: `trace(devs)` gives
+    the `StepTrace` R7 runs over."""
+
+    name: str
+    trace: Callable[[Sequence], Optional[object]]
+
+
+def _native_dp_trace(devs):
+    """The native DP module of `len(devs)` replicas (the strategies
+    runner's recipe, fp32 wire): its text and its declared census."""
+    from singa_tpu_torch.analysis import hlo
+    from singa_tpu_torch.examples.parallel_strategies import native_dp_step
+
+    step, _ = native_dp_step(len(devs))
+    return hlo.trace_native_module(step, target="native_dp")
+
+
+def iter_hlo_cases(n_devices: int) -> List[HloCase]:
+    """Every raw-HLO subject the port has: the native DP module."""
+    return [HloCase("native_dp", _native_dp_trace)]

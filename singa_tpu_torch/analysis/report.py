@@ -5,8 +5,9 @@ A lint run gives one `Report` per linted step: the rule violations
 says what the step's communication is) and, where the model declares a
 schedule, the expected-against-found schedule of rule R2. `to_json`
 has the reference's keys (`target`, `ok`, `violations`, `collectives`,
-`schedule`, `hlo`, `notes`); `hlo` is always None here: the port has no
-compiled module text (R6 and R7 are not ported, see `RULES`).
+`schedule`, `hlo`, `notes`); `hlo` is the text's collective census
+beside the emitter's declared one where the subject is module text (the
+native training step, R7), else None.
 """
 
 from __future__ import annotations
@@ -17,9 +18,9 @@ from typing import Dict, List, Optional
 __all__ = ["RULES", "Violation", "Report"]
 
 #: rule id -> its contract, for the rules the port has. R3 (shard taint
-#: over a jaxpr), R6 and R7 (the StableHLO census and its replica
-#: groups) read objects PyTorch does not make: there is no jaxpr of the
-#: step and no compiled module text
+#: over a jaxpr) and R6 (the module's census against the jaxpr's) read
+#: objects PyTorch does not make; R7 reads module text, which only the
+#: native training step has
 RULES = {
     "R1": "axis-liveness: every declared or recorded axis exists on the "
           "mesh and no axis carries two incompatible parallelism roles",
@@ -32,12 +33,16 @@ RULES = {
           "the device step counter keeps its address, dtype and shape "
           "across the captured step and a replay (across two calls of "
           "the step where nothing is captured)",
+    "R7": "raw-hlo-surface: every collective in the module text carries "
+          "replica groups that partition the module's num_replicas x "
+          "num_partitions world, and the text's collective census equals "
+          "the one its emitter declares",
 }
 
 
 @dataclasses.dataclass
 class Violation:
-    rule: str        # "R1", "R2", "R4" or "R5"
+    rule: str        # "R1", "R2", "R4", "R5" or "R7"
     message: str
     subject: str = ""  # the axis, tensor or stack the finding is about
 
@@ -60,7 +65,8 @@ class Report:
     #: R2's evidence where a schedule was declared: {"expected": {...},
     #: "found": {...}} with "op@axis" keys
     schedule: Optional[Dict] = None
-    #: the reference's compile-level evidence; always None here
+    #: R7's evidence: {"census": the text's, "expected": the emitter's
+    #: declared census or None}; None without module text
     hlo: Optional[Dict] = None
     #: non-fatal analyzer notes
     notes: List[str] = dataclasses.field(default_factory=list)

@@ -1,5 +1,5 @@
-"""Shardlint's rules R1, R2, R4 and R5 over a recorded step (counterpart
-of singa_tpu/analysis/rules.py).
+"""Shardlint's rules R1, R2, R4 and R5 over a recorded step, and R7 over
+module text (counterpart of singa_tpu/analysis/rules.py).
 
 Each rule reads a `trace.StepTrace` and appends `report.Violation`s.
 The expected values come from metadata the owning modules declare
@@ -22,9 +22,16 @@ engines), so the analyzer cannot drift from the code it audits.
   graph would go on reading the old storage. Values may stay put: a
   step the sentinel skips moves none.
 
-R3, R6 and R7 read a jaxpr's shard taint and the compiled StableHLO
-module's census and replica groups. PyTorch gives the step neither
-object, so they are not ported; asking for them raises.
+- R7 runs on a subject with StableHLO module text (the native training
+  step, `hlo.trace_native_module`): every collective's replica groups
+  must be well formed for the module's own `mhlo.num_replicas x
+  mhlo.num_partitions` world, and the text's census must equal the one
+  its emitter declares.
+
+R3 and R6 read a jaxpr's shard taint and reconcile the module with the
+jaxpr; PyTorch gives a step neither, so they are not ported and asking
+for them raises. So does asking for R7 on a subject without text (a
+PyTorch step).
 """
 
 from __future__ import annotations
@@ -32,23 +39,29 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, Optional, Tuple
 
+from singa_tpu_torch.analysis import hlo as hlo_mod
 from singa_tpu_torch.analysis.report import Report, Violation
 from singa_tpu_torch.analysis.trace import StepTrace, census
 
 __all__ = ["run_rules", "select_rules", "check_ring_perm", "DEFAULT_RULES",
-           "rule_r1", "rule_r2", "rule_r4", "rule_r5"]
+           "HLO_RULES", "rule_r1", "rule_r2", "rule_r4", "rule_r5",
+           "rule_r7"]
 
 DEFAULT_RULES = ("R1", "R2", "R4", "R5")
+#: the rules of a subject that is module text (`--hlo`)
+HLO_RULES = ("R7",)
 
 #: why the reference's other rules have no torch counterpart
 _NOT_PORTED = {
     "R3": "R3 (cross-shard-sum) is a shard-taint analysis over the "
           "step's jaxpr; a PyTorch step has no jaxpr to read",
-    "R6": "R6 (hlo-census-conformance) reads the lowered StableHLO "
-          "module; a PyTorch step is not lowered to one",
-    "R7": "R7 (raw-hlo-surface) reads the replica groups of compiled "
-          "module text; a PyTorch step has none",
+    "R6": "R6 (hlo-census-conformance) reconciles the lowered StableHLO "
+          "module with the step's jaxpr; a PyTorch step has neither",
 }
+#: why R7 refuses a subject without module text
+_NO_TEXT = ("R7 (raw-hlo-surface) reads StableHLO module text; a PyTorch "
+            "step makes none (lint the native training step through "
+            "hlo.trace_native_module)")
 
 
 def _fmt_sched(counts: Dict[Tuple[str, str], int]) -> Dict[str, int]:
@@ -308,15 +321,72 @@ def rule_r5(trace: StepTrace, report: Report) -> None:
                 subject=name))
 
 
+# -- R7: the raw-HLO surface ------------------------------------------------------------
+
+
+def _hlo_evidence(trace: StepTrace, report: Report) -> Optional[Dict]:
+    """Fill (once) and return `report.hlo`: the text's collective census
+    beside the emitter's declared one."""
+    if report.hlo is None and trace.lowered_text:
+        expected = None
+        if trace.hlo_declared is not None:
+            expected = {k: int(v) for k, v in trace.hlo_declared.items()
+                        if v}
+        report.hlo = {"census": hlo_mod.hlo_census(trace.lowered_text),
+                      "expected": expected}
+    return report.hlo
+
+
+def rule_r7(trace: StepTrace, report: Report) -> None:
+    """Every collective op instance in the module text must carry well
+    formed `replica_groups` / `source_target_pairs` for the module's own
+    `mhlo.num_replicas x num_partitions` world, and an emitter that
+    declares its census (`NativeTrainStep.declared_hlo_census`) must
+    match it: a dropped gradient sync is numerically silent on each
+    replica, and only this cross-check sees it."""
+    if not trace.lowered_text:
+        return
+    n_dev = hlo_mod.module_device_count(trace.lowered_text)
+    seen = set()
+    for col in hlo_mod.hlo_collectives(trace.lowered_text):
+        for why in hlo_mod.check_collective(col, n_dev):
+            key = (col.op, why)
+            if key in seen:
+                continue
+            seen.add(key)
+            report.violations.append(Violation(
+                "R7", f"{col.op} (text offset {col.pos}): {why}",
+                subject=col.op))
+    if trace.hlo_declared is None:
+        return
+    ev = _hlo_evidence(trace, report)
+    declared, found = ev["expected"], ev["census"]
+    if declared == found:
+        return
+    diff = []
+    for op in sorted(set(declared) | set(found)):
+        e, f = declared.get(op, 0), found.get(op, 0)
+        if e != f:
+            diff.append(f"{op}: emitter declares {e}, module carries {f}")
+    report.violations.append(Violation(
+        "R7",
+        "emitted module does not match the emitter's declared HLO census "
+        "— " + "; ".join(diff) + " (a gradient would silently skip "
+        "cross-replica averaging)",
+        subject=trace.target))
+
+
 # -----------------------------------------------------------------------------------------
 
-_RULE_FNS = {"R1": rule_r1, "R2": rule_r2, "R4": rule_r4, "R5": rule_r5}
+_RULE_FNS = {"R1": rule_r1, "R2": rule_r2, "R4": rule_r4, "R5": rule_r5,
+             "R7": rule_r7}
 
 
-def select_rules(rules=None) -> Tuple[str, ...]:
-    """`rules` (default `DEFAULT_RULES`) as a tuple. Asking for R3, R6
-    or R7 raises ValueError: there is no torch object for them to
-    read."""
+def select_rules(rules=None, trace: Optional[StepTrace] = None
+                 ) -> Tuple[str, ...]:
+    """`rules` (default `DEFAULT_RULES`) as a tuple. Asking for R3 or R6
+    raises ValueError: there is no torch object for them to read; so
+    does asking for R7 without a `trace` that carries module text."""
     rules = tuple(rules or DEFAULT_RULES)
     for rid in rules:
         if rid in _NOT_PORTED:
@@ -324,16 +394,19 @@ def select_rules(rules=None) -> Tuple[str, ...]:
                              f"{_NOT_PORTED[rid]}")
         if rid not in _RULE_FNS:
             raise ValueError(f"unknown rule {rid!r}; the port has "
-                             f"{DEFAULT_RULES}")
+                             f"{DEFAULT_RULES + HLO_RULES}")
+        if rid == "R7" and (trace is None or not trace.lowered_text):
+            raise ValueError(f"rule R7 needs module text: {_NO_TEXT}")
     return rules
 
 
 def run_rules(trace: StepTrace, rules=None,
               target: Optional[str] = None) -> Report:
     """The report of `rules` (`select_rules`) over `trace`."""
-    rules = select_rules(rules)
+    rules = select_rules(rules, trace)
     report = Report(target=target or trace.target)
     report.collectives = census(trace.local_records())
+    _hlo_evidence(trace, report)  # the text's census on a clean run too
     for rid in rules:
         _RULE_FNS[rid](trace, report)
     return report

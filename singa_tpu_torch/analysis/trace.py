@@ -296,6 +296,11 @@ class StepTrace:
     stacks: List = dataclasses.field(default_factory=list)
     #: set when the step failed on an axis that is not live (R1)
     trace_error: Optional[str] = None
+    #: StableHLO module text, where the subject has one (the native
+    #: training step, `hlo.trace_native_module`); R7 reads it
+    lowered_text: Optional[str] = None
+    #: the collective census the text's emitter declares (R7)
+    hlo_declared: Optional[Dict[str, int]] = None
 
     def local_records(self) -> List[Record]:
         return self.records[0] if self.records else []

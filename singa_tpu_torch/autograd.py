@@ -42,7 +42,10 @@ on top of it:
   above runs through `op(kind, attrs, fn, *inputs)`, which records
   (kind, attrs, extras, inputs, outputs) with the reference's ONNX kinds
   while `sonnx.to_onnx` traces, and otherwise only calls `fn` (one
-  `is None` test);
+  `is None` test); under a `TapeRecorder` the same slot tags each op's
+  output (and `softmax_cross_entropy`'s loss, with its one-hot target)
+  with a `TapeNode`, the reference's `creator`, which the native
+  StableHLO lowering (`native.hlo_bridge`) walks;
 - `Operator` and `Function` (reference :454-546), the reference's way to
   write an op: a pure `forward` on tensors and an optional `backward`,
   which defaults to the VJP of `forward` (`torch.func.vjp`), run as one
@@ -95,7 +98,8 @@ __all__ = ["set_autocast", "autocast_enabled", "autocast", "training",
            "layernorm", "dropout", "rank_draws", "draw_rank",
            "rank_generators", "reset_rank_draws", "rank_generator_states",
            "set_rank_generator_states", "transpose", "cat", "op",
-           "ExportTrace", "clear_op_cache", "set_op_cache_enabled",
+           "ExportTrace", "TapeRecorder", "TapeNode", "tape_node",
+           "clear_op_cache", "set_op_cache_enabled",
            "Operator", "Function", "sub", "mul", "div", "pow", "matmul",
            "squeeze", "unsqueeze", "split", "gather", "stack", "where",
            "clip", "abs", "exp", "log", "sqrt", "square", "maximum",
@@ -314,6 +318,89 @@ class ExportTrace(TorchFunctionMode):
         for t in marked:
             if mutates or not any(t is s for s in srcs):
                 self._made_by[id(t)] = (t, made)
+        return out
+
+
+class TapeNode:
+    """One op of a `TapeRecorder`'s tape: the op's kind, its inputs in
+    order, and `aux` (the loss's one-hot target)."""
+
+    __slots__ = ("kind", "inputs", "aux")
+
+    def __init__(self, kind, inputs, aux=None):
+        self.kind, self.inputs, self.aux = kind, list(inputs), aux
+
+
+#: the attribute a recorded op's output carries its `TapeNode` under
+_CREATOR = "singa_tape_node"
+
+
+def tape_node(t: torch.Tensor) -> Optional[TapeNode]:
+    """The `TapeNode` that made `t` under a `TapeRecorder`, or None (a
+    leaf: a parameter, an input, or anything made outside a recorded
+    op)."""
+    return getattr(t, _CREATOR, None)
+
+
+class TapeRecorder:
+    """The reference's `Operator` tape for the native lowering
+    (`native.hlo_bridge`; reference singa_tpu/autograd.py's `creator`).
+    `with TapeRecorder(): loss = softmax_cross_entropy(m.forward(x), t)`
+    runs the forward as it always runs and tags each SINGA-level op's
+    output (an `op(kind, ...)` call, and the loss with its one-hot
+    target) with a `TapeNode`, which `tape_node` reads back. An op whose
+    output is one of its inputs (an inactive Dropout's Identity) is a
+    pass-through and tags nothing. Ops nested in a recorded op are part
+    of it; only the entering thread records, never inside a CUDA Graph
+    capture. It takes the export trace's slot: the two do not nest."""
+
+    def __init__(self):
+        self._depth = 0
+        self._thread = threading.get_ident()
+
+    def __enter__(self):
+        global _trace
+        if _trace is not None:
+            raise RuntimeError("an export trace or tape recorder is "
+                               "already running")
+        _trace = self
+        return self
+
+    def __exit__(self, *exc):
+        global _trace
+        _trace = None
+
+    def _records(self) -> bool:
+        return not self._depth and threading.get_ident() == self._thread \
+            and not (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())
+
+    def _run(self, fn):
+        self._depth += 1
+        try:
+            return fn()
+        finally:
+            self._depth -= 1
+
+    def op(self, kind, attrs, extras, fn, inputs):
+        records = self._records()
+        out = self._run(lambda: device_module.dispatch(fn, inputs, *inputs))
+        if torch.is_grad_enabled():
+            _tag_params(out, inputs)
+        for t in (out if isinstance(out, tuple) else (out,)):
+            if records and isinstance(t, torch.Tensor) and not any(
+                    t is x for x in inputs):
+                setattr(t, _CREATOR, TapeNode(kind, inputs))
+        return out
+
+    def loss(self, logits, onehot, fn):
+        """`fn()`, the loss of `logits`, tagged "SoftMaxCrossEntropy"
+        with its (batch, classes) one-hot target as `aux`."""
+        if not self._records():
+            return fn()
+        out = self._run(fn)
+        setattr(out, _CREATOR, TapeNode("SoftMaxCrossEntropy", (logits,),
+                                        aux=onehot))
         return out
 
 
@@ -590,6 +677,23 @@ def softmax_cross_entropy(logits: torch.Tensor, target) -> torch.Tensor:
     fp32 whatever the logits' dtype. A label outside [0, C) adds 0 to
     the sum and still counts in the mean, as the reference's all-zero
     `one_hot` row makes it do."""
+    if isinstance(_trace, TapeRecorder):
+        return _trace.loss(logits, _one_hot_of(target, logits.shape[-1]),
+                           lambda: _softmax_cross_entropy(logits, target))
+    return _softmax_cross_entropy(logits, target)
+
+
+def _one_hot_of(target, n: int) -> np.ndarray:
+    """`target` as a float32 one-hot array (an int label outside [0, n)
+    a row of zeros, as the reference's `one_hot`)."""
+    t = target.detach().cpu().numpy() if isinstance(
+        target, torch.Tensor) else np.asarray(target)
+    if np.issubdtype(t.dtype, np.floating):
+        return t.astype(np.float32)
+    return (t[..., None] == np.arange(n)).astype(np.float32)
+
+
+def _softmax_cross_entropy(logits: torch.Tensor, target) -> torch.Tensor:
     logp = F.log_softmax(logits.float(), dim=-1)
     target = torch.as_tensor(target, device=logits.device)
     if target.is_floating_point():

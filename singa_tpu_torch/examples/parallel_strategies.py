@@ -9,9 +9,11 @@ seeds; the port draws its own weights), trains it two steps through
 group, and prints the reference's `[dryrun] ...: ok` line; the five
 hand-written steps of `parallel.raw_steps` run one step each, as the
 reference's do. An entry whose mesh the world does not factor prints
-the reference's skip notice. The reference's native DP entry (a
-C++-emitted StableHLO step run through PJRT, `native/hlo_bridge.py`) is
-ROADMAP queue 1 item 22 and prints that it is not ported. The steps run
+the reference's skip notice. The native DP entry is the reference's
+`_dryrun_native_dp`: the MLP's SGD step emitted by `native/hlo_core.cc`
+as one n-replica StableHLO module (`native.hlo_bridge`), run by
+`hlo_bridge.run_replicated` for 2 steps, one replica a rank, the
+replicas checked bitwise identical after each. The steps run
 uncaptured.
 
 Every rank runs this module with its `--rank`; `--world` and
@@ -47,7 +49,8 @@ from singa_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
 from singa_tpu_torch.utils import virtual
 
 __all__ = ["LintCase", "iter_cases", "build_case", "build_scan_sharded_gpt",
-           "build_pipe_mlp", "run_all_strategies", "run", "main"]
+           "build_pipe_mlp", "native_dp_step", "run_all_strategies", "run",
+           "main"]
 
 
 @dataclasses.dataclass
@@ -415,6 +418,47 @@ def _raw(name: str, devs) -> None:
     _finite(step(*operands)[1])
 
 
+def native_dp_step(n: int, wire: str = "fp32", n_steps: int = 2,
+                   params=None):
+    """The reference's `_dryrun_native_dp` recipe: `MLP(24, 10)` on 12
+    inputs, 2 rows a replica, 10 classes, lr 0.1, dropout inactive,
+    lowered to one `n`-replica module on `wire`. Returns (the
+    `NativeTrainStep`, the `n_steps` global batches as ``([x], onehot)``);
+    `params` (the reference's names) replace the port's seeded draws."""
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.model import load_singa_tpu_params
+    from singa_tpu_torch.models import MLP
+    from singa_tpu_torch.native.hlo_bridge import lower_train_step
+
+    local_b, in_dim, lr = 2, 12, 0.1
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((n_steps, n * local_b, in_dim)).astype(
+        np.float32)
+    onehots = np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (n_steps, n * local_b))]
+    m = MLP(24, 10, in_features=in_dim, device="cpu",
+            generator=torch.Generator().manual_seed(3))
+    if params is not None:
+        load_singa_tpu_params(m, params)
+    m.dropout.training = False
+    x0 = torch.from_numpy(X[0][:local_b])
+    with autograd.TapeRecorder():
+        loss = autograd.softmax_cross_entropy(m.forward(x0),
+                                              onehots[0][:local_b])
+    step = lower_train_step(loss, list(m.get_params().values()), lr,
+                            inputs=[x0], n_replicas=n, wire=wire)
+    return step, [([X[i]], onehots[i]) for i in range(n_steps)]
+
+
+def _native_dp(devs) -> None:
+    from singa_tpu_torch.native.hlo_bridge import run_replicated
+
+    step, batches = native_dp_step(len(devs))
+    for row in run_replicated(step, batches, device=_dev()):
+        for v in row:
+            _finite(v)
+
+
 def run_all_strategies(devs) -> None:
     """Every strategy on the ranks `devs`, in the reference's order
     (`__graft_entry__.run_all_strategies`), each printing its line."""
@@ -426,9 +470,8 @@ def run_all_strategies(devs) -> None:
     print("[dryrun] DP zero-1 (shard_states): ok")
     _two_steps("dp_zero1_half", devs)
     print("[dryrun] DP zero-1 half-wire (bf16 rs/ag): ok")
-    print("[dryrun] DP native C++ training step: not ported (the "
-          "C++-emitted StableHLO step run through PJRT, "
-          "singa_tpu/native/hlo_bridge.py, ROADMAP queue 1 item 22)")
+    _native_dp(devs)
+    print("[dryrun] DP native C++ training step (hlo_bridge): ok")
     _two_steps("scan_tp", devs)
     print("[dryrun] scan x TP GPT (train_one_batch): ok")
     _, stats = _memory("scan_zero3", devs)

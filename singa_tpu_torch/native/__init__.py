@@ -1,18 +1,20 @@
-"""The native planners and the prefetch loader (counterpart of
-singa_tpu/native/__init__.py's `GraphPlanner`, :261-381, its
-communicator planners, :383-430, and `NativeLoader`, :432-540).
+"""The native planners, the prefetch loader and the StableHLO graph
+buffer (counterpart of singa_tpu/native/__init__.py's `GraphPlanner`,
+:261-381, its communicator planners, :383-430, `NativeLoader`,
+:432-540, and `HloGraphBuilder`, :826-955).
 
 g++ compiles the repository's `native/graph_core.cc`,
-`native/comm_core.cc` and `native/dataloader_core.cc`, unedited, with
-`-O2 -shared -fPIC` (the loader also `-lpthread`) into
-`build/torch_native/` at the repository root, at first use, one library
-each; a library is named by a hash of its source and the flags, so an
-edited source is rebuilt on its next use. All are bound with `ctypes`
-(the sources' C interfaces: `graph_new`, `graph_add_node`,
-`graph_add_edge`, `graph_toposort`, `graph_plan_memory`,
-`graph_naive_bytes`, `graph_free`; `comm_plan_buckets`,
-`comm_plan_buckets_balanced`, `comm_ring_schedule`; `loader_new`,
-`loader_next`, `loader_next_view`, `loader_release`, `loader_free`).
+`native/comm_core.cc`, `native/dataloader_core.cc` and
+`native/hlo_core.cc`, unedited, with `-O2 -shared -fPIC` (the loader
+also `-lpthread`) into `build/torch_native/` at the repository root, at
+first use, one library each; a library is named by a hash of its source
+and the flags, so an edited source is rebuilt on its next use. All are
+bound with `ctypes` (the sources' C interfaces: `graph_new`,
+`graph_add_node`, `graph_add_edge`, `graph_toposort`,
+`graph_plan_memory`, `graph_naive_bytes`, `graph_free`;
+`comm_plan_buckets`, `comm_plan_buckets_balanced`,
+`comm_ring_schedule`; `loader_new`, `loader_next`, `loader_next_view`,
+`loader_release`, `loader_free`; the 28 `hlo_*` functions).
 
 `GraphPlanner` keeps the reference's methods: nodes are ops, edges carry
 (buffer id, bytes), `toposort()` is Kahn's algorithm with the lowest id
@@ -51,9 +53,18 @@ class). It always calls the library: a missing or refusing g++ raises
 tests hold the library's coverage and shapes to (it cannot reproduce
 libstdc++'s shuffle order).
 
+`HloGraphBuilder()` keeps the reference's methods and return values:
+each call records one op node in the C++ buffer and returns its value
+id, and `emit(out)` / `emit_multi(outs, n_replicas=)` return the
+StableHLO module text the C++ writes (`hlo_bridge` lowers a tape
+through it, `hlo_runtime` runs the text). An operand error raises
+ValueError with `hlo_last_error`'s message, as the reference's `_chk`
+does; a missing or refusing g++ raises `NativeBuildError` (there is no
+Python emitter).
+
 `native_call_count()` counts the calls into the libraries (a planner's
-graph, each `plan_memory`, each communicator planner, each loader made),
-so a caller can tell that the C++ ran.
+graph, each `plan_memory`, each communicator planner, each loader and
+each graph buffer made), so a caller can tell that the C++ ran.
 """
 
 from __future__ import annotations
@@ -70,7 +81,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["GraphPlanner", "NativeBuildError", "NativeLoader", "build",
+__all__ = ["GraphPlanner", "HloGraphBuilder", "NativeBuildError",
+           "NativeLoader", "build",
            "native_call_count", "plain_loader", "plan_buckets_balanced",
            "plan_buckets_native", "plan_memory_plain", "ring_schedule",
            "toposort_plain"]
@@ -79,6 +91,7 @@ _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "graph_core.cc"
 COMM_SOURCE = _ROOT / "native" / "comm_core.cc"
 LOADER_SOURCE = _ROOT / "native" / "dataloader_core.cc"
+HLO_SOURCE = _ROOT / "native" / "hlo_core.cc"
 BUILD_DIR = _ROOT / "build" / "torch_native"
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 #: what a source links beyond GXX_FLAGS (the loader's worker thread)
@@ -90,6 +103,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _comm_lib: Optional[ctypes.CDLL] = None
 _loader_lib: Optional[ctypes.CDLL] = None
+_hlo_lib: Optional[ctypes.CDLL] = None
 _calls = [0]
 
 
@@ -200,6 +214,41 @@ def _load_loader() -> ctypes.CDLL:
             lib.loader_free.argtypes = [i64]
             _loader_lib = lib
         return _loader_lib
+
+
+def _load_hlo() -> ctypes.CDLL:
+    global _hlo_lib
+    with _lock:
+        if _hlo_lib is None:
+            lib = ctypes.CDLL(str(build(HLO_SOURCE)))
+            i64, p64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+            for fn, nargs in (
+                    ("hlo_new", 0), ("hlo_free", 1), ("hlo_dot", 3),
+                    ("hlo_add_bias", 3), ("hlo_add", 3), ("hlo_mul", 3),
+                    ("hlo_sub", 3), ("hlo_div", 3), ("hlo_relu", 2),
+                    ("hlo_tanh", 2), ("hlo_logistic", 2), ("hlo_exp", 2),
+                    ("hlo_log", 2), ("hlo_neg", 2), ("hlo_transpose", 2),
+                    ("hlo_all_reduce_sum", 3), ("hlo_reduce_scatter_sum", 3),
+                    ("hlo_all_gather", 3), ("hlo_select_gt0", 3),
+                    ("hlo_reduce", 4), ("hlo_bcast_axis", 4),
+                    ("hlo_convert", 3)):
+                f = getattr(lib, fn)
+                f.restype, f.argtypes = i64, [i64] * nargs
+            lib.hlo_param.restype = i64
+            lib.hlo_param.argtypes = [i64, p64, i64]
+            lib.hlo_param_t.restype = i64
+            lib.hlo_param_t.argtypes = [i64, p64, i64, i64]
+            lib.hlo_scale.restype = i64
+            lib.hlo_scale.argtypes = [i64, i64, ctypes.c_double]
+            lib.hlo_emit.restype = i64
+            lib.hlo_emit.argtypes = [i64, i64, ctypes.c_char_p, i64]
+            lib.hlo_emit_multi.restype = i64
+            lib.hlo_emit_multi.argtypes = [i64, p64, i64, i64,
+                                           ctypes.c_char_p, i64]
+            lib.hlo_last_error.restype = i64
+            lib.hlo_last_error.argtypes = [i64, ctypes.c_char_p, i64]
+            _hlo_lib = lib
+        return _hlo_lib
 
 
 def _ptr(a: np.ndarray):
@@ -512,3 +561,131 @@ def plain_loader(x: np.ndarray, y: np.ndarray, batch: int, seed: int = 0,
             idx = order[i:i + batch]
             yield x[idx], y[idx]
         epoch += 1
+
+
+# -- the StableHLO graph buffer ------------------------------------------------
+
+#: hlo_core.cc's element-type codes
+_DTYPES = {"f32": 0, "bf16": 1}
+
+
+class HloGraphBuilder:
+    """The C++ graph buffer that emits StableHLO (`native/hlo_core.cc`;
+    module docstring): op nodes are recorded in C++ through the C
+    interface and the module text is written by C++; this side only
+    forwards value ids."""
+
+    def __init__(self):
+        self._h = -1
+        self._lib = _load_hlo()
+        self._h = self._lib.hlo_new()
+        _calls[0] += 1
+
+    def _chk(self, v: int) -> int:
+        if v < 0:
+            buf = ctypes.create_string_buffer(512)
+            self._lib.hlo_last_error(self._h, buf, 512)
+            raise ValueError(
+                f"hlo_core: {buf.value.decode() or 'invalid operands'}")
+        return int(v)
+
+    def param(self, shape) -> int:
+        d = np.asarray(shape, np.int64)
+        return self._chk(self._lib.hlo_param(self._h, _ptr(d), len(d)))
+
+    def param_t(self, shape, dtype: str = "f32") -> int:
+        d = np.asarray(shape, np.int64)
+        return self._chk(self._lib.hlo_param_t(self._h, _ptr(d), len(d),
+                                               _DTYPES[dtype]))
+
+    def dot(self, a: int, b: int) -> int:
+        return self._chk(self._lib.hlo_dot(self._h, a, b))
+
+    def add_bias(self, a: int, b: int) -> int:
+        return self._chk(self._lib.hlo_add_bias(self._h, a, b))
+
+    def add(self, a: int, b: int) -> int:
+        return self._chk(self._lib.hlo_add(self._h, a, b))
+
+    def mul(self, a: int, b: int) -> int:
+        return self._chk(self._lib.hlo_mul(self._h, a, b))
+
+    def sub(self, a: int, b: int) -> int:
+        return self._chk(self._lib.hlo_sub(self._h, a, b))
+
+    def div(self, a: int, b: int) -> int:
+        return self._chk(self._lib.hlo_div(self._h, a, b))
+
+    def relu(self, a: int) -> int:
+        return self._chk(self._lib.hlo_relu(self._h, a))
+
+    def tanh(self, a: int) -> int:
+        return self._chk(self._lib.hlo_tanh(self._h, a))
+
+    def logistic(self, a: int) -> int:
+        return self._chk(self._lib.hlo_logistic(self._h, a))
+
+    def exp(self, a: int) -> int:
+        return self._chk(self._lib.hlo_exp(self._h, a))
+
+    def log(self, a: int) -> int:
+        return self._chk(self._lib.hlo_log(self._h, a))
+
+    def neg(self, a: int) -> int:
+        return self._chk(self._lib.hlo_neg(self._h, a))
+
+    def scale(self, a: int, c: float) -> int:
+        return self._chk(self._lib.hlo_scale(self._h, a, float(c)))
+
+    def select_gt0(self, x: int, dy: int) -> int:
+        return self._chk(self._lib.hlo_select_gt0(self._h, x, dy))
+
+    def reduce_sum(self, a: int, axis: int) -> int:
+        return self._chk(self._lib.hlo_reduce(self._h, a, axis, 0))
+
+    def reduce_max(self, a: int, axis: int) -> int:
+        return self._chk(self._lib.hlo_reduce(self._h, a, axis, 1))
+
+    def bcast_axis(self, vec: int, like: int, axis: int) -> int:
+        return self._chk(self._lib.hlo_bcast_axis(self._h, vec, like, axis))
+
+    def convert(self, a: int, dtype: str) -> int:
+        return self._chk(self._lib.hlo_convert(self._h, a, _DTYPES[dtype]))
+
+    def transpose(self, a: int) -> int:
+        return self._chk(self._lib.hlo_transpose(self._h, a))
+
+    def all_reduce_sum(self, a: int, n_replicas: int) -> int:
+        return self._chk(self._lib.hlo_all_reduce_sum(self._h, a,
+                                                      n_replicas))
+
+    def reduce_scatter_sum(self, a: int, n_replicas: int) -> int:
+        return self._chk(self._lib.hlo_reduce_scatter_sum(self._h, a,
+                                                          n_replicas))
+
+    def all_gather(self, a: int, n_replicas: int) -> int:
+        return self._chk(self._lib.hlo_all_gather(self._h, a, n_replicas))
+
+    def emit(self, out: int) -> str:
+        n = self._chk(self._lib.hlo_emit(self._h, out, None, 0))
+        buf = ctypes.create_string_buffer(n + 1)
+        self._chk(self._lib.hlo_emit(self._h, out, buf, n + 1))
+        return buf.value.decode()
+
+    def emit_multi(self, outs, n_replicas: int = 1) -> str:
+        o = np.asarray(outs, np.int64)
+        n = self._chk(self._lib.hlo_emit_multi(self._h, _ptr(o), len(o),
+                                               n_replicas, None, 0))
+        buf = ctypes.create_string_buffer(n + 1)
+        self._chk(self._lib.hlo_emit_multi(self._h, _ptr(o), len(o),
+                                           n_replicas, buf, n + 1))
+        return buf.value.decode()
+
+    def close(self) -> None:
+        if self._h >= 0:
+            self._lib.hlo_free(self._h)
+            self._h = -1
+
+    def __del__(self):
+        if getattr(self, "_h", -1) >= 0:
+            self.close()

@@ -2384,3 +2384,41 @@ def _rank_analysis(rank, world):
     import helper_torch_analysis
 
     return helper_torch_analysis.rank_analysis(rank, world)
+
+
+def _rank_hlo_native_dp(rank, world, params, dropped, zero1):
+    """The native DP module on this rank (tests/test_torch_hlo_native_dp.py):
+    `parallel_strategies.native_dp_step` from `params` run by
+    `hlo_bridge.run_replicated` on both wires (each step's per-rank
+    losses); one step under a `CollectiveRecorder` (its census); the
+    module with one all_reduce `dropped` from its text (the error
+    `run_replicated` raises); the ZeRO-1 wire module `zero1["text"]` on
+    this rank's (bf16 gradient, fp32 shard) operands (its outputs)."""
+    import dataclasses
+
+    from singa_tpu_torch.analysis import trace
+    from singa_tpu_torch.examples.parallel_strategies import native_dp_step
+    from singa_tpu_torch.native import hlo_bridge
+    from singa_tpu_torch.native.hlo_runtime import HloRuntime
+
+    out = {}
+    for wire in ("fp32", "bf16"):
+        step, batches = native_dp_step(world, wire, params=params)
+        out[wire] = hlo_bridge.run_replicated(step, batches, device="cpu")
+    step, batches = native_dp_step(world, "fp32", params=params)
+    with trace.CollectiveRecorder() as rec:
+        hlo_bridge.run_replicated(step, batches[:1], device="cpu")
+    out["census"] = trace.census(rec.records)
+    out["ops"] = sorted({(r.op, r.dtype, r.ranks) for r in rec.records})
+    try:
+        hlo_bridge.run_replicated(dataclasses.replace(step, text=dropped),
+                                  batches, device="cpu")
+        out["parted"] = None
+    except AssertionError as e:
+        out["parted"] = str(e)
+    rt = HloRuntime("cpu")
+    exe = rt.executable(rt.compile_mlir(zero1["text"]))
+    g = torch.from_numpy(zero1["g"][rank]).to(torch.bfloat16)
+    p = torch.from_numpy(zero1["p"][rank])
+    out["zero1"] = [_np(o.float()) for o in exe.run([g, p])]
+    return out

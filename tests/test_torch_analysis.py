@@ -7,7 +7,12 @@ restore of the training state, and the registry at world 1.
 - R1 flags one axis claimed by two roles and passes {data, zero3};
 - `ScanTransformerStack.declared_schedule` composes tp's, ring's and the
   stack's own constants (tests/test_shardlint.py:104-134);
-- the report has the reference's JSON keys; R3, R6 and R7 are refused;
+- the report has the reference's JSON keys; R3, R6 and R7 (on a step
+  without module text) are refused;
+- R7's text layer (`analysis.hlo`): `check_collective` gives the
+  reference's verdicts on its truth table, and the synthetic module's
+  collectives, census and device count are the reference's
+  (tests/test_shardlint_hlo.py:55-128);
 - R5 passes the sentinel's `torch.where` skip and a restore's `copy_`,
   and flags a re-bound `.data`;
 - a lint leaves the next two steps bitwise those of an unlinted twin
@@ -59,6 +64,74 @@ def test_check_ring_perm_gives_the_reference_verdict(perm, extent):
     from singa_tpu.analysis.rules import check_ring_perm as ref
 
     assert rules.check_ring_perm(perm, extent) == ref(perm, extent)
+
+
+#: (op, replica_groups, source_target_pairs, devices) of the reference's
+#: R7 truth table
+R7_CASES = [
+    ("all_reduce", [[0, 1], [2, 3]], None, 4),
+    ("all_reduce", [[0, 0], [2, 3]], None, 4),
+    ("all_reduce", [[0, 9]], None, 4),
+    ("all_reduce", [[0, 1], [1, 2]], None, 3),
+    ("all_reduce", [[0, 1]], None, 4),
+    ("all_reduce", [[0, 1, 2], [3]], None, 4),
+    ("all_gather", [[0, 1, 2], [3]], None, 4),
+    ("collective_permute", None, [(0, 1), (0, 2)], 4),
+    ("collective_permute", None, [(0, 1), (2, 1)], 4),
+]
+
+#: the reference's synthetic module: an all_reduce, a permute, and a
+#: private function with an all_gather called twice
+_SYNTH = """
+module @jit_step attributes {mhlo.num_replicas = 2 : i32, mhlo.num_partitions = 4 : i32} {
+  func.func public @main(%arg0: tensor<8xf32>) -> tensor<8xf32> {
+    %0 = "stablehlo.all_reduce"(%arg0) ({
+      ^bb0(%a: tensor<f32>, %b: tensor<f32>):
+        %s = stablehlo.add %a, %b : tensor<f32>
+        stablehlo.return %s : tensor<f32>
+    }) {channel_handle = #stablehlo.channel_handle<handle = 3, type = 1>, replica_groups = dense<[[0, 1, 2, 3], [4, 5, 6, 7]]> : tensor<2x4xi64>, use_global_device_ids} : (tensor<8xf32>) -> tensor<8xf32>
+    %1 = func.call @helper(%0) : (tensor<8xf32>) -> tensor<8xf32>
+    %2 = func.call @helper(%1) : (tensor<8xf32>) -> tensor<8xf32>
+    %3 = "stablehlo.collective_permute"(%2) {source_target_pairs = dense<[[0, 1], [1, 2], [2, 3], [3, 0]]> : tensor<4x2xi64>} : (tensor<8xf32>) -> tensor<8xf32>
+    return %3 : tensor<8xf32>
+  }
+  func.func private @helper(%arg0: tensor<8xf32>) -> tensor<8xf32> {
+    %0 = "stablehlo.all_gather"(%arg0) {all_gather_dim = 0 : i64, replica_groups = dense<[[0, 1], [2, 3], [4, 5], [6, 7]]> : tensor<4x2xi64>} : (tensor<8xf32>) -> tensor<8xf32>
+    return %0 : tensor<8xf32>
+  }
+}
+"""
+
+
+@pytest.mark.parametrize("op,groups,pairs,n", R7_CASES)
+def test_check_collective_gives_the_reference_verdict(op, groups, pairs, n):
+    from singa_tpu.analysis import hlo as ref
+    from singa_tpu_torch.analysis import hlo
+
+    got = hlo.check_collective(hlo.HloCollective(
+        op=op, replica_groups=groups, source_target_pairs=pairs), n)
+    want = ref.check_collective(ref.HloCollective(
+        op=op, replica_groups=groups, source_target_pairs=pairs), n)
+    assert got == want
+    assert bool(got) == ((op, groups, pairs, n) not in (
+        R7_CASES[0], R7_CASES[5]))
+
+
+def test_hlo_text_layer_parses_the_reference_synthetic_module():
+    import dataclasses
+
+    from singa_tpu.analysis import hlo as ref
+    from singa_tpu_torch.analysis import hlo
+
+    got = [dataclasses.asdict(c) for c in hlo.hlo_collectives(_SYNTH)]
+    assert got == [dataclasses.asdict(c) for c in
+                   ref.hlo_collectives(_SYNTH)]
+    assert [c["op"] for c in got] == ["all_reduce", "collective_permute",
+                                      "all_gather"]
+    assert got[0]["channel_id"] == 3 and got[0]["use_global_device_ids"]
+    assert hlo.hlo_census(_SYNTH) == ref.hlo_census(_SYNTH) == {
+        "all_reduce": 1, "collective_permute": 1, "all_gather": 2}
+    assert hlo.module_device_count(_SYNTH) == 8
 
 
 def test_check_ring_perm_truth_table():
@@ -123,7 +196,9 @@ def test_report_has_the_reference_keys_and_rules():
     assert set(analysis.Report("t").to_json()) == set(
         RefReport("t").to_json())
     assert analysis.DEFAULT_RULES == ("R1", "R2", "R4", "R5")
-    assert set(analysis.RULES) == set(analysis.DEFAULT_RULES)
+    assert analysis.HLO_RULES == ("R7",)
+    assert set(analysis.RULES) == set(analysis.DEFAULT_RULES
+                                      + analysis.HLO_RULES)
     v = analysis.Violation("R4", "msg", subject="sp")
     assert v.to_json() == {"rule": "R4", "subject": "sp", "message": "msg"}
 
@@ -131,7 +206,9 @@ def test_report_has_the_reference_keys_and_rules():
 @pytest.mark.parametrize("rid,what", [("R3", "jaxpr"), ("R6", "StableHLO"),
                                       ("R7", "module text")])
 def test_rules_without_a_torch_object_are_refused(rid, what):
-    with pytest.raises(ValueError, match=f"{rid} is not ported.*{what}"):
+    """R3 and R6 have no torch object to read; R7 reads module text,
+    which a PyTorch step does not make."""
+    with pytest.raises(ValueError, match=f"rule {rid} .*{what}"):
         analysis.lint_step(None, rules=(rid,))
 
 

@@ -36,6 +36,7 @@ CHOKE_MODULES = {
     "singa_tpu_torch/parallel/ring.py",
     "singa_tpu_torch/parallel/ulysses.py",
     "singa_tpu_torch/serving/engine.py",
+    "singa_tpu_torch/native/hlo_runtime.py",
 }
 
 #: (file, function) -> why its collective is not recorded
@@ -44,6 +45,8 @@ EXEMPT = {
         "setup: the hosts' names, gathered once before any mesh exists",
     ("singa_tpu_torch/analysis/trace.py", "merged"):
         "the recorder's own merge of the ranks' records, after the step",
+    ("singa_tpu_torch/native/hlo_bridge.py", "run_replicated"):
+        "the replica check after a native step: not part of the module",
     ("singa_tpu_torch/examples/serve_gpt.py", "_spawn_tp"):
         "the serving CLI: rank 0 waits for its spawned ranks",
     ("singa_tpu_torch/examples/serve_gpt.py", "_tp_rank"):

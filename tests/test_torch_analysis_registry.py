@@ -7,7 +7,9 @@ singa_tpu/analysis/__main__.py) over 4 gloo ranks on the CPU.
   `[shardlint] n/n clean`, and the JSON report has the reference's keys;
 - `--list` names the applicable cases and the reference's `gpt_bench_*`
   cases as not ported;
-- `--hlo` raises, naming `native/hlo_bridge.py`.
+- `--hlo --case native_dp` lints the native DP module (C++-emitted by
+  `native/hlo_core.cc` through `native.hlo_bridge`) clean under R7, and
+  R7 on a PyTorch step, which has no module text, raises.
 """
 
 import contextlib
@@ -48,7 +50,7 @@ def test_the_sweep_is_clean(sweep):
     assert f"[shardlint] {n}/{n} clean" in stdout
     assert payload["devices"] == WORLD and payload["failed"] == 0
     assert payload["cases"] == n and payload["hlo"] is False
-    assert set(payload["rules"]) == {"R1", "R2", "R4", "R5"}
+    assert set(payload["rules"]) == {"R1", "R2", "R4", "R5", "R7"}
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -78,6 +80,22 @@ def test_list_names_the_bench_cases_not_ported():
             assert any(ln.startswith(f"{name}: not ported") for ln in lines)
 
 
-def test_hlo_raises_naming_the_bridge():
-    with pytest.raises(NotImplementedError, match="native/hlo_bridge.py"):
-        cli.main(["--hlo", "--device", "cpu"])
+def test_hlo_raises_naming_the_bridge(tmp_path):
+    """`--hlo` lints the bridge's module (at world 1: no collective, an
+    empty declared census) and writes its report; R7 over a PyTorch
+    step raises, naming the bridge's trace as the subject it needs."""
+    out = tmp_path / "hlo.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["--hlo", "--case", "native_dp", "--device", "cpu",
+                         "--out", str(out)]) == 0
+    assert "OK   native_dp" in buf.getvalue()
+    assert "[shardlint] 1/1 clean" in buf.getvalue()
+    payload = json.loads(out.read_text())
+    assert payload["hlo"] is True and payload["devices"] == 1
+    (rep,) = payload["reports"]
+    assert rep["ok"] and rep["hlo"] == {"census": {}, "expected": {}}
+    from singa_tpu_torch import analysis
+
+    with pytest.raises(ValueError, match="hlo.trace_native_module"):
+        analysis.lint_step(None, rules=("R7",))

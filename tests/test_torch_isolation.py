@@ -21,7 +21,10 @@
   the native bucket planner; the native prefetch loader and
   `prefetch_batches`, the profiler's timers and `xla_trace`,
   `utils.virtual` and the multi-slice mesh; shardlint, its `lint_step`
-  and its command line over a gloo group of one);
+  and its command line over a gloo group of one; the native training
+  step: `HloGraphBuilder` over native/hlo_core.cc, `hlo_bridge`'s
+  lowering, the StableHLO runtime's steps and `run_replicated`, R7 and
+  `--hlo`);
 - with no CUDA device, the default device raises, and device="cpu" is
   the only way onto the host;
 - the kernel build raises a clear error when nvcc is absent.
@@ -626,3 +629,43 @@ def test_shardlint_runs_with_jax_and_reference_blocked():
     assert lines[0] == "True {'all_gather@data': 12}"
     assert "OK   scan_zero3" in lines
     assert "[shardlint] 1/1 clean" in lines and "exit 0" in lines
+
+
+def test_native_step_runs_with_jax_and_reference_blocked():
+    """The native training step (g++'s build of native/hlo_core.cc, the
+    tape lowering, the StableHLO runtime, `run_replicated` over a gloo
+    group of one, R7 and `python -m singa_tpu_torch.analysis --hlo`)
+    imports and runs with JAX and the reference blocked."""
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'singa_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from singa_tpu_torch import analysis, distributed\n"
+        "from singa_tpu_torch.analysis import cases\n"
+        "from singa_tpu_torch.examples.parallel_strategies import "
+        "native_dp_step\n"
+        "from singa_tpu_torch.native import hlo_bridge\n"
+        "step, batches = native_dp_step(1)\n"
+        "losses = step.run_steps(batches, device='cpu')\n"
+        "print(len(losses), step.text.count('stablehlo.dot_general'))\n"
+        "distributed.init(device='cpu')\n"
+        "rows = hlo_bridge.run_replicated(step, batches, device='cpu')\n"
+        "print([r[0] for r in rows] == losses)\n"
+        "rep = analysis.run_rules(cases.iter_hlo_cases(1)[0].trace([0]),\n"
+        "                         rules=analysis.HLO_RULES)\n"
+        "print(rep.ok, rep.hlo)\n"
+        "distributed.shutdown()\n"
+        "sys.argv = ['analysis', '--hlo', '--case', 'native_dp',\n"
+        "            '--device', 'cpu', '--out', '']\n"
+        "try:\n"
+        "    runpy.run_module('singa_tpu_torch.analysis',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit', e.code)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[:3] == ["2 6", "True",
+                         "True {'census': {}, 'expected': {}}"]
+    assert "OK   native_dp" in lines and "exit 0" in lines

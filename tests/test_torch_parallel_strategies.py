@@ -31,8 +31,7 @@ EXPECTED = [
     r"\[dryrun\] DP dist_option=sparse-thresh: ok",
     r"\[dryrun\] DP zero-1 \(shard_states\): ok",
     r"\[dryrun\] DP zero-1 half-wire \(bf16 rs/ag\): ok",
-    r"\[dryrun\] DP native C\+\+ training step: not ported .*"
-    r"native/hlo_bridge\.py, ROADMAP queue 1 item 22\)",
+    r"\[dryrun\] DP native C\+\+ training step \(hlo_bridge\): ok",
     r"\[dryrun\] scan x TP GPT \(train_one_batch\): ok",
     r"\[dryrun\] DP zero-3 scan stack \(per-block gather\): ok \(per-shard "
     r"parameter bytes \d+\)",
@@ -104,9 +103,12 @@ def test_the_hybrid_prints_its_skip_notice(lines):
 
 
 def test_native_dp_names_its_roadmap_item(lines):
+    """The native DP entry (ROADMAP queue 1 item 22, ported) runs the
+    C++-emitted module on every rank and prints the reference's line."""
     for r in range(WORLD):
         native = [ln for ln in lines[r] if "native" in ln]
-        assert len(native) == 1 and "not ported" in native[0], native
+        assert native == [
+            "[dryrun] DP native C++ training step (hlo_bridge): ok"], native
 
 
 def test_the_closing_line_is_printed_last(lines):
